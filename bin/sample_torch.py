@@ -1,10 +1,11 @@
 #!/usr/bin/env python
 """
 Sampling CLI for the PyTorch port (foldingdiff_tpu_torch): load a model
-directory, run DDPM over a length sweep, write angle CSVs and PDB files.
+directory, sample a length sweep (DDPM, DDIM or DPM-Solver++), write angle
+CSVs and PDB files.
 
-Takes bin/sample.py's -m -o -n -l -b --seed --nopdb flags, plus --device
-(default cuda). With --device cuda and no CUDA device it exits at once;
+Takes bin/sample.py's -m -o -n -l -b --seed --method --ddim_steps --ddim_eta
+--noise-scale --nopdb flags, plus --device (default cuda). With --device cuda and no CUDA device it exits at once;
 --device cpu is an explicit choice, never a fallback. Outputs:
   sampled_angles/generated_i.csv.gz   per-structure final angles
   sampled_pdb/generated_i.pdb         NeRF-reconstructed backbones
@@ -34,6 +35,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("-b", "--batchsize", type=int, default=512)
     parser.add_argument("--seed", type=int, default=int("0x1234", 16))
+    parser.add_argument(
+        "--method", type=str, default="ddpm", choices=["ddpm", "ddim", "dpmpp"],
+        help="ddpm = reference-parity ancestral; ddim = accelerated; "
+             "dpmpp = DPM-Solver++(2M), fewest steps (--ddim_steps sets both)",
+    )
+    parser.add_argument("--ddim_steps", type=int, default=50)
+    parser.add_argument("--ddim_eta", type=float, default=0.0)
+    parser.add_argument(
+        "--noise-scale", type=str, default="",
+        help="DDPM posterior-noise temperature: one float, or comma-separated "
+             "per-feature floats. DDPM only.",
+    )
     parser.add_argument("--nopdb", action="store_true", help="skip PDB writing")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     return parser
@@ -51,6 +64,10 @@ def write_angles_csv(values, feature_names, fname) -> None:
 def main(argv=None) -> dict:
     """Run the CLI; returns {"n_structures", "sampling_seconds", "pdb_files"}."""
     args = build_parser().parse_args(argv)
+    if args.noise_scale and args.method != "ddpm":
+        raise SystemExit("--noise-scale is a DDPM posterior-noise temperature; "
+                         f"method={args.method!r} takes none")
+    import numpy as np
     import torch
 
     device = torch.device(args.device)
@@ -78,6 +95,16 @@ def main(argv=None) -> dict:
     except NotImplementedError:
         mean_offset = None
 
+    noise_scale = None
+    if args.noise_scale:
+        vals = [float(v) for v in args.noise_scale.split(",")]
+        if len(vals) == 1:
+            noise_scale = vals[0]
+        elif len(vals) == len(ft_names):
+            noise_scale = np.asarray(vals, dtype=np.float32)
+        else:
+            raise SystemExit(f"--noise-scale needs 1 or {len(ft_names)} values, got {len(vals)}")
+
     start = time.perf_counter()
     sampled = samp.sample(
         model, schedule,
@@ -89,6 +116,10 @@ def main(argv=None) -> dict:
         angular_variance=train_args.get("variance_scale", 1.0),
         mean_offset=mean_offset,
         seed=args.seed,
+        method=args.method,
+        ddim_steps=args.ddim_steps,
+        ddim_eta=args.ddim_eta,
+        noise_scale=noise_scale,
     )
     sampling_seconds = time.perf_counter() - start
     logging.info(f"Sampled {len(sampled)} structures in {sampling_seconds:.2f} s")

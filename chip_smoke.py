@@ -4,18 +4,28 @@ Smoke run of the PyTorch port (foldingdiff_tpu_torch) on one NVIDIA GPU.
 
 Phases, each printing lines of its own:
   0. the card, as nvidia-smi names it with its power limit; fails without CUDA
-  1. build the relative_key attention kernel (csrc/rel_attention.cu) with nvcc
-  2. the kernel against its plain PyTorch version on the card, with and
-     without relative scores, at the denoiser's shapes; masked-key
+  1. build both attention kernels (csrc/rel_attention.cu, the v2 entry, and
+     csrc/gathered_attention.cu, the v1 entry) with nvcc, one process each,
+     started together
+  2. each kernel against its plain PyTorch version on the card, with and
+     without relative scores (v1: e_lr gathered from arange and from a
+     permuted position vector), at the denoiser's shapes; masked-key
      invariance; kernel and plain times at the flagship shape
   3. the trained torch fixture loaded through models.io.from_dir onto the
-     card (kernel path), against its recorded predictions (parity.npz)
+     card under attention_impl "auto" (v2) and "pallas" (v1), against its
+     recorded predictions (parity.npz)
   4. the flagship denoiser (12 layers x 384, 12 heads of 32, relative_key,
      M = 128) with seeded random weights, read back from a model directory,
-     kernel path against attention_impl="plain" at B = 64, L = 128
-  5. the slice: bin/sample_torch.py's main() over that model directory,
+     "auto" and "pallas" against "plain" at B = 64, L = 128, timed; and a
+     12 x 384 `absolute` config under "pallas" (v1 without e_lr) against "plain"
+  5. the DDPM slice: bin/sample_torch.py's main() over that model directory,
      DDPM T = 1000 over lengths 50..127 once each at batch 64; every layer of
-     every reverse step must launch the kernel
+     every reverse step must launch the v2 kernel
+  6. the new paths at full width: the flagship under "pallas" through
+     sampling.sample (DDPM T = 1000, the same sweep), every layer of every
+     step launching the v1 kernel and none the v2; then bin/sample_torch.py
+     with --method ddim --ddim_steps 50 and --method dpmpp --ddim_steps 20,
+     each launching the v2 kernel on every layer of every step
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises, so the script exits
@@ -25,6 +35,7 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib.util
 import json
 import math
@@ -40,6 +51,9 @@ import torch
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
+from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset  # noqa: E402
+from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
+from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
 from foldingdiff_tpu_torch.models import io as model_io  # noqa: E402
 from foldingdiff_tpu_torch.models.config import ModelConfig  # noqa: E402
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
@@ -53,6 +67,7 @@ FLAGSHIP = ModelConfig(
     hidden_size=384, num_hidden_layers=12, num_attention_heads=12, intermediate_size=768,
     max_position_embeddings=128, position_embedding_type="relative_key",
 )
+ABSOLUTE = dataclasses.replace(FLAGSHIP, position_embedding_type="absolute")
 FLAGSHIP_TRAIN_ARGS = {
     "angles_definitions": "canonical-full-angles", "max_seq_len": 128, "min_seq_len": 40,
     "timesteps": 1000, "variance_schedule": "cosine", "variance_scale": 1.0,
@@ -63,6 +78,7 @@ FLAGSHIP_TRAIN_ARGS = {
 SWEEP, BATCH, BUCKET = (50, 128), 64, 64  # bin/sample_torch.py -l 50 128 -b 64 (bucket: sample()'s default)
 # (B, H, L, D, M) of the kernel checks: the flagship at its buckets and a
 # ragged length, and the fixtures' head size 16 with M = 64
+V2, V1 = attention.REL_ATTENTION, attention.GATHERED_ATTENTION
 KERNEL_SHAPES = [(64, 12, 128, 32, 128), (64, 12, 64, 32, 128), (64, 12, 50, 32, 128),
                  (16, 6, 64, 16, 64), (16, 6, 33, 16, 64)]
 
@@ -118,83 +134,125 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     start = time.perf_counter()
-    report = attention.build()
+    reports = attention.build()
     seconds = time.perf_counter() - start
-    log(f"[1] built {attention.library_path().relative_to(REPO)} in {seconds:.3f} s"
-        + ("" if report else " (already built)"))
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[1]   {line.strip()}")
+    for lib in attention.LIBRARIES:
+        report = reports[lib.name]
+        log(f"[1] {lib.library_path().relative_to(REPO)}" + ("" if report else " (already built)"))
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[1]   {line.strip()}")
+    log(f"[1] built both libraries in {seconds:.3f} s (one nvcc each, in parallel)")
+
+
+def check_err(tag: str, out: torch.Tensor, ref: torch.Tensor) -> float:
+    err = (out - ref).abs().max().item()
+    log(f"[2] {tag}: max abs err {err:.3e}")
+    if not err <= KERNEL_TOL:
+        raise RuntimeError(f"{tag}: kernel disagrees with the plain version: {err} > {KERNEL_TOL}")
+    return err
+
+
+def check_masked_keys(tag: str, run, q, k, v, bias, out) -> None:
+    """Values at masked keys must not reach the output."""
+    masked = (bias < -1.0)[:, None, :, None]
+    drift = (run(q, k + 7.0 * masked, v - 3.0 * masked) - out).abs().max().item()
+    log(f"[2] {tag}: masked-key drift {drift:.3e}")
+    if not drift <= 1e-5:
+        raise RuntimeError(f"{tag}: masked keys change the kernel's output by {drift}")
+
+
+def gathered(table: torch.Tensor, l: int, m: int, permuted: bool) -> torch.Tensor:
+    """e_lr[l, r] = table[pos[l] - pos[r] + M - 1], pos arange or a permutation of it."""
+    pos = torch.arange(l, device=DEVICE)
+    if permuted:
+        pos = pos[torch.randperm(l, generator=torch.Generator().manual_seed(SEED + l)).to(DEVICE)]
+    return table[pos[:, None] - pos[None, :] + m - 1]
 
 
 def phase_kernel() -> dict:
-    worst = 0.0
+    worst = {"v2": 0.0, "v1": 0.0}
     with torch.inference_mode():
         for b, h, l, d, m in KERNEL_SHAPES:
             q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED + l + d)
+            shape = f"B={b} H={h} L={l} D={d} M={m}"
             for rel in (True, False):
                 kw = dict(rel_table=table, m=m) if rel else {}
                 out = attention.fused_attention_v2(q, k, v, bias, **kw)
                 ref = attention.fused_attention_v2_reference(q, k, v, bias, **kw)
-                err = (out - ref).abs().max().item()
-                log(f"[2] B={b} H={h} L={l} D={d} M={m} rel={rel}: max abs err {err:.3e}")
-                if not err <= KERNEL_TOL:
-                    raise RuntimeError(f"kernel disagrees with the plain version: {err} > {KERNEL_TOL}")
-                worst = max(worst, err)
+                worst["v2"] = max(worst["v2"], check_err(f"v2 {shape} rel={rel}", out, ref))
                 if rel:
-                    out_rel = out
-            # Values at masked keys must not reach the output
-            masked = (bias < -1.0)[:, None, :, None]
-            out2 = attention.fused_attention_v2(
-                q, k + 7.0 * masked, v - 3.0 * masked, bias, rel_table=table, m=m)
-            drift = (out2 - out_rel).abs().max().item()
-            log(f"[2] B={b} H={h} L={l} D={d}: masked-key drift {drift:.3e}")
-            if not drift <= 1e-5:
-                raise RuntimeError(f"masked keys change the kernel's output by {drift}")
+                    check_masked_keys(f"v2 {shape}", lambda q_, k_, v_: attention.fused_attention_v2(
+                        q_, k_, v_, bias, table, m), q, k, v, bias, out)
+            for e_kind in ("arange", "permuted", None):
+                e_lr = gathered(table, l, m, e_kind == "permuted") if e_kind else None
+                out = attention.fused_attention(q, k, v, bias, e_lr)
+                ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
+                worst["v1"] = max(worst["v1"], check_err(f"v1 {shape} e_lr={e_kind}", out, ref))
+                if e_kind == "permuted":
+                    check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
+                        q_, k_, v_, bias, e_lr), q, k, v, bias, out)
 
         times = {}
         for l in (128, 64):
             q, k, v, bias, table = attention_inputs(64, 12, l, 32, 128, SEED)
-            plain_ms, kernel_ms = alternate_ms(
+            e_lr = gathered(table, l, 128, permuted=False)
+            times["v2", l] = alternate_ms(
                 lambda: attention.fused_attention_v2_reference(q, k, v, bias, table, 128),
                 lambda: attention.fused_attention_v2(q, k, v, bias, table, 128),
             )
-            times[l] = (kernel_ms, plain_ms)
-            log(f"[2] time B=64 H=12 L={l} D=32 rel: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {"max_abs_err": worst, "ms": times[128][0], "plain_ms": times[128][1]}
+            times["v1", l] = alternate_ms(
+                lambda: attention.fused_attention_reference(q, k, v, bias, e_lr),
+                lambda: attention.fused_attention(q, k, v, bias, e_lr),
+            )
+            for entry in ("v2", "v1"):
+                plain_ms, kernel_ms = times[entry, l]
+                log(f"[2] time {entry} B=64 H=12 L={l} D=32 rel: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {entry: {"max_abs_err": worst[entry], "ms": times[entry, 128][1], "plain_ms": times[entry, 128][0]}
+            for entry in ("v2", "v1")}
 
 
 def phase_fixture() -> None:
-    model, _ = model_io.from_dir(str(FIXTURE), device=DEVICE)
     parity = np.load(FIXTURE / "parity.npz")
-    before = attention.launches
-    with torch.inference_mode():
-        out = model(*(torch.from_numpy(parity[k]).to(DEVICE) for k in ("x", "t", "mask")))
-    out = out.cpu().numpy()
-    launched = attention.launches - before
-    if launched != model.config.num_hidden_layers:
-        raise RuntimeError(f"fixture forward launched the kernel {launched} times")
-    err = float(np.abs(out - parity["predicted_noise"]).max())
-    log(f"[3] torch fixture via from_dir on the card: max abs err {err:.3e} (atol 2e-5, rtol 1e-4)")
-    np.testing.assert_allclose(out, parity["predicted_noise"], atol=2e-5, rtol=1e-4)
+    for impl, lib in (("auto", V2), ("pallas", V1)):
+        model, _ = model_io.from_dir(str(FIXTURE), device=DEVICE, attention_impl=impl)
+        v2_before, v1_before = V2.launches, V1.launches
+        with torch.inference_mode():
+            out = model(*(torch.from_numpy(parity[k]).to(DEVICE) for k in ("x", "t", "mask")))
+        out = out.cpu().numpy()
+        launched = {V2.name: V2.launches - v2_before, V1.name: V1.launches - v1_before}
+        expected = {V2.name: 0, V1.name: 0, lib.name: model.config.num_hidden_layers}
+        if launched != expected:
+            raise RuntimeError(f"fixture forward under {impl!r} launched {launched}, expected {expected}")
+        err = float(np.abs(out - parity["predicted_noise"]).max())
+        log(f"[3] torch fixture via from_dir on the card, attention_impl={impl!r} ({lib.name}): "
+            f"max abs err {err:.3e} (atol 2e-5, rtol 1e-4)")
+        np.testing.assert_allclose(out, parity["predicted_noise"], atol=2e-5, rtol=1e-4)
 
 
-def phase_denoiser(model_dir: str) -> None:
-    model, _ = model_io.from_dir(model_dir, device=DEVICE)
-    plain, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl="plain")
+def denoiser_inputs(b: int, l: int):
     g = torch.Generator(device=DEVICE).manual_seed(SEED)
-    b, l = BATCH, FLAGSHIP.max_position_embeddings
     x = (torch.rand(b, l, 6, generator=g, device=DEVICE) * 2 - 1) * math.pi
     t = torch.randint(0, 1000, (b,), generator=g, device=DEVICE)
     lengths = torch.randint(SWEEP[0], l + 1, (b,), generator=g, device=DEVICE)
     mask = (torch.arange(l, device=DEVICE)[None, :] < lengths[:, None]).float()
-    with torch.inference_mode():
-        err = (model(x, t, mask) - plain(x, t, mask)).abs().max().item()
-        log(f"[4] flagship denoiser B={b} L={l}, kernel vs plain attention: max abs err {err:.3e}")
-        if not err <= DENOISER_TOL:
-            raise RuntimeError(f"denoiser kernel path disagrees with plain: {err} > {DENOISER_TOL}")
-        plain_ms, kernel_ms = alternate_ms(lambda: plain(x, t, mask), lambda: model(x, t, mask), iters=20)
-    log(f"[4] time one denoiser call B={b} L={l}: kernel path {kernel_ms:.4f} ms, plain path {plain_ms:.4f} ms")
+    return x, t, mask
+
+
+def phase_denoiser(model_dir: str, absolute_dir: str) -> None:
+    b, l = BATCH, FLAGSHIP.max_position_embeddings
+    x, t, mask = denoiser_inputs(b, l)
+    for name, path, impls in (("flagship", model_dir, ("auto", "pallas")), ("absolute 12x384", absolute_dir, ("pallas",))):
+        plain, _ = model_io.from_dir(path, device=DEVICE, attention_impl="plain")
+        for impl in impls:
+            model, _ = model_io.from_dir(path, device=DEVICE, attention_impl=impl)
+            with torch.inference_mode():
+                err = (model(x, t, mask) - plain(x, t, mask)).abs().max().item()
+                log(f"[4] {name} denoiser B={b} L={l}, attention_impl={impl!r} vs plain: max abs err {err:.3e}")
+                if not err <= DENOISER_TOL:
+                    raise RuntimeError(f"{name} denoiser {impl!r} disagrees with plain: {err} > {DENOISER_TOL}")
+                plain_ms, kernel_ms = alternate_ms(lambda: plain(x, t, mask), lambda: model(x, t, mask), iters=20)
+            log(f"[4] time one {name} denoiser call B={b} L={l}: {impl!r} {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
 
 
 def expected_chunks() -> int:
@@ -207,66 +265,122 @@ def expected_chunks() -> int:
     return sum(-(-n // BATCH) for n in per_bucket.values())
 
 
-def phase_slice(model_dir: str, out_dir: str, card: str) -> int:
+def load_cli():
     spec = importlib.util.spec_from_file_location("sample_torch", REPO / "bin" / "sample_torch.py")
     sample_torch = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sample_torch)
-    argv = ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
-            "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE]
-    attention.launches = 0
-    start = time.perf_counter()
-    result = sample_torch.main(argv)
-    wall = time.perf_counter() - start
-    launched = attention.launches
+    return sample_torch
 
-    n_chunks = expected_chunks()
-    timesteps = FLAGSHIP_TRAIN_ARGS["timesteps"]
-    expected = FLAGSHIP.num_hidden_layers * timesteps * n_chunks
-    log(f"[5] kernel launches in the slice: {launched} (12 layers x {timesteps} steps x {n_chunks} chunks = {expected})")
+
+def check_launches(tag: str, expected: dict) -> None:
+    launched = {V2.name: V2.launches, V1.name: V1.launches}
+    log(f"{tag} kernel launches: {launched}, expected {expected}")
     if launched != expected:
-        raise RuntimeError(f"the slice launched the kernel {launched} times, expected {expected}")
+        raise RuntimeError(f"{tag} launched {launched}, expected {expected}")
 
+
+def check_angles(tag: str, sampled) -> None:
+    """One (length, 6) array per swept length, finite, angles in [-pi, pi)."""
     lengths = list(range(*SWEEP))
-    pdbs = sorted(Path(out_dir, "sampled_pdb").glob("generated_*.pdb"))
-    if len(pdbs) != len(lengths) or result["n_structures"] != len(lengths):
-        raise RuntimeError(f"expected {len(lengths)} PDBs, found {len(pdbs)}")
-    for i, length in enumerate(lengths):
-        angles = np.loadtxt(Path(out_dir, "sampled_angles", f"generated_{i}.csv.gz"), delimiter=",", skiprows=1, ndmin=2)
+    if len(sampled) != len(lengths):
+        raise RuntimeError(f"{tag}: {len(sampled)} structures, expected {len(lengths)}")
+    for i, (angles, length) in enumerate(zip(sampled, lengths)):
         if angles.shape != (length, 6):
-            raise RuntimeError(f"generated_{i}: shape {angles.shape}, expected {(length, 6)}")
+            raise RuntimeError(f"{tag} generated_{i}: shape {angles.shape}, expected {(length, 6)}")
         if not (np.all(np.isfinite(angles)) and angles.min() >= -np.pi and angles.max() < np.pi):
-            raise RuntimeError(f"generated_{i}: angles not finite in [-pi, pi)")
+            raise RuntimeError(f"{tag} generated_{i}: angles not finite in [-pi, pi)")
 
+
+def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict, card: str, steps: int) -> None:
+    """bin/sample_torch.py's main() over the sweep; checks launches, PDBs, CSVs; prints backbones/s."""
+    argv = ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
+            "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, *extra]
+    V2.launches = V1.launches = 0
+    start = time.perf_counter()
+    result = load_cli().main(argv)
+    wall = time.perf_counter() - start
+    check_launches(tag, expected)
+
+    n = len(range(*SWEEP))
+    pdbs = sorted(Path(out_dir, "sampled_pdb").glob("generated_*.pdb"))
+    if len(pdbs) != n or result["n_structures"] != n:
+        raise RuntimeError(f"{tag}: expected {n} PDBs, found {len(pdbs)}")
+    check_angles(tag, [np.loadtxt(Path(out_dir, "sampled_angles", f"generated_{i}.csv.gz"), delimiter=",",
+                                  skiprows=1, ndmin=2) for i in range(n)])
     seconds = result["sampling_seconds"]
-    log(f"[5] slice on {card}: {len(lengths)} backbones, DDPM T={timesteps}, batch {BATCH}, bucket {BUCKET}, "
-        f"{n_chunks} chunks, eager loop: sampling {seconds:.3f} s, {len(lengths) / seconds:.3f} backbones/s, "
-        f"{seconds / (timesteps * n_chunks) * 1e3:.4f} ms per reverse step (mean over chunks); "
+    n_chunks = expected_chunks()
+    log(f"{tag} on {card}: {n} backbones, {' '.join(extra) or 'DDPM'}, {steps} steps, batch {BATCH}, "
+        f"bucket {BUCKET}, {n_chunks} chunks, eager loop: sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s, "
+        f"{seconds / (steps * n_chunks) * 1e3:.4f} ms per reverse step (mean over chunks); "
         f"CLI wall with loading and PDB writing {wall:.3f} s")
-    return launched
+
+
+def phase_slice(model_dir: str, out_dir: str, card: str) -> int:
+    timesteps = FLAGSHIP_TRAIN_ARGS["timesteps"]
+    launches = FLAGSHIP.num_hidden_layers * timesteps * expected_chunks()
+    run_cli("[5] DDPM slice", model_dir, out_dir, [], {V2.name: launches, V1.name: 0}, card, timesteps)
+    return V2.launches
+
+
+def phase_new_paths(model_dir: str, tmp: str, card: str) -> int:
+    layers, n_chunks = FLAGSHIP.num_hidden_layers, expected_chunks()
+    timesteps = FLAGSHIP_TRAIN_ARGS["timesteps"]
+
+    # DDPM with the v1 kernel, through sampling.sample as bench.py drives it with BENCH_ATTN=pallas
+    model, train_args = model_io.from_dir(model_dir, device=DEVICE, attention_impl="pallas")
+    schedule = DiffusionSchedule.create(train_args["variance_schedule"], timesteps, device=DEVICE)
+    empty = AnglesEmptyDataset.from_dir(model_dir)
+    V2.launches = V1.launches = 0
+    start = time.perf_counter()
+    sampled = sampling.sample(
+        model, schedule, is_angular=empty.feature_is_angular["angles"], pad=empty.pad, n=1,
+        sweep_lengths=SWEEP, batch_size=BATCH, bucket_multiple=BUCKET, mean_offset=empty.get_masked_means(),
+        seed=SEED,
+    )
+    seconds = time.perf_counter() - start
+    check_launches("[6] DDPM, attention_impl='pallas'", {V2.name: 0, V1.name: layers * timesteps * n_chunks})
+    v1_launches = V1.launches
+    check_angles("[6] DDPM pallas", sampled)
+    n = len(sampled)
+    log(f"[6] DDPM pallas on {card}: {n} backbones, T={timesteps}, batch {BATCH}, bucket {BUCKET}, {n_chunks} chunks, "
+        f"eager loop: sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s, "
+        f"{seconds / (timesteps * n_chunks) * 1e3:.4f} ms per reverse step (mean over chunks)")
+    del model
+
+    for method, steps in (("ddim", 50), ("dpmpp", 20)):
+        run_cli(f"[6] {method}-{steps}", model_dir, str(Path(tmp, method)),
+                ["--method", method, "--ddim_steps", str(steps)],
+                {V2.name: layers * steps * n_chunks, V1.name: 0}, card, steps)
+    return v1_launches
 
 
 def main() -> None:
     card = phase_card()
     phase_build()
-    kernel = phase_kernel()
+    kernels = phase_kernel()
     phase_fixture()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        model_dir = str(Path(tmp, "flagship"))
-        weights = model_io.init_random(FLAGSHIP, torch.Generator().manual_seed(SEED))
+        model_dir, absolute_dir = str(Path(tmp, "flagship")), str(Path(tmp, "absolute"))
         mean_offset = np.random.default_rng(SEED).uniform(-np.pi, np.pi, 6)
-        model_io.save_model_dir(model_dir, FLAGSHIP, weights.state_dict(), FLAGSHIP_TRAIN_ARGS, mean_offset)
-        del weights
-        phase_denoiser(model_dir)
-        launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
+        for config, path in ((FLAGSHIP, model_dir), (ABSOLUTE, absolute_dir)):
+            weights = model_io.init_random(config, torch.Generator().manual_seed(SEED))
+            train_args = {**FLAGSHIP_TRAIN_ARGS, "position_embedding_type": config.position_embedding_type}
+            model_io.save_model_dir(path, config, weights.state_dict(), train_args, mean_offset)
+            del weights
+        phase_denoiser(model_dir, absolute_dir)
+        v2_launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
+        v1_launches = phase_new_paths(model_dir, tmp, card)
 
-    log(json.dumps({"kernels": [{
-        "name": "rel_attention_kernel (fused_attention_v2)",
-        "route": "cuda",
-        "source": "foldingdiff_tpu_torch/csrc/rel_attention.cu",
-        "replaces": "foldingdiff_tpu/ops/pallas_attention.py:187",
-        "launches": launches,
-        **kernel,
-    }]}))
+    log(json.dumps({"kernels": [
+        {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",
+         "source": "foldingdiff_tpu_torch/csrc/rel_attention.cu",
+         "replaces": "foldingdiff_tpu/ops/pallas_attention.py:187",
+         "launches": v2_launches, **kernels["v2"]},
+        {"name": "gathered_attention_kernel (fused_attention)", "route": "cuda",
+         "source": "foldingdiff_tpu_torch/csrc/gathered_attention.cu",
+         "replaces": "foldingdiff_tpu/ops/pallas_attention.py:78",
+         "launches": v1_launches, **kernels["v1"]},
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -6,9 +6,11 @@ at the same path (`models/bert.py`, `diffusion/sampling.py`, ...). The port
 imports `torch` and never `jax`; the JAX package stays the reference that the
 tests (`tests/test_torch_*.py`) hold it against.
 
-The relative_key attention that the JAX package wrote as a Pallas TPU kernel
-(`foldingdiff_tpu/ops/pallas_attention.py`) is a hand-written CUDA kernel here
-(`csrc/rel_attention.cu`), built with nvcc on first use; see `ops/attention.py`.
+The fused attention that the JAX package wrote as Pallas TPU kernels
+(`foldingdiff_tpu/ops/pallas_attention.py`, entries v2 and v1) is two
+hand-written CUDA kernels here (`csrc/rel_attention.cu`,
+`csrc/gathered_attention.cu`), built with nvcc on first use; see
+`ops/attention.py`.
 """
 
 __version__ = "0.1.0"

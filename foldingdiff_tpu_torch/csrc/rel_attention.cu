@@ -37,22 +37,18 @@
 // Plain C interface for ctypes; the kernel launches on the caller's stream,
 // on the given device, allocates nothing and does not synchronise. The
 // return value is cudaGetLastError() after the launch. The host side of a
-// launch is kept small, since the sampler's small chunks are bound by it: the
-// shared-memory opt-in is made once per kernel instance and device, and the
-// current device is switched only when it is not already the tensors' own.
+// launch (launch.cuh) is kept small, since the sampler's small chunks are
+// bound by it.
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
-#include <atomic>
 #include <math.h>
+
+#include "launch.cuh"
 
 namespace {
 
-constexpr int kMaxRows = 128;     // query rows (threads) per block
-constexpr int kMaxDevices = 64;   // devices the opt-in bookkeeping tracks
-
-int rows_per_block(int L) { return std::min(((L + 31) / 32) * 32, kMaxRows); }
+using attn::kMaxRows;
 
 template <int D, bool HAS_REL>
 __global__ void __launch_bounds__(kMaxRows)
@@ -137,36 +133,17 @@ rel_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int d = 0; d < D; ++d) out[head + static_cast<size_t>(l) * D + d] = acc[d] * inv;
 }
 
-// Dynamic shared memory above 48 KB needs an opt-in per kernel and device.
-// Each instance remembers, per device, the largest size it has opted in to,
-// and calls cudaFuncSetAttribute only when a launch needs more.
-template <int D, bool HAS_REL>
-cudaError_t opt_in_smem(int device, size_t smem) {
-  static std::atomic<size_t> granted[kMaxDevices];
-  if (smem <= 48 * 1024) return cudaSuccess;
-  if (device < kMaxDevices && smem <= granted[device].load(std::memory_order_relaxed)) {
-    return cudaSuccess;
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      rel_attention_kernel<D, HAS_REL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess && device < kMaxDevices) {
-    size_t prev = granted[device].load(std::memory_order_relaxed);
-    while (prev < smem && !granted[device].compare_exchange_weak(prev, smem)) {
-    }
-  }
-  return err;
-}
-
 template <int D, bool HAS_REL>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias,
                    const float* table, float* out, int B, int H, int L, int M,
                    int device, cudaStream_t stream) {
-  const int rows = rows_per_block(L);
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const int rows = attn::rows_per_block(L);
   const int n_e = HAS_REL ? (std::min(rows, L) + L - 1) : 0;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(L) * D + L +
                                        static_cast<size_t>(n_e) * (D + 1));
-  const cudaError_t err = opt_in_smem<D, HAS_REL>(device, smem);
+  const cudaError_t err = attn::opt_in_smem(
+      reinterpret_cast<const void*>(&rel_attention_kernel<D, HAS_REL>), granted, device, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((L + rows - 1) / rows, H, B);
   rel_attention_kernel<D, HAS_REL><<<grid, rows, smem, stream>>>(
@@ -200,14 +177,10 @@ extern "C" int rel_attention_forward(const float* q, const float* k, const float
                                      const float* bias, const float* table, float* out,
                                      int B, int H, int L, int D, int M, int has_rel,
                                      int device, void* stream) {
-  int current = 0;
-  cudaError_t err = cudaGetDevice(&current);
-  if (err != cudaSuccess) return err;
-  if (current != device && (err = cudaSetDevice(device)) != cudaSuccess) return err;
-  err = dispatch(q, k, v, bias, table, out, B, H, L, D, M, has_rel, device,
-                 static_cast<cudaStream_t>(stream));
-  if (current != device) cudaSetDevice(current);
-  return err;
+  return attn::on_device(device, [&] {
+    return dispatch(q, k, v, bias, table, out, B, H, L, D, M, has_rel, device,
+                    static_cast<cudaStream_t>(stream));
+  });
 }
 
 extern "C" const char* rel_attention_error_string(int err) {

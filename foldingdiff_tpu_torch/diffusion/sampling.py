@@ -1,6 +1,6 @@
 """
-Reverse-diffusion (DDPM ancestral) sampling
-(counterpart of foldingdiff_tpu/diffusion/sampling.py).
+Reverse-diffusion sampling (counterpart of foldingdiff_tpu/diffusion/sampling.py):
+DDPM ancestral sampling, DDIM and DPM-Solver++(2M).
 
 Reference behavior: foldingdiff/sampling.py:27-224.
 - p_sample (DDPM Eq. 11): mean = 1/sqrt(a_t) (x - b_t eps / sqrt(1 - abar_t)),
@@ -8,10 +8,13 @@ Reference behavior: foldingdiff/sampling.py:27-224.
 - per-feature angular wrap after every step
 - x_T ~ wrapped N(0, scale) noise
 - mean-offset un-shift and re-wrap at the end
+DDIM and DPM-Solver++ are the JAX package's accelerated samplers, which the
+reference lacks; the port keeps their wrapped-angle adaptations (the x0 clamp
+on angular channels, DPM-Solver++'s geodesic correction).
 
-The T-step chain is an eager Python loop under torch.inference_mode(); the
-per-step schedule scalars come from the schedule's host copies, so the loop
-never reads a value back from the device.
+Each chain is an eager Python loop under torch.inference_mode(); the
+per-step scalars are computed on the host, from the schedule's host copies,
+so the loop never reads a value back from the device.
 
 Seeds: sample() draws each chunk's x_T and per-step noise from its own
 torch.Generator on the sampling device, seeded from (seed, chunk index)
@@ -21,6 +24,7 @@ the same seed; only the distributions agree.
 from __future__ import annotations
 
 import logging
+import math
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,6 +36,7 @@ from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.ops.angles import wrap_angular_features
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+SAMPLING_METHODS = ("ddpm", "ddim", "dpmpp")
 
 
 def p_sample_step(
@@ -74,17 +79,18 @@ def p_sample_loop(
     is_angular: Sequence[bool] | torch.Tensor,
     generator: Optional[torch.Generator] = None,
     step_noise: Optional[torch.Tensor] = None,
+    noise_scale: float | np.ndarray | torch.Tensor = 1.0,
 ) -> torch.Tensor:
     """
     Reverse chain T-1 .. 0 from x_T = `noise` (B, L, F). The posterior noise
     of step i (timestep T-1-i) is step_noise[i] when a (T, B, L, F) tensor is
-    given, otherwise a fresh normal draw from `generator`. Returns x_0.
+    given, otherwise a fresh normal draw from `generator`. noise_scale is
+    p_sample_step's temperature, a scalar or per feature. Returns x_0.
     """
-    if (generator is None) == (step_noise is None):
-        raise ValueError("give exactly one of generator and step_noise")
+    _check_noise_source(generator, step_noise, (schedule.timesteps, *noise.shape))
     timesteps = schedule.timesteps
-    if step_noise is not None and step_noise.shape != (timesteps, *noise.shape):
-        raise ValueError(f"step_noise must be {(timesteps, *noise.shape)}, got {tuple(step_noise.shape)}")
+    if not isinstance(noise_scale, (int, float)):  # per feature: on the device once
+        noise_scale = torch.as_tensor(noise_scale, dtype=noise.dtype, device=noise.device)
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
     x = noise
     with torch.inference_mode():
@@ -95,7 +101,148 @@ def p_sample_loop(
                 z = step_noise[i]
             else:
                 z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
-            x = p_sample_step(model_fn, x, t, z, attn_mask, schedule, is_angular)
+            x = p_sample_step(model_fn, x, t, z, attn_mask, schedule, is_angular, noise_scale)
+    return x
+
+
+def _check_noise_source(generator, step_noise, shape) -> None:
+    if (generator is None) == (step_noise is None):
+        raise ValueError("give exactly one of generator and step_noise")
+    if step_noise is not None and step_noise.shape != shape:
+        raise ValueError(f"step_noise must be {shape}, got {tuple(step_noise.shape)}")
+
+
+def _clamp_angular(x: torch.Tensor, is_angular: torch.Tensor) -> torch.Tensor:
+    """Clamp angular channels to [-pi, pi] (the float32 pi, as jnp.clip)."""
+    return torch.where(is_angular, x.clamp(-math.pi, math.pi), x)
+
+
+def ddim_sample_loop(
+    model_fn: ModelFn,
+    noise: torch.Tensor,
+    attn_mask: torch.Tensor,
+    schedule: DiffusionSchedule,
+    is_angular: Sequence[bool] | torch.Tensor,
+    n_steps: int = 50,
+    eta: float = 0.0,
+    generator: Optional[torch.Generator] = None,
+    step_noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """
+    DDIM (Song et al. 2021) over the strided grid
+    linspace(0, T-1, n_steps)[::-1], each step jumping to the next grid
+    timestep (abar = 1 after the last), from x_T = `noise`. The x0 prediction
+    of angular channels is clamped to [-pi, pi] before the jump, which
+    wrapped-angle diffusion needs (see the JAX package's ddim_sample_loop);
+    every step ends in the angular wrap.
+
+    eta = 0 is deterministic and takes no noise source. eta > 0 adds
+    sigma_i times step_noise[i] ((n_steps, B, L, F)) or a fresh normal draw
+    from `generator`: give exactly one. Returns x_0.
+    """
+    T = schedule.timesteps
+    if eta > 0:
+        _check_noise_source(generator, step_noise, (n_steps, *noise.shape))
+    ts = np.linspace(0, T - 1, num=n_steps, dtype=np.int64)[::-1]
+    # float32 scalars, as the JAX loop computes them on the device
+    abar = np.concatenate([schedule.host["alphas_cumprod"], np.ones(1, np.float32)])  # abar[-1] = 1
+    one, eta32 = np.float32(1.0), np.float32(eta)
+    is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
+    x = noise
+    with torch.inference_mode():
+        for i, t in enumerate(ts):
+            a_t = abar[t]
+            a_prev = abar[ts[i + 1]] if i + 1 < n_steps else abar[-1]
+            sigma = eta32 * np.sqrt((one - a_prev) / (one - a_t)) * np.sqrt(max(one - a_t / a_prev, 0))
+            t_vec = torch.full((x.shape[0],), int(t), dtype=torch.int64, device=x.device)
+            eps = model_fn(x, t_vec, attn_mask)
+            x0 = _clamp_angular((x - float(np.sqrt(one - a_t)) * eps) / float(np.sqrt(a_t)), is_angular)
+            dir_xt = float(np.sqrt(max(one - a_prev - sigma * sigma, 0))) * eps
+            x = float(np.sqrt(a_prev)) * x0 + dir_xt
+            if eta > 0:
+                z = step_noise[i] if step_noise is not None else torch.randn(
+                    x.shape, generator=generator, dtype=x.dtype, device=x.device)
+                x = x + float(sigma) * z
+            x = wrap_angular_features(x, is_angular)
+    return x
+
+
+def dpmpp_nodes(alphas_cumprod: np.ndarray, n_steps: int) -> np.ndarray:
+    """
+    The n_steps source timesteps of DPM-Solver++, strictly decreasing: the
+    discrete timesteps nearest to targets uniform in half-log-SNR
+    lambda = log(alpha / sigma), with collisions moved to the next free
+    timestep so the chain makes exactly n_steps model evaluations (the JAX
+    package's rule, sampling.py:343-366). alphas_cumprod is the schedule's
+    float32 array cast to float64, as the JAX package reads it: the float64
+    values before the cast can move a node by one timestep.
+    """
+    T = len(alphas_cumprod)
+    lam_all = 0.5 * (np.log(alphas_cumprod) - np.log1p(-alphas_cumprod))
+    targets = np.linspace(lam_all[T - 1], lam_all[0], num=n_steps)
+    nodes = []
+    prev = T
+    for k, target in enumerate(targets):
+        t = int(np.argmin(np.abs(lam_all - target)))
+        t = max(min(t, prev - 1), n_steps - k - 1)
+        nodes.append(t)
+        prev = t
+    return np.asarray(nodes, dtype=np.int64)
+
+
+def dpmpp_sample_loop(
+    model_fn: ModelFn,
+    noise: torch.Tensor,
+    attn_mask: torch.Tensor,
+    schedule: DiffusionSchedule,
+    is_angular: Sequence[bool] | torch.Tensor,
+    n_steps: int = 20,
+) -> torch.Tensor:
+    """
+    DPM-Solver++(2M) (Lu et al. 2022), x0 parameterisation, on the nodes of
+    dpmpp_nodes plus the clean state abar = 1, from x_T = `noise`. Update i
+    over nodes t_{i-1} -> t_i:
+        x0_i = (x - sigma_{i-1} eps(x, t_{i-1})) / alpha_{i-1}, clamped on
+               angular channels to [-pi, pi]
+        D_i  = x0_i + (1 / (2 r_i)) wrap(x0_i - x0_{i-1}),  r_i = h_{i-1} / h_i
+        x   <- (sigma_i / sigma_{i-1}) x + alpha_i (1 - e^{-h_i}) D_i, wrapped
+    first order (D = x0) on the first and the last step. The coefficients are
+    computed in float64 on the host and used as float32, as in the JAX
+    package; the difference x0_i - x0_{i-1} is the geodesic one. Deterministic.
+    Returns x_0.
+    """
+    T = schedule.timesteps
+    if not 1 <= n_steps <= T:
+        raise ValueError(f"n_steps must be in [1, {T}], got {n_steps}")
+    ts = dpmpp_nodes(schedule.host["alphas_cumprod"].astype(np.float64), n_steps)
+    a_nodes = np.concatenate([schedule.host["alphas_cumprod"].astype(np.float64)[ts], [1.0]])
+    alpha = np.sqrt(a_nodes)
+    sigma = np.sqrt(1.0 - a_nodes)
+    # lambda at the non-final nodes only: sigma = 0 at the clean state
+    lam = 0.5 * (np.log(a_nodes[:-1]) - np.log1p(-a_nodes[:-1]))
+    h = np.diff(lam)
+    c_x = np.zeros(n_steps)
+    c_d = np.ones(n_steps)  # the final step to abar = 1: x <- D
+    c_corr = np.zeros(n_steps)
+    c_x[:-1] = sigma[1:-1] / sigma[:-2]
+    c_d[:-1] = alpha[1:-1] * -np.expm1(-h)
+    if n_steps >= 3:
+        c_corr[1:-1] = h[1:] / (2.0 * h[:-1])
+
+    def f32(values):
+        return [float(v) for v in np.asarray(values, dtype=np.float32)]
+
+    coefs = zip(ts.tolist(), f32(c_x), f32(c_d), f32(c_corr), f32(sigma[:-1]), f32(1.0 / alpha[:-1]))
+    is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
+    x, x0_prev = noise, torch.zeros_like(noise)
+    with torch.inference_mode():
+        for t, cx, cd, ccorr, sig_src, recip_alpha_src in coefs:
+            t_vec = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+            eps = model_fn(x, t_vec, attn_mask)
+            x0 = _clamp_angular((x - sig_src * eps) * recip_alpha_src, is_angular)
+            d = x0 + ccorr * wrap_angular_features(x0 - x0_prev, is_angular)
+            x = wrap_angular_features(cx * x + cd * d, is_angular)
+            x0_prev = x0
     return x
 
 
@@ -113,19 +260,37 @@ def build_sampler(
     schedule: DiffusionSchedule,
     is_angular: Sequence[bool],
     angular_variance: float = 1.0,
+    method: str = "ddpm",
+    ddim_steps: int = 50,
+    ddim_eta: float = 0.0,
+    noise_scale: float | np.ndarray | None = None,
 ):
     """
-    DDPM sampler closure over `model`, which runs on its own device:
-    sampler(attn_mask, seed, chunk_i) -> x_0, with x_T and the step noise
-    drawn from chunk_generator(seed, chunk_i).
+    Sampler closure over `model`, which runs on its own device:
+    sampler(attn_mask, seed, chunk_i) -> x_0, with x_T and any step noise
+    drawn from chunk_generator(seed, chunk_i). method: "ddpm" (ancestral,
+    reference parity), "ddim" (ddim_steps model evaluations, ddim_eta) or
+    "dpmpp" (DPM-Solver++(2M); ddim_steps sets its step budget too).
+    noise_scale is the DDPM posterior-noise temperature, a scalar or per
+    feature (None: 1.0); the other methods take none, and raise if given one.
     """
+    if method not in SAMPLING_METHODS:
+        raise ValueError(f"method {method!r} not in {SAMPLING_METHODS}")
+    if noise_scale is not None and method != "ddpm":
+        raise ValueError(f"noise_scale is a DDPM posterior-noise temperature; method={method!r} takes none")
     n_ft = len(is_angular)
 
     def sampler(attn_mask: torch.Tensor, seed: int, chunk_i: int) -> torch.Tensor:
         generator = chunk_generator(seed, chunk_i, attn_mask.device)
         b, l = attn_mask.shape
         noise = sample_wrapped_noise(generator, (b, l, n_ft), is_angular, angular_variance)
-        return p_sample_loop(model, noise, attn_mask, schedule, is_angular, generator=generator)
+        if method == "ddim":
+            return ddim_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps, ddim_eta,
+                                    generator=generator)
+        if method == "dpmpp":
+            return dpmpp_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps)
+        return p_sample_loop(model, noise, attn_mask, schedule, is_angular, generator=generator,
+                             noise_scale=1.0 if noise_scale is None else noise_scale)
 
     return sampler
 
@@ -144,11 +309,16 @@ def sample(
     mean_offset: Optional[np.ndarray] = None,
     seed: int = 0x1234,
     bucket_multiple: int = 64,
+    method: str = "ddpm",
+    ddim_steps: int = 50,
+    ddim_eta: float = 0.0,
+    noise_scale: float | np.ndarray | None = None,
     sampler=None,
 ) -> List[np.ndarray]:
     """
-    Batched DDPM sampling with a length sweep (reference sampling.sample,
-    sampling.py:135-224) on the model's device. Returns one (length, F) array
+    Batched sampling with a length sweep (reference sampling.sample,
+    sampling.py:135-224) on the model's device, by build_sampler's `method`
+    unless a prebuilt `sampler` is given. Returns one (length, F) array
     per requested structure, in request order, with the training mean offset
     re-applied and angular features re-wrapped.
 
@@ -169,7 +339,8 @@ def sample(
     is_angular_arr = np.asarray(is_angular, dtype=bool)
     device = next(model.parameters()).device
     if sampler is None:
-        sampler = build_sampler(model, schedule, list(is_angular_arr), angular_variance)
+        sampler = build_sampler(model, schedule, list(is_angular_arr), angular_variance,
+                                method, ddim_steps, ddim_eta, noise_scale)
 
     def bucket_of(length: int) -> int:
         return min(pad, -(-length // bucket_multiple) * bucket_multiple)

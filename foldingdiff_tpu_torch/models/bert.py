@@ -6,18 +6,24 @@ Numerics follow the JAX model and the reference (foldingdiff/modelling.py:
 - continuous features projected to the hidden size, optional absolute
   position embeddings, LayerNorm(eps=1e-12)
 - the time embedding is added to every position
-- post-LN BERT layers; `relative_key` adds q . E[l - j + M - 1] to the raw
-  q . k scores BEFORE the 1/sqrt(d) scale
+- post-LN BERT layers; `relative_key` adds q[l] . E[pos[l] - pos[j] + M - 1]
+  to the raw q . k scores BEFORE the 1/sqrt(d) scale, and
+  `relative_key_query` adds k[j] . E[pos[l] - pos[j] + M - 1] as well
 - additive -10000 attention mask, exact GELU
 - MLP angle head: dense -> gelu -> LayerNorm -> dense
 
 Module names are the reference state-dict names (encoder.layer.N.attention.
 self.query, ...), so a reference .ckpt loads with load_state_dict(strict=True).
 
-Attention for `relative_key` and `absolute` goes through
-ops.attention.fused_attention_v2 (the CUDA kernel on the card), or through its
-plain version when config.attention_impl == "plain". The relative scores use
-arange positions, as HF does. The model is forward-only: it has no dropout.
+attention_impl routes each layer's attention, with the JAX package's values:
+- "auto" and "pallas_v2": ops.attention.fused_attention_v2 (the CUDA kernel of
+  csrc/rel_attention.cu on the card) on the raw distance table, with arange
+  positions, as JAX's v2 kernel assumes;
+- "pallas": ops.attention.fused_attention (csrc/gathered_attention.cu) on
+  e_lr gathered from position_ids[0];
+- "xla" and "plain": the plain einsums, on e_lr gathered from position_ids[0].
+`relative_key_query` runs the plain einsums under every value, as in JAX.
+The model is forward-only: it has no dropout.
 """
 from __future__ import annotations
 
@@ -27,9 +33,10 @@ from torch import nn
 
 from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.models.time_embed import get_time_encoder
-from foldingdiff_tpu_torch.ops.attention import fused_attention_v2, fused_attention_v2_reference
+from foldingdiff_tpu_torch.ops.attention import fused_attention, fused_attention_reference, fused_attention_v2
 
-_ATTENTION_IMPLS = {"auto": fused_attention_v2, "plain": fused_attention_v2_reference}
+# attention_impl -> route: "v2" kernel entry, "v1" kernel entry, or "plain"
+_ROUTES = {"auto": "v2", "pallas_v2": "v2", "pallas": "v1", "xla": "plain", "plain": "plain"}
 
 
 def _act(name: str):
@@ -47,38 +54,68 @@ class SelfAttention(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.position_embedding_type == "relative_key_query":
-            raise NotImplementedError("relative_key_query attention is not ported yet")
-        if config.attention_impl not in _ATTENTION_IMPLS:
-            raise ValueError(
-                f"attention_impl {config.attention_impl!r} not in {sorted(_ATTENTION_IMPLS)}"
-            )
+        if config.attention_impl not in _ROUTES:
+            raise ValueError(f"attention_impl {config.attention_impl!r} not in {sorted(_ROUTES)}")
+        self.key_query = config.position_embedding_type == "relative_key_query"
+        self.route = "plain" if self.key_query else _ROUTES[config.attention_impl]
         self.n_heads = config.num_attention_heads
         self.head_size = config.attention_head_size
         self.max_pos = config.max_position_embeddings
-        self.attend = _ATTENTION_IMPLS[config.attention_impl]
         hidden = config.hidden_size
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
         self.value = nn.Linear(hidden, hidden)
         self.distance_embedding = (
             nn.Embedding(2 * self.max_pos - 1, self.head_size)
-            if config.position_embedding_type == "relative_key"
+            if config.position_embedding_type in ("relative_key", "relative_key_query")
             else None
         )
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
+    @property
+    def gathers(self) -> bool:
+        """Whether forward() needs the distance index of the position ids."""
+        return self.distance_embedding is not None and self.route != "v2"
+
+    def forward(
+        self, hidden: torch.Tensor, attn_bias: torch.Tensor, dist_idx: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        """dist_idx is distance_index(position_ids, M), needed when `gathers`."""
         b, l, _ = hidden.shape
 
-        def heads(x):  # (B, L, H*D) -> (B, H, L, D), the kernel's layout
+        def heads(x):  # (B, L, H*D) -> (B, H, L, D), the kernels' layout
             return x.view(b, l, self.n_heads, self.head_size).transpose(1, 2).contiguous()
 
+        q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
         table = self.distance_embedding.weight if self.distance_embedding is not None else None
-        ctx = self.attend(
-            heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden)),
-            attn_bias, rel_table=table, m=self.max_pos if table is not None else None,
-        )
+        if self.route == "v2":
+            ctx = fused_attention_v2(q, k, v, attn_bias, rel_table=table,
+                                     m=self.max_pos if table is not None else None)
+        else:
+            e_lr = gather_distance_embeddings(table, dist_idx) if table is not None else None
+            if self.route == "v1":
+                ctx = fused_attention(q, k, v, attn_bias, e_lr)
+            else:
+                ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query)
         return ctx.transpose(1, 2).reshape(b, l, self.n_heads * self.head_size)
+
+
+def distance_index(position_ids: torch.Tensor, max_pos: int) -> torch.Tensor:
+    """idx[r, l] = pos[l] - pos[r] + M - 1 with pos = position_ids[0], the
+    rows of the distance table that JAX's gather_dist_emb reads (bert.py:
+    137-142). Every index lies in the table when the positions lie in [0, M)."""
+    pos = position_ids[0]
+    return pos[None, :] - pos[:, None] + (max_pos - 1)
+
+
+def gather_distance_embeddings(table: torch.Tensor, dist_idx: torch.Tensor) -> torch.Tensor:
+    """
+    e_lr[l, r] = table[dist_idx[r, l]], (L, L, D), as a permuted view of a
+    contiguous (D, L_key, L_query) tensor: the layout the gathered-attention
+    kernel reads, so fused_attention needs no copy. One device operation.
+    """
+    l = dist_idx.shape[0]
+    elt = torch.index_select(table.t(), 1, dist_idx.reshape(-1)).view(-1, l, l)
+    return elt.permute(2, 1, 0)
 
 
 class _DenseLayerNorm(nn.Module):
@@ -116,8 +153,10 @@ class Layer(nn.Module):
         self.intermediate = _Intermediate(config)
         self.output = _DenseLayerNorm(config.intermediate_size, config.hidden_size, config.layer_norm_eps)
 
-    def forward(self, hidden: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
-        attn = self.attention.self(hidden, attn_bias)
+    def forward(
+        self, hidden: torch.Tensor, attn_bias: torch.Tensor, dist_idx: torch.Tensor | None = None
+    ) -> torch.Tensor:
+        attn = self.attention.self(hidden, attn_bias, dist_idx)
         hidden = self.attention.output(attn, hidden)
         ff = self.act(self.intermediate.dense(hidden))
         return self.output(ff, hidden)
@@ -199,6 +238,9 @@ class BertForDiffusion(nn.Module):
 
         hidden = self.embeddings(self.inputs_to_hidden_dim(inputs), position_ids)
         hidden = hidden + self.time_embed(timestep)[:, None, :]
+        dist_idx = None
+        if self.encoder.layer and self.encoder.layer[0].attention.self.gathers:
+            dist_idx = distance_index(position_ids, self.config.max_position_embeddings)
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias)
+            hidden = layer(hidden, attn_bias, dist_idx)
         return self.token_decoder(hidden)

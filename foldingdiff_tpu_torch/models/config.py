@@ -9,14 +9,20 @@ foldingdiff_tpu.data.feature_sets, which needs nothing beyond the standard
 library.
 
 Fields the port reads differently:
-- attention_impl: "auto" (the default) runs ops.attention.fused_attention_v2,
-  which launches the CUDA kernel on a CUDA tensor and its plain version on a
-  CPU tensor; "plain" runs the plain PyTorch version on any device.
+- attention_impl takes the JAX package's values with the JAX meanings:
+  "pallas_v2" runs ops.attention.fused_attention_v2 (the raw distance table,
+  arange positions), "pallas" runs ops.attention.fused_attention (e_lr
+  gathered from position_ids[0]), "xla" runs the plain einsums. Each kernel
+  entry launches its CUDA kernel on a CUDA tensor and its plain version on a
+  CPU tensor. "auto" (the default) is the v2 kernel entry: it was the faster
+  on the H100 (PERF.md), where JAX's "auto" picks XLA on a TPU. "plain" is a
+  second name of the plain einsums. relative_key_query always runs the plain
+  einsums, as in JAX.
 - matmul_precision, relative_scores_impl, remat and the dropout probabilities
   are kept for config parity and not read: the port computes in float32 (the
   caller keeps TF32 off), the relative scores are the `gather` semantics (the
-  other impls are numerically identical layouts of it), and the denoiser is
-  forward-only.
+  other impls are numerically identical layouts of it for arange positions),
+  and the denoiser is forward-only.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ class ModelConfig:
     time_encoding: str = "gaussian_fourier"  # gaussian_fourier | sinusoidal
     decoder: str = "mlp"  # mlp | linear
     matmul_precision: str = "default"
-    attention_impl: str = "auto"  # auto (kernel entry) | plain
+    attention_impl: str = "auto"  # auto | pallas_v2 | pallas | xla | plain
     relative_scores_impl: str = "gather"
     remat: bool = False
 

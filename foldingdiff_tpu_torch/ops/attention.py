@@ -1,19 +1,27 @@
 """
-Fused BERT attention with `relative_key` scores
-(counterpart of foldingdiff_tpu/ops/pallas_attention.py:fused_attention_v2).
+Fused BERT attention (counterpart of foldingdiff_tpu/ops/pallas_attention.py).
 
-`fused_attention_v2` launches the hand-written CUDA kernel of
-csrc/rel_attention.cu for CUDA tensors and runs the plain PyTorch version,
-`fused_attention_v2_reference`, for CPU tensors. There is no fallback: a CUDA
-tensor the kernel does not take raises.
+Two entries, as in the JAX package, each with a plain PyTorch version beside it:
+- `fused_attention_v2` (the raw (2M-1, D) `relative_key` table, arange
+  positions) launches the CUDA kernel of csrc/rel_attention.cu;
+  `fused_attention_v2_reference` is its plain version.
+- `fused_attention` (any gathered (L, L, D) tensor e_lr) launches the CUDA
+  kernel of csrc/gathered_attention.cu; `fused_attention_reference` is its
+  plain version, the einsums of the JAX package's attention_reference.
 
-The kernel is built with nvcc at first use, from the repository's source only,
-into `foldingdiff_tpu_torch/_build/`; the library name carries a hash of the
-source and the flags, so an edited source or flag set builds anew. It has a
-plain C interface and is loaded with ctypes.
+Each entry launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors. There is no fallback: a CUDA tensor the kernel does not take
+raises, and so does a tensor on any other device.
 
-`launches` counts kernel launches, so a run can show that it went through
-the kernel; nothing else changes it.
+Each kernel source is built with nvcc at first use, from the repository's
+sources only, into `foldingdiff_tpu_torch/_build/`; the library name carries
+a hash of the source, the shared headers and the flags, so an edited source
+or flag set builds anew. The libraries have a plain C interface and are
+loaded with ctypes. `build()` compiles several at once, one nvcc each.
+
+`REL_ATTENTION.launches` and `GATHERED_ATTENTION.launches` count each
+kernel's launches, so a run can show which kernel it went through; nothing
+else changes them.
 """
 from __future__ import annotations
 
@@ -23,20 +31,130 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Sequence
 
 import torch
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR / "csrc" / "rel_attention.cu"
+CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-HEAD_DIMS = (16, 32, 64)  # D values the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64)  # D values the kernels are instantiated for
+SMEM_BYTES = 227 * 1024  # dynamic shared memory one block may use on Hopper
 
-launches = 0
-_lib = None
+_ptr, _int = ctypes.c_void_p, ctypes.c_int
+
+
+class CudaLibrary:
+    """One kernel source, csrc/<name>.cu, built into a ctypes library whose
+    C entry is <name>_forward and whose error text is <name>_error_string."""
+
+    def __init__(self, name: str, forward_argtypes: Sequence):
+        self.name = name
+        self.source = CSRC_DIR / f"{name}.cu"
+        self.forward_argtypes = list(forward_argtypes)
+        self.launches = 0
+        self._lib = None
+
+    def library_path(self) -> Path:
+        inputs = [self.source, *sorted(CSRC_DIR.glob("*.cuh"))]
+        blob = b"".join(p.read_bytes() for p in inputs) + " ".join(NVCC_FLAGS).encode()
+        return BUILD_DIR / f"lib{self.name}_{hashlib.sha256(blob).hexdigest()[:16]}.so"
+
+    def load(self) -> ctypes.CDLL:
+        if self._lib is None:
+            build([self])
+            lib = ctypes.CDLL(str(self.library_path()))
+            forward = getattr(lib, f"{self.name}_forward")
+            forward.argtypes = self.forward_argtypes
+            forward.restype = _int
+            error_string = getattr(lib, f"{self.name}_error_string")
+            error_string.argtypes = [_int]
+            error_string.restype = ctypes.c_char_p
+            self._lib = lib
+        return self._lib
+
+    def launch(self, what: str, *args) -> None:
+        """Call the C entry, raise on a non-zero cudaError_t, count the launch."""
+        lib = self.load()
+        err = getattr(lib, f"{self.name}_forward")(*args)
+        if err:
+            msg = getattr(lib, f"{self.name}_error_string")(err).decode()
+            raise RuntimeError(f"{self.name} launch failed ({what}): {msg}")
+        self.launches += 1
+
+
+# (q, k, v, bias, table, out, B, H, L, D, M, has_rel, device, stream)
+REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [_int] * 7 + [_ptr])
+# (q, k, v, bias, elt, out, B, H, L, D, has_rel, device, stream)
+GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 6 + [_ptr])
+LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
+
+
+def fused_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask_bias: torch.Tensor,
+    e_lr: torch.Tensor | None = None,
+    key_term: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version: the einsums of the JAX package's attention_reference.
+    key_term adds k[r] . e_lr[l, r] as well: the relative_key_query scores,
+    which the denoiser runs on this plain path only, as the JAX package does."""
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    scores = torch.einsum("bhld,bhmd->bhlm", q, k)
+    if e_lr is not None:
+        scores = scores + torch.einsum("bhld,lrd->bhlr", q, e_lr)
+        if key_term:
+            scores = scores + torch.einsum("bhrd,lrd->bhlr", k, e_lr)
+    scores = scores * scale + mask_bias[:, None, None, :]
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhlm,bhmd->bhld", probs, v)
+
+
+def fused_attention(
+    q: torch.Tensor,  # (B, H, L, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask_bias: torch.Tensor,  # (B, L) additive bias per key (-10000 masked)
+    e_lr: torch.Tensor | None = None,  # (L, L, D) gathered distance embeddings
+) -> torch.Tensor:
+    """
+    softmax((q k^T + rel) / sqrt(D) + mask_bias) v with rel[l, j] =
+    q[l] . e_lr[l, j] (omitted when e_lr is None), e_lr any (L, L, D) tensor.
+    Forward only: the kernel records no autograd graph.
+
+    The kernel reads e_lr in the (D, L_key, L_query) layout; a caller that
+    holds e_lr as a permuted view of a tensor in that layout (as the
+    denoiser's gather makes it) saves the copy that makes it here.
+    """
+    if q.device.type == "cpu":
+        return fused_attention_reference(q, k, v, mask_bias, e_lr)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_attention takes CPU or CUDA tensors, got {q.device}")
+    b, h, l, d = _check_inputs(q, k, v, mask_bias)
+    elt = None
+    if e_lr is not None:
+        if e_lr.shape != (l, l, d):
+            raise ValueError(f"e_lr must be {(l, l, d)}, got {tuple(e_lr.shape)}")
+        _check_tensor("e_lr", e_lr, q.device)
+        elt = e_lr.permute(2, 1, 0).contiguous()
+    smem = (2 * l * d + l) * 4
+    if smem > SMEM_BYTES:
+        raise ValueError(f"L={l}, D={d} needs {smem} bytes of shared memory, above the kernel's {SMEM_BYTES}")
+    out = torch.empty_like(q)
+    GATHERED_ATTENTION.launch(
+        f"B={b} H={h} L={l} D={d}",
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
+        elt.data_ptr() if elt is not None else None, out.data_ptr(),
+        b, h, l, d, int(elt is not None), q.device.index,
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    return out
 
 
 def fused_attention_v2_reference(
@@ -47,17 +165,13 @@ def fused_attention_v2_reference(
     rel_table: torch.Tensor | None = None,
     m: int | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version: gather e_lr = table[l - r + M - 1] and run the
-    einsums of the JAX package's attention_reference."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bhld,bhmd->bhlm", q, k)
+    """Plain PyTorch version: gather e_lr = table[l - r + M - 1] and run
+    fused_attention_reference."""
+    e_lr = None
     if rel_table is not None:
         pos = torch.arange(q.shape[2], device=q.device)
         e_lr = rel_table[pos[:, None] - pos[None, :] + m - 1]  # (L, L, D)
-        scores = scores + torch.einsum("bhld,lrd->bhlr", q, e_lr)
-    scores = scores * scale + mask_bias[:, None, None, :]
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhlm,bhmd->bhld", probs, v)
+    return fused_attention_reference(q, k, v, mask_bias, e_lr)
 
 
 def fused_attention_v2(
@@ -77,38 +191,43 @@ def fused_attention_v2(
         return fused_attention_v2_reference(q, k, v, mask_bias, rel_table, m)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_v2 takes CPU or CUDA tensors, got {q.device}")
-    b, h, l, d = _check_inputs(q, k, v, mask_bias, rel_table, m)
+    b, h, l, d = _check_inputs(q, k, v, mask_bias)
     has_rel = rel_table is not None
+    if has_rel:
+        _check_tensor("rel_table", rel_table, q.device)
+        if not rel_table.is_contiguous():
+            raise ValueError("rel_table must be contiguous")
+        if m is None or rel_table.shape != (2 * m - 1, d):
+            raise ValueError(f"rel_table must be (2m-1, {d}) with m given, got {tuple(rel_table.shape)}, m={m}")
+        if l > m:
+            raise ValueError(f"sequence length {l} exceeds max_position_embeddings {m}")
     out = torch.empty_like(q)
-    err = load_library().rel_attention_forward(
+    REL_ATTENTION.launch(
+        f"B={b} H={h} L={l} D={d}",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         rel_table.data_ptr() if has_rel else None, out.data_ptr(),
         b, h, l, d, m if has_rel else l, int(has_rel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    if err:
-        raise RuntimeError(
-            f"rel_attention launch failed (B={b} H={h} L={l} D={d}): "
-            f"{_lib.rel_attention_error_string(err).decode()}"
-        )
-    global launches
-    launches += 1
     return out
 
 
-def _check_inputs(q, k, v, mask_bias, rel_table, m):
-    tensors = {"q": q, "k": k, "v": v, "mask_bias": mask_bias}
-    if rel_table is not None:
-        tensors["rel_table"] = rel_table
-    for name, t in tensors.items():
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError("the attention kernels are forward-only; call them under torch.inference_mode()")
+
+
+def _check_inputs(q, k, v, mask_bias):
+    """Checks shared by both kernels: device, dtype, contiguity and shapes of
+    q, k, v and the bias, the head size and the grid limit."""
+    for name, t in {"q": q, "k": k, "v": v, "mask_bias": mask_bias}.items():
+        _check_tensor(name, t, q.device)
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors.values()):
-        raise RuntimeError("the attention kernel is forward-only; call it under torch.inference_mode()")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, D), got {tuple(q.shape)}")
     b, h, l, d = q.shape
@@ -118,13 +237,8 @@ def _check_inputs(q, k, v, mask_bias, rel_table, m):
         raise ValueError(f"mask_bias must be {(b, l)}, got {tuple(mask_bias.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head size {d} not in the kernel's {HEAD_DIMS}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit of 65535")
-    if rel_table is not None:
-        if m is None or rel_table.shape != (2 * m - 1, d):
-            raise ValueError(f"rel_table must be (2m-1, {d}) with m given, got {tuple(rel_table.shape)}, m={m}")
-        if l > m:
-            raise ValueError(f"sequence length {l} exceeds max_position_embeddings {m}")
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid limit of 65535")
     return b, h, l, d
 
 
@@ -138,37 +252,32 @@ def _nvcc() -> str:
     raise FileNotFoundError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librel_attention_{digest}.so"
-
-
-def build() -> str:
-    """Compile the kernel library unless this source and flag set is built.
-    Returns the compiler's output (ptxas register and shared-memory report),
-    or "" when the library already existed."""
-    path = library_path()
-    if path.is_file():
-        return ""
+def build(libraries: Sequence[CudaLibrary] = LIBRARIES) -> Dict[str, str]:
+    """
+    Compile each library whose source and flag set is not built yet, one
+    nvcc per source, all started together. Returns {name: the compiler's
+    output (ptxas register and shared-memory report)}, "" for a library that
+    already existed. Raises if any build fails.
+    """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, path)
-    return proc.stdout + proc.stderr
-
-
-def load_library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(str(library_path()))
-        ptr = ctypes.c_void_p
-        lib.rel_attention_forward.argtypes = [ptr] * 6 + [ctypes.c_int] * 7 + [ptr]
-        lib.rel_attention_forward.restype = ctypes.c_int
-        lib.rel_attention_error_string.argtypes = [ctypes.c_int]
-        lib.rel_attention_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    running = {}
+    for lib in libraries:
+        path = lib.library_path()
+        if path.is_file():
+            continue
+        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(lib.source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[lib.name] = (proc, cmd, tmp, path)
+    reports = {lib.name: "" for lib in libraries}
+    failures = []
+    for name, (proc, cmd, tmp, path) in running.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed ({' '.join(cmd)}):\n{output}")
+            continue
+        os.replace(tmp, path)
+        reports[name] = output
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return reports

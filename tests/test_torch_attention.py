@@ -1,9 +1,11 @@
 """
-The port's fused_attention_v2 (ops/attention.py) against the JAX package's
-Pallas entry (interpret mode on the CPU) and its jnp reference, as
-tests/test_pallas_attention.py runs them. On a CPU tensor the port runs its
-plain PyTorch version; the CUDA kernel is compared with that version on the
-card by tests/test_torch_cuda.py and chip_smoke.py.
+The port's fused_attention_v2 and fused_attention (ops/attention.py) against
+the JAX package's Pallas entries (interpret mode on the CPU) and its jnp
+reference, as tests/test_pallas_attention.py runs them. On a CPU tensor the
+port runs each entry's plain PyTorch version; the CUDA kernels are compared
+with those versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
+The kernels' build (one nvcc per source, started together) is checked here
+with a stand-in for nvcc.
 """
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from foldingdiff_tpu.ops.pallas_attention import attention_reference
+from foldingdiff_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
 from foldingdiff_tpu.ops.pallas_attention import fused_attention_v2 as jax_fused_attention_v2
 from foldingdiff_tpu_torch.ops import attention
 
@@ -57,23 +60,133 @@ def test_masked_keys_do_not_change_output():
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
 
 
+def _v1_inputs(seed, masked=True, b=4, h=6, l=64, d=16):
+    """tests/test_pallas_attention.py's inputs: e_lr random normal (L, L, D) * 0.05, not Toeplitz."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(b, h, l, d)).astype(np.float32) for _ in range(3))
+    if masked:
+        lengths = rng.integers(l // 2, l + 1, size=b)
+        bias = np.where(np.arange(l)[None, :] < lengths[:, None], 0.0, -10000.0).astype(np.float32)
+    else:
+        bias = np.zeros((b, l), dtype=np.float32)
+    e_lr = (rng.normal(size=(l, l, d)) * 0.05).astype(np.float32)
+    return q, k, v, bias, e_lr
+
+
+def _permuted_e_lr(l, d, m, seed):
+    """e_lr gathered from a distance table through a permutation of arange(L), L <= M."""
+    rng = np.random.default_rng(seed)
+    table = (rng.normal(size=(2 * m - 1, d)) * 0.5).astype(np.float32)
+    pos = rng.permutation(l)
+    return table[pos[:, None] - pos[None, :] + m - 1]
+
+
+# e_lr: none; random (JAX's with_rel case, seed 3); gathered from permuted
+# positions; and the JAX no_rel case (seed 0)
+V1_CASES = [("random", 3, True), ("permuted", 4, True), ("random", 6, False), (None, 0, True)]
+
+
+@pytest.mark.parametrize("e_lr_kind,seed,masked", V1_CASES)
+def test_v1_plain_matches_jax_pallas_and_reference(e_lr_kind, seed, masked):
+    q, k, v, bias, e_lr = _v1_inputs(seed, masked)
+    if e_lr_kind == "permuted":
+        e_lr = _permuted_e_lr(64, 16, 64, seed)
+    elif e_lr_kind is None:
+        e_lr = None
+    with jax.default_matmul_precision("highest"):
+        jargs = [jnp.asarray(a) for a in (q, k, v, bias)] + [jnp.asarray(e_lr) if e_lr is not None else None]
+        pallas = jax_fused_attention(*jargs, interpret=True)
+        ref = attention_reference(*jargs)
+    ours = attention.fused_attention(*map(torch.from_numpy, (q, k, v, bias)),
+                                     torch.from_numpy(e_lr) if e_lr is not None else None)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), atol=1e-5)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def test_v1_masked_keys_do_not_change_output():
+    """tests/test_pallas_attention.py's mask case (seed 5) through the port."""
+    q, k, v, bias, e_lr = map(torch.from_numpy, _v1_inputs(5))
+    masked = (bias < -1.0)[:, None, :, None]
+    out1 = attention.fused_attention(q, k, v, bias, e_lr)
+    out2 = attention.fused_attention(q, k + 7.0 * masked, v - 3.0 * masked, bias, e_lr)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
+
+
+def test_v2_reference_is_v1_reference_on_the_arange_gather():
+    q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, 20, 16, 32, seed=7))
+    e_lr = torch.from_numpy(_gathered(table.numpy(), 20, 32))
+    torch.testing.assert_close(attention.fused_attention_v2_reference(q, k, v, bias, table, 32),
+                               attention.fused_attention_reference(q, k, v, bias, e_lr), rtol=0, atol=0)
+
+
 def test_cpu_tensors_take_the_plain_version_without_launching():
     q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 2, 16, 16, 16, seed=6))
-    before = attention.launches
+    e_lr = torch.from_numpy(_gathered(table.numpy(), 16, 16))
+    before = {lib.name: lib.launches for lib in attention.LIBRARIES}
     out = attention.fused_attention_v2(q, k, v, bias, rel_table=table, m=16)
-    assert attention.launches == before
+    out_v1 = attention.fused_attention(q, k, v, bias, e_lr)
+    assert {lib.name: lib.launches for lib in attention.LIBRARIES} == before
     torch.testing.assert_close(out, attention.fused_attention_v2_reference(q, k, v, bias, table, 16),
                                rtol=0, atol=0)
+    torch.testing.assert_close(out_v1, attention.fused_attention_reference(q, k, v, bias, e_lr), rtol=0, atol=0)
 
 
 def test_other_devices_raise():
     q = torch.empty(1, 1, 4, 16, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         attention.fused_attention_v2(q, q, q, torch.empty(1, 4, device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        attention.fused_attention(q, q, q, torch.empty(1, 4, device="meta"))
 
 
 def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
-    path = attention.library_path()
-    assert path.parent == attention.BUILD_DIR and path.suffix == ".so"
+    paths = {lib.name: lib.library_path() for lib in attention.LIBRARIES}
+    assert len(set(paths.values())) == len(paths)
+    for lib in attention.LIBRARIES:
+        assert lib.source.is_file()
+        assert paths[lib.name].parent == attention.BUILD_DIR and paths[lib.name].suffix == ".so"
     monkeypatch.setattr(attention, "NVCC_FLAGS", attention.NVCC_FLAGS + ("-DEXTRA",))
-    assert attention.library_path() != path
+    assert all(lib.library_path() != paths[lib.name] for lib in attention.LIBRARIES)
+
+
+class _FakeNvcc:
+    """subprocess.Popen stand-in: records the order of starts and waits, and
+    writes the output file named after -o."""
+
+    events = []
+
+    def __init__(self, cmd, **kwargs):
+        self.cmd = cmd
+        self.returncode = None
+        self.events.append(("start", cmd[-1]))
+
+    def communicate(self):
+        self.events.append(("wait", self.cmd[-1]))
+        if "bad" in self.cmd[-1]:
+            self.returncode = 1
+            return "error: bad source", None
+        with open(self.cmd[self.cmd.index("-o") + 1], "w") as f:
+            f.write("so")
+        self.returncode = 0
+        return "ptxas info    : Used 1 registers", None
+
+
+def test_build_starts_one_nvcc_per_source_together(monkeypatch, tmp_path):
+    monkeypatch.setattr(attention, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(attention, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(attention.subprocess, "Popen", _FakeNvcc)
+    _FakeNvcc.events = []
+    reports = attention.build()
+    sources = [str(lib.source) for lib in attention.LIBRARIES]
+    assert _FakeNvcc.events == [("start", s) for s in sources] + [("wait", s) for s in sources]
+    assert all("registers" in reports[lib.name] for lib in attention.LIBRARIES)
+    assert all(lib.library_path().is_file() for lib in attention.LIBRARIES)
+    _FakeNvcc.events = []
+    assert attention.build() == {lib.name: "" for lib in attention.LIBRARIES}  # built: nothing runs
+    assert _FakeNvcc.events == []
+
+    bad = attention.CudaLibrary("bad", [])
+    monkeypatch.setattr(bad, "source", tmp_path / "bad.cu")
+    bad.source.write_text("")
+    with pytest.raises(RuntimeError, match=r"(?s)nvcc failed.*bad source"):
+        attention.build([bad])

@@ -1,7 +1,7 @@
 """
-Tests that need an NVIDIA GPU: the CUDA attention kernel
-(csrc/rel_attention.cu) against its plain PyTorch version, the wrapper's
-input checks, and a reverse step on the card. They skip without a card.
+Tests that need an NVIDIA GPU: the two CUDA attention kernels
+(csrc/rel_attention.cu, csrc/gathered_attention.cu) against their plain
+PyTorch versions, the wrappers' input checks, and a reverse step on the card. They skip without a card.
 They import no JAX, so they also run on a machine that has none, without the
 suite's conftest:
 
@@ -45,10 +45,10 @@ def test_kernel_matches_plain(device, b, h, l, d, m, rel):
     q, k, v, bias, table = _inputs(device, b, h, l, d, m)
     table, m = (table, m) if rel else (None, None)
     with torch.inference_mode():
-        before = attention.launches
+        before = attention.REL_ATTENTION.launches
         out = attention.fused_attention_v2(q, k, v, bias, table, m)
         torch.cuda.synchronize()
-        assert attention.launches == before + 1
+        assert attention.REL_ATTENTION.launches == before + 1
         ref = attention.fused_attention_v2_reference(q, k, v, bias, table, m)
     assert out.shape == q.shape and out.device == q.device
     assert (out - ref).abs().max().item() <= 1e-4
@@ -79,6 +79,64 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
             attention.fused_attention_v2(q, k, v, bias.cpu())
     with pytest.raises(RuntimeError, match="forward-only"):
         attention.fused_attention_v2(q.requires_grad_(), k, v, bias)
+
+
+def _e_lr(table, l, m, positions):
+    """e_lr[l, r] = table[pos[l] - pos[r] + M - 1] for arange or a permutation of it."""
+    pos = torch.arange(l, device=table.device)
+    if positions == "permuted":
+        pos = pos[torch.randperm(l, generator=torch.Generator().manual_seed(l)).to(table.device)]
+    return table[pos[:, None] - pos[None, :] + m - 1]
+
+
+@pytest.mark.parametrize("e_lr_kind", ["arange", "permuted", "random", None])
+@pytest.mark.parametrize("b,h,l,d,m", SHAPES)
+def test_gathered_kernel_matches_plain(device, b, h, l, d, m, e_lr_kind):
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m)
+    if e_lr_kind == "random":  # not Toeplitz
+        e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(2), device=device) * 0.5
+    else:
+        e_lr = _e_lr(table, l, m, e_lr_kind) if e_lr_kind else None
+    with torch.inference_mode():
+        before = attention.GATHERED_ATTENTION.launches
+        out = attention.fused_attention(q, k, v, bias, e_lr)
+        torch.cuda.synchronize()
+        assert attention.GATHERED_ATTENTION.launches == before + 1
+        ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
+    assert out.shape == q.shape and out.device == q.device
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_gathered_kernel_ignores_masked_keys(device):
+    q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
+    e_lr = _e_lr(table, 96, 128, "permuted")
+    masked = (bias < -1.0)[:, None, :, None]
+    with torch.inference_mode():
+        out1 = attention.fused_attention(q, k, v, bias, e_lr)
+        out2 = attention.fused_attention(q, k + 7.0 * masked, v - 3.0 * masked, bias, e_lr)
+    assert (out1 - out2).abs().max().item() <= 1e-5
+
+
+def test_gathered_wrapper_rejects_what_the_kernel_does_not_take(device):
+    q, k, v, bias, table = _inputs(device, 2, 2, 16, 32, 16)
+    e_lr = _e_lr(table, 16, 16, "arange")
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="float32"):
+            attention.fused_attention(q, k, v, bias, e_lr.double())
+        with pytest.raises(ValueError, match="contiguous"):
+            attention.fused_attention(q, k.transpose(1, 2), v, bias, e_lr)
+        with pytest.raises(ValueError, match="head size"):
+            attention.fused_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                                      v[..., :24].contiguous(), bias)
+        with pytest.raises(ValueError, match="e_lr must be"):
+            attention.fused_attention(q, k, v, bias, e_lr[:8])
+        with pytest.raises(ValueError, match="on cpu"):
+            attention.fused_attention(q, k, v, bias, e_lr.cpu())
+        big = torch.zeros(1, 1, 1024, 64, device=device)
+        with pytest.raises(ValueError, match="shared memory"):
+            attention.fused_attention(big, big, big, torch.zeros(1, 1024, device=device))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        attention.fused_attention(q.requires_grad_(), k, v, bias, e_lr)
 
 
 @pytest.mark.parametrize("noise_scale", [0.7, (0.5, 1.0, 1.5, 2.0, 1.0, 0.8)])

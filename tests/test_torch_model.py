@@ -2,7 +2,8 @@
 The port's denoiser (models/bert.py) and weight I/O (models/io.py) against the
 JAX package: the same weights, converted by state_dict_from_flax, and the same
 numpy inputs through both models; the two committed fixtures through the
-port's from_dir.
+port's from_dir. Every attention_impl is held against the JAX einsum path
+("xla"): the JAX model's Pallas paths run on a TPU only.
 """
 import dataclasses
 import os
@@ -33,15 +34,17 @@ def _inputs(b, l, t_max, seed):
     return x, t, mask
 
 
-def _torch_forward(model, x, t, mask):
+def _torch_forward(model, x, t, mask, position_ids=None):
+    pos = None if position_ids is None else torch.from_numpy(position_ids)
     with torch.inference_mode():
-        return model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(mask)).numpy()
+        return model(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(mask), pos).numpy()
 
 
-def _jax_forward(config, params, constants, x, t, mask):
+def _jax_forward(config, params, constants, x, t, mask, position_ids=None):
     model = JaxBert(dataclasses.replace(config, matmul_precision="highest"))
+    pos = None if position_ids is None else jnp.asarray(position_ids)
     return np.asarray(model.apply({"params": params, "constants": constants},
-                                  jnp.asarray(x), jnp.asarray(t), jnp.asarray(mask), deterministic=True))
+                                  jnp.asarray(x), jnp.asarray(t), jnp.asarray(mask), pos, deterministic=True))
 
 
 @pytest.mark.parametrize("position_embedding_type", ["relative_key", "absolute"])
@@ -68,10 +71,71 @@ def test_denoiser_matches_jax(position_embedding_type, time_encoding):
     np.testing.assert_allclose(ours, ref, atol=1e-5)
 
 
-def test_relative_key_query_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        BertForDiffusion(ModelConfig(hidden_size=32, num_attention_heads=2, num_hidden_layers=1,
-                                     position_embedding_type="relative_key_query"))
+SMALL = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=96,
+             max_position_embeddings=40)
+ATTENTION_IMPLS = ["auto", "pallas_v2", "pallas", "xla", "plain"]
+
+
+@pytest.fixture(scope="module")
+def jax_einsum_reference():
+    """Per position_embedding_type: (weights, inputs, a permutation of arange(L) as position ids,
+    and the JAX einsum path's outputs for arange and for the permuted positions)."""
+    cache = {}
+
+    def get(position_embedding_type):
+        if position_embedding_type not in cache:
+            jax_config = JaxConfig(**SMALL, position_embedding_type=position_embedding_type, attention_impl="xla")
+            variables = jax_io.init_model_variables(JaxBert(jax_config), jax.random.PRNGKey(5), pad=40)
+            params = jax.tree.map(np.asarray, variables["params"])
+            constants = jax.tree.map(np.asarray, variables.get("constants", {}))
+            x, t, mask = _inputs(3, 40, 1000, seed=6)
+            perm = np.broadcast_to(np.random.default_rng(7).permutation(40), (3, 40)).copy()
+            cache[position_embedding_type] = (
+                params, constants, (x, t, mask), perm,
+                _jax_forward(jax_config, params, constants, x, t, mask),
+                _jax_forward(jax_config, params, constants, x, t, mask, perm),
+            )
+        return cache[position_embedding_type]
+
+    return get
+
+
+def _port_model(params, constants, position_embedding_type, attention_impl):
+    config = ModelConfig(**SMALL, position_embedding_type=position_embedding_type, attention_impl=attention_impl)
+    model = BertForDiffusion(config).eval()
+    model.load_state_dict(model_io.state_dict_from_flax(params, constants, config), strict=True)
+    return model
+
+
+@pytest.mark.parametrize("attention_impl", ATTENTION_IMPLS)
+@pytest.mark.parametrize("position_embedding_type", ["relative_key", "absolute"])
+def test_attention_impls_match_jax_einsum_path(jax_einsum_reference, position_embedding_type, attention_impl):
+    params, constants, inputs, _, ref, _ = jax_einsum_reference(position_embedding_type)
+    model = _port_model(params, constants, position_embedding_type, attention_impl)
+    np.testing.assert_allclose(_torch_forward(model, *inputs), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("attention_impl", ["pallas", "xla", "plain"])
+def test_permuted_position_ids_match_jax_einsum_path(jax_einsum_reference, attention_impl):
+    """The pallas and plain paths gather the distance embeddings from
+    position_ids[0], as JAX's gather_dist_emb does; L = M keeps every index
+    in the table."""
+    params, constants, inputs, perm, arange_ref, ref = jax_einsum_reference("relative_key")
+    assert np.abs(ref - arange_ref).max() > 1e-3  # the positions matter
+    model = _port_model(params, constants, "relative_key", attention_impl)
+    np.testing.assert_allclose(_torch_forward(model, *inputs, perm), ref, atol=1e-5)
+
+
+@pytest.mark.parametrize("attention_impl", ATTENTION_IMPLS)
+def test_relative_key_query_matches_jax(jax_einsum_reference, attention_impl):
+    """relative_key_query runs the plain einsums under every attention_impl,
+    as in JAX, with arange and with permuted position ids; its weights load
+    strictly through state_dict_from_flax."""
+    params, constants, inputs, perm, ref, ref_perm = jax_einsum_reference("relative_key_query")
+    model = _port_model(params, constants, "relative_key_query", attention_impl)
+    assert model.encoder.layer[0].attention.self.distance_embedding is not None
+    np.testing.assert_allclose(_torch_forward(model, *inputs), ref, atol=1e-5)
+    np.testing.assert_allclose(_torch_forward(model, *inputs, perm), ref_perm, atol=1e-5)
 
 
 def test_from_dir_torch_ckpt_matches_parity():
@@ -114,7 +178,7 @@ def test_from_dir_overrides_attention_impl():
     model, _ = model_io.from_dir(TORCH_FIXTURE, attention_impl="plain")
     assert model.config.attention_impl == "plain"
     with pytest.raises(ValueError, match="attention_impl"):
-        model_io.from_dir(TORCH_FIXTURE, attention_impl="pallas_v2")
+        model_io.from_dir(TORCH_FIXTURE, attention_impl="flash")
 
 
 def test_resolve_model_dir_local_and_missing(tmp_path):

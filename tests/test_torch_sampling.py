@@ -1,7 +1,8 @@
 """
-The port's DDPM sampler (diffusion/sampling.py) against the JAX package's:
-one reverse step and a short chain given the same noise, and sample()'s
-length sweep, chunking and mean-offset handling.
+The port's samplers (diffusion/sampling.py) against the JAX package's: one
+DDPM reverse step and short chains given the same noise, DDIM and
+DPM-Solver++ chains from the same x_T, and sample()'s length sweep,
+chunking, methods and mean-offset handling.
 """
 import dataclasses
 import os
@@ -76,6 +77,125 @@ def test_short_chain_matches_jax_given_its_noise():
     assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
 
 
+def _mini_models():
+    jmodel, params, constants, _ = jax_io.from_dir(MINI_FIXTURE)
+    jmodel = type(jmodel)(dataclasses.replace(jmodel.config, matmul_precision="highest"))
+    model, _ = model_io.from_dir(MINI_FIXTURE)
+
+    def jax_model_fn(x, t, m):
+        return jmodel.apply({"params": params, "constants": constants}, x, t, m, deterministic=True)
+
+    return jax_model_fn, model
+
+
+@pytest.mark.parametrize("method", ["ddim", "dpmpp"])
+def test_accelerated_chains_match_jax_from_the_same_x_t(method):
+    """Mini-fixture weights, linear T = 50, B = 3, L = 64, 10 steps: DDIM at
+    eta = 0 and DPM-Solver++ are deterministic given x_T."""
+    timesteps, n_steps, b, l = 50, 10, 3, 64
+    jax_model_fn, model = _mini_models()
+    rng = np.random.default_rng(8)
+    x_t = rng.uniform(-np.pi, np.pi, (b, l, 6)).astype(np.float32)
+    mask = (np.arange(l)[None, :] < np.array([[64], [57], [40]])).astype(np.float32)
+    jax_loop = {"ddim": jax_sampling.ddim_sample_loop, "dpmpp": jax_sampling.dpmpp_sample_loop}[method]
+    ref = jax_loop(jax_model_fn, jnp.asarray(x_t), jax.random.PRNGKey(0), jnp.asarray(mask),
+                   JaxSchedule.create("linear", timesteps), IS_ANGULAR, n_steps=n_steps)
+    loop = {"ddim": sampling.ddim_sample_loop, "dpmpp": sampling.dpmpp_sample_loop}[method]
+    ours = loop(model, torch.from_numpy(x_t), torch.from_numpy(mask), DiffusionSchedule.create("linear", timesteps),
+                IS_ANGULAR, n_steps=n_steps)
+    assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
+
+
+def _stub_eps(x, t):
+    """A smooth, bounded, t-dependent stand-in for the denoiser, for both frameworks."""
+    if isinstance(x, torch.Tensor):
+        return 0.8 * torch.sin(x) * (t[:, None, None].to(x.dtype) / 1000.0) + 0.1 * torch.cos(x)
+    return 0.8 * jnp.sin(x) * (t[:, None, None].astype(x.dtype) / 1000.0) + 0.1 * jnp.cos(x)
+
+
+def test_dpmpp_on_the_cosine_1000_schedule_matches_jax():
+    """n = 20 on the flagship's cosine T = 1000 schedule and its six angular
+    features, with a stub model so only the node grid and the coefficients
+    can differ: the nodes come from the float32 alphas_cumprod cast to
+    float64, as in JAX."""
+    is_angular = [True] * 6
+    rng = np.random.default_rng(9)
+    x_t = rng.uniform(-np.pi, np.pi, (2, 16, 6)).astype(np.float32)
+    mask = np.ones((2, 16), dtype=np.float32)
+    seen = []
+
+    def port_fn(x, t, m):
+        seen.append(int(t[0]))
+        return _stub_eps(x, t)
+
+    ref = jax_sampling.dpmpp_sample_loop(lambda x, t, m: _stub_eps(x, t), jnp.asarray(x_t), jax.random.PRNGKey(0),
+                                         jnp.asarray(mask), JaxSchedule.create("cosine", 1000), is_angular, n_steps=20)
+    schedule = DiffusionSchedule.create("cosine", 1000)
+    ours = sampling.dpmpp_sample_loop(port_fn, torch.from_numpy(x_t), torch.from_numpy(mask), schedule,
+                                      is_angular, n_steps=20)
+    assert seen == sampling.dpmpp_nodes(schedule.host["alphas_cumprod"].astype(np.float64), 20).tolist()
+    assert len(set(seen)) == 20 and seen == sorted(seen, reverse=True) and seen[-1] >= 0
+    assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
+
+
+@pytest.mark.parametrize("n_steps", [10, 20, 40])
+def test_dpmpp_nodes_match_jax_on_the_cosine_1000_schedule(n_steps):
+    """The timesteps JAX's loop evaluates, recorded by a debug callback. At
+    n = 40 the float64 alphas_cumprod (before the float32 cast) would move a
+    node from 22 to 21."""
+    jax_seen = []
+
+    def jax_fn(x, t, m):
+        jax.debug.callback(lambda tt: jax_seen.append(int(tt[0])), t, ordered=True)
+        return jnp.zeros_like(x)
+
+    jax_sampling.dpmpp_sample_loop(jax_fn, jnp.zeros((1, 4, 6)), jax.random.PRNGKey(0), jnp.ones((1, 4)),
+                                   JaxSchedule.create("cosine", 1000), [True] * 6,
+                                   n_steps=n_steps).block_until_ready()
+    schedule = DiffusionSchedule.create("cosine", 1000)
+    assert sampling.dpmpp_nodes(schedule.host["alphas_cumprod"].astype(np.float64), n_steps).tolist() == jax_seen
+
+
+def test_ddim_with_eta_matches_jax_given_its_noise():
+    """eta = 0.7, linear T = 50, 12 steps, stub model: the port is fed the
+    normals JAX's loop draws from split(key, n_steps)."""
+    n_steps = 12
+    rng = np.random.default_rng(10)
+    x_t = rng.uniform(-np.pi, np.pi, (2, 16, 6)).astype(np.float32)
+    mask = np.ones((2, 16), dtype=np.float32)
+    key = jax.random.PRNGKey(12)
+    step_noise = np.stack([np.array(jax.random.normal(k, x_t.shape, dtype=jnp.float32))
+                           for k in jax.random.split(key, n_steps)])
+    ref = jax_sampling.ddim_sample_loop(lambda x, t, m: _stub_eps(x, t), jnp.asarray(x_t), key, jnp.asarray(mask),
+                                        JaxSchedule.create("linear", 50), IS_ANGULAR, n_steps=n_steps, eta=0.7)
+    schedule = DiffusionSchedule.create("linear", 50)
+    ours = sampling.ddim_sample_loop(lambda x, t, m: _stub_eps(x, t), torch.from_numpy(x_t), torch.from_numpy(mask),
+                                     schedule, IS_ANGULAR, n_steps=n_steps, eta=0.7,
+                                     step_noise=torch.from_numpy(step_noise))
+    assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
+    with pytest.raises(ValueError, match="exactly one"):
+        sampling.ddim_sample_loop(lambda x, t, m: x, torch.from_numpy(x_t), torch.from_numpy(mask), schedule,
+                                  IS_ANGULAR, n_steps=n_steps, eta=0.7)
+
+
+def test_ddpm_chain_with_a_per_feature_noise_scale_matches_jax():
+    """p_sample_loop's noise_scale, per feature, against JAX's (linear T = 20, stub model)."""
+    timesteps = 20
+    rng = np.random.default_rng(11)
+    x_t = rng.uniform(-np.pi, np.pi, (2, 16, 6)).astype(np.float32)
+    mask = np.ones((2, 16), dtype=np.float32)
+    scale = np.array([0.5, 1.0, 1.5, 2.0, 1.0, 0.8], dtype=np.float32)
+    key = jax.random.PRNGKey(13)
+    step_noise = np.stack([np.array(jax.random.normal(k, x_t.shape, dtype=jnp.float32))
+                           for k in jax.random.split(key, timesteps)])
+    ref = jax_sampling.p_sample_loop(lambda x, t, m: _stub_eps(x, t), jnp.asarray(x_t), key, jnp.asarray(mask),
+                                     JaxSchedule.create("linear", timesteps), IS_ANGULAR, noise_scale=jnp.asarray(scale))
+    ours = sampling.p_sample_loop(lambda x, t, m: _stub_eps(x, t), torch.from_numpy(x_t), torch.from_numpy(mask),
+                                  DiffusionSchedule.create("linear", timesteps), IS_ANGULAR,
+                                  step_noise=torch.from_numpy(step_noise), noise_scale=scale)
+    assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
+
+
 def test_p_sample_loop_needs_exactly_one_noise_source():
     schedule = DiffusionSchedule.create("linear", 3)
     x = torch.zeros(1, 4, 6)
@@ -108,6 +228,24 @@ def test_sample_lengths_order_range_and_offset(mini_model):
     # Same seed, same chunks: sampling is reproducible
     again = sampling.sample(mini_model, schedule, **kw)
     assert all(np.array_equal(a, b) for a, b in zip(raw, again))
+
+
+@pytest.mark.parametrize("method", ["ddim", "dpmpp"])
+def test_sample_with_accelerated_methods(mini_model, method):
+    schedule = DiffusionSchedule.create("cosine", 250)
+    kw = dict(is_angular=IS_ANGULAR, pad=64, lengths=[30, 64, 12], batch_size=2, seed=4, method=method,
+              ddim_steps=4)
+    out = sampling.sample(mini_model, schedule, **kw)
+    assert [s.shape for s in out] == [(30, 6), (64, 6), (12, 6)]
+    assert all(np.all(np.isfinite(s)) and s[:, :5].min() >= -np.pi and s[:, :5].max() < np.pi for s in out)
+    again = sampling.sample(mini_model, schedule, **kw)
+    assert all(np.array_equal(a, b) for a, b in zip(out, again))
+    ddpm = sampling.sample(mini_model, DiffusionSchedule.create("cosine", 4), **{**kw, "method": "ddpm"})
+    assert not np.allclose(out[0], ddpm[0])
+    with pytest.raises(ValueError, match="noise_scale"):
+        sampling.sample(mini_model, schedule, **kw, noise_scale=1.2)
+    with pytest.raises(ValueError, match="method"):
+        sampling.build_sampler(mini_model, schedule, IS_ANGULAR, method="euler")
 
 
 def test_sample_sweep_and_chunks(mini_model):

@@ -1,10 +1,11 @@
 """
 The port's sampling slice end to end on the CPU: bin/sample_torch.py over the
-mini fixture, the NeRF + PDB writer against the JAX package's byte for byte,
-and the import boundary (the slice loads neither jax, flax, pandas nor
-matplotlib).
+mini fixture (DDPM, DPM-Solver++, --noise-scale and its errors), the NeRF +
+PDB writer against the JAX package's byte for byte, and the import boundary
+(the slice loads neither jax, flax, pandas nor matplotlib).
 """
 import gzip
+import importlib.util
 import os
 import subprocess
 import sys
@@ -12,6 +13,7 @@ import textwrap
 
 import numpy as np
 import pandas as pd
+import pytest
 
 from foldingdiff_tpu.geometry.featurize import create_new_chain_nerf as jax_create_new_chain_nerf
 from foldingdiff_tpu_torch.geometry.featurize import create_new_chain_nerf
@@ -25,19 +27,56 @@ def _run(args, **kw):
     return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=300, **kw)
 
 
+def _check_outputs(out_dir, lengths):
+    for i, length in enumerate(lengths):
+        with gzip.open(out_dir / "sampled_angles" / f"generated_{i}.csv.gz", "rt") as f:
+            assert f.readline().strip() == ",".join(FT_NAMES)
+        angles = np.loadtxt(out_dir / "sampled_angles" / f"generated_{i}.csv.gz", delimiter=",", skiprows=1)
+        assert angles.shape == (length, 6) and np.all(np.isfinite(angles))
+        assert angles.min() >= -np.pi and angles.max() < np.pi
+        lines = (out_dir / "sampled_pdb" / f"generated_{i}.pdb").read_text().splitlines()
+        assert sum(line.startswith("ATOM") for line in lines) == 3 * length and lines[-1] == "END"
+    assert len(os.listdir(out_dir / "sampled_pdb")) == len(lengths)
+
+
 def test_sample_torch_cli_writes_csvs_and_pdbs(tmp_path):
     proc = _run(["bin/sample_torch.py", "-m", MINI_FIXTURE, "--device", "cpu", "-n", "1", "-l", "50", "53",
                  "-b", "4", "-o", str(tmp_path)])
     assert proc.returncode == 0, proc.stderr
-    for i, length in enumerate([50, 51, 52]):
-        with gzip.open(tmp_path / "sampled_angles" / f"generated_{i}.csv.gz", "rt") as f:
-            assert f.readline().strip() == ",".join(FT_NAMES)
-        angles = np.loadtxt(tmp_path / "sampled_angles" / f"generated_{i}.csv.gz", delimiter=",", skiprows=1)
-        assert angles.shape == (length, 6) and np.all(np.isfinite(angles))
-        assert angles.min() >= -np.pi and angles.max() < np.pi
-        lines = (tmp_path / "sampled_pdb" / f"generated_{i}.pdb").read_text().splitlines()
-        assert sum(line.startswith("ATOM") for line in lines) == 3 * length and lines[-1] == "END"
-    assert len(os.listdir(tmp_path / "sampled_pdb")) == 3
+    _check_outputs(tmp_path, [50, 51, 52])
+
+
+def test_sample_torch_cli_dpmpp(tmp_path):
+    proc = _run(["bin/sample_torch.py", "-m", MINI_FIXTURE, "--device", "cpu", "--method", "dpmpp",
+                 "--ddim_steps", "3", "-n", "1", "-l", "50", "53", "-b", "4", "-o", str(tmp_path)])
+    assert proc.returncode == 0, proc.stderr
+    _check_outputs(tmp_path, [50, 51, 52])
+
+
+def _cli():
+    spec = importlib.util.spec_from_file_location("sample_torch", os.path.join(REPO, "bin", "sample_torch.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_sample_torch_cli_noise_scale(tmp_path):
+    """One value or one per feature is a DDPM temperature; other counts, and
+    any value with another method, exit with bin/sample.py's messages."""
+    base = ["-m", MINI_FIXTURE, "--device", "cpu", "-n", "1", "-l", "50", "52", "-b", "2", "--nopdb"]
+    cli = _cli()
+    runs = {scale: cli.main([*base, "-o", str(tmp_path / str(i)), "--noise-scale", scale])
+            for i, scale in enumerate(["1.0", "1.3", "0.5,1,1.5,2,1,0.8"])}
+    assert all(r["n_structures"] == 2 for r in runs.values())
+    a, b = (np.loadtxt(tmp_path / i / "sampled_angles" / "generated_0.csv.gz", delimiter=",", skiprows=1)
+            for i in ("0", "1"))
+    assert not np.allclose(a, b)  # the same seed, another temperature
+    with pytest.raises(SystemExit, match="needs 1 or 6 values, got 2"):
+        cli.main([*base, "-o", str(tmp_path / "x"), "--noise-scale", "1,2"])
+    for method in ("ddim", "dpmpp"):
+        with pytest.raises(SystemExit, match=f"method='{method}' takes none"):
+            cli.main([*base, "-o", str(tmp_path / "y"), "--method", method, "--noise-scale", "1.1"])
+    assert not (tmp_path / "y").exists()
 
 
 def test_sample_torch_cli_without_cuda_fails_fast(tmp_path):
