@@ -9,15 +9,19 @@ Phases, each printing lines of its own:
      started together
   2. each kernel against its plain PyTorch version on the card, with and
      without relative scores (v1: e_lr gathered from arange and from a
-     permuted position vector), at the denoiser's shapes; masked-key
-     invariance; kernel and plain times at the flagship shape
+     permuted position vector, and random), at the denoiser's shapes and
+     head sizes 16 and 64; masked-key invariance; kernel and plain times of
+     all four kernel instances (v1, v2; rel, rel-off) at B = 64, H = 12,
+     D = 32, L = 128 and 64
   3. the trained torch fixture loaded through models.io.from_dir onto the
      card under attention_impl "auto" (v2) and "pallas" (v1), against its
      recorded predictions (parity.npz)
   4. the flagship denoiser (12 layers x 384, 12 heads of 32, relative_key,
      M = 128) with seeded random weights, read back from a model directory,
-     "auto" and "pallas" against "plain" at B = 64, L = 128, timed; and a
-     12 x 384 `absolute` config under "pallas" (v1 without e_lr) against "plain"
+     "auto" (12 v2 launches), "pallas" (12 v1) and "auto" with permuted
+     position_ids (12 v1, no v2) against "plain" at B = 64, L = 128, timed;
+     and a 12 x 384 `absolute` config under "pallas" (v1 without e_lr)
+     against "plain"
   5. the DDPM slice: bin/sample_torch.py's main() over that model directory,
      DDPM T = 1000 over lengths 50..127 once each at batch 64; every layer of
      every reverse step must launch the v2 kernel
@@ -77,10 +81,11 @@ FLAGSHIP_TRAIN_ARGS = {
 }
 SWEEP, BATCH, BUCKET = (50, 128), 64, 64  # bin/sample_torch.py -l 50 128 -b 64 (bucket: sample()'s default)
 # (B, H, L, D, M) of the kernel checks: the flagship at its buckets and a
-# ragged length, and the fixtures' head size 16 with M = 64
+# ragged length, the fixtures' head size 16 with M = 64, and head size 64
+# with B * H = 15 (a ragged group of pairs for v1)
 V2, V1 = attention.REL_ATTENTION, attention.GATHERED_ATTENTION
 KERNEL_SHAPES = [(64, 12, 128, 32, 128), (64, 12, 64, 32, 128), (64, 12, 50, 32, 128),
-                 (16, 6, 64, 16, 64), (16, 6, 33, 16, 64)]
+                 (16, 6, 64, 16, 64), (16, 6, 33, 16, 64), (3, 5, 99, 64, 128)]
 
 
 def log(msg: str) -> None:
@@ -184,8 +189,12 @@ def phase_kernel() -> dict:
                 if rel:
                     check_masked_keys(f"v2 {shape}", lambda q_, k_, v_: attention.fused_attention_v2(
                         q_, k_, v_, bias, table, m), q, k, v, bias, out)
-            for e_kind in ("arange", "permuted", None):
-                e_lr = gathered(table, l, m, e_kind == "permuted") if e_kind else None
+            for e_kind in ("arange", "permuted", "random", None):
+                if e_kind == "random":  # not Toeplitz
+                    e_lr = torch.randn(l, l, d, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
+                                       device=DEVICE) * 0.5
+                else:
+                    e_lr = gathered(table, l, m, e_kind == "permuted") if e_kind else None
                 out = attention.fused_attention(q, k, v, bias, e_lr)
                 ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
                 worst["v1"] = max(worst["v1"], check_err(f"v1 {shape} e_lr={e_kind}", out, ref))
@@ -197,19 +206,23 @@ def phase_kernel() -> dict:
         for l in (128, 64):
             q, k, v, bias, table = attention_inputs(64, 12, l, 32, 128, SEED)
             e_lr = gathered(table, l, 128, permuted=False)
-            times["v2", l] = alternate_ms(
-                lambda: attention.fused_attention_v2_reference(q, k, v, bias, table, 128),
-                lambda: attention.fused_attention_v2(q, k, v, bias, table, 128),
-            )
-            times["v1", l] = alternate_ms(
-                lambda: attention.fused_attention_reference(q, k, v, bias, e_lr),
-                lambda: attention.fused_attention(q, k, v, bias, e_lr),
-            )
-            for entry in ("v2", "v1"):
-                plain_ms, kernel_ms = times[entry, l]
-                log(f"[2] time {entry} B=64 H=12 L={l} D=32 rel: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {entry: {"max_abs_err": worst[entry], "ms": times[entry, 128][1], "plain_ms": times[entry, 128][0]}
-            for entry in ("v2", "v1")}
+            for rel in (True, False):
+                kw2 = dict(rel_table=table, m=128) if rel else {}
+                e = e_lr if rel else None
+                times["v2", rel, l] = alternate_ms(
+                    lambda: attention.fused_attention_v2_reference(q, k, v, bias, **kw2),
+                    lambda: attention.fused_attention_v2(q, k, v, bias, **kw2),
+                )
+                times["v1", rel, l] = alternate_ms(
+                    lambda: attention.fused_attention_reference(q, k, v, bias, e),
+                    lambda: attention.fused_attention(q, k, v, bias, e),
+                )
+                for entry in ("v2", "v1"):
+                    plain_ms, kernel_ms = times[entry, rel, l]
+                    log(f"[2] time {entry} B=64 H=12 L={l} D=32 {'rel' if rel else 'rel-off'}: "
+                        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return {entry: {"max_abs_err": worst[entry], "ms": times[entry, True, 128][1],
+                    "plain_ms": times[entry, True, 128][0]} for entry in ("v2", "v1")}
 
 
 def phase_fixture() -> None:
@@ -240,19 +253,32 @@ def denoiser_inputs(b: int, l: int):
 
 
 def phase_denoiser(model_dir: str, absolute_dir: str) -> None:
+    """Each kernel route against "plain" on the same inputs. ("auto", perm):
+    "auto" given permuted position ids takes the v1 kernel on e_lr gathered
+    from them (JAX's einsum path gathers from position_ids[0]), never v2."""
     b, l = BATCH, FLAGSHIP.max_position_embeddings
     x, t, mask = denoiser_inputs(b, l)
-    for name, path, impls in (("flagship", model_dir, ("auto", "pallas")), ("absolute 12x384", absolute_dir, ("pallas",))):
+    perm = torch.randperm(l, generator=torch.Generator().manual_seed(SEED)).to(DEVICE).expand(b, l)
+    layers = FLAGSHIP.num_hidden_layers
+    for name, path, routes in (
+        ("flagship", model_dir, (("auto", None, V2), ("pallas", None, V1), ("auto", perm, V1))),
+        ("absolute 12x384", absolute_dir, (("pallas", None, V1),)),
+    ):
         plain, _ = model_io.from_dir(path, device=DEVICE, attention_impl="plain")
-        for impl in impls:
+        for impl, pos, lib in routes:
             model, _ = model_io.from_dir(path, device=DEVICE, attention_impl=impl)
+            what = f"attention_impl={impl!r}" + (", permuted position_ids" if pos is not None else "")
             with torch.inference_mode():
-                err = (model(x, t, mask) - plain(x, t, mask)).abs().max().item()
-                log(f"[4] {name} denoiser B={b} L={l}, attention_impl={impl!r} vs plain: max abs err {err:.3e}")
+                V2.launches = V1.launches = 0
+                out = model(x, t, mask, pos)
+                check_launches(f"[4] {name} {what}", {V2.name: 0, V1.name: 0, lib.name: layers})
+                err = (out - plain(x, t, mask, pos)).abs().max().item()
+                log(f"[4] {name} denoiser B={b} L={l}, {what} vs plain: max abs err {err:.3e}")
                 if not err <= DENOISER_TOL:
-                    raise RuntimeError(f"{name} denoiser {impl!r} disagrees with plain: {err} > {DENOISER_TOL}")
-                plain_ms, kernel_ms = alternate_ms(lambda: plain(x, t, mask), lambda: model(x, t, mask), iters=20)
-            log(f"[4] time one {name} denoiser call B={b} L={l}: {impl!r} {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
+                    raise RuntimeError(f"{name} denoiser {what} disagrees with plain: {err} > {DENOISER_TOL}")
+                plain_ms, kernel_ms = alternate_ms(lambda: plain(x, t, mask, pos), lambda: model(x, t, mask, pos),
+                                                   iters=20)
+            log(f"[4] time one {name} denoiser call B={b} L={l}, {what}: {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
 
 
 def expected_chunks() -> int:

@@ -1,11 +1,11 @@
 // Host-side launch helpers shared by the attention kernels of this directory.
 //
-// Both kernels run one block per (tile of query rows, head, batch item), with
-// one thread per query row, and keep K, V and the bias row in dynamic shared
-// memory. The sampler's small chunks are bound by the host's launch cost, so
-// the host side of a launch is kept small: the shared-memory opt-in is made
-// once per kernel instance and device, and the current device is switched only
-// when it is not already the tensors' own.
+// The sampler's small chunks are bound by the host's launch cost, so the host
+// side of a launch is kept small: a kernel that takes more than the default
+// 48 KB of dynamic shared memory opts in once per kernel instance and device,
+// and the current device is switched only when it is not already the tensors'
+// own. The row tiling (kMaxRows, rows_per_block) is rel_attention.cu's: one
+// block per (tile of query rows, head, batch item), one thread per query row.
 
 #pragma once
 

@@ -15,14 +15,22 @@ Numerics follow the JAX model and the reference (foldingdiff/modelling.py:
 Module names are the reference state-dict names (encoder.layer.N.attention.
 self.query, ...), so a reference .ckpt loads with load_state_dict(strict=True).
 
-attention_impl routes each layer's attention, with the JAX package's values:
-- "auto" and "pallas_v2": ops.attention.fused_attention_v2 (the CUDA kernel of
+attention_impl and relative_scores_impl route each layer's attention as the
+JAX model does (foldingdiff_tpu/models/bert.py:93-179), decided on the host
+from the config and from whether position_ids was given (see attention_route):
+- "pallas_v2": ops.attention.fused_attention_v2 (the CUDA kernel of
   csrc/rel_attention.cu on the card) on the raw distance table, with arange
   positions, as JAX's v2 kernel assumes;
 - "pallas": ops.attention.fused_attention (csrc/gathered_attention.cu) on
   e_lr gathered from position_ids[0];
-- "xla" and "plain": the plain einsums, on e_lr gathered from position_ids[0].
-`relative_key_query` runs the plain einsums under every value, as in JAX.
+- "auto": JAX's einsum path, so the positions follow relative_scores_impl:
+  under "gather" (the default) position_ids[0], which is arange when
+  position_ids is None, so that case takes the v2 kernel and a given
+  position_ids the v1 kernel; under "skew" and "onedot" arange, the v2 kernel;
+- "xla" and "plain": the plain einsums, on e_lr gathered from position_ids[0]
+  under "gather" and from arange under "skew" and "onedot".
+`relative_key_query` runs the plain einsums on position_ids[0] under every
+value, as in JAX, whose skew and onedot apply to `relative_key` only.
 The model is forward-only: it has no dropout.
 """
 from __future__ import annotations
@@ -35,8 +43,27 @@ from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.models.time_embed import get_time_encoder
 from foldingdiff_tpu_torch.ops.attention import fused_attention, fused_attention_reference, fused_attention_v2
 
-# attention_impl -> route: "v2" kernel entry, "v1" kernel entry, or "plain"
-_ROUTES = {"auto": "v2", "pallas_v2": "v2", "pallas": "v1", "xla": "plain", "plain": "plain"}
+# attention_impl -> the kernel entry it names: "v2", "v1", or "plain" (the einsums)
+_ENTRIES = {"auto": "v2", "pallas_v2": "v2", "pallas": "v1", "xla": "plain", "plain": "plain"}
+# relative_scores_impl values whose JAX einsums score arange distances
+_ARANGE_SCORES = ("skew", "onedot")
+
+
+def attention_route(config: ModelConfig, position_ids_given: bool) -> tuple[str, bool]:
+    """(entry, arange) of every layer's attention: the entry "v2", "v1" or
+    "plain", and whether its relative scores take arange positions in place
+    of position_ids[0]. Decided from the config and from whether the caller
+    gave position_ids, never from the positions' values."""
+    if config.position_embedding_type == "relative_key_query":
+        return "plain", False
+    entry = _ENTRIES[config.attention_impl]
+    arange = config.relative_scores_impl in _ARANGE_SCORES
+    if entry == "plain":
+        return "plain", arange
+    if (config.attention_impl == "auto" and not arange and position_ids_given
+            and config.position_embedding_type == "relative_key"):
+        return "v1", False
+    return entry, entry == "v2"
 
 
 def _act(name: str):
@@ -54,10 +81,9 @@ class SelfAttention(nn.Module):
 
     def __init__(self, config: ModelConfig):
         super().__init__()
-        if config.attention_impl not in _ROUTES:
-            raise ValueError(f"attention_impl {config.attention_impl!r} not in {sorted(_ROUTES)}")
+        if config.attention_impl not in _ENTRIES:
+            raise ValueError(f"attention_impl {config.attention_impl!r} not in {sorted(_ENTRIES)}")
         self.key_query = config.position_embedding_type == "relative_key_query"
-        self.route = "plain" if self.key_query else _ROUTES[config.attention_impl]
         self.n_heads = config.num_attention_heads
         self.head_size = config.attention_head_size
         self.max_pos = config.max_position_embeddings
@@ -71,15 +97,11 @@ class SelfAttention(nn.Module):
             else None
         )
 
-    @property
-    def gathers(self) -> bool:
-        """Whether forward() needs the distance index of the position ids."""
-        return self.distance_embedding is not None and self.route != "v2"
-
     def forward(
-        self, hidden: torch.Tensor, attn_bias: torch.Tensor, dist_idx: torch.Tensor | None = None
+        self, hidden: torch.Tensor, attn_bias: torch.Tensor, route: str, dist_idx: torch.Tensor | None = None
     ) -> torch.Tensor:
-        """dist_idx is distance_index(position_ids, M), needed when `gathers`."""
+        """route is attention_route's entry; dist_idx is distance_index of the
+        positions it names, needed by the "v1" and "plain" entries."""
         b, l, _ = hidden.shape
 
         def heads(x):  # (B, L, H*D) -> (B, H, L, D), the kernels' layout
@@ -87,35 +109,30 @@ class SelfAttention(nn.Module):
 
         q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
         table = self.distance_embedding.weight if self.distance_embedding is not None else None
-        if self.route == "v2":
+        if route == "v2":
             ctx = fused_attention_v2(q, k, v, attn_bias, rel_table=table,
                                      m=self.max_pos if table is not None else None)
         else:
             e_lr = gather_distance_embeddings(table, dist_idx) if table is not None else None
-            if self.route == "v1":
+            if route == "v1":
                 ctx = fused_attention(q, k, v, attn_bias, e_lr)
             else:
                 ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query)
         return ctx.transpose(1, 2).reshape(b, l, self.n_heads * self.head_size)
 
 
-def distance_index(position_ids: torch.Tensor, max_pos: int) -> torch.Tensor:
-    """idx[r, l] = pos[l] - pos[r] + M - 1 with pos = position_ids[0], the
+def distance_index(pos: torch.Tensor, max_pos: int) -> torch.Tensor:
+    """idx[l, r] = pos[l] - pos[r] + M - 1 for the (L,) positions pos, the
     rows of the distance table that JAX's gather_dist_emb reads (bert.py:
     137-142). Every index lies in the table when the positions lie in [0, M)."""
-    pos = position_ids[0]
-    return pos[None, :] - pos[:, None] + (max_pos - 1)
+    return pos[:, None] - pos[None, :] + (max_pos - 1)
 
 
 def gather_distance_embeddings(table: torch.Tensor, dist_idx: torch.Tensor) -> torch.Tensor:
-    """
-    e_lr[l, r] = table[dist_idx[r, l]], (L, L, D), as a permuted view of a
-    contiguous (D, L_key, L_query) tensor: the layout the gathered-attention
-    kernel reads, so fused_attention needs no copy. One device operation.
-    """
+    """e_lr[l, r] = table[dist_idx[l, r]], a contiguous (L, L, D) tensor, the
+    layout the gathered-attention kernel reads. One device operation."""
     l = dist_idx.shape[0]
-    elt = torch.index_select(table.t(), 1, dist_idx.reshape(-1)).view(-1, l, l)
-    return elt.permute(2, 1, 0)
+    return torch.index_select(table, 0, dist_idx.reshape(-1)).view(l, l, -1)
 
 
 class _DenseLayerNorm(nn.Module):
@@ -154,9 +171,9 @@ class Layer(nn.Module):
         self.output = _DenseLayerNorm(config.intermediate_size, config.hidden_size, config.layer_norm_eps)
 
     def forward(
-        self, hidden: torch.Tensor, attn_bias: torch.Tensor, dist_idx: torch.Tensor | None = None
+        self, hidden: torch.Tensor, attn_bias: torch.Tensor, route: str, dist_idx: torch.Tensor | None = None
     ) -> torch.Tensor:
-        attn = self.attention.self(hidden, attn_bias, dist_idx)
+        attn = self.attention.self(hidden, attn_bias, route, dist_idx)
         hidden = self.attention.output(attn, hidden)
         ff = self.act(self.intermediate.dense(hidden))
         return self.output(ff, hidden)
@@ -232,6 +249,7 @@ class BertForDiffusion(nn.Module):
         position_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
         b, l, _ = inputs.shape
+        route, arange = attention_route(self.config, position_ids is not None)
         if position_ids is None:
             position_ids = torch.arange(l, device=inputs.device).expand(b, l)
         attn_bias = (1.0 - attention_mask.to(inputs.dtype)) * -10000.0
@@ -239,8 +257,9 @@ class BertForDiffusion(nn.Module):
         hidden = self.embeddings(self.inputs_to_hidden_dim(inputs), position_ids)
         hidden = hidden + self.time_embed(timestep)[:, None, :]
         dist_idx = None
-        if self.encoder.layer and self.encoder.layer[0].attention.self.gathers:
-            dist_idx = distance_index(position_ids, self.config.max_position_embeddings)
+        if route != "v2" and self.config.position_embedding_type != "absolute":
+            pos = torch.arange(l, device=inputs.device) if arange else position_ids[0]
+            dist_idx = distance_index(pos, self.config.max_position_embeddings)
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias, dist_idx)
+            hidden = layer(hidden, attn_bias, route, dist_idx)
         return self.token_decoder(hidden)

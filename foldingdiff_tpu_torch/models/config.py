@@ -9,20 +9,22 @@ foldingdiff_tpu.data.feature_sets, which needs nothing beyond the standard
 library.
 
 Fields the port reads differently:
-- attention_impl takes the JAX package's values with the JAX meanings:
+- attention_impl and relative_scores_impl take the JAX package's values, and
+  the relative scores follow the positions that JAX's route follows:
   "pallas_v2" runs ops.attention.fused_attention_v2 (the raw distance table,
   arange positions), "pallas" runs ops.attention.fused_attention (e_lr
-  gathered from position_ids[0]), "xla" runs the plain einsums. Each kernel
-  entry launches its CUDA kernel on a CUDA tensor and its plain version on a
-  CPU tensor. "auto" (the default) is the v2 kernel entry: it was the faster
-  on the H100 (PERF.md), where JAX's "auto" picks XLA on a TPU. "plain" is a
-  second name of the plain einsums. relative_key_query always runs the plain
-  einsums, as in JAX.
-- matmul_precision, relative_scores_impl, remat and the dropout probabilities
-  are kept for config parity and not read: the port computes in float32 (the
-  caller keeps TF32 off), the relative scores are the `gather` semantics (the
-  other impls are numerically identical layouts of it for arange positions),
-  and the denoiser is forward-only.
+  gathered from position_ids[0]), "xla" runs the plain einsums, on
+  position_ids[0] under relative_scores_impl "gather" and on arange under
+  "skew" and "onedot". "plain" is a second name of "xla". "auto" (the
+  default) is JAX's einsum path computed by a kernel: the v2 kernel where the
+  positions are arange (position_ids None, or "skew" and "onedot"), the v1
+  kernel where "gather" meets a given position_ids. Each kernel entry
+  launches its CUDA kernel on a CUDA tensor and its plain version on a CPU
+  tensor. relative_key_query always runs the plain einsums on
+  position_ids[0], as in JAX. models/bert.py:attention_route decides.
+- matmul_precision, remat and the dropout probabilities are kept for config
+  parity and not read: the port computes in float32 (the caller keeps TF32
+  off) and the denoiser is forward-only.
 """
 from __future__ import annotations
 
@@ -52,7 +54,7 @@ class ModelConfig:
     decoder: str = "mlp"  # mlp | linear
     matmul_precision: str = "default"
     attention_impl: str = "auto"  # auto | pallas_v2 | pallas | xla | plain
-    relative_scores_impl: str = "gather"
+    relative_scores_impl: str = "gather"  # gather | skew | onedot
     remat: bool = False
 
     @property

@@ -43,7 +43,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 HEAD_DIMS = (16, 32, 64)  # D values the kernels are instantiated for
-SMEM_BYTES = 227 * 1024  # dynamic shared memory one block may use on Hopper
 
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
 
@@ -128,30 +127,28 @@ def fused_attention(
     q[l] . e_lr[l, j] (omitted when e_lr is None), e_lr any (L, L, D) tensor.
     Forward only: the kernel records no autograd graph.
 
-    The kernel reads e_lr in the (D, L_key, L_query) layout; a caller that
-    holds e_lr as a permuted view of a tensor in that layout (as the
-    denoiser's gather makes it) saves the copy that makes it here.
+    The kernel reads e_lr contiguous, as the denoiser's gather writes it; a
+    view in another layout is copied here first.
     """
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, mask_bias, e_lr)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention takes CPU or CUDA tensors, got {q.device}")
     b, h, l, d = _check_inputs(q, k, v, mask_bias)
-    elt = None
     if e_lr is not None:
         if e_lr.shape != (l, l, d):
             raise ValueError(f"e_lr must be {(l, l, d)}, got {tuple(e_lr.shape)}")
         _check_tensor("e_lr", e_lr, q.device)
-        elt = e_lr.permute(2, 1, 0).contiguous()
-    smem = (2 * l * d + l) * 4
-    if smem > SMEM_BYTES:
-        raise ValueError(f"L={l}, D={d} needs {smem} bytes of shared memory, above the kernel's {SMEM_BYTES}")
+        e_lr = e_lr.contiguous()
+    for name, t in {"q": q, "k": k, "v": v, "e_lr": e_lr}.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it in 16-byte pieces)")
     out = torch.empty_like(q)
     GATHERED_ATTENTION.launch(
         f"B={b} H={h} L={l} D={d}",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
-        elt.data_ptr() if elt is not None else None, out.data_ptr(),
-        b, h, l, d, int(elt is not None), q.device.index,
+        e_lr.data_ptr() if e_lr is not None else None, out.data_ptr(),
+        b, h, l, d, int(e_lr is not None), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     return out
@@ -192,6 +189,8 @@ def fused_attention_v2(
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_v2 takes CPU or CUDA tensors, got {q.device}")
     b, h, l, d = _check_inputs(q, k, v, mask_bias)
+    if b > 65535 or h > 65535:
+        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid limit of 65535")
     has_rel = rel_table is not None
     if has_rel:
         _check_tensor("rel_table", rel_table, q.device)
@@ -223,7 +222,7 @@ def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 def _check_inputs(q, k, v, mask_bias):
     """Checks shared by both kernels: device, dtype, contiguity and shapes of
-    q, k, v and the bias, the head size and the grid limit."""
+    q, k, v and the bias, and the head size."""
     for name, t in {"q": q, "k": k, "v": v, "mask_bias": mask_bias}.items():
         _check_tensor(name, t, q.device)
         if not t.is_contiguous():
@@ -237,8 +236,6 @@ def _check_inputs(q, k, v, mask_bias):
         raise ValueError(f"mask_bias must be {(b, l)}, got {tuple(mask_bias.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head size {d} not in the kernel's {HEAD_DIMS}")
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid limit of 65535")
     return b, h, l, d
 
 

@@ -107,6 +107,33 @@ def test_gathered_kernel_matches_plain(device, b, h, l, d, m, e_lr_kind):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+# (B, H, L, D) of the v1 kernel's edges: B * H = 15 and 3 leave the last group
+# of 8 pairs ragged; L = 1, 33, 99, 127 end inside a tile of 16 query rows and
+# inside a chunk of keys; D = 16, 32, 64 (chunks of 8, 4, 2 keys); L = 1000
+# needs more than the 227 KB of shared memory that K and V of one pair took in
+# the first design (2 L D + L floats)
+GATHERED_SHAPES = [(3, 5, 1, 32), (3, 5, 33, 16), (3, 5, 99, 64), (1, 3, 127, 32), (1, 2, 1000, 32)]
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "permuted view"])
+@pytest.mark.parametrize("b,h,l,d", GATHERED_SHAPES)
+def test_gathered_kernel_ragged_shapes_and_layouts(device, b, h, l, d, layout):
+    """e_lr random (not Toeplitz), contiguous or a permuted view of a
+    (D, L_key, L_query) tensor, which the wrapper copies."""
+    q, k, v, bias, _ = _inputs(device, b, h, l, d, l)
+    e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(3), device=device) * 0.5
+    if layout == "permuted view":
+        e_lr = e_lr.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    with torch.inference_mode():
+        before = attention.GATHERED_ATTENTION.launches
+        out = attention.fused_attention(q, k, v, bias, e_lr)
+        torch.cuda.synchronize()
+        assert attention.GATHERED_ATTENTION.launches == before + 1
+        ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
+    assert out.shape == q.shape and out.device == q.device
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
 def test_gathered_kernel_ignores_masked_keys(device):
     q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
     e_lr = _e_lr(table, 96, 128, "permuted")
@@ -132,9 +159,10 @@ def test_gathered_wrapper_rejects_what_the_kernel_does_not_take(device):
             attention.fused_attention(q, k, v, bias, e_lr[:8])
         with pytest.raises(ValueError, match="on cpu"):
             attention.fused_attention(q, k, v, bias, e_lr.cpu())
-        big = torch.zeros(1, 1, 1024, 64, device=device)
-        with pytest.raises(ValueError, match="shared memory"):
-            attention.fused_attention(big, big, big, torch.zeros(1, 1024, device=device))
+        # contiguous, but one float past a 16-byte boundary: the kernel copies in 16-byte pieces
+        shifted = torch.zeros(k.numel() + 1, device=device)[1:].view_as(k)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.fused_attention(q, shifted, v, bias, e_lr)
     with pytest.raises(RuntimeError, match="forward-only"):
         attention.fused_attention(q.requires_grad_(), k, v, bias, e_lr)
 

@@ -100,8 +100,9 @@ def jax_einsum_reference():
     return get
 
 
-def _port_model(params, constants, position_embedding_type, attention_impl):
-    config = ModelConfig(**SMALL, position_embedding_type=position_embedding_type, attention_impl=attention_impl)
+def _port_model(params, constants, position_embedding_type, attention_impl, **fields):
+    config = ModelConfig(**SMALL, position_embedding_type=position_embedding_type, attention_impl=attention_impl,
+                         **fields)
     model = BertForDiffusion(config).eval()
     model.load_state_dict(model_io.state_dict_from_flax(params, constants, config), strict=True)
     return model
@@ -115,14 +116,55 @@ def test_attention_impls_match_jax_einsum_path(jax_einsum_reference, position_em
     np.testing.assert_allclose(_torch_forward(model, *inputs), ref, atol=1e-5)
 
 
-@pytest.mark.parametrize("attention_impl", ["pallas", "xla", "plain"])
+@pytest.mark.parametrize("attention_impl", ["auto", "pallas", "xla", "plain"])
 def test_permuted_position_ids_match_jax_einsum_path(jax_einsum_reference, attention_impl):
-    """The pallas and plain paths gather the distance embeddings from
-    position_ids[0], as JAX's gather_dist_emb does; L = M keeps every index
-    in the table."""
+    """The auto (v1 kernel when position_ids is given), pallas and plain paths
+    gather the distance embeddings from position_ids[0], as JAX's
+    gather_dist_emb does; L = M keeps every index in the table."""
     params, constants, inputs, perm, arange_ref, ref = jax_einsum_reference("relative_key")
     assert np.abs(ref - arange_ref).max() > 1e-3  # the positions matter
     model = _port_model(params, constants, "relative_key", attention_impl)
+    np.testing.assert_allclose(_torch_forward(model, *inputs, perm), ref, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_scores_impl_reference(jax_einsum_reference):
+    """JAX's output for relative_key with the permuted position ids under
+    (relative_scores_impl, attention_impl), the weights and inputs of
+    jax_einsum_reference."""
+    params, constants, inputs, perm, _, _ = jax_einsum_reference("relative_key")
+    cache = {}
+
+    def get(relative_scores_impl, attention_impl):
+        key = (relative_scores_impl, attention_impl)
+        if key not in cache:
+            jax_config = JaxConfig(**SMALL, position_embedding_type="relative_key",
+                                   relative_scores_impl=relative_scores_impl, attention_impl=attention_impl)
+            cache[key] = _jax_forward(jax_config, params, constants, *inputs, perm)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("attention_impl", ATTENTION_IMPLS)
+@pytest.mark.parametrize("relative_scores_impl", ["skew", "onedot"])
+def test_relative_scores_impl_positions_match_jax(jax_einsum_reference, jax_scores_impl_reference,
+                                                  relative_scores_impl, attention_impl):
+    """JAX's skew and onedot einsums score arange distances whatever the
+    position ids, its pallas kernel gathers from position_ids[0] and its
+    pallas_v2 kernel takes arange, whatever relative_scores_impl is. The JAX
+    Pallas routes run on a TPU only, so "pallas" and "pallas_v2" are held
+    against the einsum outputs those routes equal: gather on the permuted
+    positions, and arange."""
+    params, constants, inputs, perm, arange_ref, gather_ref = jax_einsum_reference("relative_key")
+    if attention_impl == "pallas":
+        ref = gather_ref
+    elif attention_impl == "pallas_v2":
+        ref = arange_ref
+    else:
+        ref = jax_scores_impl_reference(relative_scores_impl, attention_impl)
+        np.testing.assert_allclose(ref, arange_ref, atol=1e-5)  # JAX scores arange here
+    model = _port_model(params, constants, "relative_key", attention_impl, relative_scores_impl=relative_scores_impl)
     np.testing.assert_allclose(_torch_forward(model, *inputs, perm), ref, atol=1e-5)
 
 
