@@ -68,11 +68,13 @@ def main(argv=None) -> dict:
         raise SystemExit("--noise-scale is a DDPM posterior-noise temperature; "
                          f"method={args.method!r} takes none")
     import numpy as np
-    import torch
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"--device {args.device}: no CUDA device is available")
+    from foldingdiff_tpu_torch.devices import require_device
+
+    try:
+        device = require_device(args.device, "--device")
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from None
 
     from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
     from foldingdiff_tpu_torch.diffusion import sampling as samp

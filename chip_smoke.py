@@ -7,12 +7,17 @@ Phases, each printing lines of its own:
   1. build both attention kernels (csrc/rel_attention.cu, the v2 entry, and
      csrc/gathered_attention.cu, the v1 entry) with nvcc, one process each,
      started together
+  1. (also) fails if ptxas reports a spill in any kernel instance
   2. each kernel against its plain PyTorch version on the card, with and
      without relative scores (v1: e_lr gathered from arange and from a
      permuted position vector, and random), at the denoiser's shapes and
-     head sizes 16 and 64; masked-key invariance; kernel and plain times of
-     all four kernel instances (v1, v2; rel, rel-off) at B = 64, H = 12,
-     D = 32, L = 128 and 64
+     head sizes 16 and 64; v2 also on strided (B, L, H, D) views of the
+     projections, returning a (B, L, H, D) buffer; masked-key invariance;
+     kernel, plain and library times (SDPA for the rel-off instances), taken
+     in turns, of all four kernel instances (v1, v2; rel, rel-off) at
+     H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
+     its bound: the larger of its FLOPs over 67 TFLOP/s and its bytes over
+     3.35 TB/s
   3. the trained torch fixture loaded through models.io.from_dir onto the
      card under attention_impl "auto" (v2) and "pallas" (v1), against its
      recorded predictions (parity.npz)
@@ -24,7 +29,11 @@ Phases, each printing lines of its own:
      against "plain"
   5. the DDPM slice: bin/sample_torch.py's main() over that model directory,
      DDPM T = 1000 over lengths 50..127 once each at batch 64; every layer of
-     every reverse step must launch the v2 kernel
+     every reverse step must launch the v2 kernel (12 per step); then a
+     torch.profiler window of a few DDPM steps under "auto" and "pallas" at
+     both chunk shapes: device operations, busy time and kernel groups per
+     step; "auto" must run 62 fewer device operations per step than
+     "pallas" at B = 64, L = 128 (no layout copies around the v2 kernel)
   6. the new paths at full width: the flagship under "pallas" through
      sampling.sample (DDPM T = 1000, the same sweep), every layer of every
      step launching the v1 kernel and none the v2; then bin/sample_torch.py
@@ -43,6 +52,8 @@ import dataclasses
 import importlib.util
 import json
 import math
+import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -51,6 +62,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
@@ -80,12 +92,16 @@ FLAGSHIP_TRAIN_ARGS = {
     "dropout_p": 0.1, "decoder": "mlp",
 }
 SWEEP, BATCH, BUCKET = (50, 128), 64, 64  # bin/sample_torch.py -l 50 128 -b 64 (bucket: sample()'s default)
-# (B, H, L, D, M) of the kernel checks: the flagship at its buckets and a
-# ragged length, the fixtures' head size 16 with M = 64, and head size 64
-# with B * H = 15 (a ragged group of pairs for v1)
+# (B, H, L, D, M) of the kernel checks: the flagship at its buckets, the
+# sweep's two chunks (15 lengths at 64, 63 at 128) and a ragged length, the
+# fixtures' head size 16 with M = 64, and head size 64 with B * H = 15 (a
+# ragged group of pairs for v1)
 V2, V1 = attention.REL_ATTENTION, attention.GATHERED_ATTENTION
-KERNEL_SHAPES = [(64, 12, 128, 32, 128), (64, 12, 64, 32, 128), (64, 12, 50, 32, 128),
-                 (16, 6, 64, 16, 64), (16, 6, 33, 16, 64), (3, 5, 99, 64, 128)]
+KERNEL_SHAPES = [(64, 12, 128, 32, 128), (64, 12, 64, 32, 128), (15, 12, 64, 32, 128), (63, 12, 128, 32, 128),
+                 (64, 12, 50, 32, 128), (16, 6, 64, 16, 64), (16, 6, 33, 16, 64), (3, 5, 99, 64, 128)]
+# (B, L) of the timed calls at H = 12, D = 32: the flagship at the sweep's
+# two buckets, and sample()'s small chunk of the sweep (15 lengths at 64)
+TIMED = [(64, 128), (64, 64), (15, 64)]
 
 
 def log(msg: str) -> None:
@@ -104,6 +120,51 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """Mean device time of fn() in milliseconds: iters calls captured in one
+    CUDA graph and replayed, timed by CUDA events, so the host's launch cost
+    is left out."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(fns: dict) -> dict:
+    """{name: device ms} of each fn, the mean of two graph_ms runs taken in
+    turns, forwards then backwards (plain, kernel, library, library, kernel,
+    plain)."""
+    times = {name: [graph_ms(fn)] for name, fn in fns.items()}
+    for name, fn in reversed(fns.items()):
+        times[name].append(graph_ms(fn))
+    return {name: sum(t) / 2 for name, t in times.items()}
+
+
+PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: float32 outside the tensor cores; HBM3
+
+
+def bound(entry: str, rel: bool, b: int, h: int, l: int, d: int, m: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for one call,
+    the larger of its FLOPs (q.k, q.E and p.v products, 2 per FMA) over the
+    float32 peak and its bytes (q, k, v, bias and the table or e_lr read once,
+    out written once) over the memory rate."""
+    flops = 2 * b * h * l * l * d * (3 if rel else 2)
+    floats = 4 * b * h * l * d + b * l + (((2 * m - 1) * d if entry == "v2" else l * l * d) if rel else 0)
+    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, 4 * floats / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def alternate_ms(plain, kernel, **kw) -> tuple[float, float]:
@@ -141,13 +202,18 @@ def phase_build() -> None:
     start = time.perf_counter()
     reports = attention.build()
     seconds = time.perf_counter() - start
+    spills = []
     for lib in attention.LIBRARIES:
         report = reports[lib.name]
         log(f"[1] {lib.library_path().relative_to(REPO)}" + ("" if report else " (already built)"))
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[1]   {line.strip()}")
+            if re.search(r"[1-9]\d* bytes spill", line):
+                spills.append(f"{lib.name}: {line.strip()}")
     log(f"[1] built both libraries in {seconds:.3f} s (one nvcc each, in parallel)")
+    if spills:
+        raise RuntimeError("ptxas spilled registers:\n" + "\n".join(spills))
 
 
 def check_err(tag: str, out: torch.Tensor, ref: torch.Tensor) -> float:
@@ -175,20 +241,43 @@ def gathered(table: torch.Tensor, l: int, m: int, permuted: bool) -> torch.Tenso
     return table[pos[:, None] - pos[None, :] + m - 1]
 
 
+def projection_views(b: int, h: int, l: int, d: int, seed: int):
+    """q, k, v as the denoiser hands them to the v2 kernel: the
+    .view(B, L, H, D).transpose(1, 2) of (B, L, H * D) projections."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(b, l, h * d, generator=g, device=DEVICE).view(b, l, h, d).transpose(1, 2) for _ in range(3)]
+
+
+def check_layout(tag: str, out: torch.Tensor, b: int, h: int, l: int, d: int) -> None:
+    """The v2 kernel returns a (B, H, L, D) view of a contiguous (B, L, H, D) buffer."""
+    if out.shape != (b, h, l, d) or out.stride() != (l * h * d, d, h * d, 1):
+        raise RuntimeError(f"{tag}: output {tuple(out.shape)} strides {out.stride()}, "
+                           f"expected a (B, H, L, D) view of a (B, L, H, D) buffer")
+
+
 def phase_kernel() -> dict:
     worst = {"v2": 0.0, "v1": 0.0}
     with torch.inference_mode():
         for b, h, l, d, m in KERNEL_SHAPES:
             q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED + l + d)
+            views = projection_views(b, h, l, d, SEED + l)
             shape = f"B={b} H={h} L={l} D={d} M={m}"
             for rel in (True, False):
                 kw = dict(rel_table=table, m=m) if rel else {}
                 out = attention.fused_attention_v2(q, k, v, bias, **kw)
                 ref = attention.fused_attention_v2_reference(q, k, v, bias, **kw)
                 worst["v2"] = max(worst["v2"], check_err(f"v2 {shape} rel={rel}", out, ref))
+                check_layout(f"v2 {shape}", out, b, h, l, d)
+                out_s = attention.fused_attention_v2(*views, bias, **kw)
+                ref_s = attention.fused_attention_v2_reference(*views, bias, **kw)
+                worst["v2"] = max(worst["v2"], check_err(f"v2 {shape} rel={rel} on (B, L, H, D) views", out_s, ref_s))
+                check_layout(f"v2 {shape} on views", out_s, b, h, l, d)
                 if rel:
                     check_masked_keys(f"v2 {shape}", lambda q_, k_, v_: attention.fused_attention_v2(
                         q_, k_, v_, bias, table, m), q, k, v, bias, out)
+                    check_masked_keys(f"v2 {shape} on views", lambda q_, k_, v_: attention.fused_attention_v2(
+                        *(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q_, k_, v_)), bias, table, m),
+                        q, k, v, bias, out)
             for e_kind in ("arange", "permuted", "random", None):
                 if e_kind == "random":  # not Toeplitz
                     e_lr = torch.randn(l, l, d, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
@@ -202,27 +291,39 @@ def phase_kernel() -> dict:
                     check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
                         q_, k_, v_, bias, e_lr), q, k, v, bias, out)
 
-        times = {}
-        for l in (128, 64):
-            q, k, v, bias, table = attention_inputs(64, 12, l, 32, 128, SEED)
-            e_lr = gathered(table, l, 128, permuted=False)
+        results = {}
+        for b, l in TIMED:
+            h, d, m = 12, 32, 128
+            q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED)
+            views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]  # (B, L, H, D) storage
+            e_lr = gathered(table, l, m, permuted=False)
+            mask = bias[:, None, None, :]
             for rel in (True, False):
-                kw2 = dict(rel_table=table, m=128) if rel else {}
+                kw2 = dict(rel_table=table, m=m) if rel else {}
                 e = e_lr if rel else None
-                times["v2", rel, l] = alternate_ms(
-                    lambda: attention.fused_attention_v2_reference(q, k, v, bias, **kw2),
-                    lambda: attention.fused_attention_v2(q, k, v, bias, **kw2),
-                )
-                times["v1", rel, l] = alternate_ms(
-                    lambda: attention.fused_attention_reference(q, k, v, bias, e),
-                    lambda: attention.fused_attention(q, k, v, bias, e),
-                )
-                for entry in ("v2", "v1"):
-                    plain_ms, kernel_ms = times[entry, rel, l]
-                    log(f"[2] time {entry} B=64 H=12 L={l} D=32 {'rel' if rel else 'rel-off'}: "
-                        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return {entry: {"max_abs_err": worst[entry], "ms": times[entry, True, 128][1],
-                    "plain_ms": times[entry, True, 128][0]} for entry in ("v2", "v1")}
+                library = None
+                if not rel:  # one PyTorch call computes the rel-off function: SDPA, scale 1/sqrt(D), mask added
+                    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                    check_err(f"SDPA B={b} L={l} rel-off (the library yardstick)", library(),
+                              attention.fused_attention_reference(q, k, v, bias))
+                for entry, kernel, plain in (
+                    ("v2", lambda: attention.fused_attention_v2(*views, bias, **kw2),
+                     lambda: attention.fused_attention_v2_reference(q, k, v, bias, **kw2)),
+                    ("v1", lambda: attention.fused_attention(q, k, v, bias, e),
+                     lambda: attention.fused_attention_reference(q, k, v, bias, e)),
+                ):
+                    fns = {"plain": plain, "kernel": kernel, **({"library": library} if library else {})}
+                    times = in_turns(fns)
+                    bound_ms, bound_by = bound(entry, rel, b, h, l, d, m)
+                    results[entry, rel, b, l] = {**times, "bound_ms": bound_ms, "bound_by": bound_by}
+                    lib_text = f"{times['library']:.4f} ms (SDPA)" if library else "none"
+                    log(f"[2] time {entry} B={b} H={h} L={l} D={d} {'rel' if rel else 'rel-off'} (device, CUDA graph): "
+                        f"kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, library {lib_text}; "
+                        f"bound {bound_ms * 1e3:.1f} us ({bound_by}), {bound_ms / times['kernel']:.1%} of it")
+    flagship = {entry: results[(entry, True, *TIMED[0])] for entry in ("v2", "v1")}  # B=64, L=128
+    return {entry: {"max_abs_err": worst[entry], "ms": r["kernel"], "plain_ms": r["plain"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+            for entry, r in flagship.items()}
 
 
 def phase_fixture() -> None:
@@ -348,6 +449,88 @@ def phase_slice(model_dir: str, out_dir: str, card: str) -> int:
     return V2.launches
 
 
+def kernel_group(name: str) -> str:
+    """The group of a device event, by its kernel name."""
+    low = name.lower()
+    for group, keys in (("attention v2", ("rel_attention",)), ("attention v1", ("gathered_attention",)),
+                        ("gemm", ("gemm", "xmma", "cutlass", "sm80_", "sm90_")),
+                        ("gather", ("gather", "indexselect", "index_select")),
+                        ("copy", ("copy",)), ("layer norm", ("layer_norm",))):
+        if any(key in low for key in keys):
+            return group
+    return "other elementwise"
+
+
+def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10) -> dict:
+    """DDPM reverse steps of the flagship under `impl` (p_sample_loop's body:
+    one normal draw and p_sample_step), at batch b and length l. Wall: the
+    host clock around `steps` synchronised steps, profiler off, the median of
+    three. Then one torch.profiler window of `steps` steps: device events
+    (kernels, memcpy, memset) per step, their busy time (the union of their
+    intervals), the busy share of the first-to-last event span, and device
+    time per kernel group."""
+    model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl)
+    schedule = DiffusionSchedule.create("cosine", 1000, device=DEVICE)
+    x, _, mask = denoiser_inputs(b, l)
+    is_angular = torch.ones(6, dtype=torch.bool, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def run(n: int) -> None:
+        y = x
+        for t in range(999, 999 - n, -1):
+            z = torch.randn(y.shape, generator=gen, device=DEVICE)
+            y = sampling.p_sample_step(model, y, t, z, mask, schedule, is_angular)
+        torch.cuda.synchronize()
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        run(3)
+        walls = []
+        for _ in range(3):
+            start = time.perf_counter()
+            run(steps)
+            walls.append((time.perf_counter() - start) / steps * 1e3)
+        with torch.profiler.profile(activities=activities) as prof:
+            run(steps)
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    busy, end, groups = 0.0, -math.inf, {}
+    for e in events:
+        start, stop = e.time_range.start, e.time_range.end
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+        ms, n = groups.get(kernel_group(e.name), (0.0, 0))
+        groups[kernel_group(e.name)] = (ms + (stop - start) / 1e3 / steps, n + 1 / steps)
+    span = (end - events[0].time_range.start) if events else 0.0
+    return {"events": len(events) / steps, "copies": groups.get("copy", (0.0, 0))[1],
+            "busy_ms": busy / 1e3 / steps, "busy_share": busy / span if span else 0.0,
+            "wall_ms": statistics.median(walls), "walls": walls, "groups": groups}
+
+
+def phase_profile(model_dir: str, card: str) -> None:
+    """Device operations per DDPM step under "auto" (v2 on the projections'
+    views) and "pallas" (v1 on contiguous copies, with its e_lr gather)."""
+    profiles = {}
+    for b, l in ((BATCH, 128), (15, 64)):
+        for impl in ("auto", "pallas"):
+            r = profiles[impl, b, l] = profile_steps(model_dir, impl, b, l)
+            groups = ", ".join(f"{g} {ms:.4f} ({n:.0f})" for g, (ms, n) in
+                               sorted(r["groups"].items(), key=lambda kv: -kv[1][0]))
+            log(f"[5] profile DDPM step on {card}, attention_impl={impl!r} B={b} L={l}: "
+                f"{r['events']:.1f} device operations per step ({r['copies']:.1f} copies), "
+                f"busy {r['busy_ms']:.4f} ms, busy share {r['busy_share']:.4f}, "
+                f"wall {r['wall_ms']:.4f} ms (profiler off; {', '.join(f'{w:.4f}' for w in r['walls'])}); "
+                f"device ms (operations) per step by group: {groups}")
+    auto, pallas = profiles["auto", BATCH, 128], profiles["pallas", BATCH, 128]
+    if auto["events"] == 0:
+        raise RuntimeError("torch.profiler recorded no device events")
+    gap = pallas["events"] - auto["events"]
+    log(f"[5] device operations per step at B={BATCH} L=128: auto {auto['events']:.1f}, pallas {pallas['events']:.1f}, "
+        f"gap {gap:.1f} (expected 62: pallas's 12 gathers, 2 index operations and 48 layout copies)")
+    if gap != 62:
+        raise RuntimeError(f"auto runs {gap} fewer device operations per step than pallas, expected 62")
+
+
 def phase_new_paths(model_dir: str, tmp: str, card: str) -> int:
     layers, n_chunks = FLAGSHIP.num_hidden_layers, expected_chunks()
     timesteps = FLAGSHIP_TRAIN_ARGS["timesteps"]
@@ -395,6 +578,7 @@ def main() -> None:
             del weights
         phase_denoiser(model_dir, absolute_dir)
         v2_launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
+        phase_profile(model_dir, card)
         v1_launches = phase_new_paths(model_dir, tmp, card)
 
     log(json.dumps({"kernels": [

@@ -3,23 +3,18 @@
 // The sampler's small chunks are bound by the host's launch cost, so the host
 // side of a launch is kept small: a kernel that takes more than the default
 // 48 KB of dynamic shared memory opts in once per kernel instance and device,
-// and the current device is switched only when it is not already the tensors'
-// own. The row tiling (kMaxRows, rows_per_block) is rel_attention.cu's: one
-// block per (tile of query rows, head, batch item), one thread per query row.
+// and the current device is switched only when it is not already the
+// tensors' own.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include <algorithm>
 #include <atomic>
 
 namespace attn {
 
-constexpr int kMaxRows = 128;    // query rows (threads) per block
 constexpr int kMaxDevices = 64;  // devices the opt-in bookkeeping tracks
-
-inline int rows_per_block(int L) { return std::min(((L + 31) / 32) * 32, kMaxRows); }
 
 // Dynamic shared memory above 48 KB needs an opt-in per kernel and device.
 // `granted` is the kernel instance's own record of the largest size it has

@@ -13,7 +13,7 @@ from typing import Optional
 
 import numpy as np
 
-from foldingdiff_tpu.data.feature_sets import (
+from foldingdiff_tpu_torch.data.feature_sets import (
     FEATURE_SET_NAMES_TO_ANGULARITY,
     FEATURE_SET_NAMES_TO_FEATURE_NAMES,
 )

@@ -30,10 +30,9 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from foldingdiff_tpu.utils import modulo_with_wrapped_range
 from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
-from foldingdiff_tpu_torch.ops.angles import wrap_angular_features
+from foldingdiff_tpu_torch.ops.angles import wrap_angles, wrap_angular_features
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 SAMPLING_METHODS = ("ddpm", "ddim", "dpmpp")
@@ -379,7 +378,7 @@ def sample(
         shifted = []
         for s in retval:
             s = s + mean_offset
-            s[..., angular_idx] = modulo_with_wrapped_range(s[..., angular_idx], -np.pi, np.pi)
+            s[..., angular_idx] = wrap_angles(s[..., angular_idx])
             shifted.append(s)
         retval = shifted
     return retval

@@ -15,6 +15,8 @@ from typing import Literal
 import numpy as np
 import torch
 
+from foldingdiff_tpu_torch.devices import require_device
+
 SCHEDULES = Literal["linear", "cosine", "quadratic"]
 
 
@@ -99,8 +101,11 @@ class DiffusionSchedule:
 
     @classmethod
     def create(
-        cls, keyword: SCHEDULES, timesteps: int, device: torch.device | str = "cpu", **kwargs
+        cls, keyword: SCHEDULES, timesteps: int, device: torch.device | str = "cuda", **kwargs
     ) -> "DiffusionSchedule":
+        """`device` is the card unless the caller asks for the CPU; without a
+        card the default raises at once (devices.require_device)."""
+        device = require_device(device)
         betas = get_variance_schedule(keyword, timesteps, **kwargs)
         terms = compute_alphas(betas)
         terms["sqrt_recip_alphas"] = 1.0 / np.sqrt(terms["alphas"])

@@ -4,9 +4,8 @@ Model configuration (counterpart of foldingdiff_tpu/models/config.py).
 Its own copy of `ModelConfig`, with the same fields and defaults as the JAX
 dataclass (tests/test_torch_ops.py keeps them equal), so one config.json /
 training_args.json drives both packages. The JAX module cannot be imported
-here: its package pulls in flax. The feature-set registry is imported from
-foldingdiff_tpu.data.feature_sets, which needs nothing beyond the standard
-library.
+here: its package pulls in flax. The feature-set registry is the port's own
+copy too (data/feature_sets.py): the port imports nothing of the JAX package.
 
 Fields the port reads differently:
 - attention_impl and relative_scores_impl take the JAX package's values, and
@@ -31,6 +30,11 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Tuple
+
+from foldingdiff_tpu_torch.data.feature_sets import (
+    FEATURE_SET_NAMES_TO_ANGULARITY,
+    FEATURE_SET_NAMES_TO_FEATURE_NAMES,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,11 +77,6 @@ class ModelConfig:
     @classmethod
     def from_train_args(cls, train_args: dict, ft_is_angular=None, ft_names=None) -> "ModelConfig":
         """Build from a reference-style training_args.json dict."""
-        from foldingdiff_tpu.data.feature_sets import (
-            FEATURE_SET_NAMES_TO_ANGULARITY,
-            FEATURE_SET_NAMES_TO_FEATURE_NAMES,
-        )
-
         key = train_args.get("angles_definitions", "canonical-full-angles")
         if ft_is_angular is None:
             ft_is_angular = FEATURE_SET_NAMES_TO_ANGULARITY[key]

@@ -25,6 +25,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from foldingdiff_tpu_torch.devices import require_device
 from foldingdiff_tpu_torch.models.bert import BertForDiffusion
 from foldingdiff_tpu_torch.models.config import ModelConfig
 
@@ -203,15 +204,18 @@ def resolve_model_dir(name_or_dir: str) -> str:
 
 def from_dir(
     dirname: str,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     **config_overrides,
 ) -> Tuple[BertForDiffusion, Dict]:
     """
     Load a model directory (reference layout or the JAX package's native
     msgpack layout). Returns (model in eval mode on `device`, train_args).
+    `device` is the card unless the caller asks for the CPU; without a card
+    the default raises at once (devices.require_device).
     The checkpoint is the latest epoch under models/best_by_valid/.
     `config_overrides` replace config fields, e.g. attention_impl="plain".
     """
+    device = require_device(device)
     dirname = resolve_model_dir(dirname)
     with open(os.path.join(dirname, "training_args.json")) as f:
         train_args = json.load(f)

@@ -12,7 +12,8 @@ import torch
 
 
 def wrap_angles(x: torch.Tensor, range_min: float = -math.pi, range_max: float = math.pi) -> torch.Tensor:
-    """Wrap values into [range_min, range_max) with floored modulo."""
+    """Wrap values into [range_min, range_max) with floored modulo. Operators
+    only, so a numpy array is wrapped the same way, as numpy floors `%` too."""
     top = range_max - range_min
     return ((x - range_min) % top) + range_min
 

@@ -3,8 +3,10 @@ Fused BERT attention (counterpart of foldingdiff_tpu/ops/pallas_attention.py).
 
 Two entries, as in the JAX package, each with a plain PyTorch version beside it:
 - `fused_attention_v2` (the raw (2M-1, D) `relative_key` table, arange
-  positions) launches the CUDA kernel of csrc/rel_attention.cu;
-  `fused_attention_v2_reference` is its plain version.
+  positions) launches the CUDA kernel of csrc/rel_attention.cu, which reads
+  q, k and v in the projections' layout (strided (B, H, L, D) views of
+  (B, L, H, D) storage) and returns such a view; `fused_attention_v2_reference`
+  is its plain version.
 - `fused_attention` (any gathered (L, L, D) tensor e_lr) launches the CUDA
   kernel of csrc/gathered_attention.cu; `fused_attention_reference` is its
   plain version, the einsums of the JAX package's attention_reference.
@@ -86,8 +88,8 @@ class CudaLibrary:
         self.launches += 1
 
 
-# (q, k, v, bias, table, out, B, H, L, D, M, has_rel, device, stream)
-REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [_int] * 7 + [_ptr])
+# (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel, device, stream)
+REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 7 + [_ptr])
 # (q, k, v, bias, elt, out, B, H, L, D, has_rel, device, stream)
 GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 6 + [_ptr])
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
@@ -183,32 +185,40 @@ def fused_attention_v2(
     softmax((q k^T + rel) / sqrt(D) + mask_bias) v with the HF relative_key
     term rel[l, j] = q[l] . rel_table[l - j + m - 1] (omitted when rel_table
     is None). Forward only: the kernel records no autograd graph.
+
+    The kernel reads q, k and v in any layout whose last dimension has
+    stride 1 and whose rows start on 16 bytes, such as the
+    `.view(B, L, H, D).transpose(1, 2)` of the projections, and returns a
+    (B, H, L, D) view of a contiguous (B, L, H, D) buffer, so that the
+    caller's transpose back to (B, L, H * D) is free. Other layouts raise;
+    nothing is copied.
     """
     if q.device.type == "cpu":
         return fused_attention_v2_reference(q, k, v, mask_bias, rel_table, m)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_v2 takes CPU or CUDA tensors, got {q.device}")
-    b, h, l, d = _check_inputs(q, k, v, mask_bias)
-    if b > 65535 or h > 65535:
-        raise ValueError(f"batch {b} or heads {h} exceed the kernel's grid limit of 65535")
+    b, h, l, d = _check_inputs(q, k, v, mask_bias, strided=True)
     has_rel = rel_table is not None
     if has_rel:
         _check_tensor("rel_table", rel_table, q.device)
-        if not rel_table.is_contiguous():
-            raise ValueError("rel_table must be contiguous")
+        if not rel_table.is_contiguous() or rel_table.data_ptr() % 16:
+            raise ValueError("rel_table must be contiguous and start on a 16-byte boundary")
         if m is None or rel_table.shape != (2 * m - 1, d):
             raise ValueError(f"rel_table must be (2m-1, {d}) with m given, got {tuple(rel_table.shape)}, m={m}")
         if l > m:
             raise ValueError(f"sequence length {l} exceeds max_position_embeddings {m}")
-    out = torch.empty_like(q)
+    if b * h * -(-l // 64) > 2**31 - 1:
+        raise ValueError(f"B={b} H={h} L={l} exceeds the kernel's grid limit of 2^31 - 1 blocks")
+    out = torch.empty(b, l, h, d, device=q.device)
+    sb, sh, sl, _ = q.stride()
     REL_ATTENTION.launch(
         f"B={b} H={h} L={l} D={d}",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
-        rel_table.data_ptr() if has_rel else None, out.data_ptr(),
+        rel_table.data_ptr() if has_rel else None, out.data_ptr(), sb, sh, sl,
         b, h, l, d, m if has_rel else l, int(has_rel), q.device.index,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    return out
+    return out.transpose(1, 2)
 
 
 def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
@@ -220,22 +230,37 @@ def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise RuntimeError("the attention kernels are forward-only; call them under torch.inference_mode()")
 
 
-def _check_inputs(q, k, v, mask_bias):
-    """Checks shared by both kernels: device, dtype, contiguity and shapes of
-    q, k, v and the bias, and the head size."""
-    for name, t in {"q": q, "k": k, "v": v, "mask_bias": mask_bias}.items():
-        _check_tensor(name, t, q.device)
-        if not t.is_contiguous():
+def _check_inputs(q, k, v, mask_bias, strided: bool = False):
+    """Checks shared by both kernels: device, dtype, layout and shapes of q,
+    k, v and the bias, and the head size. The v1 kernel takes contiguous q,
+    k, v. With `strided` (the v2 kernel) q, k and v share any strides whose
+    last is 1 and whose rows start on 16 bytes. Kept lean: the sampler's
+    small chunks are bound by the host."""
+    device = q.device
+    for name, t in (("q", q), ("k", k), ("v", v), ("mask_bias", mask_bias)):
+        _check_tensor(name, t, device)
+        if (t is mask_bias or not strided) and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, D), got {tuple(q.shape)}")
-    b, h, l, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v shapes differ: {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    shape = q.shape
+    b, h, l, d = shape
+    if k.shape != shape or v.shape != shape:
+        raise ValueError(f"q, k, v shapes differ: {tuple(shape)} {tuple(k.shape)} {tuple(v.shape)}")
     if mask_bias.shape != (b, l):
         raise ValueError(f"mask_bias must be {(b, l)}, got {tuple(mask_bias.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head size {d} not in the kernel's {HEAD_DIMS}")
+    if not strided:
+        return b, h, l, d
+    st = q.stride()
+    if k.stride() != st or v.stride() != st:
+        raise ValueError(f"q, k and v must share strides, got {st} {k.stride()} {v.stride()}")
+    if st[3] != 1:
+        raise ValueError(f"q, k and v must have a last-dimension stride of 1, got strides {st}")
+    if (st[0] | st[1] | st[2]) & 3 or (q.data_ptr() | k.data_ptr() | v.data_ptr()) & 15:
+        raise ValueError(f"every row of q, k and v must start on a 16-byte boundary "
+                         f"(the kernel copies rows in 16-byte pieces); strides {st}")
     return b, h, l, d
 
 

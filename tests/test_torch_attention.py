@@ -60,6 +60,49 @@ def test_masked_keys_do_not_change_output():
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
 
 
+def _projection_views(q, k, v):
+    """q, k, v (B, H, L, D) as the denoiser hands them to the v2 kernel: views
+    of (B, L, H * D) buffers, `.view(B, L, H, D).transpose(1, 2)`."""
+    b, h, l, d = q.shape
+    return [torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1, 3))).view(b, l, h * d)
+            .view(b, l, h, d).transpose(1, 2) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("rel", [True, False])
+def test_v2_on_projection_views_equals_the_contiguous_call(rel):
+    q, k, v, bias, table = _inputs(2, 3, 50, 32, 64, seed=9)
+    kw = dict(rel_table=torch.from_numpy(table), m=64) if rel else {}
+    views = _projection_views(q, k, v)
+    assert not views[0].is_contiguous() and views[0].stride() == (50 * 3 * 32, 32, 3 * 32, 1)
+    ours = attention.fused_attention_v2(*views, torch.from_numpy(bias), **kw)
+    ref = attention.fused_attention_v2(*map(torch.from_numpy, (q, k, v, bias)), **kw)
+    torch.testing.assert_close(ours, ref, rtol=0, atol=1e-6)
+
+
+def test_v2_layout_checks():
+    """What the v2 kernel takes, checked on the host before any launch:
+    strided views whose last stride is 1 and whose rows start on 16 bytes."""
+    q, k, v, bias, _ = _inputs(2, 3, 16, 32, 16, seed=10)
+    views = _projection_views(q, k, v)
+    bias = torch.from_numpy(bias)
+    assert attention._check_inputs(*views, bias, strided=True) == (2, 3, 16, 32)
+    with pytest.raises(ValueError, match="contiguous"):  # the v1 kernel takes contiguous q, k, v only
+        attention._check_inputs(*views, bias)
+    wide = torch.zeros(2, 3, 16, 64)[..., ::2]  # last-dimension stride 2
+    with pytest.raises(ValueError, match="last-dimension stride of 1"):
+        attention._check_inputs(wide, wide, wide, bias, strided=True)
+    with pytest.raises(ValueError, match="share strides"):
+        attention._check_inputs(wide, *views[1:], bias, strided=True)
+    shifted = torch.zeros(2 * 16 * 3 * 32 + 1)[1:].view(2, 16, 3, 32).transpose(1, 2)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        attention._check_inputs(views[0], shifted, views[2], bias, strided=True)
+    odd_rows = torch.zeros(2, 16, 3, 34)[..., :32].transpose(1, 2)  # rows 34 floats apart
+    with pytest.raises(ValueError, match="16-byte"):
+        attention._check_inputs(odd_rows, odd_rows, odd_rows, bias, strided=True)
+    with pytest.raises(ValueError, match="mask_bias must be contiguous"):
+        attention._check_inputs(*views, torch.zeros(16, 2).t(), strided=True)
+
+
 def _v1_inputs(seed, masked=True, b=4, h=6, l=64, d=16):
     """tests/test_pallas_attention.py's inputs: e_lr random normal (L, L, D) * 0.05, not Toeplitz."""
     rng = np.random.default_rng(seed)

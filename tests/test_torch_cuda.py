@@ -54,6 +54,70 @@ def test_kernel_matches_plain(device, b, h, l, d, m, rel):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+def _projection_views(*tensors):
+    """(B, H, L, D) tensors as the denoiser hands them to the v2 kernel:
+    `.view(B, L, H, D).transpose(1, 2)` of (B, L, H * D) buffers."""
+    return [t.transpose(1, 2).contiguous().view(t.shape[0], t.shape[2], -1)
+            .view(t.shape[0], t.shape[2], t.shape[1], t.shape[3]).transpose(1, 2) for t in tensors]
+
+
+# (B, H, L, D, M) of the strided v2 cases: ragged L (33, 50, 99, 1) inside a
+# 64-row tile and a 64-key chunk; L = 200 over four chunks; D 16, 32, 64;
+# odd H, whose last two-head block has one head; and the sampler's small
+# chunk (B = 15, H = 12, L = 64)
+STRIDED_SHAPES = [(8, 12, 128, 32, 128), (8, 12, 50, 32, 128), (4, 6, 33, 16, 64), (2, 4, 99, 64, 128),
+                  (64, 12, 64, 32, 128), (100, 5, 99, 64, 128), (140, 3, 33, 16, 64), (2, 3, 200, 32, 256),
+                  (3, 2, 1, 32, 128), (15, 12, 64, 32, 128)]
+
+
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("b,h,l,d,m", STRIDED_SHAPES)
+def test_kernel_on_projection_views_matches_plain(device, b, h, l, d, m, rel):
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=5)
+    table, m = (table, m) if rel else (None, None)
+    views = _projection_views(q, k, v)
+    assert views[0].stride()[2] == h * d  # rows H * D floats apart
+    with torch.inference_mode():
+        before = attention.REL_ATTENTION.launches
+        out = attention.fused_attention_v2(*views, bias, table, m)
+        torch.cuda.synchronize()
+        assert attention.REL_ATTENTION.launches == before + 1
+        ref = attention.fused_attention_v2_reference(q, k, v, bias, table, m)
+    assert out.shape == (b, h, l, d) and out.transpose(1, 2).is_contiguous()  # stored as (B, L, H, D)
+    assert (out - ref).abs().max().item() <= 1e-4
+
+
+def test_kernel_on_projection_views_ignores_masked_keys(device):
+    q, k, v, bias, table = _inputs(device, 64, 12, 96, 32, 128, seed=6)
+    masked = (bias < -1.0)[:, None, :, None]
+    with torch.inference_mode():
+        out1 = attention.fused_attention_v2(*_projection_views(q, k, v), bias, table, 128)
+        out2 = attention.fused_attention_v2(*_projection_views(q, k + 7.0 * masked, v - 3.0 * masked),
+                                            bias, table, 128)
+    assert (out1 - out2).abs().max().item() <= 1e-5
+
+
+def test_wrapper_refuses_layouts_the_kernel_does_not_take(device):
+    q, k, v, bias, table = _inputs(device, 2, 3, 16, 32, 16)
+    views = _projection_views(q, k, v)
+    before = attention.REL_ATTENTION.launches
+    with torch.inference_mode():
+        with pytest.raises(ValueError, match="last-dimension stride of 1"):
+            wide = torch.zeros(2, 3, 16, 64, device=device)[..., ::2]
+            attention.fused_attention_v2(wide, wide, wide, bias)
+        with pytest.raises(ValueError, match="share strides"):
+            attention.fused_attention_v2(q, *views[1:], bias)
+        shifted = torch.zeros(2 * 16 * 3 * 32 + 1, device=device)[1:].view(2, 16, 3, 32).transpose(1, 2)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.fused_attention_v2(views[0], shifted, views[2], bias, table, 16)
+        odd_rows = torch.zeros(2, 16, 3, 34, device=device)[..., :32].transpose(1, 2)  # rows 34 floats apart
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.fused_attention_v2(odd_rows, odd_rows, odd_rows, bias, table, 16)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.fused_attention_v2(*views, bias, torch.zeros(31 * 32 + 1, device=device)[1:].view(31, 32), 16)
+    assert attention.REL_ATTENTION.launches == before  # refused on the host: nothing launched
+
+
 def test_kernel_ignores_masked_keys(device):
     q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
     masked = (bias < -1.0)[:, None, :, None]
@@ -68,8 +132,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
     with torch.inference_mode():
         with pytest.raises(TypeError, match="float32"):
             attention.fused_attention_v2(q.double(), k, v, bias)
-        with pytest.raises(ValueError, match="contiguous"):
+        with pytest.raises(ValueError, match="shapes differ"):
             attention.fused_attention_v2(q.transpose(1, 2), k, v, bias)
+        with pytest.raises(ValueError, match="mask_bias must be contiguous"):
+            attention.fused_attention_v2(q, k, v, bias.t().contiguous().t())
         with pytest.raises(ValueError, match="head size"):
             attention.fused_attention_v2(q[..., :24].contiguous(), k[..., :24].contiguous(),
                                          v[..., :24].contiguous(), bias)

@@ -116,6 +116,28 @@ def test_attention_impls_match_jax_einsum_path(jax_einsum_reference, position_em
     np.testing.assert_allclose(_torch_forward(model, *inputs), ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("attention_impl", ["auto", "pallas_v2", "pallas"])
+def test_kernel_routes_get_their_layouts_and_match_jax(jax_einsum_reference, monkeypatch, attention_impl):
+    """The v2 entry gets the projections' (B, L, H, D) views uncopied; the v1
+    entry gets contiguous (B, H, L, D) copies. Either way the model stays
+    within 1e-5 of the JAX einsum path."""
+    from foldingdiff_tpu_torch.models import bert
+
+    seen = []
+    for name in ("fused_attention_v2", "fused_attention"):
+        def record(q, k, v, *args, _entry=getattr(bert, name), _name=name, **kwargs):
+            seen.append((_name, [t.stride() for t in (q, k, v)]))
+            return _entry(q, k, v, *args, **kwargs)
+        monkeypatch.setattr(bert, name, record)
+    params, constants, inputs, _, ref, _ = jax_einsum_reference("relative_key")
+    model = _port_model(params, constants, "relative_key", attention_impl)
+    np.testing.assert_allclose(_torch_forward(model, *inputs), ref, atol=1e-5)
+    b, l, h, d = 3, 40, SMALL["num_attention_heads"], SMALL["hidden_size"] // SMALL["num_attention_heads"]
+    entry, strides = ("fused_attention", (h * l * d, l * d, d, 1)) if attention_impl == "pallas" else (
+        "fused_attention_v2", (l * h * d, d, h * d, 1))
+    assert seen == [(entry, [strides] * 3)] * SMALL["num_hidden_layers"]
+
+
 @pytest.mark.parametrize("attention_impl", ["auto", "pallas", "xla", "plain"])
 def test_permuted_position_ids_match_jax_einsum_path(jax_einsum_reference, attention_impl):
     """The auto (v1 kernel when position_ids is given), pallas and plain paths
@@ -182,7 +204,7 @@ def test_relative_key_query_matches_jax(jax_einsum_reference, attention_impl):
 
 def test_from_dir_torch_ckpt_matches_parity():
     parity = np.load(os.path.join(TORCH_FIXTURE, "parity.npz"))
-    model, train_args = model_io.from_dir(TORCH_FIXTURE)
+    model, train_args = model_io.from_dir(TORCH_FIXTURE, device="cpu")
     assert train_args["position_embedding_type"] == "relative_key"
     assert len(model.state_dict()) == 62
     ours = _torch_forward(model, parity["x"], parity["t"], parity["mask"])
@@ -191,7 +213,7 @@ def test_from_dir_torch_ckpt_matches_parity():
 
 def test_from_dir_flax_msgpack_matches_jax_from_dir():
     jmodel, params, constants, _ = jax_io.from_dir(MINI_FIXTURE)
-    model, train_args = model_io.from_dir(MINI_FIXTURE)
+    model, train_args = model_io.from_dir(MINI_FIXTURE, device="cpu")
     assert train_args["timesteps"] == 250
     x, t, mask = _inputs(2, 64, 250, seed=5)
     ref = _jax_forward(jmodel.config, params, constants, x, t, mask)
@@ -210,17 +232,17 @@ def test_save_model_dir_round_trip(tmp_path):
     offset = np.linspace(-1, 1, 6)
     path = model_io.save_model_dir(str(tmp_path), config, model.state_dict(), train_args, offset, epoch=3)
     assert path.endswith(os.path.join("models", "best_by_valid", "epoch=3.ckpt"))
-    loaded, loaded_args = model_io.from_dir(str(tmp_path))
+    loaded, loaded_args = model_io.from_dir(str(tmp_path), device="cpu")
     assert loaded_args == train_args and loaded.config == config
     assert all(torch.equal(a, b) for a, b in zip(model.state_dict().values(), loaded.state_dict().values()))
     np.testing.assert_array_equal(np.load(tmp_path / "training_mean_offset.npy"), offset)
 
 
 def test_from_dir_overrides_attention_impl():
-    model, _ = model_io.from_dir(TORCH_FIXTURE, attention_impl="plain")
+    model, _ = model_io.from_dir(TORCH_FIXTURE, attention_impl="plain", device="cpu")
     assert model.config.attention_impl == "plain"
     with pytest.raises(ValueError, match="attention_impl"):
-        model_io.from_dir(TORCH_FIXTURE, attention_impl="flash")
+        model_io.from_dir(TORCH_FIXTURE, attention_impl="flash", device="cpu")
 
 
 def test_resolve_model_dir_local_and_missing(tmp_path):

@@ -50,7 +50,7 @@ def test_wrap_angular_features_only_wraps_angular_channels():
 
 @pytest.mark.parametrize("keyword", ["cosine", "linear", "quadratic"])
 def test_schedule_arrays_bitwise(keyword):
-    ours = DiffusionSchedule.create(keyword, 1000)
+    ours = DiffusionSchedule.create(keyword, 1000, device="cpu")
     ref = JaxSchedule.create(keyword, 1000)
     assert ours.timesteps == ref.timesteps and ours.schedule_name == ref.schedule_name
     for name in ARRAY_NAMES:
@@ -113,7 +113,7 @@ def test_q_sample_matches_jax():
     is_angular = [True, True, False, True]
     ref = jnoise.q_sample(jnp.asarray(x0), jnp.asarray(t), jnp.asarray(eps), JaxSchedule.create("cosine", 100), is_angular)
     ours = tnoise.q_sample(torch.from_numpy(x0), torch.from_numpy(t), torch.from_numpy(eps),
-                           DiffusionSchedule.create("cosine", 100), is_angular)
+                           DiffusionSchedule.create("cosine", 100, device="cpu"), is_angular)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-6)
 
 
@@ -129,6 +129,27 @@ def test_empty_dataset_matches_jax():
         AnglesEmptyDataset("cart-coords").get_masked_means()
     with pytest.raises(ValueError, match="mean offset"):
         AnglesEmptyDataset("canonical-full-angles", mean_offset=np.zeros(4))
+
+
+def test_feature_set_registry_copy_matches_jax():
+    from foldingdiff_tpu.data import feature_sets as jax_feature_sets
+    from foldingdiff_tpu_torch.data import feature_sets
+
+    for name in ("FEATURE_SET_NAMES_TO_ANGULARITY", "FEATURE_SET_NAMES_TO_FEATURE_NAMES"):
+        ours, ref = getattr(feature_sets, name), getattr(jax_feature_sets, name)
+        assert list(ours) == list(ref)
+        for key in ref:
+            assert ours[key] == ref[key], (name, key)
+
+
+def test_wrap_angles_on_a_numpy_array_matches_jax_utils():
+    """sample() wraps the shifted host arrays with ops.angles.wrap_angles in
+    place of the JAX package's utils.modulo_with_wrapped_range."""
+    from foldingdiff_tpu.utils import modulo_with_wrapped_range
+
+    vals = np.random.default_rng(3).uniform(-4 * np.pi, 4 * np.pi, (50, 6))
+    vals[0, :4] = [-np.pi, np.pi, 0.0, 2 * np.pi]
+    np.testing.assert_array_equal(tangles.wrap_angles(vals), modulo_with_wrapped_range(vals, -np.pi, np.pi))
 
 
 def test_sample_wrapped_noise_scales_and_wraps():

@@ -44,7 +44,7 @@ def test_p_sample_step_matches_jax(t, noise_scale):
                                      jnp.asarray(ns))
     ours = sampling.p_sample_step(lambda *_: torch.from_numpy(eps), torch.from_numpy(x), t,
                                   torch.from_numpy(noise), torch.from_numpy(mask),
-                                  DiffusionSchedule.create("cosine", 100), torch.tensor(IS_ANGULAR),
+                                  DiffusionSchedule.create("cosine", 100, device="cpu"), torch.tensor(IS_ANGULAR),
                                   torch.from_numpy(ns) if ns.ndim else float(ns))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-6)
 
@@ -56,7 +56,7 @@ def test_short_chain_matches_jax_given_its_noise():
     timesteps, b, l = 50, 3, 64
     jmodel, params, constants, _ = jax_io.from_dir(MINI_FIXTURE)
     jmodel = type(jmodel)(dataclasses.replace(jmodel.config, matmul_precision="highest"))
-    model, _ = model_io.from_dir(MINI_FIXTURE)
+    model, _ = model_io.from_dir(MINI_FIXTURE, device="cpu")
     is_angular = [True] * 6
 
     rng = np.random.default_rng(7)
@@ -72,7 +72,7 @@ def test_short_chain_matches_jax_given_its_noise():
     ref = jax_sampling.p_sample_loop(jax_model_fn, jnp.asarray(x_t), key, jnp.asarray(mask),
                                      JaxSchedule.create("linear", timesteps), is_angular)
     ours = sampling.p_sample_loop(model, torch.from_numpy(x_t), torch.from_numpy(mask),
-                                  DiffusionSchedule.create("linear", timesteps), is_angular,
+                                  DiffusionSchedule.create("linear", timesteps, device="cpu"), is_angular,
                                   step_noise=torch.from_numpy(step_noise))
     assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
 
@@ -80,7 +80,7 @@ def test_short_chain_matches_jax_given_its_noise():
 def _mini_models():
     jmodel, params, constants, _ = jax_io.from_dir(MINI_FIXTURE)
     jmodel = type(jmodel)(dataclasses.replace(jmodel.config, matmul_precision="highest"))
-    model, _ = model_io.from_dir(MINI_FIXTURE)
+    model, _ = model_io.from_dir(MINI_FIXTURE, device="cpu")
 
     def jax_model_fn(x, t, m):
         return jmodel.apply({"params": params, "constants": constants}, x, t, m, deterministic=True)
@@ -101,7 +101,8 @@ def test_accelerated_chains_match_jax_from_the_same_x_t(method):
     ref = jax_loop(jax_model_fn, jnp.asarray(x_t), jax.random.PRNGKey(0), jnp.asarray(mask),
                    JaxSchedule.create("linear", timesteps), IS_ANGULAR, n_steps=n_steps)
     loop = {"ddim": sampling.ddim_sample_loop, "dpmpp": sampling.dpmpp_sample_loop}[method]
-    ours = loop(model, torch.from_numpy(x_t), torch.from_numpy(mask), DiffusionSchedule.create("linear", timesteps),
+    ours = loop(model, torch.from_numpy(x_t), torch.from_numpy(mask),
+                DiffusionSchedule.create("linear", timesteps, device="cpu"),
                 IS_ANGULAR, n_steps=n_steps)
     assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
 
@@ -130,7 +131,7 @@ def test_dpmpp_on_the_cosine_1000_schedule_matches_jax():
 
     ref = jax_sampling.dpmpp_sample_loop(lambda x, t, m: _stub_eps(x, t), jnp.asarray(x_t), jax.random.PRNGKey(0),
                                          jnp.asarray(mask), JaxSchedule.create("cosine", 1000), is_angular, n_steps=20)
-    schedule = DiffusionSchedule.create("cosine", 1000)
+    schedule = DiffusionSchedule.create("cosine", 1000, device="cpu")
     ours = sampling.dpmpp_sample_loop(port_fn, torch.from_numpy(x_t), torch.from_numpy(mask), schedule,
                                       is_angular, n_steps=20)
     assert seen == sampling.dpmpp_nodes(schedule.host["alphas_cumprod"].astype(np.float64), 20).tolist()
@@ -152,7 +153,7 @@ def test_dpmpp_nodes_match_jax_on_the_cosine_1000_schedule(n_steps):
     jax_sampling.dpmpp_sample_loop(jax_fn, jnp.zeros((1, 4, 6)), jax.random.PRNGKey(0), jnp.ones((1, 4)),
                                    JaxSchedule.create("cosine", 1000), [True] * 6,
                                    n_steps=n_steps).block_until_ready()
-    schedule = DiffusionSchedule.create("cosine", 1000)
+    schedule = DiffusionSchedule.create("cosine", 1000, device="cpu")
     assert sampling.dpmpp_nodes(schedule.host["alphas_cumprod"].astype(np.float64), n_steps).tolist() == jax_seen
 
 
@@ -168,7 +169,7 @@ def test_ddim_with_eta_matches_jax_given_its_noise():
                            for k in jax.random.split(key, n_steps)])
     ref = jax_sampling.ddim_sample_loop(lambda x, t, m: _stub_eps(x, t), jnp.asarray(x_t), key, jnp.asarray(mask),
                                         JaxSchedule.create("linear", 50), IS_ANGULAR, n_steps=n_steps, eta=0.7)
-    schedule = DiffusionSchedule.create("linear", 50)
+    schedule = DiffusionSchedule.create("linear", 50, device="cpu")
     ours = sampling.ddim_sample_loop(lambda x, t, m: _stub_eps(x, t), torch.from_numpy(x_t), torch.from_numpy(mask),
                                      schedule, IS_ANGULAR, n_steps=n_steps, eta=0.7,
                                      step_noise=torch.from_numpy(step_noise))
@@ -191,13 +192,13 @@ def test_ddpm_chain_with_a_per_feature_noise_scale_matches_jax():
     ref = jax_sampling.p_sample_loop(lambda x, t, m: _stub_eps(x, t), jnp.asarray(x_t), key, jnp.asarray(mask),
                                      JaxSchedule.create("linear", timesteps), IS_ANGULAR, noise_scale=jnp.asarray(scale))
     ours = sampling.p_sample_loop(lambda x, t, m: _stub_eps(x, t), torch.from_numpy(x_t), torch.from_numpy(mask),
-                                  DiffusionSchedule.create("linear", timesteps), IS_ANGULAR,
+                                  DiffusionSchedule.create("linear", timesteps, device="cpu"), IS_ANGULAR,
                                   step_noise=torch.from_numpy(step_noise), noise_scale=scale)
     assert _circular_diff(ours.numpy(), np.asarray(ref)).max() <= 1e-4
 
 
 def test_p_sample_loop_needs_exactly_one_noise_source():
-    schedule = DiffusionSchedule.create("linear", 3)
+    schedule = DiffusionSchedule.create("linear", 3, device="cpu")
     x = torch.zeros(1, 4, 6)
     mask = torch.ones(1, 4)
     with pytest.raises(ValueError, match="exactly one"):
@@ -208,12 +209,12 @@ def test_p_sample_loop_needs_exactly_one_noise_source():
 
 @pytest.fixture(scope="module")
 def mini_model():
-    model, _ = model_io.from_dir(MINI_FIXTURE)
+    model, _ = model_io.from_dir(MINI_FIXTURE, device="cpu")
     return model
 
 
 def test_sample_lengths_order_range_and_offset(mini_model):
-    schedule = DiffusionSchedule.create("cosine", 5)
+    schedule = DiffusionSchedule.create("cosine", 5, device="cpu")
     lengths = [40, 63, 17, 64, 33, 50, 18]
     kw = dict(is_angular=IS_ANGULAR, pad=64, lengths=lengths, batch_size=2, bucket_multiple=16, seed=3)
     offset = np.array([3.0, -3.0, 1.0, 0.5, -2.5, 10.0])
@@ -232,7 +233,7 @@ def test_sample_lengths_order_range_and_offset(mini_model):
 
 @pytest.mark.parametrize("method", ["ddim", "dpmpp"])
 def test_sample_with_accelerated_methods(mini_model, method):
-    schedule = DiffusionSchedule.create("cosine", 250)
+    schedule = DiffusionSchedule.create("cosine", 250, device="cpu")
     kw = dict(is_angular=IS_ANGULAR, pad=64, lengths=[30, 64, 12], batch_size=2, seed=4, method=method,
               ddim_steps=4)
     out = sampling.sample(mini_model, schedule, **kw)
@@ -240,7 +241,7 @@ def test_sample_with_accelerated_methods(mini_model, method):
     assert all(np.all(np.isfinite(s)) and s[:, :5].min() >= -np.pi and s[:, :5].max() < np.pi for s in out)
     again = sampling.sample(mini_model, schedule, **kw)
     assert all(np.array_equal(a, b) for a, b in zip(out, again))
-    ddpm = sampling.sample(mini_model, DiffusionSchedule.create("cosine", 4), **{**kw, "method": "ddpm"})
+    ddpm = sampling.sample(mini_model, DiffusionSchedule.create("cosine", 4, device="cpu"), **{**kw, "method": "ddpm"})
     assert not np.allclose(out[0], ddpm[0])
     with pytest.raises(ValueError, match="noise_scale"):
         sampling.sample(mini_model, schedule, **kw, noise_scale=1.2)
@@ -249,7 +250,7 @@ def test_sample_with_accelerated_methods(mini_model, method):
 
 
 def test_sample_sweep_and_chunks(mini_model):
-    schedule = DiffusionSchedule.create("linear", 2)
+    schedule = DiffusionSchedule.create("linear", 2, device="cpu")
     calls = []
 
     def sampler(attn_mask, seed, chunk_i):

@@ -1,8 +1,9 @@
 """
 The port's sampling slice end to end on the CPU: bin/sample_torch.py over the
 mini fixture (DDPM, DPM-Solver++, --noise-scale and its errors), the NeRF +
-PDB writer against the JAX package's byte for byte, and the import boundary
-(the slice loads neither jax, flax, pandas nor matplotlib).
+PDB writer against the JAX package's byte for byte, the import boundary (the
+port imports nothing of the JAX package; the slice loads neither jax, flax,
+pandas nor matplotlib), and the entry points' default device (the card).
 """
 import gzip
 import importlib.util
@@ -100,6 +101,58 @@ def test_create_new_chain_nerf_pdb_is_byte_identical(tmp_path):
     assert (tmp_path / "ours.pdb").read_bytes() == (tmp_path / "ref.pdb").read_bytes()
 
 
+def test_port_imports_nothing_of_the_jax_package():
+    """With foldingdiff_tpu, jax and flax refused by an import hook, every
+    module of the port, the module-level imports of chip_smoke.py and
+    bin/sample_torch.py, from_dir and AnglesEmptyDataset.from_dir all work."""
+    script = textwrap.dedent(f"""
+        import importlib, importlib.util, pkgutil, sys
+
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("foldingdiff_tpu", "jax", "flax"):
+                    raise ModuleNotFoundError(f"refused: {{name}}")
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import foldingdiff_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(foldingdiff_tpu_torch.__path__, "foldingdiff_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py")):
+            spec = importlib.util.spec_from_file_location(name, path)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
+        from foldingdiff_tpu_torch.models.io import from_dir
+
+        model, args = from_dir({MINI_FIXTURE!r}, device="cpu")
+        empty = AnglesEmptyDataset.from_dir({MINI_FIXTURE!r})
+        assert model.config.hidden_size == args["hidden_size"] and empty.pad == args["max_seq_len"]
+        print(len(names), sorted(m for m in sys.modules if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax")))
+    """)
+    proc = _run(["-c", script])
+    assert proc.returncode == 0, proc.stderr
+    n_modules, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 1)
+    assert int(n_modules) >= 20 and loaded == "[]"
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """from_dir and DiffusionSchedule.create run on the card unless asked
+    for the CPU: without one, the default raises at once, with the CLI's
+    message; nothing falls back."""
+    from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+    from foldingdiff_tpu_torch.models import io as model_io
+
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device cuda: no CUDA device is available"):
+        model_io.from_dir(MINI_FIXTURE)
+    with pytest.raises(RuntimeError, match="device cuda: no CUDA device is available"):
+        DiffusionSchedule.create("cosine", 10)
+    with pytest.raises(RuntimeError, match="device cuda:1: no CUDA device"):
+        DiffusionSchedule.create("cosine", 10, device="cuda:1")
+    assert DiffusionSchedule.create("cosine", 10, device="cpu").betas.device.type == "cpu"
+
+
 def test_slice_imports_no_jax_flax_pandas_or_matplotlib():
     script = textwrap.dedent(f"""
         import sys
@@ -111,9 +164,10 @@ def test_slice_imports_no_jax_flax_pandas_or_matplotlib():
         from foldingdiff_tpu_torch.geometry.featurize import create_new_chain_nerf
         from foldingdiff_tpu_torch.models import io
 
-        model, args = io.from_dir({MINI_FIXTURE!r})
+        model, args = io.from_dir({MINI_FIXTURE!r}, device="cpu")
         empty = AnglesEmptyDataset.from_dir({MINI_FIXTURE!r})
-        out = sample(model, DiffusionSchedule.create("cosine", 2), is_angular=empty.feature_is_angular["angles"],
+        out = sample(model, DiffusionSchedule.create("cosine", 2, device="cpu"),
+                     is_angular=empty.feature_is_angular["angles"],
                      pad=empty.pad, lengths=[20], mean_offset=empty.get_masked_means())
         assert out[0].shape == (20, 6)
         import tempfile, os
