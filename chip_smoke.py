@@ -39,6 +39,20 @@ Phases, each printing lines of its own:
      step launching the v1 kernel and none the v2; then bin/sample_torch.py
      with --method ddim --ddim_steps 50 and --method dpmpp --ddim_steps 20,
      each launching the v2 kernel on every layer of every step
+  7. training at the flagship config (config_jsons/
+     synthetic24k_full_angles_cosine.json: 12 x 384, pad 128, T = 1000
+     cosine, randomcrop, batch 64, AdamW 1e-4, LinearWarmup, dropout 0.1)
+     through bin/train_torch.py on a corpus of 384 synthetic backbones with
+     CATH-like lengths written in a temporary directory: 2 epochs saving the
+     train state each epoch, then a resume for a third; finite losses, 3 CSV
+     rows, checkpoints by validation and by training loss, and the v2 kernel
+     launched 12 times per validation batch and never in a train step; one
+     train step at B = 8 on the card against the same step on the CPU
+     (dropout 0); remat against no remat (equal loss, peak memory of each);
+     ms per train step at B = 64, L = 128 (median of 25 synchronised steps),
+     with and without the pdist loss, and a torch.profiler breakdown of a
+     step; then DDIM-50 from the trained directory through
+     bin/sample_torch.py
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises, so the script exits
@@ -48,10 +62,12 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import csv
 import dataclasses
 import importlib.util
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -67,12 +83,15 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
+from examples.synthetic_proteins import cath_like_lengths, synth_angles  # noqa: E402  (numpy only)
 from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset  # noqa: E402
 from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
+from foldingdiff_tpu_torch.geometry.featurize import EXHAUSTIVE_ANGLES, create_new_chain_nerf  # noqa: E402
 from foldingdiff_tpu_torch.models import io as model_io  # noqa: E402
 from foldingdiff_tpu_torch.models.config import ModelConfig  # noqa: E402
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
+from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig  # noqa: E402
 
 DEVICE = "cuda"
 SEED = 1234
@@ -392,11 +411,12 @@ def expected_chunks() -> int:
     return sum(-(-n // BATCH) for n in per_bucket.values())
 
 
-def load_cli():
-    spec = importlib.util.spec_from_file_location("sample_torch", REPO / "bin" / "sample_torch.py")
-    sample_torch = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sample_torch)
-    return sample_torch
+def load_script(name: str):
+    """bin/<name>.py as a module, to call its main() in this process."""
+    spec = importlib.util.spec_from_file_location(name, REPO / "bin" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def check_launches(tag: str, expected: dict) -> None:
@@ -424,7 +444,7 @@ def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict,
             "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, *extra]
     V2.launches = V1.launches = 0
     start = time.perf_counter()
-    result = load_cli().main(argv)
+    result = load_script("sample_torch").main(argv)
     wall = time.perf_counter() - start
     check_launches(tag, expected)
 
@@ -563,6 +583,262 @@ def phase_new_paths(model_dir: str, tmp: str, card: str) -> int:
     return v1_launches
 
 
+TRAIN_CONFIG = REPO / "config_jsons" / "synthetic24k_full_angles_cosine.json"
+CORPUS_SIZE = 384
+# One train step, card against CPU (float32, other summation orders): loss
+# terms within 1e-4, each gradient within 1e-3 of its tensor's largest
+# element (the key biases' of the model's largest), and the parameters after the step within 1e-6 where the gradient
+# clears 10x the card-CPU gradient difference (elsewhere within 2 lr: a first
+# Adam step moves an element by about lr, its sign set by float noise there)
+STEP_TERMS_TOL, STEP_GRAD_TOL, STEP_PARAM_TOL = 1e-4, 1e-3, 1e-6
+
+
+def write_corpus(out_dir: Path, n: int) -> None:
+    """n synthetic backbones (segmental helix / strand / loop angles) with
+    CATH-like lengths (median ~140, most above the pad of 128), written by
+    the port's NeRF."""
+    out_dir.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    for i, length in enumerate(cath_like_lengths(rng, n)):
+        if not create_new_chain_nerf(str(out_dir / f"synthprot_{i:04d}.pdb"), synth_angles(rng, int(length)),
+                                     EXHAUSTIVE_ANGLES):
+            raise RuntimeError(f"corpus structure {i} did not build")
+
+
+def train_batch(b: int, l: int, seed: int = SEED) -> dict:
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(40, l + 1, (b,), generator=g)
+    return {"angles": (torch.rand(b, l, 6, generator=g) * 2 - 1) * math.pi,
+            "attn_mask": (torch.arange(l)[None, :] < lengths[:, None]).float(), "lengths": lengths}
+
+
+def flagship_trainer(device: str, dropout: float = 0.1, **cfg) -> Trainer:
+    """The flagship denoiser with seeded random weights and its trainer."""
+    config = dataclasses.replace(FLAGSHIP, hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
+                                 remat=cfg.pop("remat", False))
+    model = model_io.init_random(config, torch.Generator().manual_seed(SEED)).to(device)
+    tcfg = TrainConfig(**{"lr": 1e-4, "batch_size": 64, "max_epochs": 800, "lr_scheduler": "LinearWarmup", **cfg})
+    return Trainer(model, DiffusionSchedule.create("cosine", 1000, device=device), tcfg, steps_per_epoch=300)
+
+
+def phase_train_cli(tmp: str, card: str) -> str:
+    """bin/train_torch.py on the flagship config: 2 epochs, then a resume for a third."""
+    corpus, results = Path(tmp, "corpus"), Path(tmp, "trained")
+    start = time.perf_counter()
+    write_corpus(corpus, CORPUS_SIZE)
+    log(f"[7] corpus: {CORPUS_SIZE} synthetic backbones written in {time.perf_counter() - start:.3f} s")
+    config = {**json.loads(TRAIN_CONFIG.read_text()), "dataset_key": str(corpus), "save_state_every": 1}
+    config_file = Path(tmp, "train.json")
+    config_file.write_text(json.dumps(config))
+    cli = load_script("train_torch")
+    layers = FLAGSHIP.num_hidden_layers
+    for epochs, extra in ((2, []), (3, ["--resume"])):
+        V2.launches = V1.launches = 0
+        start = time.perf_counter()
+        rows = cli.main([str(config_file), "-o", str(results), "--epochs", str(epochs), "--device", DEVICE, *extra])
+        wall = time.perf_counter() - start
+        n_valid = len((results / "valid_files.txt").read_text().split())
+        expected_epochs = list(range(epochs - len(rows), epochs))
+        if [r["epoch"] for r in rows] != expected_epochs or len(rows) != (2 if not extra else 1):
+            raise RuntimeError(f"[7] epochs {[r['epoch'] for r in rows]}, expected {expected_epochs}")
+        # validation: one v2 launch per layer per batch; train steps launch none
+        check_launches(f"[7] train_torch --epochs {epochs} {' '.join(extra)}",
+                       {V2.name: layers * -(-n_valid // 64) * len(rows), V1.name: 0})
+        for r in rows:
+            if not all(np.isfinite(v) for k, v in r.items() if "loss" in k):
+                raise RuntimeError(f"[7] non-finite loss in {r}")
+            log(f"[7] epoch {r['epoch']}: step {r['step']}, train loss {r['train_loss']:.6f}, "
+                f"val loss {r['val_loss']:.6f}, lr {r['lr']:.3e}, {r['epoch_seconds']:.3f} s")
+        log(f"[7] bin/train_torch.py --epochs {epochs} {' '.join(extra)} on {card}: wall {wall:.3f} s with "
+            f"featurization, {n_valid} validation structures")
+    with open(results / "logs" / "metrics.csv", newline="") as f:
+        csv_rows = list(csv.DictReader(f))
+    if [int(r["epoch"]) for r in csv_rows] != [0, 1, 2]:
+        raise RuntimeError(f"[7] metrics.csv epochs {[r['epoch'] for r in csv_rows]}, expected [0, 1, 2]")
+    for best_by in ("valid", "train"):
+        if not list((results / "models" / f"best_by_{best_by}").glob("epoch=*.ckpt")):
+            raise RuntimeError(f"[7] no checkpoint under best_by_{best_by}")
+    states = sorted(p.name for p in (results / "train_state").glob("*.pt"))
+    log(f"[7] metrics.csv rows {len(csv_rows)}, train states {states}")
+    return str(results)
+
+
+def phase_step_card_vs_cpu() -> None:
+    """One train step at flagship width, B = 8, dropout 0, on the card and on
+    the CPU from the same weights, batch, t and noise."""
+    b, l = 8, FLAGSHIP.max_position_embeddings
+    batch = train_batch(b, l)
+    g = torch.Generator().manual_seed(SEED + 1)
+    t, noise = torch.randint(0, 1000, (b,), generator=g), (torch.rand(b, l, 6, generator=g) * 2 - 1) * math.pi
+    results = {}
+    for device in ("cpu", DEVICE):
+        trainer = flagship_trainer(device, dropout=0.0, lr_scheduler=None)
+        dev = {k: v.to(device) for k, v in batch.items()}
+        trainer.model.train()
+        terms = trainer._loss_terms(dev, t.to(device), noise.to(device))
+        terms.mean().backward()
+        grads = {n: p.grad.cpu() for n, p in trainer.model.named_parameters()}
+        trainer.train_step(dev, t.to(device), noise.to(device))
+        results[device] = (terms.detach().cpu(), grads, {n: p.detach().cpu() for n, p in
+                                                        trainer.model.named_parameters()})
+    (terms_c, grads_c, params_c), (terms_g, grads_g, params_g) = results["cpu"], results[DEVICE]
+    terms_err = (terms_g - terms_c).abs().max().item()
+    # The key biases' gradients vanish in exact arithmetic (a bias on the keys
+    # shifts every score of a query row alike, and softmax ignores that), so
+    # they are float noise on both devices: they are held against the largest
+    # gradient of the model, every other tensor against its own largest element
+    top = max(g.abs().max().item() for g in grads_c.values())
+    grad_errs = {n: ((grads_g[n] - grads_c[n]).abs().max()
+                     / (top if n.endswith("self.key.bias") else grads_c[n].abs().max().clamp_min(1e-30))).item()
+                 for n in grads_c}
+    worst = max(grad_errs, key=grad_errs.get)
+    grad_err = grad_errs[worst]
+    lr, param_err, flips = 1e-4, 0.0, 0
+    for n, p in params_c.items():
+        floor = max(1e-6, 10 * (grads_g[n] - grads_c[n]).abs().max().item())
+        big = grads_c[n].abs() > floor
+        diff = (params_g[n] - p).abs()
+        param_err = max(param_err, diff[big].max().item() if big.any() else 0.0)
+        if not bool((diff[~big] <= 2 * lr).all()):
+            raise RuntimeError(f"[7] parameter {n} moved more than 2 lr apart on card and CPU")
+        flips += int((diff[~big] > STEP_PARAM_TOL).sum())
+    log(f"[7] one train step B={b} L={l} card vs CPU (dropout 0): loss terms max abs err {terms_err:.3e} "
+        f"(tol {STEP_TERMS_TOL}), gradients max err {grad_err:.3e} of each tensor's max (tol {STEP_GRAD_TOL}; "
+        f"worst {worst}), "
+        f"parameters after the step max abs err {param_err:.3e} (tol {STEP_PARAM_TOL}); "
+        f"{flips} elements below the gradient floor moved apart (within 2 lr)")
+    if not (terms_err <= STEP_TERMS_TOL and grad_err <= STEP_GRAD_TOL and param_err <= STEP_PARAM_TOL):
+        raise RuntimeError("[7] the train step on the card disagrees with the CPU's")
+
+
+def phase_remat() -> None:
+    """One train step at B = 64, L = 128 with remat off and on: the same loss
+    and gradients, and the peak device memory of each."""
+    batch = {k: v.to(DEVICE) for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings).items()}
+    g = torch.Generator().manual_seed(SEED + 2)
+    t = torch.randint(0, 1000, (BATCH,), generator=g).to(DEVICE)
+    noise = ((torch.rand(*batch["angles"].shape, generator=g) * 2 - 1) * math.pi).to(DEVICE)
+    out = {}
+    for remat in (False, True):
+        trainer = flagship_trainer(DEVICE, remat=remat)
+        trainer.model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.manual_seed(SEED)  # the same dropout draws
+        loss = trainer._loss_terms(batch, t, noise).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        out[remat] = (loss.item(), {n: p.grad for n, p in trainer.model.named_parameters()}, peak)
+        del trainer, loss
+    (l0, g0, m0), (l1, g1, m1) = out[False], out[True]
+    grad_err = max((g0[n] - g1[n]).abs().max().item() for n in g0)
+    log(f"[7] remat B={BATCH} L=128, dropout 0.1: loss {l0:.7f} without, {l1:.7f} with (diff {abs(l0 - l1):.3e}); "
+        f"gradients max abs diff {grad_err:.3e}; peak memory of forward + backward above the weights "
+        f"{m0 / 2**20:.1f} MiB without, {m1 / 2**20:.1f} MiB with")
+    if not (abs(l0 - l1) <= 1e-6 and grad_err <= 1e-6):
+        raise RuntimeError("[7] remat changes the loss or the gradients")
+
+
+def train_group(chain: list, kernel: str) -> str:
+    """The group of a train step's device kernel, from the names of the ops
+    that launched it (innermost first) and its own name."""
+    if "optimizer" in chain:
+        return "optimizer"
+    if any("softmax" in n.lower() or "dropout" in n.lower() for n in chain):
+        return "softmax and dropout"
+    low = kernel.lower()
+    if any(key in low for key in ("gemm", "xmma", "cutlass", "sm80_", "sm90_")):
+        if "aten::einsum" in chain or any("BmmBackward" in n for n in chain):
+            return "einsum attention"
+        backward = any(n.startswith("autograd::engine::evaluate_function") for n in chain)
+        return "backward GEMMs" if backward else "forward GEMMs"
+    return "other"
+
+
+def phase_train_speed(card: str) -> None:
+    """ms per train step at B = 64, L = 128 (flagship config, dropout 0.1,
+    AdamW + clip), the median of 25 synchronised steps after 3 of warm-up,
+    and of 5 with the pdist loss; peak memory; then a torch.profiler
+    breakdown of the step without pdist."""
+    batch = {k: v.to(DEVICE) for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings).items()}
+    trainers = {}
+    for pdist, steps in ((0.0, 25), ((0.5, 1.0), 5)):
+        trainer = trainers[bool(pdist)] = flagship_trainer(DEVICE, use_pdist_loss=pdist)
+        V2.launches = V1.launches = 0
+        for _ in range(3):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(steps):
+            start = time.perf_counter()
+            avg, _ = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+        check_launches(f"[7] train steps (pdist {pdist})", {V2.name: 0, V1.name: 0})
+        if not math.isfinite(avg.item()):
+            raise RuntimeError("[7] non-finite training loss")
+        ms = statistics.median(times)
+        log(f"[7] train step on {card}, B={BATCH} L=128, flagship, dropout 0.1, pdist {pdist}: median {ms:.4f} ms "
+            f"of {steps} (min {min(times):.4f}, max {max(times):.4f}), {BATCH / ms * 1e3:.1f} structures/s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    n_prof = 3
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(n_prof):
+            trainers[False].train_step(batch)
+        torch.cuda.synchronize()
+    groups, attributed = {}, 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU or not e.kernels:
+            continue
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for k in e.kernels:
+            group = train_group(chain, k.name)
+            ms_k, n = groups.get(group, (0.0, 0))
+            groups[group] = (ms_k + k.duration / 1e3 / n_prof, n + 1 / n_prof)
+            attributed += k.duration / 1e3 / n_prof
+    device = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    busy, end = 0.0, -math.inf
+    for e in device:
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+    span = (end - device[0].time_range.start) if device else 0.0
+    total = sum(e.time_range.end - e.time_range.start for e in device) / 1e3 / n_prof
+    text = ", ".join(f"{g} {ms_g:.4f} ({n:.0f})" for g, (ms_g, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+    log(f"[7] profile train step on {card}, B={BATCH} L=128: {len(device) / n_prof:.1f} device operations per "
+        f"step, device time {total:.4f} ms ({attributed:.4f} ms attributed to ops), busy {busy / 1e3 / n_prof:.4f} "
+        f"ms, busy share {busy / span if span else 0.0:.4f}; device ms (operations) per step by group: {text}")
+    if not device:
+        raise RuntimeError("torch.profiler recorded no device events in the train step")
+
+
+def phase_training(tmp: str, card: str) -> None:
+    cache = os.environ.get("FOLDINGDIFF_CACHE_DIR")
+    os.environ["FOLDINGDIFF_CACHE_DIR"] = tmp  # the dataset cache stays in the temporary directory
+    try:
+        trained = phase_train_cli(tmp, card)
+    finally:
+        if cache is None:
+            os.environ.pop("FOLDINGDIFF_CACHE_DIR")
+        else:
+            os.environ["FOLDINGDIFF_CACHE_DIR"] = cache
+    phase_step_card_vs_cpu()
+    phase_remat()
+    phase_train_speed(card)
+    layers, steps = FLAGSHIP.num_hidden_layers, 50
+    run_cli("[7] ddim-50 from the trained directory", trained, str(Path(tmp, "trained_ddim")),
+            ["--method", "ddim", "--ddim_steps", str(steps)],
+            {V2.name: layers * steps * expected_chunks(), V1.name: 0}, card, steps)
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -580,6 +856,7 @@ def main() -> None:
         v2_launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
         phase_profile(model_dir, card)
         v1_launches = phase_new_paths(model_dir, tmp, card)
+        phase_training(tmp, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",

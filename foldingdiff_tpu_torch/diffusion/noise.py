@@ -64,3 +64,22 @@ def q_sample(
     sqrt_omac = schedule.sqrt_one_minus_alphas_cumprod[t][:, None, None]
     noised = sqrt_ac * x0 + sqrt_omac * noise
     return wrap_angular_features(noised, _angular_mask(is_angular, x0.device))
+
+
+def corrupt_batch(
+    generator: torch.Generator,
+    x0: torch.Tensor,
+    schedule: DiffusionSchedule,
+    is_angular: Sequence[bool] | torch.Tensor,
+    angular_scale: float = 1.0,
+    nonangular_scale: float = 1.0,
+) -> dict:
+    """
+    Forward-noise a clean (B, L, F) batch on the generator's device: t ~
+    U[0, T) per item, wrapped noise, x_t. Returns the reference batch's
+    "corrupted", "t" and "known_noise" (datasets.py:873-879).
+    """
+    t = torch.randint(0, schedule.timesteps, (x0.shape[0],), generator=generator, device=generator.device)
+    noise = sample_wrapped_noise(generator, tuple(x0.shape), is_angular, angular_scale, nonangular_scale,
+                                 dtype=x0.dtype)
+    return {"corrupted": q_sample(x0, t, noise, schedule, is_angular), "t": t, "known_noise": noise}

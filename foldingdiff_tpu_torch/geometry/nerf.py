@@ -1,8 +1,14 @@
 """
 NeRF (Natural Extension Reference Frame): internal coordinates -> Cartesian
-(counterpart of foldingdiff_tpu/geometry/nerf.py, host path only).
+(counterpart of foldingdiff_tpu/geometry/nerf.py).
 
-The float64 numpy chain build that PDB writing uses, as in the JAX package.
+- `place_dihedral` and `nerf_build_batch`: the differentiable batched build
+  on tensors, which the pairwise-distance auxiliary loss runs on the device.
+  JAX's lax.scan over residues is a Python loop over L - 1 residues on a
+  (B, 3, 3) carry here: about 30 small device operations per residue.
+- `place_dihedral_np` and `nerf_build_np`: the float64 numpy single-chain
+  build that PDB writing uses, as in the JAX package.
+
 Angle storage convention: row i of the bond-angle features holds the value
 consumed when placing residue i+1; the build consumes psi[:-1], omega[:-1],
 phi[1:].
@@ -12,6 +18,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 # Idealized backbone bond lengths (angstroms), reference nerf.py:17-19
 N_CA_LENGTH = 1.46
@@ -28,6 +35,78 @@ N_INIT = np.array([17.047, 14.099, 3.625])
 CA_INIT = np.array([16.967, 12.784, 4.338])
 C_INIT = np.array([15.685, 12.755, 5.133])
 INIT_COORDS = np.stack([N_INIT, CA_INIT, C_INIT])  # (3, 3)
+
+
+def place_dihedral(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    c: torch.Tensor,
+    bond_angle: torch.Tensor,
+    bond_length: torch.Tensor,
+    torsion_angle: torch.Tensor,
+) -> torch.Tensor:
+    """
+    Place atom d so that (a, b, c, d) has the given c-d bond length, b-c-d
+    bond angle and a-b-c-d torsion. Points (..., 3), scalars (...,); fully
+    broadcast and differentiable.
+    """
+    bond_angle, bond_length, torsion_angle = (x[..., None] for x in (bond_angle, bond_length, torsion_angle))
+
+    def unit(x):
+        return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+    ab = b - a
+    bc = unit(c - b)
+    n = unit(torch.linalg.cross(ab, bc, dim=-1))
+    nbc = torch.linalg.cross(n, bc, dim=-1)
+    # d in the (bc, nbc, n) local frame
+    d_local = (
+        -bond_length * torch.cos(bond_angle) * bc
+        + bond_length * torch.cos(torsion_angle) * torch.sin(bond_angle) * nbc
+        + bond_length * torch.sin(torsion_angle) * torch.sin(bond_angle) * n
+    )
+    return d_local + c
+
+
+def nerf_build_batch(
+    phi: torch.Tensor,
+    psi: torch.Tensor,
+    omega: torch.Tensor,
+    bond_angle_n_ca_c: torch.Tensor,  # tau
+    bond_angle_ca_c_n: torch.Tensor,
+    bond_angle_c_n_ca: torch.Tensor,
+    bond_len_n_ca: Optional[torch.Tensor] = None,
+    bond_len_ca_c: Optional[torch.Tensor] = None,
+    bond_len_c_n: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """
+    Batched chain build: every input (B, L) -> coords (B, 3L, 3) ordered N,
+    CA, C per residue, residue 0 pinned at INIT_COORDS (reference
+    nerf.nerf_build_batch, nerf.py:207-292). Missing bond lengths take the
+    idealized constants.
+    """
+    if phi.ndim != 2:
+        raise ValueError(f"phi must be (B, L), got {tuple(phi.shape)}")
+    b, length = phi.shape
+
+    def param(v, default):
+        return torch.full_like(phi, default) if v is None else v.to(phi.dtype).expand_as(phi)
+
+    len_c_n = param(bond_len_c_n, C_N_LENGTH)
+    len_n_ca = param(bond_len_n_ca, N_CA_LENGTH)
+    len_ca_c = param(bond_len_ca_c, CA_C_LENGTH)
+    init = torch.as_tensor(INIT_COORDS, dtype=phi.dtype, device=phi.device).expand(b, 3, 3)
+    residues = [init]
+    pa, pb, pc = init[:, 0], init[:, 1], init[:, 2]
+    # Placing residue i+1 consumes psi_i, omega_i, phi_{i+1} and the bond
+    # angles and lengths of storage row i
+    for i in range(length - 1):
+        n_at = place_dihedral(pa, pb, pc, bond_angle_ca_c_n[:, i], len_c_n[:, i], psi[:, i])
+        ca_at = place_dihedral(pb, pc, n_at, bond_angle_c_n_ca[:, i], len_n_ca[:, i], omega[:, i])
+        c_at = place_dihedral(pc, n_at, ca_at, bond_angle_n_ca_c[:, i], len_ca_c[:, i], phi[:, i + 1])
+        residues.append(torch.stack([n_at, ca_at, c_at], dim=1))
+        pa, pb, pc = n_at, ca_at, c_at
+    return torch.stack(residues, dim=1).reshape(b, length * 3, 3)
 
 
 def place_dihedral_np(a, b, c, bond_angle, bond_length, torsion_angle) -> np.ndarray:

@@ -31,13 +31,27 @@ from the config and from whether position_ids was given (see attention_route):
   under "gather" and from arange under "skew" and "onedot".
 `relative_key_query` runs the plain einsums on position_ids[0] under every
 value, as in JAX, whose skew and onedot apply to `relative_key` only.
-The model is forward-only: it has no dropout.
+
+Train mode (`model.train()`) is the JAX model with deterministic=False:
+- dropout where JAX has it: after the embeddings' LayerNorm (bert.py:237),
+  on the attention probabilities (:186), after the attention output dense
+  (:205) and after the FFN output dense (:213). It draws from the device's
+  default generator, which torch.utils.checkpoint replays under `remat`;
+- every route is the plain einsums, as JAX's "auto" always is
+  (bert.py:93-102): "auto", "xla" and "plain" train; "pallas" and
+  "pallas_v2" raise, since the kernels are forward-only (as in JAX, whose
+  Pallas kernels have no VJP);
+- config.remat recomputes each layer in the backward pass
+  (torch.utils.checkpoint, non-reentrant); the state dict is the same.
+Eval mode launches what it launched before train mode existed: dropout is
+the identity there and adds no device operation.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.models.time_embed import get_time_encoder
@@ -49,16 +63,21 @@ _ENTRIES = {"auto": "v2", "pallas_v2": "v2", "pallas": "v1", "xla": "plain", "pl
 _ARANGE_SCORES = ("skew", "onedot")
 
 
-def attention_route(config: ModelConfig, position_ids_given: bool) -> tuple[str, bool]:
+def attention_route(config: ModelConfig, position_ids_given: bool, training: bool = False) -> tuple[str, bool]:
     """(entry, arange) of every layer's attention: the entry "v2", "v1" or
     "plain", and whether its relative scores take arange positions in place
-    of position_ids[0]. Decided from the config and from whether the caller
-    gave position_ids, never from the positions' values."""
+    of position_ids[0]. Decided from the config, from whether the caller
+    gave position_ids and from train mode, never from the positions' values."""
     if config.position_embedding_type == "relative_key_query":
         return "plain", False
     entry = _ENTRIES[config.attention_impl]
     arange = config.relative_scores_impl in _ARANGE_SCORES
-    if entry == "plain":
+    if training and entry != "plain" and config.attention_impl != "auto":
+        raise ValueError(
+            f"attention_impl {config.attention_impl!r} runs a fused attention kernel, which is forward-only; "
+            "train with 'auto', 'xla' or 'plain' (the einsums)"
+        )
+    if entry == "plain" or training:
         return "plain", arange
     if (config.attention_impl == "auto" and not arange and position_ids_given
             and config.position_embedding_type == "relative_key"):
@@ -87,6 +106,7 @@ class SelfAttention(nn.Module):
         self.n_heads = config.num_attention_heads
         self.head_size = config.attention_head_size
         self.max_pos = config.max_position_embeddings
+        self.probs_dropout = config.attention_probs_dropout_prob
         hidden = config.hidden_size
         self.query = nn.Linear(hidden, hidden)
         self.key = nn.Linear(hidden, hidden)
@@ -118,7 +138,8 @@ class SelfAttention(nn.Module):
             if route == "v1":
                 ctx = fused_attention(q, k, v, attn_bias, e_lr)
             else:
-                ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query)
+                ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query,
+                                                dropout_p=self.probs_dropout if self.training else 0.0)
         return ctx.transpose(1, 2).reshape(b, l, self.n_heads * self.head_size)
 
 
@@ -137,22 +158,23 @@ def gather_distance_embeddings(table: torch.Tensor, dist_idx: torch.Tensor) -> t
 
 
 class _DenseLayerNorm(nn.Module):
-    """dense + LayerNorm(out + residual): HF BertSelfOutput / BertOutput."""
+    """LayerNorm(dropout(dense(x)) + residual): HF BertSelfOutput / BertOutput."""
 
-    def __init__(self, d_in: int, d_out: int, eps: float):
+    def __init__(self, d_in: int, d_out: int, config: ModelConfig):
         super().__init__()
         self.dense = nn.Linear(d_in, d_out)
-        self.LayerNorm = nn.LayerNorm(d_out, eps=eps)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
+        self.LayerNorm = nn.LayerNorm(d_out, eps=config.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, residual: torch.Tensor) -> torch.Tensor:
-        return self.LayerNorm(self.dense(x) + residual)
+        return self.LayerNorm(self.dropout(self.dense(x)) + residual)
 
 
 class _Attention(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         self.self = SelfAttention(config)
-        self.output = _DenseLayerNorm(config.hidden_size, config.hidden_size, config.layer_norm_eps)
+        self.output = _DenseLayerNorm(config.hidden_size, config.hidden_size, config)
 
 
 class _Intermediate(nn.Module):
@@ -169,7 +191,7 @@ class Layer(nn.Module):
         self.act = _act(config.hidden_act)
         self.attention = _Attention(config)
         self.intermediate = _Intermediate(config)
-        self.output = _DenseLayerNorm(config.intermediate_size, config.hidden_size, config.layer_norm_eps)
+        self.output = _DenseLayerNorm(config.intermediate_size, config.hidden_size, config)
 
     def forward(
         self, hidden: torch.Tensor, attn_bias: torch.Tensor, route: str, dist_idx: torch.Tensor | None = None
@@ -188,7 +210,8 @@ class _Encoder(nn.Module):
 
 class Embeddings(nn.Module):
     """Reference BertEmbeddings (modelling.py:132-170): absolute position
-    embeddings only when position_embedding_type == absolute; LayerNorm always."""
+    embeddings only when position_embedding_type == absolute; LayerNorm and
+    dropout always."""
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -198,12 +221,13 @@ class Embeddings(nn.Module):
             else None
         )
         self.LayerNorm = nn.LayerNorm(config.hidden_size, eps=config.layer_norm_eps)
+        self.dropout = nn.Dropout(config.hidden_dropout_prob)
 
     def forward(self, input_embeds: torch.Tensor, position_ids: torch.Tensor) -> torch.Tensor:
         emb = input_embeds
         if self.position_embeddings is not None:
             emb = emb + self.position_embeddings(position_ids)
-        return self.LayerNorm(emb)
+        return self.dropout(self.LayerNorm(emb))
 
 
 class AnglesPredictor(nn.Module):
@@ -250,7 +274,7 @@ class BertForDiffusion(nn.Module):
         position_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
         b, l, _ = inputs.shape
-        route, arange = attention_route(self.config, position_ids is not None)
+        route, arange = attention_route(self.config, position_ids is not None, self.training)
         if position_ids is None:
             position_ids = torch.arange(l, device=inputs.device).expand(b, l)
         attn_bias = (1.0 - attention_mask.to(inputs.dtype)) * -10000.0
@@ -261,6 +285,10 @@ class BertForDiffusion(nn.Module):
         if route != "v2" and self.config.position_embedding_type != "absolute":
             pos = torch.arange(l, device=inputs.device) if arange else position_ids[0]
             dist_idx = distance_index(pos, self.config.max_position_embeddings)
+        remat = self.config.remat and self.training and torch.is_grad_enabled()
         for layer in self.encoder.layer:
-            hidden = layer(hidden, attn_bias, route, dist_idx)
+            if remat:
+                hidden = checkpoint(layer, hidden, attn_bias, route, dist_idx, use_reentrant=False)
+            else:
+                hidden = layer(hidden, attn_bias, route, dist_idx)
         return self.token_decoder(hidden)

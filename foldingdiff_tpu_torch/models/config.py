@@ -21,9 +21,11 @@ Fields the port reads differently:
   launches its CUDA kernel on a CUDA tensor and its plain version on a CPU
   tensor. relative_key_query always runs the plain einsums on
   position_ids[0], as in JAX. models/bert.py:attention_route decides.
-- matmul_precision, remat and the dropout probabilities are kept for config
-  parity and not read: the port computes in float32 (the caller keeps TF32
-  off) and the denoiser is forward-only.
+- hidden_dropout_prob and attention_probs_dropout_prob are read in train
+  mode (model.train()) only, and remat recomputes each layer in the
+  backward pass of train mode (models/bert.py).
+- matmul_precision is kept for config parity and not read: the port
+  computes in float32 (the caller keeps TF32 off).
 """
 from __future__ import annotations
 

@@ -2,12 +2,13 @@
 Model directory I/O (counterpart of foldingdiff_tpu/models/io.py).
 
 - `from_dir` loads a reference-layout model directory: training_args.json +
-  config.json + the latest models/best_by_valid/ checkpoint by epoch
-  (reference modelling.py:297-382). A torch `.ckpt` (lightning-style
+  config.json + a models/best_by_{valid,train,...}/ checkpoint, by default
+  the latest epoch under best_by_valid (reference modelling.py:297-382). A torch `.ckpt` (lightning-style
   {"state_dict": ...} or a bare state dict) loads by load_state_dict; the JAX
   package's flax `.msgpack` is decoded with `msgpack` and mapped onto the
   same names by `state_dict_from_flax`.
-- `save_model_dir` writes the same layout, with the weights as a `.ckpt`.
+- `save_model_dir` writes the same layout, with the weights as a `.ckpt`,
+  keeping the newest `keep_top_k` checkpoints of its best_by_ directory.
 - `init_random` builds seeded random weights.
 
 The GaussianFourier `time_embed.W` buffer is loaded with the weights, never
@@ -149,11 +150,15 @@ def save_model_dir(
     train_args: Dict,
     mean_offset: Optional[np.ndarray] = None,
     epoch: int = 0,
+    best_by: str = "valid",
+    keep_top_k: int = 5,
 ) -> str:
     """
     Write training_args.json, config.json, training_mean_offset.npy, and the
-    weights as models/best_by_valid/epoch=N.ckpt ({"state_dict": ...}, the
-    reference layout, bin/train.py:214-233, 255-284, 363-367, 463).
+    weights as models/best_by_{best_by}/epoch=N.ckpt ({"state_dict": ...},
+    the reference layout, bin/train.py:214-233, 255-284, 363-367, 463), then
+    delete all but the newest keep_top_k checkpoints there by epoch. Returns
+    the checkpoint's path.
     """
     os.makedirs(dirname, exist_ok=True)
     with open(os.path.join(dirname, "training_args.json"), "w") as f:
@@ -162,10 +167,13 @@ def save_model_dir(
         json.dump(config.to_hf_config_dict(), f, indent=2)
     if mean_offset is not None:
         np.save(os.path.join(dirname, "training_mean_offset.npy"), np.asarray(mean_offset))
-    subdir = os.path.join(dirname, "models", "best_by_valid")
+    subdir = os.path.join(dirname, "models", f"best_by_{best_by}")
     os.makedirs(subdir, exist_ok=True)
     out = os.path.join(subdir, f"epoch={epoch}.ckpt")
     torch.save({"state_dict": {k: v.detach().cpu() for k, v in state_dict.items()}}, out)
+    ckpts = sorted(glob.glob(os.path.join(subdir, "*.ckpt")), key=_epoch_from_fname)
+    for stale in ckpts[:-keep_top_k]:
+        os.remove(stale)
     return out
 
 
@@ -205,6 +213,8 @@ def resolve_model_dir(name_or_dir: str) -> str:
 def from_dir(
     dirname: str,
     device: torch.device | str = "cuda",
+    idx: int = -1,
+    best_by: str = "valid",
     **config_overrides,
 ) -> Tuple[BertForDiffusion, Dict]:
     """
@@ -212,7 +222,8 @@ def from_dir(
     msgpack layout). Returns (model in eval mode on `device`, train_args).
     `device` is the card unless the caller asks for the CPU; without a card
     the default raises at once (devices.require_device).
-    The checkpoint is the latest epoch under models/best_by_valid/.
+    The checkpoints under models/best_by_{best_by}/ are sorted by epoch and
+    `idx` picks one (default -1, the latest), as the JAX package's from_dir.
     `config_overrides` replace config fields, e.g. attention_impl="plain".
     """
     device = require_device(device)
@@ -226,14 +237,14 @@ def from_dir(
         config = ModelConfig(**{**config.__dict__, **{k: getattr(body, k) for k in _BODY_FIELDS}})
     if config_overrides:
         config = ModelConfig(**{**config.__dict__, **config_overrides})
-    subdir = os.path.join(dirname, "models", "best_by_valid")
+    subdir = os.path.join(dirname, "models", f"best_by_{best_by}")
     native = sorted(glob.glob(os.path.join(subdir, "*.msgpack")), key=_epoch_from_fname)
     torch_ckpts = sorted(glob.glob(os.path.join(subdir, "*.ckpt")), key=_epoch_from_fname)
     if native:
-        tree = _read_flax_msgpack(native[-1])
+        tree = _read_flax_msgpack(native[idx])
         sd = state_dict_from_flax(tree["params"], tree.get("constants", {}), config)
     elif torch_ckpts:
-        sd = _load_ckpt(torch_ckpts[-1])
+        sd = _load_ckpt(torch_ckpts[idx])
     else:
         raise FileNotFoundError(f"No checkpoints under {subdir}")
     return _with_weights(config, sd).to(device), train_args

@@ -1,5 +1,5 @@
 """
-Angular lattice ops (counterpart of foldingdiff_tpu/ops/angles.py).
+Angular lattice ops on tensors (counterpart of foldingdiff_tpu/ops/angles.py).
 
 The wrap to [-pi, pi) is floored modulo (`%` / torch.remainder), never
 torch.fmod, whose result takes the sign of the dividend.
@@ -26,3 +26,13 @@ def wrap_angular_features(x: torch.Tensor, is_angular: torch.Tensor) -> torch.Te
     channels pass through.
     """
     return torch.where(is_angular, wrap_angles(x), x)
+
+
+def wrapped_mean(x: torch.Tensor, dim=None) -> torch.Tensor:
+    """Circular mean via atan2 of the mean sine and cosine (NaN-tolerant)."""
+    return torch.atan2(torch.nanmean(torch.sin(x), dim=dim), torch.nanmean(torch.cos(x), dim=dim))
+
+
+def angular_difference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Signed smallest difference a - b on the circle, in [-pi, pi)."""
+    return wrap_angles(a - b)

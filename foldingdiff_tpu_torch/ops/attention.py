@@ -102,10 +102,13 @@ def fused_attention_reference(
     mask_bias: torch.Tensor,
     e_lr: torch.Tensor | None = None,
     key_term: bool = False,
+    dropout_p: float = 0.0,
 ) -> torch.Tensor:
     """Plain PyTorch version: the einsums of the JAX package's attention_reference.
     key_term adds k[r] . e_lr[l, r] as well: the relative_key_query scores,
-    which the denoiser runs on this plain path only, as the JAX package does."""
+    which the denoiser runs on this plain path only, as the JAX package does.
+    dropout_p drops attention probabilities, as the denoiser's train mode
+    does (JAX's bert.py:186); the kernels' plain versions leave it 0."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = torch.einsum("bhld,bhmd->bhlm", q, k)
     if e_lr is not None:
@@ -114,6 +117,8 @@ def fused_attention_reference(
             scores = scores + torch.einsum("bhrd,lrd->bhlr", k, e_lr)
     scores = scores * scale + mask_bias[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
+    if dropout_p:
+        probs = torch.nn.functional.dropout(probs, dropout_p)
     return torch.einsum("bhlm,bhmd->bhld", probs, v)
 
 

@@ -103,8 +103,10 @@ def test_create_new_chain_nerf_pdb_is_byte_identical(tmp_path):
 
 def test_port_imports_nothing_of_the_jax_package():
     """With foldingdiff_tpu, jax and flax refused by an import hook, every
-    module of the port, the module-level imports of chip_smoke.py and
-    bin/sample_torch.py, from_dir and AnglesEmptyDataset.from_dir all work."""
+    module of the port, the module-level imports of chip_smoke.py,
+    bin/sample_torch.py and bin/train_torch.py, from_dir,
+    AnglesEmptyDataset.from_dir and an epoch of Trainer.fit all work, and
+    load neither optax nor pandas."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
 
@@ -119,7 +121,8 @@ def test_port_imports_nothing_of_the_jax_package():
         names = [m.name for m in pkgutil.walk_packages(foldingdiff_tpu_torch.__path__, "foldingdiff_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py")):
+        for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py"),
+                           ("train_torch", "bin/train_torch.py")):
             spec = importlib.util.spec_from_file_location(name, path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
@@ -128,7 +131,18 @@ def test_port_imports_nothing_of_the_jax_package():
         model, args = from_dir({MINI_FIXTURE!r}, device="cpu")
         empty = AnglesEmptyDataset.from_dir({MINI_FIXTURE!r})
         assert model.config.hidden_size == args["hidden_size"] and empty.pad == args["max_seq_len"]
-        print(len(names), sorted(m for m in sys.modules if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax")))
+
+        import numpy as np
+        from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+        from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig
+        rng = np.random.default_rng(0)
+        data = {{"angles": rng.uniform(-3, 3, (6, 64, 6)).astype(np.float32),
+                 "attn_mask": np.ones((6, 64), np.float32), "lengths": np.full(6, 64)}}
+        trainer = Trainer(model, DiffusionSchedule.create("cosine", 10, device="cpu"),
+                          TrainConfig(batch_size=4, max_epochs=1, use_pdist_loss=0.5), steps_per_epoch=2)
+        assert len(trainer.fit(data, valid_data=data)) == 1
+        print(len(names), sorted(m for m in sys.modules
+                                 if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax", "optax", "pandas")))
     """)
     proc = _run(["-c", script])
     assert proc.returncode == 0, proc.stderr
