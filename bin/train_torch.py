@@ -7,7 +7,10 @@ Takes bin/train.py's config -o --dataset --toy --debug_single_time --dryrun
 --epochs --batchsize --seed --resume flags, merged over the config JSON
 (files under config_jsons/ work unchanged), plus --device (default cuda;
 with no CUDA device it exits at once). --cpu is --device cpu. The
-multi-host flags wait for the multi-device slice.
+multi-host flags wait for the multi-device slice. --debug_single_time
+trains from the single-timestep debug noiser (data/debug_noisers.py: one
+feature at t = 100, noised on the host) through the pre-corrupted step and
+returns one {"epoch", "train_loss"} row per epoch; it saves no model.
 
 Usage: python bin/train_torch.py config_jsons/cath_full_angles_cosine.json -o results
 """

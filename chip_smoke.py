@@ -53,6 +53,23 @@ Phases, each printing lines of its own:
      with and without the pdist loss, and a torch.profiler breakdown of a
      step; then DDIM-50 from the trained directory through
      bin/sample_torch.py
+  8. the rest of the single-device surface: (a) partial-noise reconstruction
+     through bin/partial_noise_reconstruct_torch.py's main() on phase 7's
+     trained directory and corpus (t = 250, the whole test split at batch
+     64: 12 v2 launches per reverse step, TM scores finite in (0, 1], the
+     JSON's keys, the native TM-align built; chain and host-scoring seconds
+     apart); (b) one reconstruction batch of 4 test structures on the card
+     against the CPU from the same x0, eps and step noise at t = 25, within
+     1e-3 circular; (c) bin/sample_torch.py --method ddim --ddim_steps 50
+     --fullhistory over the sweep from phase 4's flagship directory (50
+     history CSVs per structure, the last equal to the final CSV,
+     model_snapshot/); (d) a cart-coords model at
+     config_jsons/synthetic_raw_coordinates.json's widths with seeded random
+     weights, DDPM T = 1000 through the CLI over lengths 50..59: CA-trace
+     PDBs written plus those the 1000 A guard skipped make 10; (e)
+     bin/train_torch.py --debug_single_time for 1 epoch on phase 7's corpus
+     at the flagship config (finite losses, neither kernel launched) and
+     ms per pre-corrupted step at B = 64, L = 128
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}. Any failure raises, so the script exits
@@ -62,8 +79,10 @@ Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
+import gzip
 import importlib.util
 import json
 import math
@@ -84,8 +103,10 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 from examples.synthetic_proteins import cath_like_lengths, synth_angles  # noqa: E402  (numpy only)
+from foldingdiff_tpu_torch.data import datasets as dsets  # noqa: E402
 from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset  # noqa: E402
 from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
+from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
 from foldingdiff_tpu_torch.geometry.featurize import EXHAUSTIVE_ANGLES, create_new_chain_nerf  # noqa: E402
 from foldingdiff_tpu_torch.models import io as model_io  # noqa: E402
@@ -820,16 +841,23 @@ def phase_train_speed(card: str) -> None:
         raise RuntimeError("torch.profiler recorded no device events in the train step")
 
 
-def phase_training(tmp: str, card: str) -> None:
+@contextlib.contextmanager
+def dataset_cache_in(tmp: str):
+    """The dataset cache in the temporary directory while the block runs."""
     cache = os.environ.get("FOLDINGDIFF_CACHE_DIR")
-    os.environ["FOLDINGDIFF_CACHE_DIR"] = tmp  # the dataset cache stays in the temporary directory
+    os.environ["FOLDINGDIFF_CACHE_DIR"] = tmp
     try:
-        trained = phase_train_cli(tmp, card)
+        yield
     finally:
         if cache is None:
             os.environ.pop("FOLDINGDIFF_CACHE_DIR")
         else:
             os.environ["FOLDINGDIFF_CACHE_DIR"] = cache
+
+
+def phase_training(tmp: str, card: str) -> str:
+    with dataset_cache_in(tmp):
+        trained = phase_train_cli(tmp, card)
     phase_step_card_vs_cpu()
     phase_remat()
     phase_train_speed(card)
@@ -837,6 +865,199 @@ def phase_training(tmp: str, card: str) -> None:
     run_cli("[7] ddim-50 from the trained directory", trained, str(Path(tmp, "trained_ddim")),
             ["--method", "ddim", "--ddim_steps", str(steps)],
             {V2.name: layers * steps * expected_chunks(), V1.name: 0}, card, steps)
+    return trained
+
+
+RECON_T = 250  # bin/partial_noise_reconstruct_torch.py -t 250
+RECON_TOL = 1e-3  # card against CPU through 25 reverse steps of 12 layers (float32, circular)
+
+
+def check_tm(tag: str, scores) -> None:
+    bad = [s for s in scores if not (math.isfinite(s) and 0 < s <= 1)]
+    if bad or not scores:
+        raise RuntimeError(f"{tag}: TM scores not finite in (0, 1]: {bad[:5]} of {len(scores)}")
+
+
+def phase_reconstruction(tmp: str, trained: str, card: str) -> None:
+    """(a) bin/partial_noise_reconstruct_torch.py over the test split of
+    phase 7's corpus, from its trained directory."""
+    layers = FLAGSHIP.num_hidden_layers
+    out_json = Path(tmp, "reconstruction.json")
+    n_test = len(Path(trained, "test_files.txt").read_text().split())
+    chunks = -(-n_test // BATCH)
+    V2.launches = V1.launches = 0
+    start = time.perf_counter()
+    result = load_script("partial_noise_reconstruct_torch").main(
+        ["-m", trained, "--data", str(Path(tmp, "corpus")), "-t", str(RECON_T), "-b", str(BATCH),
+         "-o", str(out_json), "--device", DEVICE])
+    wall = time.perf_counter() - start
+    check_launches(f"[8a] reconstruction t={RECON_T}", {V2.name: layers * RECON_T * chunks, V1.name: 0})
+    payload = json.loads(out_json.read_text())
+    if sorted(payload) != ["noise_timesteps", "tm_scores", "tm_scores_coords"] or payload["noise_timesteps"] != RECON_T:
+        raise RuntimeError(f"[8a] JSON keys {sorted(payload)}, noise_timesteps {payload.get('noise_timesteps')}")
+    scores = list(payload["tm_scores"].values())
+    if len(scores) != n_test or result["n_structures"] != n_test or len(payload["tm_scores_coords"]) != n_test:
+        raise RuntimeError(f"[8a] {len(scores)} TM scores, expected {n_test}")
+    check_tm("[8a] tm_scores", scores)
+    check_tm("[8a] tm_scores_coords", payload["tm_scores_coords"])
+    if result["tm_path"] != "native":
+        raise RuntimeError("[8a] the native TM-align did not build (g++ and csrc/tmalign.cpp)")
+    chain = result["chain_seconds"]
+    log(f"[8a] reconstruction on {card}: {n_test} test structures, t={RECON_T}, batch {BATCH}, {chunks} chunk(s) "
+        f"at L={FLAGSHIP.max_position_embeddings}: reverse chains {chain:.3f} s, "
+        f"{chain / (RECON_T * chunks) * 1e3:.4f} ms per reverse step; host TM scoring "
+        f"({result['tm_path']} TM-align, spawned pool of {result['pool_workers']}) {result['scoring_seconds']:.3f} s; "
+        f"CLI wall with loading {wall:.3f} s; TM mean {statistics.mean(scores):.4f}, "
+        f"median {statistics.median(scores):.4f}, against the PDB files mean "
+        f"{statistics.mean(payload['tm_scores_coords']):.4f}")
+
+
+def phase_reconstruction_card_vs_cpu(tmp: str, trained: str) -> None:
+    """(b) One reconstruction batch of 4 test structures at t = 25 on the
+    card and on the CPU from the same x0, eps and step noise."""
+    n, t = 4, 25
+    train_args = json.loads(Path(trained, "training_args.json").read_text())
+    ds = dsets.DATASET_CLASSES[train_args["angles_definitions"]](
+        pdbs=str(Path(tmp, "corpus")), split="test", pad=train_args["max_seq_len"],
+        min_length=train_args["min_seq_len"], trim_strategy=train_args["trim_strategy"])
+    offset = np.load(Path(trained, "training_mean_offset.npy"))
+    ds.set_masked_means(offset)
+    data = {k: v[:n] for k, v in ds.to_arrays().items()}
+    is_angular = ds.feature_is_angular["angles"]
+    g = torch.Generator().manual_seed(SEED + 3)
+    eps = sample_wrapped_noise(g, tuple(data["angles"].shape), is_angular)
+    step_noise = torch.randn((t, *data["angles"].shape), generator=g)
+    out, seconds = {}, {}
+    for device in ("cpu", DEVICE):
+        model, _ = model_io.from_dir(trained, device=device)
+        schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=device)
+        V2.launches = V1.launches = 0
+        start = time.perf_counter()
+        out[device] = sampling.reconstruct_batch(
+            model, schedule, data["angles"], data["attn_mask"], data["lengths"], eps.to(device),
+            is_angular=is_angular, noise_timesteps=t, step_noise=step_noise.to(device), mean_offset=offset)
+        seconds[device] = time.perf_counter() - start
+        layers = FLAGSHIP.num_hidden_layers
+        check_launches(f"[8b] reconstruction batch on {device}", {V2.name: layers * t if device == DEVICE else 0,
+                                                                   V1.name: 0})
+    err = max(float(np.abs((a - b + np.pi) % (2 * np.pi) - np.pi).max()) for a, b in zip(out["cpu"], out[DEVICE]))
+    log(f"[8b] reconstruction of {n} test structures (lengths {data['lengths'].tolist()}), t={t}, card vs CPU from "
+        f"the same x0, eps and step noise: max circular abs err {err:.3e} (tol {RECON_TOL}); "
+        f"{seconds['cpu']:.3f} s on the CPU, {seconds[DEVICE]:.3f} s on the card")
+    if not err <= RECON_TOL:
+        raise RuntimeError(f"[8b] card and CPU reconstructions differ by {err} > {RECON_TOL}")
+
+
+def phase_history(model_dir: str, tmp: str, card: str) -> None:
+    """(c) DDIM-50 with --fullhistory over the sweep."""
+    steps, out_dir = 50, Path(tmp, "history")
+    run_cli("[8c] ddim-50 --fullhistory", model_dir, str(out_dir),
+            ["--method", "ddim", "--ddim_steps", str(steps), "--fullhistory"],
+            {V2.name: FLAGSHIP.num_hidden_layers * steps * expected_chunks(), V1.name: 0}, card, steps)
+    angles = out_dir / "sampled_angles"
+    n = len(range(*SWEEP))
+    for i in range(n):
+        sub = angles / "sample_history" / f"generated_{i}"
+        files = sorted(p.name for p in sub.iterdir())
+        if files != sorted(f"timestep_{t}.csv.gz" for t in range(steps)):
+            raise RuntimeError(f"[8c] generated_{i}: {len(files)} history files, expected {steps}")
+        with gzip.open(sub / f"timestep_{steps - 1}.csv.gz", "rb") as a, \
+                gzip.open(angles / f"generated_{i}.csv.gz", "rb") as b:
+            if a.read() != b.read():
+                raise RuntimeError(f"[8c] generated_{i}: the last history entry is not the final CSV")
+    if not (out_dir / "model_snapshot" / "training_args.json").is_file():
+        raise RuntimeError("[8c] no model_snapshot/")
+    log(f"[8c] history: {n} x {steps} CSVs, each last one equal to its final CSV; model_snapshot/ written")
+
+
+CART_CONFIG = REPO / "config_jsons" / "synthetic_raw_coordinates.json"
+CART_LENGTHS = (50, 60)
+
+
+def phase_cart_coords(tmp: str, card: str) -> None:
+    """(d) DDPM T = 1000 from a cart-coords model with seeded random weights,
+    to CA-trace PDBs."""
+    train_args = json.loads(CART_CONFIG.read_text())
+    config = ModelConfig.from_train_args(train_args)
+    model_dir, out_dir = str(Path(tmp, "cart")), str(Path(tmp, "cart_sampled"))
+    weights = model_io.init_random(config, torch.Generator().manual_seed(SEED))
+    model_io.save_model_dir(model_dir, config, weights.state_dict(), train_args)
+    del weights
+    n = CART_LENGTHS[1] - CART_LENGTHS[0]
+    chunks = -(-n // BATCH)
+    V2.launches = V1.launches = 0
+    start = time.perf_counter()
+    result = load_script("sample_torch").main(
+        ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", *map(str, CART_LENGTHS), "-b", str(BATCH),
+         "--seed", str(SEED), "--device", DEVICE])
+    wall = time.perf_counter() - start
+    check_launches("[8d] cart-coords DDPM", {V2.name: config.num_hidden_layers * train_args["timesteps"] * chunks,
+                                             V1.name: 0})
+    written, skipped = result["pdb_files"], result["pdb_skipped"]
+    if len(written) + len(skipped) != n or result["n_structures"] != n:
+        raise RuntimeError(f"[8d] {len(written)} CA traces written and {len(skipped)} skipped, expected {n} in all")
+    for path in written:
+        lines = Path(path).read_text().splitlines()
+        i = int(Path(path).stem.split("_")[1])
+        if sum(line.startswith("ATOM") and line[12:16] == " CA " for line in lines) != CART_LENGTHS[0] + i:
+            raise RuntimeError(f"[8d] {path}: not a CA trace of {CART_LENGTHS[0] + i} residues")
+    log(f"[8d] cart-coords ({config.num_hidden_layers} x {config.hidden_size}, F={config.n_inputs}, "
+        f"T={train_args['timesteps']} {train_args['variance_schedule']}) on {card}: {n} structures, "
+        f"{len(written)} CA-trace PDBs written, {len(skipped)} skipped by the 1000 A guard; sampling "
+        f"{result['sampling_seconds']:.3f} s, CLI wall {wall:.3f} s")
+
+
+def phase_debug_training(tmp: str, card: str) -> None:
+    """(e) bin/train_torch.py --debug_single_time, 1 epoch, then ms per
+    pre-corrupted step."""
+    config = {**json.loads(TRAIN_CONFIG.read_text()), "dataset_key": str(Path(tmp, "corpus"))}
+    config_file = Path(tmp, "debug.json")
+    config_file.write_text(json.dumps(config))
+    V2.launches = V1.launches = 0
+    start = time.perf_counter()
+    with dataset_cache_in(tmp):
+        rows = load_script("train_torch").main(
+            [str(config_file), "-o", str(Path(tmp, "debug")), "--epochs", "1", "--debug_single_time",
+             "--device", DEVICE])
+    wall = time.perf_counter() - start
+    check_launches("[8e] train_torch --debug_single_time", {V2.name: 0, V1.name: 0})
+    if len(rows) != 1 or not math.isfinite(rows[0]["train_loss"]):
+        raise RuntimeError(f"[8e] debug rows {rows}")
+
+    one = dict(ft_is_angular=(True,), ft_names=("phi",))  # the debug model: one feature
+    model = model_io.init_random(dataclasses.replace(FLAGSHIP, **one), torch.Generator().manual_seed(SEED))
+    trainer = Trainer(model.to(DEVICE), DiffusionSchedule.create("cosine", 1000, device=DEVICE),
+                      TrainConfig(lr=1e-4, batch_size=BATCH, max_epochs=1, lr_scheduler=None), steps_per_epoch=1)
+    clean = train_batch(BATCH, FLAGSHIP.max_position_embeddings)
+    g = torch.Generator().manual_seed(SEED + 4)
+    batch = {"corrupted": clean["angles"][..., :1], "t": torch.full((BATCH, 1), 100),
+             "known_noise": torch.randn(BATCH, FLAGSHIP.max_position_embeddings, 1, generator=g),
+             "attn_mask": clean["attn_mask"]}
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    for _ in range(3):
+        trainer.train_step_precorrupted(batch)
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        avg, _ = trainer.train_step_precorrupted(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    check_launches("[8e] pre-corrupted steps", {V2.name: 0, V1.name: 0})
+    if not math.isfinite(avg.item()):
+        raise RuntimeError("[8e] non-finite pre-corrupted loss")
+    log(f"[8e] train_torch --debug_single_time on {card}: 1 epoch, train loss {rows[0]['train_loss']:.6f}, wall "
+        f"{wall:.3f} s with featurization; pre-corrupted step B={BATCH} L=128 F=1, flagship, dropout 0.1: median "
+        f"{statistics.median(times):.4f} ms of 10 (min {min(times):.4f}, max {max(times):.4f})")
+
+
+def phase_surface(tmp: str, model_dir: str, trained: str, card: str) -> None:
+    with dataset_cache_in(tmp):
+        phase_reconstruction(tmp, trained, card)
+        phase_reconstruction_card_vs_cpu(tmp, trained)
+    phase_history(model_dir, tmp, card)
+    phase_cart_coords(tmp, card)
+    phase_debug_training(tmp, card)
 
 
 def main() -> None:
@@ -856,7 +1077,8 @@ def main() -> None:
         v2_launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
         phase_profile(model_dir, card)
         v1_launches = phase_new_paths(model_dir, tmp, card)
-        phase_training(tmp, card)
+        trained = phase_training(tmp, card)
+        phase_surface(tmp, model_dir, trained, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",

@@ -11,6 +11,9 @@ directories -> featurized, padded angle arrays, numpy only.
 - `AnglesOnlyDataset`, `MinimalAnglesDataset`, `CoordsDataset`: the feature
   subsets (reference datasets.py:483-566); `DATASET_CLASSES` names them.
 - `AnglesEmptyDataset`: the shape-only stub that sampling uses without data.
+- `NoisedAnglesDataset`: per-item DDPM forward noising on the host from a
+  numpy generator (reference datasets.py:685-886), the base of the debug
+  noisers (data/debug_noisers.py).
 
 A structure is featurized by the numpy path of geometry/featurize.py (the
 JAX package may take its optional C++ featurizer, which its tests hold equal
@@ -39,6 +42,7 @@ from foldingdiff_tpu_torch.data.feature_sets import (
     FEATURE_SET_NAMES_TO_ANGULARITY,
     FEATURE_SET_NAMES_TO_FEATURE_NAMES,
 )
+from foldingdiff_tpu_torch.diffusion.schedules import compute_alphas, get_variance_schedule
 from foldingdiff_tpu_torch.geometry.featurize import (
     EXHAUSTIVE_ANGLES,
     EXHAUSTIVE_DISTS,
@@ -416,3 +420,109 @@ class AnglesEmptyDataset:
         if self._mean_offset is None:
             raise NotImplementedError
         return np.copy(self._mean_offset)
+
+
+class NoisedAnglesDataset:
+    """
+    Per-item DDPM forward noising over a clean dataset (reference
+    datasets.py:685-886), numpy only: t ~ U[0, timesteps) (or every t in
+    turn with exhaustive_t), wrapped Gaussian noise scaled per feature, and
+    x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise with the angular features
+    wrapped. Draws come from np.random.default_rng(seed), in the JAX
+    package's order, so the same seed over the same clean dataset gives the
+    JAX package's items exactly. The trainer noises whole batches on the
+    device instead; the debug noisers build on this class.
+    """
+
+    def __init__(
+        self,
+        dset,
+        dset_key: str = "angles",
+        timesteps: int = 250,
+        exhaustive_t: bool = False,
+        beta_schedule: str = "linear",
+        nonangular_variance: float = 1.0,
+        angular_variance: float = 1.0,
+        seed: Optional[int] = None,
+    ) -> None:
+        self.dset = dset
+        self.dset_key = dset_key
+        self.n_features = len(dset.feature_is_angular[dset_key])
+        self.nonangular_var_scale = nonangular_variance
+        self.angular_var_scale = angular_variance
+        self.timesteps = timesteps
+        self.schedule = beta_schedule
+        self.exhaustive_timesteps = exhaustive_t
+        betas = get_variance_schedule(beta_schedule, timesteps)
+        self.alpha_beta_terms = compute_alphas(betas)
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def feature_names(self):
+        return self.dset.feature_names
+
+    @property
+    def feature_is_angular(self):
+        return self.dset.feature_is_angular
+
+    @property
+    def pad(self):
+        return self.dset.pad
+
+    @property
+    def filenames(self):
+        return self.dset.filenames
+
+    def __len__(self) -> int:
+        n = len(self.dset)
+        return n * self.timesteps if self.exhaustive_timesteps else n
+
+    def sample_noise(self, vals: np.ndarray) -> np.ndarray:
+        noise = self._rng.standard_normal(vals.shape).astype(np.float32)
+        is_ang = np.asarray(self.dset.feature_is_angular[self.dset_key])
+        scales = np.where(is_ang, self.angular_var_scale, self.nonangular_var_scale)
+        noise = noise * scales.astype(np.float32)
+        ang_idx = np.where(is_ang)[0]
+        noise[..., ang_idx] = utils.modulo_with_wrapped_range(noise[..., ang_idx], -np.pi, np.pi)
+        return noise
+
+    def __getitem__(
+        self, index: int, use_t_val: Optional[int] = None, ignore_zero_center: bool = False
+    ) -> Dict[str, np.ndarray]:
+        if not 0 <= index < len(self):
+            raise IndexError("Index out of range")
+        if self.exhaustive_timesteps:
+            item_index, time_index = divmod(index, self.timesteps)
+            item = self.dset.__getitem__(item_index, ignore_zero_center=ignore_zero_center)
+        else:
+            item = self.dset.__getitem__(index, ignore_zero_center=ignore_zero_center)
+
+        vals = np.copy(item[self.dset_key])
+
+        if use_t_val is not None:
+            if self.exhaustive_timesteps:
+                raise ValueError("use_t_val is not taken with exhaustive_t")
+            t = int(np.clip(use_t_val, 0, self.timesteps - 1))
+        elif self.exhaustive_timesteps:
+            t = int(time_index)
+        else:
+            t = int(self._rng.integers(0, self.timesteps))
+
+        sqrt_ac = np.float32(self.alpha_beta_terms["sqrt_alphas_cumprod"][t])
+        sqrt_omac = np.float32(self.alpha_beta_terms["sqrt_one_minus_alphas_cumprod"][t])
+        noise = self.sample_noise(vals)
+        noised = sqrt_ac * vals + sqrt_omac * noise
+        ang_idx = np.where(self.dset.feature_is_angular[self.dset_key])[0]
+        noised[:, ang_idx] = utils.modulo_with_wrapped_range(noised[:, ang_idx], -np.pi, np.pi)
+
+        retval = {
+            "corrupted": noised.astype(np.float32),
+            "t": np.array([t], dtype=np.int64),
+            "known_noise": noise.astype(np.float32),
+            "sqrt_alphas_cumprod_t": sqrt_ac,
+            "sqrt_one_minus_alphas_cumprod_t": sqrt_omac,
+        }
+        if not set(item.keys()).isdisjoint(retval.keys()):
+            raise ValueError(f"clean item already has keys {set(item) & set(retval)}")
+        item.update(retval)
+        return item

@@ -1,6 +1,8 @@
 """
 Reverse-diffusion sampling (counterpart of foldingdiff_tpu/diffusion/sampling.py):
-DDPM ancestral sampling, DDIM and DPM-Solver++(2M).
+DDPM ancestral sampling, DDIM and DPM-Solver++(2M), each with its full
+history on request; partial DDPM chains for partial-noise reconstruction
+(get_reconstruction_error); and sample_simple over a model directory.
 
 Reference behavior: foldingdiff/sampling.py:27-224.
 - p_sample (DDPM Eq. 11): mean = 1/sqrt(a_t) (x - b_t eps / sqrt(1 - abar_t)),
@@ -18,8 +20,9 @@ so the loop never reads a value back from the device.
 
 Seeds: sample() draws each chunk's x_T and per-step noise from its own
 torch.Generator on the sampling device, seeded from (seed, chunk index)
-through numpy's SeedSequence. The numbers differ from the JAX package's for
-the same seed; only the distributions agree.
+through numpy's SeedSequence; get_reconstruction_error draws each batch's
+eps and step noise the same way. The numbers differ from the JAX package's
+for the same seed; only the distributions agree.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise
+from foldingdiff_tpu_torch.diffusion.noise import q_sample, sample_wrapped_noise
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.ops.angles import wrap_angles, wrap_angular_features
 
@@ -79,21 +82,29 @@ def p_sample_loop(
     generator: Optional[torch.Generator] = None,
     step_noise: Optional[torch.Tensor] = None,
     noise_scale: float | np.ndarray | torch.Tensor = 1.0,
+    start_t: Optional[int] = None,
+    return_history: bool = False,
 ) -> torch.Tensor:
     """
-    Reverse chain T-1 .. 0 from x_T = `noise` (B, L, F). The posterior noise
-    of step i (timestep T-1-i) is step_noise[i] when a (T, B, L, F) tensor is
-    given, otherwise a fresh normal draw from `generator`. noise_scale is
-    p_sample_step's temperature, a scalar or per feature. Returns x_0.
+    Reverse chain S-1 .. 0 from x_S = `noise` (B, L, F), where S is start_t
+    (a partial chain, partial-noise reconstruction's) or T. The posterior
+    noise of step i (timestep S-1-i) is step_noise[i] when an (S, B, L, F)
+    tensor is given, otherwise a fresh normal draw from `generator`.
+    noise_scale is p_sample_step's temperature, a scalar or per feature.
+    Returns x_0, or with return_history the (S, B, L, F) states after every
+    step, kept in one tensor on the device.
     """
-    _check_noise_source(generator, step_noise, (schedule.timesteps, *noise.shape))
-    timesteps = schedule.timesteps
+    steps = schedule.timesteps if start_t is None else int(start_t)
+    if not 1 <= steps <= schedule.timesteps:
+        raise ValueError(f"start_t must be in [1, {schedule.timesteps}], got {start_t}")
+    _check_noise_source(generator, step_noise, (steps, *noise.shape))
     if not isinstance(noise_scale, (int, float)):  # per feature: on the device once
         noise_scale = torch.as_tensor(noise_scale, dtype=noise.dtype, device=noise.device)
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
     x = noise
     with torch.inference_mode():
-        for i, t in enumerate(range(timesteps - 1, -1, -1)):
+        history = _history(steps, noise, return_history)
+        for i, t in enumerate(range(steps - 1, -1, -1)):
             if t == 0:
                 z = None
             elif step_noise is not None:
@@ -101,7 +112,16 @@ def p_sample_loop(
             else:
                 z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
             x = p_sample_step(model_fn, x, t, z, attn_mask, schedule, is_angular, noise_scale)
-    return x
+            if history is not None:
+                history[i] = x
+    return x if history is None else history
+
+
+def _history(steps: int, like: torch.Tensor, return_history: bool) -> Optional[torch.Tensor]:
+    """The (steps, *like.shape) tensor a loop fills with its state after each
+    step, on like's device (one copy to the host at the end, no sync per
+    step), or None without return_history."""
+    return torch.empty((steps, *like.shape), dtype=like.dtype, device=like.device) if return_history else None
 
 
 def _check_noise_source(generator, step_noise, shape) -> None:
@@ -126,6 +146,7 @@ def ddim_sample_loop(
     eta: float = 0.0,
     generator: Optional[torch.Generator] = None,
     step_noise: Optional[torch.Tensor] = None,
+    return_history: bool = False,
 ) -> torch.Tensor:
     """
     DDIM (Song et al. 2021) over the strided grid
@@ -137,7 +158,8 @@ def ddim_sample_loop(
 
     eta = 0 is deterministic and takes no noise source. eta > 0 adds
     sigma_i times step_noise[i] ((n_steps, B, L, F)) or a fresh normal draw
-    from `generator`: give exactly one. Returns x_0.
+    from `generator`: give exactly one. Returns x_0, or with return_history
+    the (n_steps, B, L, F) states after every step.
     """
     T = schedule.timesteps
     if eta > 0:
@@ -149,6 +171,7 @@ def ddim_sample_loop(
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
     x = noise
     with torch.inference_mode():
+        history = _history(n_steps, noise, return_history)
         for i, t in enumerate(ts):
             a_t = abar[t]
             a_prev = abar[ts[i + 1]] if i + 1 < n_steps else abar[-1]
@@ -163,7 +186,9 @@ def ddim_sample_loop(
                     x.shape, generator=generator, dtype=x.dtype, device=x.device)
                 x = x + float(sigma) * z
             x = wrap_angular_features(x, is_angular)
-    return x
+            if history is not None:
+                history[i] = x
+    return x if history is None else history
 
 
 def dpmpp_nodes(alphas_cumprod: np.ndarray, n_steps: int) -> np.ndarray:
@@ -196,6 +221,7 @@ def dpmpp_sample_loop(
     schedule: DiffusionSchedule,
     is_angular: Sequence[bool] | torch.Tensor,
     n_steps: int = 20,
+    return_history: bool = False,
 ) -> torch.Tensor:
     """
     DPM-Solver++(2M) (Lu et al. 2022), x0 parameterisation, on the nodes of
@@ -208,7 +234,8 @@ def dpmpp_sample_loop(
     first order (D = x0) on the first and the last step. The coefficients are
     computed in float64 on the host and used as float32, as in the JAX
     package; the difference x0_i - x0_{i-1} is the geodesic one. Deterministic.
-    Returns x_0.
+    Returns x_0, or with return_history the (n_steps, B, L, F) states after
+    every step.
     """
     T = schedule.timesteps
     if not 1 <= n_steps <= T:
@@ -235,14 +262,17 @@ def dpmpp_sample_loop(
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
     x, x0_prev = noise, torch.zeros_like(noise)
     with torch.inference_mode():
-        for t, cx, cd, ccorr, sig_src, recip_alpha_src in coefs:
+        history = _history(n_steps, noise, return_history)
+        for i, (t, cx, cd, ccorr, sig_src, recip_alpha_src) in enumerate(coefs):
             t_vec = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
             eps = model_fn(x, t_vec, attn_mask)
             x0 = _clamp_angular((x - sig_src * eps) * recip_alpha_src, is_angular)
             d = x0 + ccorr * wrap_angular_features(x0 - x0_prev, is_angular)
             x = wrap_angular_features(cx * x + cd * d, is_angular)
             x0_prev = x0
-    return x
+            if history is not None:
+                history[i] = x
+    return x if history is None else history
 
 
 def chunk_generator(seed: int, chunk_i: int, device: torch.device | str) -> torch.Generator:
@@ -255,7 +285,7 @@ def chunk_generator(seed: int, chunk_i: int, device: torch.device | str) -> torc
 
 
 def build_sampler(
-    model: torch.nn.Module,
+    model: ModelFn,
     schedule: DiffusionSchedule,
     is_angular: Sequence[bool],
     angular_variance: float = 1.0,
@@ -263,33 +293,56 @@ def build_sampler(
     ddim_steps: int = 50,
     ddim_eta: float = 0.0,
     noise_scale: float | np.ndarray | None = None,
+    start_t: Optional[int] = None,
+    return_history: bool = False,
+    gen_noise: bool = False,
 ):
     """
-    Sampler closure over `model`, which runs on its own device:
-    sampler(attn_mask, seed, chunk_i) -> x_0, with x_T and any step noise
-    drawn from chunk_generator(seed, chunk_i). method: "ddpm" (ancestral,
-    reference parity), "ddim" (ddim_steps model evaluations, ddim_eta) or
-    "dpmpp" (DPM-Solver++(2M); ddim_steps sets its step budget too).
-    noise_scale is the DDPM posterior-noise temperature, a scalar or per
-    feature (None: 1.0); the other methods take none, and raise if given one.
+    Sampler closure over `model` (the denoiser, or any model_fn), which runs
+    on its own device. method:
+    "ddpm" (ancestral, reference parity), "ddim" (ddim_steps model
+    evaluations, ddim_eta) or "dpmpp" (DPM-Solver++(2M); ddim_steps sets its
+    step budget too). noise_scale is the DDPM posterior-noise temperature, a
+    scalar or per feature (None: 1.0); start_t runs a partial DDPM chain from
+    timestep start_t - 1. The other methods take neither, and raise if given
+    one: their node grids start at T - 1, so a partial input would be
+    inverted wrongly. return_history returns every step's state, stacked
+    (steps, B, L, F), instead of x_0.
+
+    gen_noise=False: sampler(noise, attn_mask, generator=None,
+    step_noise=None), from a given x_T (or x_{start_t}), the step noise drawn
+    from `generator` or given (DDPM, and DDIM with eta > 0, need one).
+    gen_noise=True: sampler(attn_mask, seed, chunk_i), x_T and any step noise
+    drawn from chunk_generator(seed, chunk_i).
     """
     if method not in SAMPLING_METHODS:
         raise ValueError(f"method {method!r} not in {SAMPLING_METHODS}")
     if noise_scale is not None and method != "ddpm":
         raise ValueError(f"noise_scale is a DDPM posterior-noise temperature; method={method!r} takes none")
+    if start_t is not None and method != "ddpm":
+        raise ValueError(f"start_t is only supported with method='ddpm', got {method!r}")
     n_ft = len(is_angular)
+
+    def run_loop(noise: torch.Tensor, attn_mask: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if method == "ddim":
+            return ddim_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps, ddim_eta,
+                                    generator=generator, step_noise=step_noise, return_history=return_history)
+        if method == "dpmpp":
+            return dpmpp_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps,
+                                     return_history=return_history)
+        return p_sample_loop(model, noise, attn_mask, schedule, is_angular, generator=generator,
+                             step_noise=step_noise, noise_scale=1.0 if noise_scale is None else noise_scale,
+                             start_t=start_t, return_history=return_history)
+
+    if not gen_noise:
+        return run_loop
 
     def sampler(attn_mask: torch.Tensor, seed: int, chunk_i: int) -> torch.Tensor:
         generator = chunk_generator(seed, chunk_i, attn_mask.device)
         b, l = attn_mask.shape
         noise = sample_wrapped_noise(generator, (b, l, n_ft), is_angular, angular_variance)
-        if method == "ddim":
-            return ddim_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps, ddim_eta,
-                                    generator=generator)
-        if method == "dpmpp":
-            return dpmpp_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps)
-        return p_sample_loop(model, noise, attn_mask, schedule, is_angular, generator=generator,
-                             noise_scale=1.0 if noise_scale is None else noise_scale)
+        return run_loop(noise, attn_mask, generator)
 
     return sampler
 
@@ -312,14 +365,16 @@ def sample(
     ddim_steps: int = 50,
     ddim_eta: float = 0.0,
     noise_scale: float | np.ndarray | None = None,
+    return_history: bool = False,
     sampler=None,
 ) -> List[np.ndarray]:
     """
     Batched sampling with a length sweep (reference sampling.sample,
     sampling.py:135-224) on the model's device, by build_sampler's `method`
-    unless a prebuilt `sampler` is given. Returns one (length, F) array
-    per requested structure, in request order, with the training mean offset
-    re-applied and angular features re-wrapped.
+    unless a prebuilt `sampler` (gen_noise=True form) is given. Returns one
+    (length, F) array per requested structure, in request order, or with
+    return_history its (steps, length, F) trajectory, with the training mean
+    offset re-applied to every entry and angular features re-wrapped.
 
     Lengths are grouped by padded bucket (a multiple of bucket_multiple, at
     most pad) before chunking by batch_size, so a short chunk runs at its
@@ -338,8 +393,8 @@ def sample(
     is_angular_arr = np.asarray(is_angular, dtype=bool)
     device = next(model.parameters()).device
     if sampler is None:
-        sampler = build_sampler(model, schedule, list(is_angular_arr), angular_variance,
-                                method, ddim_steps, ddim_eta, noise_scale)
+        sampler = build_sampler(model, schedule, list(is_angular_arr), angular_variance, method, ddim_steps,
+                                ddim_eta, noise_scale, return_history=return_history, gen_noise=True)
 
     def bucket_of(length: int) -> int:
         return min(pad, -(-length // bucket_multiple) * bucket_multiple)
@@ -368,7 +423,7 @@ def sample(
     for idx_chunk, this_lengths, device_out in pending:
         sampled = device_out.cpu().numpy()
         for i, (orig_idx, l) in enumerate(zip(idx_chunk, this_lengths)):
-            results[orig_idx] = sampled[i, :l, :]
+            results[orig_idx] = sampled[:, i, :l, :] if return_history else sampled[i, :l, :]
     retval = [results[i] for i in range(len(lengths))]
 
     if mean_offset is not None:
@@ -382,3 +437,115 @@ def sample(
             shifted.append(s)
         retval = shifted
     return retval
+
+
+def reconstruct_batch(
+    model_fn: ModelFn,
+    schedule: DiffusionSchedule,
+    x0: np.ndarray,
+    attn_mask: np.ndarray,
+    lengths: Sequence[int],
+    eps: torch.Tensor,
+    *,
+    is_angular: Sequence[bool],
+    noise_timesteps: int,
+    generator: Optional[torch.Generator] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    mean_offset: Optional[np.ndarray] = None,
+) -> List[np.ndarray]:
+    """
+    One batch of partial-noise reconstruction on eps's device: x0 (B, L, F)
+    q-sampled with the wrapped noise eps to t = noise_timesteps - 1, the
+    partial DDPM chain from start_t = noise_timesteps (its step noise drawn
+    from `generator` or given, (noise_timesteps, B, L, F)), then on the host
+    the mean offset re-added, the angular features re-wrapped and each
+    structure trimmed to its length.
+    """
+    device = eps.device
+    is_angular_arr = np.asarray(is_angular, dtype=bool)
+    x0_t = torch.as_tensor(x0, dtype=eps.dtype, device=device)
+    t = torch.full((x0_t.shape[0],), noise_timesteps - 1, dtype=torch.int64, device=device)
+    corrupted = q_sample(x0_t, t, eps, schedule, is_angular_arr.tolist())
+    mask = torch.as_tensor(attn_mask, dtype=torch.float32, device=device)
+    partial_chain = build_sampler(model_fn, schedule, is_angular_arr.tolist(), start_t=noise_timesteps)
+    recon = partial_chain(corrupted, mask, generator=generator, step_noise=step_noise).cpu().numpy()
+    if mean_offset is not None:
+        recon = recon + np.asarray(mean_offset)
+        ang_idx = np.where(is_angular_arr)[0]
+        recon[..., ang_idx] = wrap_angles(recon[..., ang_idx])
+    return [recon[i, : int(l)] for i, l in enumerate(lengths)]
+
+
+def get_reconstruction_error(
+    model: torch.nn.Module,
+    schedule: DiffusionSchedule,
+    data: dict,
+    *,
+    is_angular: Sequence[bool],
+    noise_timesteps: int = 250,
+    batch_size: int = 512,
+    seed: int = 0,
+    mean_offset: Optional[np.ndarray] = None,
+) -> List[np.ndarray]:
+    """
+    Partial-noise reconstruction (reference sampling.get_reconstruction_error,
+    sampling.py:287-356) on the model's device: each batch of test items
+    q-sampled to t = noise_timesteps - 1 and denoised by the partial DDPM
+    chain (reconstruct_batch), returned as reconstructed (length, F) angle
+    sets. TM scoring against the truth is the caller's business
+    (bin/partial_noise_reconstruct_torch.py).
+
+    data: {"angles": (N, L, F), "attn_mask": (N, L), "lengths": (N,)}. Batch
+    i draws its eps and step noise from chunk_generator(seed, i); the
+    numbers differ from the JAX package's for the same seed.
+    """
+    if not 1 <= noise_timesteps <= schedule.timesteps:
+        raise ValueError(f"noise_timesteps must be in [1, {schedule.timesteps}], got {noise_timesteps}")
+    device = next(model.parameters()).device
+    n = data["angles"].shape[0]
+    out: List[np.ndarray] = []
+    for batch_i, start in enumerate(range(0, n, batch_size)):
+        x0 = data["angles"][start : start + batch_size]
+        generator = chunk_generator(seed, batch_i, device)
+        eps = sample_wrapped_noise(generator, tuple(x0.shape), is_angular)
+        out.extend(reconstruct_batch(
+            model, schedule, x0, data["attn_mask"][start : start + batch_size],
+            data["lengths"][start : start + batch_size], eps, is_angular=is_angular,
+            noise_timesteps=noise_timesteps, generator=generator, mean_offset=mean_offset,
+        ))
+    return out
+
+
+def sample_simple(
+    model_dir: str,
+    n: int = 10,
+    sweep_lengths: Tuple[int, int] = (50, 128),
+    seed: int = 0x1234,
+    device: torch.device | str = "cuda",
+) -> List[Tuple[np.ndarray, List[str]]]:
+    """
+    Load a model directory (or hub id) onto `device` (the card unless the
+    caller asks for the CPU) and sample DDPM over the sweep (reference
+    sampling.sample_simple, sampling.py:227-264). Returns one (array, column
+    names) pair per structure, where the JAX package returns DataFrames.
+    """
+    from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
+    from foldingdiff_tpu_torch.models import io as model_io
+
+    model_dir = model_io.resolve_model_dir(model_dir)
+    model, train_args = model_io.from_dir(model_dir, device=device)
+    schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=device)
+    empty = AnglesEmptyDataset.from_dir(model_dir)
+    try:
+        mean_offset = empty.get_masked_means()
+    except NotImplementedError:
+        mean_offset = None
+    # cart-coords models store their features under "coords", all others "angles"
+    ft_key = next(iter(empty.feature_names))
+    sampled = sample(
+        model, schedule, is_angular=empty.feature_is_angular[ft_key], pad=empty.pad, n=n,
+        sweep_lengths=sweep_lengths, angular_variance=train_args.get("variance_scale", 1.0),
+        mean_offset=mean_offset, seed=seed,
+    )
+    cols = list(empty.feature_names[ft_key])
+    return [(s, cols) for s in sampled]

@@ -5,7 +5,8 @@ only, by fixed-column parsing in place of the reference's biotite
 - read the N/CA/C atoms of each residue (first model, first altloc, amino
   acids only);
 - write GLY-only N/CA/C backbones in the style of the reference
-  write_coords_to_pdb (chain A, occupancy 1.0, b-factor 5.0).
+  write_coords_to_pdb (chain A, occupancy 1.0, b-factor 5.0), and GLY
+  CA traces for cart-coords models (write_ca_trace_to_pdb).
 """
 from __future__ import annotations
 
@@ -206,5 +207,31 @@ def write_coords_to_pdb(coords: np.ndarray, out_fname: str) -> str:
                     )
                 )
                 serial += 1
+        fh.write("END\n")
+    return out_fname
+
+
+def write_ca_trace_to_pdb(coords: np.ndarray, out_fname: str) -> str:
+    """
+    Write an (L, 3) CA coordinate array as a GLY CA-trace PDB: the output of
+    a cart-coords model, whose samples are CA positions, not angles.
+
+    The coordinates are zero-centred first. A coordinate whose magnitude
+    still reaches 1000 A (or is not finite) overflows the fixed %8.3f
+    columns, so it raises ValueError rather than write a PDB whose shifted
+    columns TM-align or DSSP would misread.
+    """
+    coords = np.asarray(coords, dtype=np.float64)
+    if coords.ndim != 2 or coords.shape[1] != 3:
+        raise ValueError(f"Expected (L, 3) coords, got {coords.shape}")
+    coords = coords - coords.mean(axis=0)
+    if not np.all(np.abs(coords) < 1000.0):
+        raise ValueError(
+            f"CA coords exceed PDB %8.3f column width even after recentering "
+            f"(max |coord| = {np.abs(coords).max():.1f} A); refusing to write {out_fname}"
+        )
+    with _atomic_write(out_fname) as fh:
+        for i, c in enumerate(coords):
+            fh.write(_format_atom_line(i + 1, "CA", "GLY", "A", i + 1, c, 1.0, 5.0, "C"))
         fh.write("END\n")
     return out_fname

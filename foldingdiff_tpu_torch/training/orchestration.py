@@ -5,28 +5,31 @@ bin/train.py:111-507). `train` takes the JAX package's config-JSON keys, so
 the files under config_jsons/ drive it unchanged, plus `device` (the card
 unless the caller asks for the CPU).
 
-Not ported yet, each raising a ValueError that names the ROADMAP.md item
-(Queue 1, "What waits") that brings it: the debug noisers and their
-pre-corrupted step (`syn_noiser`, `single_angle_debug`,
-`single_timestep_debug`; item 2) and data parallelism over several devices
-(`use_mesh`, `ngpu` > 1; item 4). The KL and plot diagnostics are left out
-(item 7: matplotlib is not on the card's machine), so `dryrun` changes
-nothing here.
+The debug noisers (`syn_noiser`, `single_angle_debug`,
+`single_timestep_debug`; data/debug_noisers.py) train through the
+pre-corrupted step, from batches noised on the host, as the JAX package
+does. Data parallelism over several devices (`use_mesh`, `ngpu` > 1) is not
+ported yet: it raises a ValueError that names the ROADMAP.md item (Queue 1,
+"What waits", item 4) that brings it. The KL and plot diagnostics are left
+out (matplotlib is not on the card's machine), so `dryrun` changes nothing
+here.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from foldingdiff_tpu_torch.data import datasets as dsets
+from foldingdiff_tpu_torch.data import debug_noisers as dn
 from foldingdiff_tpu_torch.devices import require_device
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.models import io as model_io
@@ -133,9 +136,6 @@ def train(
     """Train a model into results_dir (reference bin/train.py:287-507);
     returns (trainer, metrics rows). `device` is the card unless the caller
     asks for the CPU (or sets cpu_only); without a card it raises at once."""
-    if syn_noiser or single_angle_debug > 0 or single_timestep_debug:
-        raise ValueError("the debug noisers (syn_noiser, single_angle_debug, single_timestep_debug) are not ported "
-                         "yet: ROADMAP.md, Queue 1, 'What waits' item 2")
     if use_mesh or ngpu > 1:
         raise ValueError("training over several devices (use_mesh, ngpu > 1) is not ported yet: ROADMAP.md, "
                          "Queue 1, 'What waits' item 4")
@@ -161,6 +161,8 @@ def train(
             f.write("\n".join(ds.filenames))
 
     ft_key = "coords" if angles_definitions == "cart-coords" else "angles"
+    debug_noiser = make_debug_noiser(train_ds, ft_key, syn_noiser, single_angle_debug, single_timestep_debug,
+                                     timesteps, variance_schedule, seed)
     model_config = ModelConfig(
         hidden_size=hidden_size, num_hidden_layers=num_hidden_layers, num_attention_heads=num_heads,
         intermediate_size=intermediate_size, max_position_embeddings=max_seq_len,
@@ -168,6 +170,13 @@ def train(
         attention_probs_dropout_prob=dropout_p, ft_is_angular=tuple(train_ds.feature_is_angular[ft_key]),
         ft_names=tuple(train_ds.feature_names[ft_key]), time_encoding=time_encoding, decoder=decoder,
     )
+    if debug_noiser is not None:
+        # The model's width follows the noiser's items (reference
+        # bin/train.py:421-423): the first features' flags and names, as JAX
+        # slices them, whichever column the noiser keeps
+        n_in = debug_noiser[0]["corrupted"].shape[-1]
+        model_config = dataclasses.replace(model_config, ft_is_angular=model_config.ft_is_angular[:n_in],
+                                           ft_names=model_config.ft_names[:n_in])
     schedule = DiffusionSchedule.create(variance_schedule, timesteps, device=device)
 
     def as_train_arrays(ds):
@@ -200,6 +209,8 @@ def train(
     model = model_io.init_random(model_config, torch.Generator().manual_seed(seed)).to(device)
     trainer = Trainer(model, schedule, tcfg, steps_per_epoch=steps_per_epoch)
     logging.info(f"Model has {sum(p.numel() for p in model.parameters())} trainable parameters")
+    if debug_noiser is not None:
+        return trainer, train_debug(trainer, debug_noiser, max_epochs, batch_size, seed)
 
     rows = trainer.fit(
         train_data, valid_data=valid_data, results_dir=str(results_folder), train_args=func_args,
@@ -209,3 +220,44 @@ def train(
         train_data_refresh=train_data_refresh,
     )
     return trainer, rows
+
+
+def make_debug_noiser(train_ds, ft_key: str, syn_noiser: str, single_angle_debug: int,
+                      single_timestep_debug: bool, timesteps: int, variance_schedule: str, seed: int):
+    """The debug noiser that train()'s keys select over the train split, or
+    None (reference bin/train.py:165-195)."""
+    common = dict(dset_key=ft_key, timesteps=timesteps, beta_schedule=variance_schedule)
+    if syn_noiser:
+        if syn_noiser != "halfhalf":
+            raise ValueError(f"Unknown synthetic noiser {syn_noiser}")
+        return dn.SynNoisedByPositionDataset(train_ds, **common)
+    if single_angle_debug > 0 and single_timestep_debug:
+        return dn.SingleNoisedAngleAndTimeDataset(dset=train_ds, ft_idx=single_angle_debug, seed=seed, **common)
+    if single_angle_debug > 0:
+        return dn.SingleNoisedAngleDataset(dset=train_ds, ft_idx=single_angle_debug, seed=seed, **common)
+    if single_timestep_debug:
+        return dn.SingleNoisedAngleAndTimeDataset(dset=train_ds, seed=seed, **common)
+    return None
+
+
+def train_debug(trainer: Trainer, noiser, max_epochs: int, batch_size: int, seed: int) -> List[Dict[str, float]]:
+    """Train from a debug noiser's items (reference bin/train.py:425-430):
+    each epoch in np.random.default_rng(seed + epoch) order, full batches
+    only, one pre-corrupted step each. Returns one {"epoch", "train_loss"}
+    row per epoch; the loss is NaN for an epoch without a full batch."""
+    logging.warning(f"Training from debug noiser {type(noiser).__name__}")
+    keys = ("corrupted", "t", "known_noise", "attn_mask")
+    rows = []
+    with trainer._dropout_rng():
+        for epoch in range(max_epochs):
+            order = np.random.default_rng(seed + epoch).permutation(len(noiser))
+            losses = []
+            for start in range(0, len(order) - batch_size + 1, batch_size):
+                items = [noiser[int(i)] for i in order[start : start + batch_size]]
+                batch = {k: np.stack([it[k] for it in items]) for k in keys}
+                avg, _ = trainer.train_step_precorrupted(trainer.to_device(batch, keys))
+                losses.append(avg)
+            loss = float(torch.stack(losses).mean().cpu()) if losses else float("nan")
+            rows.append({"epoch": epoch, "train_loss": loss})
+            logging.info(f"debug epoch {epoch}: {loss:.4f}")
+    return rows

@@ -11,6 +11,9 @@ reference bin/train.py:287-507 and modelling.py:487-804).
   norm (scaled by max / ||g|| when ||g|| >= max), then AdamW with
   weight_decay = l2_norm; the learning rate of update n is schedule(n),
   LinearWarmup stepped per epoch with 10% warmup, or optax's one-cycle cosine
+- the pre-corrupted step of the debug noisers (train_step_precorrupted):
+  the same update from a batch noised on the host, its loss the mean of the
+  per-feature terms only
 - top-5 checkpoints by validation and by training loss under
   models/best_by_{valid,train}/ (bin/train.py:214-233), SWA into
   best_by_swa, early stopping, a SIGTERM checkpoint, resume from the train
@@ -206,9 +209,9 @@ class Trainer:
         p = self.cfg.use_pdist_loss
         return (p[0] if isinstance(p, (list, tuple)) else p) > 0
 
-    def to_device(self, batch: Batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device)
-                for k in ("angles", "attn_mask", "lengths")}
+    def to_device(self, batch: Batch, keys: Sequence[str] = ("angles", "attn_mask", "lengths")
+                  ) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in keys}
 
     # -- core loss ----------------------------------------------------------
     def _predict(self, batch, t=None, noise=None):
@@ -269,16 +272,11 @@ class Trainer:
         is not one). Its gradient at p = 0 is +1, as jnp.abs's is."""
         return sum(torch.where(p >= 0, p, -p).sum() for p in self.model.parameters())
 
-    def train_step(self, batch, t=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One update from a device batch: (loss, per-feature terms), both
-        detached on the device. The loss includes the L1 penalty, as JAX's."""
-        self.model.train()
-        terms = self._loss_terms(batch, t, noise)
-        avg = terms.mean()
-        if self.cfg.l1_norm > 0:
-            avg = avg + self.cfg.l1_norm * self.l1_penalty()
+    def _update(self, loss: torch.Tensor) -> None:
+        """Backward from `loss`, then the global-norm clip and the AdamW step
+        at the schedule's learning rate."""
         self.optimizer.zero_grad(set_to_none=True)
-        avg.backward()
+        loss.backward()
         with torch.profiler.record_function("optimizer"):
             if self.cfg.gradient_clip:
                 clip_by_global_norm_([p.grad for p in self.model.parameters() if p.grad is not None],
@@ -287,6 +285,37 @@ class Trainer:
                 group["lr"] = self.lr_schedule(self.step)  # optax reads the count before its increment
             self.optimizer.step()
         self.step += 1
+
+    def train_step(self, batch, t=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One update from a device batch: (loss, per-feature terms), both
+        detached on the device. The loss includes the L1 penalty, as JAX's."""
+        self.model.train()
+        terms = self._loss_terms(batch, t, noise)
+        avg = terms.mean()
+        if self.cfg.l1_norm > 0:
+            avg = avg + self.cfg.l1_norm * self.l1_penalty()
+        self._update(avg)
+        return avg.detach(), terms.detach()
+
+    # -- pre-corrupted path (debug noisers) ----------------------------------
+    def _loss_terms_precorrupted(self, batch) -> torch.Tensor:
+        """(F,) per-feature losses of a host-noised device batch, which
+        carries "corrupted", "t", "known_noise" and "attn_mask" (the
+        reference's dataset-noising contract, datasets.py:873-879), in the
+        model's current mode."""
+        pred = self.model(batch["corrupted"], batch["t"].reshape(-1), batch["attn_mask"])
+        is_angular = self.is_angular[: pred.shape[-1]]
+        return _per_feature_losses(pred, batch["known_noise"], batch["attn_mask"], is_angular, self.cfg.loss,
+                                   self.cfg.circle_reg)
+
+    def train_step_precorrupted(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One update from a host-noised device batch (the debug noisers'):
+        (loss, per-feature terms), both detached on the device. The loss is
+        the mean of the terms, without the L1 penalty, as JAX's."""
+        self.model.train()
+        terms = self._loss_terms_precorrupted(batch)
+        avg = terms.mean()
+        self._update(avg)
         return avg.detach(), terms.detach()
 
     def eval_step(self, batch, t=None, noise=None) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """
 The port's sampling slice end to end on the CPU: bin/sample_torch.py over the
-mini fixture (DDPM, DPM-Solver++, --noise-scale and its errors), the NeRF +
-PDB writer against the JAX package's byte for byte, the import boundary (the
-port imports nothing of the JAX package; the slice loads neither jax, flax,
-pandas nor matplotlib), and the entry points' default device (the card).
+mini fixture (DDPM, DPM-Solver++, --noise-scale and its errors) and over a
+cart-coords model (CA-trace PDBs), the NeRF + PDB and CA-trace writers
+against the JAX package's byte for byte, the import boundary (the port
+imports nothing of the JAX package; the slice loads neither jax, flax,
+pandas, matplotlib nor scipy), and the entry points' default device (the
+card).
 """
 import gzip
 import importlib.util
@@ -16,16 +18,33 @@ import numpy as np
 import pandas as pd
 import pytest
 
+import torch
+
 from foldingdiff_tpu.geometry.featurize import create_new_chain_nerf as jax_create_new_chain_nerf
+from foldingdiff_tpu.geometry.pdb import write_ca_trace_to_pdb as jax_write_ca_trace_to_pdb
 from foldingdiff_tpu_torch.geometry.featurize import create_new_chain_nerf
+from foldingdiff_tpu_torch.models import io as model_io
+from foldingdiff_tpu_torch.models.config import ModelConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MINI_FIXTURE = os.path.join(REPO, "tests", "mini_model_for_testing", "results")
 FT_NAMES = ["phi", "psi", "omega", "tau", "CA:C:1N", "C:1N:1CA"]
 
 
-def _run(args, **kw):
-    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=300, **kw)
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: these eager loops run many tiny ops, which a
+    thread pool slows down, the more so on cores that other test workers
+    share."""
+    previous = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(previous)
+
+
+def _run(args, env=None):
+    env = {**os.environ, "OMP_NUM_THREADS": "1", **(env or {})}  # one intra-op thread, as above
+    return subprocess.run([sys.executable, *args], cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
 
 
 def _check_outputs(out_dir, lengths):
@@ -101,12 +120,58 @@ def test_create_new_chain_nerf_pdb_is_byte_identical(tmp_path):
     assert (tmp_path / "ours.pdb").read_bytes() == (tmp_path / "ref.pdb").read_bytes()
 
 
+def _cart_coords_dir(path, decoder_scale=1.0):
+    """A 1-layer cart-coords model directory (x, y, z features, linear T = 10)
+    with seeded random weights, its decoder's output weights times
+    decoder_scale."""
+    config = ModelConfig(hidden_size=32, num_hidden_layers=1, num_attention_heads=2, intermediate_size=64,
+                         max_position_embeddings=32, ft_is_angular=(False,) * 3, ft_names=("x", "y", "z"))
+    state = model_io.init_random(config, torch.Generator().manual_seed(0)).state_dict()
+    state["token_decoder.dense2.weight"] = state["token_decoder.dense2.weight"] * decoder_scale
+    train_args = {"angles_definitions": "cart-coords", "max_seq_len": 32, "timesteps": 10,
+                  "variance_schedule": "linear", "num_hidden_layers": 1, "hidden_size": 32, "intermediate_size": 64,
+                  "num_heads": 2, "position_embedding_type": "relative_key"}
+    model_io.save_model_dir(str(path), config, state, train_args)
+    return str(path)
+
+
+def test_sample_torch_cli_writes_ca_traces_for_cart_coords(tmp_path, caplog):
+    """A cart-coords model samples to CA-trace PDBs whose ATOM lines are the
+    JAX package's write_ca_trace_to_pdb's on the same coordinates; a trace
+    that overflows the PDB columns (decoder weights x 1e6) is skipped with a
+    warning."""
+    model_dir = _cart_coords_dir(tmp_path / "model")
+    out = tmp_path / "out"
+    result = _cli().main(["-m", model_dir, "--device", "cpu", "-n", "1", "-l", "20", "23", "-b", "4", "-o", str(out)])
+    assert result["n_structures"] == 3 and result["pdb_skipped"] == [] and len(result["pdb_files"]) == 3
+    for i, length in enumerate([20, 21, 22]):
+        csv_file = out / "sampled_angles" / f"generated_{i}.csv.gz"
+        with gzip.open(csv_file, "rt") as f:
+            assert f.readline().strip() == "x,y,z"
+        coords = np.loadtxt(csv_file, delimiter=",", skiprows=1)
+        assert coords.shape == (length, 3) and np.all(np.isfinite(coords))
+        ref = jax_write_ca_trace_to_pdb(coords, str(tmp_path / f"ref_{i}.pdb"))
+        ours = (out / "sampled_pdb" / f"generated_{i}.pdb").read_bytes()
+        assert ours == (tmp_path / f"ref_{i}.pdb").read_bytes() and ref
+        lines = ours.decode().splitlines()
+        assert sum(line.startswith("ATOM") and line[12:16] == " CA " for line in lines) == length
+
+    wild = _cart_coords_dir(tmp_path / "wild", decoder_scale=1e6)
+    with caplog.at_level("WARNING"):
+        result = _cli().main(["-m", wild, "--device", "cpu", "-n", "1", "-l", "20", "22", "-b", "4",
+                              "-o", str(tmp_path / "wild_out")])
+    assert result["pdb_skipped"] == [0, 1] and result["pdb_files"] == []
+    assert sum("Skipping sample" in r.getMessage() and "column width" in r.getMessage() for r in caplog.records) == 2
+    assert os.listdir(tmp_path / "wild_out" / "sampled_pdb") == []
+
+
 def test_port_imports_nothing_of_the_jax_package():
     """With foldingdiff_tpu, jax and flax refused by an import hook, every
-    module of the port, the module-level imports of chip_smoke.py,
-    bin/sample_torch.py and bin/train_torch.py, from_dir,
-    AnglesEmptyDataset.from_dir and an epoch of Trainer.fit all work, and
-    load neither optax nor pandas."""
+    module of the port, the module-level imports of chip_smoke.py and the
+    three CLIs (bin/sample_torch.py, bin/train_torch.py,
+    bin/partial_noise_reconstruct_torch.py), from_dir,
+    AnglesEmptyDataset.from_dir, an epoch of Trainer.fit and one
+    pre-corrupted step all work, and load neither optax nor pandas."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
 
@@ -122,7 +187,8 @@ def test_port_imports_nothing_of_the_jax_package():
         for name in names:
             importlib.import_module(name)
         for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py"),
-                           ("train_torch", "bin/train_torch.py")):
+                           ("train_torch", "bin/train_torch.py"),
+                           ("partial_noise_reconstruct_torch", "bin/partial_noise_reconstruct_torch.py")):
             spec = importlib.util.spec_from_file_location(name, path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
@@ -133,6 +199,7 @@ def test_port_imports_nothing_of_the_jax_package():
         assert model.config.hidden_size == args["hidden_size"] and empty.pad == args["max_seq_len"]
 
         import numpy as np
+        import torch
         from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
         from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig
         rng = np.random.default_rng(0)
@@ -141,13 +208,16 @@ def test_port_imports_nothing_of_the_jax_package():
         trainer = Trainer(model, DiffusionSchedule.create("cosine", 10, device="cpu"),
                           TrainConfig(batch_size=4, max_epochs=1, use_pdist_loss=0.5), steps_per_epoch=2)
         assert len(trainer.fit(data, valid_data=data)) == 1
+        batch = {{"corrupted": torch.from_numpy(data["angles"][:4]), "t": torch.full((4, 1), 3),
+                  "known_noise": torch.from_numpy(data["angles"][:4]), "attn_mask": torch.ones(4, 64)}}
+        assert torch.isfinite(trainer.train_step_precorrupted(batch)[0])
         print(len(names), sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax", "optax", "pandas")))
     """)
     proc = _run(["-c", script])
     assert proc.returncode == 0, proc.stderr
     n_modules, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 20 and loaded == "[]"
+    assert int(n_modules) >= 24 and loaded == "[]"
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
@@ -168,26 +238,48 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_slice_imports_no_jax_flax_pandas_or_matplotlib():
+    """Sampling, partial-noise reconstruction with its TM scoring, a debug
+    noiser's item and the three CLIs' modules load none of jax, flax,
+    pandas, matplotlib or scipy (the card's machine has none of them)."""
     script = textwrap.dedent(f"""
-        import sys
+        import importlib.util, sys
         import numpy as np
         import torch
         from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
-        from foldingdiff_tpu_torch.diffusion.sampling import sample
+        from foldingdiff_tpu_torch.data.debug_noisers import SingleNoisedAngleDataset
+        from foldingdiff_tpu_torch.diffusion.sampling import get_reconstruction_error, sample
         from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+        from foldingdiff_tpu_torch.eval import tmscore
         from foldingdiff_tpu_torch.geometry.featurize import create_new_chain_nerf
         from foldingdiff_tpu_torch.models import io
+        from foldingdiff_tpu_torch.training import orchestration
 
+        for name in ("sample_torch", "train_torch", "partial_noise_reconstruct_torch"):
+            spec = importlib.util.spec_from_file_location(name, f"bin/{{name}}.py")
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
         model, args = io.from_dir({MINI_FIXTURE!r}, device="cpu")
         empty = AnglesEmptyDataset.from_dir({MINI_FIXTURE!r})
-        out = sample(model, DiffusionSchedule.create("cosine", 2, device="cpu"),
-                     is_angular=empty.feature_is_angular["angles"],
-                     pad=empty.pad, lengths=[20], mean_offset=empty.get_masked_means())
+        schedule = DiffusionSchedule.create("cosine", 2, device="cpu")
+        out = sample(model, schedule, is_angular=empty.feature_is_angular["angles"], pad=empty.pad, lengths=[20])
         assert out[0].shape == (20, 6)
         import tempfile, os
         with tempfile.TemporaryDirectory() as d:
             assert create_new_chain_nerf(os.path.join(d, "x.pdb"), out[0], empty.feature_names["angles"])
-        print(sorted(m for m in ("jax", "flax", "pandas", "matplotlib") if m in sys.modules))
+        data = {{"angles": np.concatenate([out[0], np.zeros((44, 6), np.float32)])[None],
+                 "attn_mask": (np.arange(64) < 20).astype(np.float32)[None], "lengths": np.array([20])}}
+        recon = get_reconstruction_error(model, DiffusionSchedule.create("linear", 10, device="cpu"), data,
+                                         is_angular=[True] * 6, noise_timesteps=1)
+        score, score_coord = tmscore.score_reconstruction(recon[0], out[0], "data/1CRN.pdb", empty.feature_names["angles"])
+        assert 0.5 < score <= 1 and 0 < score_coord <= 1
+
+        class Clean:
+            feature_names, feature_is_angular, pad = empty.feature_names, empty.feature_is_angular, 64
+            def __len__(self):
+                return 1
+            def __getitem__(self, i, ignore_zero_center=False):
+                return {{k: v[0] for k, v in data.items()}}
+        assert SingleNoisedAngleDataset(dset=Clean(), seed=0)[0]["corrupted"].shape == (64, 1)
+        print(sorted(m for m in ("jax", "flax", "pandas", "matplotlib", "scipy") if m in sys.modules))
     """)
     proc = _run(["-c", script])
     assert proc.returncode == 0, proc.stderr

@@ -421,9 +421,6 @@ def test_save_model_dir_keeps_top_k(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(monkeypatch, tmp_path):
-    for kw in ({"syn_noiser": "halfhalf"}, {"single_angle_debug": 2}, {"single_timestep_debug": True}):
-        with pytest.raises(ValueError, match="debug noisers .* 'What waits' item 2"):
-            orchestration.train(results_dir=str(tmp_path), device="cpu", **kw)
     for kw in ({"use_mesh": True}, {"ngpu": 4}):
         with pytest.raises(ValueError, match="several devices .* 'What waits' item 4"):
             orchestration.train(results_dir=str(tmp_path), device="cpu", **kw)
