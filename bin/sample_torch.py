@@ -20,7 +20,6 @@ explicit choice, never a fallback. Outputs:
 Usage: python bin/sample_torch.py -m results -l 50 128 -n 10 -b 512 -o sampled
 """
 import argparse
-import gzip
 import logging
 import os
 import shutil
@@ -59,15 +58,6 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--nopdb", action="store_true", help="skip PDB writing")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     return parser
-
-
-def write_angles_csv(values, feature_names, fname) -> None:
-    """One structure's (L, F) angles as a gzipped CSV with a header row,
-    values printed as numpy prints them (the same text pandas writes)."""
-    with gzip.open(fname, "wt") as f:
-        f.write(",".join(feature_names) + "\n")
-        for row in values:
-            f.write(",".join(str(v) for v in row) + "\n")
 
 
 def write_pdbs(structures, feature_names, pdb_dir: Path):
@@ -115,6 +105,7 @@ def main(argv=None) -> dict:
     from foldingdiff_tpu_torch.diffusion import sampling as samp
     from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from foldingdiff_tpu_torch.models import io as model_io
+    from foldingdiff_tpu_torch.utils import write_angles_csv
 
     outdir = Path(args.outdir)
     os.makedirs(outdir, exist_ok=True)

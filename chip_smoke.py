@@ -70,10 +70,34 @@ Phases, each printing lines of its own:
      bin/train_torch.py --debug_single_time for 1 epoch on phase 7's corpus
      at the flagship config (finite losses, neither kernel launched) and
      ms per pre-corrupted step at B = 64, L = 128
+  9. the baselines, on phase 7's corpus: (a) the autoregressive (AR)
+     baseline trained through bin/train_autoregressive_torch.py on
+     config_jsons/synthetic_full_angles_cosine.json (12 x 384,
+     relative_key, pad 128, batch 64) for 2 epochs: finite losses, 2 CSV
+     rows, checkpoints, the v2 kernel launched 12 times per validation
+     batch and never in a train step; ms per AR train step at B = 64,
+     L = 128 (median of 25 synchronised steps after 3); (b) one AR train
+     step at B = 8 on the card against the CPU (dropout 0, causal lengths
+     injected; loss within 1e-6, parameters within 1e-4 + 1e-3 |p|);
+     (c) bin/sample_autoregressive_torch.py -n 64 --numseed 4 from (a)'s
+     directory: exactly 12 x (max(lengths) - 4) v2 launches, angles finite
+     in [-pi, pi), the PDBs written, seconds and ms per forward, and the
+     device operations of a forward from a torch.profiler window; (d) a
+     seeded random AR directory at bin/train_autoregressive_torch.py's
+     defaults (12 x 384, `absolute`) through the same CLI, launching only the
+     v2 kernel's rel-off instance, 12 per forward; one AR forward of each
+     model at B = 64 under "auto" against "plain" with prefixes of 4 and
+     100 keys, timed; (e) ar_sample of 4 chains on the card against the CPU
+     from the same seeds, within 1e-3 circular; (f) the random-angle
+     baseline (bin/sample_random_angles_torch.py -n 64), and the KS max
+     statistic, mean P-SEA helix and strand elements and mean clashes of
+     (c)'s and (f)'s sets and of the test split, against the test split
+     (printed, no thresholds)
 
-The line before the last is {"kernels": [...]}; the last is
-{"ok": true, "device": {...}}. Any failure raises, so the script exits
-non-zero and prints neither.
+The line before the last is {"kernels": [...]}, whose v2 launches are
+phase 5's and phase 9's (phase 9 prints its rel-off launches apart); the
+last is {"ok": true, "device": {...}}. Any failure raises, so the script
+exits non-zero and prints neither.
 
 Usage: python3 chip_smoke.py
 """
@@ -109,9 +133,12 @@ from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
 from foldingdiff_tpu_torch.geometry.featurize import EXHAUSTIVE_ANGLES, create_new_chain_nerf  # noqa: E402
+from foldingdiff_tpu_torch.metrics import clashes, kl, ss  # noqa: E402
 from foldingdiff_tpu_torch.models import io as model_io  # noqa: E402
+from foldingdiff_tpu_torch.models.ar import BertForAutoregressive, ar_sample  # noqa: E402
 from foldingdiff_tpu_torch.models.config import ModelConfig  # noqa: E402
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
+from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer  # noqa: E402
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig  # noqa: E402
 
 DEVICE = "cuda"
@@ -702,6 +729,18 @@ def phase_step_card_vs_cpu() -> None:
         trainer.train_step(dev, t.to(device), noise.to(device))
         results[device] = (terms.detach().cpu(), grads, {n: p.detach().cpu() for n, p in
                                                         trainer.model.named_parameters()})
+    check_step_card_vs_cpu(f"[7] one train step B={b} L={l}", results, 1e-4, STEP_TERMS_TOL, STEP_PARAM_TOL)
+
+
+def check_step_card_vs_cpu(tag: str, results: dict, lr: float, loss_tol: float, param_atol: float,
+                           param_rtol: float = 0.0, grad_tol: float | None = STEP_GRAD_TOL) -> None:
+    """Hold one train step on the card against the CPU's. results[device] is
+    (loss or loss terms, gradients, parameters after the step), all on the
+    CPU. The gradients are held within grad_tol of each tensor's largest
+    element (reported only when grad_tol is None). The parameters are held
+    within param_atol + param_rtol |p| where the gradient clears 10x the
+    card-CPU gradient difference; elsewhere within 2 lr (a first Adam step
+    moves an element by about lr, its sign set by float noise there)."""
     (terms_c, grads_c, params_c), (terms_g, grads_g, params_g) = results["cpu"], results[DEVICE]
     terms_err = (terms_g - terms_c).abs().max().item()
     # The key biases' gradients vanish in exact arithmetic (a bias on the keys
@@ -714,22 +753,24 @@ def phase_step_card_vs_cpu() -> None:
                  for n in grads_c}
     worst = max(grad_errs, key=grad_errs.get)
     grad_err = grad_errs[worst]
-    lr, param_err, flips = 1e-4, 0.0, 0
+    param_err, param_excess, flips = 0.0, 0.0, 0
     for n, p in params_c.items():
         floor = max(1e-6, 10 * (grads_g[n] - grads_c[n]).abs().max().item())
         big = grads_c[n].abs() > floor
         diff = (params_g[n] - p).abs()
-        param_err = max(param_err, diff[big].max().item() if big.any() else 0.0)
+        if big.any():
+            param_err = max(param_err, diff[big].max().item())
+            param_excess = max(param_excess, (diff[big] - param_rtol * p[big].abs()).max().item())
         if not bool((diff[~big] <= 2 * lr).all()):
-            raise RuntimeError(f"[7] parameter {n} moved more than 2 lr apart on card and CPU")
-        flips += int((diff[~big] > STEP_PARAM_TOL).sum())
-    log(f"[7] one train step B={b} L={l} card vs CPU (dropout 0): loss terms max abs err {terms_err:.3e} "
-        f"(tol {STEP_TERMS_TOL}), gradients max err {grad_err:.3e} of each tensor's max (tol {STEP_GRAD_TOL}; "
-        f"worst {worst}), "
-        f"parameters after the step max abs err {param_err:.3e} (tol {STEP_PARAM_TOL}); "
-        f"{flips} elements below the gradient floor moved apart (within 2 lr)")
-    if not (terms_err <= STEP_TERMS_TOL and grad_err <= STEP_GRAD_TOL and param_err <= STEP_PARAM_TOL):
-        raise RuntimeError("[7] the train step on the card disagrees with the CPU's")
+            raise RuntimeError(f"{tag}: parameter {n} moved more than 2 lr apart on card and CPU")
+        flips += int((diff[~big] > param_atol).sum())
+    log(f"{tag} card vs CPU (dropout 0): loss max abs err {terms_err:.3e} (tol {loss_tol}), gradients max err "
+        f"{grad_err:.3e} of each tensor's max ({f'tol {grad_tol}' if grad_tol else 'not gated'}; worst {worst}), "
+        f"parameters after the step "
+        f"max abs err {param_err:.3e} (tol {param_atol}" + (f" + {param_rtol} |p|" if param_rtol else "") +
+        f"); {flips} elements below the gradient floor moved apart (within 2 lr)")
+    if not (terms_err <= loss_tol and (grad_tol is None or grad_err <= grad_tol) and param_excess <= param_atol):
+        raise RuntimeError(f"{tag}: the train step on the card disagrees with the CPU's")
 
 
 def phase_remat() -> None:
@@ -1060,6 +1101,290 @@ def phase_surface(tmp: str, model_dir: str, trained: str, card: str) -> None:
     phase_debug_training(tmp, card)
 
 
+AR_CONFIG = REPO / "config_jsons" / "synthetic_full_angles_cosine.json"  # the AR baseline's training config
+AR_DEFAULTS: dict = {}  # bin/train_autoregressive_torch.py's config when none is given: 12 x 384, `absolute`
+AR_NUM, AR_NUMSEED = 64, 4  # bin/sample_autoregressive_torch.py -n 64 --numseed 4
+AR_CHAIN_LENGTHS = (44, 52, 60, 68)  # (e): the chains held card against CPU (64 forwards on each)
+AR_STEP_LOSS_TOL, AR_STEP_PARAM_TOL, AR_STEP_PARAM_RTOL = 1e-6, 1e-4, 1e-3
+AR_CHAIN_TOL = 1e-3  # card against CPU through 64 greedy steps of 12 layers (float32, circular)
+FT_NAMES = ("phi", "psi", "omega", "tau", "CA:C:1N", "C:1N:1CA")  # canonical-full-angles
+
+
+def circular_err(a, b) -> float:
+    return float(np.abs((np.asarray(a) - np.asarray(b) + np.pi) % (2 * np.pi) - np.pi).max())
+
+
+def ar_forward_inputs(b: int, l: int, prefix: int):
+    g = torch.Generator(device=DEVICE).manual_seed(SEED + prefix)
+    x = (torch.rand(b, l, 6, generator=g, device=DEVICE) * 2 - 1) * math.pi
+    lengths = torch.randint(40, 2 * l, (b,), generator=g, device=DEVICE)
+    mask = (torch.arange(l, device=DEVICE) < prefix).float().expand(b, l)
+    return x, mask, lengths
+
+
+def phase_ar_train(tmp: str, card: str) -> tuple[str, int]:
+    """(a) bin/train_autoregressive_torch.py on the AR config for 2 epochs,
+    then ms per AR train step at B = 64, L = 128. Returns (the trained
+    directory, its v2 launches)."""
+    results = Path(tmp, "ar_trained")
+    layers = FLAGSHIP.num_hidden_layers
+    V2.launches = V2.rel_off_launches = V1.launches = 0
+    start = time.perf_counter()
+    rows = load_script("train_autoregressive_torch").main(
+        [str(AR_CONFIG), "--dataset", str(Path(tmp, "corpus")), "--epochs", "2", "-o", str(results),
+         "--device", DEVICE])
+    wall = time.perf_counter() - start
+    n_valid = len(dsets.DATASET_CLASSES["canonical-full-angles"](
+        pdbs=str(Path(tmp, "corpus")), split="validation", pad=128, min_length=40, trim_strategy="randomcrop"))
+    valid_batches = len(ARTrainer._starts(n_valid, 64))
+    # validation: one v2 launch per layer per batch; train steps launch none
+    check_launches("[9a] train_autoregressive_torch --epochs 2", {V2.name: layers * valid_batches * 2, V1.name: 0})
+    launches = V2.launches
+    if V2.rel_off_launches:
+        raise RuntimeError("[9a] a relative_key AR model launched the rel-off instance")
+    if [r["epoch"] for r in rows] != [0, 1] or not all(math.isfinite(r[k]) for r in rows
+                                                      for k in ("train_loss", "val_loss")):
+        raise RuntimeError(f"[9a] rows {rows}")
+    with open(results / "logs" / "metrics.csv", newline="") as f:
+        if len(list(csv.DictReader(f))) != 2:
+            raise RuntimeError("[9a] metrics.csv does not hold 2 rows")
+    ckpts = sorted(p.name for p in (results / "models" / "best_by_valid").glob("epoch=*.ckpt"))
+    if not ckpts:
+        raise RuntimeError("[9a] no checkpoint under best_by_valid")
+    for r in rows:
+        log(f"[9a] epoch {r['epoch']}: step {r['step']}, train loss {r['train_loss']:.6f}, "
+            f"val loss {r['val_loss']:.6f}, {r['epoch_seconds']:.3f} s")
+    log(f"[9a] bin/train_autoregressive_torch.py --epochs 2 on {card}: wall {wall:.3f} s, {n_valid} validation "
+        f"structures in {valid_batches} batch(es), checkpoints {ckpts}")
+
+    model, _ = model_io.from_dir(str(results), device=DEVICE, model_cls=BertForAutoregressive)
+    trainer = ARTrainer(model, TrainConfig(lr=1e-4, batch_size=BATCH, max_epochs=800), steps_per_epoch=300)
+    batch = {k: v.to(DEVICE) for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings).items()}
+    V2.launches = V1.launches = 0
+    for _ in range(3):
+        trainer.train_step(batch)
+    times = []
+    for _ in range(25):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        loss = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    check_launches("[9a] AR train steps", {V2.name: 0, V1.name: 0})
+    if not math.isfinite(loss.item()):
+        raise RuntimeError("[9a] non-finite AR training loss")
+    ms = statistics.median(times)
+    log(f"[9a] AR train step on {card}, B={BATCH} L=128, 12 x 384 relative_key, dropout 0.1: median {ms:.4f} ms of 25 "
+        f"(min {min(times):.4f}, max {max(times):.4f}), {BATCH / ms * 1e3:.1f} structures/s")
+    return str(results), launches
+
+
+def phase_ar_step_card_vs_cpu(trained: str) -> None:
+    """(b) One AR train step at B = 8, dropout 0, causal lengths injected, on
+    the card and on the CPU from the same weights and batch."""
+    b, l = 8, FLAGSHIP.max_position_embeddings
+    batch = train_batch(b, l)
+    causal = (1 + torch.rand(b, generator=torch.Generator().manual_seed(SEED + 5)) * (batch["lengths"] - 1)).long()
+    lr = 1e-4
+    results = {}
+    for device in ("cpu", DEVICE):
+        model, _ = model_io.from_dir(trained, device=device, model_cls=BertForAutoregressive,
+                                     hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+        trainer = ARTrainer(model, TrainConfig(lr=lr, batch_size=b, max_epochs=1, lr_scheduler=None), 1)
+        dev = {k: v.to(device) for k, v in batch.items()}
+        model.train()
+        loss = trainer._loss(dev, causal)
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        trainer.train_step(dev, causal)
+        results[device] = (loss.detach().cpu(), grads, {n: p.detach().cpu() for n, p in model.named_parameters()})
+    # Gated on the loss and the parameters after the step; the gradients are
+    # reported: the AR loss reads one row per item, so the last layers'
+    # gradients come from 8 rows alone, and on an H100 they differed from the
+    # CPU's by 1.5e-3 of their largest element (float32 summation orders)
+    check_step_card_vs_cpu(f"[9b] one AR train step B={b} L={l}", results, lr, AR_STEP_LOSS_TOL, AR_STEP_PARAM_TOL,
+                           AR_STEP_PARAM_RTOL, grad_tol=None)
+
+
+def run_ar_sampling(tag: str, model_dir: str, tmp: str, out: str, card: str) -> tuple[dict, int]:
+    """bin/sample_autoregressive_torch.py -n 64 --numseed 4 over the corpus;
+    checks the angles, the PDBs and 12 v2 launches per forward. Returns (the
+    CLI's result, the v2 launches)."""
+    V2.launches = V2.rel_off_launches = V1.launches = 0
+    start = time.perf_counter()
+    result = load_script("sample_autoregressive_torch").main(
+        ["-m", model_dir, "--data", str(Path(tmp, "corpus")), "-n", str(AR_NUM), "--numseed", str(AR_NUMSEED),
+         "-o", out, "--seed", str(SEED), "--device", DEVICE])
+    wall = time.perf_counter() - start
+    forwards = max(result["lengths"]) - AR_NUMSEED
+    check_launches(tag, {V2.name: FLAGSHIP.num_hidden_layers * forwards, V1.name: 0})
+    launches = V2.launches
+    for i, (angles, length) in enumerate(zip(result["angles"], result["lengths"])):
+        if angles.shape != (min(length, 128), 6) or not np.all(np.isfinite(angles)) \
+                or angles.min() < -np.pi or angles.max() >= np.pi:
+            raise RuntimeError(f"{tag} ar_generated_{i}: shape {angles.shape} or angles not finite in [-pi, pi)")
+    if len(result["pdb_files"]) != AR_NUM:
+        raise RuntimeError(f"{tag}: {len(result['pdb_files'])} PDBs written, expected {AR_NUM}")
+    seconds = result["generation_seconds"]
+    log(f"{tag} on {card}: {AR_NUM} chains, max length {max(result['lengths'])}, {forwards} forwards at B={AR_NUM} "
+        f"L=128: generation {seconds:.3f} s, {seconds / forwards * 1e3:.4f} ms per forward; CLI wall with loading "
+        f"and PDB writing {wall:.3f} s")
+    return result, launches
+
+
+def ar_profile(model, card: str, tag: str, forwards: int = 5) -> None:
+    """Device operations and busy time per AR forward at B = 64, L = 128, from
+    a torch.profiler window of a few forwards."""
+    x, mask, lengths = ar_forward_inputs(AR_NUM, 128, 100)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.inference_mode():
+        model(x, mask, lengths)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(forwards):
+                model(x, mask, lengths)
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        raise RuntimeError(f"{tag}: torch.profiler recorded no device events")
+    busy, end, attn = 0.0, -math.inf, 0.0
+    for e in events:
+        busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+        end = max(end, e.time_range.end)
+        if kernel_group(e.name) == "attention v2":
+            attn += (e.time_range.end - e.time_range.start) / 1e3
+    log(f"{tag} profile one AR forward on {card}, B={AR_NUM} L=128: {len(events) / forwards:.1f} device operations, "
+        f"busy {busy / 1e3 / forwards:.4f} ms, attention kernel {attn / forwards:.4f} ms")
+
+
+def phase_ar_absolute(tmp: str, trained: str, card: str) -> tuple[str, int]:
+    """(d) A seeded random AR directory at bin/train_autoregressive_torch.py's
+    defaults (12 x 384, `absolute`) through the same CLI: only the rel-off
+    instance, 12 per forward; then one forward under "auto" against "plain"
+    with prefixes of 4 and 100 keys, and both AR models timed."""
+    cli = load_script("train_autoregressive_torch")
+    config = cli.model_config_from(AR_DEFAULTS, (True,) * len(FT_NAMES), FT_NAMES)
+    model_dir = str(Path(tmp, "ar_absolute"))
+    weights = model_io.init_random(config, torch.Generator().manual_seed(SEED), model_cls=BertForAutoregressive)
+    mean_offset = np.load(Path(trained, "training_mean_offset.npy"))
+    model_io.save_model_dir(model_dir, config, weights.state_dict(), cli.train_args_for(AR_DEFAULTS, config),
+                            mean_offset)
+    del weights
+    result, launches = run_ar_sampling("[9d] absolute AR sampling", model_dir, tmp, str(Path(tmp, "ar_abs_sampled")),
+                                       card)
+    if V2.rel_off_launches != launches:
+        raise RuntimeError(f"[9d] {launches} v2 launches, of them {V2.rel_off_launches} rel-off: expected only rel-off")
+    log(f"[9d] v2 rel-off instance launches (the `absolute` AR path): {V2.rel_off_launches}")
+
+    layers = config.num_hidden_layers
+    models = {}
+    for name, path in (("relative_key", trained), ("absolute", model_dir)):
+        models[name] = {impl: model_io.from_dir(path, device=DEVICE, model_cls=BertForAutoregressive,
+                                                attention_impl=impl)[0] for impl in ("auto", "plain")}
+    with torch.inference_mode():
+        for prefix in (AR_NUMSEED, 100):
+            x, mask, lengths = ar_forward_inputs(AR_NUM, 128, prefix)
+            for name, pair in models.items():
+                V2.launches = V2.rel_off_launches = V1.launches = 0
+                out = pair["auto"](x, mask, lengths)
+                check_launches(f"[9d] {name} AR forward, prefix {prefix}", {V2.name: layers, V1.name: 0})
+                if V2.rel_off_launches != (layers if name == "absolute" else 0):
+                    raise RuntimeError(f"[9d] {name}: {V2.rel_off_launches} rel-off launches")
+                err = (out - pair["plain"](x, mask, lengths)).abs().max().item()
+                log(f"[9d] {name} AR forward B={AR_NUM} L=128, prefix {prefix} keys, auto vs plain: "
+                    f"max abs err {err:.3e} (tol {DENOISER_TOL})")
+                if not err <= DENOISER_TOL:
+                    raise RuntimeError(f"[9d] {name} AR forward disagrees with plain: {err} > {DENOISER_TOL}")
+        x, mask, lengths = ar_forward_inputs(AR_NUM, 128, 100)
+        for name, pair in models.items():
+            plain_ms, kernel_ms = alternate_ms(lambda: pair["plain"](x, mask, lengths),
+                                               lambda: pair["auto"](x, mask, lengths), iters=20)
+            log(f"[9d] time one {name} AR forward on {card}, B={AR_NUM} L=128: auto {kernel_ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms")
+        for name, pair in models.items():
+            ar_profile(pair["auto"], card, f"[9d] {name}")
+    return model_dir, launches
+
+
+def phase_ar_chain_card_vs_cpu(tmp: str, trained: str) -> None:
+    """(e) ar_sample of 4 chains on the card and on the CPU from the same seeds."""
+    train_args = json.loads(Path(trained, "training_args.json").read_text())
+    ds = dsets.DATASET_CLASSES[train_args["angles_definitions"]](
+        pdbs=str(Path(tmp, "corpus")), split="test", pad=128, min_length=40, trim_strategy="randomcrop")
+    ds.set_masked_means(np.load(Path(trained, "training_mean_offset.npy")))
+    seeds = np.zeros((len(AR_CHAIN_LENGTHS), 128, 6), np.float32)
+    seeds[:, :AR_NUMSEED] = np.stack([ds[i]["angles"][:AR_NUMSEED] for i in range(len(AR_CHAIN_LENGTHS))])
+    lengths = torch.tensor(AR_CHAIN_LENGTHS)
+    out, seconds = {}, {}
+    for device in ("cpu", DEVICE):
+        model, _ = model_io.from_dir(trained, device=device, model_cls=BertForAutoregressive)
+        start = time.perf_counter()
+        out[device] = ar_sample(model, torch.from_numpy(seeds).to(device), lengths.to(device),
+                                num_seed=AR_NUMSEED).cpu().numpy()
+        seconds[device] = time.perf_counter() - start
+    err = max(circular_err(out["cpu"][i, :n], out[DEVICE][i, :n]) for i, n in enumerate(AR_CHAIN_LENGTHS))
+    log(f"[9e] ar_sample of {len(AR_CHAIN_LENGTHS)} chains (lengths {list(AR_CHAIN_LENGTHS)}), card vs CPU from the "
+        f"same seeds: max circular abs err {err:.3e} (tol {AR_CHAIN_TOL}); {seconds['cpu']:.3f} s on the CPU, "
+        f"{seconds[DEVICE]:.3f} s on the card")
+    if not err <= AR_CHAIN_TOL:
+        raise RuntimeError(f"[9e] card and CPU chains differ by {err} > {AR_CHAIN_TOL}")
+
+
+def set_statistics(angles: list, pdbs: list, ref: np.ndarray) -> str:
+    """The KS max statistic over the features against the reference angles,
+    and the mean P-SEA helix and strand elements and clashes of the PDBs."""
+    ks = kl.ks_feature_tests(np.concatenate(angles), ref, FT_NAMES)
+    worst = max(ks, key=lambda k: ks[k]["stat"])
+    counts = np.array([ss.count_structures_in_pdb(f) for f in pdbs])
+    n_clash = [clashes.count_clashes(f) for f in pdbs]
+    return (f"KS max statistic {ks[worst]['stat']:.4f} ({worst}), mean helices {counts[:, 0].mean():.3f}, "
+            f"mean strands {counts[:, 1].mean():.3f}, mean clashes {statistics.mean(n_clash):.3f}")
+
+
+def phase_baselines(tmp: str, trained: str, ar_result: dict, card: str) -> None:
+    """(f) bin/sample_random_angles_torch.py -n 64, then the statistics of
+    (c)'s and (f)'s sets against the test split."""
+    start = time.perf_counter()
+    rand = load_script("sample_random_angles_torch").main(
+        ["-m", trained, "--data", str(Path(tmp, "corpus")), "-n", str(AR_NUM), "-o", str(Path(tmp, "random")),
+         "--seed", str(SEED), "--device", DEVICE])
+    wall = time.perf_counter() - start
+    if len(rand["angles"]) != AR_NUM or not rand["pdb_files"]:
+        raise RuntimeError(f"[9f] random angles: {len(rand['angles'])} sets, {len(rand['pdb_files'])} PDBs")
+    test = dsets.DATASET_CLASSES["canonical-full-angles"](
+        pdbs=str(Path(tmp, "corpus")), split="test", pad=128, min_length=40, trim_strategy="randomcrop",
+        zero_center=False)
+    ref = np.concatenate([it["angles"][: int(it["lengths"])] for it in (test[i] for i in range(len(test)))])
+    start = time.perf_counter()
+    lines = {"AR (2 epochs)": set_statistics(ar_result["angles"], ar_result["pdb_files"], ref),
+             "random angles": set_statistics(rand["angles"], rand["pdb_files"], ref),
+             "test split": set_statistics([ref], test.filenames, ref)}
+    seconds = time.perf_counter() - start
+    log(f"[9f] bin/sample_random_angles_torch.py -n {AR_NUM} on {card}: {len(rand['pdb_files'])} PDBs, "
+        f"wall {wall:.3f} s")
+    for name, text in lines.items():
+        log(f"[9f] {name} against the test split ({len(test)} structures): {text}")
+    log(f"[9f] the statistics of the three sets took {seconds:.3f} s on the host")
+
+
+def phase_baseline_models(tmp: str, card: str) -> int:
+    """Phase 9 on phase 7's corpus. Returns its v2 launches."""
+    with dataset_cache_in(tmp):
+        trained, launches = phase_ar_train(tmp, card)
+        phase_ar_step_card_vs_cpu(trained)
+        ar_result, sampled = run_ar_sampling("[9c] AR sampling", trained, tmp, str(Path(tmp, "ar_sampled")), card)
+        model, _ = model_io.from_dir(trained, device=DEVICE, model_cls=BertForAutoregressive)
+        ar_profile(model, card, "[9c]")
+        del model
+        _, rel_off = phase_ar_absolute(tmp, trained, card)
+        phase_ar_chain_card_vs_cpu(tmp, trained)
+        phase_baselines(tmp, trained, ar_result, card)
+    log(f"[9] v2 launches on the baselines' paths: {launches + sampled} rel ((a) validation and (c) sampling), "
+        f"{rel_off} rel-off ((d) sampling)")
+    return launches + sampled + rel_off
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1079,12 +1404,13 @@ def main() -> None:
         v1_launches = phase_new_paths(model_dir, tmp, card)
         trained = phase_training(tmp, card)
         phase_surface(tmp, model_dir, trained, card)
+        baseline_launches = phase_baseline_models(tmp, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",
          "source": "foldingdiff_tpu_torch/csrc/rel_attention.cu",
          "replaces": "foldingdiff_tpu/ops/pallas_attention.py:187",
-         "launches": v2_launches, **kernels["v2"]},
+         "launches": v2_launches + baseline_launches, **kernels["v2"]},
         {"name": "gathered_attention_kernel (fused_attention)", "route": "cuda",
          "source": "foldingdiff_tpu_torch/csrc/gathered_attention.cu",
          "replaces": "foldingdiff_tpu/ops/pallas_attention.py:78",

@@ -14,6 +14,8 @@ directories -> featurized, padded angle arrays, numpy only.
 - `NoisedAnglesDataset`: per-item DDPM forward noising on the host from a
   numpy generator (reference datasets.py:685-886), the base of the debug
   noisers (data/debug_noisers.py).
+- `AutoregressiveCausalDataset`: causal-prefix items for the autoregressive
+  baseline; `AngleDataset.sample_length` draws its sampler's lengths.
 
 A structure is featurized by the numpy path of geometry/featurize.py (the
 JAX package may take its optional C++ featurizer, which its tests hold equal
@@ -170,6 +172,10 @@ class AngleDataset:
             self.means = utils.wrapped_mean(concat, axis=0)
             logging.info(f"Zero-centering features by wrapped means {self.means}")
 
+        # Full (untrimmed) lengths, and their own generator for sample_length,
+        # as in JAX (foldingdiff_tpu/data/datasets.py:192-193)
+        self.all_lengths = [len(s["angles"]) for s in self.structures]
+        self._length_rng = np.random.default_rng(seed=6489)
         self._full_item_cache: Dict[int, Dict[str, np.ndarray]] = {}
 
     # -- file gathering ----------------------------------------------------
@@ -222,6 +228,15 @@ class AngleDataset:
         return [r for r in results if r is not None]
 
     # -- public API (reference parity) --------------------------------------
+    def sample_length(self, n: int = 1) -> Union[int, List[int]]:
+        """One length (n = 1), or a list of n, drawn with replacement from
+        all_lengths by the dataset's own generator."""
+        if n < 1:
+            raise ValueError(f"n must be positive, got {n}")
+        if n == 1:
+            return int(self._length_rng.choice(self.all_lengths))
+        return self._length_rng.choice(self.all_lengths, size=n, replace=True).tolist()
+
     def get_masked_means(self) -> Optional[np.ndarray]:
         return None if self.means is None else np.copy(self.means)
 
@@ -473,6 +488,9 @@ class NoisedAnglesDataset:
     def filenames(self):
         return self.dset.filenames
 
+    def sample_length(self, *args, **kwargs):
+        return self.dset.sample_length(*args, **kwargs)
+
     def __len__(self) -> int:
         n = len(self.dset)
         return n * self.timesteps if self.exhaustive_timesteps else n
@@ -525,4 +543,50 @@ class NoisedAnglesDataset:
         if not set(item.keys()).isdisjoint(retval.keys()):
             raise ValueError(f"clean item already has keys {set(item) & set(retval)}")
         item.update(retval)
+        return item
+
+
+class AutoregressiveCausalDataset:
+    """
+    Causal-LM items over a clean dataset (reference datasets.py:626-682):
+    each item gains causal_len ~ U[1, length) from np.random.default_rng(seed),
+    the prefix mask `causal_attn_mask` over the first causal_len positions,
+    the angles at causal_len (`causal_target`) and `causal_idx`. Numpy only,
+    so the same seed gives the JAX package's items exactly.
+    """
+
+    def __init__(self, dset, dset_key: str = "angles", seed: Optional[int] = None) -> None:
+        if dset_key not in dset.feature_is_angular:
+            raise ValueError(f"dataset has no {dset_key!r} features")
+        self.dset = dset
+        self.dset_key = dset_key
+        self.n_features = len(dset.feature_is_angular[dset_key])
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def feature_names(self):
+        return self.dset.feature_names
+
+    @property
+    def feature_is_angular(self):
+        return self.dset.feature_is_angular
+
+    @property
+    def pad(self):
+        return self.dset.pad
+
+    def __len__(self) -> int:
+        return len(self.dset)
+
+    def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
+        item = self.dset[index]
+        orig_len = int(item["lengths"])
+        if orig_len > self.dset.pad:
+            raise ValueError(f"item {index}: length {orig_len} exceeds pad {self.dset.pad}")
+        causal_len = int(self._rng.integers(1, orig_len))
+        causal_attn_mask = np.zeros_like(item["attn_mask"])
+        causal_attn_mask[:causal_len] = 1.0
+        item["causal_attn_mask"] = causal_attn_mask
+        item["causal_target"] = item[self.dset_key][causal_len]
+        item["causal_idx"] = np.int64(causal_len)
         return item

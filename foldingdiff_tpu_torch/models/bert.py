@@ -273,19 +273,32 @@ class BertForDiffusion(nn.Module):
         attention_mask: torch.Tensor,
         position_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
+        position_ids, attn_bias, route, dist_idx = self._attention_inputs(inputs, attention_mask, position_ids)
+        hidden = self.embeddings(self.inputs_to_hidden_dim(inputs), position_ids)
+        hidden = hidden + self.time_embed(timestep)[:, None, :]
+        remat = self.config.remat and self.training and torch.is_grad_enabled()
+        return self._encode(hidden, attn_bias, route, dist_idx, remat)
+
+    def _attention_inputs(self, inputs: torch.Tensor, attention_mask: torch.Tensor,
+                          position_ids: torch.Tensor | None):
+        """(position_ids, additive key bias, route, dist_idx) of the layers:
+        arange positions when none are given, the route that attention_route
+        picks, and the distance index of the positions it names (None on the
+        "v2" route and without relative scores)."""
         b, l, _ = inputs.shape
         route, arange = attention_route(self.config, position_ids is not None, self.training)
         if position_ids is None:
             position_ids = torch.arange(l, device=inputs.device).expand(b, l)
         attn_bias = (1.0 - attention_mask.to(inputs.dtype)) * -10000.0
-
-        hidden = self.embeddings(self.inputs_to_hidden_dim(inputs), position_ids)
-        hidden = hidden + self.time_embed(timestep)[:, None, :]
         dist_idx = None
         if route != "v2" and self.config.position_embedding_type != "absolute":
             pos = torch.arange(l, device=inputs.device) if arange else position_ids[0]
             dist_idx = distance_index(pos, self.config.max_position_embeddings)
-        remat = self.config.remat and self.training and torch.is_grad_enabled()
+        return position_ids, attn_bias, route, dist_idx
+
+    def _encode(self, hidden: torch.Tensor, attn_bias: torch.Tensor, route: str, dist_idx: torch.Tensor | None,
+                remat: bool = False) -> torch.Tensor:
+        """The layers, each recomputed in the backward pass under remat, then the decoder."""
         for layer in self.encoder.layer:
             if remat:
                 hidden = checkpoint(layer, hidden, attn_bias, route, dist_idx, use_reentrant=False)

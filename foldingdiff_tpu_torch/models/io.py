@@ -11,6 +11,11 @@ Model directory I/O (counterpart of foldingdiff_tpu/models/io.py).
   keeping the newest `keep_top_k` checkpoints of its best_by_ directory.
 - `init_random` builds seeded random weights.
 
+Either model class loads and saves through these functions: the denoiser
+(`BertForDiffusion`, the default) and the autoregressive baseline
+(`models/ar.BertForAutoregressive`), whose state dicts share every name. The
+caller names the class: a directory does not say which model it holds.
+
 The GaussianFourier `time_embed.W` buffer is loaded with the weights, never
 redrawn (reference modelling.py:55-57).
 """
@@ -21,7 +26,7 @@ import json
 import math
 import os
 import re
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Type
 
 import numpy as np
 import torch
@@ -36,28 +41,30 @@ _BODY_FIELDS = (
 )
 
 
-def _empty_model(config: ModelConfig) -> BertForDiffusion:
+def _empty_model(config: ModelConfig, model_cls: Type[BertForDiffusion]) -> BertForDiffusion:
     # Built on the meta device: no weights are initialised only to be replaced
     with torch.device("meta"):
-        return BertForDiffusion(config)
+        return model_cls(config)
 
 
-def _with_weights(config: ModelConfig, state_dict: Dict[str, torch.Tensor]) -> BertForDiffusion:
-    model = _empty_model(config)
+def _with_weights(config: ModelConfig, state_dict: Dict[str, torch.Tensor],
+                  model_cls: Type[BertForDiffusion]) -> BertForDiffusion:
+    model = _empty_model(config, model_cls)
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model.eval()
 
 
-def init_random(config: ModelConfig, generator: torch.Generator) -> BertForDiffusion:
+def init_random(config: ModelConfig, generator: torch.Generator,
+                model_cls: Type[BertForDiffusion] = BertForDiffusion) -> BertForDiffusion:
     """
-    A model on the CPU with seeded random weights, drawn in state-dict order
+    A `model_cls` on the CPU with seeded random weights, drawn in state-dict order
     from `generator` at the JAX package's init scales: dense kernels
     N(0, 1/fan_in) (flax's lecun_normal, untruncated), embeddings
     N(0, initializer_range^2), LayerNorm 1/0, biases 0, time_embed.W
     N(0, (2 pi)^2).
     """
     sd = {}
-    for name, t in _empty_model(config).state_dict().items():
+    for name, t in _empty_model(config, model_cls).state_dict().items():
         shape = t.shape
         if name.endswith("bias"):
             sd[name] = torch.zeros(shape)
@@ -69,7 +76,7 @@ def init_random(config: ModelConfig, generator: torch.Generator) -> BertForDiffu
             sd[name] = torch.randn(shape, generator=generator) * config.initializer_range
         else:  # nn.Linear weight, (out, in)
             sd[name] = torch.randn(shape, generator=generator) / math.sqrt(shape[1])
-    return _with_weights(config, sd)
+    return _with_weights(config, sd, model_cls)
 
 
 def state_dict_from_flax(params: Dict[str, Any], constants: Dict[str, Any], config: ModelConfig) -> Dict[str, torch.Tensor]:
@@ -215,11 +222,15 @@ def from_dir(
     device: torch.device | str = "cuda",
     idx: int = -1,
     best_by: str = "valid",
+    model_cls: Type[BertForDiffusion] = BertForDiffusion,
     **config_overrides,
 ) -> Tuple[BertForDiffusion, Dict]:
     """
     Load a model directory (reference layout or the JAX package's native
-    msgpack layout). Returns (model in eval mode on `device`, train_args).
+    msgpack layout) into a `model_cls`: BertForDiffusion, or
+    BertForAutoregressive for the autoregressive baseline's directories, which
+    hold the same weight names. Returns (model in eval mode on `device`,
+    train_args).
     `device` is the card unless the caller asks for the CPU; without a card
     the default raises at once (devices.require_device).
     The checkpoints under models/best_by_{best_by}/ are sorted by epoch and
@@ -247,4 +258,4 @@ def from_dir(
         sd = _load_ckpt(torch_ckpts[idx])
     else:
         raise FileNotFoundError(f"No checkpoints under {subdir}")
-    return _with_weights(config, sd).to(device), train_args
+    return _with_weights(config, sd, model_cls).to(device), train_args

@@ -22,8 +22,9 @@ or flag set builds anew. The libraries have a plain C interface and are
 loaded with ctypes. `build()` compiles several at once, one nvcc each.
 
 `REL_ATTENTION.launches` and `GATHERED_ATTENTION.launches` count each
-kernel's launches, so a run can show which kernel it went through; nothing
-else changes them.
+kernel's launches, so a run can show which kernel it went through, and
+`.rel_off_launches` the launches of each kernel's instance without relative
+scores; nothing else changes them.
 """
 from __future__ import annotations
 
@@ -58,6 +59,7 @@ class CudaLibrary:
         self.source = CSRC_DIR / f"{name}.cu"
         self.forward_argtypes = list(forward_argtypes)
         self.launches = 0
+        self.rel_off_launches = 0  # of these, the instance without relative scores (HAS_REL false)
         self._lib = None
 
     def library_path(self) -> Path:
@@ -78,14 +80,16 @@ class CudaLibrary:
             self._lib = lib
         return self._lib
 
-    def launch(self, what: str, *args) -> None:
-        """Call the C entry, raise on a non-zero cudaError_t, count the launch."""
+    def launch(self, what: str, has_rel: bool, *args) -> None:
+        """Call the C entry, raise on a non-zero cudaError_t, count the launch
+        (and the rel-off instance's apart)."""
         lib = self.load()
         err = getattr(lib, f"{self.name}_forward")(*args)
         if err:
             msg = getattr(lib, f"{self.name}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} launch failed ({what}): {msg}")
         self.launches += 1
+        self.rel_off_launches += not has_rel
 
 
 # (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel, device, stream)
@@ -152,7 +156,7 @@ def fused_attention(
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it in 16-byte pieces)")
     out = torch.empty_like(q)
     GATHERED_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}",
+        f"B={b} H={h} L={l} D={d}", e_lr is not None,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         e_lr.data_ptr() if e_lr is not None else None, out.data_ptr(),
         b, h, l, d, int(e_lr is not None), q.device.index,
@@ -217,7 +221,7 @@ def fused_attention_v2(
     out = torch.empty(b, l, h, d, device=q.device)
     sb, sh, sl, _ = q.stride()
     REL_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}",
+        f"B={b} H={h} L={l} D={d}", has_rel,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         rel_table.data_ptr() if has_rel else None, out.data_ptr(), sb, sh, sl,
         b, h, l, d, m if has_rel else l, int(has_rel), q.device.index,

@@ -34,7 +34,7 @@ from foldingdiff_tpu_torch.devices import require_device
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.config import ModelConfig
-from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig
+from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig, dropout_rng
 
 
 def get_train_valid_test_sets(
@@ -248,7 +248,7 @@ def train_debug(trainer: Trainer, noiser, max_epochs: int, batch_size: int, seed
     logging.warning(f"Training from debug noiser {type(noiser).__name__}")
     keys = ("corrupted", "t", "known_noise", "attn_mask")
     rows = []
-    with trainer._dropout_rng():
+    with dropout_rng(trainer.device, trainer.cfg.seed):
         for epoch in range(max_epochs):
             order = np.random.default_rng(seed + epoch).permutation(len(noiser))
             losses = []

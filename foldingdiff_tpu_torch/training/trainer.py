@@ -135,6 +135,47 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
     return g_norm
 
 
+def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+                   gradient_clip: float, lr: float) -> None:
+    """Backward from `loss`, then the global-norm clip and the AdamW step at
+    learning rate `lr`: one update of either trainer."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    with torch.profiler.record_function("optimizer"):
+        if gradient_clip:
+            clip_by_global_norm_([p.grad for p in model.parameters() if p.grad is not None], gradient_clip)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+
+
+@contextlib.contextmanager
+def dropout_rng(device: torch.device, seed: int):
+    """The device's default generator (dropout's) seeded with `seed` while
+    the block runs, its state restored after."""
+    devices = [device.index or 0] if device.type == "cuda" else []
+    with torch.random.fork_rng(devices=devices):
+        torch.manual_seed(seed)
+        yield
+
+
+def save_topk(model: torch.nn.Module, results_dir: str, train_args: dict, mean_offset, epoch: int, metric: float,
+              best_by: str, heap: List[Tuple[float, int, str]], k: int = 5) -> None:
+    """Save the model's weights under best_by_{best_by} when `metric` enters
+    the top k of `heap` (the set is not full, or it beats the current worst),
+    deleting the checkpoint it pushes out. NaN never enters."""
+    if np.isnan(metric) or not (len(heap) < k or metric < max(h[0] for h in heap)):
+        return
+    path = model_io.save_model_dir(results_dir, model.config, model.state_dict(), train_args,
+                                   mean_offset=mean_offset, epoch=epoch, best_by=best_by, keep_top_k=10**9)
+    heap.append((metric, epoch, path))
+    heap.sort()
+    while len(heap) > k:
+        _, _, stale = heap.pop()
+        if os.path.exists(stale):
+            os.remove(stale)
+
+
 def append_metrics_csv(results_dir: str, rows: List[Dict[str, float]], already_flushed: int = 0) -> int:
     """Append rows[already_flushed:] to <results_dir>/logs/metrics.csv,
     writing the header only when the file is new or empty; returns the new
@@ -273,17 +314,9 @@ class Trainer:
         return sum(torch.where(p >= 0, p, -p).sum() for p in self.model.parameters())
 
     def _update(self, loss: torch.Tensor) -> None:
-        """Backward from `loss`, then the global-norm clip and the AdamW step
-        at the schedule's learning rate."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        with torch.profiler.record_function("optimizer"):
-            if self.cfg.gradient_clip:
-                clip_by_global_norm_([p.grad for p in self.model.parameters() if p.grad is not None],
-                                     self.cfg.gradient_clip)
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.lr_schedule(self.step)  # optax reads the count before its increment
-            self.optimizer.step()
+        """One clipped AdamW update from `loss` at the schedule's learning rate."""
+        # optax reads the count before its increment
+        optimizer_step(self.model, self.optimizer, loss, self.cfg.gradient_clip, self.lr_schedule(self.step))
         self.step += 1
 
     def train_step(self, batch, t=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -359,15 +392,6 @@ class Trainer:
             batch = {k: data[k][sel] for k in ("angles", "attn_mask", "lengths")}
             yield batch, float(np.sum(batch["attn_mask"]))
 
-    @contextlib.contextmanager
-    def _dropout_rng(self):
-        """The device's default generator seeded with cfg.seed for the fit,
-        its state restored after."""
-        devices = [self.device.index or 0] if self.device.type == "cuda" else []
-        with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(self.cfg.seed)
-            yield
-
     def fit(
         self,
         train_data: Batch,
@@ -431,7 +455,7 @@ class Trainer:
         swa_count = 0
 
         try:
-            with self._dropout_rng():
+            with dropout_rng(self.device, cfg.seed):
                 for epoch in range(start_epoch, cfg.max_epochs):
                     t0 = time.time()
                     if train_data_refresh is not None:  # per-epoch randomcrop re-crop
@@ -484,7 +508,8 @@ class Trainer:
                         valid_metric = val_loss if valid_data is not None else train_loss
                         for metric, best_by, heap in ((valid_metric, "valid", best_valid),
                                                       (train_loss, "train", best_train)):
-                            self._save_topk(results_dir, train_args or {}, mean_offset, epoch, metric, best_by, heap)
+                            save_topk(self.model, results_dir, train_args or {}, mean_offset, epoch, metric, best_by,
+                                      heap)
 
                     if cfg.use_swa and epoch >= swa_start:
                         swa_count += 1
@@ -522,28 +547,6 @@ class Trainer:
             model_io.save_model_dir(results_dir, self.model.config, state, train_args or {}, mean_offset=mean_offset,
                                     epoch=cfg.max_epochs, best_by="swa", keep_top_k=1)
         return rows
-
-    @staticmethod
-    def _topk_admits(heap: List[Tuple[float, int, str]], metric: float, k: int = 5) -> bool:
-        """Whether `metric` enters the top-k set (the set is not full, or it
-        beats the current worst)."""
-        if np.isnan(metric):
-            return False
-        return len(heap) < k or metric < max(h[0] for h in heap)
-
-    def _save_topk(self, results_dir, train_args, mean_offset, epoch, metric, best_by, heap, k: int = 5) -> None:
-        """Save the weights under best_by_{best_by} when the metric enters the
-        top k, deleting the checkpoint it pushes out."""
-        if not self._topk_admits(heap, metric, k):
-            return
-        path = model_io.save_model_dir(results_dir, self.model.config, self.model.state_dict(), train_args,
-                                       mean_offset=mean_offset, epoch=epoch, best_by=best_by, keep_top_k=10**9)
-        heap.append((metric, epoch, path))
-        heap.sort()
-        while len(heap) > k:
-            _, _, stale = heap.pop()
-            if os.path.exists(stale):
-                os.remove(stale)
 
     def _write_val_preds(self, out_dir: str, batch: Batch, epoch: int, loss_terms) -> None:
         """Validation prediction dump (reference write_preds_to_dir,

@@ -1,11 +1,13 @@
 """
 Host-side helpers (counterpart of foldingdiff_tpu/utils.py), numpy only:
 the angular wrap, the circular mean, the float32-tolerant bound check, the
-config merge and the source hash that keys the dataset cache.
+config merge, the source hash that keys the dataset cache, and the angle-CSV
+writer of the sampling CLIs.
 """
 from __future__ import annotations
 
 import glob
+import gzip
 import hashlib
 import logging
 import os
@@ -76,3 +78,12 @@ def md5_all_py_files(dirname: str) -> str:
             for chunk in iter(lambda: f.read(2**20), b""):
                 hash_md5.update(chunk)
     return hash_md5.hexdigest()
+
+
+def write_angles_csv(values, feature_names, fname) -> None:
+    """One structure's (L, F) angles as a gzipped CSV with a header row,
+    values printed as numpy prints them (the same text pandas writes)."""
+    with gzip.open(fname, "wt") as f:
+        f.write(",".join(feature_names) + "\n")
+        for row in values:
+            f.write(",".join(str(v) for v in row) + "\n")

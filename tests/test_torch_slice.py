@@ -168,10 +168,12 @@ def test_sample_torch_cli_writes_ca_traces_for_cart_coords(tmp_path, caplog):
 def test_port_imports_nothing_of_the_jax_package():
     """With foldingdiff_tpu, jax and flax refused by an import hook, every
     module of the port, the module-level imports of chip_smoke.py and the
-    three CLIs (bin/sample_torch.py, bin/train_torch.py,
-    bin/partial_noise_reconstruct_torch.py), from_dir,
-    AnglesEmptyDataset.from_dir, an epoch of Trainer.fit and one
-    pre-corrupted step all work, and load neither optax nor pandas."""
+    six CLIs (bin/sample_torch.py, bin/train_torch.py,
+    bin/partial_noise_reconstruct_torch.py, bin/train_autoregressive_torch.py,
+    bin/sample_autoregressive_torch.py, bin/sample_random_angles_torch.py),
+    from_dir, AnglesEmptyDataset.from_dir, an epoch of Trainer.fit, one
+    pre-corrupted step, one ARTrainer step and one ar_sample all work, and
+    load neither optax nor pandas."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
 
@@ -188,7 +190,10 @@ def test_port_imports_nothing_of_the_jax_package():
             importlib.import_module(name)
         for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py"),
                            ("train_torch", "bin/train_torch.py"),
-                           ("partial_noise_reconstruct_torch", "bin/partial_noise_reconstruct_torch.py")):
+                           ("partial_noise_reconstruct_torch", "bin/partial_noise_reconstruct_torch.py"),
+                           ("train_autoregressive_torch", "bin/train_autoregressive_torch.py"),
+                           ("sample_autoregressive_torch", "bin/sample_autoregressive_torch.py"),
+                           ("sample_random_angles_torch", "bin/sample_random_angles_torch.py")):
             spec = importlib.util.spec_from_file_location(name, path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
@@ -211,6 +216,12 @@ def test_port_imports_nothing_of_the_jax_package():
         batch = {{"corrupted": torch.from_numpy(data["angles"][:4]), "t": torch.full((4, 1), 3),
                   "known_noise": torch.from_numpy(data["angles"][:4]), "attn_mask": torch.ones(4, 64)}}
         assert torch.isfinite(trainer.train_step_precorrupted(batch)[0])
+        from foldingdiff_tpu_torch.models.ar import BertForAutoregressive, ar_sample
+        from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer
+        ar, _ = from_dir({MINI_FIXTURE!r}, device="cpu", model_cls=BertForAutoregressive)
+        ar_trainer = ARTrainer(ar, TrainConfig(batch_size=4, max_epochs=1), steps_per_epoch=1)
+        assert torch.isfinite(ar_trainer.train_step(ar_trainer.to_device({{k: v[:4] for k, v in data.items()}})))
+        assert ar_sample(ar, torch.from_numpy(data["angles"][:2]), torch.tensor([20, 9]), num_seed=4).shape == (2, 64, 6)
         print(len(names), sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax", "optax", "pandas")))
     """)
