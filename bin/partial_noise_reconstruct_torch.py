@@ -12,7 +12,10 @@ CUDA device it exits at once; --device cpu is an explicit choice, never a
 fallback. The chains run on the device; once they are back on the host, the
 NeRF builds and TM-scores run in a spawned process pool, whose workers never
 touch CUDA. The JSON has bin/partial_noise_reconstruct.py's keys:
-noise_timesteps, tm_scores (by file basename) and tm_scores_coords.
+noise_timesteps, tm_scores (by file basename) and tm_scores_coords. When a
+torch.distributed process group of more than one rank is up, each batch's
+rows are split over the ranks; rank 0 gathers the chains, scores them and
+writes the JSON.
 
 Usage: python bin/partial_noise_reconstruct_torch.py -m results -t 250 --data <pdb_dir>
 """
@@ -43,7 +46,7 @@ def main(argv=None) -> dict:
     """Run the CLI; returns {"n_structures", "chain_seconds",
     "scoring_seconds", "pool_workers" (0: scored in this process),
     "tm_path" ("native" or "numpy"), "payload"}, the payload being the JSON
-    written."""
+    written (on another rank than 0: no structures, no payload)."""
     args = build_parser().parse_args(argv)
     import numpy as np
 
@@ -61,6 +64,7 @@ def main(argv=None) -> dict:
     from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from foldingdiff_tpu_torch.eval import tmalign_native, tmscore
     from foldingdiff_tpu_torch.models import io as model_io
+    from foldingdiff_tpu_torch.parallel.multihost import group_mesh
     from foldingdiff_tpu_torch.utils import modulo_with_wrapped_range
 
     model, train_args = model_io.from_dir(args.model, device=device)
@@ -93,10 +97,14 @@ def main(argv=None) -> dict:
         noise_timesteps=args.timesteps,
         batch_size=args.batchsize,
         mean_offset=mean_offset,
+        mesh=group_mesh(),
     )  # ends in the copy of each batch to the host
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     chain_seconds = time.perf_counter() - start
+    if recons is None:  # another rank than 0: rank 0 holds the chains, scores and writes
+        return {"n_structures": 0, "chain_seconds": chain_seconds, "scoring_seconds": 0.0, "pool_workers": 0,
+                "tm_path": None, "payload": None}
     truths = [
         modulo_with_wrapped_range(
             data["angles"][i, : int(data["lengths"][i])] + (mean_offset if mean_offset is not None else 0))

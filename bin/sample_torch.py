@@ -7,7 +7,11 @@ CSVs and PDB files.
 Takes bin/sample.py's -m -o -n -l -b --seed --method --ddim_steps --ddim_eta
 --noise-scale --fullhistory --nopdb flags, plus --device (default cuda).
 With --device cuda and no CUDA device it exits at once; --device cpu is an
-explicit choice, never a fallback. Outputs:
+explicit choice, never a fallback. When a torch.distributed process group of
+more than one rank is up (python -m foldingdiff_tpu_torch.parallel.multihost
+... bin.sample_torch:main ARGS, or torchrun on that module), each chunk's
+rows are split over the ranks and rank 0 gathers them and writes every
+output. Outputs:
   sampled_angles/generated_i.csv.gz   per-structure final angles (or x, y, z)
   sampled_angles/sample_history/generated_i/timestep_t.csv.gz
                                       every step's state, with --fullhistory
@@ -87,7 +91,8 @@ def write_pdbs(structures, feature_names, pdb_dir: Path):
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {"n_structures", "sampling_seconds", "pdb_files",
-    "pdb_skipped"}."""
+    "pdb_skipped"}, the first and the last two of what this process wrote
+    (nothing on another rank than 0)."""
     args = build_parser().parse_args(argv)
     if args.noise_scale and args.method != "ddpm":
         raise SystemExit("--noise-scale is a DDPM posterior-noise temperature; "
@@ -105,10 +110,11 @@ def main(argv=None) -> dict:
     from foldingdiff_tpu_torch.diffusion import sampling as samp
     from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from foldingdiff_tpu_torch.models import io as model_io
+    from foldingdiff_tpu_torch.parallel.multihost import group_mesh
     from foldingdiff_tpu_torch.utils import write_angles_csv
 
     outdir = Path(args.outdir)
-    os.makedirs(outdir, exist_ok=True)
+    mesh = group_mesh()
     model_dir = model_io.resolve_model_dir(args.model)
     model, train_args = model_io.from_dir(model_dir, device=device)
     schedule = DiffusionSchedule.create(
@@ -119,12 +125,6 @@ def main(argv=None) -> dict:
     ft_key = next(iter(empty.feature_names))
     ft_names = list(empty.feature_names[ft_key])
 
-    # A copy of the model's files beside the outputs (bin/sample.py:139-145)
-    snapshot = outdir / "model_snapshot"
-    if snapshot.exists():
-        shutil.rmtree(snapshot)
-    shutil.copytree(model_dir, snapshot,
-                    ignore=shutil.ignore_patterns("logs", "plots", "*.log", "valid_preds", "train_state"))
     try:
         mean_offset = empty.get_masked_means()
     except NotImplementedError:
@@ -156,9 +156,18 @@ def main(argv=None) -> dict:
         ddim_eta=args.ddim_eta,
         noise_scale=noise_scale,
         return_history=args.fullhistory,
+        mesh=mesh,
     )
     sampling_seconds = time.perf_counter() - start
+    if sampled is None:  # another rank than 0 of the mesh: rank 0 holds the structures and writes
+        return {"n_structures": 0, "sampling_seconds": sampling_seconds, "pdb_files": [], "pdb_skipped": []}
     logging.info(f"Sampled {len(sampled)} structures in {sampling_seconds:.2f} s")
+    # A copy of the model's files beside the outputs (bin/sample.py:139-145)
+    snapshot = outdir / "model_snapshot"
+    if snapshot.exists():
+        shutil.rmtree(snapshot)
+    shutil.copytree(model_dir, snapshot,
+                    ignore=shutil.ignore_patterns("logs", "plots", "*.log", "valid_preds", "train_state"))
     final = [s[-1] for s in sampled] if args.fullhistory else sampled
 
     angles_dir = outdir / "sampled_angles"

@@ -9,7 +9,9 @@ Takes bin/train_autoregressive.py's config -o --dataset --toy --epochs --cpu
 flags, merged over the config JSON (files under config_jsons/ work
 unchanged; without one the model is 12 x 384 with `absolute` positions),
 plus --device (default cuda; with no CUDA device it exits at once; --cpu is
---device cpu). Writes training_args.json (with `seq_len_encoding` and the
+--device cpu) and bin/train.py's --multihost --coordinator --nprocs --procid
+(as bin/train_torch.py takes them: data-parallel over the ranks of a
+torch.distributed process group, rank 0 writing). Writes training_args.json (with `seq_len_encoding` and the
 model's body, so that either package's from_dir loads the directory),
 config.json, training_mean_offset.npy, logs/metrics.csv and the top 5
 checkpoints by validation loss under models/best_by_valid/, which
@@ -36,6 +38,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--epochs", default=None, type=int)
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+    from foldingdiff_tpu_torch.parallel.multihost import add_cli_args
+
+    add_cli_args(parser)
     return parser
 
 
@@ -86,12 +91,25 @@ def main(argv=None) -> list:
         device = require_device("cpu" if args.cpu else args.device, "--device")
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
+    from foldingdiff_tpu_torch.parallel import multihost
 
+    if args.multihost:
+        device = multihost.initialize(args.coordinator, args.nprocs, args.procid, device=device.type)
+    try:
+        return train(args, device)
+    finally:
+        if args.multihost:
+            multihost.shutdown()
+
+
+def train(args, device) -> list:
+    """Featurize, build the model and fit it; returns the metrics rows."""
     import numpy as np
     import torch
 
     from foldingdiff_tpu_torch.models import io as model_io
     from foldingdiff_tpu_torch.models.ar import BertForAutoregressive
+    from foldingdiff_tpu_torch.parallel import multihost
     from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer
     from foldingdiff_tpu_torch.training.orchestration import get_train_valid_test_sets, record_args_and_metadata
     from foldingdiff_tpu_torch.training.trainer import TrainConfig
@@ -106,7 +124,9 @@ def main(argv=None) -> list:
     }.items() if v is not None})
 
     results = Path(args.outdir)
-    record_args_and_metadata(dict(config), results)
+    primary = multihost.is_primary()
+    if primary:
+        record_args_and_metadata(dict(config), results)
     train_ds, valid_ds, _ = get_train_valid_test_sets(
         dataset_key=config.get("dataset_key", "cath"),
         angles_definitions=config.get("angles_definitions", "canonical-full-angles"),
@@ -116,7 +136,7 @@ def main(argv=None) -> list:
         toy=config.get("subset") or 0,
     )
     mean_offset = train_ds.get_masked_means()
-    if mean_offset is not None:
+    if primary and mean_offset is not None:
         np.save(results / "training_mean_offset.npy", mean_offset)
 
     model_config = model_config_from(config, train_ds.feature_is_angular["angles"], train_ds.feature_names["angles"])
@@ -141,7 +161,8 @@ def main(argv=None) -> list:
 
     model = model_io.init_random(model_config, torch.Generator().manual_seed(0),
                                  model_cls=BertForAutoregressive).to(device)
-    trainer = ARTrainer(model, tcfg, steps_per_epoch=max(len(train_ds) // tcfg.batch_size, 1))
+    trainer = ARTrainer(model, tcfg, steps_per_epoch=max(len(train_ds) // tcfg.batch_size, 1),
+                        mesh=multihost.data_mesh(tcfg.batch_size))
     rows = trainer.fit(
         train_data, valid_data=valid_data, results_dir=str(results),
         train_args=train_args_for(config, model_config), mean_offset=mean_offset, log_every=1,

@@ -6,13 +6,18 @@ datasets -> trainer -> model directory, which bin/sample_torch.py loads.
 Takes bin/train.py's config -o --dataset --toy --debug_single_time --dryrun
 --epochs --batchsize --seed --resume flags, merged over the config JSON
 (files under config_jsons/ work unchanged), plus --device (default cuda;
-with no CUDA device it exits at once). --cpu is --device cpu. The
-multi-host flags wait for the multi-device slice. --debug_single_time
+with no CUDA device it exits at once). --cpu is --device cpu.
+--multihost joins a torch.distributed process group first, from torchrun's
+environment or from --coordinator host:port --nprocs N --procid R (one
+process per rank; NCCL on the card, each rank on cuda:{LOCAL_RANK}; gloo on
+the CPU), and training is data-parallel over the ranks; only rank 0 writes.
+--debug_single_time
 trains from the single-timestep debug noiser (data/debug_noisers.py: one
 feature at t = 100, noised on the host) through the pre-corrupted step and
 returns one {"epoch", "train_loss"} row per epoch; it saves no model.
 
 Usage: python bin/train_torch.py config_jsons/cath_full_angles_cosine.json -o results
+       torchrun --nproc_per_node 8 bin/train_torch.py config_jsons/cath_full_angles_cosine.json --multihost -o results
 """
 import argparse
 import json
@@ -37,6 +42,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true", help="resume from the newest train_state checkpoint")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+    from foldingdiff_tpu_torch.parallel.multihost import add_cli_args
+
+    add_cli_args(parser)
     return parser
 
 
@@ -50,7 +58,11 @@ def main(argv=None) -> list:
         device = require_device("cpu" if args.cpu else args.device, "--device")
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
+    from foldingdiff_tpu_torch.parallel import multihost
     from foldingdiff_tpu_torch.training.orchestration import train
+
+    if args.multihost:
+        device = multihost.initialize(args.coordinator, args.nprocs, args.procid, device=device.type)
 
     config = {}
     if args.config:
@@ -71,7 +83,11 @@ def main(argv=None) -> list:
     }
     config = update_dict_nonnull(config, {k: v for k, v in overrides.items() if v is not None})
     config.pop("multithread_plotting", None)  # accepted for parity; train() takes no such key
-    _, rows = train(**config)
+    try:
+        _, rows = train(**config)
+    finally:
+        if args.multihost:
+            multihost.shutdown()
     return rows
 
 

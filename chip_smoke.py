@@ -94,15 +94,36 @@ Phases, each printing lines of its own:
      (c)'s and (f)'s sets and of the test split, against the test split
      (printed, no thresholds)
 
+ 10. N ranks held equal to one rank, after phase 9, on phase 7's corpus and
+     phase 4's flagship directory. One launch of 2 ranks of
+     `python -m foldingdiff_tpu_torch.parallel.multihost` that share the
+     card through gloo (NCCL refuses two ranks on one device) runs
+     phase10_rank: (a) one data-parallel flagship train step at B = 64,
+     L = 128 on a ragged batch, dropout 0, t and noise injected, against
+     one process (loss within 1e-5, parameters within 1e-4 + 1e-3 |p| where
+     the gradient clears 10x the two runs' gradient difference), and ms per
+     DP step; (b) bin/sample_torch.py's main() over phase 5's sweep (DDPM
+     T = 1000, -n 1 -l 50 128 -b 64) with each chunk's rows split over the
+     ranks: 12 x 1000 x chunks v2 launches per rank, rank 0's CSVs within
+     1e-3 (circular) of phase 5's one process, backbones/s; (d) the flagship
+     forward in eval under "auto" on a (1, 2) TP mesh: 12 v2 launches per
+     rank, each at H = 6, within 1e-3 of one rank, and one TP train step at
+     B = 8 against one rank within phase 7's tolerances. (c)
+     bin/train_torch.py --multihost as one NCCL rank for 1 epoch on phase
+     7's config and corpus, then --resume for a second: finite losses, one
+     metrics.csv with epochs 0 and 1. Any rank's failure fails the phase.
+
 The line before the last is {"kernels": [...]}, whose v2 launches are
-phase 5's and phase 9's (phase 9 prints its rel-off launches apart); the
-last is {"ok": true, "device": {...}}. Any failure raises, so the script
-exits non-zero and prints neither.
+phase 5's, phase 9's and phase 10's (b) and (d) on both ranks (phase 9
+prints its rel-off launches apart); the last is {"ok": true, "device":
+{...}}. Any failure raises, so the script exits non-zero and prints
+neither.
 
 Usage: python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import csv
 import dataclasses
@@ -112,6 +133,7 @@ import json
 import math
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -134,10 +156,13 @@ from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise  # noqa: 
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
 from foldingdiff_tpu_torch.geometry.featurize import EXHAUSTIVE_ANGLES, create_new_chain_nerf  # noqa: E402
 from foldingdiff_tpu_torch.metrics import clashes, kl, ss  # noqa: E402
+from foldingdiff_tpu_torch.models import bert as models_bert  # noqa: E402
 from foldingdiff_tpu_torch.models import io as model_io  # noqa: E402
 from foldingdiff_tpu_torch.models.ar import BertForAutoregressive, ar_sample  # noqa: E402
 from foldingdiff_tpu_torch.models.config import ModelConfig  # noqa: E402
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
+from foldingdiff_tpu_torch.parallel import tp  # noqa: E402
+from foldingdiff_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
 from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer  # noqa: E402
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig  # noqa: E402
 
@@ -660,13 +685,15 @@ def train_batch(b: int, l: int, seed: int = SEED) -> dict:
             "attn_mask": (torch.arange(l)[None, :] < lengths[:, None]).float(), "lengths": lengths}
 
 
-def flagship_trainer(device: str, dropout: float = 0.1, **cfg) -> Trainer:
-    """The flagship denoiser with seeded random weights and its trainer."""
+def flagship_trainer(device: str, dropout: float = 0.1, mesh=None, **cfg) -> Trainer:
+    """The flagship denoiser with seeded random weights and its trainer
+    (data-parallel over `mesh`, if given)."""
     config = dataclasses.replace(FLAGSHIP, hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
                                  remat=cfg.pop("remat", False))
     model = model_io.init_random(config, torch.Generator().manual_seed(SEED)).to(device)
     tcfg = TrainConfig(**{"lr": 1e-4, "batch_size": 64, "max_epochs": 800, "lr_scheduler": "LinearWarmup", **cfg})
-    return Trainer(model, DiffusionSchedule.create("cosine", 1000, device=device), tcfg, steps_per_epoch=300)
+    return Trainer(model, DiffusionSchedule.create("cosine", 1000, device=device), tcfg, steps_per_epoch=300,
+                   mesh=mesh)
 
 
 def phase_train_cli(tmp: str, card: str) -> str:
@@ -729,19 +756,22 @@ def phase_step_card_vs_cpu() -> None:
         trainer.train_step(dev, t.to(device), noise.to(device))
         results[device] = (terms.detach().cpu(), grads, {n: p.detach().cpu() for n, p in
                                                         trainer.model.named_parameters()})
-    check_step_card_vs_cpu(f"[7] one train step B={b} L={l}", results, 1e-4, STEP_TERMS_TOL, STEP_PARAM_TOL)
+    check_step_card_vs_cpu(f"[7] one train step B={b} L={l}", results["cpu"], results[DEVICE], 1e-4, STEP_TERMS_TOL,
+                           STEP_PARAM_TOL)
 
 
-def check_step_card_vs_cpu(tag: str, results: dict, lr: float, loss_tol: float, param_atol: float,
-                           param_rtol: float = 0.0, grad_tol: float | None = STEP_GRAD_TOL) -> None:
-    """Hold one train step on the card against the CPU's. results[device] is
-    (loss or loss terms, gradients, parameters after the step), all on the
-    CPU. The gradients are held within grad_tol of each tensor's largest
-    element (reported only when grad_tol is None). The parameters are held
+def check_step_card_vs_cpu(tag: str, ref: tuple, got: tuple, lr: float, loss_tol: float, param_atol: float,
+                           param_rtol: float = 0.0, grad_tol: float | None = STEP_GRAD_TOL,
+                           what: str = "card vs CPU") -> None:
+    """Hold one train step on the card (got) against the CPU's (ref), or, as
+    `what` says, one run against another. Each is (loss or loss terms,
+    gradients, parameters after the step), all on the CPU. The gradients are
+    held within grad_tol of each tensor's largest element (reported only
+    when grad_tol is None). The parameters are held
     within param_atol + param_rtol |p| where the gradient clears 10x the
     card-CPU gradient difference; elsewhere within 2 lr (a first Adam step
     moves an element by about lr, its sign set by float noise there)."""
-    (terms_c, grads_c, params_c), (terms_g, grads_g, params_g) = results["cpu"], results[DEVICE]
+    (terms_c, grads_c, params_c), (terms_g, grads_g, params_g) = ref, got
     terms_err = (terms_g - terms_c).abs().max().item()
     # The key biases' gradients vanish in exact arithmetic (a bias on the keys
     # shifts every score of a query row alike, and softmax ignores that), so
@@ -762,15 +792,15 @@ def check_step_card_vs_cpu(tag: str, results: dict, lr: float, loss_tol: float, 
             param_err = max(param_err, diff[big].max().item())
             param_excess = max(param_excess, (diff[big] - param_rtol * p[big].abs()).max().item())
         if not bool((diff[~big] <= 2 * lr).all()):
-            raise RuntimeError(f"{tag}: parameter {n} moved more than 2 lr apart on card and CPU")
+            raise RuntimeError(f"{tag}: parameter {n} moved more than 2 lr apart ({what})")
         flips += int((diff[~big] > param_atol).sum())
-    log(f"{tag} card vs CPU (dropout 0): loss max abs err {terms_err:.3e} (tol {loss_tol}), gradients max err "
+    log(f"{tag} {what} (dropout 0): loss max abs err {terms_err:.3e} (tol {loss_tol}), gradients max err "
         f"{grad_err:.3e} of each tensor's max ({f'tol {grad_tol}' if grad_tol else 'not gated'}; worst {worst}), "
         f"parameters after the step "
         f"max abs err {param_err:.3e} (tol {param_atol}" + (f" + {param_rtol} |p|" if param_rtol else "") +
         f"); {flips} elements below the gradient floor moved apart (within 2 lr)")
     if not (terms_err <= loss_tol and (grad_tol is None or grad_err <= grad_tol) and param_excess <= param_atol):
-        raise RuntimeError(f"{tag}: the train step on the card disagrees with the CPU's")
+        raise RuntimeError(f"{tag}: the train steps disagree ({what})")
 
 
 def phase_remat() -> None:
@@ -1202,8 +1232,8 @@ def phase_ar_step_card_vs_cpu(trained: str) -> None:
     # reported: the AR loss reads one row per item, so the last layers'
     # gradients come from 8 rows alone, and on an H100 they differed from the
     # CPU's by 1.5e-3 of their largest element (float32 summation orders)
-    check_step_card_vs_cpu(f"[9b] one AR train step B={b} L={l}", results, lr, AR_STEP_LOSS_TOL, AR_STEP_PARAM_TOL,
-                           AR_STEP_PARAM_RTOL, grad_tol=None)
+    check_step_card_vs_cpu(f"[9b] one AR train step B={b} L={l}", results["cpu"], results[DEVICE], lr,
+                           AR_STEP_LOSS_TOL, AR_STEP_PARAM_TOL, AR_STEP_PARAM_RTOL, grad_tol=None)
 
 
 def run_ar_sampling(tag: str, model_dir: str, tmp: str, out: str, card: str) -> tuple[dict, int]:
@@ -1385,6 +1415,257 @@ def phase_baseline_models(tmp: str, card: str) -> int:
     return launches + sampled + rel_off
 
 
+MP_RANKS = 2  # ranks that share the card through gloo (NCCL refuses two ranks on one device)
+MP_TIMEOUT = 600  # seconds for a launch of ranks
+MP_STEP_LOSS_TOL, MP_STEP_PARAM_TOL, MP_STEP_PARAM_RTOL = 1e-5, 1e-4, 1e-3  # (a): 2 ranks against 1 process
+MP_TIMED_STEPS = 10
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def launch_ranks(tag: str, argvs: list, env: dict | None = None) -> list:
+    """Start one process per argv (python arguments) together, from the
+    repository's root, and wait for all; raises if any fails or outlasts
+    MP_TIMEOUT, after stopping the others. Returns their standard outputs."""
+    procs = [subprocess.Popen([sys.executable, *argv], cwd=REPO, env={**os.environ, **(env or {})},
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for argv in argvs]
+    try:
+        outs = [p.communicate(timeout=MP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for i, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"{tag}: process {i} exited with {p.returncode}:\n{err[-4000:]}")
+    return [o for o, _ in outs]
+
+
+def mp_step_inputs(b: int, seed: int):
+    """A ragged batch (lengths 40..128) with its t and noise, on the card."""
+    batch = {k: v.to(DEVICE) for k, v in train_batch(b, FLAGSHIP.max_position_embeddings, seed).items()}
+    g = torch.Generator().manual_seed(seed + 1)
+    t = torch.randint(0, 1000, (b,), generator=g)
+    noise = (torch.rand(*batch["angles"].shape, generator=g) * 2 - 1) * math.pi
+    return batch, t.to(DEVICE), noise.to(DEVICE)
+
+
+def step_result(trainer, avg, tp_mesh=None) -> tuple:
+    """(loss, gradients, parameters) after a train step, on the CPU, the
+    tensor-parallel shards gathered."""
+    def full(name, t):
+        return (t if tp_mesh is None else tp.unshard(t, tp.spec_for(name), tp_mesh.model)).detach().cpu()
+
+    named = list(trainer.model.named_parameters())
+    return avg.cpu(), {n: full(n, p.grad) for n, p in named}, {n: full(n, p) for n, p in named}
+
+
+def phase10_rank(argv: list) -> None:
+    """One rank of phase 10 (started by the parallel.multihost worker, gloo,
+    on the card): (a) a data-parallel flagship train step at B = 64 on
+    injected t and noise, then ms per step; (b) bin/sample_torch.py's main()
+    over the sweep, sharded; (d) the flagship forward under a (1, 2) TP mesh,
+    then one TP train step at B = 8. Writes its counts and times to
+    <tmp>/phase10_rank<r>.json and, on rank 0, the results to compare to
+    <tmp>/phase10_rank0.pt. argv: tmp, the flagship directory."""
+    tmp, model_dir = Path(argv[0]), argv[1]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh()
+    rank, report, results = mesh.rank, {}, {}
+
+    trainer = flagship_trainer(DEVICE, dropout=0.0, mesh=mesh, lr_scheduler=None)
+    V2.launches = 0
+    avg, _ = trainer.train_step(*mp_step_inputs(BATCH, SEED + 20))
+    results["a"] = step_result(trainer, avg)
+    report["a_launches"] = V2.launches
+    timed = flagship_trainer(DEVICE, mesh=mesh)  # dropout 0.1, the trainer's own draws
+    batch = mp_step_inputs(BATCH, SEED + 20)[0]
+    times = []
+    for i in range(3 + MP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        timed.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+    report["a_ms"] = times[3:]
+    del trainer, timed
+
+    V2.launches = V1.launches = 0
+    argv_b = ["-m", model_dir, "-o", str(tmp / "mp_sampled"), "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
+              "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE]
+    report["b"] = {k: v for k, v in load_script("sample_torch").main(argv_b).items() if k != "pdb_files"}
+    report["b_launches"] = {V2.name: V2.launches, V1.name: V1.launches}
+
+    tp_mesh = tp.make_mesh_2d(1, MP_RANKS)
+    heads = []
+    launch = models_bert.fused_attention_v2
+
+    def counted(q, *args, **kwargs):  # the head count of each v2 launch of the TP forward
+        heads.append(q.shape[1])
+        return launch(q, *args, **kwargs)
+
+    model = model_io.init_random(FLAGSHIP, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    runner = tp.TPRunner(model, tp_mesh)
+    models_bert.fused_attention_v2 = counted
+    V2.launches = 0
+    try:
+        results["d_forward"] = runner(*denoiser_inputs(BATCH, FLAGSHIP.max_position_embeddings)).cpu()
+    finally:
+        models_bert.fused_attention_v2 = launch
+    report["d_launches"], report["d_heads"] = V2.launches, sorted(set(heads))
+    trainer = tp.shard_train_state(flagship_trainer(DEVICE, dropout=0.0, lr_scheduler=None), tp_mesh)
+    avg, _ = tp.tp_train_step(trainer, *mp_step_inputs(8, SEED + 21))
+    results["d_step"] = step_result(trainer, avg, tp_mesh)
+    if rank == 0:
+        torch.save(results, tmp / "phase10_rank0.pt")
+    (tmp / f"phase10_rank{rank}.json").write_text(json.dumps(report))
+
+
+def phase10_nccl_cli(tmp: str) -> list:
+    """(c) bin/train_torch.py --multihost as one NCCL rank for 1 epoch on
+    phase 7's config and corpus, then --resume for a second. Returns its log
+    lines."""
+    lines, results_dir = [], Path(tmp, "mp_trained")
+    for epochs, extra in ((1, []), (2, ["--resume"])):
+        start = time.perf_counter()
+        launch_ranks("[10c] NCCL rank", [["bin/train_torch.py", str(Path(tmp, "train.json")), "-o", str(results_dir),
+                                          "--epochs", str(epochs), "--multihost", "--coordinator",
+                                          f"localhost:{free_port()}", "--nprocs", "1", "--procid", "0", *extra]],
+                     env={"FOLDINGDIFF_CACHE_DIR": tmp})
+        lines.append(f"[10c] bin/train_torch.py --multihost (1 NCCL rank) --epochs {epochs} {' '.join(extra)}: "
+                     f"wall {time.perf_counter() - start:.3f} s with the process's start")
+    with open(results_dir / "logs" / "metrics.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    if [int(r["epoch"]) for r in rows] != [0, 1] or not all(
+            math.isfinite(float(v)) for r in rows for k, v in r.items() if "loss" in k):
+        raise RuntimeError(f"[10c] metrics.csv rows {rows}")
+    return lines + [f"[10c] metrics.csv: epochs 0, 1; train loss {float(rows[-1]['train_loss']):.6f}, val loss "
+                    f"{float(rows[-1]['val_loss']):.6f}"]
+
+
+def phase10_reference_step(b: int, seed: int) -> tuple:
+    """The one-process train step of phase 10's (a) and (d) on the card."""
+    trainer = flagship_trainer(DEVICE, dropout=0.0, lr_scheduler=None)
+    avg, _ = trainer.train_step(*mp_step_inputs(b, seed))
+    return step_result(trainer, avg)
+
+
+def phase_multiprocess(tmp: str, model_dir: str, card: str) -> int:
+    """Phase 10: N ranks held equal to one rank. (a), (b) and (d) run in one
+    launch of 2 gloo ranks sharing the card (phase10_rank); (c) runs beside
+    the checks of their results, which time nothing. Returns the v2
+    launches of (b) and (d)."""
+    port = free_port()
+    start = time.perf_counter()
+    launch_ranks("[10] 2 gloo ranks", [
+        ["-m", "foldingdiff_tpu_torch.parallel.multihost", "--coordinator", f"localhost:{port}", "--nprocs",
+         str(MP_RANKS), "--procid", str(r), "--backend", "gloo", "--device", "cuda", "chip_smoke:phase10_rank", tmp,
+         model_dir] for r in range(MP_RANKS)])
+    log(f"[10] {MP_RANKS} gloo ranks on {card} (one card): (a), (b), (d) in {time.perf_counter() - start:.3f} s "
+        f"with the processes' start")
+    reports = [json.loads(Path(tmp, f"phase10_rank{r}.json").read_text()) for r in range(MP_RANKS)]
+    results = torch.load(Path(tmp, "phase10_rank0.pt"), weights_only=False)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nccl = pool.submit(phase10_nccl_cli, tmp)
+        launches = phase10_checks(tmp, model_dir, card, reports, results)
+        for line in nccl.result():
+            log(line)
+    return launches
+
+
+def phase10_checks(tmp: str, model_dir: str, card: str, reports: list, results: dict) -> int:
+    """(a), (b) and (d) of phase 10 against one process; returns their v2 launches."""
+    # (a) the DP step against one process
+    ref = phase10_reference_step(BATCH, SEED + 20)
+    check_step_card_vs_cpu(f"[10a] one DP train step B={BATCH} L=128, ragged", ref, results["a"], 1e-4,
+                           MP_STEP_LOSS_TOL, MP_STEP_PARAM_TOL, MP_STEP_PARAM_RTOL, grad_tol=None,
+                           what=f"{MP_RANKS} ranks vs 1 process")
+    for r, rep in enumerate(reports):
+        if rep["a_launches"] != 0:
+            raise RuntimeError(f"[10a] rank {r}: {rep['a_launches']} v2 launches in a train step")
+        ms = statistics.median(rep["a_ms"])
+        log(f"[10a] rank {r} on {card}: DP train step B={BATCH} (B={BATCH // MP_RANKS} per rank) L=128, dropout 0.1, "
+            f"gloo gradient all-reduce: median {ms:.4f} ms of {MP_TIMED_STEPS} (min {min(rep['a_ms']):.4f}, max "
+            f"{max(rep['a_ms']):.4f}), {BATCH / ms * 1e3:.1f} structures/s over the {MP_RANKS} ranks")
+
+    # (b) the sharded sweep: rank 0's CSVs against one process at the ranks'
+    # batch shapes, and against phase 5's one process
+    n = len(range(*SWEEP))
+    want_launches = {V2.name: FLAGSHIP.num_hidden_layers * FLAGSHIP_TRAIN_ARGS["timesteps"] * expected_chunks(),
+                     V1.name: 0}
+    for r, rep in enumerate(reports):
+        if rep["b_launches"] != want_launches:
+            raise RuntimeError(f"[10b] rank {r} launched {rep['b_launches']}, expected {want_launches}")
+    if reports[0]["b"]["n_structures"] != n or any(rep["b"]["n_structures"] != 0 for rep in reports[1:]):
+        raise RuntimeError(f"[10b] structures written by rank: {[rep['b']['n_structures'] for rep in reports]}")
+
+    def csv_angles(out, i):
+        return np.loadtxt(Path(tmp, out, "sampled_angles", f"generated_{i}.csv.gz"), delimiter=",", skiprows=1,
+                          ndmin=2)
+
+    got = [csv_angles("mp_sampled", i) for i in range(n)]
+    check_angles("[10b]", got)
+    seconds = reports[0]["b"]["sampling_seconds"]
+    log(f"[10b] DDPM sweep over {MP_RANKS} ranks on {card}: {n} backbones, {expected_chunks()} chunks split by rows, "
+        f"{want_launches[V2.name]} v2 launches per rank; sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s")
+    # One process running each chunk as the ranks run it (their rows, their
+    # batch shapes, the chunk's draws): the sharded sweep must equal it
+    model, train_args = model_io.from_dir(model_dir, device=DEVICE)
+    schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=DEVICE)
+    empty = AnglesEmptyDataset.from_dir(model_dir)
+    is_angular = empty.feature_is_angular["angles"]
+    views = [sampling.build_sampler(model, schedule, is_angular, train_args["variance_scale"], gen_noise=True,
+                                    mesh=Mesh(None, rank=r, size=MP_RANKS)) for r in range(MP_RANKS)]
+
+    def ranks_in_turn(attn_mask, seed, chunk_i):
+        return torch.cat([view(attn_mask, seed, chunk_i) for view in views])[: attn_mask.shape[0]]
+
+    same_shapes = sampling.sample(model, schedule, is_angular=is_angular, pad=empty.pad, n=1, sweep_lengths=SWEEP,
+                                  batch_size=BATCH, mean_offset=empty.get_masked_means(), seed=SEED,
+                                  sampler=ranks_in_turn)
+    del model
+    err_same = max(circular_err(a, b) for a, b in zip(got, same_shapes))
+    # Phase 5 ran each chunk whole: the GEMMs of another batch shape round
+    # otherwise, and the cosine schedule's first steps amplify that ~100x
+    # (the chain is chaotic after ~20 steps of a random-weight model), so
+    # only a chunk whose kernels round alike at both shapes can match it
+    small = [i for i, length in enumerate(range(*SWEEP)) if length <= BUCKET]
+    errs = [circular_err(a, csv_angles("sampled", i)) for i, a in enumerate(got)]
+    err_small = max(errs[i] for i in small)
+    err_large = max(e for i, e in enumerate(errs) if i not in small)
+    log(f"[10b] rank 0's CSVs: against one process at the ranks' batch shapes max circular err {err_same:.3e} (tol "
+        f"1e-5); against phase 5's one process (whole chunks) {err_large:.3e} over the {n - len(small)} structures "
+        f"of the large chunk (B={BATCH // MP_RANKS} per rank against 63; tol {DENOISER_TOL}), {err_small:.3e} over "
+        f"the {len(small)} of the small chunk (B=8 against 15; not gated)")
+    if not (err_same <= 1e-5 and err_large <= DENOISER_TOL):
+        raise RuntimeError(f"[10b] the sharded sweep disagrees with one process: {err_same}, {err_large}")
+
+    # (d) the TP forward and train step against one rank
+    heads = FLAGSHIP.num_attention_heads // MP_RANKS
+    for r, rep in enumerate(reports):
+        if rep["d_launches"] != FLAGSHIP.num_hidden_layers or rep["d_heads"] != [heads]:
+            raise RuntimeError(f"[10d] rank {r}: {rep['d_launches']} v2 launches at H={rep['d_heads']}, expected "
+                               f"{FLAGSHIP.num_hidden_layers} at H={heads}")
+    model = model_io.init_random(FLAGSHIP, torch.Generator().manual_seed(SEED)).to(DEVICE).eval()
+    with torch.inference_mode():
+        want = model(*denoiser_inputs(BATCH, FLAGSHIP.max_position_embeddings)).cpu()
+    err = (results["d_forward"] - want).abs().max().item()
+    log(f"[10d] flagship forward under a (1, {MP_RANKS}) TP mesh, \"auto\", B={BATCH} L=128: "
+        f"{FLAGSHIP.num_hidden_layers} v2 launches per rank at H={heads}; against one rank max abs err {err:.3e} "
+        f"(tol {DENOISER_TOL})")
+    if not err <= DENOISER_TOL:
+        raise RuntimeError(f"[10d] the TP forward disagrees with one rank: {err}")
+    check_step_card_vs_cpu("[10d] one TP train step B=8 L=128", phase10_reference_step(8, SEED + 21),
+                           results["d_step"], 1e-4, STEP_TERMS_TOL, STEP_PARAM_TOL,
+                           what=f"(1, {MP_RANKS}) TP mesh vs 1 rank")
+    return sum(rep["b_launches"][V2.name] + rep["d_launches"] for rep in reports)
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1405,12 +1686,13 @@ def main() -> None:
         trained = phase_training(tmp, card)
         phase_surface(tmp, model_dir, trained, card)
         baseline_launches = phase_baseline_models(tmp, card)
+        multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",
          "source": "foldingdiff_tpu_torch/csrc/rel_attention.cu",
          "replaces": "foldingdiff_tpu/ops/pallas_attention.py:187",
-         "launches": v2_launches + baseline_launches, **kernels["v2"]},
+         "launches": v2_launches + baseline_launches + multiprocess_launches, **kernels["v2"]},
         {"name": "gathered_attention_kernel (fused_attention)", "route": "cuda",
          "source": "foldingdiff_tpu_torch/csrc/gathered_attention.cu",
          "replaces": "foldingdiff_tpu/ops/pallas_attention.py:78",

@@ -137,8 +137,12 @@ class AngleDataset:
             self.structures = self._compute_featurization(fnames)
             if not toy:
                 logging.info(f"Caching dataset to {self.cache_fname}")
-                with open(self.cache_fname, "wb") as sink:
+                # written aside and renamed, so that another rank featurizing
+                # the same files never reads a partial cache
+                partial = f"{self.cache_fname}.tmp{os.getpid()}"
+                with open(partial, "wb") as sink:
                     pickle.dump((codebase_hash, self.structures), sink)
+                os.replace(partial, self.cache_fname)
 
         if self.min_length:
             orig = len(self.structures)

@@ -79,7 +79,21 @@ def corrupt_batch(
     U[0, T) per item, wrapped noise, x_t. Returns the reference batch's
     "corrupted", "t" and "known_noise" (datasets.py:873-879).
     """
-    t = torch.randint(0, schedule.timesteps, (x0.shape[0],), generator=generator, device=generator.device)
-    noise = sample_wrapped_noise(generator, tuple(x0.shape), is_angular, angular_scale, nonangular_scale,
-                                 dtype=x0.dtype)
+    t, noise = draw_t_and_noise(generator, tuple(x0.shape), schedule, is_angular, angular_scale, nonangular_scale,
+                                x0.dtype)
     return {"corrupted": q_sample(x0, t, noise, schedule, is_angular), "t": t, "known_noise": noise}
+
+
+def draw_t_and_noise(
+    generator: torch.Generator,
+    shape: Tuple[int, ...],
+    schedule: DiffusionSchedule,
+    is_angular: Sequence[bool] | torch.Tensor,
+    angular_scale: float = 1.0,
+    nonangular_scale: float = 1.0,
+    dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """corrupt_batch's draws for a (B, L, F) batch: t ~ U[0, T) per item,
+    then the wrapped noise, on the generator's device."""
+    t = torch.randint(0, schedule.timesteps, (shape[0],), generator=generator, device=generator.device)
+    return t, sample_wrapped_noise(generator, shape, is_angular, angular_scale, nonangular_scale, dtype=dtype)

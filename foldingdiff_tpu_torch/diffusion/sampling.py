@@ -23,6 +23,14 @@ torch.Generator on the sampling device, seeded from (seed, chunk index)
 through numpy's SeedSequence; get_reconstruction_error draws each batch's
 eps and step noise the same way. The numbers differ from the JAX package's
 for the same seed; only the distributions agree.
+
+Data parallelism (`mesh`, a parallel.mesh.Mesh; JAX's shard_fn,
+sampling.py:474, 504-505, 538, 606-607): each chunk's rows are split over the
+ranks, zero-padded to a multiple of them. Every rank still draws the whole
+chunk's x_T and each step's whole noise from the chunk's generator and takes
+its rows, so the rows a rank computes are the rows one device computes.
+Rank 0 gathers the results on the host and returns them in order; the other
+ranks return None.
 """
 from __future__ import annotations
 
@@ -36,9 +44,22 @@ import torch
 from foldingdiff_tpu_torch.diffusion.noise import q_sample, sample_wrapped_noise
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.ops.angles import wrap_angles, wrap_angular_features
+from foldingdiff_tpu_torch.parallel.mesh import Mesh, gather_to_primary, shard_batch
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 SAMPLING_METHODS = ("ddpm", "ddim", "dpmpp")
+# (mesh, n): a loop's x holds this rank's rows of a chunk of n rows
+Shard = Optional[Tuple[Mesh, int]]
+
+
+def _normal(like: torch.Tensor, generator: torch.Generator, shard: Shard = None) -> torch.Tensor:
+    """A standard normal draw shaped like `like` from generator; under a
+    shard, the whole chunk's draw and this rank's rows of it."""
+    if shard is None:
+        return torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
+    mesh, n = shard
+    return shard_batch(mesh, torch.randn((n, *like.shape[1:]), generator=generator, dtype=like.dtype,
+                                         device=like.device))
 
 
 def p_sample_step(
@@ -84,12 +105,14 @@ def p_sample_loop(
     noise_scale: float | np.ndarray | torch.Tensor = 1.0,
     start_t: Optional[int] = None,
     return_history: bool = False,
+    shard: Shard = None,
 ) -> torch.Tensor:
     """
     Reverse chain S-1 .. 0 from x_S = `noise` (B, L, F), where S is start_t
     (a partial chain, partial-noise reconstruction's) or T. The posterior
     noise of step i (timestep S-1-i) is step_noise[i] when an (S, B, L, F)
-    tensor is given, otherwise a fresh normal draw from `generator`.
+    tensor is given, otherwise a fresh normal draw from `generator` (under
+    `shard`, of the whole chunk, of which x holds this rank's rows).
     noise_scale is p_sample_step's temperature, a scalar or per feature.
     Returns x_0, or with return_history the (S, B, L, F) states after every
     step, kept in one tensor on the device.
@@ -110,7 +133,7 @@ def p_sample_loop(
             elif step_noise is not None:
                 z = step_noise[i]
             else:
-                z = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+                z = _normal(x, generator, shard)
             x = p_sample_step(model_fn, x, t, z, attn_mask, schedule, is_angular, noise_scale)
             if history is not None:
                 history[i] = x
@@ -147,6 +170,7 @@ def ddim_sample_loop(
     generator: Optional[torch.Generator] = None,
     step_noise: Optional[torch.Tensor] = None,
     return_history: bool = False,
+    shard: Shard = None,
 ) -> torch.Tensor:
     """
     DDIM (Song et al. 2021) over the strided grid
@@ -158,8 +182,9 @@ def ddim_sample_loop(
 
     eta = 0 is deterministic and takes no noise source. eta > 0 adds
     sigma_i times step_noise[i] ((n_steps, B, L, F)) or a fresh normal draw
-    from `generator`: give exactly one. Returns x_0, or with return_history
-    the (n_steps, B, L, F) states after every step.
+    from `generator` (of the whole chunk under `shard`, as p_sample_loop):
+    give exactly one. Returns x_0, or with return_history the
+    (n_steps, B, L, F) states after every step.
     """
     T = schedule.timesteps
     if eta > 0:
@@ -182,8 +207,7 @@ def ddim_sample_loop(
             dir_xt = float(np.sqrt(max(one - a_prev - sigma * sigma, 0))) * eps
             x = float(np.sqrt(a_prev)) * x0 + dir_xt
             if eta > 0:
-                z = step_noise[i] if step_noise is not None else torch.randn(
-                    x.shape, generator=generator, dtype=x.dtype, device=x.device)
+                z = step_noise[i] if step_noise is not None else _normal(x, generator, shard)
                 x = x + float(sigma) * z
             x = wrap_angular_features(x, is_angular)
             if history is not None:
@@ -296,6 +320,7 @@ def build_sampler(
     start_t: Optional[int] = None,
     return_history: bool = False,
     gen_noise: bool = False,
+    mesh: Optional[Mesh] = None,
 ):
     """
     Sampler closure over `model` (the denoiser, or any model_fn), which runs
@@ -310,10 +335,12 @@ def build_sampler(
     (steps, B, L, F), instead of x_0.
 
     gen_noise=False: sampler(noise, attn_mask, generator=None,
-    step_noise=None), from a given x_T (or x_{start_t}), the step noise drawn
-    from `generator` or given (DDPM, and DDIM with eta > 0, need one).
+    step_noise=None, shard=None), from a given x_T (or x_{start_t}), the step
+    noise drawn from `generator` (under `shard`, of the whole chunk) or given
+    (DDPM, and DDIM with eta > 0, need one).
     gen_noise=True: sampler(attn_mask, seed, chunk_i), x_T and any step noise
-    drawn from chunk_generator(seed, chunk_i).
+    drawn from chunk_generator(seed, chunk_i); under `mesh` attn_mask is the
+    whole chunk's and the sampler returns this rank's rows of it.
     """
     if method not in SAMPLING_METHODS:
         raise ValueError(f"method {method!r} not in {SAMPLING_METHODS}")
@@ -324,16 +351,17 @@ def build_sampler(
     n_ft = len(is_angular)
 
     def run_loop(noise: torch.Tensor, attn_mask: torch.Tensor, generator: Optional[torch.Generator] = None,
-                 step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 step_noise: Optional[torch.Tensor] = None, shard: Shard = None) -> torch.Tensor:
         if method == "ddim":
             return ddim_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps, ddim_eta,
-                                    generator=generator, step_noise=step_noise, return_history=return_history)
+                                    generator=generator, step_noise=step_noise, return_history=return_history,
+                                    shard=shard)
         if method == "dpmpp":
             return dpmpp_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps,
                                      return_history=return_history)
         return p_sample_loop(model, noise, attn_mask, schedule, is_angular, generator=generator,
                              step_noise=step_noise, noise_scale=1.0 if noise_scale is None else noise_scale,
-                             start_t=start_t, return_history=return_history)
+                             start_t=start_t, return_history=return_history, shard=shard)
 
     if not gen_noise:
         return run_loop
@@ -342,7 +370,10 @@ def build_sampler(
         generator = chunk_generator(seed, chunk_i, attn_mask.device)
         b, l = attn_mask.shape
         noise = sample_wrapped_noise(generator, (b, l, n_ft), is_angular, angular_variance)
-        return run_loop(noise, attn_mask, generator)
+        if mesh is None:
+            return run_loop(noise, attn_mask, generator)
+        noise, attn_mask = shard_batch(mesh, noise, attn_mask)
+        return run_loop(noise, attn_mask, generator, shard=(mesh, b))
 
     return sampler
 
@@ -367,7 +398,8 @@ def sample(
     noise_scale: float | np.ndarray | None = None,
     return_history: bool = False,
     sampler=None,
-) -> List[np.ndarray]:
+    mesh: Optional[Mesh] = None,
+) -> Optional[List[np.ndarray]]:
     """
     Batched sampling with a length sweep (reference sampling.sample,
     sampling.py:135-224) on the model's device, by build_sampler's `method`
@@ -379,6 +411,10 @@ def sample(
     Lengths are grouped by padded bucket (a multiple of bucket_multiple, at
     most pad) before chunking by batch_size, so a short chunk runs at its
     small bucket. Chunk i is sampled from chunk_generator(seed, i).
+
+    Under `mesh` (a prebuilt sampler must be built with the same mesh) every
+    rank runs its rows of each chunk; rank 0 returns the structures, the
+    other ranks None.
     """
     if lengths is None:
         if sweep_lengths is None:
@@ -394,7 +430,7 @@ def sample(
     device = next(model.parameters()).device
     if sampler is None:
         sampler = build_sampler(model, schedule, list(is_angular_arr), angular_variance, method, ddim_steps,
-                                ddim_eta, noise_scale, return_history=return_history, gen_noise=True)
+                                ddim_eta, noise_scale, return_history=return_history, gen_noise=True, mesh=mesh)
 
     def bucket_of(length: int) -> int:
         return min(pad, -(-length // bucket_multiple) * bucket_multiple)
@@ -419,9 +455,15 @@ def sample(
         ).to(device)
         pending.append((idx_chunk, this_lengths, sampler(attn_mask, seed, chunk_i)))
 
+    outputs = [device_out.cpu().numpy() for _, _, device_out in pending]
+    if mesh is not None:  # each rank's rows of every chunk, in rank order: the zero-padded chunks
+        gathered = gather_to_primary(mesh, outputs)
+        if gathered is None:
+            return None
+        axis = 1 if return_history else 0
+        outputs = [np.concatenate([g[c] for g in gathered], axis=axis) for c in range(len(pending))]
     results: dict = {}
-    for idx_chunk, this_lengths, device_out in pending:
-        sampled = device_out.cpu().numpy()
+    for (idx_chunk, this_lengths, _), sampled in zip(pending, outputs):
         for i, (orig_idx, l) in enumerate(zip(idx_chunk, this_lengths)):
             results[orig_idx] = sampled[:, i, :l, :] if return_history else sampled[i, :l, :]
     retval = [results[i] for i in range(len(lengths))]
@@ -452,12 +494,14 @@ def reconstruct_batch(
     generator: Optional[torch.Generator] = None,
     step_noise: Optional[torch.Tensor] = None,
     mean_offset: Optional[np.ndarray] = None,
+    shard: Shard = None,
 ) -> List[np.ndarray]:
     """
     One batch of partial-noise reconstruction on eps's device: x0 (B, L, F)
     q-sampled with the wrapped noise eps to t = noise_timesteps - 1, the
     partial DDPM chain from start_t = noise_timesteps (its step noise drawn
-    from `generator` or given, (noise_timesteps, B, L, F)), then on the host
+    from `generator`, of the whole batch under `shard`, or given,
+    (noise_timesteps, B, L, F)), then on the host
     the mean offset re-added, the angular features re-wrapped and each
     structure trimmed to its length.
     """
@@ -468,7 +512,7 @@ def reconstruct_batch(
     corrupted = q_sample(x0_t, t, eps, schedule, is_angular_arr.tolist())
     mask = torch.as_tensor(attn_mask, dtype=torch.float32, device=device)
     partial_chain = build_sampler(model_fn, schedule, is_angular_arr.tolist(), start_t=noise_timesteps)
-    recon = partial_chain(corrupted, mask, generator=generator, step_noise=step_noise).cpu().numpy()
+    recon = partial_chain(corrupted, mask, generator=generator, step_noise=step_noise, shard=shard).cpu().numpy()
     if mean_offset is not None:
         recon = recon + np.asarray(mean_offset)
         ang_idx = np.where(is_angular_arr)[0]
@@ -486,7 +530,8 @@ def get_reconstruction_error(
     batch_size: int = 512,
     seed: int = 0,
     mean_offset: Optional[np.ndarray] = None,
-) -> List[np.ndarray]:
+    mesh: Optional[Mesh] = None,
+) -> Optional[List[np.ndarray]]:
     """
     Partial-noise reconstruction (reference sampling.get_reconstruction_error,
     sampling.py:287-356) on the model's device: each batch of test items
@@ -497,23 +542,36 @@ def get_reconstruction_error(
 
     data: {"angles": (N, L, F), "attn_mask": (N, L), "lengths": (N,)}. Batch
     i draws its eps and step noise from chunk_generator(seed, i); the
-    numbers differ from the JAX package's for the same seed.
+    numbers differ from the JAX package's for the same seed. Under `mesh`
+    every rank runs its rows of each batch; rank 0 returns the
+    reconstructions, the other ranks None.
     """
     if not 1 <= noise_timesteps <= schedule.timesteps:
         raise ValueError(f"noise_timesteps must be in [1, {schedule.timesteps}], got {noise_timesteps}")
     device = next(model.parameters()).device
     n = data["angles"].shape[0]
-    out: List[np.ndarray] = []
-    for batch_i, start in enumerate(range(0, n, batch_size)):
-        x0 = data["angles"][start : start + batch_size]
+    starts = range(0, n, batch_size)
+    batches: List[List[np.ndarray]] = []
+    for batch_i, start in enumerate(starts):
+        rows = slice(start, start + batch_size)
+        x0, mask, lengths = data["angles"][rows], data["attn_mask"][rows], data["lengths"][rows]
         generator = chunk_generator(seed, batch_i, device)
         eps = sample_wrapped_noise(generator, tuple(x0.shape), is_angular)
-        out.extend(reconstruct_batch(
-            model, schedule, x0, data["attn_mask"][start : start + batch_size],
-            data["lengths"][start : start + batch_size], eps, is_angular=is_angular,
-            noise_timesteps=noise_timesteps, generator=generator, mean_offset=mean_offset,
+        shard = None
+        if mesh is not None:
+            shard = (mesh, x0.shape[0])
+            x0, mask, lengths = shard_batch(mesh, x0, mask, lengths)
+            eps = shard_batch(mesh, eps)
+        batches.append(reconstruct_batch(
+            model, schedule, x0, mask, lengths, eps, is_angular=is_angular, noise_timesteps=noise_timesteps,
+            generator=generator, mean_offset=mean_offset, shard=shard,
         ))
-    return out
+    if mesh is not None:  # each rank's rows of every batch, in rank order: the zero-padded batches
+        gathered = gather_to_primary(mesh, batches)
+        if gathered is None:
+            return None
+        batches = [[r for g in gathered for r in g[i]][: min(batch_size, n - start)] for i, start in enumerate(starts)]
+    return [r for batch in batches for r in batch]
 
 
 def sample_simple(

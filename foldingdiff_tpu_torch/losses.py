@@ -11,6 +11,12 @@ As in the JAX package, the pairwise loss computes the full (B, N, N)
 distance matrix and masks the pairs i < j < length, in place of the
 reference's per-item pdist loop: each valid pair counts once, so the mean is
 the same. Every wrap is floored modulo (`%`), never torch.fmod.
+
+Each masked loss takes `count`, the count of unmasked positions (or valid
+pairs) to divide by, by default its own mask's: a data-parallel rank passes
+the global batch's, so that its loss is its share of the global batch's
+masked mean and the ranks' losses sum to it, as JAX's mean over a sharded
+batch is.
 """
 from __future__ import annotations
 
@@ -22,14 +28,16 @@ import torch
 from foldingdiff_tpu_torch.ops.angles import wrap_angles
 
 
-def _masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(values: torch.Tensor, mask: Optional[torch.Tensor], count: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     if mask is None:
         return values.mean()
     mask = mask.to(values.dtype)
-    return (values * mask).sum() / mask.sum().clamp_min(1.0)
+    return (values * mask).sum() / (mask.sum() if count is None else count).clamp_min(1.0)
 
 
-def radian_l1_loss(input: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def radian_l1_loss(input: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                   count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """
     Mean absolute wrapped angular difference.
 
@@ -39,7 +47,7 @@ def radian_l1_loss(input: torch.Tensor, target: torch.Tensor, mask: Optional[tor
     0.2
     """
     d = wrap_angles(target % (2 * math.pi) - input % (2 * math.pi))
-    return _masked_mean(d.abs(), mask)
+    return _masked_mean(d.abs(), mask, count)
 
 
 def _huber(d: torch.Tensor, beta: float) -> torch.Tensor:
@@ -53,6 +61,7 @@ def radian_smooth_l1_loss(
     beta: float = 1.0,
     circle_penalty: float = 0.0,
     mask: Optional[torch.Tensor] = None,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """
     Smooth-L1 (huber) on the wrapped angular difference:
@@ -64,22 +73,24 @@ def radian_smooth_l1_loss(
     """
     if beta <= 0:
         raise ValueError(f"beta must be positive, got {beta}")
-    retval = _masked_mean(_huber(wrap_angles(target - input), beta), mask)
+    retval = _masked_mean(_huber(wrap_angles(target - input), beta), mask, count)
     if circle_penalty > 0:
-        retval = retval + circle_penalty * _masked_mean(torch.trunc(input.abs() / math.pi), mask)
+        retval = retval + circle_penalty * _masked_mean(torch.trunc(input.abs() / math.pi), mask, count)
     return retval
 
 
 def smooth_l1_loss(
-    input: torch.Tensor, target: torch.Tensor, beta: float = 1.0, mask: Optional[torch.Tensor] = None
+    input: torch.Tensor, target: torch.Tensor, beta: float = 1.0, mask: Optional[torch.Tensor] = None,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain (not wrapped) huber loss for non-angular features."""
-    return _masked_mean(_huber(target - input, beta), mask)
+    return _masked_mean(_huber(target - input, beta), mask, count)
 
 
-def l1_loss(input: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+def l1_loss(input: torch.Tensor, target: torch.Tensor, mask: Optional[torch.Tensor] = None,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Plain L1 loss for non-angular features."""
-    return _masked_mean((target - input).abs(), mask)
+    return _masked_mean((target - input).abs(), mask, count)
 
 
 def _pair_mask(lengths: torch.Tensor, n: int) -> torch.Tensor:
@@ -90,19 +101,25 @@ def _pair_mask(lengths: torch.Tensor, n: int) -> torch.Tensor:
     return (upper & within).float()
 
 
+def pair_count(lengths: torch.Tensor, n: int) -> torch.Tensor:
+    """The valid pairs i < j < length of a batch padded to n, summed over its items."""
+    return _pair_mask(lengths, n).sum()
+
+
 def pairwise_dist_loss(
     input: torch.Tensor,
     target: torch.Tensor,
     lengths: torch.Tensor,
     weights: Optional[torch.Tensor | float] = None,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """
     MSE between the pairwise-distance sets of input and target coordinates.
 
     input, target: (B, N, 3); lengths: (B,) valid point counts; weights: a
     scalar or (B,) per-item coefficient. The mean is over all valid pairs of
-    the batch, so longer items contribute more pairs (reference
-    losses.py:136-149).
+    the batch (count, if given), so longer items contribute more pairs
+    (reference losses.py:136-149).
     """
     if input.ndim != 3 or input.shape[-1] != 3:
         raise ValueError(f"input must be (B, N, 3), got {tuple(input.shape)}")
@@ -119,4 +136,4 @@ def pairwise_dist_loss(
         if w.ndim >= 1:
             w = w.reshape(-1)[:, None, None]
         se = se * w
-    return (se * mask).sum() / mask.sum().clamp_min(1.0)
+    return (se * mask).sum() / (mask.sum() if count is None else count).clamp_min(1.0)

@@ -14,6 +14,14 @@ The model and the generator live on one device; batches are numpy arrays
 moved there per step, in np.random.default_rng(cfg.seed) order as in JAX.
 Dropout draws from the device's default generator, seeded with cfg.seed for
 the fit and restored after it.
+
+With a mesh (parallel.mesh.Mesh) the trainer is data-parallel as the
+diffusion Trainer is: every rank draws the whole batch's u, takes its rows of
+the batch zero-padded to a multiple of the ranks, divides by the global
+count of valid rows' elements and sums the gradients over the ranks; the
+losses are the global batch's and only rank 0 writes. The zero padding makes
+the exclusion of zero-length rows load-bearing. Dropout masks are each
+rank's own (cfg.seed plus the rank).
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ import torch
 
 from foldingdiff_tpu_torch import losses as loss_lib
 from foldingdiff_tpu_torch.models.ar import BertForAutoregressive
+from foldingdiff_tpu_torch.parallel.mesh import Mesh, replicate, shard_batch
+from foldingdiff_tpu_torch.parallel.multihost import is_primary
 from foldingdiff_tpu_torch.training.trainer import (
     TrainConfig,
     append_metrics_csv,
@@ -53,11 +63,13 @@ class ARTrainer:
     host arrays: dicts with "angles" (N, pad, F), "attn_mask" (N, pad) and
     "lengths" (N,), as AngleDataset.to_arrays() gives them."""
 
-    def __init__(self, model: BertForAutoregressive, train_cfg: TrainConfig, steps_per_epoch: int, mesh=None) -> None:
-        if mesh is not None:
-            raise ValueError("training over several devices (a mesh) is not ported yet: ROADMAP.md, Queue 1, "
-                             "'What waits' item 4")
+    def __init__(self, model: BertForAutoregressive, train_cfg: TrainConfig, steps_per_epoch: int,
+                 mesh: Optional[Mesh] = None) -> None:
         self.model = model
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(mesh, model)  # rank 0's weights on every rank
+        self.primary = is_primary()
         self.cfg = train_cfg
         self.device = next(model.parameters()).device
         self.lr_schedule = make_lr_schedule(train_cfg, steps_per_epoch)
@@ -70,13 +82,19 @@ class ARTrainer:
 
     def _loss(self, batch: Dict[str, torch.Tensor], causal_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The loss of a device batch in the model's current mode; causal_len
-        (B,) drawn from the trainer's generator unless the caller gives it."""
+        (B,) drawn from the trainer's generator unless the caller gives it.
+        Under a mesh the batch and causal_len are the global batch's and the
+        loss this rank's share: summed over the ranks it is the global one."""
+        if causal_len is None:
+            u = torch.rand(batch["angles"].shape[0], generator=self.generator, device=self.device)
+            causal_len = causal_lengths(u, batch["lengths"], batch["angles"].shape[1])
+        causal_len = causal_len.to(self.device, torch.int64)
+        count = None
+        if self.mesh is not None:
+            batch = dict(zip(batch, shard_batch(self.mesh, *batch.values())))
+            causal_len = shard_batch(self.mesh, causal_len)
         angles, lengths = batch["angles"], batch["lengths"]
         b, l, f = angles.shape
-        if causal_len is None:
-            u = torch.rand(b, generator=self.generator, device=self.device)
-            causal_len = causal_lengths(u, lengths, l)
-        causal_len = causal_len.to(self.device, torch.int64)
         mask = (torch.arange(l, device=self.device)[None, :] < causal_len[:, None]).to(angles.dtype)
         preds = self.model(angles, mask, lengths)
         at = causal_len[:, None, None].expand(b, 1, f)
@@ -84,22 +102,30 @@ class ARTrainer:
         # Zero-length rows (a padded batch's) must not pull the model toward
         # zero angles: the per-row loss has no attention mask of its own
         valid = (lengths > 0)[:, None].expand_as(pred_at)
-        return loss_lib.radian_smooth_l1_loss(pred_at, target, beta=math.pi / 10, mask=valid)
+        if self.mesh is not None:
+            count = self.mesh.all_reduce(valid.sum().to(angles.dtype))
+        return loss_lib.radian_smooth_l1_loss(pred_at, target, beta=math.pi / 10, mask=valid, count=count)
+
+    def _global(self, loss: torch.Tensor) -> torch.Tensor:
+        """A loss summed over the ranks: the global batch's."""
+        return loss if self.mesh is None else self.mesh.all_reduce(loss.clone())
 
     def train_step(self, batch: Dict[str, torch.Tensor], causal_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """One update from a device batch; returns the loss, detached on the device."""
+        """One update from a device batch (the global batch under a mesh);
+        returns the global batch's loss, detached on the device."""
         self.model.train()
         loss = self._loss(batch, causal_len)
-        optimizer_step(self.model, self.optimizer, loss, self.cfg.gradient_clip, self.lr_schedule(self.step))
+        optimizer_step(self.model, self.optimizer, loss, self.cfg.gradient_clip, self.lr_schedule(self.step),
+                       self.mesh)
         self.step += 1
-        return loss.detach()
+        return self._global(loss.detach())
 
     def eval_step(self, batch: Dict[str, torch.Tensor], causal_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The loss of a device batch in eval mode (the attention kernel's
         route), without gradients."""
         self.model.eval()
         with torch.inference_mode():
-            return self._loss(batch, causal_len)
+            return self._global(self._loss(batch, causal_len))
 
     @staticmethod
     def _starts(n: int, batch_size: int) -> range:
@@ -121,18 +147,19 @@ class ARTrainer:
         (JAX's ar_trainer.py:95-183). The losses reach the host once per
         epoch. With results_dir it writes logs/metrics.csv and keeps the top 5
         checkpoints by validation loss (training loss without validation
-        data) under models/best_by_valid."""
+        data) under models/best_by_valid: rank 0 only, under a mesh."""
         cfg = self.cfg
         self.generator.manual_seed(cfg.seed)
         host_rng = np.random.default_rng(cfg.seed)
         rows: List[Dict[str, float]] = []
         csv_flushed = 0
         best: List[Tuple[float, int, str]] = []
-        if results_dir is not None:
+        writes = self.primary and results_dir is not None
+        if writes:
             stale = os.path.join(results_dir, "logs", "metrics.csv")
             if os.path.exists(stale):
                 os.remove(stale)
-        with dropout_rng(self.device, cfg.seed):
+        with dropout_rng(self.device, cfg.seed, self.mesh):
             for epoch in range(cfg.max_epochs):
                 t0 = time.time()
                 if train_data_refresh is not None:  # per-epoch randomcrop re-crop
@@ -156,7 +183,7 @@ class ARTrainer:
                              "epoch_seconds": time.time() - t0})
                 if log_every and epoch % log_every == 0:
                     logging.info(f"AR epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f}")
-                if results_dir is not None:
+                if writes:
                     csv_flushed = append_metrics_csv(results_dir, rows, already_flushed=csv_flushed)
                     metric = val_loss if valid_data is not None else train_loss
                     save_topk(self.model, results_dir, train_args or {}, mean_offset, epoch, metric, "valid", best)

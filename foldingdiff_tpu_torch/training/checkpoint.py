@@ -46,10 +46,15 @@ def latest_train_state(results_dir: str) -> Optional[str]:
     return states[-1] if states else None
 
 
-def restore_train_state(path: str, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Tuple[int, int]:
-    """Load a train state into model and optimizer in place; returns
-    (global step, the epoch to continue at)."""
-    payload = torch.load(path, map_location="cpu", weights_only=True)
+def read_train_state(path: str) -> dict:
+    """A train state's payload, its tensors on the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def apply_train_state(payload: dict, model: torch.nn.Module, optimizer: torch.optim.Optimizer) -> Tuple[int, int]:
+    """Load a train state's payload into model and optimizer in place;
+    returns (global step, the epoch to continue at)."""
     model.load_state_dict(payload["model"], strict=True)
     optimizer.load_state_dict(payload["optimizer"])
     return int(payload["step"]), int(payload["epoch"]) + 1
+

@@ -8,11 +8,13 @@ unless the caller asks for the CPU).
 The debug noisers (`syn_noiser`, `single_angle_debug`,
 `single_timestep_debug`; data/debug_noisers.py) train through the
 pre-corrupted step, from batches noised on the host, as the JAX package
-does. Data parallelism over several devices (`use_mesh`, `ngpu` > 1) is not
-ported yet: it raises a ValueError that names the ROADMAP.md item (Queue 1,
-"What waits", item 4) that brings it. The KL and plot diagnostics are left
-out (matplotlib is not on the card's machine), so `dryrun` changes nothing
-here.
+does. With `use_mesh` (the default, as in JAX) and a process group of more
+than one rank up (parallel/multihost.py) whose size divides the batch size,
+training is data-parallel over the ranks (JAX's orchestration.py:294-302);
+every rank featurizes the same data and only rank 0 writes files (JAX's
+:141-160). `ngpu` is accepted and unused, as in JAX's CLI: the ranks are
+the devices. The KL and plot diagnostics are left out (matplotlib is not on
+the card's machine), so `dryrun` changes nothing here.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from foldingdiff_tpu_torch.devices import require_device
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.config import ModelConfig
+from foldingdiff_tpu_torch.parallel.multihost import data_mesh, is_primary
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig, dropout_rng
 
 
@@ -128,7 +131,7 @@ def train(
     dryrun: bool = False,
     seed: int = 42,
     zero_center: bool = True,
-    use_mesh: bool = False,
+    use_mesh: bool = True,
     resume: bool = False,
     save_state_every: int = 25,
     device: str = "cuda",
@@ -136,14 +139,13 @@ def train(
     """Train a model into results_dir (reference bin/train.py:287-507);
     returns (trainer, metrics rows). `device` is the card unless the caller
     asks for the CPU (or sets cpu_only); without a card it raises at once."""
-    if use_mesh or ngpu > 1:
-        raise ValueError("training over several devices (use_mesh, ngpu > 1) is not ported yet: ROADMAP.md, "
-                         "Queue 1, 'What waits' item 4")
     device = require_device("cpu" if cpu_only else device)
     func_args = dict(locals())
     func_args["device"] = str(device)
     results_folder = Path(results_dir)
-    record_args_and_metadata(func_args, results_folder)
+    primary = is_primary()
+    if primary:
+        record_args_and_metadata(func_args, results_folder)
 
     t0 = time.time()
     train_ds, valid_ds, test_ds = get_train_valid_test_sets(
@@ -154,11 +156,12 @@ def train(
     logging.info(f"Featurization took {time.time() - t0:.1f}s")
 
     mean_offset = train_ds.get_masked_means()
-    if mean_offset is not None:
-        np.save(results_folder / "training_mean_offset.npy", mean_offset)
-    for name, ds in zip(["train", "valid", "test"], [train_ds, valid_ds, test_ds]):
-        with open(results_folder / f"{name}_files.txt", "w") as f:
-            f.write("\n".join(ds.filenames))
+    if primary:
+        if mean_offset is not None:
+            np.save(results_folder / "training_mean_offset.npy", mean_offset)
+        for name, ds in zip(["train", "valid", "test"], [train_ds, valid_ds, test_ds]):
+            with open(results_folder / f"{name}_files.txt", "w") as f:
+                f.write("\n".join(ds.filenames))
 
     ft_key = "coords" if angles_definitions == "cart-coords" else "angles"
     debug_noiser = make_debug_noiser(train_ds, ft_key, syn_noiser, single_angle_debug, single_timestep_debug,
@@ -207,7 +210,8 @@ def train(
         use_swa=use_swa, seed=seed, fused_steps=fused_steps,
     )
     model = model_io.init_random(model_config, torch.Generator().manual_seed(seed)).to(device)
-    trainer = Trainer(model, schedule, tcfg, steps_per_epoch=steps_per_epoch)
+    mesh = data_mesh(batch_size) if use_mesh else None
+    trainer = Trainer(model, schedule, tcfg, steps_per_epoch=steps_per_epoch, mesh=mesh)
     logging.info(f"Model has {sum(p.numel() for p in model.parameters())} trainable parameters")
     if debug_noiser is not None:
         return trainer, train_debug(trainer, debug_noiser, max_epochs, batch_size, seed)
@@ -248,7 +252,7 @@ def train_debug(trainer: Trainer, noiser, max_epochs: int, batch_size: int, seed
     logging.warning(f"Training from debug noiser {type(noiser).__name__}")
     keys = ("corrupted", "t", "known_noise", "attn_mask")
     rows = []
-    with dropout_rng(trainer.device, trainer.cfg.seed):
+    with dropout_rng(trainer.device, trainer.cfg.seed, trainer.mesh):
         for epoch in range(max_epochs):
             order = np.random.default_rng(seed + epoch).permutation(len(noiser))
             losses = []

@@ -26,6 +26,27 @@ starts its PRNGKey; batch order and crops come from numpy as in JAX. Dropout
 draws from the device's default generator, seeded with cfg.seed for the fit
 and restored after it. The time embedding's W is a buffer, so it is neither
 optimized nor in the L1 norm, as JAX keeps it in `constants`.
+
+Data parallelism (`mesh`, a parallel.mesh.Mesh; JAX's trainer.py:197-240,
+412-471): every rank runs fit over the same host arrays, and a run over N
+ranks computes what one device computes.
+- Every rank draws the whole batch's t and noise (and the validation ones)
+  from the same seeded generator, then takes its own rows of the batch,
+  zero-padded to a multiple of the ranks, so the draws do not depend on the
+  number of ranks. Dropout masks are each rank's own (seeded with cfg.seed
+  plus the rank), so with dropout a DP step differs from one device's.
+- Each rank's loss divides by the global batch's counts of unmasked
+  positions and valid pairs (summed over the ranks): the ranks' losses sum
+  to the global masked mean, where averaging each rank's own mean would
+  weight the ranks' rows wrongly whenever their counts differ.
+- The gradients are summed over the ranks; the L1 penalty's gradient, the
+  global-norm clip and AdamW then run on the summed gradients and the
+  replicated parameters, once, as on one device.
+- The step losses and the validation terms are reduced over the ranks, so
+  metrics.csv equals one device's. Only rank 0 writes files; resume reads
+  the train state on rank 0 and broadcasts it.
+A (data, model) parallel.tp.Mesh2D works the same way over its data axis
+(parallel/tp.py).
 """
 from __future__ import annotations
 
@@ -44,11 +65,13 @@ import numpy as np
 import torch
 
 from foldingdiff_tpu_torch import losses as loss_lib
-from foldingdiff_tpu_torch.diffusion.noise import corrupt_batch, q_sample, sample_wrapped_noise
+from foldingdiff_tpu_torch.diffusion.noise import draw_t_and_noise, q_sample, sample_wrapped_noise
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.geometry import nerf
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.bert import BertForDiffusion
+from foldingdiff_tpu_torch.parallel.mesh import Mesh, broadcast_object, replicate, shard_batch
+from foldingdiff_tpu_torch.parallel.multihost import is_primary
 from foldingdiff_tpu_torch.training import checkpoint
 
 
@@ -123,12 +146,15 @@ def build_optimizer(cfg: TrainConfig, params) -> torch.optim.AdamW:
     return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.l2_norm)
 
 
-def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
+                         sum_squares: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place: every gradient times max / ||g||
     when the global norm ||g|| >= max, untouched below it (torch's
-    clip_grad_norm_ uses max / (||g|| + 1e-6) instead). Returns ||g||; the
-    host never waits for it."""
-    g_norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    clip_grad_norm_ uses max / (||g|| + 1e-6) instead). sum_squares sums the
+    gradients' squared norms over the whole model when they are shards of it.
+    Returns ||g||; the host never waits for it."""
+    norms = torch.stack([torch.linalg.vector_norm(g) for g in grads])
+    g_norm = torch.linalg.vector_norm(norms) if sum_squares is None else sum_squares(norms.square()).sqrt()
     scale = (max_norm / g_norm).clamp(max=1.0)
     for g in grads:
         g.mul_(scale)
@@ -136,26 +162,39 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> torc
 
 
 def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
-                   gradient_clip: float, lr: float) -> None:
-    """Backward from `loss`, then the global-norm clip and the AdamW step at
-    learning rate `lr`: one update of either trainer."""
+                   gradient_clip: float, lr: float, mesh: Optional[Mesh] = None, l1_norm: float = 0.0) -> None:
+    """Backward from `loss`, then the gradients summed over the mesh (each
+    rank's loss is its share of the global loss), the L1 penalty's gradient
+    (l1_norm times d|p|/dp, which is +1 at p = 0 as jnp.abs's), the
+    global-norm clip and the AdamW step at learning rate `lr`: one update of
+    either trainer."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     with torch.profiler.record_function("optimizer"):
+        named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+        if mesh is not None:
+            mesh.reduce_gradients(named)
+        if l1_norm:
+            with torch.no_grad():
+                for _, p in named:
+                    p.grad.add_(torch.where(p >= 0, l1_norm, -l1_norm))
         if gradient_clip:
-            clip_by_global_norm_([p.grad for p in model.parameters() if p.grad is not None], gradient_clip)
+            names = [n for n, _ in named]
+            clip_by_global_norm_([p.grad for _, p in named], gradient_clip,
+                                 None if mesh is None else lambda sq: mesh.sum_over_shards(sq, names))
         for group in optimizer.param_groups:
             group["lr"] = lr
         optimizer.step()
 
 
 @contextlib.contextmanager
-def dropout_rng(device: torch.device, seed: int):
+def dropout_rng(device: torch.device, seed: int, mesh: Optional[Mesh] = None):
     """The device's default generator (dropout's) seeded with `seed` while
-    the block runs, its state restored after."""
+    the block runs, its state restored after; under a mesh with seed plus
+    this rank's index on it, so that each rank draws its own masks."""
     devices = [device.index or 0] if device.type == "cuda" else []
     with torch.random.fork_rng(devices=devices):
-        torch.manual_seed(seed)
+        torch.manual_seed(seed + (mesh.rank if mesh is not None else 0))
         yield
 
 
@@ -201,17 +240,21 @@ def _per_feature_losses(
     is_angular: Sequence[bool],
     loss_name: str,
     circle_reg: float,
+    count: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Per-feature masked losses, stacked (F,). Angular features take the
-    wrapped loss with beta = pi/10 (modelling.py:228-233)."""
+    """Per-feature masked losses, stacked (F,), each dividing by `count`
+    (default: the mask's). Angular features take the wrapped loss with
+    beta = pi/10 (modelling.py:228-233)."""
     terms = []
     for i, ang in enumerate(is_angular):
         p, t = pred[..., i], target[..., i]
         if loss_name == "smooth_l1":
-            terms.append(loss_lib.radian_smooth_l1_loss(p, t, beta=math.pi / 10, circle_penalty=circle_reg, mask=mask)
-                         if ang else loss_lib.smooth_l1_loss(p, t, beta=1.0, mask=mask))
+            terms.append(loss_lib.radian_smooth_l1_loss(p, t, beta=math.pi / 10, circle_penalty=circle_reg, mask=mask,
+                                                        count=count)
+                         if ang else loss_lib.smooth_l1_loss(p, t, beta=1.0, mask=mask, count=count))
         elif loss_name == "l1":
-            terms.append(loss_lib.radian_l1_loss(p, t, mask=mask) if ang else loss_lib.l1_loss(p, t, mask=mask))
+            terms.append(loss_lib.radian_l1_loss(p, t, mask=mask, count=count) if ang
+                         else loss_lib.l1_loss(p, t, mask=mask, count=count))
         else:
             raise ValueError(f"Unknown loss {loss_name}")
     return torch.stack(terms)
@@ -224,11 +267,14 @@ class Trainer:
     """
     Train and validation steps over stacked host arrays: dicts with "angles"
     (N, pad, F), "attn_mask" (N, pad) and "lengths" (N,), as
-    AngleDataset.to_arrays() gives them.
+    AngleDataset.to_arrays() gives them. Under a mesh every rank passes the
+    same global batches and each step runs this rank's rows of them (see the
+    module docstring).
     """
 
     def __init__(
-        self, model: BertForDiffusion, schedule: DiffusionSchedule, train_cfg: TrainConfig, steps_per_epoch: int
+        self, model: BertForDiffusion, schedule: DiffusionSchedule, train_cfg: TrainConfig, steps_per_epoch: int,
+        mesh: Optional[Mesh] = None,
     ) -> None:
         self.device = schedule.betas.device
         devices = {p.device for p in model.parameters()}
@@ -237,6 +283,10 @@ class Trainer:
         self.model = model
         self.schedule = schedule
         self.cfg = train_cfg
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(mesh, model)  # rank 0's weights on every rank
+        self.primary = is_primary()  # the process that writes files
         self.lr_schedule = make_lr_schedule(train_cfg, steps_per_epoch)
         self.optimizer = build_optimizer(train_cfg, model.parameters())
         self.step = 0  # global step: the optimizer updates made so far
@@ -254,27 +304,55 @@ class Trainer:
                   ) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(self.device) for k in keys}
 
+    # -- the mesh ------------------------------------------------------------
+    def _local(self, batch: Dict[str, torch.Tensor], *tensors: torch.Tensor):
+        """(batch, *tensors) as this rank's rows: all of them without a mesh."""
+        if self.mesh is None:
+            return (batch, *tensors)
+        parts = shard_batch(self.mesh, *batch.values(), *tensors)
+        parts = parts if isinstance(parts, tuple) else (parts,)
+        return (dict(zip(batch, parts[: len(batch)])), *parts[len(batch):])
+
+    def _count(self, count: torch.Tensor) -> Optional[torch.Tensor]:
+        """The global batch's count (of unmasked positions or valid pairs)
+        that a rank's losses divide by; None (their own) without a mesh."""
+        return None if self.mesh is None else self.mesh.all_reduce(count.detach().clone())
+
+    def _global(self, terms: torch.Tensor) -> torch.Tensor:
+        """Loss terms summed over the ranks: the global batch's."""
+        return terms if self.mesh is None else self.mesh.all_reduce(terms.clone())
+
     # -- core loss ----------------------------------------------------------
-    def _predict(self, batch, t=None, noise=None):
-        """(corrupted, pred, t, noise) for a device batch; t and noise drawn
-        from the trainer's generator unless the caller gives both."""
-        x0 = batch["angles"]
+    def _draw(self, batch, t=None, noise=None):
+        """(t, noise) for the whole device batch: drawn from the trainer's
+        generator unless the caller gives both."""
         if (t is None) != (noise is None):
             raise ValueError("give both t and noise, or neither")
         if t is None:
-            c = corrupt_batch(self.generator, x0, self.schedule, self.is_angular,
-                              self.cfg.angular_variance, self.cfg.nonangular_variance)
-            corrupted, t, noise = c["corrupted"], c["t"], c["known_noise"]
-        else:
-            corrupted = q_sample(x0, t, noise, self.schedule, self.is_angular)
-        return corrupted, self.model(corrupted, t, batch["attn_mask"]), t, noise
+            x0 = batch["angles"]
+            t, noise = draw_t_and_noise(self.generator, tuple(x0.shape), self.schedule, self.is_angular,
+                                        self.cfg.angular_variance, self.cfg.nonangular_variance, x0.dtype)
+        return t, noise
+
+    def _predict(self, batch, t, noise):
+        """(corrupted, pred) of a device batch, given its t and noise."""
+        corrupted = q_sample(batch["angles"], t, noise, self.schedule, self.is_angular)
+        return corrupted, self.model(corrupted, t, batch["attn_mask"])
+
+    def _feature_terms(self, pred, target, mask, is_angular=None) -> torch.Tensor:
+        return _per_feature_losses(pred, target, mask, self.is_angular if is_angular is None else is_angular,
+                                   self.cfg.loss, self.cfg.circle_reg, self._count(mask.sum()))
 
     def _loss_terms(self, batch, t=None, noise=None) -> torch.Tensor:
-        """(F,) per-feature losses, plus the pdist term when it is on, in the
-        model's current mode."""
-        corrupted, pred, t, noise = self._predict(batch, t, noise)
-        terms = _per_feature_losses(pred, noise, batch["attn_mask"], self.is_angular, self.cfg.loss,
-                                    self.cfg.circle_reg)
+        """(F,) per-feature losses of a device batch, plus the pdist term when
+        it is on, in the model's current mode; t and noise drawn for the whole
+        batch unless the caller gives both. Under a mesh the batch, t and
+        noise are the global batch's and the terms this rank's share of its
+        losses: summed over the ranks they are the global batch's."""
+        t, noise = self._draw(batch, t, noise)
+        batch, t, noise = self._local(batch, t, noise)
+        corrupted, pred = self._predict(batch, t, noise)
+        terms = self._feature_terms(pred, noise, batch["attn_mask"])
         if self.use_pdist:
             terms = torch.cat([terms, self._pdist_loss(batch, corrupted, pred, t)[None]])
         return terms
@@ -306,40 +384,50 @@ class Trainer:
             coef = min_c + (max_c - min_c) * ((max_t - t.float()) / max_t)
         else:
             coef = float(cfg.use_pdist_loss)
-        return loss_lib.pairwise_dist_loss(denoised_ca, inferred_ca, lengths=batch["lengths"], weights=coef)
+        lengths = batch["lengths"]
+        return loss_lib.pairwise_dist_loss(denoised_ca, inferred_ca, lengths=lengths, weights=coef,
+                                           count=self._count(loss_lib.pair_count(lengths, denoised_ca.shape[1])))
 
     def l1_penalty(self) -> torch.Tensor:
         """The sum of |p| over the parameters (the time embedding's W buffer
-        is not one). Its gradient at p = 0 is +1, as jnp.abs's is."""
-        return sum(torch.where(p >= 0, p, -p).sum() for p in self.model.parameters())
+        is not one), over the whole model when they are tensor-parallel
+        shards. Its gradient at p = 0 is +1, as jnp.abs's is."""
+        named = list(self.model.named_parameters())
+        sums = torch.stack([torch.where(p >= 0, p, -p).sum() for _, p in named])
+        return sums.sum() if self.mesh is None else self.mesh.sum_over_shards(sums, [n for n, _ in named])
 
-    def _update(self, loss: torch.Tensor) -> None:
+    def _update(self, loss: torch.Tensor, l1_norm: float = 0.0) -> None:
         """One clipped AdamW update from `loss` at the schedule's learning rate."""
         # optax reads the count before its increment
-        optimizer_step(self.model, self.optimizer, loss, self.cfg.gradient_clip, self.lr_schedule(self.step))
+        optimizer_step(self.model, self.optimizer, loss, self.cfg.gradient_clip, self.lr_schedule(self.step),
+                       self.mesh, l1_norm)
         self.step += 1
 
     def train_step(self, batch, t=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """One update from a device batch: (loss, per-feature terms), both
-        detached on the device. The loss includes the L1 penalty, as JAX's."""
+        """One update from a device batch (the global batch under a mesh):
+        (loss, per-feature terms) of the global batch, both detached on the
+        device. The loss includes the L1 penalty, as JAX's; its gradient is
+        added to the summed gradients, once."""
         self.model.train()
         terms = self._loss_terms(batch, t, noise)
+        l1 = self.cfg.l1_norm
+        if l1 > 0:
+            with torch.no_grad():  # at the parameters before the update
+                penalty = l1 * self.l1_penalty()
+        self._update(terms.mean(), l1)
+        terms = self._global(terms.detach())
         avg = terms.mean()
-        if self.cfg.l1_norm > 0:
-            avg = avg + self.cfg.l1_norm * self.l1_penalty()
-        self._update(avg)
-        return avg.detach(), terms.detach()
+        return (avg + penalty if l1 > 0 else avg), terms
 
     # -- pre-corrupted path (debug noisers) ----------------------------------
     def _loss_terms_precorrupted(self, batch) -> torch.Tensor:
         """(F,) per-feature losses of a host-noised device batch, which
         carries "corrupted", "t", "known_noise" and "attn_mask" (the
         reference's dataset-noising contract, datasets.py:873-879), in the
-        model's current mode."""
+        model's current mode; this rank's share of them under a mesh."""
+        (batch,) = self._local(batch)
         pred = self.model(batch["corrupted"], batch["t"].reshape(-1), batch["attn_mask"])
-        is_angular = self.is_angular[: pred.shape[-1]]
-        return _per_feature_losses(pred, batch["known_noise"], batch["attn_mask"], is_angular, self.cfg.loss,
-                                   self.cfg.circle_reg)
+        return self._feature_terms(pred, batch["known_noise"], batch["attn_mask"], self.is_angular[: pred.shape[-1]])
 
     def train_step_precorrupted(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update from a host-noised device batch (the debug noisers'):
@@ -347,15 +435,16 @@ class Trainer:
         the mean of the terms, without the L1 penalty, as JAX's."""
         self.model.train()
         terms = self._loss_terms_precorrupted(batch)
-        avg = terms.mean()
-        self._update(avg)
-        return avg.detach(), terms.detach()
+        self._update(terms.mean())
+        terms = self._global(terms.detach())
+        return terms.mean(), terms
 
     def eval_step(self, batch, t=None, noise=None) -> torch.Tensor:
-        """Loss terms of a device batch in eval mode, without gradients."""
+        """Loss terms of a device batch (the global batch's under a mesh) in
+        eval mode, without gradients."""
         self.model.eval()
         with torch.inference_mode():
-            return self._loss_terms(batch, t, noise)
+            return self._global(self._loss_terms(batch, t, noise))
 
     def eval_exhaustive_t(self, data: Batch, n_t: int = 16, seed: int = 0) -> np.ndarray:
         """Low-variance validation: per-feature losses averaged over a
@@ -373,9 +462,9 @@ class Trainer:
                     b = batch["angles"].shape[0]
                     noise = sample_wrapped_noise(gen, tuple(batch["angles"].shape), self.is_angular,
                                                  self.cfg.angular_variance, self.cfg.nonangular_variance)
-                    _, pred, _, _ = self._predict(batch, torch.full((b,), int(t), device=self.device), noise)
-                    all_terms.append(_per_feature_losses(pred, noise, batch["attn_mask"], self.is_angular,
-                                                         self.cfg.loss, self.cfg.circle_reg))
+                    batch, t_vec, noise = self._local(batch, torch.full((b,), int(t), device=self.device), noise)
+                    _, pred = self._predict(batch, t_vec, noise)
+                    all_terms.append(self._global(self._feature_terms(pred, noise, batch["attn_mask"])))
                     weights.append(float(np.sum(data["attn_mask"][start : start + bs])))
         return np.average(torch.stack(all_terms).cpu().numpy(), axis=0, weights=weights)
 
@@ -391,6 +480,29 @@ class Trainer:
             sel = idx[start : start + bs]
             batch = {k: data[k][sel] for k in ("angles", "attn_mask", "lengths")}
             yield batch, float(np.sum(batch["attn_mask"]))
+
+    def _restore(self, results_dir: str) -> int:
+        """Restore the newest train state under results_dir, if there is one,
+        and return the epoch to continue at. Under a mesh rank 0 reads it and
+        broadcasts it, so a rank that cannot see the file (another host's
+        disk) continues at the same epoch with the same state."""
+        payload = None
+        if self.mesh is None or self.primary:
+            path = checkpoint.latest_train_state(results_dir)
+            payload = None if path is None else checkpoint.read_train_state(path)
+        if self.mesh is not None:
+            payload = broadcast_object(self.mesh, payload)
+        if payload is None:
+            return 0
+        self.step, start_epoch = checkpoint.apply_train_state(payload, self.model, self.optimizer)
+        logging.info(f"Resumed train state at epoch {start_epoch}")
+        return start_epoch
+
+    def _any_rank(self, flag: bool) -> bool:
+        """Whether any rank raised the flag (the flag itself without a mesh)."""
+        if self.mesh is None:
+            return flag
+        return bool(self.mesh.all_reduce(torch.tensor([float(flag)], device=self.device)).item() > 0)
 
     def fit(
         self,
@@ -409,12 +521,13 @@ class Trainer:
     ) -> List[Dict[str, float]]:
         """Train from the current step to cfg.max_epochs (or an early stop)
         and return one metrics row per epoch. With results_dir it writes the
-        CSV and the top-5 model directories there; with resume it continues
-        from the newest train state there."""
+        CSV and the top-5 model directories there (rank 0 only, under a
+        mesh); with resume it continues from the newest train state there."""
         cfg = self.cfg
         self.generator.manual_seed(cfg.seed)
         host_rng = np.random.default_rng(cfg.seed)
         rows: List[Dict[str, float]] = []
+        writes = self.primary and results_dir is not None
 
         # On SIGTERM finish the epoch, save the train state and stop; a run
         # with resume=True continues from it
@@ -430,16 +543,11 @@ class Trainer:
             except ValueError:
                 pass  # not the main thread
 
-        start_epoch = 0
-        if resume and results_dir is not None:
-            path = checkpoint.latest_train_state(results_dir)
-            if path is not None:
-                self.step, start_epoch = checkpoint.restore_train_state(path, self.model, self.optimizer)
-                logging.info(f"Resumed train state from {path} at epoch {start_epoch}")
+        start_epoch = self._restore(results_dir) if resume and results_dir is not None else 0
         # metrics.csv is appended to per epoch: a resumed run continues the
         # file, a fresh run into a used results_dir truncates it
         self._csv_rows_flushed = 0
-        if results_dir is not None and start_epoch == 0:
+        if writes and start_epoch == 0:
             stale = os.path.join(results_dir, "logs", "metrics.csv")
             if os.path.exists(stale):
                 os.remove(stale)
@@ -455,7 +563,7 @@ class Trainer:
         swa_count = 0
 
         try:
-            with dropout_rng(self.device, cfg.seed):
+            with dropout_rng(self.device, cfg.seed, self.mesh):
                 for epoch in range(start_epoch, cfg.max_epochs):
                     t0 = time.time()
                     if train_data_refresh is not None:  # per-epoch randomcrop re-crop
@@ -503,7 +611,7 @@ class Trainer:
                         logging.info(f"epoch {epoch}: train {train_loss:.4f} val {val_loss:.4f} "
                                      f"({row['epoch_seconds']:.1f}s)")
 
-                    if results_dir is not None:
+                    if writes:
                         self._csv_rows_flushed = append_metrics_csv(results_dir, rows, self._csv_rows_flushed)
                         valid_metric = val_loss if valid_data is not None else train_loss
                         for metric, best_by, heap in ((valid_metric, "valid", best_valid),
@@ -519,12 +627,14 @@ class Trainer:
                             for k, p in self.model.named_parameters():
                                 swa_params[k].add_((p - swa_params[k]) / swa_count)
 
-                    if results_dir is not None and save_state_every and (epoch + 1) % save_state_every == 0:
+                    if writes and save_state_every and (epoch + 1) % save_state_every == 0:
                         checkpoint.save_train_state(results_dir, self.model, self.optimizer, self.step, epoch)
 
-                    if preempted["flag"]:
-                        path = checkpoint.save_train_state(results_dir, self.model, self.optimizer, self.step, epoch)
-                        logging.warning(f"Preemption checkpoint written to {path}; stopping")
+                    if results_dir is not None and self._any_rank(preempted["flag"]):
+                        if writes:
+                            path = checkpoint.save_train_state(results_dir, self.model, self.optimizer, self.step,
+                                                               epoch)
+                            logging.warning(f"Preemption checkpoint written to {path}; stopping")
                         break
 
                     # Early stopping on the validation loss (reference EarlyStopping)
@@ -540,7 +650,7 @@ class Trainer:
             if previous_handler is not None:
                 signal.signal(signal.SIGTERM, previous_handler)
 
-        if cfg.use_swa and swa_params is not None and results_dir is not None:
+        if cfg.use_swa and swa_params is not None and writes:
             logging.info(f"Saving SWA weights averaged over {swa_count} epochs")
             state = {k: v.detach().cpu() for k, v in self.model.state_dict().items()}
             state.update({k: v.cpu() for k, v in swa_params.items()})
@@ -551,15 +661,18 @@ class Trainer:
     def _write_val_preds(self, out_dir: str, batch: Batch, epoch: int, loss_terms) -> None:
         """Validation prediction dump (reference write_preds_to_dir,
         modelling.py:547-551, 606-614): known and predicted noise, mask and
-        loss terms of one batch as <epoch>_preds.json."""
-        os.makedirs(out_dir, exist_ok=True)
+        loss terms of one batch as <epoch>_preds.json. Every rank draws its t
+        and noise, so the generators stay together; rank 0 writes."""
         dev = self.to_device(batch)
         b = dev["angles"].shape[0]
         t = torch.randint(0, self.schedule.timesteps, (b,), generator=self.generator, device=self.device)
         noise = sample_wrapped_noise(self.generator, tuple(dev["angles"].shape), self.is_angular)
+        if not self.primary:
+            return
+        os.makedirs(out_dir, exist_ok=True)
         self.model.eval()
         with torch.inference_mode():
-            _, pred, _, _ = self._predict(dev, t, noise)
+            _, pred = self._predict(dev, t, noise)
         payload = {
             "known_noise": noise.cpu().numpy().tolist(),
             "predicted_noise": pred.cpu().numpy().tolist(),

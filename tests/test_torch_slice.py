@@ -172,8 +172,9 @@ def test_port_imports_nothing_of_the_jax_package():
     bin/partial_noise_reconstruct_torch.py, bin/train_autoregressive_torch.py,
     bin/sample_autoregressive_torch.py, bin/sample_random_angles_torch.py),
     from_dir, AnglesEmptyDataset.from_dir, an epoch of Trainer.fit, one
-    pre-corrupted step, one ARTrainer step and one ar_sample all work, and
-    load neither optax nor pandas."""
+    pre-corrupted step, one ARTrainer step, one ar_sample and one
+    data-parallel step in a process group (parallel/) all work, and load
+    neither optax nor pandas."""
     script = textwrap.dedent(f"""
         import importlib, importlib.util, pkgutil, sys
 
@@ -186,6 +187,8 @@ def test_port_imports_nothing_of_the_jax_package():
         sys.meta_path.insert(0, Refuse())
         import foldingdiff_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(foldingdiff_tpu_torch.__path__, "foldingdiff_tpu_torch.")]
+        assert {{"foldingdiff_tpu_torch.parallel.mesh", "foldingdiff_tpu_torch.parallel.multihost",
+                 "foldingdiff_tpu_torch.parallel.tp"}} <= set(names)
         for name in names:
             importlib.import_module(name)
         for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py"),
@@ -222,13 +225,19 @@ def test_port_imports_nothing_of_the_jax_package():
         ar_trainer = ARTrainer(ar, TrainConfig(batch_size=4, max_epochs=1), steps_per_epoch=1)
         assert torch.isfinite(ar_trainer.train_step(ar_trainer.to_device({{k: v[:4] for k, v in data.items()}})))
         assert ar_sample(ar, torch.from_numpy(data["angles"][:2]), torch.tensor([20, 9]), num_seed=4).shape == (2, 64, 6)
+        import math, tempfile
+        from foldingdiff_tpu_torch.parallel import multihost
+        with tempfile.TemporaryDirectory() as d:
+            multihost.initialize(f"file://{{d}}/store", 1, 0, device="cpu")
+            assert math.isfinite(multihost.dp_train_step_demo())
+            multihost.shutdown()
         print(len(names), sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax", "optax", "pandas")))
     """)
     proc = _run(["-c", script])
     assert proc.returncode == 0, proc.stderr
     n_modules, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 24 and loaded == "[]"
+    assert int(n_modules) >= 28 and loaded == "[]"
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

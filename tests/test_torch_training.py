@@ -421,9 +421,24 @@ def test_save_model_dir_keeps_top_k(tmp_path):
 
 
 def test_train_refuses_what_is_not_ported(monkeypatch, tmp_path):
-    for kw in ({"use_mesh": True}, {"ngpu": 4}):
-        with pytest.raises(ValueError, match="several devices .* 'What waits' item 4"):
-            orchestration.train(results_dir=str(tmp_path), device="cpu", **kw)
+    """train() takes use_mesh and ngpu as JAX's does (ngpu unused: the ranks
+    of a process group are the devices; without one there is no mesh), and
+    refuses the card when there is none."""
+    import inspect
+
+    params = inspect.signature(orchestration.train).parameters
+    assert params["use_mesh"].default is True and params["ngpu"].default == -1
+    class Featurizing(Exception):
+        pass
+
+    def featurize(**kw):
+        raise Featurizing
+
+    monkeypatch.setattr(orchestration, "get_train_valid_test_sets", featurize)
+    for kw in ({"use_mesh": True}, {"ngpu": 4}):  # accepted: train() goes on to featurize
+        with pytest.raises(Featurizing):
+            orchestration.train(results_dir=str(tmp_path / "m"), device="cpu", **kw)
+    assert orchestration.data_mesh(64) is None
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device cuda: no CUDA device is available"):
         orchestration.train(results_dir=str(tmp_path / "x"))
