@@ -15,6 +15,9 @@ the CPU), and training is data-parallel over the ranks; only rank 0 writes.
 trains from the single-timestep debug noiser (data/debug_noisers.py: one
 feature at t = 100, noised on the host) through the pre-corrupted step and
 returns one {"epoch", "train_loss"} row per epoch; it saves no model.
+Without --dryrun, train() writes the KL diagnostics and, where matplotlib is
+installed, their figures and the loss plot (training/orchestration.py). On
+the card the run holds the advisory job lock (utils_platform.py).
 
 Usage: python bin/train_torch.py config_jsons/cath_full_angles_cosine.json -o results
        torchrun --nproc_per_node 8 bin/train_torch.py config_jsons/cath_full_angles_cosine.json --multihost -o results
@@ -60,6 +63,7 @@ def main(argv=None) -> list:
         raise SystemExit(str(e)) from None
     from foldingdiff_tpu_torch.parallel import multihost
     from foldingdiff_tpu_torch.training.orchestration import train
+    from foldingdiff_tpu_torch.utils_platform import job_lock_if_cuda
 
     if args.multihost:
         device = multihost.initialize(args.coordinator, args.nprocs, args.procid, device=device.type)
@@ -84,7 +88,9 @@ def main(argv=None) -> list:
     config = update_dict_nonnull(config, {k: v for k, v in overrides.items() if v is not None})
     config.pop("multithread_plotting", None)  # accepted for parity; train() takes no such key
     try:
-        _, rows = train(**config)
+        # the advisory job lock (utils_platform.py), as bin/train.py:108 holds it
+        with job_lock_if_cuda(device):
+            _, rows = train(**config)
     finally:
         if args.multihost:
             multihost.shutdown()

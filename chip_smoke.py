@@ -112,12 +112,34 @@ Phases, each printing lines of its own:
      bin/train_torch.py --multihost as one NCCL rank for 1 epoch on phase
      7's config and corpus, then --resume for a second: finite losses, one
      metrics.csv with epochs 0 and 1. Any rank's failure fails the phase.
+ 11. the evaluation path, on phase 7's trained directory and corpus: (a)
+     bin/sample_torch.py --method ddim --ddim_steps 50 over the sweep with
+     the report (--testcomparison on the corpus) and --profile, after the
+     same run without either (the profiler's overhead): exactly 1,200 v2
+     launches, plots/ks_tests.json (six features) and ss_counts.json, the
+     Chrome trace's events of the v2 kernel and of cuBLAS GEMMs, [phase]
+     sampling seconds, and where matplotlib is missing one warning before
+     sampling and no PDF; (b) three refolds per backbone (N/CA/C moved by
+     0.3 (j + 1) A), bin/lddt_torch.py's JSON, and lddt_torch in float32 on
+     the card per backbone (B = 3, N = 3L) within 1e-4 of it, device ms
+     beside the host's lddt_np ms; (c) bin/sctm_torch.py, novelty against
+     64 training structures, hclust of 20 (symmetric, unit diagonal); (d)
+     oxygens and a random sequence's side chains on one PDB; (e) the
+     native featurizer against the numpy path on 32 corpus files within
+     1e-9, and the path the dataset layer logs; (f) PositionalEncoding on
+     the card against the CPU within 1e-6; (g) the job lock names this
+     process inside and is gone after, and bin/train_torch.py --epochs 1
+     without --dryrun logs the KL diagnostics (without matplotlib its only
+     diagnostics warning names it); (h) without matplotlib,
+     bin/pdb_vis_torch.py exits at once naming it. Phases 5-10 pass
+     --noplot and --dryrun to the CLIs, so they do the work they did
+     before the report and the diagnostics became the defaults.
 
 The line before the last is {"kernels": [...]}, whose v2 launches are
-phase 5's, phase 9's and phase 10's (b) and (d) on both ranks (phase 9
-prints its rel-off launches apart); the last is {"ok": true, "device":
-{...}}. Any failure raises, so the script exits non-zero and prints
-neither.
+phase 5's, phase 9's, phase 10's (b) and (d) on both ranks and phase 11's
+(a) (phase 9 prints its rel-off launches apart); the last is {"ok": true,
+"device": {...}}. Any failure raises, so the script exits non-zero and
+prints neither.
 
 Usage: python3 chip_smoke.py
 """
@@ -130,6 +152,7 @@ import dataclasses
 import gzip
 import importlib.util
 import json
+import logging
 import math
 import os
 import re
@@ -148,23 +171,34 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
-from examples.synthetic_proteins import cath_like_lengths, synth_angles  # noqa: E402  (numpy only)
+from examples.synthetic_proteins_torch import cath_like_lengths, synth_angles  # noqa: E402
 from foldingdiff_tpu_torch.data import datasets as dsets  # noqa: E402
+from foldingdiff_tpu_torch import utils_platform  # noqa: E402
+from foldingdiff_tpu_torch.data import featurize_native  # noqa: E402
 from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset  # noqa: E402
 from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
-from foldingdiff_tpu_torch.geometry.featurize import EXHAUSTIVE_ANGLES, create_new_chain_nerf  # noqa: E402
-from foldingdiff_tpu_torch.metrics import clashes, kl, ss  # noqa: E402
+from foldingdiff_tpu_torch.geometry import sidechains  # noqa: E402
+from foldingdiff_tpu_torch.geometry.featurize import (  # noqa: E402
+    EXHAUSTIVE_ANGLES,
+    EXHAUSTIVE_DISTS,
+    canonical_distances_and_dihedrals,
+    create_new_chain_nerf,
+)
+from foldingdiff_tpu_torch.geometry.pdb import extract_backbone_coords, read_pdb, write_coords_to_pdb  # noqa: E402
+from foldingdiff_tpu_torch.metrics import clashes, kl, lddt, ss  # noqa: E402
 from foldingdiff_tpu_torch.models import bert as models_bert  # noqa: E402
 from foldingdiff_tpu_torch.models import io as model_io  # noqa: E402
 from foldingdiff_tpu_torch.models.ar import BertForAutoregressive, ar_sample  # noqa: E402
 from foldingdiff_tpu_torch.models.config import ModelConfig  # noqa: E402
+from foldingdiff_tpu_torch.models.time_embed import PositionalEncoding  # noqa: E402
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
 from foldingdiff_tpu_torch.parallel import tp  # noqa: E402
 from foldingdiff_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
 from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer  # noqa: E402
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig  # noqa: E402
+from foldingdiff_tpu_torch.utils_profiling import phase_totals  # noqa: E402
 
 DEVICE = "cuda"
 SEED = 1234
@@ -514,7 +548,7 @@ def check_angles(tag: str, sampled) -> None:
 def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict, card: str, steps: int) -> None:
     """bin/sample_torch.py's main() over the sweep; checks launches, PDBs, CSVs; prints backbones/s."""
     argv = ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
-            "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, *extra]
+            "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, "--noplot", *extra]
     V2.launches = V1.launches = 0
     start = time.perf_counter()
     result = load_script("sample_torch").main(argv)
@@ -710,7 +744,8 @@ def phase_train_cli(tmp: str, card: str) -> str:
     for epochs, extra in ((2, []), (3, ["--resume"])):
         V2.launches = V1.launches = 0
         start = time.perf_counter()
-        rows = cli.main([str(config_file), "-o", str(results), "--epochs", str(epochs), "--device", DEVICE, *extra])
+        rows = cli.main([str(config_file), "-o", str(results), "--epochs", str(epochs), "--device", DEVICE, "--dryrun",
+                         *extra])
         wall = time.perf_counter() - start
         n_valid = len((results / "valid_files.txt").read_text().split())
         expected_epochs = list(range(epochs - len(rows), epochs))
@@ -1060,7 +1095,7 @@ def phase_cart_coords(tmp: str, card: str) -> None:
     start = time.perf_counter()
     result = load_script("sample_torch").main(
         ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", *map(str, CART_LENGTHS), "-b", str(BATCH),
-         "--seed", str(SEED), "--device", DEVICE])
+         "--seed", str(SEED), "--device", DEVICE, "--noplot"])
     wall = time.perf_counter() - start
     check_launches("[8d] cart-coords DDPM", {V2.name: config.num_hidden_layers * train_args["timesteps"] * chunks,
                                              V1.name: 0})
@@ -1089,7 +1124,7 @@ def phase_debug_training(tmp: str, card: str) -> None:
     with dataset_cache_in(tmp):
         rows = load_script("train_torch").main(
             [str(config_file), "-o", str(Path(tmp, "debug")), "--epochs", "1", "--debug_single_time",
-             "--device", DEVICE])
+             "--device", DEVICE, "--dryrun"])
     wall = time.perf_counter() - start
     check_launches("[8e] train_torch --debug_single_time", {V2.name: 0, V1.name: 0})
     if len(rows) != 1 or not math.isfinite(rows[0]["train_loss"]):
@@ -1497,7 +1532,7 @@ def phase10_rank(argv: list) -> None:
 
     V2.launches = V1.launches = 0
     argv_b = ["-m", model_dir, "-o", str(tmp / "mp_sampled"), "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
-              "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE]
+              "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, "--noplot"]
     report["b"] = {k: v for k, v in load_script("sample_torch").main(argv_b).items() if k != "pdb_files"}
     report["b_launches"] = {V2.name: V2.launches, V1.name: V1.launches}
 
@@ -1534,7 +1569,7 @@ def phase10_nccl_cli(tmp: str) -> list:
     for epochs, extra in ((1, []), (2, ["--resume"])):
         start = time.perf_counter()
         launch_ranks("[10c] NCCL rank", [["bin/train_torch.py", str(Path(tmp, "train.json")), "-o", str(results_dir),
-                                          "--epochs", str(epochs), "--multihost", "--coordinator",
+                                          "--epochs", str(epochs), "--dryrun", "--multihost", "--coordinator",
                                           f"localhost:{free_port()}", "--nprocs", "1", "--procid", "0", *extra]],
                      env={"FOLDINGDIFF_CACHE_DIR": tmp})
         lines.append(f"[10c] bin/train_torch.py --multihost (1 NCCL rank) --epochs {epochs} {' '.join(extra)}: "
@@ -1666,6 +1701,311 @@ def phase10_checks(tmp: str, model_dir: str, card: str, reports: list, results: 
     return sum(rep["b_launches"][V2.name] + rep["d_launches"] for rep in reports)
 
 
+EVAL_STEPS = 50  # (a) bin/sample_torch.py --method ddim --ddim_steps 50
+LDDT_TOL = 1e-4  # lddt_torch in float32 on the card against the float64 host JSON: a pair may flip at a threshold
+PE_TOL = 1e-6  # PositionalEncoding on the card against the CPU (float32 add)
+SEQ_LETTERS = "ACDEFGHIKLMNPQRSTVWY"
+
+
+@contextlib.contextmanager
+def captured_logs():
+    """The logging records of the block, INFO and above."""
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record)
+
+    root, handler = logging.getLogger(), Keep(logging.INFO)
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def has_package(name: str) -> bool:
+    return importlib.util.find_spec(name) is not None
+
+
+def warnings_of(records) -> list:
+    return [r.getMessage() for r in records if r.levelno >= logging.WARNING]
+
+
+def phase_eval_sampling(tmp: str, trained: str, card: str) -> int:
+    """(a) bin/sample_torch.py --method ddim --ddim_steps 50 over the sweep
+    from phase 7's trained directory with the report (--testcomparison on
+    phase 7's corpus) and --profile; first the same run without profiler or
+    report, for the profiler's overhead. Returns the report run's v2
+    launches."""
+    out, prof, plain = Path(tmp, "eval_sampled"), Path(tmp, "eval_profile"), Path(tmp, "eval_plain")
+    argv = ["-m", trained, "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]), "-b", str(BATCH), "--seed", str(SEED),
+            "--device", DEVICE, "--method", "ddim", "--ddim_steps", str(EVAL_STEPS)]
+    cli = load_script("sample_torch")
+    unprofiled = cli.main([*argv, "-o", str(plain), "--noplot", "--nopdb"])["sampling_seconds"]
+    before = phase_totals().get("sampling", 0.0)
+    V2.launches = V1.launches = 0
+    start = time.perf_counter()
+    with captured_logs() as records:
+        result = cli.main([*argv, "-o", str(out), "--testcomparison", str(Path(tmp, "corpus")), "--profile",
+                           str(prof)])
+    wall = time.perf_counter() - start
+    launches = FLAGSHIP.num_hidden_layers * EVAL_STEPS * expected_chunks()
+    check_launches("[11a] ddim-50 with the report and --profile", {V2.name: launches, V1.name: 0})
+    n = len(range(*SWEEP))
+    if result["n_structures"] != n or len(list(Path(out, "sampled_pdb").glob("*.pdb"))) != n:
+        raise RuntimeError(f"[11a] {result['n_structures']} structures, expected {n}")
+    ks = json.loads(Path(out, "plots", "ks_tests.json").read_text())
+    if list(ks) != list(FT_NAMES) or not all(len(v) == 2 and all(map(math.isfinite, v)) for v in ks.values()):
+        raise RuntimeError(f"[11a] ks_tests.json: {ks}")
+    counts = json.loads(Path(out, "plots", "ss_counts.json").read_text())
+    if not 0 < len(counts["alpha"]) == len(counts["beta"]) <= n:
+        raise RuntimeError(f"[11a] ss_counts.json holds {len(counts['alpha'])} structures")
+    trace = json.loads(Path(prof, "trace.json").read_text())
+    kernels = [e["name"] for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    v2_events = sum("rel_attention" in k for k in kernels)
+    gemm_events = sum(kernel_group(k) == "gemm" for k in kernels)
+    if not v2_events or not gemm_events:
+        raise RuntimeError(f"[11a] the trace holds {v2_events} v2 kernel and {gemm_events} GEMM events")
+    sampling_seconds = phase_totals()["sampling"] - before
+    pdfs = sorted(p.name for p in Path(out, "plots").glob("*.pdf"))
+    warned = [w for w in warnings_of(records) if "matplotlib" in w]
+    if has_package("matplotlib"):
+        if len(pdfs) != 4 or warned:
+            raise RuntimeError(f"[11a] matplotlib installed: PDFs {pdfs}, warnings {warned}")
+    else:
+        messages = [r.getMessage() for r in records]
+        first_phase = min(i for i, m in enumerate(messages) if m.startswith("[phase] sampling"))
+        if pdfs or len(warned) != 1 or messages.index(warned[0]) > first_phase:
+            raise RuntimeError(f"[11a] without matplotlib: PDFs {pdfs}, warnings {warned}")
+        log(f"[11a] without matplotlib, one warning before sampling: {warned[0]}")
+    worst = max(ks, key=lambda k: ks[k][0])
+    log(f"[11a] bin/sample_torch.py ddim-{EVAL_STEPS} --testcomparison --profile on {card}: {n} backbones, "
+        f"{V2.launches} v2 launches; [phase] sampling {sampling_seconds:.3f} s with the profiler on against "
+        f"{unprofiled:.3f} s off ({sampling_seconds / unprofiled:.3f}x); CLI wall {wall:.3f} s with the report and "
+        f"the trace's export; trace: {len(kernels)} kernel events, {v2_events} of the v2 kernel, {gemm_events} "
+        f"cuBLAS GEMMs; ks_tests.json: max KS statistic {ks[worst][0]:.4f} ({worst}); ss_counts.json: "
+        f"{len(counts['alpha'])} structures, mean helices {np.mean(counts['alpha']):.3f}, mean strands "
+        f"{np.mean(counts['beta']):.3f}")
+    return V2.launches
+
+
+def write_refolds(sampled: Path, folded: Path) -> None:
+    """Three "refolded" copies of each backbone, N/CA/C moved by 0.3 (j + 1)
+    A, named as the inverse-fold + refold pipeline names them."""
+    folded.mkdir()
+    rng = np.random.default_rng(SEED)
+    for pdb in sorted(sampled.glob("generated_*.pdb")):
+        bb = extract_backbone_coords(str(pdb), atoms=("N", "CA", "C"))
+        for j in range(3):
+            write_coords_to_pdb(bb + rng.normal(scale=0.3 * (j + 1), size=bb.shape),
+                                str(folded / f"{pdb.stem}_{j}_residues_test.pdb"))
+
+
+def phase_eval_lddt(tmp: str, card: str) -> None:
+    """(b) bin/lddt_torch.py's JSON over the refolds, and lddt_torch on the
+    card per backbone (B = 3 refolds, N = 3L atoms) against it."""
+    sampled, folded = Path(tmp, "eval_sampled", "sampled_pdb"), Path(tmp, "eval_folded")
+    write_refolds(sampled, folded)
+    start = time.perf_counter()
+    scores = load_script("lddt_torch").main([str(sampled), str(folded), "-o", str(Path(tmp, "lddt.json"))])
+    wall = time.perf_counter() - start
+    n = len(range(*SWEEP))
+    if len(scores) != n or any(len(v) != 3 for v in scores.values()):
+        raise RuntimeError(f"[11b] lddt.json holds {len(scores)} structures, expected {n} with 3 refolds each")
+    err, device_ms, host_ms = 0.0, [], []
+    for stem, by_fold in sorted(scores.items()):
+        ref = extract_backbone_coords(str(sampled / f"{stem}.pdb"), atoms=("N", "CA", "C"))
+        models = np.stack([extract_backbone_coords(str(folded / f"{f}.pdb"), atoms=("N", "CA", "C")) for f in by_fold])
+        ri = np.repeat(np.arange(len(ref) // 3), 3)
+        m = torch.from_numpy(models).float().to(DEVICE)
+        r = torch.from_numpy(ref).float().to(DEVICE).expand_as(m)
+        ri_card = torch.from_numpy(ri).to(DEVICE)
+        lddt.lddt_torch(m, r, residue_index=ri_card)  # warm-up
+        begin, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        begin.record()
+        out = lddt.lddt_torch(m, r, residue_index=ri_card)
+        end.record()
+        torch.cuda.synchronize()
+        device_ms.append(begin.elapsed_time(end))
+        err = max(err, float(np.abs(out.cpu().numpy() - np.array(list(by_fold.values()))).max()))
+        t0 = time.perf_counter()
+        for model in models:
+            lddt.lddt_np(model, ref, residue_index=ri)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[11b] bin/lddt_torch.py on the host: {n} x 3 pairs in {wall:.3f} s; lddt_torch float32 on {card} against "
+        f"its JSON: max |diff| {err:.3e} (tol {LDDT_TOL}); per backbone (B = 3, N = 3L): device "
+        f"{statistics.median(device_ms):.4f} ms (CUDA events, median of {n}) against host lddt_np "
+        f"{statistics.median(host_ms):.4f} ms (3 calls, median)")
+    if not err <= LDDT_TOL:
+        raise RuntimeError(f"[11b] lddt_torch disagrees with the host JSON by {err} > {LDDT_TOL}")
+
+
+def phase_eval_designability(tmp: str, trained: str, card: str) -> None:
+    """(c) bin/sctm_torch.py, bin/tmscore_training_torch.py (64 training
+    structures) and bin/hclust_structures_torch.py --nsubset 20."""
+    sampled, folded = Path(tmp, "eval_sampled", "sampled_pdb"), Path(tmp, "eval_folded")
+    n = len(range(*SWEEP))
+    start = time.perf_counter()
+    sctm = load_script("sctm_torch").main(["-p", str(sampled), "-f", str(folded), "-o", str(Path(tmp, "sctm"))])
+    t_sctm = time.perf_counter() - start
+    with open(Path(tmp, "sctm.csv"), newline="") as f:
+        rows = list(csv.DictReader(f))
+    if len(sctm) != n or len(rows) != n or not all(0 < v <= 1 for v in sctm.values()):
+        raise RuntimeError(f"[11c] scTM: {len(sctm)} scores, {len(rows)} CSV rows, range "
+                           f"{min(sctm.values(), default=None)}-{max(sctm.values(), default=None)}")
+    start = time.perf_counter()
+    novelty = load_script("tmscore_training_torch").main(
+        ["-d", str(sampled), "--trainfiles", str(Path(trained, "train_files.txt")), "--train-subsample", "64"])
+    t_novelty = time.perf_counter() - start
+    if len(novelty) != n or not all(0 < v <= 1 for v in novelty.values()):
+        raise RuntimeError(f"[11c] tmscore_training: {len(novelty)} scores")
+    start = time.perf_counter()
+    hclust = load_script("hclust_structures_torch").main([str(sampled), "-o", str(Path(tmp, "hclust")),
+                                                          "--nsubset", "20"])
+    t_hclust = time.perf_counter() - start
+    mat = np.load(Path(tmp, "hclust_tm_matrix.npy"))
+    if mat.shape != (20, 20) or not np.array_equal(mat, mat.T) or not np.all(np.diag(mat) == 1.0) \
+            or len(json.loads(Path(tmp, "hclust_clusters.json").read_text())) != 20:
+        raise RuntimeError("[11c] hclust: the TM matrix is not a symmetric 20 x 20 with a unit diagonal")
+    log(f"[11c] on the host: scTM of {n} backbones (3 refolds each) {t_sctm:.3f} s, median "
+        f"{statistics.median(sctm.values()):.4f}; novelty against 64 training structures {t_novelty:.3f} s, median "
+        f"max TM {statistics.median(novelty.values()):.4f}; hclust of 20 {t_hclust:.3f} s, "
+        f"{len(set(hclust['clusters'].values()))} clusters")
+
+
+def phase_eval_structures(tmp: str) -> None:
+    """(d) bin/add_oxygen_to_backbone_torch.py and
+    bin/splice_aa_onto_backbone_torch.py on one sampled PDB."""
+    pdb = str(Path(tmp, "eval_sampled", "sampled_pdb", "generated_0.pdb"))
+    length = len(extract_backbone_coords(pdb, atoms=("CA",)))
+    oxy = load_script("add_oxygen_to_backbone_torch").main([pdb, "-o", str(Path(tmp, "with_o"))])
+    names = [a.name for a in read_pdb(oxy[0]).atoms]
+    if names != ["N", "CA", "C", "O"] * length:
+        raise RuntimeError(f"[11d] {names.count('O')} oxygens over {length} residues")
+    seq = "".join(np.random.default_rng(SEED).choice(list(SEQ_LETTERS), length))
+    full = load_script("splice_aa_onto_backbone_torch").main([pdb, seq, "-o", str(Path(tmp, "full.pdb"))])
+    library = sidechains.build_aa_sidechain_dict()
+    atoms = read_pdb(full).atoms
+    expected = [(sidechains.AA_1TO3[aa], name) for aa in seq
+                for name in ["N", "CA", "C", *(rel.name for rel in library[aa])]]
+    if [(a.res_name, a.name) for a in atoms] != expected:
+        raise RuntimeError("[11d] the grafted atoms are not the sequence's side chains")
+    log(f"[11d] generated_0 ({length} residues): {length} oxygens placed; {len(atoms) - 3 * length} side-chain atoms "
+        f"grafted for a random sequence")
+
+
+def phase_eval_featurizer(tmp: str) -> None:
+    """(e) the native featurizer against the numpy path on 32 corpus files."""
+    files = sorted(str(p) for p in Path(tmp, "corpus").glob("*.pdb"))[:32]
+    if not featurize_native.available():
+        raise RuntimeError("[11e] the native featurizer did not build")
+    err, t_native, t_numpy = 0.0, 0.0, 0.0
+    for f in files:
+        t0 = time.perf_counter()
+        native = featurize_native.featurize_pdb_native(f)
+        t1 = time.perf_counter()
+        values, _ = canonical_distances_and_dihedrals(f, distances=EXHAUSTIVE_DISTS, angles=EXHAUSTIVE_ANGLES)
+        t_native, t_numpy = t_native + t1 - t0, t_numpy + time.perf_counter() - t1
+        if native.shape != values.shape or not np.array_equal(np.isnan(native), np.isnan(values)):
+            raise RuntimeError(f"[11e] {f}: native {native.shape}, numpy {values.shape}")
+        err = max(err, float(np.nanmax(np.abs(native - values))))
+    dsets._logged_featurizer = False
+    with captured_logs() as records:
+        dsets._featurize_one(files[0])
+    path = [r.getMessage() for r in records if r.getMessage().startswith("Featurization path")]
+    log(f"[11e] native featurizer against the numpy path on {len(files)} corpus files: max |diff| {err:.3e} (tol "
+        f"1e-9); {t_native / len(files) * 1e3:.3f} against {t_numpy / len(files) * 1e3:.3f} ms per file; the dataset "
+        f"layer logged: {path}")
+    if not err <= 1e-9 or path != ["Featurization path: native C++ featurizer (csrc/featurize.cpp)"]:
+        raise RuntimeError(f"[11e] max |diff| {err}, logged {path}")
+
+
+def phase_eval_positional(card: str) -> None:
+    """(f) PositionalEncoding in eval mode on the card against the CPU."""
+    module = PositionalEncoding(384).eval()
+    x = torch.randn(64, 128, 384, generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        ref = module(x)
+        out = module.to(DEVICE)(x.to(DEVICE)).cpu()
+    err = float((out - ref).abs().max())
+    log(f"[11f] PositionalEncoding (64, 128, 384) on {card} against the CPU: max |diff| {err:.3e} (tol {PE_TOL})")
+    if not err <= PE_TOL:
+        raise RuntimeError(f"[11f] PositionalEncoding differs by {err}")
+
+
+def phase_eval_lock_and_diagnostics(tmp: str, card: str) -> None:
+    """(g) the job lock, and one bin/train_torch.py --epochs 1 without
+    --dryrun on the corpus's first 64 files at batch 16 (featurized in this
+    process: three pools' start would take longer than the files), logging
+    the KL diagnostics."""
+    with utils_platform.job_lock_if_cuda(DEVICE):
+        reason = utils_platform.host_busy_reason() or ""
+    if f"live pid {os.getpid()}" not in reason or os.path.exists(utils_platform.JOB_LOCK):
+        raise RuntimeError(f"[11g] inside the lock: {reason!r}; after it the lock file exists: "
+                           f"{os.path.exists(utils_platform.JOB_LOCK)}")
+    results, config = Path(tmp, "diag_trained"), Path(tmp, "diag_train.json")
+    config.write_text(json.dumps({**json.loads(Path(tmp, "train.json").read_text()), "multithread": False}))
+    start = time.perf_counter()
+    with captured_logs() as records:
+        rows = load_script("train_torch").main([str(config), "-o", str(results), "--epochs", "1", "--toy", "64",
+                                                "--batchsize", "16", "--device", DEVICE])
+    wall = time.perf_counter() - start
+    kl_lines = [r.getMessage() for r in records if r.getMessage().startswith("KL(noised || noise)")]
+    kl_vals = np.load(results / "kl_divergence_timesteps.npy")
+    diag = [w for w in warnings_of(records) if any(k in w for k in ("KL", "diagnostics", "matplotlib", "plot"))]
+    if len(rows) != 1 or len(kl_lines) != 1 or kl_vals.shape != (FLAGSHIP_TRAIN_ARGS["timesteps"], len(FT_NAMES)):
+        raise RuntimeError(f"[11g] {len(rows)} epochs, KL lines {kl_lines}, KL shape {kl_vals.shape}")
+    if has_package("matplotlib"):
+        if diag or not (results / "plots" / "kl_divergence_timesteps.pdf").is_file():
+            raise RuntimeError(f"[11g] matplotlib installed: warnings {diag}")
+    elif len(diag) != 1 or not diag[0].startswith("matplotlib not installed"):
+        raise RuntimeError(f"[11g] without matplotlib the diagnostics warned {diag}")
+    log(f"[11g] job lock: held by this pid inside ({reason}), gone after; bin/train_torch.py --epochs 1 --toy 64 -b 16 "
+        f"without --dryrun on {card}: wall {wall:.3f} s; {kl_lines[0]}; diagnostics warnings: {diag}")
+
+
+def phase_eval_figure_clis(tmp: str) -> None:
+    """(h) bin/pdb_vis_torch.py: without matplotlib it exits at once naming
+    it; with it, the PNG is written."""
+    pdb, png = str(Path(tmp, "eval_sampled", "sampled_pdb", "generated_0.pdb")), Path(tmp, "generated_0.png")
+    vis = load_script("pdb_vis_torch")
+    if has_package("matplotlib"):
+        vis.main(["pdb2png", pdb, "-o", str(png)])
+        if png.stat().st_size == 0:
+            raise RuntimeError("[11h] empty PNG")
+        log(f"[11h] bin/pdb_vis_torch.py pdb2png: {png.stat().st_size} bytes")
+        return
+    try:
+        vis.main(["pdb2png", pdb, "-o", str(png)])
+    except SystemExit as e:
+        if not e.code or "matplotlib" not in str(e.code) or png.exists():
+            raise RuntimeError(f"[11h] bin/pdb_vis_torch.py exited with {e.code!r}") from None
+        log(f"[11h] without matplotlib, bin/pdb_vis_torch.py pdb2png exits at once: {e.code}")
+        return
+    raise RuntimeError("[11h] bin/pdb_vis_torch.py ran without matplotlib")
+
+
+def phase_evaluation(tmp: str, trained: str, card: str) -> int:
+    """Phase 11, the evaluation path on the card, on phase 7's trained
+    directory and corpus. Returns (a)'s v2 launches."""
+    start = time.perf_counter()
+    with dataset_cache_in(tmp):
+        launches = phase_eval_sampling(tmp, trained, card)
+        phase_eval_lddt(tmp, card)
+        phase_eval_designability(tmp, trained, card)
+        phase_eval_structures(tmp)
+        phase_eval_featurizer(tmp)
+        phase_eval_positional(card)
+        phase_eval_lock_and_diagnostics(tmp, card)
+        phase_eval_figure_clis(tmp)
+    log(f"[11] the evaluation path in {time.perf_counter() - start:.3f} s")
+    return launches
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -1687,12 +2027,13 @@ def main() -> None:
         phase_surface(tmp, model_dir, trained, card)
         baseline_launches = phase_baseline_models(tmp, card)
         multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
+        evaluation_launches = phase_evaluation(tmp, trained, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",
          "source": "foldingdiff_tpu_torch/csrc/rel_attention.cu",
          "replaces": "foldingdiff_tpu/ops/pallas_attention.py:187",
-         "launches": v2_launches + baseline_launches + multiprocess_launches, **kernels["v2"]},
+         "launches": v2_launches + baseline_launches + multiprocess_launches + evaluation_launches, **kernels["v2"]},
         {"name": "gathered_attention_kernel (fused_attention)", "route": "cuda",
          "source": "foldingdiff_tpu_torch/csrc/gathered_attention.cu",
          "replaces": "foldingdiff_tpu/ops/pallas_attention.py:78",

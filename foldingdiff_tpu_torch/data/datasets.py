@@ -17,9 +17,10 @@ directories -> featurized, padded angle arrays, numpy only.
 - `AutoregressiveCausalDataset`: causal-prefix items for the autoregressive
   baseline; `AngleDataset.sample_length` draws its sampler's lengths.
 
-A structure is featurized by the numpy path of geometry/featurize.py (the
-JAX package may take its optional C++ featurizer, which its tests hold equal
-to that path). The cache is the port's own file, `cache_canonical_torch_*`,
+A structure is featurized by the repository's C++ featurizer
+(data/featurize_native.py), as in the JAX package, or by the numpy path of
+geometry/featurize.py where that does not build or refuses a file; the two
+agree within 1e-9. The cache is the port's own file, `cache_canonical_torch_*`,
 keyed on the md5 of this package's data/ and geometry/ sources: it never
 opens the JAX package's caches, which pickle pandas DataFrames, though
 FOLDINGDIFF_CACHE_DIR points both packages at one directory.
@@ -40,6 +41,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import numpy as np
 
 from foldingdiff_tpu_torch import utils
+from foldingdiff_tpu_torch.data import featurize_native
 from foldingdiff_tpu_torch.data.feature_sets import (
     FEATURE_SET_NAMES_TO_ANGULARITY,
     FEATURE_SET_NAMES_TO_FEATURE_NAMES,
@@ -61,13 +63,27 @@ TRIM_STRATEGIES = ("leftalign", "randomcrop", "discard")
 CACHE_PREFIX = "cache_canonical_torch_structures"
 
 
+_logged_featurizer = False
+
+
 def _featurize_one(fname: str) -> Optional[Dict]:
     """{"angles": (L, 9) float64 in AngleDataset's column order, "coords":
-    (L, 3) CA coords, "fname"}, or None for a file the featurizer skips."""
-    feats = canonical_distances_and_dihedrals(fname, distances=EXHAUSTIVE_DISTS, angles=EXHAUSTIVE_ANGLES)
-    if feats is None:
-        return None
-    values, names = feats
+    (L, 3) CA coords, "fname"}, or None for a file the featurizer skips.
+    The native C++ featurizer (data/featurize_native.py) goes first, as in
+    the JAX package; a file it refuses, or a host where it does not build,
+    takes the numpy path. Which path a process took is logged once."""
+    global _logged_featurizer
+    values = featurize_native.featurize_pdb_native(fname)
+    names, path = featurize_native.COLUMNS, "native C++ featurizer (csrc/featurize.cpp)"
+    if values is None:
+        feats = canonical_distances_and_dihedrals(fname, distances=EXHAUSTIVE_DISTS, angles=EXHAUSTIVE_ANGLES)
+        if feats is None:
+            return None
+        values, names = feats
+        path = "numpy featurizer (geometry/featurize.py)"
+    if not _logged_featurizer:
+        logging.info(f"Featurization path: {path}")
+        _logged_featurizer = True
     if names != AngleDataset.feature_names["angles"]:
         raise RuntimeError(f"featurizer columns {names}, expected {AngleDataset.feature_names['angles']}")
     coords = extract_backbone_coords(fname, atoms=("CA",))
@@ -224,6 +240,7 @@ class AngleDataset:
 
     def _compute_featurization(self, fnames: Sequence[str]) -> List[Dict]:
         logging.info(f"Featurizing {len(fnames)} structures with {self.n_workers} workers")
+        featurize_native.available()  # build the library once, before any worker looks for it
         if self.n_workers > 1 and len(fnames) > 16:
             with multiprocessing.get_context("spawn").Pool(self.n_workers) as pool:
                 results = pool.map(_featurize_one, fnames, chunksize=32)

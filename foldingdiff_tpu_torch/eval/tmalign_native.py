@@ -2,63 +2,30 @@
 ctypes binding of the repository's C++ TM-align (csrc/tmalign.cpp), the
 port's own copy of foldingdiff_tpu/eval/tmalign_native.py.
 
-The library is built with g++ on first use, with the JAX package's flags,
-into foldingdiff_tpu_torch/_build/. Its name carries a hash of the source,
-the flags and this host's CPU model and flag list (-march=native code may
-not run on another CPU), so an edited source or another host builds anew.
-The build writes a temporary file and renames it into place, so processes
-that build at once never load a half-written library. When g++ or the
-source is missing, available() is false and eval/tmscore.py takes its numpy
-path. Which of the two a process uses is logged once, when it first loads.
+The library is built with g++ on first use into foldingdiff_tpu_torch/_build/
+(native_build.py). When g++ or the source is missing, available() is false
+and eval/tmscore.py takes its numpy path. Which of the two a process uses is
+logged once, when it first loads.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import logging
-import os
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_PKG_DIR = Path(__file__).resolve().parent.parent
-SOURCE = _PKG_DIR.parent / "csrc" / "tmalign.cpp"
-BUILD_DIR = _PKG_DIR / "_build"
-GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+from foldingdiff_tpu_torch import native_build
+
+SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "tmalign.cpp"
 
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _host_cpu() -> bytes:
-    """The CPU model and flag lines of /proc/cpuinfo (empty where there is none)."""
-    try:
-        lines = Path("/proc/cpuinfo").read_text().splitlines()
-    except OSError:
-        return b""
-    keep = [line for line in lines if line.startswith(("model name", "flags"))][:2]
-    return "\n".join(keep).encode()
-
-
 def library_path() -> Path:
-    blob = SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode() + _host_cpu()
-    return BUILD_DIR / f"libtmalign_{hashlib.sha256(blob).hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> bool:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-    try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)], check=True, capture_output=True,
-                       timeout=120)
-        os.replace(tmp, out)
-        return True
-    except (subprocess.SubprocessError, FileNotFoundError) as e:
-        logging.warning(f"Could not build native TM-align: {e}")
-        tmp.unlink(missing_ok=True)
-        return False
+    return native_build.library_path(SOURCE, "libtmalign")
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -66,21 +33,14 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if SOURCE.is_file():
-        path = library_path()
-        if path.is_file() or _build(path):
-            try:
-                lib = ctypes.CDLL(str(path))
-                lib.tm_align_ex.restype = ctypes.c_double
-                lib.tm_align_ex.argtypes = [
-                    ctypes.POINTER(ctypes.c_double), ctypes.c_int,
-                    ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
-                ]
-                _lib = lib
-            except OSError as e:
-                logging.warning(f"Could not load native TM-align: {e}")
-    else:
-        logging.warning(f"Could not build native TM-align: no source at {SOURCE}")
+    lib = native_build.load(SOURCE, "libtmalign", "native TM-align")
+    if lib is not None:
+        lib.tm_align_ex.restype = ctypes.c_double
+        lib.tm_align_ex.argtypes = [
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_double), ctypes.c_int, ctypes.c_int,
+        ]
+        _lib = lib
     logging.info(f"TM-score path: native TM-align ({library_path().name})" if _lib is not None
                  else "TM-score path: the numpy fallback (eval/tmscore.tm_score)")
     return _lib

@@ -168,17 +168,22 @@ def max_tm_across_refs(
     chunksize: int = 10,
     parallel: bool = True,
     rescore_top_k: int = 5,
+    pool=None,
 ) -> Tuple[float, str]:
     """
     Max TM-score of query against each reference (reference tmalign.py:57-83;
     like the reference, the sweep runs in fast mode by default). The top
     rescore_top_k fast candidates are re-scored with the FULL alignment and
     that max is reported, so the score has full accuracy while the O(n_refs)
-    sweep stays fast (0 disables re-scoring). The pool's workers are spawned.
+    sweep stays fast (0 disables re-scoring). The sweep and the re-scoring
+    run in `pool` when one is given (a caller scoring many queries opens
+    one); else the sweep runs in a pool of spawned workers of its own.
     """
     logging.debug(f"Matching against {len(references)} references using {n_threads} threads")
     args = [(query, str(r), fast) for r in references]
-    if parallel and n_threads > 1 and len(references) > 1:
+    if pool is not None:
+        values = pool.starmap(run_tmalign, args, chunksize=chunksize)
+    elif parallel and n_threads > 1 and len(references) > 1:
         with mp.get_context("spawn").Pool(n_threads) as pool:
             values = pool.starmap(run_tmalign, args, chunksize=chunksize)
     else:
@@ -188,7 +193,9 @@ def max_tm_across_refs(
         return float("nan"), ""
     if fast and rescore_top_k > 0:
         top = np.argsort(np.nan_to_num(values, nan=-1.0))[::-1][:rescore_top_k]
-        rescored = [(run_tmalign(query, str(references[i]), fast=False), int(i)) for i in top]
+        full = [(query, str(references[i]), False) for i in top]
+        scores = pool.starmap(run_tmalign, full) if pool is not None else [run_tmalign(*a) for a in full]
+        rescored = list(zip(scores, (int(i) for i in top)))
         rescored = [(s, i) for s, i in rescored if not np.isnan(s)]
         if rescored:
             score, best = max(rescored)

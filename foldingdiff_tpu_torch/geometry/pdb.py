@@ -5,8 +5,9 @@ only, by fixed-column parsing in place of the reference's biotite
 - read the N/CA/C atoms of each residue (first model, first altloc, amino
   acids only);
 - write GLY-only N/CA/C backbones in the style of the reference
-  write_coords_to_pdb (chain A, occupancy 1.0, b-factor 5.0), and GLY
-  CA traces for cart-coords models (write_ca_trace_to_pdb).
+  write_coords_to_pdb (chain A, occupancy 1.0, b-factor 5.0), GLY CA
+  traces for cart-coords models (write_ca_trace_to_pdb), and any list of
+  atoms (write_full_atoms_to_pdb: side chains, backbone oxygens).
 """
 from __future__ import annotations
 
@@ -211,12 +212,13 @@ def write_coords_to_pdb(coords: np.ndarray, out_fname: str) -> str:
     return out_fname
 
 
-def write_ca_trace_to_pdb(coords: np.ndarray, out_fname: str) -> str:
+def write_ca_trace_to_pdb(coords: np.ndarray, out_fname: str, recenter: bool = True) -> str:
     """
     Write an (L, 3) CA coordinate array as a GLY CA-trace PDB: the output of
     a cart-coords model, whose samples are CA positions, not angles.
 
-    The coordinates are zero-centred first. A coordinate whose magnitude
+    The coordinates are zero-centred first, unless recenter is False. A
+    coordinate whose magnitude
     still reaches 1000 A (or is not finite) overflows the fixed %8.3f
     columns, so it raises ValueError rather than write a PDB whose shifted
     columns TM-align or DSSP would misread.
@@ -224,7 +226,8 @@ def write_ca_trace_to_pdb(coords: np.ndarray, out_fname: str) -> str:
     coords = np.asarray(coords, dtype=np.float64)
     if coords.ndim != 2 or coords.shape[1] != 3:
         raise ValueError(f"Expected (L, 3) coords, got {coords.shape}")
-    coords = coords - coords.mean(axis=0)
+    if recenter:
+        coords = coords - coords.mean(axis=0)
     if not np.all(np.abs(coords) < 1000.0):
         raise ValueError(
             f"CA coords exceed PDB %8.3f column width even after recentering "
@@ -233,5 +236,17 @@ def write_ca_trace_to_pdb(coords: np.ndarray, out_fname: str) -> str:
     with _atomic_write(out_fname) as fh:
         for i, c in enumerate(coords):
             fh.write(_format_atom_line(i + 1, "CA", "GLY", "A", i + 1, c, 1.0, 5.0, "C"))
+        fh.write("END\n")
+    return out_fname
+
+
+def write_full_atoms_to_pdb(atoms: List[PDBAtom], out_fname: str) -> str:
+    """Write any atoms, in order, numbered from 1 (chain A where an atom
+    has none; occupancy 1.0, b-factor 5.0): the writer of side-chain
+    grafting and oxygen placement (geometry/sidechains.py)."""
+    with _atomic_write(out_fname) as fh:
+        for serial, a in enumerate(atoms, start=1):
+            fh.write(_format_atom_line(serial, a.name, a.res_name, a.chain_id or "A", a.res_id, a.coord,
+                                       1.0, 5.0, a.element))
         fh.write("END\n")
     return out_fname

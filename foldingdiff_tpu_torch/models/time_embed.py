@@ -1,5 +1,6 @@
 """
-Time-step encoders (counterpart of foldingdiff_tpu/models/time_embed.py).
+Time-step encoders and the sequence positional encoding (counterpart of
+foldingdiff_tpu/models/time_embed.py).
 
 The Gaussian Fourier weight `W` is a fixed, non-trainable buffer
 (reference modelling.py:55-57): it is loaded with the checkpoint and never
@@ -46,6 +47,27 @@ class SinusoidalPositionEmbeddings(nn.Module):
         t = t.reshape(-1).to(torch.float32)
         args = t[:, None] * freqs[None, :]
         return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+class PositionalEncoding(nn.Module):
+    """Classic sin/cos positional encoding over sequence positions, then
+    dropout (reference modelling.py:96-129; the main model does not use it
+    there either). `pe` is a (max_len, d_model) float32 buffer."""
+
+    def __init__(self, d_model: int, dropout: float = 0.1, max_len: int = 5000):
+        super().__init__()
+        position = torch.arange(max_len, dtype=torch.float32)[:, None]
+        div_term = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32) * (-math.log(10000.0) / d_model))
+        pe = torch.zeros(max_len, d_model)
+        pe[:, 0::2] = torch.sin(position * div_term)
+        pe[:, 1::2] = torch.cos(position * div_term)
+        self.register_buffer("pe", pe)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim != 3:
+            raise ValueError(f"expected (B, L, D), got {tuple(x.shape)}")
+        return self.dropout(x + self.pe[None, : x.shape[1], :])
 
 
 def get_time_encoder(kind: str, embed_dim: int) -> nn.Module:

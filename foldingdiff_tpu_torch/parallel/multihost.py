@@ -119,7 +119,7 @@ def data_mesh(batch_size: int):
     return mesh
 
 
-def dp_train_step_demo(seed: int = 0, batch_size: Optional[int] = None, device: str = "cpu") -> float:
+def dp_train_step_demo(seed: int = 0, batch_size: Optional[int] = None, device: str = "cuda") -> float:
     """
     One data-parallel diffusion train step at a tiny width (2 layers x 64,
     4 heads, L = 16, linear T = 10) over every rank of the process group,
@@ -127,6 +127,8 @@ def dp_train_step_demo(seed: int = 0, batch_size: Optional[int] = None, device: 
     default 2 per rank) and the weights come from `seed`; dropout is 0, since
     each rank draws its own dropout masks. Returns the global batch's loss,
     the same on every rank and equal to one process's over the same batch.
+    `device` is the card unless the caller asks for the CPU; without a card
+    it raises at once.
     """
     import numpy as np
 
@@ -136,6 +138,7 @@ def dp_train_step_demo(seed: int = 0, batch_size: Optional[int] = None, device: 
     from foldingdiff_tpu_torch.parallel.mesh import make_mesh
     from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig
 
+    device = require_device(device)
     mesh = make_mesh() if dist.is_initialized() else None
     b, l = batch_size or 2 * (mesh.size if mesh else 1), 16
     config = ModelConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,

@@ -13,8 +13,14 @@ than one rank up (parallel/multihost.py) whose size divides the batch size,
 training is data-parallel over the ranks (JAX's orchestration.py:294-302);
 every rank featurizes the same data and only rank 0 writes files (JAX's
 :141-160). `ngpu` is accepted and unused, as in JAX's CLI: the ranks are
-the devices. The KL and plot diagnostics are left out (matplotlib is not on
-the card's machine), so `dryrun` changes nothing here.
+the devices. Unless `dryrun`, rank 0 runs JAX's diagnostics
+(orchestration.py:266-292, 362-373): before training, KL(noised || noise)
+per feature over the timesteps of a NoisedAnglesDataset of the train split
+(logged, and saved as kl_divergence_timesteps.npy) with its figure and the
+per-timestep distributions; after, the loss plot. The figures need
+matplotlib, which the card's machine lacks: where it is missing, one warning
+names it and the figures, and the numbers are still written. A failure of
+the diagnostics is a warning that names the exception; training goes on.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from foldingdiff_tpu_torch.data import datasets as dsets
 from foldingdiff_tpu_torch.data import debug_noisers as dn
 from foldingdiff_tpu_torch.devices import require_device
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+from foldingdiff_tpu_torch.metrics import plotting
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.parallel.multihost import data_mesh, is_primary
@@ -209,6 +216,12 @@ def train(
         early_stop_patience=early_stop_patience, use_pdist_loss=use_pdist_loss, angular_variance=variance_scale,
         use_swa=use_swa, seed=seed, fused_steps=fused_steps,
     )
+    diagnostics = not dryrun and primary
+    plots_folder = results_folder / "plots"
+    if diagnostics:
+        draw = plotting.figures_available(["kl_divergence_timesteps.pdf", "train_dists_at_t_*.pdf", "losses.pdf"])
+        kl_diagnostics(train_ds, ft_key, timesteps, variance_schedule, variance_scale, seed, results_folder,
+                       plots_folder if draw else None)
     model = model_io.init_random(model_config, torch.Generator().manual_seed(seed)).to(device)
     mesh = data_mesh(batch_size) if use_mesh else None
     trainer = Trainer(model, schedule, tcfg, steps_per_epoch=steps_per_epoch, mesh=mesh)
@@ -223,7 +236,42 @@ def train(
         exhaustive_t_validation=exhaustive_validation_t, exhaustive_t_points=validation_t_points,
         train_data_refresh=train_data_refresh,
     )
+    if diagnostics and draw:
+        try:
+            os.makedirs(plots_folder, exist_ok=True)
+            plotting.plot_losses(str(results_folder / "logs" / "metrics.csv"), str(plots_folder / "losses.pdf"))
+        except Exception as e:
+            logging.warning(f"Loss plotting failed: {type(e).__name__}: {e}")
     return trainer, rows
+
+
+def kl_diagnostics(train_ds, ft_key: str, timesteps: int, variance_schedule: str, variance_scale: float, seed: int,
+                   results_folder: Path, plots_folder: Optional[Path]) -> None:
+    """
+    The pre-training diagnostics (reference bin/train.py:52-108, 395-410):
+    the (timesteps, features) KL(noised || noise) of the train split, logged
+    at the first and last timestep and saved as kl_divergence_timesteps.npy,
+    then, when plots_folder is given, its figure and the per-timestep
+    distributions there. Host numpy; a failure is a warning naming the
+    exception.
+    """
+    try:
+        from foldingdiff_tpu_torch.metrics import kl  # scipy, only here
+
+        noised = dsets.NoisedAnglesDataset(train_ds, dset_key=ft_key, timesteps=timesteps,
+                                           beta_schedule=variance_schedule, angular_variance=variance_scale,
+                                           seed=seed)
+        kl_vals = kl.kl_from_dset(noised, seed=seed)
+        names = list(train_ds.feature_names[ft_key])
+        np.save(results_folder / "kl_divergence_timesteps.npy", kl_vals)
+        logging.info("KL(noised || noise) at t=0 / t=T-1: " + ", ".join(
+            f"{n} {a:.4f} / {b:.4f}" for n, a, b in zip(names, kl_vals[0], kl_vals[-1])))
+        if plots_folder is not None:
+            os.makedirs(plots_folder, exist_ok=True)
+            plotting.plot_kl_divergence(kl_vals, names, str(plots_folder / "kl_divergence_timesteps.pdf"))
+            plotting.plot_timestep_distributions(noised, timesteps, str(plots_folder))
+    except Exception as e:
+        logging.warning(f"KL diagnostics failed: {type(e).__name__}: {e}")
 
 
 def make_debug_noiser(train_ds, ft_key: str, syn_noiser: str, single_angle_debug: int,

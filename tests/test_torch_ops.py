@@ -162,3 +162,33 @@ def test_sample_wrapped_noise_scales_and_wraps():
     assert abs(noise[:, 1].std().item() - 0.5) < 0.05
     again = tnoise.sample_wrapped_noise(torch.Generator().manual_seed(0), (4000, 2), is_angular, 3.0, 0.5)
     assert torch.equal(noise, again)
+
+
+def test_positional_encoding_matches_flax_in_eval():
+    """The sin/cos table plus x, in eval mode, against the flax module in
+    deterministic mode: within 1e-5 over the first 128 positions (XLA's and
+    torch's float32 exp and sin may differ by an ulp, which grows with the
+    position)."""
+    x = np.random.default_rng(3).normal(size=(2, 128, 384)).astype(np.float32)
+    ref = np.asarray(jtime.PositionalEncoding(d_model=384).apply({}, jnp.asarray(x), deterministic=True))
+    module = ttime.PositionalEncoding(384).eval()
+    assert module.pe.shape == (5000, 384) and module.pe.dtype == torch.float32
+    with torch.no_grad():
+        ours = module(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
+
+
+def test_positional_encoding_dropout_in_train_mode():
+    """In train mode a share p of the elements is zeroed and the rest are
+    scaled by 1 / (1 - p)."""
+    p = 0.25
+    module = ttime.PositionalEncoding(64, dropout=p).train()
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(8, 100, 64)).astype(np.float32))
+    torch.manual_seed(0)
+    out = module(x)
+    clean = x + module.pe[None, :100]
+    dropped = out == 0
+    assert abs(dropped.float().mean().item() - p) < 0.01
+    torch.testing.assert_close(out[~dropped], clean[~dropped] / (1 - p), atol=1e-6, rtol=1e-6)
+    with pytest.raises(ValueError, match="expected"):
+        module(x[0])

@@ -234,7 +234,7 @@ def _tp_case(shape) -> dict:
 def _two_rank_cases(tmp: Path) -> dict:
     mesh = make_mesh()
     out = {"dp": {(case, b): _dp_step(case, b, mesh) for case, b in DP_STEPS}, "ar": _ar_step(mesh),
-           "demo": multihost.dp_train_step_demo(seed=0)}
+           "demo": multihost.dp_train_step_demo(seed=0, device="cpu")}
     for method in ("ddpm", "ddim"):
         out[method] = _sample(method, mesh)
     out["recon"] = _reconstruct(mesh)
@@ -551,7 +551,8 @@ def test_sharded_reconstruction_matches_one_rank(two):
 
 def test_dp_train_step_demo_matches_one_process(two):
     assert two[0]["demo"] == two[1]["demo"]
-    np.testing.assert_allclose(two[0]["demo"], multihost.dp_train_step_demo(seed=0, batch_size=4), atol=1e-6)
+    np.testing.assert_allclose(two[0]["demo"], multihost.dp_train_step_demo(seed=0, batch_size=4, device="cpu"),
+                               atol=1e-6)
 
 
 # -- fit: metrics, writes, resume ------------------------------------------------------
@@ -683,7 +684,8 @@ def test_train_cli_multihost_two_processes_write_one_directory(processes):
 def test_multihost_worker_runs_the_demo_on_two_processes(processes):
     losses = [json.loads(o.strip().splitlines()[-1]) for o in processes[1]]
     assert [x["rank"] for x in losses] == [0, 1] and losses[0]["loss"] == losses[1]["loss"]
-    np.testing.assert_allclose(losses[0]["loss"], multihost.dp_train_step_demo(seed=0, batch_size=4), atol=1e-6)
+    np.testing.assert_allclose(losses[0]["loss"], multihost.dp_train_step_demo(seed=0, batch_size=4, device="cpu"),
+                               atol=1e-6)
 
 
 def test_initialize_refuses_nccl_on_the_cpu_and_partial_coordinates(monkeypatch):

@@ -167,10 +167,8 @@ def test_sample_torch_cli_writes_ca_traces_for_cart_coords(tmp_path, caplog):
 
 def test_port_imports_nothing_of_the_jax_package():
     """With foldingdiff_tpu, jax and flax refused by an import hook, every
-    module of the port, the module-level imports of chip_smoke.py and the
-    six CLIs (bin/sample_torch.py, bin/train_torch.py,
-    bin/partial_noise_reconstruct_torch.py, bin/train_autoregressive_torch.py,
-    bin/sample_autoregressive_torch.py, bin/sample_random_angles_torch.py),
+    module of the port, the module-level imports of chip_smoke.py, of the 17
+    CLIs (bin/*_torch.py) and of the two examples (examples/*_torch.py),
     from_dir, AnglesEmptyDataset.from_dir, an epoch of Trainer.fit, one
     pre-corrupted step, one ARTrainer step, one ar_sample and one
     data-parallel step in a process group (parallel/) all work, and load
@@ -191,12 +189,11 @@ def test_port_imports_nothing_of_the_jax_package():
                  "foldingdiff_tpu_torch.parallel.tp"}} <= set(names)
         for name in names:
             importlib.import_module(name)
-        for name, path in (("chip_smoke", "chip_smoke.py"), ("sample_torch", "bin/sample_torch.py"),
-                           ("train_torch", "bin/train_torch.py"),
-                           ("partial_noise_reconstruct_torch", "bin/partial_noise_reconstruct_torch.py"),
-                           ("train_autoregressive_torch", "bin/train_autoregressive_torch.py"),
-                           ("sample_autoregressive_torch", "bin/sample_autoregressive_torch.py"),
-                           ("sample_random_angles_torch", "bin/sample_random_angles_torch.py")):
+        import glob, os
+        scripts = ["chip_smoke.py", *sorted(glob.glob("bin/*_torch.py")), *sorted(glob.glob("examples/*_torch.py"))]
+        assert len(scripts) == 20, scripts  # chip_smoke.py, 17 CLIs, 2 examples
+        for path in scripts:
+            name = os.path.splitext(os.path.basename(path))[0]
             spec = importlib.util.spec_from_file_location(name, path)
             spec.loader.exec_module(importlib.util.module_from_spec(spec))
         from foldingdiff_tpu_torch.data.datasets import AnglesEmptyDataset
@@ -229,7 +226,7 @@ def test_port_imports_nothing_of_the_jax_package():
         from foldingdiff_tpu_torch.parallel import multihost
         with tempfile.TemporaryDirectory() as d:
             multihost.initialize(f"file://{{d}}/store", 1, 0, device="cpu")
-            assert math.isfinite(multihost.dp_train_step_demo())
+            assert math.isfinite(multihost.dp_train_step_demo(device="cpu"))
             multihost.shutdown()
         print(len(names), sorted(m for m in sys.modules
                                  if m.split(".")[0] in ("foldingdiff_tpu", "jax", "flax", "optax", "pandas")))
@@ -237,15 +234,16 @@ def test_port_imports_nothing_of_the_jax_package():
     proc = _run(["-c", script])
     assert proc.returncode == 0, proc.stderr
     n_modules, loaded = proc.stdout.strip().splitlines()[-1].split(" ", 1)
-    assert int(n_modules) >= 28 and loaded == "[]"
+    assert int(n_modules) >= 47 and loaded == "[]"
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    """from_dir and DiffusionSchedule.create run on the card unless asked
-    for the CPU: without one, the default raises at once, with the CLI's
-    message; nothing falls back."""
+    """from_dir, DiffusionSchedule.create and multihost.dp_train_step_demo
+    run on the card unless asked for the CPU: without one, the default
+    raises at once, with the CLI's message; nothing falls back."""
     from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
     from foldingdiff_tpu_torch.models import io as model_io
+    from foldingdiff_tpu_torch.parallel import multihost
 
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device cuda: no CUDA device is available"):
@@ -254,13 +252,20 @@ def test_entry_points_default_to_the_card(monkeypatch):
         DiffusionSchedule.create("cosine", 10)
     with pytest.raises(RuntimeError, match="device cuda:1: no CUDA device"):
         DiffusionSchedule.create("cosine", 10, device="cuda:1")
+    with pytest.raises(RuntimeError, match="device cuda: no CUDA device is available"):
+        multihost.dp_train_step_demo()
     assert DiffusionSchedule.create("cosine", 10, device="cpu").betas.device.type == "cpu"
 
 
 def test_slice_imports_no_jax_flax_pandas_or_matplotlib():
     """Sampling, partial-noise reconstruction with its TM scoring, a debug
     noiser's item and the three CLIs' modules load none of jax, flax,
-    pandas, matplotlib or scipy (the card's machine has none of them)."""
+    pandas, matplotlib or scipy (the card's machine has none but scipy).
+    Then, with jax, flax, pandas, matplotlib, PIL and sklearn refused by an
+    import hook, every module of the port imports, and the number paths --
+    bin/sample_torch.py's report with --testcomparison, lDDT, scTM,
+    tmscore_training and hclust's JSON and matrix -- write every number
+    and load none of them."""
     script = textwrap.dedent(f"""
         import importlib.util, sys
         import numpy as np
@@ -300,7 +305,55 @@ def test_slice_imports_no_jax_flax_pandas_or_matplotlib():
                 return {{k: v[0] for k, v in data.items()}}
         assert SingleNoisedAngleDataset(dset=Clean(), seed=0)[0]["corrupted"].shape == (64, 1)
         print(sorted(m for m in ("jax", "flax", "pandas", "matplotlib", "scipy") if m in sys.modules))
+
+        # The number paths of the evaluation and the report, with the
+        # packages the card's machine lacks refused: every number is written
+        class Refuse:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "flax", "pandas", "matplotlib", "PIL", "sklearn"):
+                    raise ModuleNotFoundError(f"refused: {{name}}", name=name)
+                return None
+
+        sys.meta_path.insert(0, Refuse())
+        import json, pkgutil
+        import foldingdiff_tpu_torch
+        for m in pkgutil.walk_packages(foldingdiff_tpu_torch.__path__, "foldingdiff_tpu_torch."):
+            importlib.import_module(m.name)
+        from examples.synthetic_proteins_torch import make_synthetic_protein_dir
+        from foldingdiff_tpu_torch.geometry.pdb import extract_backbone_coords, write_coords_to_pdb
+
+        def cli(name, argv):
+            spec = importlib.util.spec_from_file_location(name, f"bin/{{name}}.py")
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            return module.main(argv)
+
+        with tempfile.TemporaryDirectory() as d:
+            os.environ["FOLDINGDIFF_CACHE_DIR"] = d
+            corpus = os.path.join(d, "corpus")
+            make_synthetic_protein_dir(corpus, n=16, min_len=40, max_len=60, seed=1)
+            report = cli("sample_torch", ["-m", {MINI_FIXTURE!r}, "--cpu", "-n", "1", "-l", "40", "43", "-b", "4",
+                                          "--method", "ddim", "--ddim_steps", "5", "-o", os.path.join(d, "s"),
+                                          "--testcomparison", corpus])["report"]
+            assert sorted(report) == ["ks_tests.json", "ss_counts.json"], report
+            sampled, folded = os.path.join(d, "s", "sampled_pdb"), os.path.join(d, "folded")
+            os.makedirs(folded)
+            rng = np.random.default_rng(0)
+            for i in range(3):
+                bb = extract_backbone_coords(os.path.join(sampled, f"generated_{{i}}.pdb"), atoms=("N", "CA", "C"))
+                write_coords_to_pdb(bb + rng.normal(scale=0.3, size=bb.shape),
+                                    os.path.join(folded, f"generated_{{i}}_0_residues_x.pdb"))
+            assert len(cli("lddt_torch", [sampled, folded, "-o", os.path.join(d, "lddt.json")])) == 3
+            assert len(cli("sctm_torch", ["-p", sampled, "-f", folded, "-o", os.path.join(d, "sctm")])) == 3
+            assert len(cli("tmscore_training_torch", ["-d", sampled, "--trainfiles", corpus])) == 3
+            hclust = cli("hclust_structures_torch", [folded, "-o", os.path.join(d, "hc"), "--nclusters", "2"])
+            assert len(hclust["clusters"]) == 3
+            written = (sorted(f for f in os.listdir(d) if "." in f and not f.startswith("cache_"))
+                       + sorted(os.listdir(os.path.join(d, "s", "plots"))))
+            assert written == ["hc_clusters.json", "hc_tm_matrix.npy", "lddt.json", "sctm.csv", "sctm.json",
+                               "sctm_refs.json", "ks_tests.json", "ss_counts.json"], written
+        print(sorted(m for m in ("jax", "flax", "pandas", "matplotlib", "PIL", "sklearn") if m in sys.modules))
     """)
     proc = _run(["-c", script])
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    assert proc.stdout.strip().splitlines()[-2:] == ["[]", "[]"]
