@@ -28,10 +28,11 @@ Phases, each printing lines of its own:
      and a 12 x 384 `absolute` config under "pallas" (v1 without e_lr)
      against "plain"
   5. the DDPM slice: bin/sample_torch.py's main() over that model directory,
-     DDPM T = 1000 over lengths 50..127 once each at batch 64; every layer of
-     every reverse step must launch the v2 kernel (12 per step); then a
-     torch.profiler window of a few DDPM steps under "auto" and "pallas" at
-     both chunk shapes: device operations, busy time and kernel groups per
+     DDPM T = 1000 over lengths 50..127 once each at batch 64, its chains
+     replayed as CUDA graphs; every layer of every reverse step must launch
+     the v2 kernel (12 per step); then a torch.profiler window of a few
+     eager DDPM steps (p_sample_step) under "auto" and "pallas" at both
+     chunk shapes: device operations, busy time and kernel groups per
      step; "auto" must run 62 fewer device operations per step than
      "pallas" at B = 64, L = 128 (no layout copies around the v2 kernel)
   6. the new paths at full width: the flagship under "pallas" through
@@ -134,10 +135,44 @@ Phases, each printing lines of its own:
      bin/pdb_vis_torch.py exits at once naming it. Phases 5-10 pass
      --noplot and --dryrun to the CLIs, so they do the work they did
      before the report and the diagnostics became the defaults.
+ 12. CUDA graphs (the reverse chains and the train step as captured graphs,
+     which the samplers and the single-device trainer replay by default on
+     the card, so phases 5-8 and 11 ran them), each held against the same
+     call with cuda_graphs=False on the card: the first 10 draws of a
+     chunk's generator replayed in a graph, bitwise, at B = 15, L = 64 and
+     B = 64, L = 128; DDPM T = 1000, DDIM-50 and DPM-Solver++-20 over the
+     sweep through sample() (chunks 15 x 64 and 63 x 128), eager, then
+     graphed twice (capture, replay): bitwise, 12 v2 launches per step each
+     run (24,000 for DDPM), ms per step per chunk, capture seconds,
+     backbones/s; DDPM under "pallas" (v1 in the graphs) for 200 steps at
+     B = 15, L = 64 and a reconstruction chain from start_t = 250 with its
+     history at B = 64, L = 128, graphed twice against eager, bitwise; the
+     kernels of a graphed DDPM step's graph (read through the driver API)
+     against the eager step's device operations: 2 more (the table reads
+     and the counter in place of torch.full), at both chunk shapes, and its
+     nodes of the v2 kernel (under "pallas", of v1), named by the driver,
+     equal to the launches the graph's accounting adds per replay; wall per
+     step
+     and a torch.profiler window's busy share beside phase 5's eager step,
+     the step graph's memory pool; the flagship train step (dropout 0.1, clip 1.0,
+     one-cycle lr) in a process with torch.use_deterministic_algorithms and
+     CUBLAS_WORKSPACE_CONFIG=:4096:8: 8 graphed steps and 2 replays of
+     fused_steps = 4 against 8 steps of the cuda_graphs=False trainer (the
+     same capturable AdamW: every trainer on the card has it), and 2 steps
+     with config_jsons/cath_full_angles_cosine_pdist.json's pdist loss,
+     bitwise; there too Trainer.fit for 2 epochs over 5 batches and a
+     ragged tail with fused_steps = 2 (a fused graph, the single-step graphs
+     of the full and of the tail shape) against fit with cuda_graphs=False,
+     every metrics row and parameter bitwise; with the default algorithms
+     (the distance embedding's backward accumulates with atomics, so eager
+     differs from eager) 4 steps graphed and fused_steps = 2 within 1e-6 of
+     eager; ms per train step and structures/s eager, graphed and
+     fused_steps = 4, and with pdist, the first step's capture seconds.
 
 The line before the last is {"kernels": [...]}, whose v2 launches are
 phase 5's, phase 9's, phase 10's (b) and (d) on both ranks and phase 11's
-(a) (phase 9 prints its rel-off launches apart); the last is {"ok": true,
+(a) (phase 9 prints its rel-off launches apart), each counted under the
+graphs by their launch accounting (graphs.py); the last is {"ok": true,
 "device": {...}}. Any failure raises, so the script exits non-zero and
 prints neither.
 
@@ -148,6 +183,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import csv
+import ctypes
 import dataclasses
 import gzip
 import importlib.util
@@ -180,6 +216,7 @@ from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
 from foldingdiff_tpu_torch.geometry import sidechains  # noqa: E402
+from foldingdiff_tpu_torch.graphs import CapturedLaunches, StepGraph  # noqa: E402
 from foldingdiff_tpu_torch.geometry.featurize import (  # noqa: E402
     EXHAUSTIVE_ANGLES,
     EXHAUSTIVE_DISTS,
@@ -564,7 +601,7 @@ def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict,
     seconds = result["sampling_seconds"]
     n_chunks = expected_chunks()
     log(f"{tag} on {card}: {n} backbones, {' '.join(extra) or 'DDPM'}, {steps} steps, batch {BATCH}, "
-        f"bucket {BUCKET}, {n_chunks} chunks, eager loop: sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s, "
+        f"bucket {BUCKET}, {n_chunks} chunks, CUDA graphs: sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s, "
         f"{seconds / (steps * n_chunks) * 1e3:.4f} ms per reverse step (mean over chunks); "
         f"CLI wall with loading and PDB writing {wall:.3f} s")
 
@@ -634,9 +671,11 @@ def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10) ->
             "wall_ms": statistics.median(walls), "walls": walls, "groups": groups}
 
 
-def phase_profile(model_dir: str, card: str) -> None:
+def phase_profile(model_dir: str, card: str) -> dict:
     """Device operations per DDPM step under "auto" (v2 on the projections'
-    views) and "pallas" (v1 on contiguous copies, with its e_lr gather)."""
+    views) and "pallas" (v1 on contiguous copies, with its e_lr gather), of
+    the eager step (p_sample_step, not a graph). Returns the profiles by
+    (impl, B, L)."""
     profiles = {}
     for b, l in ((BATCH, 128), (15, 64)):
         for impl in ("auto", "pallas"):
@@ -656,6 +695,7 @@ def phase_profile(model_dir: str, card: str) -> None:
         f"gap {gap:.1f} (expected 62: pallas's 12 gathers, 2 index operations and 48 layout copies)")
     if gap != 62:
         raise RuntimeError(f"auto runs {gap} fewer device operations per step than pallas, expected 62")
+    return profiles
 
 
 def phase_new_paths(model_dir: str, tmp: str, card: str) -> int:
@@ -679,7 +719,7 @@ def phase_new_paths(model_dir: str, tmp: str, card: str) -> int:
     check_angles("[6] DDPM pallas", sampled)
     n = len(sampled)
     log(f"[6] DDPM pallas on {card}: {n} backbones, T={timesteps}, batch {BATCH}, bucket {BUCKET}, {n_chunks} chunks, "
-        f"eager loop: sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s, "
+        f"CUDA graphs: sampling {seconds:.3f} s, {n / seconds:.3f} backbones/s, "
         f"{seconds / (timesteps * n_chunks) * 1e3:.4f} ms per reverse step (mean over chunks)")
     del model
 
@@ -719,15 +759,16 @@ def train_batch(b: int, l: int, seed: int = SEED) -> dict:
             "attn_mask": (torch.arange(l)[None, :] < lengths[:, None]).float(), "lengths": lengths}
 
 
-def flagship_trainer(device: str, dropout: float = 0.1, mesh=None, **cfg) -> Trainer:
+def flagship_trainer(device: str, dropout: float = 0.1, mesh=None, cuda_graphs: bool = True, **cfg) -> Trainer:
     """The flagship denoiser with seeded random weights and its trainer
-    (data-parallel over `mesh`, if given)."""
+    (data-parallel over `mesh`, if given; its fit() steps as CUDA graphs on
+    the card unless cuda_graphs is off)."""
     config = dataclasses.replace(FLAGSHIP, hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
                                  remat=cfg.pop("remat", False))
     model = model_io.init_random(config, torch.Generator().manual_seed(SEED)).to(device)
     tcfg = TrainConfig(**{"lr": 1e-4, "batch_size": 64, "max_epochs": 800, "lr_scheduler": "LinearWarmup", **cfg})
     return Trainer(model, DiffusionSchedule.create("cosine", 1000, device=device), tcfg, steps_per_epoch=300,
-                   mesh=mesh)
+                   mesh=mesh, cuda_graphs=cuda_graphs)
 
 
 def phase_train_cli(tmp: str, card: str) -> str:
@@ -782,7 +823,7 @@ def phase_step_card_vs_cpu() -> None:
     t, noise = torch.randint(0, 1000, (b,), generator=g), (torch.rand(b, l, 6, generator=g) * 2 - 1) * math.pi
     results = {}
     for device in ("cpu", DEVICE):
-        trainer = flagship_trainer(device, dropout=0.0, lr_scheduler=None)
+        trainer = flagship_trainer(device, dropout=0.0, lr_scheduler=None, cuda_graphs=False)
         dev = {k: v.to(device) for k, v in batch.items()}
         trainer.model.train()
         terms = trainer._loss_terms(dev, t.to(device), noise.to(device))
@@ -892,7 +933,7 @@ def phase_train_speed(card: str) -> None:
     batch = {k: v.to(DEVICE) for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings).items()}
     trainers = {}
     for pdist, steps in ((0.0, 25), ((0.5, 1.0), 5)):
-        trainer = trainers[bool(pdist)] = flagship_trainer(DEVICE, use_pdist_loss=pdist)
+        trainer = trainers[bool(pdist)] = flagship_trainer(DEVICE, use_pdist_loss=pdist, cuda_graphs=False)
         V2.launches = V1.launches = 0
         for _ in range(3):
             trainer.train_step(batch)
@@ -2006,6 +2047,492 @@ def phase_evaluation(tmp: str, trained: str, card: str) -> int:
     return launches
 
 
+GRAPH_SHAPES = ((15, 64), (BATCH, 128))  # (B, L): the sweep's small chunk and a full large one
+GRAPH_DRAWS = 10  # the draws held equal before the chains
+PALLAS_STEPS = 200  # DDPM under "pallas": a partial chain of 200 steps (start_t), not 1000, for the time limit
+# Graphed against eager train steps without deterministic algorithms, over
+# GRAPH_TOL_STEPS steps (three replays): the distance embedding's backward
+# accumulates with atomics, so eager differs from eager by ~1e-7 per step
+GRAPH_STEP_TOL, GRAPH_TOL_STEPS = 1e-6, 4
+GRAPH_TRAIN_STEPS = 8  # bitwise: the first runs eagerly at capture, seven replay (fused_steps = 4: one and one)
+GRAPH_PDIST_STEPS = 2  # with the pdist loss, whose eager step takes ~1 s
+GRAPH_FIT_EPOCHS, GRAPH_FIT_TAIL = 2, 17  # Trainer.fit against its eager self: epochs, the ragged tail's rows
+# Kernels a graphed DDPM step's graph holds beyond the eager step's operations
+# (phase_graph_profile): the table reads of t and of the coefficients (2) and
+# the counter's advance (1) in place of torch.full (-1)
+GRAPH_BOOKKEEPING = 2
+
+
+def same(a, b) -> bool:
+    """Bit-for-bit equality of two results: tensors, arrays, or lists of them."""
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return a.shape == b.shape and torch.equal(a, b)
+    return np.array_equal(a, b)
+
+
+def max_diff(a, b) -> float:
+    if isinstance(a, (list, tuple)):
+        return max(max_diff(x, y) for x, y in zip(a, b))
+    return float((torch.as_tensor(a, dtype=torch.float64) - torch.as_tensor(b, dtype=torch.float64)).abs().max())
+
+
+def gate_same(tag: str, a, b) -> None:
+    equal = same(a, b)
+    log(f"{tag}: bitwise equal {equal} (max abs diff {max_diff(a, b):.3e})")
+    if not equal:
+        raise RuntimeError(f"{tag}: the graphed result differs from the eager one")
+
+
+def timed_chunks(sampler, times: list):
+    """sampler (gen_noise form) with each chunk's wall time appended to
+    `times`: synchronised before and after, so the chunks run one by one."""
+    def run(attn_mask, seed, chunk_i):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = sampler(attn_mask, seed, chunk_i)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - start)
+        return out
+    return run
+
+
+def phase_graph_sweeps(model_dir: str, card: str) -> None:
+    """DDPM T = 1000, DDIM-50 and DPM-Solver++-20 over the sweep through
+    sample(), eager then graphed twice (the first run captures each chunk
+    shape's graphs, the second replays them): bit-for-bit equal results,
+    the v2 launches of each run, per chunk ms per step, capture seconds and
+    the memory the capture reserved, backbones/s."""
+    model, train_args = model_io.from_dir(model_dir, device=DEVICE)
+    schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=DEVICE)
+    empty = AnglesEmptyDataset.from_dir(model_dir)
+    is_angular = list(empty.feature_is_angular["angles"])
+    n, n_chunks, layers = len(range(*SWEEP)), expected_chunks(), FLAGSHIP.num_hidden_layers
+    for method, steps in (("ddpm", train_args["timesteps"]), ("ddim", 50), ("dpmpp", 20)):
+        graphed = sampling.build_sampler(model, schedule, is_angular, method=method, ddim_steps=steps, gen_noise=True)
+        results, walls, chunk_ms = {}, {}, {}
+        for run in ("eager", "graphed, capturing", "graphed"):
+            sampler = (graphed if run != "eager" else
+                       sampling.build_sampler(model, schedule, is_angular, method=method, ddim_steps=steps,
+                                              gen_noise=True, cuda_graphs=False))
+            times: list = []
+            V2.launches = V1.launches = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            results[run] = sampling.sample(
+                model, schedule, is_angular=is_angular, pad=empty.pad, n=1, sweep_lengths=SWEEP, batch_size=BATCH,
+                bucket_multiple=BUCKET, mean_offset=empty.get_masked_means(), seed=SEED,
+                sampler=timed_chunks(sampler, times))
+            walls[run] = time.perf_counter() - start
+            chunk_ms[run] = [t / steps * 1e3 for t in times]
+            check_launches(f"[12] {method}-{steps} sweep, {run}", {V2.name: layers * steps * n_chunks, V1.name: 0})
+        for run in ("graphed, capturing", "graphed"):
+            gate_same(f"[12] {method}-{steps} over the sweep ({n} backbones, chunks 15 x 64 and 63 x 128), {run} "
+                      f"against eager", results[run], results["eager"])
+        capture = [(a - b) * steps / 1e3 for a, b in zip(chunk_ms["graphed, capturing"], chunk_ms["graphed"])]
+        log(f"[12] {method}-{steps} on {card}: ms per step by chunk (15 x 64, 63 x 128): eager "
+            f"{', '.join(f'{t:.4f}' for t in chunk_ms['eager'])}; graphed {', '.join(f'{t:.4f}' for t in chunk_ms['graphed'])}"
+            f"; capture and first run above a replay {', '.join(f'{t:.3f}' for t in capture)} s; "
+            f"backbones/s eager {n / walls['eager']:.3f}, graphed {n / walls['graphed']:.3f} "
+            f"(first graphed run {n / walls['graphed, capturing']:.3f})")
+
+
+def phase_graph_draws() -> None:
+    """The first GRAPH_DRAWS normal draws of a sample() chunk's generator,
+    eager against a replayed graph of them at each chunk shape: the same
+    numbers, and the generator left at the same offset."""
+    for b, l in GRAPH_SHAPES:
+        shape = (b, l, 6)
+        eager_gen = sampling.chunk_generator(SEED, 0, DEVICE)
+        eager = [torch.randn(shape, generator=eager_gen, device=DEVICE) for _ in range(GRAPH_DRAWS)]
+        graph_gen = torch.Generator(device=DEVICE)
+        draws = torch.empty((GRAPH_DRAWS, *shape), device=DEVICE)
+
+        def body():
+            for i in range(GRAPH_DRAWS):
+                draws[i].copy_(torch.randn(shape, generator=graph_gen, device=DEVICE))
+
+        graph = StepGraph(body, DEVICE, generators=[graph_gen])
+        for _ in range(2):  # the eager first call, then a replay
+            graph_gen.set_state(sampling.chunk_generator(SEED, 0, DEVICE).get_state())
+            graph()
+        gate_same(f"[12] the first {GRAPH_DRAWS} draws of a chunk's generator at B={b} L={l}, a replayed graph",
+                  list(draws), eager)
+        if not torch.equal(graph_gen.get_state(), eager_gen.get_state()):
+            raise RuntimeError(f"[12] B={b} L={l}: the graph left its generator elsewhere than the eager draws")
+
+
+def phase_graph_chains(model_dir: str) -> None:
+    """DDPM under "pallas" (v1 inside the graphs) and a reconstruction chain
+    with its history."""
+    layers = FLAGSHIP.num_hidden_layers
+    schedule = DiffusionSchedule.create("cosine", FLAGSHIP_TRAIN_ARGS["timesteps"], device=DEVICE)
+    is_angular = [True] * 6
+    cases = (
+        ("DDPM, attention_impl='pallas'", "pallas", GRAPH_SHAPES[0], dict(start_t=PALLAS_STEPS), PALLAS_STEPS, V1),
+        (f"reconstruction chain from start_t={RECON_T} with its history", "auto", GRAPH_SHAPES[1],
+         dict(start_t=RECON_T, return_history=True), RECON_T, V2),
+    )
+    for tag, impl, (b, l), options, steps, lib in cases:
+        model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl)
+        x, _, mask = denoiser_inputs(b, l)
+        out = {}
+        samplers = {graphs: sampling.build_sampler(model, schedule, is_angular, cuda_graphs=graphs, **options)
+                    for graphs in (False, True)}
+        for graphs in (False, True, True):  # the graphed sampler captures, then replays
+            V2.launches = V1.launches = 0
+            run = samplers[graphs]
+            out.setdefault(graphs, []).append(run(x, mask, generator=torch.Generator(device=DEVICE).manual_seed(SEED)))
+            check_launches(f"[12] {tag} B={b} L={l}, graphs {graphs}",
+                           {V2.name: 0, V1.name: 0, lib.name: layers * steps})
+        gate_same(f"[12] {tag} B={b} L={l}, {steps} steps, graphed (twice) against eager", out[True],
+                  out[False] * 2)
+
+
+class KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3), ("block", ctypes.c_uint * 3),
+                ("shared_mem_bytes", ctypes.c_uint), ("kernel_params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def kernel_node_name(driver, node) -> str:
+    """The (mangled) name of a kernel node's function, through the driver
+    API (cuGraphKernelNodeGetParams, then cuFuncGetName, or cuKernelGetName
+    where the node holds a CUkernel)."""
+    params, name = KernelNodeParams(), ctypes.c_char_p()
+    if driver.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(params)) != 0:
+        raise RuntimeError("cuGraphKernelNodeGetParams failed")
+    if params.func:
+        rc = driver.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(params.func))
+    else:
+        rc = driver.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(params.kern))
+    if rc != 0:
+        raise RuntimeError(f"the driver names no function of a kernel node (CUresult {rc})")
+    return name.value.decode()
+
+
+def graph_nodes(body, generators=()) -> tuple:
+    """({node type: count}, {kernel name: count}, {library: launches per
+    replay}) of the CUDA graph of body() (drawing from `generators`),
+    captured after one eager call on a side stream and kept (keep_graph),
+    its nodes read through the driver API (cuGraphGetNodes,
+    cuGraphNodeGetType: 0 is a kernel, 1 a copy, 2 a memset), and the
+    launches graphs.CapturedLaunches counted at the capture, which it adds
+    on every replay. The capture runs nothing."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    for generator in generators:
+        graph.register_generator_state(generator)
+    account = CapturedLaunches()
+    with account.capturing(), torch.cuda.graph(graph):
+        body()
+    driver = ctypes.CDLL("libcuda.so.1")
+    handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    if driver.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    driver.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    kinds: dict = {}
+    names: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        driver.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind))
+        kinds[kind.value] = kinds.get(kind.value, 0) + 1
+        if kind.value == 0:
+            name = kernel_node_name(driver, node)
+            names[name] = names.get(name, 0) + 1
+    per_replay = {lib.name: n for lib, (n, _) in zip(account.libraries, account.per_replay)}
+    return kinds, names, per_replay
+
+
+def gate_kernel_nodes(tag: str, names: dict, per_replay: dict) -> None:
+    """Each kernel library's nodes in a graph, found by the function name
+    the driver gives them, against the launches its accounting adds per
+    replay."""
+    nodes = {lib.name: sum(n for name, n in names.items() if f"{lib.name}_kernel" in name) for lib in (V2, V1)}
+    log(f"{tag}: kernel nodes by the driver's names {nodes}, launches added per replay {per_replay}")
+    if nodes != per_replay:
+        raise RuntimeError(f"{tag}: the graph's kernel nodes {nodes} differ from its counted launches {per_replay}")
+
+
+def step_graph_nodes(model, table, x, mask, is_angular) -> tuple:
+    """graph_nodes of one DDPM step (sampling.TableChain's main segment) at
+    x's shape, with x and mask in its static buffers."""
+    with torch.inference_mode():
+        plain = sampling.TableChain("ddpm", table, model, x, mask, is_angular, draws=True, graphed=False)
+        plain.state.x.copy_(x)
+        plain.state.attn_mask.copy_(mask)
+        return graph_nodes(plain.main, [plain.generator])
+
+
+def phase_graph_profile(model_dir: str, eager: dict, card: str) -> None:
+    """A graphed DDPM step at each chunk shape under "auto": the nodes of
+    its one-step graph against the eager step's device operations (phase
+    5's profile), which must be GRAPH_BOOKKEEPING more kernels and nothing
+    else (the gate, at both shapes), its v2 nodes (and under "pallas", at
+    the small shape, its v1 nodes) against the launches its accounting adds
+    per replay (gate_kernel_nodes); each replay adds the 2 fills of the
+    registered generator's seed and offset. Then wall per step (host clock
+    around 10 synchronised replays, the median of three), a torch.profiler
+    window of 10 replays (busy share; its count of device events, which
+    varies from window to window for graph replays, is printed, not gated)
+    and the memory of the step graph's pool."""
+    model, _ = model_io.from_dir(model_dir, device=DEVICE)
+    schedule = DiffusionSchedule.create("cosine", 1000, device=DEVICE)
+    is_angular = torch.ones(6, dtype=torch.bool, device=DEVICE)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for b, l in GRAPH_SHAPES:
+        x, _, mask = denoiser_inputs(b, l)
+        ref = eager["auto", b, l]
+        table = sampling.ddpm_table(schedule, 1000)
+        kinds, names, per_replay = step_graph_nodes(model, table, x, mask, is_angular)
+        gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}", names, per_replay)
+        if per_replay[V2.name] != FLAGSHIP.num_hidden_layers:
+            raise RuntimeError(f"[12] a DDPM step's graph at B={b} L={l} launches {per_replay}, expected "
+                               f"{FLAGSHIP.num_hidden_layers} of v2")
+        kernels = kinds.get(0, 0)
+        log(f"[12] graphed DDPM step B={b} L={l}: its graph holds {kernels} kernels and "
+            f"{sum(kinds.values()) - kernels} other nodes ({kinds}); the eager step runs {ref['events']:.1f} "
+            f"device operations, + {GRAPH_BOOKKEEPING} expected")
+        if kinds != {0: ref["events"] + GRAPH_BOOKKEEPING}:
+            raise RuntimeError(f"[12] the graph of a DDPM step at B={b} L={l} holds {kinds}, expected "
+                               f"{ref['events']} + {GRAPH_BOOKKEEPING} kernels")
+
+        pool = torch.cuda.graph_pool_handle()
+        chain = sampling.TableChain("ddpm", table, model, x, mask, is_angular, draws=True, pool=pool)
+        with torch.inference_mode():
+            chain.state.x.copy_(x)
+            chain.state.attn_mask.copy_(mask)
+            chain.generator.manual_seed(SEED)
+
+            def run(steps: int) -> None:
+                for _ in range(steps):
+                    chain.main()
+                torch.cuda.synchronize()
+
+            run(3)  # the eager first step and two replays
+            pool_mib = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                           if tuple(s.get("segment_pool_id", ())) == tuple(pool)) / 2**20
+            walls = []
+            for _ in range(3):
+                start = time.perf_counter()
+                run(10)
+                walls.append((time.perf_counter() - start) / 10 * 1e3)
+            with torch.profiler.profile(activities=activities) as prof:
+                run(10)
+        events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        busy, end = 0.0, -math.inf
+        for e in events:
+            busy += max(0.0, e.time_range.end - max(e.time_range.start, end))
+            end = max(end, e.time_range.end)
+        span = (end - events[0].time_range.start) if events else 0.0
+        log(f"[12] profile graphed DDPM step on {card}, B={b} L={l}: {len(events) / 10:.1f} device events per "
+            f"replay in the window, busy {busy / 1e3 / 10:.4f} ms, busy share {busy / span if span else 0.0:.4f}; "
+            f"wall {statistics.median(walls):.4f} ms (profiler off; {', '.join(f'{w:.4f}' for w in walls)}) "
+            f"against eager {ref['wall_ms']:.4f} ms, busy share {ref['busy_share']:.4f}; the step graph's memory "
+            f"pool {pool_mib:.1f} MiB")
+
+    (b, l) = GRAPH_SHAPES[0]
+    x, _, mask = denoiser_inputs(b, l)
+    pallas, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl="pallas")
+    _, names, per_replay = step_graph_nodes(pallas, sampling.ddpm_table(schedule, 1000), x, mask, is_angular)
+    gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}, attention_impl='pallas'", names, per_replay)
+    if per_replay[V1.name] != FLAGSHIP.num_hidden_layers:
+        raise RuntimeError(f"[12] a 'pallas' DDPM step's graph launches {per_replay}, expected "
+                           f"{FLAGSHIP.num_hidden_layers} of v1")
+
+
+def graph_train_runs(pdist, steps: int, fused: int = 0) -> dict:
+    """The flagship train step (dropout 0.1, gradient_clip 1.0, one-cycle
+    lr) at B = 64, L = 128 from the same weights, generator and dropout
+    seed, over `steps` batches: train_step calls of the eager trainer
+    (cuda_graphs=False; the same capturable AdamW as the graphed one) twice,
+    the step graph (the first step runs eagerly at capture), and if `fused`
+    fused_steps = fused. Each run: (the (steps, 1 + F') losses, the
+    parameters after)."""
+    batches = [{k: v.numpy() for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings, SEED + i).items()}
+               for i in range(steps)]
+    runs = ("eager", "eager again", "graphed") + ((f"fused {fused}",) if fused else ())
+    out = {}
+    for run in runs:
+        trainer = flagship_trainer(DEVICE, lr_scheduler="OneCycleLR", use_pdist_loss=pdist,
+                                   fused_steps=fused if run.startswith("fused") else 1,
+                                   cuda_graphs=not run.startswith("eager"))
+        torch.manual_seed(SEED)
+        if run.startswith("eager"):
+            rows = torch.stack([torch.cat([a[None], t]) for a, t in
+                                (trainer.train_step(trainer.to_device(b)) for b in batches)])
+        elif run == "graphed":
+            rows = torch.cat([trainer.train_steps([b]) for b in batches])
+        else:
+            rows = torch.cat([trainer.train_steps(batches[i : i + fused]) for i in range(0, steps, fused)])
+        out[run] = (rows.cpu(), [p.detach().cpu() for p in trainer.model.parameters()])
+        del trainer
+    return out
+
+
+def graph_fit_runs() -> dict:
+    """Trainer.fit of the flagship (dropout 0.1, one-cycle lr) for
+    GRAPH_FIT_EPOCHS epochs with fused_steps = 2 over 5 full batches of 64
+    and a ragged tail of GRAPH_FIT_TAIL rows (per epoch two replays of the
+    fused graph of 2 steps, then the full shape's and the tail shape's
+    single-step graphs, all in one memory pool), with a validation set,
+    with cuda_graphs on and off: each run (its metrics rows without the
+    epoch's seconds, the parameters after)."""
+    l = FLAGSHIP.max_position_embeddings
+    data = [train_batch(5 * BATCH + GRAPH_FIT_TAIL, l, SEED + 7), train_batch(BATCH + GRAPH_FIT_TAIL, l, SEED + 8)]
+    train_data, valid_data = ({k: v.numpy() for k, v in d.items()} for d in data)
+    out = {}
+    for run in ("eager", "graphed"):
+        trainer = flagship_trainer(DEVICE, lr_scheduler="OneCycleLR", fused_steps=2, max_epochs=GRAPH_FIT_EPOCHS,
+                                   cuda_graphs=run == "graphed")
+        rows = trainer.fit(train_data, valid_data)
+        out[run] = ([{k: v for k, v in row.items() if k != "epoch_seconds"} for row in rows],
+                    [p.detach().cpu() for p in trainer.model.parameters()])
+        del trainer
+    return out
+
+
+def deterministic_train_gates(out_path: str) -> None:
+    """graph_train_runs without pdist and with the pdist config's, and
+    graph_fit_runs, under torch.use_deterministic_algorithms (with
+    CUBLAS_WORKSPACE_CONFIG set by the parent, as PyTorch asks), saved to
+    out_path for phase 12's parent. Run in a process of its own: the
+    setting must precede cuBLAS's first use."""
+    with warnings_recorded() as seen:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        runs = {str(pdist): graph_train_runs(pdist, steps, fused) for pdist, steps, fused in
+                ((0.0, GRAPH_TRAIN_STEPS, 4), (graph_pdist(), GRAPH_PDIST_STEPS, 0))}
+        fit = graph_fit_runs()
+    torch.save({"runs": runs, "fit": fit, "warnings": sorted(set(seen))}, out_path)
+
+
+@contextlib.contextmanager
+def warnings_recorded():
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        seen: list = []
+        yield seen
+        seen.extend(str(w.message).split("\n")[0][:160] for w in caught)
+
+
+def graph_pdist():
+    """The pdist coefficients of config_jsons/cath_full_angles_cosine_pdist.json."""
+    return tuple(json.loads((REPO / "config_jsons" / "cath_full_angles_cosine_pdist.json").read_text())["use_pdist_loss"])
+
+
+def gate_train_runs(tag: str, runs: dict, tol: float) -> None:
+    """Each run against the first eager one, bit for bit (tol 0) or within
+    tol. Printed, not gated at tol > 0: eager against eager."""
+    ref_rows, ref_params = runs["eager"]
+    for run, (rows, params) in runs.items():
+        if run == "eager":
+            continue
+        row_err, param_err = max_diff(rows, ref_rows), max_diff(params, ref_params)
+        equal = same(rows, ref_rows) and same(params, ref_params)
+        gated = tol == 0 or run != "eager again"
+        log(f"{tag}: {run} against eager over {len(rows)} steps: bitwise equal {equal}; loss and terms max "
+            f"abs diff {row_err:.3e}, parameters {param_err:.3e}" +
+            (f" (tol {tol})" if tol and gated else ", not gated" if tol else ""))
+        if gated and (not equal if tol == 0 else max(row_err, param_err) > tol):
+            raise RuntimeError(f"{tag}: {run} differs from eager")
+
+
+def time_train_steps(trainer: Trainer, batches: list, fused: bool, steps: int) -> list:
+    """ms per step of `steps` synchronised steps after the first (a
+    capture under graphs): eager train_step, one graph replay per step, or
+    replays of the graph of len(batches) steps."""
+    def one() -> int:
+        if fused:
+            trainer.train_steps(batches)
+            return len(batches)
+        if trainer.cuda_graphs:
+            trainer.train_steps(batches[:1])
+        else:
+            trainer.train_step(trainer.to_device(batches[0]))
+        return 1
+
+    one()
+    torch.cuda.synchronize()
+    times: list = []
+    while len(times) < steps:
+        start = time.perf_counter()
+        k = one()
+        torch.cuda.synchronize()
+        times.extend([(time.perf_counter() - start) * 1e3 / k] * k)
+    return times
+
+
+def phase_graph_training(card: str) -> None:
+    """The graphed train step against the eager one (in a process with
+    deterministic algorithms, bit for bit; here, within GRAPH_STEP_TOL beside
+    eager against eager), then ms per step eager, graphed and fused_steps =
+    4, and with the pdist loss."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_graphs_") as tmp:
+        out = str(Path(tmp, "deterministic.pt"))
+        start = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; chip_smoke.deterministic_train_gates(sys.argv[1])", out],
+            cwd=REPO, env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}, capture_output=True, text=True,
+            timeout=MP_TIMEOUT)
+        if proc.returncode != 0:
+            raise RuntimeError(f"[12] the deterministic train gates failed:\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+        result = torch.load(out, weights_only=False)
+    log(f"[12] deterministic train gates in {time.perf_counter() - start:.3f} s (a process with "
+        f"torch.use_deterministic_algorithms and CUBLAS_WORKSPACE_CONFIG=:4096:8); its warnings: "
+        f"{result['warnings'] or 'none'}")
+    for pdist, runs in result["runs"].items():
+        gate_train_runs(f"[12] flagship train step B={BATCH} L=128, pdist {pdist}, deterministic algorithms", runs, 0.0)
+    (eager_rows, eager_params), (rows, params) = result["fit"]["eager"], result["fit"]["graphed"]
+    equal = rows == eager_rows and same(params, eager_params)
+    log(f"[12] Trainer.fit, {GRAPH_FIT_EPOCHS} epochs of 5 x {BATCH} + {GRAPH_FIT_TAIL} with fused_steps = 2, "
+        f"deterministic algorithms: graphed against cuda_graphs=False, metrics rows and parameters bitwise equal "
+        f"{equal} (parameters max abs diff {max_diff(params, eager_params):.3e}); train_loss by epoch "
+        f"{[r['train_loss'] for r in rows]}, eager {[r['train_loss'] for r in eager_rows]}")
+    if not equal:
+        raise RuntimeError("[12] the graphed Trainer.fit differs from the eager one")
+
+    runs = graph_train_runs(0.0, GRAPH_TOL_STEPS, fused=2)
+    gate_train_runs(f"[12] flagship train step B={BATCH} L=128, default algorithms (the distance embedding's "
+                    f"backward accumulates with atomics, so eager differs from eager)", runs, GRAPH_STEP_TOL)
+
+    batches = [{k: v.numpy() for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings, SEED + i).items()}
+               for i in range(4)]
+    for pdist, steps in ((0.0, 20), (graph_pdist(), 4)):
+        times = {}
+        turns = ("eager", "graphed", "fused 4", "graphed again", "eager again") if not pdist else ("eager", "graphed")
+        for run in turns:
+            trainer = flagship_trainer(DEVICE, use_pdist_loss=pdist, cuda_graphs=not run.startswith("eager"))
+            start = time.perf_counter()
+            times[run] = time_train_steps(trainer, batches, run == "fused 4", steps)
+            first = time.perf_counter() - start - sum(times[run]) / 1e3
+            if run == "graphed":
+                log(f"[12] train step graph, pdist {pdist}: first step with its capture {first:.3f} s")
+            del trainer
+        text = "; ".join(f"{run} {statistics.median(t):.4f} ms ({BATCH / statistics.median(t) * 1e3:.1f} structures/s)"
+                         for run, t in times.items())
+        log(f"[12] train step on {card}, B={BATCH} L=128, flagship, dropout 0.1, pdist {pdist}, median of {steps}: "
+            f"{text}")
+
+
+def phase_graphs(model_dir: str, eager_profiles: dict, card: str) -> None:
+    start = time.perf_counter()
+    phase_graph_draws()
+    phase_graph_sweeps(model_dir, card)
+    phase_graph_chains(model_dir)
+    phase_graph_profile(model_dir, eager_profiles, card)
+    phase_graph_training(card)
+    log(f"[12] CUDA graphs in {time.perf_counter() - start:.3f} s")
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -2021,13 +2548,14 @@ def main() -> None:
             del weights
         phase_denoiser(model_dir, absolute_dir)
         v2_launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
-        phase_profile(model_dir, card)
+        eager_profiles = phase_profile(model_dir, card)
         v1_launches = phase_new_paths(model_dir, tmp, card)
         trained = phase_training(tmp, card)
         phase_surface(tmp, model_dir, trained, card)
         baseline_launches = phase_baseline_models(tmp, card)
         multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
         evaluation_launches = phase_evaluation(tmp, trained, card)
+        phase_graphs(model_dir, eager_profiles, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",

@@ -39,10 +39,11 @@ def sample_wrapped_noise(
     device = generator.device
     is_angular = _angular_mask(is_angular, device)
     noise = torch.randn(shape, generator=generator, dtype=dtype, device=device)
+    # torch.full, not torch.tensor: no copy from the host, so a CUDA graph can hold it
     scale = torch.where(
         is_angular,
-        torch.tensor(angular_scale, dtype=dtype, device=device),
-        torch.tensor(nonangular_scale, dtype=dtype, device=device),
+        torch.full((), angular_scale, dtype=dtype, device=device),
+        torch.full((), nonangular_scale, dtype=dtype, device=device),
     )
     return wrap_angular_features(noise * scale, is_angular)
 

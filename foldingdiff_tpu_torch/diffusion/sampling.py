@@ -1,6 +1,6 @@
 """
 Reverse-diffusion sampling (counterpart of foldingdiff_tpu/diffusion/sampling.py):
-DDPM ancestral sampling, DDIM and DPM-Solver++(2M), each with its full
+DDPM ancestral sampling, DDIM and DPM-Solver++, each with its full
 history on request; partial DDPM chains for partial-noise reconstruction
 (get_reconstruction_error); and sample_simple over a model directory.
 
@@ -14,15 +14,30 @@ DDIM and DPM-Solver++ are the JAX package's accelerated samplers, which the
 reference lacks; the port keeps their wrapped-angle adaptations (the x0 clamp
 on angular channels, DPM-Solver++'s geodesic correction).
 
-Each chain is an eager Python loop under torch.inference_mode(); the
-per-step scalars are computed on the host, from the schedule's host copies,
-so the loop never reads a value back from the device.
+How a chain runs. Each chain's per-step scalars are a StepTable
+(diffusion/schedules.py), built on the host once per chain. On the card the
+loops run the JAX package's execution model (one device execution per
+chunk, sampling.py:152-156): a TableChain holds the chain's state in static
+buffers and a step counter on the device, and its table-driven step body
+(ddpm_step_body, ddim_step_body, dpmpp_step_body) reads its timestep and
+scalars from a device copy of the table through the counter and advances
+it. One step of the body is captured as one CUDA graph (graphs.StepGraph),
+DDPM's noiseless last step as a second, so the host's loop is only graph
+replays; build_sampler caches the chains per shape, as JAX's jit caches per
+shape. The body launches the kernels the eager step launches, in
+the same order, on the same scalars, so a graphed chain gives the eager
+chain's bits. On the CPU, or with cuda_graphs=False, each loop is an eager
+Python loop under torch.inference_mode() that reads its scalars from the
+host table: the reference the graphed chains are held to.
 
 Seeds: sample() draws each chunk's x_T and per-step noise from its own
 torch.Generator on the sampling device, seeded from (seed, chunk index)
 through numpy's SeedSequence; get_reconstruction_error draws each batch's
 eps and step noise the same way. The numbers differ from the JAX package's
-for the same seed; only the distributions agree.
+for the same seed; only the distributions agree. A graphed chain draws from
+a generator of its own, registered with its graphs, that takes the caller's
+generator's state before the chain and hands it back after, so the caller's
+generator ends where the eager chain leaves it.
 
 Data parallelism (`mesh`, a parallel.mesh.Mesh; JAX's shard_fn,
 sampling.py:474, 504-505, 538, 606-607): each chunk's rows are split over the
@@ -34,15 +49,25 @@ ranks return None.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from foldingdiff_tpu_torch.diffusion.noise import q_sample, sample_wrapped_noise
-from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+from foldingdiff_tpu_torch.diffusion.schedules import (  # noqa: F401 (dpmpp_nodes: this module's API too)
+    DiffusionSchedule,
+    StepTable,
+    ddim_table,
+    ddpm_coefs,
+    ddpm_table,
+    dpmpp_nodes,
+    dpmpp_table,
+)
+from foldingdiff_tpu_torch.graphs import StepGraph
 from foldingdiff_tpu_torch.ops.angles import wrap_angles, wrap_angular_features
 from foldingdiff_tpu_torch.parallel.mesh import Mesh, gather_to_primary, shard_batch
 
@@ -78,16 +103,13 @@ def p_sample_step(
     then unused (None is allowed at t = 0). noise_scale is a scalar or an (F,)
     tensor: the per-feature sampling temperature on that noise (1.0 is
     reference DDPM). Angular channels (is_angular, (F,) bool) are wrapped.
+    The scalars are ddpm_coefs' float32 values at t.
     """
-    host = schedule.host
+    sqrt_recip_alpha_t, beta_t, recip_sqrt_omac_t, sigma_t = (float(c) for c in ddpm_coefs(schedule, t)[0])
     t_vec = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
     eps_pred = model_fn(x, t_vec, attn_mask)
-    sqrt_recip_alpha_t = float(host["sqrt_recip_alphas"][t])
-    beta_t = float(host["betas"][t])
-    sqrt_omac_t = float(host["sqrt_one_minus_alphas_cumprod"][t])
-    x_next = sqrt_recip_alpha_t * (x - beta_t * eps_pred / sqrt_omac_t)
+    x_next = sqrt_recip_alpha_t * (x - beta_t * eps_pred * recip_sqrt_omac_t)
     if t > 0:
-        sigma_t = float(host["sqrt_posterior_variance"][t])
         if torch.is_tensor(noise_scale):  # per feature, possibly made on the host
             noise_scale = noise_scale.to(device=x.device, dtype=x.dtype)
         x_next = x_next + sigma_t * (noise_scale * noise)
@@ -106,6 +128,8 @@ def p_sample_loop(
     start_t: Optional[int] = None,
     return_history: bool = False,
     shard: Shard = None,
+    cuda_graphs: bool = True,
+    chains: Optional["ChainCache"] = None,
 ) -> torch.Tensor:
     """
     Reverse chain S-1 .. 0 from x_S = `noise` (B, L, F), where S is start_t
@@ -116,6 +140,10 @@ def p_sample_loop(
     noise_scale is p_sample_step's temperature, a scalar or per feature.
     Returns x_0, or with return_history the (S, B, L, F) states after every
     step, kept in one tensor on the device.
+
+    On a CUDA tensor with cuda_graphs (the default) the chain runs as CUDA
+    graphs of one step each (a TableChain, reused from `chains`, a sampler's
+    cache, when one is given); otherwise as the eager loop.
     """
     steps = schedule.timesteps if start_t is None else int(start_t)
     if not 1 <= steps <= schedule.timesteps:
@@ -124,6 +152,11 @@ def p_sample_loop(
     if not isinstance(noise_scale, (int, float)):  # per feature: on the device once
         noise_scale = torch.as_tensor(noise_scale, dtype=noise.dtype, device=noise.device)
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
+    if _graphed(cuda_graphs, noise):
+        chain = _chain(chains, lambda: ddpm_table(schedule, steps), "ddpm", model_fn, noise, attn_mask, is_angular,
+                       noise_scale=noise_scale, draws=generator is not None,
+                       step_noise=step_noise is not None, return_history=return_history, shard=shard)
+        return chain.run(noise, attn_mask, generator, step_noise)
     x = noise
     with torch.inference_mode():
         history = _history(steps, noise, return_history)
@@ -171,71 +204,50 @@ def ddim_sample_loop(
     step_noise: Optional[torch.Tensor] = None,
     return_history: bool = False,
     shard: Shard = None,
+    cuda_graphs: bool = True,
+    chains: Optional["ChainCache"] = None,
 ) -> torch.Tensor:
     """
     DDIM (Song et al. 2021) over the strided grid
     linspace(0, T-1, n_steps)[::-1], each step jumping to the next grid
-    timestep (abar = 1 after the last), from x_T = `noise`. The x0 prediction
-    of angular channels is clamped to [-pi, pi] before the jump, which
-    wrapped-angle diffusion needs (see the JAX package's ddim_sample_loop);
-    every step ends in the angular wrap.
+    timestep (abar = 1 after the last), from x_T = `noise`; the scalars are
+    ddim_table's. The x0 prediction of angular channels is clamped to
+    [-pi, pi] before the jump, which wrapped-angle diffusion needs (see the
+    JAX package's ddim_sample_loop); every step ends in the angular wrap.
 
     eta = 0 is deterministic and takes no noise source. eta > 0 adds
     sigma_i times step_noise[i] ((n_steps, B, L, F)) or a fresh normal draw
     from `generator` (of the whole chunk under `shard`, as p_sample_loop):
     give exactly one. Returns x_0, or with return_history the
-    (n_steps, B, L, F) states after every step.
+    (n_steps, B, L, F) states after every step. cuda_graphs and chains as
+    p_sample_loop's.
     """
-    T = schedule.timesteps
     if eta > 0:
         _check_noise_source(generator, step_noise, (n_steps, *noise.shape))
-    ts = np.linspace(0, T - 1, num=n_steps, dtype=np.int64)[::-1]
-    # float32 scalars, as the JAX loop computes them on the device
-    abar = np.concatenate([schedule.host["alphas_cumprod"], np.ones(1, np.float32)])  # abar[-1] = 1
-    one, eta32 = np.float32(1.0), np.float32(eta)
+    table = ddim_table(schedule, n_steps, eta)
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
+    if _graphed(cuda_graphs, noise):
+        chain = _chain(chains, lambda: table, "ddim", model_fn, noise, attn_mask, is_angular,
+                       draws=eta > 0 and generator is not None, step_noise=eta > 0 and step_noise is not None,
+                       return_history=return_history, shard=shard)
+        return chain.run(noise, attn_mask, generator if eta > 0 else None, step_noise if eta > 0 else None)
     x = noise
     with torch.inference_mode():
         history = _history(n_steps, noise, return_history)
-        for i, t in enumerate(ts):
-            a_t = abar[t]
-            a_prev = abar[ts[i + 1]] if i + 1 < n_steps else abar[-1]
-            sigma = eta32 * np.sqrt((one - a_prev) / (one - a_t)) * np.sqrt(max(one - a_t / a_prev, 0))
-            t_vec = torch.full((x.shape[0],), int(t), dtype=torch.int64, device=x.device)
+        for i in range(n_steps):
+            c = table.row(i)
+            t_vec = torch.full((x.shape[0],), int(table.t[i]), dtype=torch.int64, device=x.device)
             eps = model_fn(x, t_vec, attn_mask)
-            x0 = _clamp_angular((x - float(np.sqrt(one - a_t)) * eps) / float(np.sqrt(a_t)), is_angular)
-            dir_xt = float(np.sqrt(max(one - a_prev - sigma * sigma, 0))) * eps
-            x = float(np.sqrt(a_prev)) * x0 + dir_xt
+            x0 = _clamp_angular((x - c["sqrt_one_minus_a"] * eps) * c["recip_sqrt_a"], is_angular)
+            dir_xt = c["dir_coef"] * eps
+            x = c["sqrt_a_prev"] * x0 + dir_xt
             if eta > 0:
                 z = step_noise[i] if step_noise is not None else _normal(x, generator, shard)
-                x = x + float(sigma) * z
+                x = x + c["sigma"] * z
             x = wrap_angular_features(x, is_angular)
             if history is not None:
                 history[i] = x
     return x if history is None else history
-
-
-def dpmpp_nodes(alphas_cumprod: np.ndarray, n_steps: int) -> np.ndarray:
-    """
-    The n_steps source timesteps of DPM-Solver++, strictly decreasing: the
-    discrete timesteps nearest to targets uniform in half-log-SNR
-    lambda = log(alpha / sigma), with collisions moved to the next free
-    timestep so the chain makes exactly n_steps model evaluations (the JAX
-    package's rule, sampling.py:343-366). alphas_cumprod is the schedule's
-    float32 array cast to float64, as the JAX package reads it: the float64
-    values before the cast can move a node by one timestep.
-    """
-    T = len(alphas_cumprod)
-    lam_all = 0.5 * (np.log(alphas_cumprod) - np.log1p(-alphas_cumprod))
-    targets = np.linspace(lam_all[T - 1], lam_all[0], num=n_steps)
-    nodes = []
-    prev = T
-    for k, target in enumerate(targets):
-        t = int(np.argmin(np.abs(lam_all - target)))
-        t = max(min(t, prev - 1), n_steps - k - 1)
-        nodes.append(t)
-        prev = t
-    return np.asarray(nodes, dtype=np.int64)
 
 
 def dpmpp_sample_loop(
@@ -246,6 +258,8 @@ def dpmpp_sample_loop(
     is_angular: Sequence[bool] | torch.Tensor,
     n_steps: int = 20,
     return_history: bool = False,
+    cuda_graphs: bool = True,
+    chains: Optional["ChainCache"] = None,
 ) -> torch.Tensor:
     """
     DPM-Solver++(2M) (Lu et al. 2022), x0 parameterisation, on the nodes of
@@ -255,48 +269,238 @@ def dpmpp_sample_loop(
                angular channels to [-pi, pi]
         D_i  = x0_i + (1 / (2 r_i)) wrap(x0_i - x0_{i-1}),  r_i = h_{i-1} / h_i
         x   <- (sigma_i / sigma_{i-1}) x + alpha_i (1 - e^{-h_i}) D_i, wrapped
-    first order (D = x0) on the first and the last step. The coefficients are
-    computed in float64 on the host and used as float32, as in the JAX
-    package; the difference x0_i - x0_{i-1} is the geodesic one. Deterministic.
-    Returns x_0, or with return_history the (n_steps, B, L, F) states after
-    every step.
+    first order (D = x0) on the first and the last step. The coefficients
+    are dpmpp_table's, computed in float64 on the host and used as float32,
+    as in the JAX package; the difference x0_i - x0_{i-1} is the geodesic
+    one. Deterministic. Returns x_0, or with return_history the
+    (n_steps, B, L, F) states after every step. cuda_graphs and chains as
+    p_sample_loop's.
     """
-    T = schedule.timesteps
-    if not 1 <= n_steps <= T:
-        raise ValueError(f"n_steps must be in [1, {T}], got {n_steps}")
-    ts = dpmpp_nodes(schedule.host["alphas_cumprod"].astype(np.float64), n_steps)
-    a_nodes = np.concatenate([schedule.host["alphas_cumprod"].astype(np.float64)[ts], [1.0]])
-    alpha = np.sqrt(a_nodes)
-    sigma = np.sqrt(1.0 - a_nodes)
-    # lambda at the non-final nodes only: sigma = 0 at the clean state
-    lam = 0.5 * (np.log(a_nodes[:-1]) - np.log1p(-a_nodes[:-1]))
-    h = np.diff(lam)
-    c_x = np.zeros(n_steps)
-    c_d = np.ones(n_steps)  # the final step to abar = 1: x <- D
-    c_corr = np.zeros(n_steps)
-    c_x[:-1] = sigma[1:-1] / sigma[:-2]
-    c_d[:-1] = alpha[1:-1] * -np.expm1(-h)
-    if n_steps >= 3:
-        c_corr[1:-1] = h[1:] / (2.0 * h[:-1])
-
-    def f32(values):
-        return [float(v) for v in np.asarray(values, dtype=np.float32)]
-
-    coefs = zip(ts.tolist(), f32(c_x), f32(c_d), f32(c_corr), f32(sigma[:-1]), f32(1.0 / alpha[:-1]))
+    table = dpmpp_table(schedule, n_steps)
     is_angular = torch.as_tensor(is_angular, dtype=torch.bool, device=noise.device)
+    if _graphed(cuda_graphs, noise):
+        chain = _chain(chains, lambda: table, "dpmpp", model_fn, noise, attn_mask, is_angular,
+                       return_history=return_history)
+        return chain.run(noise, attn_mask)
     x, x0_prev = noise, torch.zeros_like(noise)
     with torch.inference_mode():
         history = _history(n_steps, noise, return_history)
-        for i, (t, cx, cd, ccorr, sig_src, recip_alpha_src) in enumerate(coefs):
-            t_vec = torch.full((x.shape[0],), t, dtype=torch.int64, device=x.device)
+        for i in range(n_steps):
+            c = table.row(i)
+            t_vec = torch.full((x.shape[0],), int(table.t[i]), dtype=torch.int64, device=x.device)
             eps = model_fn(x, t_vec, attn_mask)
-            x0 = _clamp_angular((x - sig_src * eps) * recip_alpha_src, is_angular)
-            d = x0 + ccorr * wrap_angular_features(x0 - x0_prev, is_angular)
-            x = wrap_angular_features(cx * x + cd * d, is_angular)
+            x0 = _clamp_angular((x - c["sigma_src"] * eps) * c["recip_alpha_src"], is_angular)
+            d = x0 + c["c_corr"] * wrap_angular_features(x0 - x0_prev, is_angular)
+            x = wrap_angular_features(c["c_x"] * x + c["c_d"] * d, is_angular)
             x0_prev = x0
             if history is not None:
                 history[i] = x
     return x if history is None else history
+
+
+# -- the table-driven chains ---------------------------------------------------
+@dataclasses.dataclass
+class ChainState:
+    """The static buffers of a table-driven chain: x (B, L, F) and attn_mask
+    (B, L); `counter`, (1,) int64 on x's device, the step index that the next
+    step reads its table row at; the optional (S, B, L, F) history and given
+    step noise; DPM-Solver++'s previous x0 (B, L, F)."""
+
+    x: torch.Tensor
+    attn_mask: torch.Tensor
+    counter: torch.Tensor
+    history: Optional[torch.Tensor] = None
+    step_noise: Optional[torch.Tensor] = None
+    x0_prev: Optional[torch.Tensor] = None
+
+
+def _row(state: ChainState, t_tab: torch.Tensor, coefs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(t_vec (B,), the (K,) coefficients) of the step the counter names."""
+    i = state.counter
+    return t_tab.index_select(0, i).expand(state.x.shape[0]), coefs.index_select(0, i)[0]
+
+
+def _finish(state: ChainState, x_new: torch.Tensor, is_angular: torch.Tensor) -> None:
+    """The step's end: x <- wrap(x_new) on the angular channels, written in
+    place; the history row of this step; the counter advanced."""
+    torch.where(is_angular, wrap_angles(x_new), x_new, out=state.x)
+    if state.history is not None:
+        state.history.index_copy_(0, state.counter, state.x[None])
+    state.counter.add_(1)
+
+
+def _step_noise(state: ChainState) -> torch.Tensor:
+    return state.step_noise.index_select(0, state.counter)[0]
+
+
+def ddpm_step_body(model_fn: ModelFn, state: ChainState, t_tab: torch.Tensor, coefs: torch.Tensor,
+                   is_angular: torch.Tensor, noise_scale: float | torch.Tensor = 1.0,
+                   noise: Optional[Callable[[], torch.Tensor]] = None) -> None:
+    """p_sample_step at the counter's row of a ddpm_table ((t_tab, coefs) on
+    the state's device), in place on `state`. noise() gives the posterior
+    noise; None is the last step (t = 0), which draws none."""
+    z = noise() if noise is not None else None
+    t_vec, c = _row(state, t_tab, coefs)
+    eps_pred = model_fn(state.x, t_vec, state.attn_mask)
+    x_next = c[0] * (state.x - c[1] * eps_pred * c[2])
+    if z is not None:
+        x_next = x_next + c[3] * (noise_scale * z)
+    _finish(state, x_next, is_angular)
+
+
+def ddim_step_body(model_fn: ModelFn, state: ChainState, t_tab: torch.Tensor, coefs: torch.Tensor,
+                   is_angular: torch.Tensor, noise: Optional[Callable[[], torch.Tensor]] = None) -> None:
+    """ddim_sample_loop's step at the counter's row of a ddim_table, in place
+    on `state`; noise() gives eta > 0's draw."""
+    t_vec, c = _row(state, t_tab, coefs)
+    eps = model_fn(state.x, t_vec, state.attn_mask)
+    x0 = _clamp_angular((state.x - c[0] * eps) * c[1], is_angular)
+    dir_xt = c[3] * eps
+    x_new = c[2] * x0 + dir_xt
+    if noise is not None:
+        x_new = x_new + c[4] * noise()
+    _finish(state, x_new, is_angular)
+
+
+def dpmpp_step_body(model_fn: ModelFn, state: ChainState, t_tab: torch.Tensor, coefs: torch.Tensor,
+                    is_angular: torch.Tensor) -> None:
+    """dpmpp_sample_loop's update at the counter's row of a dpmpp_table, in
+    place on `state` (x0_prev included)."""
+    t_vec, c = _row(state, t_tab, coefs)
+    eps = model_fn(state.x, t_vec, state.attn_mask)
+    x0 = _clamp_angular((state.x - c[3] * eps) * c[4], is_angular)
+    d = x0 + c[2] * wrap_angular_features(x0 - state.x0_prev, is_angular)
+    x_new = c[0] * state.x + c[1] * d
+    state.x0_prev.copy_(x0)
+    _finish(state, x_new, is_angular)
+
+
+class TableChain:
+    """
+    One chain shape's table-driven reverse chain (module docstring): the
+    method's StepTable on the device, the ChainState, and the step body in
+    two segments: `main`, one step, run for every step but DDPM's last, and
+    for DDPM `last`, its noiseless last step. With `graphed` each segment is a
+    StepGraph (captured at its first run, replayed after); without, the body
+    runs eagerly, on any device, which is how the CPU tests hold the bodies to
+    the eager loops. `draws`: the noise comes from a generator (run()'s), which
+    the chain's own generator stands in for; `step_noise`: from a given
+    (S, B, L, F) tensor. The model's weights are read through pointers baked
+    into the graphs: loading weights into the same module is seen, a new
+    module needs a new chain.
+    """
+
+    def __init__(self, method: str, table: StepTable, model_fn: ModelFn, like: torch.Tensor, mask_like: torch.Tensor,
+                 is_angular: torch.Tensor, *, noise_scale: float | torch.Tensor = 1.0,
+                 draws: bool = False, step_noise: bool = False, return_history: bool = False, shard: Shard = None,
+                 graphed: bool = True, pool=None):
+        if method not in SAMPLING_METHODS:
+            raise ValueError(f"method {method!r} not in {SAMPLING_METHODS}")
+        device, n = like.device, len(table)
+        self.method, self.model_fn, self.is_angular, self.noise_scale = method, model_fn, is_angular, noise_scale
+        self.shard = shard
+        self.t_tab, self.coefs = table.to(device)
+        with torch.inference_mode():
+            self.state = ChainState(
+                x=torch.empty_like(like), attn_mask=torch.empty_like(mask_like),
+                counter=torch.zeros(1, dtype=torch.int64, device=device),
+                history=_history(n, like, return_history),
+                step_noise=torch.empty((n, *like.shape), dtype=like.dtype, device=device) if step_noise else None,
+                x0_prev=torch.empty_like(like) if method == "dpmpp" else None,
+            )
+        self.generator = torch.Generator(device=device) if draws else None
+        self.noisy = (draws or step_noise) and method != "dpmpp"
+        # DDPM's last step (t = 0) draws no noise: a segment of its own
+        self.n_main = n - 1 if method == "ddpm" else n
+        self.main = self._segment(False, graphed, pool) if self.n_main else None
+        self.last = self._segment(True, graphed, pool) if method == "ddpm" else None
+
+    def _noise(self) -> torch.Tensor:
+        if self.state.step_noise is not None:
+            return _step_noise(self.state)
+        return _normal(self.state.x, self.generator, self.shard)
+
+    def step(self, last: bool = False) -> None:
+        """One step of the method's body at the counter's row."""
+        noise = self._noise if self.noisy and not last else None
+        s, args = self.state, (self.t_tab, self.coefs, self.is_angular)
+        if self.method == "ddpm":
+            ddpm_step_body(self.model_fn, s, *args, self.noise_scale, noise)
+        elif self.method == "ddim":
+            ddim_step_body(self.model_fn, s, *args, noise)
+        else:
+            dpmpp_step_body(self.model_fn, s, *args)
+
+    def _segment(self, last: bool, graphed: bool, pool):
+        def body() -> None:
+            self.step(last)
+
+        if not graphed:
+            return body
+        return StepGraph(body, self.state.x.device, generators=[self.generator] if self.generator else (), pool=pool)
+
+    def run(self, x_t: torch.Tensor, attn_mask: torch.Tensor, generator: Optional[torch.Generator] = None,
+            step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The chain from x_t: a fresh tensor of x_0, or of the history.
+        `generator` (when the chain draws) ends where the eager chain would
+        leave it."""
+        s = self.state
+        with torch.inference_mode():
+            s.x.copy_(x_t)
+            s.attn_mask.copy_(attn_mask)
+            s.counter.zero_()
+            if s.x0_prev is not None:
+                s.x0_prev.zero_()
+            if s.step_noise is not None:
+                s.step_noise.copy_(step_noise)
+            if self.generator is not None:
+                self.generator.set_state(generator.get_state())
+            for _ in range(self.n_main):
+                self.main()
+            if self.last is not None:
+                self.last()
+            if self.generator is not None:
+                generator.set_state(self.generator.get_state())
+            return (s.x if s.history is None else s.history).clone()
+
+
+class ChainCache:
+    """A sampler's TableChains, one per chunk shape and noise source, whose
+    graphs share one memory pool (they replay one at a time on one stream).
+    The sampler's options are fixed, so its shape names a chain."""
+
+    def __init__(self) -> None:
+        self.chains: Dict[tuple, TableChain] = {}
+        self.pool = None
+
+    def get(self, key: tuple, make: Callable[[object], TableChain]) -> TableChain:
+        if key not in self.chains:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            self.chains[key] = make(self.pool)
+        return self.chains[key]
+
+
+def _graphed(cuda_graphs: bool, x: torch.Tensor) -> bool:
+    """Whether a loop runs as CUDA graphs: on a CUDA tensor unless the caller
+    asks for the eager loop. Any other device runs the eager loop."""
+    return cuda_graphs and x.device.type == "cuda"
+
+
+def _chain(chains: Optional[ChainCache], table: Callable[[], StepTable], method: str, model_fn: ModelFn,
+           noise: torch.Tensor, attn_mask: torch.Tensor, is_angular: torch.Tensor, **options) -> TableChain:
+    """The graphed TableChain of this call: `chains`' one for the shape, made
+    at first use, or a new one when no cache is given."""
+    def make(pool) -> TableChain:
+        return TableChain(method, table(), model_fn, noise, attn_mask, is_angular, graphed=True, pool=pool,
+                          **options)
+
+    if chains is None:
+        return make(None)
+    shard = options.get("shard")
+    key = (method, tuple(noise.shape), tuple(attn_mask.shape), options.get("draws"), options.get("step_noise"),
+           None if shard is None else shard[1])
+    return chains.get(key, make)
 
 
 def chunk_generator(seed: int, chunk_i: int, device: torch.device | str) -> torch.Generator:
@@ -321,6 +525,7 @@ def build_sampler(
     return_history: bool = False,
     gen_noise: bool = False,
     mesh: Optional[Mesh] = None,
+    cuda_graphs: bool = True,
 ):
     """
     Sampler closure over `model` (the denoiser, or any model_fn), which runs
@@ -333,6 +538,12 @@ def build_sampler(
     one: their node grids start at T - 1, so a partial input would be
     inverted wrongly. return_history returns every step's state, stacked
     (steps, B, L, F), instead of x_0.
+
+    On the card the chains run as CUDA graphs of one step, captured at a
+    shape's first chunk and cached per shape in the closure, as JAX's jit caches per shape; cuda_graphs=False
+    runs the eager loops. The graphs read `model`'s weights where they lie:
+    loading a state dict into the same module is seen by them, a new module
+    needs a new sampler (the role of JAX's params_as_arg).
 
     gen_noise=False: sampler(noise, attn_mask, generator=None,
     step_noise=None, shard=None), from a given x_T (or x_{start_t}), the step
@@ -349,19 +560,21 @@ def build_sampler(
     if start_t is not None and method != "ddpm":
         raise ValueError(f"start_t is only supported with method='ddpm', got {method!r}")
     n_ft = len(is_angular)
+    chains = ChainCache()
+    graphs = dict(cuda_graphs=cuda_graphs, chains=chains)
 
     def run_loop(noise: torch.Tensor, attn_mask: torch.Tensor, generator: Optional[torch.Generator] = None,
                  step_noise: Optional[torch.Tensor] = None, shard: Shard = None) -> torch.Tensor:
         if method == "ddim":
             return ddim_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps, ddim_eta,
                                     generator=generator, step_noise=step_noise, return_history=return_history,
-                                    shard=shard)
+                                    shard=shard, **graphs)
         if method == "dpmpp":
             return dpmpp_sample_loop(model, noise, attn_mask, schedule, is_angular, ddim_steps,
-                                     return_history=return_history)
+                                     return_history=return_history, **graphs)
         return p_sample_loop(model, noise, attn_mask, schedule, is_angular, generator=generator,
                              step_noise=step_noise, noise_scale=1.0 if noise_scale is None else noise_scale,
-                             start_t=start_t, return_history=return_history, shard=shard)
+                             start_t=start_t, return_history=return_history, shard=shard, **graphs)
 
     if not gen_noise:
         return run_loop
@@ -495,6 +708,7 @@ def reconstruct_batch(
     step_noise: Optional[torch.Tensor] = None,
     mean_offset: Optional[np.ndarray] = None,
     shard: Shard = None,
+    chain=None,
 ) -> List[np.ndarray]:
     """
     One batch of partial-noise reconstruction on eps's device: x0 (B, L, F)
@@ -503,7 +717,9 @@ def reconstruct_batch(
     from `generator`, of the whole batch under `shard`, or given,
     (noise_timesteps, B, L, F)), then on the host
     the mean offset re-added, the angular features re-wrapped and each
-    structure trimmed to its length.
+    structure trimmed to its length. `chain`: that partial chain, built once
+    for many batches (build_sampler with start_t = noise_timesteps), so its
+    graphs are captured once per batch shape; by default one is built here.
     """
     device = eps.device
     is_angular_arr = np.asarray(is_angular, dtype=bool)
@@ -511,7 +727,7 @@ def reconstruct_batch(
     t = torch.full((x0_t.shape[0],), noise_timesteps - 1, dtype=torch.int64, device=device)
     corrupted = q_sample(x0_t, t, eps, schedule, is_angular_arr.tolist())
     mask = torch.as_tensor(attn_mask, dtype=torch.float32, device=device)
-    partial_chain = build_sampler(model_fn, schedule, is_angular_arr.tolist(), start_t=noise_timesteps)
+    partial_chain = chain or build_sampler(model_fn, schedule, is_angular_arr.tolist(), start_t=noise_timesteps)
     recon = partial_chain(corrupted, mask, generator=generator, step_noise=step_noise, shard=shard).cpu().numpy()
     if mean_offset is not None:
         recon = recon + np.asarray(mean_offset)
@@ -551,6 +767,7 @@ def get_reconstruction_error(
     device = next(model.parameters()).device
     n = data["angles"].shape[0]
     starts = range(0, n, batch_size)
+    chain = build_sampler(model, schedule, list(is_angular), start_t=noise_timesteps)
     batches: List[List[np.ndarray]] = []
     for batch_i, start in enumerate(starts):
         rows = slice(start, start + batch_size)
@@ -564,7 +781,7 @@ def get_reconstruction_error(
             eps = shard_batch(mesh, eps)
         batches.append(reconstruct_batch(
             model, schedule, x0, mask, lengths, eps, is_angular=is_angular, noise_timesteps=noise_timesteps,
-            generator=generator, mean_offset=mean_offset, shard=shard,
+            generator=generator, mean_offset=mean_offset, shard=shard, chain=chain,
         ))
     if mesh is not None:  # each rank's rows of every batch, in rank order: the zero-padded batches
         gathered = gather_to_primary(mesh, batches)

@@ -78,12 +78,15 @@ def nerf_build_batch(
     bond_len_n_ca: Optional[torch.Tensor] = None,
     bond_len_ca_c: Optional[torch.Tensor] = None,
     bond_len_c_n: Optional[torch.Tensor] = None,
+    init_coords: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """
     Batched chain build: every input (B, L) -> coords (B, 3L, 3) ordered N,
     CA, C per residue, residue 0 pinned at INIT_COORDS (reference
     nerf.nerf_build_batch, nerf.py:207-292). Missing bond lengths take the
-    idealized constants.
+    idealized constants. init_coords: INIT_COORDS as a (3, 3) tensor on
+    phi's device, made by the caller once (a CUDA graph of the build cannot
+    copy it from the host); by default it is copied here.
     """
     if phi.ndim != 2:
         raise ValueError(f"phi must be (B, L), got {tuple(phi.shape)}")
@@ -95,7 +98,9 @@ def nerf_build_batch(
     len_c_n = param(bond_len_c_n, C_N_LENGTH)
     len_n_ca = param(bond_len_n_ca, N_CA_LENGTH)
     len_ca_c = param(bond_len_ca_c, CA_C_LENGTH)
-    init = torch.as_tensor(INIT_COORDS, dtype=phi.dtype, device=phi.device).expand(b, 3, 3)
+    if init_coords is None:
+        init_coords = torch.as_tensor(INIT_COORDS, dtype=phi.dtype, device=phi.device)
+    init = init_coords.to(phi.dtype).expand(b, 3, 3)
     residues = [init]
     pa, pb, pc = init[:, 0], init[:, 1], init[:, 2]
     # Placing residue i+1 consumes psi_i, omega_i, phi_{i+1} and the bond

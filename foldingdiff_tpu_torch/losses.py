@@ -131,7 +131,9 @@ def pairwise_dist_loss(
 
     mask = _pair_mask(lengths, input.shape[1])
     se = (pdists(input) - pdists(target)) ** 2
-    if weights is not None:
+    if isinstance(weights, (int, float)):  # a host scalar, not copied to the device
+        se = se * weights
+    elif weights is not None:
         w = torch.as_tensor(weights, dtype=se.dtype, device=se.device)
         if w.ndim >= 1:
             w = w.reshape(-1)[:, None, None]

@@ -27,6 +27,23 @@ draws from the device's default generator, seeded with cfg.seed for the fit
 and restored after it. The time embedding's W is a buffer, so it is neither
 optimized nor in the L1 norm, as JAX keeps it in `constants`.
 
+CUDA graphs (the JAX package's jitted step and fused_steps): on the card,
+fit() runs each train step as one captured CUDA graph per batch shape, and
+cfg.fused_steps = K same-shape steps as one (train_steps). The graph holds
+the whole update: the draws of t and noise from the trainer's generator
+(registered with the graph), the forward in train mode with its dropout,
+the backward, the global-norm clip and AdamW, whose learning rate is a
+device tensor that each replay fills from the schedule (capturable=True, as
+it is for every trainer on the card: build_optimizer).
+The batches are copied into the graph's static slots before each replay.
+The steps draw in the order K train_step calls would, so a graph gives the
+eager body's bits. The graphed step is the single-device one: under a mesh
+the step stays eager, since the collectives over gloo (two ranks sharing one
+card) cannot be captured, and so does a model under remat, whose checkpoints
+read the generator's state on the host. cuda_graphs=False runs the eager
+step on the card; eval_step, validation and the SWA average are eager
+always.
+
 Data parallelism (`mesh`, a parallel.mesh.Mesh; JAX's trainer.py:197-240,
 412-471): every rank runs fit over the same host arrays, and a run over N
 ranks computes what one device computes.
@@ -68,6 +85,7 @@ from foldingdiff_tpu_torch import losses as loss_lib
 from foldingdiff_tpu_torch.diffusion.noise import draw_t_and_noise, q_sample, sample_wrapped_noise
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.geometry import nerf
+from foldingdiff_tpu_torch.graphs import StepGraph
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.bert import BertForDiffusion
 from foldingdiff_tpu_torch.parallel.mesh import Mesh, broadcast_object, replicate, shard_batch
@@ -93,9 +111,11 @@ class TrainConfig:
     nonangular_variance: float = 1.0
     use_swa: bool = False  # stochastic weight averaging over the last 20% of epochs
     seed: int = 42
-    # The JAX package runs K steps as one device program (lax.scan), which
-    # its docstring calls identical math to K separate steps; here every
-    # value runs the steps one by one. A CUDA graph of the step is later work.
+    # K same-shape train steps as one device execution: on the card one CUDA
+    # graph of K steps (JAX's lax.scan over K batches, the same draws as K
+    # single steps); a remainder of fewer than K batches, and the ragged
+    # tail, run through the single-step graph of their shape. 1 = one graph
+    # per step. The eager step (the CPU, a mesh) runs the steps one by one.
     fused_steps: int = 1
 
 
@@ -142,8 +162,19 @@ def make_lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], 
 def build_optimizer(cfg: TrainConfig, params) -> torch.optim.AdamW:
     """AdamW with optax.adamw's constants and weight_decay = l2_norm; the
     trainer sets each update's learning rate from the schedule and clips the
-    gradients first (clip_by_global_norm_)."""
-    return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.l2_norm)
+    gradients first (clip_by_global_norm_). On the card the update is
+    capturable, graphed or not, so that every trainer there (graphed, eager,
+    under a mesh or remat) runs one arithmetic: its learning rate is a
+    float32 tensor, which optimizer_step fills, its step counts are float32
+    on the card and its bias corrections float32, as optax's. On the CPU,
+    where capturable AdamW does not run, the learning rate is a float and the
+    bias corrections float64."""
+    params = list(params)
+    device = params[0].device if params else torch.device("cpu")
+    if device.type != "cuda":
+        return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.l2_norm)
+    return torch.optim.AdamW(params, lr=torch.tensor(cfg.lr, dtype=torch.float32, device=device),
+                             betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.l2_norm, capturable=True)
 
 
 def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
@@ -162,12 +193,15 @@ def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float,
 
 
 def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
-                   gradient_clip: float, lr: float, mesh: Optional[Mesh] = None, l1_norm: float = 0.0) -> None:
+                   gradient_clip: float, lr: float | torch.Tensor, mesh: Optional[Mesh] = None,
+                   l1_norm: float = 0.0) -> None:
     """Backward from `loss`, then the gradients summed over the mesh (each
     rank's loss is its share of the global loss), the L1 penalty's gradient
     (l1_norm times d|p|/dp, which is +1 at p = 0 as jnp.abs's), the
     global-norm clip and the AdamW step at learning rate `lr`: one update of
-    either trainer."""
+    either trainer. `lr` is a float or, for a capturable optimizer, a
+    0-dim device tensor (a graph's slot); a capturable optimizer's own lr
+    tensor takes its value in place."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     with torch.profiler.record_function("optimizer"):
@@ -183,7 +217,12 @@ def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, los
             clip_by_global_norm_([p.grad for _, p in named], gradient_clip,
                                  None if mesh is None else lambda sq: mesh.sum_over_shards(sq, names))
         for group in optimizer.param_groups:
-            group["lr"] = lr
+            if not torch.is_tensor(group["lr"]):
+                group["lr"] = lr
+            elif torch.is_tensor(lr):
+                group["lr"].copy_(lr)
+            else:
+                group["lr"].fill_(lr)
         optimizer.step()
 
 
@@ -261,6 +300,7 @@ def _per_feature_losses(
 
 
 Batch = Dict[str, np.ndarray]
+BATCH_KEYS = ("angles", "attn_mask", "lengths")
 
 
 class Trainer:
@@ -274,7 +314,7 @@ class Trainer:
 
     def __init__(
         self, model: BertForDiffusion, schedule: DiffusionSchedule, train_cfg: TrainConfig, steps_per_epoch: int,
-        mesh: Optional[Mesh] = None,
+        mesh: Optional[Mesh] = None, cuda_graphs: bool = True,
     ) -> None:
         self.device = schedule.betas.device
         devices = {p.device for p in model.parameters()}
@@ -288,11 +328,18 @@ class Trainer:
             replicate(mesh, model)  # rank 0's weights on every rank
         self.primary = is_primary()  # the process that writes files
         self.lr_schedule = make_lr_schedule(train_cfg, steps_per_epoch)
+        # fit() steps as CUDA graphs: on the card, on one device, without remat (module docstring)
+        self.cuda_graphs = cuda_graphs and self.device.type == "cuda" and mesh is None and not model.config.remat
         self.optimizer = build_optimizer(train_cfg, model.parameters())
         self.step = 0  # global step: the optimizer updates made so far
         self.is_angular = tuple(model.config.ft_is_angular)
         self.ft_names = tuple(model.config.ft_names)
         self.generator = torch.Generator(device=self.device).manual_seed(train_cfg.seed)
+        # made once on the device, so that no step copies them from the host (a graph cannot)
+        self._angular_mask = torch.tensor(self.is_angular, dtype=torch.bool, device=self.device)
+        self._nerf_init = torch.as_tensor(nerf.INIT_COORDS, dtype=torch.float32, device=self.device)
+        self._graphs: Dict[tuple, Tuple[List[Dict[str, torch.Tensor]], torch.Tensor, StepGraph]] = {}
+        self._graph_pool = None
         self._csv_rows_flushed = 0
 
     @property
@@ -330,13 +377,13 @@ class Trainer:
             raise ValueError("give both t and noise, or neither")
         if t is None:
             x0 = batch["angles"]
-            t, noise = draw_t_and_noise(self.generator, tuple(x0.shape), self.schedule, self.is_angular,
+            t, noise = draw_t_and_noise(self.generator, tuple(x0.shape), self.schedule, self._angular_mask,
                                         self.cfg.angular_variance, self.cfg.nonangular_variance, x0.dtype)
         return t, noise
 
     def _predict(self, batch, t, noise):
         """(corrupted, pred) of a device batch, given its t and noise."""
-        corrupted = q_sample(batch["angles"], t, noise, self.schedule, self.is_angular)
+        corrupted = q_sample(batch["angles"], t, noise, self.schedule, self._angular_mask)
         return corrupted, self.model(corrupted, t, batch["attn_mask"])
 
     def _feature_terms(self, pred, target, mask, is_angular=None) -> torch.Tensor:
@@ -373,6 +420,7 @@ class Trainer:
                 bond_angle_n_ca_c=angles[:, :, names.index("tau")],
                 bond_angle_ca_c_n=angles[:, :, names.index("CA:C:1N")],
                 bond_angle_c_n_ca=angles[:, :, names.index("C:1N:1CA")],
+                init_coords=self._nerf_init,
             )
 
         with torch.no_grad():  # the data's own chain takes no gradient
@@ -407,17 +455,91 @@ class Trainer:
         """One update from a device batch (the global batch under a mesh):
         (loss, per-feature terms) of the global batch, both detached on the
         device. The loss includes the L1 penalty, as JAX's; its gradient is
-        added to the summed gradients, once."""
+        added to the summed gradients, once. Eager: fit() runs train_steps
+        on the card."""
+        # optax reads the count before its increment
+        out = self._step_terms(batch, self.lr_schedule(self.step), t, noise)
+        self.step += 1
+        return out
+
+    def _step_terms(self, batch, lr: float | torch.Tensor, t=None, noise=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """train_step's update at learning rate `lr`, leaving self.step to the
+        caller: the body of the step graphs, which must not change host
+        state."""
         self.model.train()
         terms = self._loss_terms(batch, t, noise)
         l1 = self.cfg.l1_norm
         if l1 > 0:
             with torch.no_grad():  # at the parameters before the update
                 penalty = l1 * self.l1_penalty()
-        self._update(terms.mean(), l1)
+        optimizer_step(self.model, self.optimizer, terms.mean(), self.cfg.gradient_clip, lr, self.mesh, l1)
         terms = self._global(terms.detach())
         avg = terms.mean()
         return (avg + penalty if l1 > 0 else avg), terms
+
+    # -- the step as CUDA graphs ----------------------------------------------
+    def train_steps(self, batches: Sequence[Batch]) -> torch.Tensor:
+        """len(batches) = K updates from host batches of one shape, as one
+        replay of the CUDA graph of K steps of that shape (JAX's
+        _multi_train_step for K > 1): a fresh (K, 1 + F') device tensor, row
+        k step k's loss and per-feature terms as train_step returns them. The
+        graph is captured at the (K, shape)'s first use, whose steps run
+        eagerly (graphs.StepGraph). Raises unless self.cuda_graphs."""
+        if not self.cuda_graphs:
+            raise RuntimeError("train_steps runs CUDA graphs: a trainer on the card, on one device, without remat")
+        k = len(batches)
+        key = (k, tuple(np.shape(batches[0]["angles"])))
+        if key not in self._graphs:
+            self._graphs[key] = self._capture_steps(k, batches[0])
+        slots, lrs, graph = self._graphs[key]
+        for slot, batch in zip(slots, batches):
+            for name, dst in slot.items():
+                dst.copy_(torch.from_numpy(np.ascontiguousarray(batch[name])).pin_memory(), non_blocking=True)
+        for i in range(k):
+            lrs[i].fill_(self.lr_schedule(self.step + i))
+        out = graph()
+        self.step += k
+        return out.clone()
+
+    def _capture_steps(self, k: int, like: Batch):
+        """(batch slots, learning-rate slots, StepGraph) of K steps of like's shape."""
+        slots = [{name: torch.empty(np.shape(like[name]), dtype=torch.from_numpy(np.asarray(like[name])).dtype,
+                                    device=self.device) for name in BATCH_KEYS} for _ in range(k)]
+        lrs = torch.zeros(k, dtype=torch.float32, device=self.device)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = StepGraph(self._steps_body(slots, lrs), self.device, generators=[self.generator],
+                          pool=self._graph_pool)
+        return slots, lrs, graph
+
+    def _steps_body(self, slots: Sequence[Dict[str, torch.Tensor]], lrs: torch.Tensor) -> Callable[[], torch.Tensor]:
+        """The body of a graph of len(slots) steps: step k from device batch
+        slots[k] at learning rate lrs[k], in the order of as many train_step
+        calls; returns (K, 1 + F') of each step's loss and terms. A plain
+        function, so it also runs eagerly, on any device."""
+        def body() -> torch.Tensor:
+            rows = [self._step_terms(slot, lrs[i]) for i, slot in enumerate(slots)]
+            return torch.stack([torch.cat([loss[None], terms]) for loss, terms in rows])
+
+        return body
+
+    def _graphed_epoch(self, batches: Iterator[Tuple[Batch, float]]) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """An epoch's updates through train_steps: full groups of
+        cfg.fused_steps consecutive same-shape batches as one replay each,
+        the rest one by one; (loss, terms) per step, as train_step's."""
+        k = max(int(self.cfg.fused_steps), 1)
+        rows: List[torch.Tensor] = []
+        group: List[Batch] = []
+        for batch, _ in batches:
+            if group and np.shape(batch["angles"]) != np.shape(group[0]["angles"]):
+                rows.extend(self.train_steps([b]) for b in group)
+                group = []
+            group.append(batch)
+            if len(group) == k:
+                rows.append(self.train_steps(group))
+                group = []
+        rows.extend(self.train_steps([b]) for b in group)
+        return [(r[0], r[1:]) for out in rows for r in out]
 
     # -- pre-corrupted path (debug noisers) ----------------------------------
     def _loss_terms_precorrupted(self, batch) -> torch.Tensor:
@@ -478,7 +600,7 @@ class Trainer:
         bs = self.cfg.batch_size
         for start in range(0, n, bs):
             sel = idx[start : start + bs]
-            batch = {k: data[k][sel] for k in ("angles", "attn_mask", "lengths")}
+            batch = {k: data[k][sel] for k in BATCH_KEYS}
             yield batch, float(np.sum(batch["attn_mask"]))
 
     def _restore(self, results_dir: str) -> int:
@@ -495,8 +617,31 @@ class Trainer:
         if payload is None:
             return 0
         self.step, start_epoch = checkpoint.apply_train_state(payload, self.model, self.optimizer)
+        self._settle_optimizer()
         logging.info(f"Resumed train state at epoch {start_epoch}")
         return start_epoch
+
+    def _settle_optimizer(self) -> None:
+        """After a train state's load, the optimizer as build_optimizer makes
+        it for this trainer's device, whichever device saved the state: on
+        the card capturable, with its lr tensor and step counts there; on the
+        CPU a float lr and host step counts. Graphs captured before the load
+        held the old state's tensors and are dropped."""
+        on_card = self.device.type == "cuda"
+        lr = next((g["lr"] for g in self.optimizer.param_groups if torch.is_tensor(g["lr"])), None)
+        for group in self.optimizer.param_groups:
+            group["capturable"] = on_card
+            if on_card:
+                if lr is None or lr.device != self.device:
+                    lr = torch.tensor(float(group["lr"]), dtype=torch.float32, device=self.device)
+                group["lr"] = lr
+            else:
+                group["lr"] = float(group["lr"])
+        step_device = self.device if on_card else torch.device("cpu")
+        for state in self.optimizer.state.values():
+            if "step" in state:
+                state["step"] = state["step"].to(device=step_device, dtype=torch.float32)
+        self._graphs.clear()
 
     def _any_rank(self, flag: bool) -> bool:
         """Whether any rank raised the flag (the flag itself without a mesh)."""
@@ -569,8 +714,11 @@ class Trainer:
                     if train_data_refresh is not None:  # per-epoch randomcrop re-crop
                         train_data = train_data_refresh(epoch)
                     # Losses stay on the device until the epoch ends: one host sync per epoch
-                    step_losses = [self.train_step(self.to_device(batch))
-                                   for batch, _ in self._batches(train_data, host_rng, shuffle=True)]
+                    batches = self._batches(train_data, host_rng, shuffle=True)
+                    if self.cuda_graphs:
+                        step_losses = self._graphed_epoch(batches)
+                    else:
+                        step_losses = [self.train_step(self.to_device(batch)) for batch, _ in batches]
                     if step_losses:
                         train_loss = float(torch.stack([a for a, _ in step_losses]).mean().cpu())
                         train_terms = torch.stack([t for _, t in step_losses]).mean(0).cpu().numpy()

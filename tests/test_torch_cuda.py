@@ -1,18 +1,27 @@
 """
 Tests that need an NVIDIA GPU: the two CUDA attention kernels
 (csrc/rel_attention.cu, csrc/gathered_attention.cu) against their plain
-PyTorch versions, the wrappers' input checks, and a reverse step on the card. They skip without a card.
+PyTorch versions, the wrappers' input checks, a reverse step on the card,
+and the CUDA graphs of the reverse chains and the train step against the
+eager ones (bitwise, with the kernels' launches counted). They skip without
+a card.
 They import no JAX, so they also run on a machine that has none, without the
 suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
 from foldingdiff_tpu_torch.diffusion import sampling
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+from foldingdiff_tpu_torch.models import io as model_io
+from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.ops import attention
+from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig, build_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -250,3 +259,145 @@ def test_p_sample_step_on_the_card_matches_the_host(device, noise_scale):
     ours = step(device)
     assert ours.device.type == "cuda"
     assert (ours.cpu() - step("cpu")).abs().max().item() <= 1e-6
+
+
+# A small relative_key denoiser (2 x 64, 4 heads of 16): "auto" launches the v2 kernel in every layer
+GRAPH_CONFIG = ModelConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+                           max_position_embeddings=64)
+
+
+def _chain_inputs(device, b=4, l=64):
+    g = torch.Generator().manual_seed(9)
+    x = ((torch.rand(b, l, 6, generator=g) * 2 - 1) * np.pi).to(device)
+    lengths = torch.tensor([64, 50, 41, 33])[:b]
+    mask = (torch.arange(l)[None, :] < lengths[:, None]).float().to(device)
+    return x, mask
+
+
+@pytest.mark.parametrize("method", ["ddpm", "ddim"])
+def test_graphed_chain_matches_eager_bitwise(device, method):
+    """One chain at B = 4, L = 64, T = 50 (DDIM-10 at eta 0.5, so both draw
+    inside the graph): x_0, the generator's state after the chain and the v2
+    launches equal the eager chain's."""
+    model = model_io.init_random(GRAPH_CONFIG, torch.Generator().manual_seed(1)).to(device).eval()
+    schedule = DiffusionSchedule.create("cosine", 50, device=device)
+    x, mask = _chain_inputs(device)
+    out, states, launches = {}, {}, {}
+    for graphed in (False, True):
+        gen = torch.Generator(device=device).manual_seed(5)
+        v2 = attention.REL_ATTENTION.launches
+        run = sampling.build_sampler(model, schedule, [True] * 6, method=method, ddim_steps=10, ddim_eta=0.5,
+                                     cuda_graphs=graphed)
+        out[graphed] = run(x, mask, generator=gen)
+        out[graphed, "again"] = run(x, mask, generator=torch.Generator(device=device).manual_seed(5))
+        torch.cuda.synchronize()
+        states[graphed], launches[graphed] = gen.get_state(), attention.REL_ATTENTION.launches - v2
+    assert torch.equal(out[True], out[False]) and torch.equal(out[True, "again"], out[False])
+    assert torch.equal(states[True], states[False])
+    steps = 50 if method == "ddpm" else 10
+    assert launches[True] == launches[False] == 2 * 2 * steps  # two chains, two layers per step
+
+
+@pytest.fixture
+def deterministic():
+    """torch.use_deterministic_algorithms while the test runs: the backward
+    of the denoiser's distance embedding accumulates with atomics otherwise,
+    so that two eager steps differ in their last bits."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def _trainer(device, cuda_graphs, fused=1, pdist=(0.5, 1.0)):
+    config = dataclasses.replace(GRAPH_CONFIG, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+    model = model_io.init_random(config, torch.Generator().manual_seed(2)).to(device)
+    cfg = TrainConfig(lr=1e-3, batch_size=8, max_epochs=10, lr_scheduler="OneCycleLR", fused_steps=fused,
+                      use_pdist_loss=pdist)
+    return Trainer(model, DiffusionSchedule.create("cosine", 50, device=device), cfg, steps_per_epoch=4,
+                   cuda_graphs=cuda_graphs)
+
+
+def _host_batches(n, b=8, l=64):
+    rng = np.random.default_rng(3)
+    out = []
+    for _ in range(n):
+        lengths = rng.integers(40, l + 1, b)
+        out.append({"angles": rng.uniform(-np.pi, np.pi, (b, l, 6)).astype(np.float32),
+                    "attn_mask": (np.arange(l)[None, :] < lengths[:, None]).astype(np.float32),
+                    "lengths": lengths.astype(np.int64)})
+    return out
+
+
+def test_graphed_train_steps_match_the_eager_steps_bitwise(device, deterministic):
+    """Six updates (dropout 0.1, pdist, one-cycle lr) through the step
+    graph (the first runs eagerly at capture, five replay) against six
+    train_step calls of the eager trainer (cuda_graphs=False, whose AdamW is
+    the same capturable one), from the same weights, generator and dropout
+    seed: every loss and parameter bit for bit; then two calls of the graph
+    of three steps (fused_steps = 3) against them."""
+    batches = _host_batches(6)
+    results = []
+    for run in ("eager", "graphs", "fused"):
+        trainer = _trainer(device, cuda_graphs=run != "eager", fused=3 if run == "fused" else 1)
+        torch.manual_seed(7)
+        if run == "eager":
+            rows = [torch.cat([a[None], t]) for a, t in (trainer.train_step(trainer.to_device(b)) for b in batches)]
+            rows = torch.stack(rows)
+        elif run == "graphs":
+            rows = torch.cat([trainer.train_steps([b]) for b in batches])
+        else:
+            rows = torch.cat([trainer.train_steps(batches[:3]), trainer.train_steps(batches[3:])])
+        results.append((rows, [p.detach().clone() for p in trainer.model.parameters()], trainer.step))
+    for rows, params, step in results[1:]:
+        assert step == 6 and torch.equal(rows, results[0][0])
+        assert all(torch.equal(p, q) for p, q in zip(params, results[0][1]))
+
+
+def optax_adamw_f32(params, grads, lrs, weight_decay, b1=0.9, b2=0.999, eps=1e-8):
+    """optax.adamw's updates (scale_by_adam, add_decayed_weights,
+    scale_by_learning_rate, apply_updates) in float32 numpy, step by step:
+    params a list of arrays, grads one list like it per step, lrs one
+    learning rate per step. Returns the parameters after the last step.
+    tests/test_torch_graphs.py holds it against optax itself."""
+    f32 = np.float32
+    params = [np.array(p, dtype=f32) for p in params]
+    mu, nu = [np.zeros_like(p) for p in params], [np.zeros_like(p) for p in params]
+    for count, (step_grads, lr) in enumerate(zip(grads, lrs), start=1):
+        bc1, bc2 = f32(1) - f32(b1) ** f32(count), f32(1) - f32(b2) ** f32(count)
+        for i, g in enumerate(step_grads):
+            g = np.asarray(g, dtype=f32)
+            mu[i] = f32(1 - b1) * g + f32(b1) * mu[i]
+            nu[i] = f32(1 - b2) * (g * g) + f32(b2) * nu[i]
+            update = (mu[i] / bc1) / (np.sqrt(nu[i] / bc2) + f32(eps)) + f32(weight_decay) * params[i]
+            params[i] = params[i] + f32(-lr) * update
+    return params
+
+
+def test_adamw_on_the_card_is_capturable_and_matches_optax(device):
+    """Every trainer's AdamW on the card is the capturable one (graphed or
+    not: one arithmetic), its learning rate, step counts and bias
+    corrections float32 on the card, as optax's are float32: three updates
+    at a changing learning rate within 1e-6 of optax_adamw_f32 (the two
+    order the decay and the update differently, so they differ in the last
+    bits of a parameter near 1)."""
+    g = torch.Generator(device=device).manual_seed(6)
+    shapes = [(64, 48), (48,), (7, 3, 5)]
+    start = [torch.randn(s, generator=g, device=device) for s in shapes]
+    grads = [[torch.randn(s, generator=g, device=device) * 10.0 ** -k for s in shapes] for k in range(3)]
+    lrs = [1e-3, 5e-4, 2e-3]
+    cfg = TrainConfig(lr=1e-3, l2_norm=0.01)
+    ps = [torch.nn.Parameter(p.clone()) for p in start]
+    optimizer = build_optimizer(cfg, ps)
+    group = optimizer.param_groups[0]
+    assert group["capturable"] and torch.is_tensor(group["lr"]) and group["lr"].device.type == "cuda"
+    for step_grads, lr in zip(grads, lrs):
+        for p, grad in zip(ps, step_grads):
+            p.grad = grad.clone()
+        group["lr"].fill_(lr)
+        optimizer.step()
+    assert all(s["step"].device.type == "cuda" for s in optimizer.state.values())
+    ref = optax_adamw_f32([p.cpu().numpy() for p in start], [[x.cpu().numpy() for x in gs] for gs in grads], lrs,
+                          cfg.l2_norm)
+    assert max(np.abs(p.detach().cpu().numpy() - r).max() for p, r in zip(ps, ref)) <= 1e-6
+    for cuda_graphs in (False, True):
+        assert _trainer(device, cuda_graphs).optimizer.param_groups[0]["capturable"]
