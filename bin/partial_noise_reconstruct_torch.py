@@ -6,10 +6,10 @@ model's partial DDPM chain, and report the TM-score of each reconstruction
 against its truth (reference bin/partial_noise_reconstruct.py and
 sampling.py:287-356).
 
-Takes bin/partial_noise_reconstruct.py's -m --data -t -b -o --nsubset flags,
-plus --device (default cuda) in place of --cpu. With --device cuda and no
-CUDA device it exits at once; --device cpu is an explicit choice, never a
-fallback. The chains run on the device; once they are back on the host, the
+Takes bin/partial_noise_reconstruct.py's -m --data -t -b -o --nsubset --cpu
+flags, plus --device (default cuda); --cpu is --device cpu. With --device
+cuda and no CUDA device it exits at once; the CPU is an explicit choice,
+never a fallback. The chains run on the device; once they are back on the host, the
 NeRF builds and TM-scores run in a spawned process pool, whose workers never
 touch CUDA. The JSON has bin/partial_noise_reconstruct.py's keys:
 noise_timesteps, tm_scores (by file basename) and tm_scores_coords. When a
@@ -39,6 +39,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("-o", "--outjson", type=str, default="reconstruction_tm.json")
     parser.add_argument("--nsubset", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
+    parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
     return parser
 
 
@@ -53,7 +54,7 @@ def main(argv=None) -> dict:
     from foldingdiff_tpu_torch.devices import require_device
 
     try:
-        device = require_device(args.device, "--device")
+        device = require_device("cpu" if args.cpu else args.device, "--device")
     except RuntimeError as e:
         raise SystemExit(str(e)) from None
 
@@ -146,5 +147,8 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
+    from foldingdiff_tpu_torch.precision import set_process_default
+
     logging.basicConfig(level=logging.INFO)
+    set_process_default()  # a "default" model's GEMMs in TF32, as XLA:GPU's
     main()

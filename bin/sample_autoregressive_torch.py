@@ -115,5 +115,8 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
+    from foldingdiff_tpu_torch.precision import set_process_default
+
     logging.basicConfig(level=logging.INFO)
+    set_process_default()  # a "default" model's GEMMs in TF32, as XLA:GPU's
     main()

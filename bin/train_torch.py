@@ -6,7 +6,8 @@ datasets -> trainer -> model directory, which bin/sample_torch.py loads.
 Takes bin/train.py's config -o --dataset --toy --debug_single_time --dryrun
 --epochs --batchsize --seed --resume flags, merged over the config JSON
 (files under config_jsons/ work unchanged), plus --device (default cuda;
-with no CUDA device it exits at once). --cpu is --device cpu.
+with no CUDA device it exits at once). --cpu is --device cpu. --ngpu is
+accepted and unused, as in bin/train.py (passed on to train() as its ngpu).
 --multihost joins a torch.distributed process group first, from torchrun's
 environment or from --coordinator host:port --nprocs N --procid R (one
 process per rank; NCCL on the card, each rank on cuda:{LOCAL_RANK}; gloo on
@@ -45,6 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true", help="resume from the newest train_state checkpoint")
     parser.add_argument("--device", type=str, default="cuda", help="torch device: cuda, cuda:N or cpu")
     parser.add_argument("--cpu", action="store_true", help="the same as --device cpu")
+    parser.add_argument("--ngpu", default=-1, type=int, help="unused; device count is automatic")
     from foldingdiff_tpu_torch.parallel.multihost import add_cli_args
 
     add_cli_args(parser)
@@ -84,6 +86,7 @@ def main(argv=None) -> list:
         "seed": args.seed,
         "resume": args.resume or None,
         "device": str(device),
+        "ngpu": args.ngpu,
     }
     config = update_dict_nonnull(config, {k: v for k, v in overrides.items() if v is not None})
     config.pop("multithread_plotting", None)  # accepted for parity; train() takes no such key
@@ -98,5 +101,8 @@ def main(argv=None) -> list:
 
 
 if __name__ == "__main__":
+    from foldingdiff_tpu_torch.precision import set_process_default
+
     logging.basicConfig(level=logging.INFO)
+    set_process_default()  # a "default" model's GEMMs in TF32, as XLA:GPU's
     main()

@@ -168,6 +168,28 @@ Phases, each printing lines of its own:
      differs from eager) 4 steps graphed and fused_steps = 2 within 1e-6 of
      eager; ms per train step and structures/s eager, graphed and
      fused_steps = 4, and with pdist, the first step's capture seconds.
+     The bitwise gates run the models at matmul_precision "high" (a TF32
+     scope, which the captures must hold); the step graphs' nodes (held
+     against phase 5's float32 profile), the 1e-6 gate and the timings at
+     "default" under this script's IEEE float32 setting.
+ 13. matmul_precision: the flagship at "highest" (IEEE float32), "default"
+     (under TF32 for the process, as the command-line programs set it:
+     precision.set_process_default) and "BF16_BF16_F32" (bf16 operands,
+     float32 sums and output).
+     (a) the graphed DDPM step at the sweep's chunks (15 x 64, 63 x 128),
+     the -n 1 DDPM sweep in backbones/s and the graphed train step at
+     B = 64, L = 128; (b) against "highest" on the same inputs: one flagship
+     forward (relative RMS of the difference above 0 and at most 1e-2 at
+     TF32, 5e-2 at bf16: the gate), a full DDPM chain of the trained torch
+     fixture with the same draws (mean |d angle|) and the loss curve of 20
+     train steps on a linear schedule; (c) the GEMM kernels of a DDPM
+     step's graph and of the train step's graph, named by cuFuncGetName:
+     all float32 FMA under "highest", all TF32 tensor cores under "default"
+     and "BF16_BF16_F32" (whose GEMMs take bf16 values) but the one GEMM with
+     a 6-wide operand (FEATURE_GEMMS); (d) the process's fp32_precision
+     unchanged after every forward, train step and capture. Phases 2-12 run
+     with IEEE float32 GEMMs for the process, so their "default" models hold
+     their float32 gates.
 
 The line before the last is {"kernels": [...]}, whose v2 launches are
 phase 5's, phase 9's, phase 10's (b) and (d) on both ranks and phase 11's
@@ -216,7 +238,7 @@ from foldingdiff_tpu_torch.diffusion import sampling  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.noise import sample_wrapped_noise  # noqa: E402
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule  # noqa: E402
 from foldingdiff_tpu_torch.geometry import sidechains  # noqa: E402
-from foldingdiff_tpu_torch.graphs import CapturedLaunches, StepGraph  # noqa: E402
+from foldingdiff_tpu_torch.graphs import CapturedLaunches, StepGraph, collector_paused  # noqa: E402
 from foldingdiff_tpu_torch.geometry.featurize import (  # noqa: E402
     EXHAUSTIVE_ANGLES,
     EXHAUSTIVE_DISTS,
@@ -233,6 +255,7 @@ from foldingdiff_tpu_torch.models.time_embed import PositionalEncoding  # noqa: 
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
 from foldingdiff_tpu_torch.parallel import tp  # noqa: E402
 from foldingdiff_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
+from foldingdiff_tpu_torch.precision import set_process_default  # noqa: E402
 from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer  # noqa: E402
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig  # noqa: E402
 from foldingdiff_tpu_torch.utils_profiling import phase_totals  # noqa: E402
@@ -293,7 +316,7 @@ def graph_ms(fn, iters: int = 50) -> float:
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with collector_paused(), torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -349,8 +372,9 @@ def attention_inputs(b, h, l, d, m, seed):
 def phase_card() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this run needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # IEEE float32 GEMMs, where a "default" model runs them (precision.py): phases 2-12 hold float32 gates
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.fp32_precision = "ieee"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -617,7 +641,7 @@ def kernel_group(name: str) -> str:
     """The group of a device event, by its kernel name."""
     low = name.lower()
     for group, keys in (("attention v2", ("rel_attention",)), ("attention v1", ("gathered_attention",)),
-                        ("gemm", ("gemm", "xmma", "cutlass", "sm80_", "sm90_")),
+                        ("gemm", ("gemm", "xmma", "cutlass", "sm80_", "sm90_", "nvjet")),
                         ("gather", ("gather", "indexselect", "index_select")),
                         ("copy", ("copy",)), ("layer norm", ("layer_norm",))):
         if any(key in low for key in keys):
@@ -625,15 +649,16 @@ def kernel_group(name: str) -> str:
     return "other elementwise"
 
 
-def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10) -> dict:
+def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, **config) -> dict:
     """DDPM reverse steps of the flagship under `impl` (p_sample_loop's body:
-    one normal draw and p_sample_step), at batch b and length l. Wall: the
+    one normal draw and p_sample_step), at batch b and length l, its config
+    fields replaced by `config`. Wall: the
     host clock around `steps` synchronised steps, profiler off, the median of
     three. Then one torch.profiler window of `steps` steps: device events
     (kernels, memcpy, memset) per step, their busy time (the union of their
     intervals), the busy share of the first-to-last event span, and device
     time per kernel group."""
-    model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl)
+    model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl, **config)
     schedule = DiffusionSchedule.create("cosine", 1000, device=DEVICE)
     x, _, mask = denoiser_inputs(b, l)
     is_angular = torch.ones(6, dtype=torch.bool, device=DEVICE)
@@ -759,12 +784,13 @@ def train_batch(b: int, l: int, seed: int = SEED) -> dict:
             "attn_mask": (torch.arange(l)[None, :] < lengths[:, None]).float(), "lengths": lengths}
 
 
-def flagship_trainer(device: str, dropout: float = 0.1, mesh=None, cuda_graphs: bool = True, **cfg) -> Trainer:
+def flagship_trainer(device: str, dropout: float = 0.1, mesh=None, cuda_graphs: bool = True,
+                     matmul_precision: str = FLAGSHIP.matmul_precision, **cfg) -> Trainer:
     """The flagship denoiser with seeded random weights and its trainer
     (data-parallel over `mesh`, if given; its fit() steps as CUDA graphs on
     the card unless cuda_graphs is off)."""
     config = dataclasses.replace(FLAGSHIP, hidden_dropout_prob=dropout, attention_probs_dropout_prob=dropout,
-                                 remat=cfg.pop("remat", False))
+                                 remat=cfg.pop("remat", False), matmul_precision=matmul_precision)
     model = model_io.init_random(config, torch.Generator().manual_seed(SEED)).to(device)
     tcfg = TrainConfig(**{"lr": 1e-4, "batch_size": 64, "max_epochs": 800, "lr_scheduler": "LinearWarmup", **cfg})
     return Trainer(model, DiffusionSchedule.create("cosine", 1000, device=device), tcfg, steps_per_epoch=300,
@@ -1549,8 +1575,8 @@ def phase10_rank(argv: list) -> None:
     <tmp>/phase10_rank<r>.json and, on rank 0, the results to compare to
     <tmp>/phase10_rank0.pt. argv: tmp, the flagship directory."""
     tmp, model_dir = Path(argv[0]), argv[1]
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    torch.backends.cudnn.fp32_precision = "ieee"
     mesh = make_mesh()
     rank, report, results = mesh.rank, {}, {}
 
@@ -2061,6 +2087,11 @@ GRAPH_FIT_EPOCHS, GRAPH_FIT_TAIL = 2, 17  # Trainer.fit against its eager self: 
 # (phase_graph_profile): the table reads of t and of the coefficients (2) and
 # the counter's advance (1) in place of torch.full (-1)
 GRAPH_BOOKKEEPING = 2
+# The bitwise gates of graphs against cuda_graphs=False run a TF32 scope,
+# so that a capture outside the model's scope would show; the step graphs'
+# nodes are held against phase 5's float32 eager profile, and the 1e-6 gate
+# of the default algorithms is float32's
+GRAPH_PRECISION = {"matmul_precision": "high"}
 
 
 def same(a, b) -> bool:
@@ -2104,7 +2135,7 @@ def phase_graph_sweeps(model_dir: str, card: str) -> None:
     shape's graphs, the second replays them): bit-for-bit equal results,
     the v2 launches of each run, per chunk ms per step, capture seconds and
     the memory the capture reserved, backbones/s."""
-    model, train_args = model_io.from_dir(model_dir, device=DEVICE)
+    model, train_args = model_io.from_dir(model_dir, device=DEVICE, **GRAPH_PRECISION)
     schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=DEVICE)
     empty = AnglesEmptyDataset.from_dir(model_dir)
     is_angular = list(empty.feature_is_angular["angles"])
@@ -2175,7 +2206,7 @@ def phase_graph_chains(model_dir: str) -> None:
          dict(start_t=RECON_T, return_history=True), RECON_T, V2),
     )
     for tag, impl, (b, l), options, steps, lib in cases:
-        model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl)
+        model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl, **GRAPH_PRECISION)
         x, _, mask = denoiser_inputs(b, l)
         out = {}
         samplers = {graphs: sampling.build_sampler(model, schedule, is_angular, cuda_graphs=graphs, **options)
@@ -2230,7 +2261,7 @@ def graph_nodes(body, generators=()) -> tuple:
     for generator in generators:
         graph.register_generator_state(generator)
     account = CapturedLaunches()
-    with account.capturing(), torch.cuda.graph(graph):
+    with collector_paused(), account.capturing(), torch.cuda.graph(graph):
         body()
     driver = ctypes.CDLL("libcuda.so.1")
     handle, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
@@ -2271,6 +2302,36 @@ def step_graph_nodes(model, table, x, mask, is_angular) -> tuple:
         return graph_nodes(plain.main, [plain.generator])
 
 
+def replayed_ddpm_steps(model, table, x, mask, is_angular, pool=None):
+    """A DDPM chain's step graph (sampling.TableChain's main segment) at x's
+    shape, seeded, after its capture and two replays; returns run(steps),
+    which replays `steps` steps and synchronises."""
+    chain = sampling.TableChain("ddpm", table, model, x, mask, is_angular, draws=True, pool=pool)
+
+    def run(steps: int) -> None:
+        with torch.inference_mode():
+            for _ in range(steps):
+                chain.main()
+        torch.cuda.synchronize()
+
+    with torch.inference_mode():
+        chain.state.x.copy_(x)
+        chain.state.attn_mask.copy_(mask)
+        chain.generator.manual_seed(SEED)
+    run(3)  # the eager first step and two replays
+    return run
+
+
+def wall_ms_per_step(run, steps: int = 10, windows: int = 3) -> list:
+    """ms per step of `windows` windows of run(steps), on the host clock."""
+    walls = []
+    for _ in range(windows):
+        start = time.perf_counter()
+        run(steps)
+        walls.append((time.perf_counter() - start) / steps * 1e3)
+    return walls
+
+
 def phase_graph_profile(model_dir: str, eager: dict, card: str) -> None:
     """A graphed DDPM step at each chunk shape under "auto": the nodes of
     its one-step graph against the eager step's device operations (phase
@@ -2305,27 +2366,12 @@ def phase_graph_profile(model_dir: str, eager: dict, card: str) -> None:
                                f"{ref['events']} + {GRAPH_BOOKKEEPING} kernels")
 
         pool = torch.cuda.graph_pool_handle()
-        chain = sampling.TableChain("ddpm", table, model, x, mask, is_angular, draws=True, pool=pool)
-        with torch.inference_mode():
-            chain.state.x.copy_(x)
-            chain.state.attn_mask.copy_(mask)
-            chain.generator.manual_seed(SEED)
-
-            def run(steps: int) -> None:
-                for _ in range(steps):
-                    chain.main()
-                torch.cuda.synchronize()
-
-            run(3)  # the eager first step and two replays
-            pool_mib = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                           if tuple(s.get("segment_pool_id", ())) == tuple(pool)) / 2**20
-            walls = []
-            for _ in range(3):
-                start = time.perf_counter()
-                run(10)
-                walls.append((time.perf_counter() - start) / 10 * 1e3)
-            with torch.profiler.profile(activities=activities) as prof:
-                run(10)
+        run = replayed_ddpm_steps(model, table, x, mask, is_angular, pool)
+        pool_mib = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                       if tuple(s.get("segment_pool_id", ())) == tuple(pool)) / 2**20
+        walls = wall_ms_per_step(run)
+        with torch.profiler.profile(activities=activities) as prof:
+            run(10)
         events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
                         key=lambda e: e.time_range.start)
         busy, end = 0.0, -math.inf
@@ -2349,7 +2395,7 @@ def phase_graph_profile(model_dir: str, eager: dict, card: str) -> None:
                            f"{FLAGSHIP.num_hidden_layers} of v1")
 
 
-def graph_train_runs(pdist, steps: int, fused: int = 0) -> dict:
+def graph_train_runs(pdist, steps: int, fused: int = 0, matmul_precision: str = FLAGSHIP.matmul_precision) -> dict:
     """The flagship train step (dropout 0.1, gradient_clip 1.0, one-cycle
     lr) at B = 64, L = 128 from the same weights, generator and dropout
     seed, over `steps` batches: train_step calls of the eager trainer
@@ -2364,7 +2410,7 @@ def graph_train_runs(pdist, steps: int, fused: int = 0) -> dict:
     for run in runs:
         trainer = flagship_trainer(DEVICE, lr_scheduler="OneCycleLR", use_pdist_loss=pdist,
                                    fused_steps=fused if run.startswith("fused") else 1,
-                                   cuda_graphs=not run.startswith("eager"))
+                                   cuda_graphs=not run.startswith("eager"), matmul_precision=matmul_precision)
         torch.manual_seed(SEED)
         if run.startswith("eager"):
             rows = torch.stack([torch.cat([a[None], t]) for a, t in
@@ -2392,7 +2438,7 @@ def graph_fit_runs() -> dict:
     out = {}
     for run in ("eager", "graphed"):
         trainer = flagship_trainer(DEVICE, lr_scheduler="OneCycleLR", fused_steps=2, max_epochs=GRAPH_FIT_EPOCHS,
-                                   cuda_graphs=run == "graphed")
+                                   cuda_graphs=run == "graphed", **GRAPH_PRECISION)
         rows = trainer.fit(train_data, valid_data)
         out[run] = ([{k: v for k, v in row.items() if k != "epoch_seconds"} for row in rows],
                     [p.detach().cpu() for p in trainer.model.parameters()])
@@ -2408,7 +2454,7 @@ def deterministic_train_gates(out_path: str) -> None:
     setting must precede cuBLAS's first use."""
     with warnings_recorded() as seen:
         torch.use_deterministic_algorithms(True, warn_only=True)
-        runs = {str(pdist): graph_train_runs(pdist, steps, fused) for pdist, steps, fused in
+        runs = {str(pdist): graph_train_runs(pdist, steps, fused, **GRAPH_PRECISION) for pdist, steps, fused in
                 ((0.0, GRAPH_TRAIN_STEPS, 4), (graph_pdist(), GRAPH_PDIST_STEPS, 0))}
         fit = graph_fit_runs()
     torch.save({"runs": runs, "fit": fit, "warnings": sorted(set(seen))}, out_path)
@@ -2533,6 +2579,204 @@ def phase_graphs(model_dir: str, eager_profiles: dict, card: str) -> None:
     log(f"[12] CUDA graphs in {time.perf_counter() - start:.3f} s")
 
 
+# -- 13. matmul precision ---------------------------------------------------------
+
+PRECISIONS = ("highest", "default", "BF16_BF16_F32")  # IEEE float32, TF32, bf16 operands (models/config.py)
+# The flagship forward's drift from "highest", as the RMS of the difference
+# over the RMS of the output: starting bounds (a reading above one fails the
+# run and is reported, never a quietly wider bound)
+PRECISION_DRIFT = {"default": 1e-2, "BF16_BF16_F32": 5e-2}
+PRECISION_SHAPES = ((15, 64), (63, 128))  # the sweep's two chunks
+PRECISION_STEPS = 20  # timed train steps, and the steps of the loss curves held against "highest"
+GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma", re.I)
+# The input projection's GEMM (K = 6: rows of 24 bytes, which TF32 tensor
+# cores do not take), which cuBLAS runs on a float32 FMA kernel under TF32:
+# one node in a step's graph and one in the train step's (measured)
+FEATURE_GEMMS = {"step": 1, "train": 1}
+
+
+def gemm_math(name: str) -> str | None:
+    """What a kernel's (mangled) name says of the GEMM it runs: "tf32" (TF32
+    tensor cores), "bf16" (bf16 operands on tensor cores), "ieee" (float32
+    FMA), "unplaced" for a GEMM kernel none of these patterns places; None
+    for a kernel that runs no GEMM (split-K's reduction included)."""
+    if not GEMM_KERNEL.search(name) or "splitKreduce" in name:
+        return None
+    if re.search(r"bf16|nvjet_tss", name):
+        return "bf16"
+    if re.search(r"tf32|tensorop_s1688|tensorop_s16816", name):
+        return "tf32"
+    if re.search(r"ffma|sgemm|gemv|f32f32_f32f32", name):
+        return "ieee"
+    return "unplaced"
+
+
+def gemm_kinds(names: dict) -> dict:
+    """{math: {kernel name: nodes}} of a graph's GEMM nodes (graph_nodes' names)."""
+    kinds: dict = {}
+    for name, n in names.items():
+        kind = gemm_math(name)
+        if kind is not None:
+            kinds.setdefault(kind, {})[name] = n
+    return kinds
+
+
+def gate_gemm_kinds(tag: str, matmul_precision: str, kinds: dict, feature_gemms: int) -> None:
+    """Under "highest" every GEMM node of the graph runs float32 FMA; under
+    "default" (the process's TF32) and "BF16_BF16_F32" (bf16 values in TF32
+    GEMMs) every one TF32 tensor cores but at most `feature_gemms` (the
+    input projection's). A backward pass left outside the model's scope
+    would put its ~150 GEMMs on float32 FMA under "highest"."""
+    counts = {k: sum(v.values()) for k, v in kinds.items()}
+    log(f"{tag}: GEMM nodes by their kernels' names {counts}: " +
+        "; ".join(f"{k}: {', '.join(f'{n} x {name[:100]}' for name, n in v.items())}" for k, v in kinds.items()))
+    want = "ieee" if matmul_precision == "highest" else "tf32"
+    off = sum(n for k, n in counts.items() if k != want) - (0 if want == "ieee" else feature_gemms)
+    if off > 0 or not counts:
+        raise RuntimeError(f"{tag}: GEMM nodes {counts} under matmul_precision {matmul_precision!r}")
+
+
+def check_setting_kept(tag: str, before: str) -> None:
+    """The process's fp32_precision as it was before the model ran."""
+    now = torch.backends.cuda.matmul.fp32_precision
+    if now != before:
+        raise RuntimeError(f"{tag}: the model left fp32_precision {now!r}, {before!r} before it")
+
+
+def train_step_graph_nodes(trainer: Trainer, batch: dict) -> dict:
+    """graph_nodes' kernel names of the trainer's step graph body (forward,
+    backward, clip, AdamW) on one device batch."""
+    lrs = torch.full((1,), trainer.cfg.lr, dtype=torch.float32, device=DEVICE)
+    return graph_nodes(trainer._steps_body([batch], lrs), [trainer.generator])[1]
+
+
+def loss_curve(matmul_precision: str, batches: list) -> torch.Tensor:
+    """The losses of len(batches) graphed train steps of the flagship
+    (dropout 0, constant lr 1e-4) on a linear T = 1000 schedule, from the
+    same weights and draws at every precision."""
+    config = dataclasses.replace(FLAGSHIP, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                                 matmul_precision=matmul_precision)
+    model = model_io.init_random(config, torch.Generator().manual_seed(SEED)).to(DEVICE)
+    trainer = Trainer(model, DiffusionSchedule.create("linear", 1000, device=DEVICE),
+                      TrainConfig(lr=1e-4, batch_size=BATCH, max_epochs=800, lr_scheduler=None), steps_per_epoch=300)
+    return torch.cat([trainer.train_steps([b]) for b in batches])[:, 0].cpu()
+
+
+def fixture_chain(matmul_precision: str) -> tuple:
+    """A full DDPM chain (T = 100, graphed) of the trained fixture (3 x 96)
+    at B = 16, L = 64 from the same x_T and the same draws at every
+    precision; (x_0, mask)."""
+    model, train_args = model_io.from_dir(str(FIXTURE), device=DEVICE, matmul_precision=matmul_precision)
+    schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=DEVICE)
+    x, _, mask = denoiser_inputs(16, train_args["max_seq_len"])
+    run = sampling.build_sampler(model, schedule, [True] * 6)
+    return run(x, mask, generator=torch.Generator(device=DEVICE).manual_seed(SEED)), mask
+
+
+def phase_precision(model_dir: str, card: str) -> None:
+    """Phase 13: the flagship at matmul_precision "highest", "default" (TF32)
+    and "BF16_BF16_F32". (a) times: a torch.profiler window of eager DDPM
+    steps at B = 64, L = 128 by kernel group (phase 5's), the graphed DDPM
+    step at the sweep's two chunks, the -n 1 DDPM sweep, the graphed train
+    step at B = 64, L = 128;
+    (b) drift from "highest" on the same inputs: one forward (the gate), a
+    full DDPM chain of the trained fixture, and the loss curve of 20 train
+    steps on a linear schedule; (c) the GEMM kernels that a DDPM step's graph
+    and the train step's graph (forward and backward) hold; (d) the
+    process's fp32_precision after every forward, train step and capture.
+    The process runs TF32 GEMMs here, as the command-line programs do."""
+    start_phase = time.perf_counter()
+    set_process_default()
+    before = torch.backends.cuda.matmul.fp32_precision
+    schedule = DiffusionSchedule.create("cosine", 1000, device=DEVICE)
+    table = sampling.ddpm_table(schedule, 1000)
+    is_angular = torch.ones(6, dtype=torch.bool, device=DEVICE)
+    empty = AnglesEmptyDataset.from_dir(model_dir)
+    features_angular = list(empty.feature_is_angular["angles"])
+    n, layers, steps_t = len(range(*SWEEP)), FLAGSHIP.num_hidden_layers, FLAGSHIP_TRAIN_ARGS["timesteps"]
+    x, t, mask = denoiser_inputs(BATCH, FLAGSHIP.max_position_embeddings)
+    host_batches = [{k: v.numpy() for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings, SEED + i).items()}
+                    for i in range(PRECISION_STEPS)]
+    forward, chains, curves = {}, {}, {}
+    for precision in PRECISIONS:
+        what = f"[13] matmul_precision {precision!r} on {card}"
+        model, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision)
+        with torch.inference_mode():
+            forward[precision] = model(x, t, mask)
+        check_setting_kept(f"{what}, forward", before)
+        r = profile_steps(model_dir, "auto", BATCH, FLAGSHIP.max_position_embeddings, matmul_precision=precision)
+        groups = ", ".join(f"{g} {ms:.4f} ({k:.0f})"
+                           for g, (ms, k) in sorted(r["groups"].items(), key=lambda kv: -kv[1][0]))
+        log(f"{what}: profile of an eager DDPM step B={BATCH} L=128: {r['events']:.1f} device operations, busy "
+            f"{r['busy_ms']:.4f} ms; device ms (operations) per step by group: {groups}")
+
+        # (a) the graphed DDPM step at each chunk shape, and the sweep
+        steps = []
+        for b, l in PRECISION_SHAPES:
+            xb, _, mb = denoiser_inputs(b, l)
+            walls = wall_ms_per_step(replayed_ddpm_steps(model, table, xb, mb, is_angular))
+            steps.append(f"{b} x {l} {statistics.median(walls):.4f} ms ({', '.join(f'{w:.4f}' for w in walls)})")
+        check_setting_kept(f"{what}, step graphs", before)
+        sampler = sampling.build_sampler(model, schedule, features_angular, gen_noise=True)
+        walls = []
+        for _ in range(2):  # the first run captures each chunk shape's graphs
+            V2.launches = V1.launches = 0
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            sampling.sample(model, schedule, is_angular=features_angular, pad=empty.pad, n=1, sweep_lengths=SWEEP,
+                            batch_size=BATCH, bucket_multiple=BUCKET, mean_offset=empty.get_masked_means(),
+                            seed=SEED, sampler=sampler)
+            walls.append(time.perf_counter() - start)
+        check_launches(f"{what}, DDPM sweep", {V2.name: layers * steps_t * expected_chunks(), V1.name: 0})
+        check_setting_kept(f"{what}, sweep", before)
+        log(f"{what}: graphed DDPM step, median of three windows of 10 replays: {'; '.join(steps)}; DDPM T=1000 "
+            f"sweep (-n 1 -l {SWEEP[0]} {SWEEP[1]} -b {BATCH}, {n} backbones): {n / walls[1]:.3f} backbones/s "
+            f"(first run, with its captures: {n / walls[0]:.3f})")
+
+        # (a) the graphed train step; (c) the GEMM kernels of both graphs
+        trainer = flagship_trainer(DEVICE, matmul_precision=precision)
+        times = time_train_steps(trainer, host_batches[:4], False, PRECISION_STEPS)
+        ms = statistics.median(times)
+        check_setting_kept(f"{what}, train steps", before)
+        log(f"{what}: graphed train step B={BATCH} L=128 (dropout 0.1): median {ms:.4f} ms of {PRECISION_STEPS} "
+            f"(min {min(times):.4f}, max {max(times):.4f}), {BATCH / ms * 1e3:.1f} structures/s")
+        b, l = PRECISION_SHAPES[1]
+        xb, _, mb = denoiser_inputs(b, l)
+        gate_gemm_kinds(f"{what}, a DDPM step's graph at {b} x {l}", precision,
+                        gemm_kinds(step_graph_nodes(model, table, xb, mb, is_angular)[1]), FEATURE_GEMMS["step"])
+        gate_gemm_kinds(f"{what}, the train step's graph (forward and backward)", precision,
+                        gemm_kinds(train_step_graph_nodes(trainer, trainer.to_device(host_batches[0]))),
+                        FEATURE_GEMMS["train"])
+        check_setting_kept(f"{what}, captures", before)
+        del trainer, model, sampler
+
+        # (b) the fixture's chain and the loss curve
+        chains[precision] = fixture_chain(precision)
+        curves[precision] = loss_curve(precision, host_batches)
+        check_setting_kept(f"{what}, fixture chain and loss curve", before)
+
+    ref = forward["highest"]
+    (ref_chain, chain_mask), ref_curve = chains["highest"], curves["highest"]
+    for precision in PRECISIONS[1:]:
+        diff = forward[precision] - ref
+        max_abs, rel = diff.abs().max().item(), (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+        angles = (chains[precision][0] - ref_chain + math.pi) % (2 * math.pi) - math.pi
+        mean_angle = (angles.abs() * chain_mask[..., None]).sum().item() / (chain_mask.sum().item() * angles.shape[-1])
+        curve = (curves[precision] - ref_curve).abs()
+        log(f"[13] {precision!r} against 'highest' on {card}: flagship forward B={BATCH} L=128 max abs diff "
+            f"{max_abs:.3e}, relative RMS {rel:.3e} (gate: above 0, at most {PRECISION_DRIFT[precision]}); the "
+            f"trained fixture's DDPM chain (T=100, B=16 L=64, the same draws) mean |d angle| {mean_angle:.3e} rad; "
+            f"loss over {PRECISION_STEPS} train steps (linear schedule, dropout 0) max abs diff "
+            f"{curve.max().item():.3e}, last {curve[-1].item():.3e} (losses {ref_curve[0].item():.5f} -> "
+            f"{ref_curve[-1].item():.5f} at 'highest', {curves[precision][-1].item():.5f} here)")
+        if not 0 < rel <= PRECISION_DRIFT[precision]:
+            raise RuntimeError(f"[13] the {precision!r} forward's drift from 'highest' is {rel}: expected above 0 "
+                               f"and at most {PRECISION_DRIFT[precision]}")
+    log(f"[13] fp32_precision {before!r} after every forward, train step and capture; phase 13 in "
+        f"{time.perf_counter() - start_phase:.3f} s")
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+
+
 def main() -> None:
     card = phase_card()
     phase_build()
@@ -2556,6 +2800,7 @@ def main() -> None:
         multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
         evaluation_launches = phase_evaluation(tmp, trained, card)
         phase_graphs(model_dir, eager_profiles, card)
+        phase_precision(model_dir, card)
 
     log(json.dumps({"kernels": [
         {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",

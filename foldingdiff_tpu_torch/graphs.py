@@ -27,12 +27,19 @@ not happen then. CapturedLaunches takes the capture's counts back and adds
 them on every replay, so `REL_ATTENTION.launches` still counts the kernels
 that ran on the card.
 
+Python's cyclic garbage collector is paused while a graph is captured
+(collector_paused): a collection then may free a dead graph that a
+reference cycle held (a Trainer and its step graphs form one), and
+destroying a graph while a stream captures breaks the capture.
+torch.cuda.graph no longer collects before a capture.
+
 A StepGraph raises for a CPU device and when no card is present: there is no
 fallback. The callers run their eager loops on the CPU.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Any, Callable, Iterator, List, Sequence, Tuple
 
 import torch
@@ -68,6 +75,19 @@ class CapturedLaunches:
 
     def replayed(self) -> None:
         self._add(1)
+
+
+@contextlib.contextmanager
+def collector_paused() -> Iterator[None]:
+    """The cyclic garbage collector off while the block (a capture) runs,
+    then as it was."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepGraph:
@@ -112,7 +132,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for generator in self.generators:
             graph.register_generator_state(generator)
-        with self.launches.capturing(), torch.cuda.graph(graph, pool=self.pool):
+        with collector_paused(), self.launches.capturing(), torch.cuda.graph(graph, pool=self.pool):
             self.outputs = self.body()
         self.graph = graph
         return first

@@ -10,6 +10,7 @@ differences from BertForDiffusion:
   (reference modelling.py:823-828), where the denoiser adds its time
   embedding after it;
 - the attention mask is a causal prefix mask, and the model has no remat.
+Its GEMMs follow config.matmul_precision as the denoiser's do (bert.py).
 
 The layers route their attention as the denoiser's do (bert.attention_route):
 in eval mode under "auto" every forward launches the v2 kernel once per
@@ -43,8 +44,9 @@ class BertForAutoregressive(BertForDiffusion):
         position_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
         position_ids, attn_bias, route, dist_idx = self._attention_inputs(inputs, attention_mask, position_ids)
-        hidden = self.inputs_to_hidden_dim(inputs) + self.time_embed(seq_lengths)[:, None, :]
-        return self._encode(self.embeddings(hidden, position_ids), attn_bias, route, dist_idx)
+        with self.matmul_scope():
+            hidden = self.inputs_to_hidden_dim(inputs) + self.time_embed(seq_lengths)[:, None, :]
+            return self._encode(self.embeddings(hidden, position_ids), attn_bias, route, dist_idx)
 
 
 def ar_sample(

@@ -45,6 +45,14 @@ Train mode (`model.train()`) is the JAX model with deterministic=False:
   (torch.utils.checkpoint, non-reentrant); the state dict is the same.
 Eval mode launches what it launched before train mode existed: dropout is
 the identity there and adds no device operation.
+
+config.matmul_precision sets every GEMM of the model (precision.py), as
+JAX's bert.py:277-279 scope does: forward() runs under matmul_scope(), the
+trainers run the backward pass under it too (training/trainer.py:
+optimizer_step), and under "BF16_BF16_F32" every Linear and every einsum of
+the plain attention takes bf16 operands with a float32 output, forward and
+backward, remat's recompute included. The fused attention kernels compute in
+float32 under every value.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from foldingdiff_tpu_torch import precision
 from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.models.time_embed import get_time_encoder
 from foldingdiff_tpu_torch.ops.attention import fused_attention, fused_attention_reference, fused_attention_v2
@@ -107,10 +116,11 @@ class SelfAttention(nn.Module):
         self.head_size = config.attention_head_size
         self.max_pos = config.max_position_embeddings
         self.probs_dropout = config.attention_probs_dropout_prob
-        hidden = config.hidden_size
-        self.query = nn.Linear(hidden, hidden)
-        self.key = nn.Linear(hidden, hidden)
-        self.value = nn.Linear(hidden, hidden)
+        self.bf16 = config.matmul_mode == "bf16"
+        hidden, mode = config.hidden_size, config.matmul_mode
+        self.query = precision.Linear(hidden, hidden, mode)
+        self.key = precision.Linear(hidden, hidden, mode)
+        self.value = precision.Linear(hidden, hidden, mode)
         self.distance_embedding = (
             nn.Embedding(2 * self.max_pos - 1, self.head_size)
             if config.position_embedding_type in ("relative_key", "relative_key_query")
@@ -139,7 +149,8 @@ class SelfAttention(nn.Module):
                 ctx = fused_attention(q, k, v, attn_bias, e_lr)
             else:
                 ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query,
-                                                dropout_p=self.probs_dropout if self.training else 0.0)
+                                                dropout_p=self.probs_dropout if self.training else 0.0,
+                                                bf16=self.bf16)
         return ctx.transpose(1, 2).reshape(b, l, self.n_heads * self.head_size)
 
 
@@ -162,7 +173,7 @@ class _DenseLayerNorm(nn.Module):
 
     def __init__(self, d_in: int, d_out: int, config: ModelConfig):
         super().__init__()
-        self.dense = nn.Linear(d_in, d_out)
+        self.dense = precision.Linear(d_in, d_out, config.matmul_mode)
         self.dropout = nn.Dropout(config.hidden_dropout_prob)
         self.LayerNorm = nn.LayerNorm(d_out, eps=config.layer_norm_eps)
 
@@ -180,7 +191,7 @@ class _Attention(nn.Module):
 class _Intermediate(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
-        self.dense = nn.Linear(config.hidden_size, config.intermediate_size)
+        self.dense = precision.Linear(config.hidden_size, config.intermediate_size, config.matmul_mode)
 
 
 class Layer(nn.Module):
@@ -233,12 +244,12 @@ class Embeddings(nn.Module):
 class AnglesPredictor(nn.Module):
     """dense -> act -> LayerNorm -> dense head (modelling.py:173-208)."""
 
-    def __init__(self, d_model: int, d_out: int, activation: str = "gelu", eps: float = 1e-12):
+    def __init__(self, d_model: int, d_out: int, mode: str, activation: str = "gelu", eps: float = 1e-12):
         super().__init__()
-        self.dense1 = nn.Linear(d_model, d_model)
+        self.dense1 = precision.Linear(d_model, d_model, mode)
         self.act = _act(activation)
         self.layer_norm = nn.LayerNorm(d_model, eps=eps)
-        self.dense2 = nn.Linear(d_model, d_out)
+        self.dense2 = precision.Linear(d_model, d_out, mode)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.dense2(self.layer_norm(self.act(self.dense1(x))))
@@ -255,14 +266,15 @@ class BertForDiffusion(nn.Module):
     def __init__(self, config: ModelConfig):
         super().__init__()
         self.config = config
-        self.inputs_to_hidden_dim = nn.Linear(config.n_inputs, config.hidden_size)
+        mode = config.matmul_mode
+        self.inputs_to_hidden_dim = precision.Linear(config.n_inputs, config.hidden_size, mode)
         self.embeddings = Embeddings(config)
         self.time_embed = get_time_encoder(config.time_encoding, config.hidden_size)
         self.encoder = _Encoder(config)
         if config.decoder == "mlp":
-            self.token_decoder = AnglesPredictor(config.hidden_size, config.n_inputs)
+            self.token_decoder = AnglesPredictor(config.hidden_size, config.n_inputs, mode)
         elif config.decoder == "linear":
-            self.token_decoder = nn.Linear(config.hidden_size, config.n_inputs)
+            self.token_decoder = precision.Linear(config.hidden_size, config.n_inputs, mode)
         else:
             raise ValueError(f"Unrecognized decoder: {config.decoder}")
 
@@ -274,10 +286,17 @@ class BertForDiffusion(nn.Module):
         position_ids: torch.Tensor | None = None,
     ) -> torch.Tensor:
         position_ids, attn_bias, route, dist_idx = self._attention_inputs(inputs, attention_mask, position_ids)
-        hidden = self.embeddings(self.inputs_to_hidden_dim(inputs), position_ids)
-        hidden = hidden + self.time_embed(timestep)[:, None, :]
-        remat = self.config.remat and self.training and torch.is_grad_enabled()
-        return self._encode(hidden, attn_bias, route, dist_idx, remat)
+        with self.matmul_scope():
+            hidden = self.embeddings(self.inputs_to_hidden_dim(inputs), position_ids)
+            hidden = hidden + self.time_embed(timestep)[:, None, :]
+            remat = self.config.remat and self.training and torch.is_grad_enabled()
+            return self._encode(hidden, attn_bias, route, dist_idx, remat)
+
+    def matmul_scope(self):
+        """The context of config.matmul_precision (precision.matmul_precision)
+        that the forward runs in, and that a backward pass through the model
+        must run in (optimizer_step enters it)."""
+        return precision.matmul_precision(self.config.matmul_mode)
 
     def _attention_inputs(self, inputs: torch.Tensor, attention_mask: torch.Tensor,
                           position_ids: torch.Tensor | None):

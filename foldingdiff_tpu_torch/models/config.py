@@ -24,8 +24,26 @@ Fields the port reads differently:
 - hidden_dropout_prob and attention_probs_dropout_prob are read in train
   mode (model.train()) only, and remat recomputes each layer in the
   backward pass of train mode (models/bert.py).
-- matmul_precision is kept for config parity and not read: the port
-  computes in float32 (the caller keeps TF32 off).
+- matmul_precision is read as the JAX models read it: every GEMM of the
+  model's forward and backward passes runs at it (precision.py), and the
+  caller's setting holds outside the model. "default" enters no scope, as
+  JAX's models do not: the caller's setting holds inside the model too, and
+  the port's command-line programs set TF32 for the process, XLA:GPU's
+  default (precision.set_process_default). Checked at construction:
+
+| matmul_precision (JAX's names) | JAX on an H100 | the port on the H100 |
+| --- | --- | --- |
+| "default" | the caller's; TF32 by XLA:GPU's default | the caller's; TF32 under the port's programs |
+| "bfloat16" (Precision.DEFAULT) | TF32 | TF32 tensor cores |
+| "high", "tensorfloat32" (Precision.HIGH) | TF32 | TF32 tensor cores |
+| "highest", "float32", preset "F32_F32_F32" | IEEE float32 | IEEE float32 |
+| preset "TF32_TF32_F32" | TF32 | TF32 tensor cores |
+| preset "BF16_BF16_F32" | bf16 operands, f32 sums and output | bf16 operands, f32 sums, f32 output |
+| other presets (*_X3, *_X6, *_X9, F16_*, ANY_F8_*, BF16_BF16_BF16, F64_F64_F64), other strings | their algorithms | ValueError |
+
+  The fused attention kernels compute in float32 FMA under every value; on
+  the CPU, whose GEMMs ignore the CUDA TF32 setting, every value but
+  "BF16_BF16_F32" gives float32's numbers.
 """
 from __future__ import annotations
 
@@ -37,6 +55,7 @@ from foldingdiff_tpu_torch.data.feature_sets import (
     FEATURE_SET_NAMES_TO_ANGULARITY,
     FEATURE_SET_NAMES_TO_FEATURE_NAMES,
 )
+from foldingdiff_tpu_torch.precision import mode_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +81,14 @@ class ModelConfig:
     attention_impl: str = "auto"  # auto | pallas_v2 | pallas | xla | plain
     relative_scores_impl: str = "gather"  # gather | skew | onedot
     remat: bool = False
+
+    def __post_init__(self) -> None:
+        mode_of(self.matmul_precision)  # a ValueError for a name the port does not run
+
+    @property
+    def matmul_mode(self) -> str:
+        """The mode of precision.py: "caller", "ieee", "tf32" or "bf16"."""
+        return mode_of(self.matmul_precision)
 
     @property
     def n_inputs(self) -> int:
@@ -102,7 +129,8 @@ class ModelConfig:
 
     @classmethod
     def from_hf_config_json(cls, fname: str, **overrides) -> "ModelConfig":
-        """Build the transformer body from an HF config.json artifact."""
+        """Build the transformer body from an HF config.json artifact, and
+        its matmul_precision where the file names one (to_hf_config_dict)."""
         with open(fname) as f:
             cfg = json.load(f)
         fields = dict(
@@ -116,13 +144,18 @@ class ModelConfig:
             attention_probs_dropout_prob=cfg.get("attention_probs_dropout_prob", 0.1),
             layer_norm_eps=cfg.get("layer_norm_eps", 1e-12),
             hidden_act=cfg.get("hidden_act", "gelu"),
+            matmul_precision=cfg.get("matmul_precision", "default"),
         )
         fields.update(overrides)
         return cls(**fields)
 
     def to_hf_config_dict(self) -> dict:
-        """Export the transformer body as an HF-style config.json dict."""
+        """Export the transformer body as an HF-style config.json dict, with
+        matmul_precision where it is not "default" (so that a default
+        config's file is the JAX package's, whose from_dir ignores the key)."""
+        precision = {} if self.matmul_precision == "default" else {"matmul_precision": self.matmul_precision}
         return {
+            **precision,
             "architectures": ["BertModel"],
             "attention_probs_dropout_prob": self.attention_probs_dropout_prob,
             "classifier_dropout": None,

@@ -35,9 +35,10 @@ from foldingdiff_tpu_torch.devices import require_device
 from foldingdiff_tpu_torch.models.bert import BertForDiffusion
 from foldingdiff_tpu_torch.models.config import ModelConfig
 
+# The fields config.json sets over training_args.json: the transformer body, and matmul_precision
 _BODY_FIELDS = (
     "hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
-    "max_position_embeddings", "position_embedding_type", "layer_norm_eps", "hidden_act",
+    "max_position_embeddings", "position_embedding_type", "layer_norm_eps", "hidden_act", "matmul_precision",
 )
 
 

@@ -38,6 +38,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from foldingdiff_tpu_torch import precision
+
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
@@ -107,23 +109,27 @@ def fused_attention_reference(
     e_lr: torch.Tensor | None = None,
     key_term: bool = False,
     dropout_p: float = 0.0,
+    bf16: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version: the einsums of the JAX package's attention_reference.
     key_term adds k[r] . e_lr[l, r] as well: the relative_key_query scores,
     which the denoiser runs on this plain path only, as the JAX package does.
     dropout_p drops attention probabilities, as the denoiser's train mode
-    does (JAX's bert.py:186); the kernels' plain versions leave it 0."""
+    does (JAX's bert.py:186); the kernels' plain versions leave it 0. bf16
+    takes every einsum on bf16 operands with a float32 output, as a model
+    at matmul_precision "BF16_BF16_F32" does (precision.bf16_einsum)."""
+    einsum = precision.bf16_einsum if bf16 else torch.einsum
     scale = 1.0 / (q.shape[-1] ** 0.5)
-    scores = torch.einsum("bhld,bhmd->bhlm", q, k)
+    scores = einsum("bhld,bhmd->bhlm", q, k)
     if e_lr is not None:
-        scores = scores + torch.einsum("bhld,lrd->bhlr", q, e_lr)
+        scores = scores + einsum("bhld,lrd->bhlr", q, e_lr)
         if key_term:
-            scores = scores + torch.einsum("bhrd,lrd->bhlr", k, e_lr)
+            scores = scores + einsum("bhrd,lrd->bhlr", k, e_lr)
     scores = scores * scale + mask_bias[:, None, None, :]
     probs = torch.softmax(scores, dim=-1)
     if dropout_p:
         probs = torch.nn.functional.dropout(probs, dropout_p)
-    return torch.einsum("bhlm,bhmd->bhld", probs, v)
+    return einsum("bhlm,bhmd->bhld", probs, v)
 
 
 def fused_attention(

@@ -34,9 +34,9 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch import nn
 
+from foldingdiff_tpu_torch import precision
 from foldingdiff_tpu_torch.parallel.mesh import (
     Mesh, NamedParams, _all_reduce_coalesced, all_gather_rows, make_mesh, replicate, shard_batch,
 )
@@ -157,28 +157,30 @@ class _ReduceFromModel(torch.autograd.Function):
 class ColumnParallelLinear(nn.Module):
     """This model rank's output features of a Linear, behind f."""
 
-    def __init__(self, full: nn.Linear, mesh: Mesh) -> None:
+    def __init__(self, full: precision.Linear, mesh: Mesh) -> None:
         super().__init__()
         self.mesh = mesh
+        self.mode = full.mode
         self.weight = nn.Parameter(shard_tensor(full.weight.detach(), ("model", None), mesh).clone())
         self.bias = nn.Parameter(shard_tensor(full.bias.detach(), ("model",), mesh).clone())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(_CopyToModel.apply(x, self.mesh), self.weight, self.bias)
+        return precision.linear(_CopyToModel.apply(x, self.mesh), self.weight, self.bias, self.mode)
 
 
 class RowParallelLinear(nn.Module):
     """This model rank's input features of a Linear: its partial product
     summed over the model axis by g, then the full bias, added once."""
 
-    def __init__(self, full: nn.Linear, mesh: Mesh) -> None:
+    def __init__(self, full: precision.Linear, mesh: Mesh) -> None:
         super().__init__()
         self.mesh = mesh
+        self.mode = full.mode
         self.weight = nn.Parameter(shard_tensor(full.weight.detach(), (None, "model"), mesh).clone())
         self.bias = nn.Parameter(full.bias.detach().clone())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ReduceFromModel.apply(F.linear(x, self.weight), self.mesh) + self.bias
+        return _ReduceFromModel.apply(precision.linear(x, self.weight, None, self.mode), self.mesh) + self.bias
 
 
 def shard_params(model: nn.Module, mesh: Mesh2D) -> nn.Module:

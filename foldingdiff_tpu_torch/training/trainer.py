@@ -201,9 +201,14 @@ def optimizer_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, los
     global-norm clip and the AdamW step at learning rate `lr`: one update of
     either trainer. `lr` is a float or, for a capturable optimizer, a
     0-dim device tensor (a graph's slot); a capturable optimizer's own lr
-    tensor takes its value in place."""
+    tensor takes its value in place. The backward pass runs in the model's
+    matmul_scope, as its forward did: JAX's transposes keep each dot's
+    precision, and cuBLAS picks its kernels at the call (or the capture).
+    The loss's own backward runs in it as well: the port's losses have no
+    GEMM."""
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    with model.matmul_scope():
+        loss.backward()
     with torch.profiler.record_function("optimizer"):
         named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
         if mesh is not None:

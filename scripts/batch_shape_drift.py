@@ -36,7 +36,7 @@ STEPS = [1, 2, 3, 5, 10, 20, 50, 100, 200, 500, 1000]
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("batch_shape_drift: no CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"  # a "default" model's GEMMs in IEEE float32
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     model = model_io.init_random(cs.FLAGSHIP, torch.Generator().manual_seed(cs.SEED)).to("cuda").eval()

@@ -88,7 +88,7 @@ def main(argv=None) -> None:
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"  # a "default" model's GEMMs in IEEE float32
     if args.child:
         torch.use_deterministic_algorithms(True, warn_only=True)
     label = "deterministic algorithms" if args.child else "default algorithms"

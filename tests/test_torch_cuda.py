@@ -2,22 +2,28 @@
 Tests that need an NVIDIA GPU: the two CUDA attention kernels
 (csrc/rel_attention.cu, csrc/gathered_attention.cu) against their plain
 PyTorch versions, the wrappers' input checks, a reverse step on the card,
-and the CUDA graphs of the reverse chains and the train step against the
-eager ones (bitwise, with the kernels' launches counted). They skip without
-a card.
+the CUDA graphs of the reverse chains and the train step against the
+eager ones (bitwise, with the kernels' launches counted), and
+matmul_precision on the card (TF32 and bf16 against "highest", "default"
+at the caller's setting, the caller's setting kept). They skip without a
+card; they run with cuBLAS's float32 GEMMs in IEEE float32 outside the
+models.
 They import no JAX, so they also run on a machine that has none, without the
 suite's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
 import torch
 
+from foldingdiff_tpu_torch import precision
 from foldingdiff_tpu_torch.diffusion import sampling
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+from foldingdiff_tpu_torch.graphs import StepGraph
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.config import ModelConfig
 from foldingdiff_tpu_torch.ops import attention
@@ -30,7 +36,7 @@ pytestmark = pytest.mark.cuda
 def device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
     return torch.device("cuda")
 
 
@@ -308,8 +314,9 @@ def deterministic():
     torch.use_deterministic_algorithms(False)
 
 
-def _trainer(device, cuda_graphs, fused=1, pdist=(0.5, 1.0)):
-    config = dataclasses.replace(GRAPH_CONFIG, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
+def _trainer(device, cuda_graphs, fused=1, pdist=(0.5, 1.0), matmul_precision="default"):
+    config = dataclasses.replace(GRAPH_CONFIG, hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
+                                 matmul_precision=matmul_precision)
     model = model_io.init_random(config, torch.Generator().manual_seed(2)).to(device)
     cfg = TrainConfig(lr=1e-3, batch_size=8, max_epochs=10, lr_scheduler="OneCycleLR", fused_steps=fused,
                       use_pdist_loss=pdist)
@@ -401,3 +408,89 @@ def test_adamw_on_the_card_is_capturable_and_matches_optax(device):
     assert max(np.abs(p.detach().cpu().numpy() - r).max() for p, r in zip(ps, ref)) <= 1e-6
     for cuda_graphs in (False, True):
         assert _trainer(device, cuda_graphs).optimizer.param_groups[0]["capturable"]
+
+
+def test_tf32_and_bf16_forwards_differ_from_highest_within_bounds(device):
+    """The same weights at "high" (TF32), "BF16_BF16_F32" and at "default"
+    under a caller's TF32 (set_process_default, as the command-line
+    programs set it) differ from "highest" by more than 0 (the mode took
+    effect) and by at most chip_smoke.py phase 13's bounds (relative RMS 1e-2
+    and 5e-2); "default" under the caller's IEEE setting is "highest" bit
+    for bit. The caller's setting is kept."""
+    x, mask = _chain_inputs(device)
+    t = torch.arange(x.shape[0], device=device) * 7
+    outs = {}
+    for name, caller in (("highest", "ieee"), ("high", "ieee"), ("BF16_BF16_F32", "ieee"), ("default", "ieee"),
+                         ("default", "tf32")):
+        torch.backends.cuda.matmul.fp32_precision = caller
+        config = dataclasses.replace(GRAPH_CONFIG, matmul_precision=name)
+        model = model_io.init_random(config, torch.Generator().manual_seed(1)).to(device).eval()
+        with torch.inference_mode():
+            outs[name, caller] = model(x, t, mask)
+        assert torch.backends.cuda.matmul.fp32_precision == caller
+    torch.backends.cuda.matmul.fp32_precision = "ieee"
+    ref = outs["highest", "ieee"]
+    assert torch.equal(outs["default", "ieee"], ref)
+    for key, bound in ((("high", "ieee"), 1e-2), (("default", "tf32"), 1e-2), (("BF16_BF16_F32", "ieee"), 5e-2)):
+        rel = ((outs[key] - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
+        assert 0 < rel <= bound, (key, rel)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "ieee"])
+def test_bf16_linear_on_the_card_matches_its_plain_version(device, mode):
+    """The bf16 Linear (forward and both backward products: float32 GEMMs of
+    bf16-rounded values) on the card, under the bf16 mode's TF32 scope and
+    under IEEE float32, against the same on the CPU: the same exact
+    products, summed in another order."""
+    g = torch.Generator().manual_seed(3)
+    x, w, b = torch.randn(64, 128, 384, generator=g), torch.randn(768, 384, generator=g), torch.randn(768, generator=g)
+    grad = torch.randn(64, 128, 768, generator=g)
+    results = {}
+    for dev in ("cpu", device):
+        xs, ws, bs = (t.detach().to(dev).requires_grad_() for t in (x, w, b))
+        with precision.matmul_precision(mode):
+            out = precision.linear(xs, ws, bs, "bf16")
+            out.backward(grad.to(dev))
+        results[dev] = [t.detach().cpu() for t in (out, xs.grad, ws.grad, bs.grad)]
+    assert results[device][0].dtype == torch.float32
+    assert not torch.equal(results[device][0], results[device][0].bfloat16().float())  # not rounded to bf16
+    for ours, ref in zip(results[device], results["cpu"]):
+        assert (ours - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_models_and_captures_keep_the_callers_setting(device):
+    """A "high" model's forward, its graphed train steps (the capture and
+    the replays) and an exception inside its forward leave the caller's
+    fp32_precision as it was."""
+    matmul = torch.backends.cuda.matmul
+    for caller in ("ieee", "none"):
+        matmul.fp32_precision = caller
+        trainer = _trainer(device, cuda_graphs=True, matmul_precision="high")
+        trainer.train_steps(_host_batches(2)[:1])
+        trainer.train_steps(_host_batches(2)[1:])
+        assert matmul.fp32_precision == caller
+        x, mask = _chain_inputs(device)
+        with pytest.raises(RuntimeError):
+            trainer.model(x[..., :5], torch.zeros(x.shape[0], dtype=torch.long, device=device), mask)
+        assert matmul.fp32_precision == caller
+    matmul.fp32_precision = "ieee"
+
+
+def test_the_collector_is_paused_while_a_step_graph_captures(device):
+    """A collection inside a capture may destroy a dead graph held in a
+    reference cycle (a trainer and its step graphs form one), which breaks
+    the capture: the collector is off while the body is captured, and as it
+    was after."""
+    x = torch.zeros(4, device=device)
+    seen = []
+
+    def body():
+        seen.append((torch.cuda.is_current_stream_capturing(), gc.isenabled()))
+        return x.add_(1)
+
+    assert gc.isenabled()
+    graph = StepGraph(body, device)
+    graph()
+    graph()
+    assert seen == [(False, True), (True, False)] and gc.isenabled()
+    assert x.tolist() == [2.0] * 4  # the eager first call and one replay

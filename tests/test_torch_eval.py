@@ -7,6 +7,7 @@ and backbone oxygens, and the native featurizer's binding.
 """
 import importlib.util
 import json
+import logging
 import os
 import sys
 
@@ -296,11 +297,27 @@ def test_add_sidechains_to_backbone_matches_jax_bytes(tmp_path):
 # -- the native featurizer ---------------------------------------------------
 
 
+@pytest.fixture(scope="module")
+def jax_featurizer(tmp_path_factory):
+    """The JAX package's featurizer binding, building and loading a copy of
+    its library of its own in this process. Its _load builds in place at
+    _SO_PATH and takes a file that exists as built, so a test process that
+    loads the shared file while another one rebuilds it reads it half written
+    ("file too short") and keeps that failure for the rest of its life."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_featurize_native, "_SO_PATH", str(tmp_path_factory.mktemp("jax_featurize") / "_featurize.so"))
+        mp.setattr(jax_featurize_native, "_lib", None)
+        mp.setattr(jax_featurize_native, "_tried", False)
+        yield jax_featurize_native
+
+
 @pytest.mark.parametrize("pdb_file", FIXTURES)
-def test_native_featurizer_matches_jax_binding_and_numpy_path(pdb_file):
-    assert featurize_native.available() and jax_featurize_native.available()
+def test_native_featurizer_matches_jax_binding_and_numpy_path(pdb_file, jax_featurizer, caplog):
+    with caplog.at_level(logging.WARNING):
+        loaded = featurize_native.available(), jax_featurizer.available()
+    assert all(loaded), f"native featurizer loaded (port, JAX): {loaded}; {caplog.text}"
     ours = featurize_native.featurize_pdb_native(pdb_file)
-    theirs = jax_featurize_native.featurize_pdb_native(pdb_file)
+    theirs = jax_featurizer.featurize_pdb_native(pdb_file)
     np.testing.assert_array_equal(ours, theirs)
     values, names = featurize.canonical_distances_and_dihedrals(
         pdb_file, distances=featurize.EXHAUSTIVE_DISTS, angles=featurize.EXHAUSTIVE_ANGLES)

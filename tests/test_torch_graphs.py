@@ -23,6 +23,7 @@ themselves against the eager loops there):
 - StepGraph's refusals, and its launch accounting with a stand-in library.
 """
 import dataclasses
+import gc
 import os
 
 import jax
@@ -404,3 +405,20 @@ def test_optax_transcription_matches_optax():
         params = optax.apply_updates(params, updates)
     ours = optax_adamw_f32(start, grads, lrs, 0.01)
     assert all(np.array_equal(np.asarray(p), q) for p, q in zip(params, ours))
+
+
+@pytest.mark.parametrize("enabled", [True, False])
+def test_collector_paused_restores_the_collector_as_it_was(enabled):
+    """The cyclic collector is off inside a capture's block and as it was
+    after, also after an exception (StepGraph captures inside it)."""
+    was = gc.isenabled()
+    (gc.enable if enabled else gc.disable)()
+    try:
+        with graphs.collector_paused():
+            assert not gc.isenabled()
+        assert gc.isenabled() == enabled
+        with pytest.raises(KeyError), graphs.collector_paused():
+            raise KeyError("inside")
+        assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()

@@ -15,6 +15,7 @@ import dataclasses
 import gzip
 import importlib.util
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -261,10 +262,26 @@ def test_numpy_tm_score_equals_jax(variant):
     assert abs(tmscore.tm_score(crn, crn) - 1.0) <= 1e-12
 
 
-def test_native_run_tmalign_equals_jax(tmp_path):
+@pytest.fixture(scope="module")
+def jax_tmalign(tmp_path_factory):
+    """The JAX package's TM-align binding, building and loading a copy of its
+    library of its own in this process. Its _load builds in place at
+    _SO_PATH and takes a file that exists as built, so a test process that
+    loads the shared file while another one rebuilds it reads it half written
+    ("file too short") and keeps that failure for the rest of its life."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO_PATH", str(tmp_path_factory.mktemp("jax_tmalign") / "_tmalign.so"))
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        yield jax_native
+
+
+def test_native_run_tmalign_equals_jax(tmp_path, jax_tmalign, caplog):
     from foldingdiff_tpu_torch.geometry.pdb import write_ca_trace_to_pdb
 
-    assert tmalign_native.available() and jax_native.available()  # g++ is present
+    with caplog.at_level(logging.WARNING):  # g++ is present
+        loaded = tmalign_native.available(), jax_tmalign.available()
+    assert all(loaded), f"native TM-align loaded (port, JAX): {loaded}; {caplog.text}"
     assert tmalign_native.library_path().parent.name == "_build"
     crn, variants = _crn_variants()
     files = {name: write_ca_trace_to_pdb(c, str(tmp_path / f"{name}.pdb")) for name, c in variants.items()}
