@@ -12,12 +12,18 @@ Phases, each printing lines of its own:
      without relative scores (v1: e_lr gathered from arange and from a
      permuted position vector, and random), at the denoiser's shapes and
      head sizes 16 and 64; v2 also on strided (B, L, H, D) views of the
-     projections, returning a (B, L, H, D) buffer; masked-key invariance;
-     kernel, plain and library times (SDPA for the rel-off instances), taken
-     in turns, of all four kernel instances (v1, v2; rel, rel-off) at
+     projections, returning a (B, L, H, D) buffer; masked-key invariance.
+     Each instance by matmul precision against the plain version in its
+     mode: FMA within 1e-4 (float32); v2 TF32 (tensor cores) within 5e-3
+     relative RMS of float32; v2 bf16 and v1 bf16 within a tenth of the
+     plain bf16 version's relative-RMS distance from float32 and within
+     5e-2 of float32. Kernel, plain (in the instance's mode) and library
+     times (SDPA for rel-off), all instances taken in turns in one call, at
      H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
-     its bound: the larger of its FLOPs over 67 TFLOP/s and its bytes over
-     3.35 TB/s
+     its bound: the larger of its FLOPs over the instance's peak (67
+     TFLOP/s FMA, 495 TF32 tensor cores for TF32 and bf16) and its bytes
+     over 3.35 TB/s; the v2 TF32 instance must beat the FMA one at
+     B = 64, L = 128
   3. the trained torch fixture loaded through models.io.from_dir onto the
      card under attention_impl "auto" (v2) and "pallas" (v1), against its
      recorded predictions (parity.npz)
@@ -150,9 +156,10 @@ Phases, each printing lines of its own:
      kernels of a graphed DDPM step's graph (read through the driver API)
      against the eager step's device operations: 2 more (the table reads
      and the counter in place of torch.full), at both chunk shapes, and its
-     nodes of the v2 kernel (under "pallas", of v1), named by the driver,
-     equal to the launches the graph's accounting adds per replay; wall per
-     step
+     nodes of each kernel instance (12 of the v2 FMA instance; under
+     "pallas" 12 of v1's; at "high" 12 of the v2 TF32 instance), named by
+     the driver, equal to the launches the graph's accounting adds per
+     replay; wall per step
      and a torch.profiler window's busy share beside phase 5's eager step,
      the step graph's memory pool; the flagship train step (dropout 0.1, clip 1.0,
      one-cycle lr) in a process with torch.use_deterministic_algorithms and
@@ -186,17 +193,22 @@ Phases, each printing lines of its own:
      step's graph and of the train step's graph, named by cuFuncGetName:
      all float32 FMA under "highest", all TF32 tensor cores under "default"
      and "BF16_BF16_F32" (whose GEMMs take bf16 values) but the one GEMM with
-     a 6-wide operand (FEATURE_GEMMS); (d) the process's fp32_precision
-     unchanged after every forward, train step and capture. Phases 2-12 run
-     with IEEE float32 GEMMs for the process, so their "default" models hold
-     their float32 gates.
+     a 6-wide operand (FEATURE_GEMMS), and the step graph's 12 v2 nodes all
+     of the precision's instance (FMA, TF32, bf16), as are the sweep's
+     24,000 launches; under "BF16_BF16_F32" also a "pallas" step's graph (12
+     nodes of v1's bf16 instance), replayed; (d) the process's
+     fp32_precision unchanged after every forward, train step and capture.
+     Phases 2-12 run with IEEE float32 GEMMs for the process, so their
+     "default" models hold their float32 gates.
 
-The line before the last is {"kernels": [...]}, whose v2 launches are
-phase 5's, phase 9's, phase 10's (b) and (d) on both ranks and phase 11's
-(a) (phase 9 prints its rel-off launches apart), each counted under the
-graphs by their launch accounting (graphs.py); the last is {"ok": true,
-"device": {...}}. Any failure raises, so the script exits non-zero and
-prints neither.
+The line before the last is {"kernels": [...]}, one entry per kernel
+instance: the v2 FMA instance's launches are phase 5's, phase 9's, phase
+10's (b) and (d) on both ranks and phase 11's (a) (phase 9 prints its
+rel-off launches apart), v1 FMA's phase 6's, the v2 TF32 and bf16
+instances' phase 13's sweeps at "default" and "BF16_BF16_F32", v1 bf16's
+phase 13's "pallas" steps, each counted under the graphs by their launch
+accounting (graphs.py); the last is {"ok": true, "device": {...}}. Any
+failure raises, so the script exits non-zero and prints neither.
 
 Usage: python3 chip_smoke.py
 """
@@ -255,6 +267,7 @@ from foldingdiff_tpu_torch.models.time_embed import PositionalEncoding  # noqa: 
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
 from foldingdiff_tpu_torch.parallel import tp  # noqa: E402
 from foldingdiff_tpu_torch.parallel.mesh import Mesh, make_mesh  # noqa: E402
+from foldingdiff_tpu_torch import precision  # noqa: E402
 from foldingdiff_tpu_torch.precision import set_process_default  # noqa: E402
 from foldingdiff_tpu_torch.training.ar_trainer import ARTrainer  # noqa: E402
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig  # noqa: E402
@@ -263,6 +276,10 @@ from foldingdiff_tpu_torch.utils_profiling import phase_totals  # noqa: E402
 DEVICE = "cuda"
 SEED = 1234
 KERNEL_TOL = 1e-4  # kernel vs plain, one attention call (float32, other summation order)
+# The tensor-core instances against the plain versions (relative RMS): TF32
+# within TF32_TOL of the float32 plain version; bf16 within BF16_SHARE of the
+# plain bf16 version's own distance from float32, and within BF16_TOL of float32
+TF32_TOL, BF16_SHARE, BF16_TOL = 5e-3, 0.1, 5e-2
 DENOISER_TOL = 1e-3  # kernel vs plain through 12 layers
 FIXTURE = REPO / "tests" / "torch_trained_model_for_testing"
 FLAGSHIP = ModelConfig(
@@ -339,17 +356,19 @@ def in_turns(fns: dict) -> dict:
     return {name: sum(t) / 2 for name, t in times.items()}
 
 
-PEAK_FLOPS, PEAK_BYTES = 67e12, 3.35e12  # H100 SXM: float32 outside the tensor cores; HBM3
+# H100 SXM peaks per instance: float32 outside the tensor cores (FMA); TF32
+# tensor cores (TF32, and bf16, whose bf16 values run on them); HBM3
+PEAK_FLOPS, PEAK_BYTES = {"fma": 67e12, "tf32": 495e12, "bf16": 495e12}, 3.35e12
 
 
-def bound(entry: str, rel: bool, b: int, h: int, l: int, d: int, m: int) -> tuple[float, str]:
+def bound(entry: str, rel: bool, b: int, h: int, l: int, d: int, m: int, instance: str = "fma") -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take for one call,
     the larger of its FLOPs (q.k, q.E and p.v products, 2 per FMA) over the
-    float32 peak and its bytes (q, k, v, bias and the table or e_lr read once,
-    out written once) over the memory rate."""
+    instance's peak and its bytes (q, k, v, bias and the table or e_lr read
+    once, out written once) over the memory rate."""
     flops = 2 * b * h * l * l * d * (3 if rel else 2)
     floats = 4 * b * h * l * d + b * l + (((2 * m - 1) * d if entry == "v2" else l * l * d) if rel else 0)
-    ops_ms, bytes_ms = flops / PEAK_FLOPS * 1e3, 4 * floats / PEAK_BYTES * 1e3
+    ops_ms, bytes_ms = flops / PEAK_FLOPS[instance] * 1e3, 4 * floats / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -442,8 +461,56 @@ def check_layout(tag: str, out: torch.Tensor, b: int, h: int, l: int, d: int) ->
                            f"expected a (B, H, L, D) view of a (B, L, H, D) buffer")
 
 
+def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+
+def check_instance(tag: str, mode: str, out: torch.Tensor, plain) -> float:
+    """A tensor-core or bf16 instance's output against plain(mode), the
+    plain version in a mode: TF32 within TF32_TOL relative RMS of float32's
+    (and above 0: the instance took effect); bf16 within BF16_SHARE of the
+    plain bf16 version's relative-RMS distance from float32, and within
+    BF16_TOL of float32. Returns the max abs err against the plain version
+    in the instance's mode (float32's for TF32, whose plain version on the
+    card is cuBLAS's TF32, another rounding)."""
+    f32 = plain("ieee")
+    if mode == "tf32":
+        rms = rel_rms(out, f32)
+        err = (out - f32).abs().max().item()
+        log(f"[2] {tag}: relative RMS against float32 {rms:.3e} (gate: above 0, at most {TF32_TOL}), "
+            f"max abs err {err:.3e}")
+        if not 0 < rms <= TF32_TOL:
+            raise RuntimeError(f"{tag}: the TF32 instance's relative RMS from float32 is {rms}")
+        return err
+    ref = plain("bf16")
+    gap, rms, drift = rel_rms(ref, f32), rel_rms(out, ref), rel_rms(out, f32)
+    err = (out - ref).abs().max().item()
+    log(f"[2] {tag}: relative RMS against the plain bf16 version {rms:.3e}, its distance from float32 {gap:.3e} "
+        f"(gate: at most {BF16_SHARE} of it), against float32 {drift:.3e} (gate: {BF16_TOL}); max abs err {err:.3e}")
+    if not (gap > 0 and rms <= BF16_SHARE * gap and drift <= BF16_TOL):
+        raise RuntimeError(f"{tag}: the bf16 instance is {rms} from the plain bf16 version ({gap} from float32), "
+                           f"{drift} from float32")
+    return err
+
+
+def in_mode(mode: str, fn):
+    """fn() with cuBLAS's float32 GEMMs as a model in `mode` runs them: TF32
+    under "tf32" and "bf16" (whose bf16 values TF32 holds), the process's
+    IEEE float32 otherwise."""
+    with precision.matmul_precision("tf32" if mode in ("tf32", "bf16") else "caller"):
+        return fn()
+
+
+def v2_plain(q, k, v, bias, kw: dict, mode: str):
+    """The v2 plain version in `mode` (bf16 operands under "bf16"), its
+    einsums as a model in that mode runs them."""
+    return in_mode(mode, lambda: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode, **kw))
+
+
 def phase_kernel() -> dict:
-    worst = {"v2": 0.0, "v1": 0.0}
+    """Returns {(entry, instance): the kernels line's numbers at B = 64,
+    L = 128 with relative scores}."""
+    worst = {(entry, i): 0.0 for entry, lib in (("v2", V2), ("v1", V1)) for i in lib.instances}
     with torch.inference_mode():
         for b, h, l, d, m in KERNEL_SHAPES:
             q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED + l + d)
@@ -453,11 +520,12 @@ def phase_kernel() -> dict:
                 kw = dict(rel_table=table, m=m) if rel else {}
                 out = attention.fused_attention_v2(q, k, v, bias, **kw)
                 ref = attention.fused_attention_v2_reference(q, k, v, bias, **kw)
-                worst["v2"] = max(worst["v2"], check_err(f"v2 {shape} rel={rel}", out, ref))
+                worst["v2", "fma"] = max(worst["v2", "fma"], check_err(f"v2 {shape} rel={rel}", out, ref))
                 check_layout(f"v2 {shape}", out, b, h, l, d)
                 out_s = attention.fused_attention_v2(*views, bias, **kw)
                 ref_s = attention.fused_attention_v2_reference(*views, bias, **kw)
-                worst["v2"] = max(worst["v2"], check_err(f"v2 {shape} rel={rel} on (B, L, H, D) views", out_s, ref_s))
+                worst["v2", "fma"] = max(worst["v2", "fma"], check_err(
+                    f"v2 {shape} rel={rel} on (B, L, H, D) views", out_s, ref_s))
                 check_layout(f"v2 {shape} on views", out_s, b, h, l, d)
                 if rel:
                     check_masked_keys(f"v2 {shape}", lambda q_, k_, v_: attention.fused_attention_v2(
@@ -465,6 +533,16 @@ def phase_kernel() -> dict:
                     check_masked_keys(f"v2 {shape} on views", lambda q_, k_, v_: attention.fused_attention_v2(
                         *(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q_, k_, v_)), bias, table, m),
                         q, k, v, bias, out)
+                for mode in ("tf32", "bf16"):  # the tensor-core instances, on the projections' views
+                    out_t = attention.fused_attention_v2(*views, bias, mode=mode, **kw)
+                    check_layout(f"v2 {mode} {shape} on views", out_t, b, h, l, d)
+                    worst["v2", mode] = max(worst["v2", mode], check_instance(
+                        f"v2 {mode} {shape} rel={rel} on (B, L, H, D) views", mode, out_t,
+                        lambda mode_: v2_plain(*views, bias, kw, mode_)))
+                    if rel:
+                        check_masked_keys(f"v2 {mode} {shape} on views", lambda q_, k_, v_: attention.fused_attention_v2(
+                            *(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q_, k_, v_)), bias, table, m,
+                            mode=mode), q, k, v, bias, attention.fused_attention_v2(q, k, v, bias, table, m, mode=mode))
             for e_kind in ("arange", "permuted", "random", None):
                 if e_kind == "random":  # not Toeplitz
                     e_lr = torch.randn(l, l, d, generator=torch.Generator(device=DEVICE).manual_seed(SEED),
@@ -473,10 +551,16 @@ def phase_kernel() -> dict:
                     e_lr = gathered(table, l, m, e_kind == "permuted") if e_kind else None
                 out = attention.fused_attention(q, k, v, bias, e_lr)
                 ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
-                worst["v1"] = max(worst["v1"], check_err(f"v1 {shape} e_lr={e_kind}", out, ref))
+                worst["v1", "fma"] = max(worst["v1", "fma"], check_err(f"v1 {shape} e_lr={e_kind}", out, ref))
                 if e_kind == "permuted":
                     check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
                         q_, k_, v_, bias, e_lr), q, k, v, bias, out)
+                if e_kind in ("permuted", None):  # the bf16 instance (the repair): float32 FMA of bf16 values
+                    out_b = attention.fused_attention(q, k, v, bias, e_lr, mode="bf16")
+                    worst["v1", "bf16"] = max(worst["v1", "bf16"], check_instance(
+                        f"v1 bf16 {shape} e_lr={e_kind}", "bf16", out_b,
+                        lambda mode_: in_mode(mode_, lambda: attention.fused_attention_reference(
+                            q, k, v, bias, e_lr, bf16=mode_ == "bf16"))))
 
         results = {}
         for b, l in TIMED:
@@ -493,24 +577,38 @@ def phase_kernel() -> dict:
                     library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
                     check_err(f"SDPA B={b} L={l} rel-off (the library yardstick)", library(),
                               attention.fused_attention_reference(q, k, v, bias))
-                for entry, kernel, plain in (
-                    ("v2", lambda: attention.fused_attention_v2(*views, bias, **kw2),
-                     lambda: attention.fused_attention_v2_reference(q, k, v, bias, **kw2)),
-                    ("v1", lambda: attention.fused_attention(q, k, v, bias, e),
-                     lambda: attention.fused_attention_reference(q, k, v, bias, e)),
-                ):
-                    fns = {"plain": plain, "kernel": kernel, **({"library": library} if library else {})}
-                    times = in_turns(fns)
-                    bound_ms, bound_by = bound(entry, rel, b, h, l, d, m)
-                    results[entry, rel, b, l] = {**times, "bound_ms": bound_ms, "bound_by": bound_by}
-                    lib_text = f"{times['library']:.4f} ms (SDPA)" if library else "none"
-                    log(f"[2] time {entry} B={b} H={h} L={l} D={d} {'rel' if rel else 'rel-off'} (device, CUDA graph): "
-                        f"kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, library {lib_text}; "
-                        f"bound {bound_ms * 1e3:.1f} us ({bound_by}), {bound_ms / times['kernel']:.1%} of it")
-    flagship = {entry: results[(entry, True, *TIMED[0])] for entry in ("v2", "v1")}  # B=64, L=128
-    return {entry: {"max_abs_err": worst[entry], "ms": r["kernel"], "plain_ms": r["plain"],
-                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
-            for entry, r in flagship.items()}
+                # every instance of a kernel and its plain version in that instance's mode, in turns in one call
+                fns = {}
+                for i in V2.instances:
+                    mode = "ieee" if i == "fma" else i
+                    fns["v2", i] = (lambda mode=mode: attention.fused_attention_v2(*views, bias, mode=mode, **kw2))
+                    fns["v2 plain", i] = (lambda mode=mode: v2_plain(q, k, v, bias, kw2, mode))
+                for i in V1.instances:
+                    fns["v1", i] = (lambda bf16=i == "bf16": attention.fused_attention(
+                        q, k, v, bias, e, mode="bf16" if bf16 else "ieee"))
+                    fns["v1 plain", i] = (lambda bf16=i == "bf16": in_mode("bf16" if bf16 else "ieee", lambda: (
+                        attention.fused_attention_reference(q, k, v, bias, e, bf16=bf16))))
+                if library:
+                    fns["library"] = library
+                times = in_turns(fns)
+                for entry, lib in (("v2", V2), ("v1", V1)):
+                    for i in lib.instances:
+                        bound_ms, bound_by = bound(entry, rel, b, h, l, d, m, i)
+                        ms = times[entry, i]
+                        results[entry, i, rel, b, l] = {
+                            "kernel": ms, "plain": times[f"{entry} plain", i], "library": times.get("library"),
+                            "bound_ms": bound_ms, "bound_by": bound_by}
+                        lib_text = f"{times['library']:.4f} ms (SDPA)" if library else "none"
+                        log(f"[2] time {entry} {i} B={b} H={h} L={l} D={d} {'rel' if rel else 'rel-off'} (device, "
+                            f"CUDA graph, in turns): kernel {ms:.4f} ms, plain {times[f'{entry} plain', i]:.4f} ms, "
+                            f"library {lib_text}; bound {bound_ms * 1e3:.1f} us ({bound_by}), {bound_ms / ms:.1%} of it")
+    flagship = {key: results[(*key, True, *TIMED[0])] for key in worst}  # B=64, L=128, rel
+    if not flagship["v2", "tf32"]["kernel"] < flagship["v2", "fma"]["kernel"]:
+        raise RuntimeError(f"[2] the v2 TF32 instance ({flagship['v2', 'tf32']['kernel']} ms) is not faster than "
+                           f"the FMA instance ({flagship['v2', 'fma']['kernel']} ms) at B=64 L=128")
+    return {key: {"max_abs_err": worst[key], "ms": r["kernel"], "plain_ms": r["plain"],
+                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
+            for key, r in flagship.items()}
 
 
 def phase_fixture() -> None:
@@ -557,7 +655,7 @@ def phase_denoiser(model_dir: str, absolute_dir: str) -> None:
             model, _ = model_io.from_dir(path, device=DEVICE, attention_impl=impl)
             what = f"attention_impl={impl!r}" + (", permuted position_ids" if pos is not None else "")
             with torch.inference_mode():
-                V2.launches = V1.launches = 0
+                reset_counts()
                 out = model(x, t, mask, pos)
                 check_launches(f"[4] {name} {what}", {V2.name: 0, V1.name: 0, lib.name: layers})
                 err = (out - plain(x, t, mask, pos)).abs().max().item()
@@ -587,11 +685,23 @@ def load_script(name: str):
     return module
 
 
-def check_launches(tag: str, expected: dict) -> None:
+def reset_counts() -> None:
+    """Every launch count of both kernels to 0: all, rel-off, per instance."""
+    for lib in attention.LIBRARIES:
+        lib.launches = lib.rel_off_launches = 0
+        lib.launches_by_instance = dict.fromkeys(lib.instances, 0)
+
+
+def check_launches(tag: str, expected: dict, v2_instance: str = "fma") -> None:
+    """Each kernel's launches since reset_counts() against `expected`, every
+    v2 launch of `v2_instance` (the process runs IEEE float32 but in phase
+    13 and phase 12's "high" models)."""
     launched = {V2.name: V2.launches, V1.name: V1.launches}
-    log(f"{tag} kernel launches: {launched}, expected {expected}")
-    if launched != expected:
-        raise RuntimeError(f"{tag} launched {launched}, expected {expected}")
+    by_instance = {lib.name: {i: n for i, n in lib.launches_by_instance.items() if n} for lib in attention.LIBRARIES}
+    log(f"{tag} kernel launches: {launched} (by instance {by_instance}), expected {expected}, v2 all {v2_instance}")
+    if launched != expected or V2.launches_by_instance[v2_instance] != V2.launches:
+        raise RuntimeError(f"{tag} launched {launched} (by instance {by_instance}), expected {expected}, "
+                           f"v2 all {v2_instance}")
 
 
 def check_angles(tag: str, sampled) -> None:
@@ -610,7 +720,7 @@ def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict,
     """bin/sample_torch.py's main() over the sweep; checks launches, PDBs, CSVs; prints backbones/s."""
     argv = ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
             "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, "--noplot", *extra]
-    V2.launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     result = load_script("sample_torch").main(argv)
     wall = time.perf_counter() - start
@@ -731,7 +841,7 @@ def phase_new_paths(model_dir: str, tmp: str, card: str) -> int:
     model, train_args = model_io.from_dir(model_dir, device=DEVICE, attention_impl="pallas")
     schedule = DiffusionSchedule.create(train_args["variance_schedule"], timesteps, device=DEVICE)
     empty = AnglesEmptyDataset.from_dir(model_dir)
-    V2.launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     sampled = sampling.sample(
         model, schedule, is_angular=empty.feature_is_angular["angles"], pad=empty.pad, n=1,
@@ -809,7 +919,7 @@ def phase_train_cli(tmp: str, card: str) -> str:
     cli = load_script("train_torch")
     layers = FLAGSHIP.num_hidden_layers
     for epochs, extra in ((2, []), (3, ["--resume"])):
-        V2.launches = V1.launches = 0
+        reset_counts()
         start = time.perf_counter()
         rows = cli.main([str(config_file), "-o", str(results), "--epochs", str(epochs), "--device", DEVICE, "--dryrun",
                          *extra])
@@ -960,7 +1070,7 @@ def phase_train_speed(card: str) -> None:
     trainers = {}
     for pdist, steps in ((0.0, 25), ((0.5, 1.0), 5)):
         trainer = trainers[bool(pdist)] = flagship_trainer(DEVICE, use_pdist_loss=pdist, cuda_graphs=False)
-        V2.launches = V1.launches = 0
+        reset_counts()
         for _ in range(3):
             trainer.train_step(batch)
         torch.cuda.synchronize()
@@ -1058,7 +1168,7 @@ def phase_reconstruction(tmp: str, trained: str, card: str) -> None:
     out_json = Path(tmp, "reconstruction.json")
     n_test = len(Path(trained, "test_files.txt").read_text().split())
     chunks = -(-n_test // BATCH)
-    V2.launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     result = load_script("partial_noise_reconstruct_torch").main(
         ["-m", trained, "--data", str(Path(tmp, "corpus")), "-t", str(RECON_T), "-b", str(BATCH),
@@ -1104,7 +1214,7 @@ def phase_reconstruction_card_vs_cpu(tmp: str, trained: str) -> None:
     for device in ("cpu", DEVICE):
         model, _ = model_io.from_dir(trained, device=device)
         schedule = DiffusionSchedule.create(train_args["variance_schedule"], train_args["timesteps"], device=device)
-        V2.launches = V1.launches = 0
+        reset_counts()
         start = time.perf_counter()
         out[device] = sampling.reconstruct_batch(
             model, schedule, data["angles"], data["attn_mask"], data["lengths"], eps.to(device),
@@ -1158,7 +1268,7 @@ def phase_cart_coords(tmp: str, card: str) -> None:
     del weights
     n = CART_LENGTHS[1] - CART_LENGTHS[0]
     chunks = -(-n // BATCH)
-    V2.launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     result = load_script("sample_torch").main(
         ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", *map(str, CART_LENGTHS), "-b", str(BATCH),
@@ -1186,7 +1296,7 @@ def phase_debug_training(tmp: str, card: str) -> None:
     config = {**json.loads(TRAIN_CONFIG.read_text()), "dataset_key": str(Path(tmp, "corpus"))}
     config_file = Path(tmp, "debug.json")
     config_file.write_text(json.dumps(config))
-    V2.launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     with dataset_cache_in(tmp):
         rows = load_script("train_torch").main(
@@ -1260,7 +1370,7 @@ def phase_ar_train(tmp: str, card: str) -> tuple[str, int]:
     directory, its v2 launches)."""
     results = Path(tmp, "ar_trained")
     layers = FLAGSHIP.num_hidden_layers
-    V2.launches = V2.rel_off_launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     rows = load_script("train_autoregressive_torch").main(
         [str(AR_CONFIG), "--dataset", str(Path(tmp, "corpus")), "--epochs", "2", "-o", str(results),
@@ -1292,7 +1402,7 @@ def phase_ar_train(tmp: str, card: str) -> tuple[str, int]:
     model, _ = model_io.from_dir(str(results), device=DEVICE, model_cls=BertForAutoregressive)
     trainer = ARTrainer(model, TrainConfig(lr=1e-4, batch_size=BATCH, max_epochs=800), steps_per_epoch=300)
     batch = {k: v.to(DEVICE) for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings).items()}
-    V2.launches = V1.launches = 0
+    reset_counts()
     for _ in range(3):
         trainer.train_step(batch)
     times = []
@@ -1342,7 +1452,7 @@ def run_ar_sampling(tag: str, model_dir: str, tmp: str, out: str, card: str) -> 
     """bin/sample_autoregressive_torch.py -n 64 --numseed 4 over the corpus;
     checks the angles, the PDBs and 12 v2 launches per forward. Returns (the
     CLI's result, the v2 launches)."""
-    V2.launches = V2.rel_off_launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     result = load_script("sample_autoregressive_torch").main(
         ["-m", model_dir, "--data", str(Path(tmp, "corpus")), "-n", str(AR_NUM), "--numseed", str(AR_NUMSEED),
@@ -1418,7 +1528,7 @@ def phase_ar_absolute(tmp: str, trained: str, card: str) -> tuple[str, int]:
         for prefix in (AR_NUMSEED, 100):
             x, mask, lengths = ar_forward_inputs(AR_NUM, 128, prefix)
             for name, pair in models.items():
-                V2.launches = V2.rel_off_launches = V1.launches = 0
+                reset_counts()
                 out = pair["auto"](x, mask, lengths)
                 check_launches(f"[9d] {name} AR forward, prefix {prefix}", {V2.name: layers, V1.name: 0})
                 if V2.rel_off_launches != (layers if name == "absolute" else 0):
@@ -1597,7 +1707,7 @@ def phase10_rank(argv: list) -> None:
     report["a_ms"] = times[3:]
     del trainer, timed
 
-    V2.launches = V1.launches = 0
+    reset_counts()
     argv_b = ["-m", model_dir, "-o", str(tmp / "mp_sampled"), "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
               "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, "--noplot"]
     report["b"] = {k: v for k, v in load_script("sample_torch").main(argv_b).items() if k != "pdb_files"}
@@ -1814,7 +1924,7 @@ def phase_eval_sampling(tmp: str, trained: str, card: str) -> int:
     cli = load_script("sample_torch")
     unprofiled = cli.main([*argv, "-o", str(plain), "--noplot", "--nopdb"])["sampling_seconds"]
     before = phase_totals().get("sampling", 0.0)
-    V2.launches = V1.launches = 0
+    reset_counts()
     start = time.perf_counter()
     with captured_logs() as records:
         result = cli.main([*argv, "-o", str(out), "--testcomparison", str(Path(tmp, "corpus")), "--profile",
@@ -2148,7 +2258,7 @@ def phase_graph_sweeps(model_dir: str, card: str) -> None:
                        sampling.build_sampler(model, schedule, is_angular, method=method, ddim_steps=steps,
                                               gen_noise=True, cuda_graphs=False))
             times: list = []
-            V2.launches = V1.launches = 0
+            reset_counts()
             torch.cuda.synchronize()
             start = time.perf_counter()
             results[run] = sampling.sample(
@@ -2157,7 +2267,8 @@ def phase_graph_sweeps(model_dir: str, card: str) -> None:
                 sampler=timed_chunks(sampler, times))
             walls[run] = time.perf_counter() - start
             chunk_ms[run] = [t / steps * 1e3 for t in times]
-            check_launches(f"[12] {method}-{steps} sweep, {run}", {V2.name: layers * steps * n_chunks, V1.name: 0})
+            check_launches(f"[12] {method}-{steps} sweep, {run}", {V2.name: layers * steps * n_chunks, V1.name: 0},
+                           "tf32")
         for run in ("graphed, capturing", "graphed"):
             gate_same(f"[12] {method}-{steps} over the sweep ({n} backbones, chunks 15 x 64 and 63 x 128), {run} "
                       f"against eager", results[run], results["eager"])
@@ -2212,11 +2323,11 @@ def phase_graph_chains(model_dir: str) -> None:
         samplers = {graphs: sampling.build_sampler(model, schedule, is_angular, cuda_graphs=graphs, **options)
                     for graphs in (False, True)}
         for graphs in (False, True, True):  # the graphed sampler captures, then replays
-            V2.launches = V1.launches = 0
+            reset_counts()
             run = samplers[graphs]
             out.setdefault(graphs, []).append(run(x, mask, generator=torch.Generator(device=DEVICE).manual_seed(SEED)))
             check_launches(f"[12] {tag} B={b} L={l}, graphs {graphs}",
-                           {V2.name: 0, V1.name: 0, lib.name: layers * steps})
+                           {V2.name: 0, V1.name: 0, lib.name: layers * steps}, "tf32")
         gate_same(f"[12] {tag} B={b} L={l}, {steps} steps, graphed (twice) against eager", out[True],
                   out[False] * 2)
 
@@ -2245,8 +2356,8 @@ def kernel_node_name(driver, node) -> str:
 
 
 def graph_nodes(body, generators=()) -> tuple:
-    """({node type: count}, {kernel name: count}, {library: launches per
-    replay}) of the CUDA graph of body() (drawing from `generators`),
+    """({node type: count}, {kernel name: count}, {(library, instance):
+    launches per replay}) of the CUDA graph of body() (drawing from `generators`),
     captured after one eager call on a side stream and kept (keep_graph),
     its nodes read through the driver API (cuGraphGetNodes,
     cuGraphNodeGetType: 0 is a kernel, 1 a copy, 2 a memset), and the
@@ -2278,18 +2389,25 @@ def graph_nodes(body, generators=()) -> tuple:
         if kind.value == 0:
             name = kernel_node_name(driver, node)
             names[name] = names.get(name, 0) + 1
-    per_replay = {lib.name: n for lib, (n, _) in zip(account.libraries, account.per_replay)}
+    per_replay = {(lib.name, i): n for lib, by_instance in zip(account.libraries, account.per_replay_by_instance)
+                  for i, n in by_instance.items()}
     return kinds, names, per_replay
 
 
-def gate_kernel_nodes(tag: str, names: dict, per_replay: dict) -> None:
-    """Each kernel library's nodes in a graph, found by the function name
-    the driver gives them, against the launches its accounting adds per
-    replay."""
-    nodes = {lib.name: sum(n for name, n in names.items() if f"{lib.name}_kernel" in name) for lib in (V2, V1)}
-    log(f"{tag}: kernel nodes by the driver's names {nodes}, launches added per replay {per_replay}")
-    if nodes != per_replay:
-        raise RuntimeError(f"{tag}: the graph's kernel nodes {nodes} differ from its counted launches {per_replay}")
+def gate_kernel_nodes(tag: str, names: dict, per_replay: dict, expected: dict) -> None:
+    """Each kernel instance's nodes in a graph, found by the function name
+    the driver gives them (CudaLibrary.kernel_name), against the launches
+    its accounting adds per replay, and both against `expected`
+    {(library, instance): nodes}, every other instance 0."""
+    nodes = {(lib.name, i): sum(n for name, n in names.items() if lib.kernel_name(i) in name)
+             for lib in (V2, V1) for i in lib.instances}
+    want = {key: expected.get(key, 0) for key in nodes}
+    shown = {f"{lib} {i}": n for (lib, i), n in nodes.items() if n}
+    log(f"{tag}: kernel nodes by the driver's names {shown}, launches added per replay "
+        f"{ {f'{lib} {i}': n for (lib, i), n in per_replay.items() if n} }")
+    if nodes != per_replay or nodes != want:
+        raise RuntimeError(f"{tag}: the graph's kernel nodes {nodes} differ from its counted launches {per_replay} "
+                           f"or from {want}")
 
 
 def step_graph_nodes(model, table, x, mask, is_angular) -> tuple:
@@ -2353,10 +2471,8 @@ def phase_graph_profile(model_dir: str, eager: dict, card: str) -> None:
         ref = eager["auto", b, l]
         table = sampling.ddpm_table(schedule, 1000)
         kinds, names, per_replay = step_graph_nodes(model, table, x, mask, is_angular)
-        gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}", names, per_replay)
-        if per_replay[V2.name] != FLAGSHIP.num_hidden_layers:
-            raise RuntimeError(f"[12] a DDPM step's graph at B={b} L={l} launches {per_replay}, expected "
-                               f"{FLAGSHIP.num_hidden_layers} of v2")
+        gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}", names, per_replay,
+                          {(V2.name, "fma"): FLAGSHIP.num_hidden_layers})
         kernels = kinds.get(0, 0)
         log(f"[12] graphed DDPM step B={b} L={l}: its graph holds {kernels} kernels and "
             f"{sum(kinds.values()) - kernels} other nodes ({kinds}); the eager step runs {ref['events']:.1f} "
@@ -2389,10 +2505,13 @@ def phase_graph_profile(model_dir: str, eager: dict, card: str) -> None:
     x, _, mask = denoiser_inputs(b, l)
     pallas, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl="pallas")
     _, names, per_replay = step_graph_nodes(pallas, sampling.ddpm_table(schedule, 1000), x, mask, is_angular)
-    gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}, attention_impl='pallas'", names, per_replay)
-    if per_replay[V1.name] != FLAGSHIP.num_hidden_layers:
-        raise RuntimeError(f"[12] a 'pallas' DDPM step's graph launches {per_replay}, expected "
-                           f"{FLAGSHIP.num_hidden_layers} of v1")
+    gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}, attention_impl='pallas'", names, per_replay,
+                      {(V1.name, "fma"): FLAGSHIP.num_hidden_layers})
+    # at "high" (TF32), the captures of the bitwise gates: the v2 TF32 instance in a step's graph
+    high, _ = model_io.from_dir(model_dir, device=DEVICE, **GRAPH_PRECISION)
+    _, names, per_replay = step_graph_nodes(high, sampling.ddpm_table(schedule, 1000), x, mask, is_angular)
+    gate_kernel_nodes(f"[12] graphed DDPM step B={b} L={l}, matmul_precision 'high'", names, per_replay,
+                      {(V2.name, "tf32"): FLAGSHIP.num_hidden_layers})
 
 
 def graph_train_runs(pdist, steps: int, fused: int = 0, matmul_precision: str = FLAGSHIP.matmul_precision) -> dict:
@@ -2586,6 +2705,8 @@ PRECISIONS = ("highest", "default", "BF16_BF16_F32")  # IEEE float32, TF32, bf16
 # over the RMS of the output: starting bounds (a reading above one fails the
 # run and is reported, never a quietly wider bound)
 PRECISION_DRIFT = {"default": 1e-2, "BF16_BF16_F32": 5e-2}
+# The v2 instance each precision's model runs here (ops/attention.py): "default" under the process's TF32
+PRECISION_INSTANCES = {"highest": "fma", "default": "tf32", "BF16_BF16_F32": "bf16"}
 PRECISION_SHAPES = ((15, 64), (63, 128))  # the sweep's two chunks
 PRECISION_STEPS = 20  # timed train steps, and the steps of the loss curves held against "highest"
 GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma", re.I)
@@ -2673,7 +2794,7 @@ def fixture_chain(matmul_precision: str) -> tuple:
     return run(x, mask, generator=torch.Generator(device=DEVICE).manual_seed(SEED)), mask
 
 
-def phase_precision(model_dir: str, card: str) -> None:
+def phase_precision(model_dir: str, card: str) -> dict:
     """Phase 13: the flagship at matmul_precision "highest", "default" (TF32)
     and "BF16_BF16_F32". (a) times: a torch.profiler window of eager DDPM
     steps at B = 64, L = 128 by kernel group (phase 5's), the graphed DDPM
@@ -2682,9 +2803,13 @@ def phase_precision(model_dir: str, card: str) -> None:
     (b) drift from "highest" on the same inputs: one forward (the gate), a
     full DDPM chain of the trained fixture, and the loss curve of 20 train
     steps on a linear schedule; (c) the GEMM kernels that a DDPM step's graph
-    and the train step's graph (forward and backward) hold; (d) the
-    process's fp32_precision after every forward, train step and capture.
-    The process runs TF32 GEMMs here, as the command-line programs do."""
+    and the train step's graph (forward and backward) hold, and its v2
+    nodes, all of the precision's instance (PRECISION_INSTANCES); under
+    "BF16_BF16_F32" a "pallas" step's graph, its v1 nodes all of the bf16
+    instance, replayed; (d) the process's fp32_precision after every
+    forward, train step and capture. The process runs TF32 GEMMs here, as
+    the command-line programs do. Returns the launches of the sweeps (the
+    v2 TF32 and bf16 instances) and of the "pallas" bf16 steps (v1 bf16)."""
     start_phase = time.perf_counter()
     set_process_default()
     before = torch.backends.cuda.matmul.fp32_precision
@@ -2697,8 +2822,9 @@ def phase_precision(model_dir: str, card: str) -> None:
     x, t, mask = denoiser_inputs(BATCH, FLAGSHIP.max_position_embeddings)
     host_batches = [{k: v.numpy() for k, v in train_batch(BATCH, FLAGSHIP.max_position_embeddings, SEED + i).items()}
                     for i in range(PRECISION_STEPS)]
-    forward, chains, curves = {}, {}, {}
+    forward, chains, curves, launches = {}, {}, {}, {}
     for precision in PRECISIONS:
+        instance = PRECISION_INSTANCES[precision]
         what = f"[13] matmul_precision {precision!r} on {card}"
         model, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision)
         with torch.inference_mode():
@@ -2720,14 +2846,15 @@ def phase_precision(model_dir: str, card: str) -> None:
         sampler = sampling.build_sampler(model, schedule, features_angular, gen_noise=True)
         walls = []
         for _ in range(2):  # the first run captures each chunk shape's graphs
-            V2.launches = V1.launches = 0
+            reset_counts()
             torch.cuda.synchronize()
             start = time.perf_counter()
             sampling.sample(model, schedule, is_angular=features_angular, pad=empty.pad, n=1, sweep_lengths=SWEEP,
                             batch_size=BATCH, bucket_multiple=BUCKET, mean_offset=empty.get_masked_means(),
                             seed=SEED, sampler=sampler)
             walls.append(time.perf_counter() - start)
-        check_launches(f"{what}, DDPM sweep", {V2.name: layers * steps_t * expected_chunks(), V1.name: 0})
+        check_launches(f"{what}, DDPM sweep", {V2.name: layers * steps_t * expected_chunks(), V1.name: 0}, instance)
+        launches[V2.name, instance] = V2.launches_by_instance[instance]
         check_setting_kept(f"{what}, sweep", before)
         log(f"{what}: graphed DDPM step, median of three windows of 10 replays: {'; '.join(steps)}; DDPM T=1000 "
             f"sweep (-n 1 -l {SWEEP[0]} {SWEEP[1]} -b {BATCH}, {n} backbones): {n / walls[1]:.3f} backbones/s "
@@ -2742,8 +2869,24 @@ def phase_precision(model_dir: str, card: str) -> None:
             f"(min {min(times):.4f}, max {max(times):.4f}), {BATCH / ms * 1e3:.1f} structures/s")
         b, l = PRECISION_SHAPES[1]
         xb, _, mb = denoiser_inputs(b, l)
-        gate_gemm_kinds(f"{what}, a DDPM step's graph at {b} x {l}", precision,
-                        gemm_kinds(step_graph_nodes(model, table, xb, mb, is_angular)[1]), FEATURE_GEMMS["step"])
+        _, names, per_replay = step_graph_nodes(model, table, xb, mb, is_angular)
+        gate_gemm_kinds(f"{what}, a DDPM step's graph at {b} x {l}", precision, gemm_kinds(names),
+                        FEATURE_GEMMS["step"])
+        gate_kernel_nodes(f"{what}, a DDPM step's graph at {b} x {l}", names, per_replay, {(V2.name, instance): layers})
+        if precision == "BF16_BF16_F32":  # the v1 kernel's bf16 instance in a "pallas" step's graph, replayed
+            b, l = PRECISION_SHAPES[0]
+            xb, _, mb = denoiser_inputs(b, l)
+            pallas, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision, attention_impl="pallas")
+            _, names, per_replay = step_graph_nodes(pallas, table, xb, mb, is_angular)
+            gate_kernel_nodes(f"{what}, a 'pallas' DDPM step's graph at {b} x {l}", names, per_replay,
+                              {(V1.name, "bf16"): layers})
+            reset_counts()
+            replayed_ddpm_steps(pallas, table, xb, mb, is_angular)(10)  # the eager first step, then 12 replays
+            check_launches(f"{what}, 13 'pallas' DDPM steps at {b} x {l}", {V2.name: 0, V1.name: 13 * layers})
+            if V1.launches_by_instance["bf16"] != V1.launches:
+                raise RuntimeError(f"{what}: v1 launches {V1.launches_by_instance}, expected all bf16")
+            launches[V1.name, "bf16"] = V1.launches
+            del pallas
         gate_gemm_kinds(f"{what}, the train step's graph (forward and backward)", precision,
                         gemm_kinds(train_step_graph_nodes(trainer, trainer.to_device(host_batches[0]))),
                         FEATURE_GEMMS["train"])
@@ -2775,6 +2918,7 @@ def phase_precision(model_dir: str, card: str) -> None:
     log(f"[13] fp32_precision {before!r} after every forward, train step and capture; phase 13 in "
         f"{time.perf_counter() - start_phase:.3f} s")
     torch.backends.cuda.matmul.fp32_precision = "ieee"
+    return launches
 
 
 def main() -> None:
@@ -2800,18 +2944,22 @@ def main() -> None:
         multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
         evaluation_launches = phase_evaluation(tmp, trained, card)
         phase_graphs(model_dir, eager_profiles, card)
-        phase_precision(model_dir, card)
+        precision_launches = phase_precision(model_dir, card)
 
-    log(json.dumps({"kernels": [
-        {"name": "rel_attention_kernel (fused_attention_v2)", "route": "cuda",
-         "source": "foldingdiff_tpu_torch/csrc/rel_attention.cu",
-         "replaces": "foldingdiff_tpu/ops/pallas_attention.py:187",
-         "launches": v2_launches + baseline_launches + multiprocess_launches + evaluation_launches, **kernels["v2"]},
-        {"name": "gathered_attention_kernel (fused_attention)", "route": "cuda",
-         "source": "foldingdiff_tpu_torch/csrc/gathered_attention.cu",
-         "replaces": "foldingdiff_tpu/ops/pallas_attention.py:78",
-         "launches": v1_launches, **kernels["v1"]},
-    ]}))
+    # launches: the FMA instances' from the float32 phases (v2: 5, 9, 10, 11; v1: 6); the v2 TF32 and bf16
+    # instances' from phase 13's DDPM sweeps at "default" (TF32, as the CLIs set it) and "BF16_BF16_F32";
+    # v1 bf16's from phase 13's "pallas" steps
+    fma_launches = {V2.name: v2_launches + baseline_launches + multiprocess_launches + evaluation_launches,
+                    V1.name: v1_launches}
+    line = []
+    for lib, entry, replaces in ((V2, "fused_attention_v2", 187), (V1, "fused_attention", 78)):
+        for i in lib.instances:
+            line.append({"name": f"{lib.kernel_name(i)} ({entry}, {i})", "route": "cuda",
+                         "source": f"foldingdiff_tpu_torch/csrc/{lib.name}.cu",
+                         "replaces": f"foldingdiff_tpu/ops/pallas_attention.py:{replaces}",
+                         "launches": fma_launches[lib.name] if i == "fma" else precision_launches[lib.name, i],
+                         **kernels["v2" if lib is V2 else "v1", i]})
+    log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

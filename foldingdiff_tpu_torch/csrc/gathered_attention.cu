@@ -62,10 +62,24 @@
 // off, which needs the 3xTF32 split (three products per term) and the three
 // products' fragments moved between layouts through shared memory.
 //
+// Two instances by the model's matmul precision (ops/attention.py picks one
+// by `bf16`): gathered_attention_kernel computes in float32 FMA (IEEE
+// float32, and TF32, computed more precisely than asked);
+// gathered_attention_bf16_kernel computes what "BF16_BF16_F32" defines, the
+// float32 products of bf16 values: q is rounded to bf16 values (to nearest
+// even) as it is loaded, each staged chunk of k, v and e_lr in place in
+// shared memory once it has landed (rounded at their use, they cost the
+// registers that three blocks per SM leave a thread, and ptxas spilled), and
+// P before p . v. P is the softmax's normalised output, as the einsum's
+// operand is, so that instance walks the keys twice: a first pass finds each
+// row's maximum and sum, the second forms P as exp2(s - max - log2(sum)),
+// rounds it and accumulates p . v.
+//
 // Plain C interface for ctypes; the kernel launches on the caller's stream,
 // on the given device, allocates nothing and does not synchronise. The
 // return value is cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -115,6 +129,14 @@ __device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc)
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float bf16_value(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 bf16_values(const float4 x) {
+  return make_float4(bf16_value(x.x), bf16_value(x.y), bf16_value(x.z), bf16_value(x.w));
 }
 
 __device__ __forceinline__ void axpy4(float p, const float4 x, float4& y) {
@@ -181,12 +203,13 @@ __device__ __forceinline__ void stage_chunk(float* st, const float* __restrict__
   }
 }
 
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(kThreads, D <= 32 ? 3 : 1)
-gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ bias,
-                          const float* __restrict__ e_lr, float* __restrict__ out, int H,
-                          int L, long long BH, int n_tiles, float scale) {
+template <int D, bool HAS_REL, bool BF16>
+__device__ __forceinline__ void gathered_attention(const float* __restrict__ q, const float* __restrict__ k,
+                                                   const float* __restrict__ v,
+                                                   const float* __restrict__ bias,
+                                                   const float* __restrict__ e_lr,
+                                                   float* __restrict__ out, int H, int L, long long BH,
+                                                   int n_tiles, float scale) {
   using S = Stage<D, HAS_REL>;
   constexpr int Jc = S::kKeys;
   constexpr int kSlice = D / 16;  // float4 pieces of a D-vector per thread
@@ -219,7 +242,7 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
     for (int i = 0; i < kSlice; ++i) {
       qr[o][i] = live ? __ldg(reinterpret_cast<const float4*>(src) + tq + 4 * i)
                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      acc[o][i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (BF16) qr[o][i] = bf16_values(qr[o][i]);
     }
     row_max[o] = -INFINITY;
     denom[o] = 0.0f;
@@ -227,95 +250,125 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
   const float scale2 = scale * kLog2e;  // scores in log2 units, for exp2f
 
   const int n_chunks = (L + Jc - 1) / Jc;
-  stage_chunk<D, HAS_REL>(smem, k, v, bias, e_lr, H, L, BH, l0, n0, 0);
-  cp_async_commit();
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + 1 < n_chunks) {
-      stage_chunk<D, HAS_REL>(smem + ((c + 1) & 1) * S::kFloats, k, v, bias, e_lr, H, L, BH,
-                              l0, n0, (c + 1) * Jc);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const float* st = smem + (c & 1) * S::kFloats;
-    const float4* e0 = reinterpret_cast<const float4*>(st + r0 * kStride);  // HAS_REL only
-    const float4* e1 = reinterpret_cast<const float4*>(st + (r0 + 1) * kStride);
-    const float4* ka = reinterpret_cast<const float4*>(st + S::kK + pa * kStride);
-    const float4* kb = reinterpret_cast<const float4*>(st + S::kK + pb * kStride);
-    const float4* va = reinterpret_cast<const float4*>(st + S::kV + pa * kStride);
-    const float4* vb = reinterpret_cast<const float4*>(st + S::kV + pb * kStride);
-    const float* bias_a = st + S::kBias + pa * Jc;
-    const float* bias_b = st + S::kBias + pb * Jc;
-    const int valid = min(Jc, L - c * Jc);
-
-    float s[4][Jc];
-#pragma unroll
-    for (int jj = 0; jj < Jc; ++jj) {
-      float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int i = 0; i < kSlice; ++i) {
-        const int x = jj * (D / 4) + tq + 4 * i;
-        const float4 kxa = ka[x], kxb = kb[x];
-        part[0] = dot4(qr[0][i], kxa, part[0]);
-        part[1] = dot4(qr[1][i], kxb, part[1]);
-        part[2] = dot4(qr[2][i], kxa, part[2]);
-        part[3] = dot4(qr[3][i], kxb, part[3]);
-        if (HAS_REL) {
-          const float4 ex0 = e0[x], ex1 = e1[x];
-          part[0] = dot4(qr[0][i], ex0, part[0]);
-          part[1] = dot4(qr[1][i], ex0, part[1]);
-          part[2] = dot4(qr[2][i], ex1, part[2]);
-          part[3] = dot4(qr[3][i], ex1, part[3]);
-        }
-      }
-      const float ba = bias_a[jj] * kLog2e, bb = bias_b[jj] * kLog2e;
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        // sum over the quad: every lane ends with the same bits
-        part[o] += __shfl_xor_sync(0xffffffffu, part[o], 1);
-        part[o] += __shfl_xor_sync(0xffffffffu, part[o], 2);
-        s[o][jj] = jj < valid ? fmaf(part[o], scale2, (o & 1) ? bb : ba) : -INFINITY;
-      }
-    }
-
+  for (int pass = BF16 ? 0 : 1; pass < 2; ++pass) {
 #pragma unroll
     for (int o = 0; o < 4; ++o) {
-      float m = row_max[o];
+      // bf16: exp2(s - max - log2(sum)) is the normalised probability
+      if (BF16 && pass == 1) row_max[o] += log2f(denom[o]);
 #pragma unroll
-      for (int jj = 0; jj < Jc; ++jj) m = fmaxf(m, s[o][jj]);
-      const float c_old = exp2f(row_max[o] - m);  // 0 on the first chunk
-      row_max[o] = m;
-      denom[o] *= c_old;
-#pragma unroll
-      for (int i = 0; i < kSlice; ++i) {
-        acc[o][i].x *= c_old;
-        acc[o][i].y *= c_old;
-        acc[o][i].z *= c_old;
-        acc[o][i].w *= c_old;
-      }
+      for (int i = 0; i < kSlice; ++i) acc[o][i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-#pragma unroll
-    for (int jj = 0; jj < Jc; ++jj) {
-      float p[4];
-#pragma unroll
-      for (int o = 0; o < 4; ++o) {
-        p[o] = exp2f(s[o][jj] - row_max[o]);
-        denom[o] += p[o];
+    stage_chunk<D, HAS_REL>(smem, k, v, bias, e_lr, H, L, BH, l0, n0, 0);
+    cp_async_commit();
+    for (int c = 0; c < n_chunks; ++c) {
+      if (c + 1 < n_chunks) {
+        stage_chunk<D, HAS_REL>(smem + ((c + 1) & 1) * S::kFloats, k, v, bias, e_lr, H, L, BH,
+                                l0, n0, (c + 1) * Jc);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
-#pragma unroll
-      for (int i = 0; i < kSlice; ++i) {
-        const int x = jj * (D / 4) + tq + 4 * i;
-        const float4 vxa = va[x], vxb = vb[x];
-        axpy4(p[0], vxa, acc[0][i]);
-        axpy4(p[1], vxb, acc[1][i]);
-        axpy4(p[2], vxa, acc[2][i]);
-        axpy4(p[3], vxb, acc[3][i]);
+      __syncthreads();
+
+      float* st = smem + (c & 1) * S::kFloats;
+      if (BF16) {  // e_lr, K and V of the chunk (everything before the bias) to bf16 values, in place
+#pragma unroll 1
+        for (int i = threadIdx.x; i < S::kBias / 4; i += kThreads) {
+          float4* x = reinterpret_cast<float4*>(st) + i;
+          *x = bf16_values(*x);
+        }
+        __syncthreads();
       }
+      const float4* e0 = reinterpret_cast<const float4*>(st + r0 * kStride);  // HAS_REL only
+      const float4* e1 = reinterpret_cast<const float4*>(st + (r0 + 1) * kStride);
+      const float4* ka = reinterpret_cast<const float4*>(st + S::kK + pa * kStride);
+      const float4* kb = reinterpret_cast<const float4*>(st + S::kK + pb * kStride);
+      const float4* va = reinterpret_cast<const float4*>(st + S::kV + pa * kStride);
+      const float4* vb = reinterpret_cast<const float4*>(st + S::kV + pb * kStride);
+      const float* bias_a = st + S::kBias + pa * Jc;
+      const float* bias_b = st + S::kBias + pb * Jc;
+      const int valid = min(Jc, L - c * Jc);
+
+      float s[4][Jc];
+#pragma unroll
+      for (int jj = 0; jj < Jc; ++jj) {
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int i = 0; i < kSlice; ++i) {
+          const int x = jj * (D / 4) + tq + 4 * i;
+          const float4 kxa = ka[x], kxb = kb[x];
+          part[0] = dot4(qr[0][i], kxa, part[0]);
+          part[1] = dot4(qr[1][i], kxb, part[1]);
+          part[2] = dot4(qr[2][i], kxa, part[2]);
+          part[3] = dot4(qr[3][i], kxb, part[3]);
+          if (HAS_REL) {
+            const float4 ex0 = e0[x], ex1 = e1[x];
+            part[0] = dot4(qr[0][i], ex0, part[0]);
+            part[1] = dot4(qr[1][i], ex0, part[1]);
+            part[2] = dot4(qr[2][i], ex1, part[2]);
+            part[3] = dot4(qr[3][i], ex1, part[3]);
+          }
+        }
+        const float ba = bias_a[jj] * kLog2e, bb = bias_b[jj] * kLog2e;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          // sum over the quad: every lane ends with the same bits
+          part[o] += __shfl_xor_sync(0xffffffffu, part[o], 1);
+          part[o] += __shfl_xor_sync(0xffffffffu, part[o], 2);
+          s[o][jj] = jj < valid ? fmaf(part[o], scale2, (o & 1) ? bb : ba) : -INFINITY;
+        }
+      }
+
+      if (!BF16 || pass == 0) {  // fold the chunk into the running maxima and sums
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          float m = row_max[o];
+#pragma unroll
+          for (int jj = 0; jj < Jc; ++jj) m = fmaxf(m, s[o][jj]);
+          const float c_old = exp2f(row_max[o] - m);  // 0 on the first chunk
+          row_max[o] = m;
+          denom[o] *= c_old;
+          if (BF16) {  // the first pass: sums only
+#pragma unroll
+            for (int jj = 0; jj < Jc; ++jj) denom[o] += exp2f(s[o][jj] - m);
+          } else {
+#pragma unroll
+            for (int i = 0; i < kSlice; ++i) {
+              acc[o][i].x *= c_old;
+              acc[o][i].y *= c_old;
+              acc[o][i].z *= c_old;
+              acc[o][i].w *= c_old;
+            }
+          }
+        }
+      }
+      if (pass == 1) {
+#pragma unroll
+        for (int jj = 0; jj < Jc; ++jj) {
+          float p[4];
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            p[o] = exp2f(s[o][jj] - row_max[o]);
+            if (BF16) {
+              p[o] = bf16_value(p[o]);  // the normalised probability, rounded
+            } else {
+              denom[o] += p[o];
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kSlice; ++i) {
+            const int x = jj * (D / 4) + tq + 4 * i;
+            const float4 vxa = va[x], vxb = vb[x];
+            axpy4(p[0], vxa, acc[0][i]);
+            axpy4(p[1], vxb, acc[1][i]);
+            axpy4(p[2], vxa, acc[2][i]);
+            axpy4(p[3], vxb, acc[3][i]);
+          }
+        }
+      }
+      __syncthreads();  // the next iteration refills this stage
     }
-    __syncthreads();  // the next iteration refills this stage
   }
 
 #pragma unroll
@@ -323,7 +376,7 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
     const int l = l0 + r0 + (o >> 1);
     const long long n = n0 + ((o & 1) ? pb : pa);
     if (l >= L || n >= BH) continue;
-    const float inv = 1.0f / denom[o];
+    const float inv = BF16 ? 1.0f : 1.0f / denom[o];  // bf16: P was normalised
     float4* dst = reinterpret_cast<float4*>(out + (static_cast<size_t>(n) * L + l) * D);
 #pragma unroll
     for (int i = 0; i < kSlice; ++i) {
@@ -334,39 +387,68 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
 }
 
 template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 3 : 1)
+gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ bias,
+                          const float* __restrict__ e_lr, float* __restrict__ out, int H, int L,
+                          long long BH, int n_tiles, float scale) {
+  gathered_attention<D, HAS_REL, false>(q, k, v, bias, e_lr, out, H, L, BH, n_tiles, scale);
+}
+
+// Two blocks per SM: at three, the first pass's sums cost the D = 32 instance
+// with relative scores a spill.
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
+gathered_attention_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ bias,
+                               const float* __restrict__ e_lr, float* __restrict__ out, int H,
+                               int L, long long BH, int n_tiles, float scale) {
+  gathered_attention<D, HAS_REL, true>(q, k, v, bias, e_lr, out, H, L, BH, n_tiles, scale);
+}
+
+template <int D, bool HAS_REL, bool BF16>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* bias,
                    const float* e_lr, float* out, int B, int H, int L, int device,
                    cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
+  const auto kernel =
+      BF16 ? &gathered_attention_bf16_kernel<D, HAS_REL> : &gathered_attention_kernel<D, HAS_REL>;
   const size_t smem = 2 * sizeof(float) * Stage<D, HAS_REL>::kFloats;
-  const cudaError_t err = attn::opt_in_smem(
-      reinterpret_cast<const void*>(&gathered_attention_kernel<D, HAS_REL>), granted, device,
-      smem);
+  const cudaError_t err =
+      attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;
   const long long bh = static_cast<long long>(B) * H;
   const int n_tiles = (L + kRows - 1) / kRows;
   const long long blocks = n_tiles * ((bh + kPairs - 1) / kPairs);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gathered_attention_kernel<D, HAS_REL><<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       q, k, v, bias, e_lr, out, H, L, bh, n_tiles, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
+}
+
+template <int D, bool HAS_REL>
+cudaError_t dispatch_bf16(const float* q, const float* k, const float* v, const float* bias,
+                          const float* e_lr, float* out, int B, int H, int L, int bf16,
+                          int device, cudaStream_t stream) {
+  return bf16 ? launch<D, HAS_REL, true>(q, k, v, bias, e_lr, out, B, H, L, device, stream)
+              : launch<D, HAS_REL, false>(q, k, v, bias, e_lr, out, B, H, L, device, stream);
 }
 
 template <int D>
 cudaError_t dispatch_rel(const float* q, const float* k, const float* v, const float* bias,
                          const float* e_lr, float* out, int B, int H, int L, int has_rel,
-                         int device, cudaStream_t stream) {
-  return has_rel ? launch<D, true>(q, k, v, bias, e_lr, out, B, H, L, device, stream)
-                 : launch<D, false>(q, k, v, bias, e_lr, out, B, H, L, device, stream);
+                         int bf16, int device, cudaStream_t stream) {
+  return has_rel ? dispatch_bf16<D, true>(q, k, v, bias, e_lr, out, B, H, L, bf16, device, stream)
+                 : dispatch_bf16<D, false>(q, k, v, bias, e_lr, out, B, H, L, bf16, device, stream);
 }
 
 cudaError_t dispatch(const float* q, const float* k, const float* v, const float* bias,
                      const float* e_lr, float* out, int B, int H, int L, int D, int has_rel,
-                     int device, cudaStream_t s) {
+                     int bf16, int device, cudaStream_t s) {
   switch (D) {
-    case 16: return dispatch_rel<16>(q, k, v, bias, e_lr, out, B, H, L, has_rel, device, s);
-    case 32: return dispatch_rel<32>(q, k, v, bias, e_lr, out, B, H, L, has_rel, device, s);
-    case 64: return dispatch_rel<64>(q, k, v, bias, e_lr, out, B, H, L, has_rel, device, s);
+    case 16: return dispatch_rel<16>(q, k, v, bias, e_lr, out, B, H, L, has_rel, bf16, device, s);
+    case 32: return dispatch_rel<32>(q, k, v, bias, e_lr, out, B, H, L, has_rel, bf16, device, s);
+    case 64: return dispatch_rel<64>(q, k, v, bias, e_lr, out, B, H, L, has_rel, bf16, device, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -374,14 +456,15 @@ cudaError_t dispatch(const float* q, const float* k, const float* v, const float
 }  // namespace
 
 // `e_lr` is the contiguous (L, L, D) tensor, or null when has_rel is 0; q, k,
-// v and e_lr are 16-byte aligned. `device` is the index of the device that
-// holds the tensors and `stream`.
+// v and e_lr are 16-byte aligned. `bf16` picks the instance: 0 float32 FMA,
+// 1 bf16 values. `device` is the index of the device that holds the tensors
+// and `stream`.
 extern "C" int gathered_attention_forward(const float* q, const float* k, const float* v,
                                           const float* bias, const float* e_lr, float* out,
-                                          int B, int H, int L, int D, int has_rel, int device,
-                                          void* stream) {
+                                          int B, int H, int L, int D, int has_rel, int bf16,
+                                          int device, void* stream) {
   return attn::on_device(device, [&] {
-    return dispatch(q, k, v, bias, e_lr, out, B, H, L, D, has_rel, device,
+    return dispatch(q, k, v, bias, e_lr, out, B, H, L, D, has_rel, bf16, device,
                     static_cast<cudaStream_t>(stream));
   });
 }

@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
-from typing import Any, Callable, Iterator, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple
 
 import torch
 
@@ -49,20 +49,25 @@ from foldingdiff_tpu_torch.ops import attention
 
 class CapturedLaunches:
     """The launches counted during a capture, per library (an object with
-    integer `launches` and `rel_off_launches`): taken back when the capture
-    ends, since a capture runs nothing, and added on every replay."""
+    integer `launches` and `rel_off_launches`, and where it has one a dict
+    `launches_by_instance`): taken back when the capture ends, since a
+    capture runs nothing, and added on every replay."""
 
     def __init__(self, libraries: Sequence[Any] = attention.LIBRARIES):
         self.libraries = tuple(libraries)
         self.per_replay: List[Tuple[int, int]] = [(0, 0)] * len(self.libraries)
+        self.per_replay_by_instance: List[Dict[str, int]] = [{} for _ in self.libraries]
 
-    def _counts(self) -> List[Tuple[int, int]]:
-        return [(lib.launches, lib.rel_off_launches) for lib in self.libraries]
+    def _counts(self) -> List[Tuple[int, int, Dict[str, int]]]:
+        return [(lib.launches, lib.rel_off_launches, dict(getattr(lib, "launches_by_instance", {})))
+                for lib in self.libraries]
 
     def _add(self, times: int) -> None:
-        for lib, (n, rel_off) in zip(self.libraries, self.per_replay):
+        for lib, (n, rel_off), by_instance in zip(self.libraries, self.per_replay, self.per_replay_by_instance):
             lib.launches += times * n
             lib.rel_off_launches += times * rel_off
+            for instance, k in by_instance.items():
+                lib.launches_by_instance[instance] += times * k
 
     @contextlib.contextmanager
     def capturing(self) -> Iterator[None]:
@@ -70,7 +75,10 @@ class CapturedLaunches:
         try:
             yield
         finally:
-            self.per_replay = [(n - n0, r - r0) for (n, r), (n0, r0) in zip(self._counts(), before)]
+            after = self._counts()
+            self.per_replay = [(n - n0, r - r0) for (n, r, _), (n0, r0, _) in zip(after, before)]
+            self.per_replay_by_instance = [{i: k - i0[i] for i, k in ia.items()}
+                                           for (_, _, ia), (_, _, i0) in zip(after, before)]
             self._add(-1)
 
     def replayed(self) -> None:

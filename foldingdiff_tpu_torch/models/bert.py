@@ -51,8 +51,12 @@ JAX's bert.py:277-279 scope does: forward() runs under matmul_scope(), the
 trainers run the backward pass under it too (training/trainer.py:
 optimizer_step), and under "BF16_BF16_F32" every Linear and every einsum of
 the plain attention takes bf16 operands with a float32 output, forward and
-backward, remat's recompute included. The fused attention kernels compute in
-float32 under every value.
+backward, remat's recompute included. The fused attention kernels take the
+model's mode too and compute the products that the JAX model's einsums
+compute in it (ops/attention.py's table): the v2 kernel in float32 FMA,
+on TF32 tensor cores, or on bf16 values on them; the v1 kernel in float32
+FMA, on bf16 values under "BF16_BF16_F32". Under "default" the kernel
+follows the caller's TF32 setting at the call, as the GEMMs do.
 """
 from __future__ import annotations
 
@@ -116,8 +120,9 @@ class SelfAttention(nn.Module):
         self.head_size = config.attention_head_size
         self.max_pos = config.max_position_embeddings
         self.probs_dropout = config.attention_probs_dropout_prob
-        self.bf16 = config.matmul_mode == "bf16"
-        hidden, mode = config.hidden_size, config.matmul_mode
+        self.mode = mode = config.matmul_mode
+        self.bf16 = mode == "bf16"
+        hidden = config.hidden_size
         self.query = precision.Linear(hidden, hidden, mode)
         self.key = precision.Linear(hidden, hidden, mode)
         self.value = precision.Linear(hidden, hidden, mode)
@@ -142,11 +147,11 @@ class SelfAttention(nn.Module):
         table = self.distance_embedding.weight if self.distance_embedding is not None else None
         if route == "v2":  # returns a view of a (B, L, H, D) buffer: the reshape below copies nothing
             ctx = fused_attention_v2(q, k, v, attn_bias, rel_table=table,
-                                     m=self.max_pos if table is not None else None)
+                                     m=self.max_pos if table is not None else None, mode=self.mode)
         else:
             e_lr = gather_distance_embeddings(table, dist_idx) if table is not None else None
             if route == "v1":
-                ctx = fused_attention(q, k, v, attn_bias, e_lr)
+                ctx = fused_attention(q, k, v, attn_bias, e_lr, mode=self.mode)
             else:
                 ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query,
                                                 dropout_p=self.probs_dropout if self.training else 0.0,

@@ -41,9 +41,13 @@ Fields the port reads differently:
 | preset "BF16_BF16_F32" | bf16 operands, f32 sums and output | bf16 operands, f32 sums, f32 output |
 | other presets (*_X3, *_X6, *_X9, F16_*, ANY_F8_*, BF16_BF16_BF16, F64_F64_F64), other strings | their algorithms | ValueError |
 
-  The fused attention kernels compute in float32 FMA under every value; on
-  the CPU, whose GEMMs ignore the CUDA TF32 setting, every value but
-  "BF16_BF16_F32" gives float32's numbers.
+  The fused attention kernels follow the value too (ops/attention.py): the
+  v2 kernel runs float32 FMA at IEEE float32, TF32 tensor cores at TF32
+  (and at "default" under a caller's TF32), bf16 values on TF32 tensor
+  cores at "BF16_BF16_F32"; the v1 kernel float32 FMA, on bf16 values at
+  "BF16_BF16_F32". On the CPU, whose GEMMs ignore the CUDA TF32 setting,
+  every value but "BF16_BF16_F32" gives float32's numbers, and the kernels'
+  plain versions take bf16 operands at "BF16_BF16_F32".
 """
 from __future__ import annotations
 

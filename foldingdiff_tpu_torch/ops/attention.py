@@ -15,6 +15,21 @@ Each entry launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors. There is no fallback: a CUDA tensor the kernel does not take
 raises, and so does a tensor on any other device.
 
+Each entry takes the model's matmul mode (precision.py: "caller", "ieee",
+"tf32", "bf16"), resolved on the host at the call by precision.kernel_mode,
+and launches the kernel's instance that computes the products of the JAX
+model's einsums in that mode:
+
+| kernel mode | v2 instance (rel_attention.cu) | v1 instance (gathered_attention.cu) |
+| --- | --- | --- |
+| "ieee" | "fma": float32 FMA | "fma" |
+| "tf32" | "tf32": TF32 tensor cores | "fma" (more precise than asked) |
+| "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": float32 FMA of bf16 values |
+
+The plain versions compute every product on bf16-rounded operands under
+"bf16" (precision.bf16_einsum) and in float32 otherwise, at the caller's
+cuBLAS setting; softmax stays float32 in both.
+
 Each kernel source is built with nvcc at first use, from the repository's
 sources only, into `foldingdiff_tpu_torch/_build/`; the library name carries
 a hash of the source, the shared headers and the flags, so an edited source
@@ -22,9 +37,9 @@ or flag set builds anew. The libraries have a plain C interface and are
 loaded with ctypes. `build()` compiles several at once, one nvcc each.
 
 `REL_ATTENTION.launches` and `GATHERED_ATTENTION.launches` count each
-kernel's launches, so a run can show which kernel it went through, and
-`.rel_off_launches` the launches of each kernel's instance without relative
-scores; nothing else changes them.
+kernel's launches, so a run can show which kernel it went through,
+`.rel_off_launches` the launches without relative scores and
+`.launches_by_instance` those of each instance; nothing else changes them.
 """
 from __future__ import annotations
 
@@ -54,15 +69,25 @@ _ptr, _int = ctypes.c_void_p, ctypes.c_int
 
 class CudaLibrary:
     """One kernel source, csrc/<name>.cu, built into a ctypes library whose
-    C entry is <name>_forward and whose error text is <name>_error_string."""
+    C entry is <name>_forward and whose error text is <name>_error_string.
+    The entry's last three arguments are the instance's index in
+    `instances`, the device index and the stream; the instance "fma" runs
+    the kernel <name>_kernel, any other <name>_<instance>_kernel."""
 
-    def __init__(self, name: str, forward_argtypes: Sequence):
+    def __init__(self, name: str, argtypes: Sequence, instances: Sequence[str] = ("fma",)):
         self.name = name
         self.source = CSRC_DIR / f"{name}.cu"
-        self.forward_argtypes = list(forward_argtypes)
+        self.argtypes = list(argtypes)  # the entry's arguments before the instance, device and stream
+        self.instances = tuple(instances)
         self.launches = 0
         self.rel_off_launches = 0  # of these, the instance without relative scores (HAS_REL false)
+        self.launches_by_instance = dict.fromkeys(self.instances, 0)
         self._lib = None
+
+    def kernel_name(self, instance: str) -> str:
+        """The __global__ function of an instance, as the driver names its
+        graph nodes (inside the mangled name)."""
+        return f"{self.name}_kernel" if instance == "fma" else f"{self.name}_{instance}_kernel"
 
     def library_path(self) -> Path:
         inputs = [self.source, *sorted(CSRC_DIR.glob("*.cuh"))]
@@ -74,7 +99,7 @@ class CudaLibrary:
             build([self])
             lib = ctypes.CDLL(str(self.library_path()))
             forward = getattr(lib, f"{self.name}_forward")
-            forward.argtypes = self.forward_argtypes
+            forward.argtypes = [*self.argtypes, _int, _int, _ptr]
             forward.restype = _int
             error_string = getattr(lib, f"{self.name}_error_string")
             error_string.argtypes = [_int]
@@ -82,23 +107,31 @@ class CudaLibrary:
             self._lib = lib
         return self._lib
 
-    def launch(self, what: str, has_rel: bool, *args) -> None:
-        """Call the C entry, raise on a non-zero cudaError_t, count the launch
-        (and the rel-off instance's apart)."""
+    def launch(self, what: str, has_rel: bool, instance: str, device: torch.device, *args) -> None:
+        """Call the C entry with args, the instance, the device and its
+        current stream; raise on a non-zero cudaError_t; count the launch
+        (the rel-off and each instance's apart)."""
         lib = self.load()
-        err = getattr(lib, f"{self.name}_forward")(*args)
+        err = getattr(lib, f"{self.name}_forward")(
+            *args, self.instances.index(instance), device.index, torch.cuda.current_stream(device).cuda_stream)
         if err:
             msg = getattr(lib, f"{self.name}_error_string")(err).decode()
-            raise RuntimeError(f"{self.name} launch failed ({what}): {msg}")
+            raise RuntimeError(f"{self.name} launch failed ({what}, {instance}): {msg}")
         self.launches += 1
         self.rel_off_launches += not has_rel
+        self.launches_by_instance[instance] += 1
 
 
-# (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel, device, stream)
-REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 7 + [_ptr])
-# (q, k, v, bias, elt, out, B, H, L, D, has_rel, device, stream)
-GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 6 + [_ptr])
+# (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel), then the
+# instance, device and stream
+REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6,
+                            ("fma", "tf32", "bf16"))
+# (q, k, v, bias, e_lr, out, B, H, L, D, has_rel), then the instance (1: bf16), device and stream
+GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, ("fma", "bf16"))
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
+# kernel mode (precision.kernel_mode) -> the instance each kernel runs in it
+V2_INSTANCES = {"ieee": "fma", "tf32": "tf32", "bf16": "bf16"}
+V1_INSTANCES = {"ieee": "fma", "tf32": "fma", "bf16": "bf16"}
 
 
 def fused_attention_reference(
@@ -117,7 +150,8 @@ def fused_attention_reference(
     dropout_p drops attention probabilities, as the denoiser's train mode
     does (JAX's bert.py:186); the kernels' plain versions leave it 0. bf16
     takes every einsum on bf16 operands with a float32 output, as a model
-    at matmul_precision "BF16_BF16_F32" does (precision.bf16_einsum)."""
+    at matmul_precision "BF16_BF16_F32" does (precision.bf16_einsum); the
+    softmax stays float32."""
     einsum = precision.bf16_einsum if bf16 else torch.einsum
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = einsum("bhld,bhmd->bhlm", q, k)
@@ -138,17 +172,20 @@ def fused_attention(
     v: torch.Tensor,
     mask_bias: torch.Tensor,  # (B, L) additive bias per key (-10000 masked)
     e_lr: torch.Tensor | None = None,  # (L, L, D) gathered distance embeddings
+    mode: str = "caller",  # the model's matmul mode (precision.py)
 ) -> torch.Tensor:
     """
     softmax((q k^T + rel) / sqrt(D) + mask_bias) v with rel[l, j] =
-    q[l] . e_lr[l, j] (omitted when e_lr is None), e_lr any (L, L, D) tensor.
-    Forward only: the kernel records no autograd graph.
+    q[l] . e_lr[l, j] (omitted when e_lr is None), e_lr any (L, L, D) tensor,
+    each product in `mode` (the module docstring's table). Forward only: the
+    kernel records no autograd graph.
 
     The kernel reads e_lr contiguous, as the denoiser's gather writes it; a
     view in another layout is copied here first.
     """
+    kernel_mode = precision.kernel_mode(mode)
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, mask_bias, e_lr)
+        return fused_attention_reference(q, k, v, mask_bias, e_lr, bf16=kernel_mode == "bf16")
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention takes CPU or CUDA tensors, got {q.device}")
     b, h, l, d = _check_inputs(q, k, v, mask_bias)
@@ -162,11 +199,10 @@ def fused_attention(
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it in 16-byte pieces)")
     out = torch.empty_like(q)
     GATHERED_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}", e_lr is not None,
+        f"B={b} H={h} L={l} D={d}", e_lr is not None, V1_INSTANCES[kernel_mode], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         e_lr.data_ptr() if e_lr is not None else None, out.data_ptr(),
-        b, h, l, d, int(e_lr is not None), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, l, d, int(e_lr is not None),
     )
     return out
 
@@ -178,14 +214,15 @@ def fused_attention_v2_reference(
     mask_bias: torch.Tensor,
     rel_table: torch.Tensor | None = None,
     m: int | None = None,
+    mode: str = "caller",
 ) -> torch.Tensor:
     """Plain PyTorch version: gather e_lr = table[l - r + M - 1] and run
-    fused_attention_reference."""
+    fused_attention_reference, on bf16 operands where `mode` is "bf16"."""
     e_lr = None
     if rel_table is not None:
         pos = torch.arange(q.shape[2], device=q.device)
         e_lr = rel_table[pos[:, None] - pos[None, :] + m - 1]  # (L, L, D)
-    return fused_attention_reference(q, k, v, mask_bias, e_lr)
+    return fused_attention_reference(q, k, v, mask_bias, e_lr, bf16=precision.kernel_mode(mode) == "bf16")
 
 
 def fused_attention_v2(
@@ -195,11 +232,13 @@ def fused_attention_v2(
     mask_bias: torch.Tensor,  # (B, L) additive bias per key (-10000 masked)
     rel_table: torch.Tensor | None = None,  # (2M-1, D) distance embedding table
     m: int | None = None,  # max_position_embeddings
+    mode: str = "caller",  # the model's matmul mode (precision.py)
 ) -> torch.Tensor:
     """
     softmax((q k^T + rel) / sqrt(D) + mask_bias) v with the HF relative_key
     term rel[l, j] = q[l] . rel_table[l - j + m - 1] (omitted when rel_table
-    is None). Forward only: the kernel records no autograd graph.
+    is None), each product in `mode` (the module docstring's table). Forward
+    only: the kernel records no autograd graph.
 
     The kernel reads q, k and v in any layout whose last dimension has
     stride 1 and whose rows start on 16 bytes, such as the
@@ -208,8 +247,9 @@ def fused_attention_v2(
     caller's transpose back to (B, L, H * D) is free. Other layouts raise;
     nothing is copied.
     """
+    kernel_mode = precision.kernel_mode(mode)
     if q.device.type == "cpu":
-        return fused_attention_v2_reference(q, k, v, mask_bias, rel_table, m)
+        return fused_attention_v2_reference(q, k, v, mask_bias, rel_table, m, kernel_mode)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_v2 takes CPU or CUDA tensors, got {q.device}")
     b, h, l, d = _check_inputs(q, k, v, mask_bias, strided=True)
@@ -227,11 +267,10 @@ def fused_attention_v2(
     out = torch.empty(b, l, h, d, device=q.device)
     sb, sh, sl, _ = q.stride()
     REL_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}", has_rel,
+        f"B={b} H={h} L={l} D={d}", has_rel, V2_INSTANCES[kernel_mode], q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         rel_table.data_ptr() if has_rel else None, out.data_ptr(), sb, sh, sl,
-        b, h, l, d, m if has_rel else l, int(has_rel), q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, h, l, d, m if has_rel else l, int(has_rel),
     )
     return out.transpose(1, 2)
 

@@ -24,7 +24,11 @@ models/config.py's docstring maps each name onto a mode of this module:
   bf16-rounded values under TF32: TF32 holds bf16's 8 bits, and each product
   of two bf16 values is exact in float32, so the card and the CPU compute
   the same products and differ only in the order of the float32 sums.
-- The attention kernels (csrc/) compute in float32 FMA under every mode.
+- The attention kernels (csrc/) compute their products in the model's mode
+  as well (kernel_mode): float32 FMA under "ieee", TF32 tensor cores under
+  "tf32" (and "caller" under a caller's TF32), bf16 values on TF32 tensor
+  cores under "bf16" (the v1 kernel: float32 FMA but for "bf16", whose
+  operands it rounds). Their plain versions take bf16 operands under "bf16".
 - The CPU's GEMMs do not read the CUDA setting: "caller", "tf32" and "ieee"
   give the same numbers there.
 """
@@ -55,6 +59,23 @@ def mode_of(matmul_precision: str) -> str:
     except (KeyError, TypeError):
         raise ValueError(f"matmul_precision {matmul_precision!r} is not one the port runs; "
                          f"supported: {', '.join(MODES)}") from None
+
+
+def kernel_mode(mode: str) -> str:
+    """The arithmetic of the attention kernels' products under a model's
+    mode: "ieee", "tf32" or "bf16". "caller" takes the caller's setting at
+    the call (or at a CUDA graph's capture): "tf32" where the float32 GEMMs
+    that cuBLAS runs then would be TF32 (torch.backends.cuda.matmul.
+    fp32_precision "tf32", or "none" under torch.backends.fp32_precision
+    "tf32"), else "ieee". ValueError for any other mode."""
+    if mode == "caller":
+        setting = torch.backends.cuda.matmul.fp32_precision
+        if setting == "none":
+            setting = torch.backends.fp32_precision
+        return "tf32" if setting == "tf32" else "ieee"
+    if mode not in ("ieee", "tf32", "bf16"):
+        raise ValueError(f"mode {mode!r} is not one of the port's: caller, ieee, tf32, bf16")
+    return mode
 
 
 def set_process_default() -> None:

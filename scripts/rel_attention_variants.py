@@ -77,7 +77,7 @@ def variant_libraries() -> dict:
         directory.mkdir(parents=True, exist_ok=True)
         (directory / "rel_attention.cu").write_text(text)
         shutil.copy(attention.CSRC_DIR / "launch.cuh", directory / "launch.cuh")
-        lib = attention.CudaLibrary("rel_attention", attention.REL_ATTENTION.forward_argtypes)
+        lib = attention.CudaLibrary("rel_attention", attention.REL_ATTENTION.argtypes, attention.REL_ATTENTION.instances)
         lib.source = directory / "rel_attention.cu"
         libs[name] = lib
     return libs

@@ -1,7 +1,9 @@
 """
 Tests that need an NVIDIA GPU: the two CUDA attention kernels
 (csrc/rel_attention.cu, csrc/gathered_attention.cu) against their plain
-PyTorch versions, the wrappers' input checks, a reverse step on the card,
+PyTorch versions, each instance (v2: float32 FMA, TF32 and bf16 tensor
+cores; v1: FMA and bf16) against the plain version in its mode, the
+wrappers' input checks, a reverse step on the card,
 the CUDA graphs of the reverse chains and the train step against the
 eager ones (bitwise, with the kernels' launches counted), and
 matmul_precision on the card (TF32 and bf16 against "highest", "default"
@@ -162,6 +164,109 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(device):
         attention.fused_attention_v2(q.requires_grad_(), k, v, bias)
 
 
+def _rel_rms(a, b) -> float:
+    return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
+
+
+def _check_instance(out, run_plain, mode):
+    """An instance's output against the plain version: FMA within 1e-4 of
+    float32's; TF32 within 5e-3 relative RMS of float32's; bf16 within a
+    tenth of the plain bf16 version's own relative-RMS distance from
+    float32, and within 5e-2 of float32."""
+    f32 = run_plain("ieee")
+    if mode == "ieee":
+        assert (out - f32).abs().max().item() <= 1e-4
+    elif mode == "tf32":
+        assert 0 < _rel_rms(out, f32) <= 5e-3
+    else:
+        plain = run_plain("bf16")
+        gap = _rel_rms(plain, f32)
+        assert gap > 0 and _rel_rms(out, plain) <= 0.1 * gap and _rel_rms(out, f32) <= 5e-2
+
+
+# (B, H, L, D, M) of the instances' checks: the flagship and the sweep's two
+# chunks; ragged L inside a 16-row warp tile and an 8-key tile (50, 127, 33,
+# 99); L = 200 over four chunks of keys (the bf16 instance's two passes);
+# L = 1; D 16, 32, 64
+INSTANCE_SHAPES = [(8, 12, 128, 32, 128), (15, 12, 64, 32, 128), (63, 12, 128, 32, 128), (8, 12, 50, 32, 128),
+                   (8, 12, 127, 32, 128), (4, 6, 33, 16, 64), (2, 4, 99, 64, 128), (2, 3, 200, 32, 256),
+                   (3, 2, 1, 32, 128)]
+
+
+@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("b,h,l,d,m", INSTANCE_SHAPES)
+def test_v2_instance_on_projection_views_matches_its_plain_version(device, b, h, l, d, m, rel, mode):
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=11)
+    kw = dict(rel_table=table, m=m) if rel else {}
+    views = _projection_views(q, k, v)
+    instance = attention.V2_INSTANCES[mode]
+    with torch.inference_mode():
+        before = dict(attention.REL_ATTENTION.launches_by_instance)
+        out = attention.fused_attention_v2(*views, bias, mode=mode, **kw)
+        torch.cuda.synchronize()
+        after = attention.REL_ATTENTION.launches_by_instance
+        assert {i: n - before[i] for i, n in after.items()} == {i: int(i == instance) for i in after}
+        assert out.shape == (b, h, l, d) and out.transpose(1, 2).is_contiguous()  # stored as (B, L, H, D)
+        _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
+                        mode)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+def test_v2_instance_ignores_masked_keys(device, mode):
+    q, k, v, bias, table = _inputs(device, 64, 12, 96, 32, 128, seed=6)
+    masked = (bias < -1.0)[:, None, :, None]
+    with torch.inference_mode():
+        out1 = attention.fused_attention_v2(*_projection_views(q, k, v), bias, table, 128, mode=mode)
+        out2 = attention.fused_attention_v2(*_projection_views(q, k + 7.0 * masked, v - 3.0 * masked),
+                                            bias, table, 128, mode=mode)
+    assert (out1 - out2).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+def test_v2_instances_refuse_what_they_do_not_take(device, mode):
+    """The checks come before the instance: a wrong dtype, layout or
+    alignment raises for every mode, and so does a mode the port does not
+    have; nothing launches."""
+    q, k, v, bias, table = _inputs(device, 2, 3, 16, 32, 16)
+    views = _projection_views(q, k, v)
+    before = attention.REL_ATTENTION.launches
+    with torch.inference_mode():
+        with pytest.raises(TypeError, match="float32"):
+            attention.fused_attention_v2(q.double(), k, v, bias, mode=mode)
+        with pytest.raises(ValueError, match="share strides"):
+            attention.fused_attention_v2(q, *views[1:], bias, mode=mode)
+        shifted = torch.zeros(2 * 16 * 3 * 32 + 1, device=device)[1:].view(2, 16, 3, 32).transpose(1, 2)
+        with pytest.raises(ValueError, match="16-byte"):
+            attention.fused_attention_v2(views[0], shifted, views[2], bias, table, 16, mode=mode)
+        with pytest.raises(ValueError, match="is not one of the port's"):
+            attention.fused_attention_v2(*views, bias, table, 16, mode="highest")
+    assert attention.REL_ATTENTION.launches == before
+
+
+@pytest.mark.parametrize("setting,instance", [("ieee", "fma"), ("tf32", "tf32"), ("none", "fma")])
+def test_default_model_attention_follows_the_callers_setting(device, setting, instance):
+    """A "default" model's v2 attention runs the instance that its GEMMs'
+    setting names at the call: TF32 under a caller's TF32, FMA otherwise;
+    a "high" model's TF32 and a "BF16_BF16_F32" model's bf16 whatever the
+    caller's setting."""
+    x, mask = _chain_inputs(device)
+    t = torch.zeros(x.shape[0], dtype=torch.long, device=device)
+    torch.backends.cuda.matmul.fp32_precision = setting
+    try:
+        for name, want in (("default", instance), ("high", "tf32"), ("BF16_BF16_F32", "bf16")):
+            config = dataclasses.replace(GRAPH_CONFIG, matmul_precision=name)
+            model = model_io.init_random(config, torch.Generator().manual_seed(1)).to(device).eval()
+            before = dict(attention.REL_ATTENTION.launches_by_instance)
+            with torch.inference_mode():
+                model(x, t, mask)
+            added = {i: n - before[i] for i, n in attention.REL_ATTENTION.launches_by_instance.items()}
+            assert added == {i: GRAPH_CONFIG.num_hidden_layers * (i == want) for i in added}, (name, added)
+            assert torch.backends.cuda.matmul.fp32_precision == setting
+    finally:
+        torch.backends.cuda.matmul.fp32_precision = "ieee"
+
+
 def _e_lr(table, l, m, positions):
     """e_lr[l, r] = table[pos[l] - pos[r] + M - 1] for arange or a permutation of it."""
     pos = torch.arange(l, device=table.device)
@@ -186,6 +291,29 @@ def test_gathered_kernel_matches_plain(device, b, h, l, d, m, e_lr_kind):
         ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
     assert out.shape == q.shape and out.device == q.device
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("e_lr_kind", ["permuted", "random", None])
+@pytest.mark.parametrize("b,h,l,d,m", [(8, 12, 128, 32, 128), (15, 12, 64, 32, 128), (4, 6, 33, 16, 64),
+                                       (2, 4, 99, 64, 128), (3, 2, 1, 32, 128)])
+def test_gathered_bf16_instance_matches_its_plain_version(device, b, h, l, d, m, e_lr_kind):
+    """v1 under "bf16": the float32 FMA of bf16 values (q, k, v, e_lr and
+    the normalised P rounded) against the plain version's bf16 products;
+    under "tf32" the FMA instance, more precise than asked."""
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=12)
+    if e_lr_kind == "random":
+        e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(2), device=device) * 0.5
+    else:
+        e_lr = _e_lr(table, l, m, e_lr_kind) if e_lr_kind else None
+    with torch.inference_mode():
+        for mode, instance in (("bf16", "bf16"), ("tf32", "fma")):
+            before = dict(attention.GATHERED_ATTENTION.launches_by_instance)
+            out = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
+            torch.cuda.synchronize()
+            added = {i: n - before[i] for i, n in attention.GATHERED_ATTENTION.launches_by_instance.items()}
+            assert added == {i: int(i == instance) for i in added}
+            _check_instance(out, lambda mode_: attention.fused_attention_reference(
+                q, k, v, bias, e_lr, bf16=mode_ == "bf16"), "ieee" if instance == "fma" else mode)
 
 
 # (B, H, L, D) of the v1 kernel's edges: B * H = 15 and 3 leave the last group

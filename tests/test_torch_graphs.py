@@ -41,6 +41,7 @@ from foldingdiff_tpu_torch.diffusion import sampling
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule, ddim_table, ddpm_table, dpmpp_table
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.config import ModelConfig
+from foldingdiff_tpu_torch.ops import attention
 from foldingdiff_tpu_torch.training import checkpoint
 from foldingdiff_tpu_torch.training.trainer import Trainer, TrainConfig
 from tests.test_torch_cuda import optax_adamw_f32
@@ -383,6 +384,24 @@ def test_captured_launches_are_taken_back_and_added_per_replay():
     for _ in range(3):
         account.replayed()
     assert (lib.launches, lib.rel_off_launches, other.launches) == (5 + 36, 1 + 6, 5)
+
+
+def test_captured_launches_per_instance_are_taken_back_and_added_per_replay():
+    """The kernel libraries' per-instance counts (attention.CudaLibrary's
+    launches_by_instance) follow the same accounting: a capture counts
+    nothing that ran, each replay adds what the capture counted per
+    instance."""
+    v2 = attention.CudaLibrary("v2_stand_in", [], ("fma", "tf32", "bf16"))
+    v2.launches, v2.launches_by_instance["fma"] = 4, 4
+    account = graphs.CapturedLaunches([v2])
+    with account.capturing():
+        v2.launches += 12
+        v2.launches_by_instance["tf32"] += 12
+    assert v2.launches_by_instance == {"fma": 4, "tf32": 0, "bf16": 0}
+    assert account.per_replay == [(12, 0)] and account.per_replay_by_instance == [{"fma": 0, "tf32": 12, "bf16": 0}]
+    for _ in range(2):
+        account.replayed()
+    assert v2.launches == 4 + 24 and v2.launches_by_instance == {"fma": 4, "tf32": 24, "bf16": 0}
 
 
 def test_optax_transcription_matches_optax():

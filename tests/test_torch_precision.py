@@ -22,7 +22,12 @@ ModelConfig.matmul_precision in the port (precision.py), on the CPU:
   in it is checked to carry the preset with a float32 output (the
   backward's transposes and the relative-position einsums included), and
   the jaxpr is evaluated with each such dot on its bf16-rounded operands,
-  which is what the preset defines;
+  which is what the preset defines; the port under "xla" (its einsums) and
+  under "auto" (the attention kernels' plain versions: v2's without
+  position_ids, v1's with them) against JAX's "auto" einsums;
+- the attention kernels' mode (precision.kernel_mode): "caller" follows the
+  caller's cuBLAS setting, other names raise; the entries' plain versions
+  on the CPU take bf16 operands under "bf16" only;
 - the model CLIs set TF32 for their process when run as programs, and
   leave the setting alone when imported;
 - the CPU's GEMMs ignore the CUDA setting: a "default" model's output equals
@@ -50,7 +55,9 @@ from foldingdiff_tpu.models.bert import BertForDiffusion as JaxBert
 from foldingdiff_tpu.models.config import ModelConfig as JaxConfig
 from foldingdiff_tpu_torch import precision
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
+from foldingdiff_tpu_torch.models import bert as models_bert
 from foldingdiff_tpu_torch.models import io as model_io
+from foldingdiff_tpu_torch.ops import attention
 from foldingdiff_tpu_torch.models.ar import BertForAutoregressive
 from foldingdiff_tpu_torch.models.bert import BertForDiffusion
 from foldingdiff_tpu_torch.models.config import ModelConfig
@@ -181,8 +188,8 @@ def test_scope_sets_the_mode_and_restores_the_callers_setting(mode, before):
 @pytest.mark.parametrize("impl", ["plain", "auto"])
 def test_forward_gemms_follow_the_config(matmul_precision, impl):
     """Eval forwards: the plain einsums, and "auto" (on the CPU the v2
-    kernel's plain version, which computes in float32 under every mode, as
-    the kernel does on the card)."""
+    kernel's plain version, which takes the model's mode as the kernel does
+    on the card: bf16 products under "BF16_BF16_F32")."""
     model = _model(matmul_precision, attention_impl=impl).eval()
     mode = model.config.matmul_mode
     caller = _caller_for(mode)
@@ -192,10 +199,7 @@ def test_forward_gemms_follow_the_config(matmul_precision, impl):
         model(batch["angles"], t, batch["attn_mask"])
     assert torch.backends.cuda.matmul.fp32_precision == caller
     assert len(log.calls) == FORWARD_GEMMS
-    if impl == "plain" or mode != "bf16":
-        _assert_in_mode(log.calls, mode, f"{matmul_precision} forward")
-    else:  # the kernel's plain version multiplies the projections' float32 values
-        assert {c[0] for c in log.calls} == {"tf32"} and sum(c[1] for c in log.calls) == LINEARS
+    _assert_in_mode(log.calls, mode, f"{matmul_precision} {impl} forward")
 
 
 @pytest.mark.parametrize("matmul_precision", PRECISIONS)
@@ -379,13 +383,17 @@ def _eval_at_bf16(jaxpr, consts, *args):
     return [read(v) for v in jaxpr.outvars]
 
 
-def _jax_and_port_at_bf16(layers: int, position_embedding_type: str):
+def _jax_and_port_at_bf16(layers: int, position_embedding_type: str, attention_impl: str = "xla",
+                          positions: str | None = None):
     """The JAX model's program at "BF16_BF16_F32" and the port's model on
     the same weights and inputs: (JAX output, JAX float32 output, port
     output, {parameter: (port gradient, JAX gradient, JAX float32
     gradient)}, the JAX jaxpr's dots). The gradients are those of
-    sum(output * proj) for a random proj."""
-    fields = dict(BF16_FIELDS, num_hidden_layers=layers, position_embedding_type=position_embedding_type)
+    sum(output * proj) for a random proj. Both models run `attention_impl`
+    (JAX computes "auto" and "xla" as the same einsums); `positions`
+    "permuted" gives both a permutation of arange as position_ids."""
+    fields = dict(BF16_FIELDS, num_hidden_layers=layers, position_embedding_type=position_embedding_type,
+                  attention_impl=attention_impl)
     jax_model = JaxBert(JaxConfig(**fields))
     variables = jax_io.init_model_variables(jax_model, jax.random.PRNGKey(3), pad=40)
     params = jax.tree.map(np.asarray, variables["params"])
@@ -395,9 +403,10 @@ def _jax_and_port_at_bf16(layers: int, position_embedding_type: str):
     t = rng.integers(0, 1000, 3)
     mask = (np.arange(40)[None] < np.array([[40], [31], [22]])).astype(np.float32)
     proj = rng.standard_normal((3, 40, 6)).astype(np.float32)
+    pos = None if positions is None else np.tile(rng.permutation(40).astype(np.int32), (3, 1))
 
     def loss(p, model=jax_model):
-        out = model.apply({"params": p, "constants": constants}, x, t, mask, deterministic=True)
+        out = model.apply({"params": p, "constants": constants}, x, t, mask, position_ids=pos, deterministic=True)
         return jnp.sum(out * proj), out
 
     closed = jax.make_jaxpr(jax.value_and_grad(loss, has_aux=True))(params)
@@ -414,7 +423,8 @@ def _jax_and_port_at_bf16(layers: int, position_embedding_type: str):
     config = ModelConfig(**fields)
     port = BertForDiffusion(config).eval()
     port.load_state_dict(model_io.state_dict_from_flax(params, constants, config), strict=True)
-    out = port(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(mask))
+    out = port(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(mask),
+               None if pos is None else torch.from_numpy(pos).long())
     (out * torch.from_numpy(proj)).sum().backward()
     want, want_f32 = (model_io.state_dict_from_flax(jax.tree.map(np.asarray, g), {}, config)
                       for g in (jax_grads, grads_f32))
@@ -440,7 +450,11 @@ def test_bf16_model_matches_the_jax_program_at_bf16(position_embedding_type):
     and every gradient are held within a tenth of the bf16 program's own
     distance from float32 (relative RMS), and the gradient no dot touches
     (the decoder's output bias, a sum of the cotangent) within 1e-6."""
-    jax_out, jax_f32, out, grads, dots = _jax_and_port_at_bf16(1, position_embedding_type)
+    _assert_near_the_jax_program(*_jax_and_port_at_bf16(1, position_embedding_type), position_embedding_type)
+
+
+def _assert_near_the_jax_program(jax_out, jax_f32, out, grads, dots, position_embedding_type: str) -> None:
+    """test_bf16_model_matches_the_jax_program_at_bf16's bounds."""
     einsums = 4 if position_embedding_type == "relative_key_query" else 3
     forward = 6 + einsums + 3  # q, k, v, the attention's output and two FFN dense; the input, two decoder dense
     assert len(dots) == 3 * forward - 1  # each backward transpose but the input's gradient
@@ -452,6 +466,21 @@ def test_bf16_model_matches_the_jax_program_at_bf16(position_embedding_type):
         gap = _rms(want, want_f32)
         assert _rms(ours, want) <= (0.1 * gap if gap else 1e-6), name
     assert not _rms(*grads["token_decoder.dense2.bias"][1:])
+
+
+@pytest.mark.parametrize("positions", [None, "permuted"])
+def test_bf16_auto_model_matches_the_jax_programs_einsums_at_bf16(positions):
+    """The port's default attention_impl "auto" at "BF16_BF16_F32" against
+    the JAX model's "auto" (its einsums) at bf16, one layer, within the
+    bounds of the "xla" case above. Without position_ids the port routes
+    every layer to the v2 kernel's entry, with them (a permutation, which
+    JAX's gather_dist_emb reads from position_ids[0]) to the v1 kernel's;
+    on the CPU each runs its plain version, which must take bf16 operands
+    as the kernels do on the card."""
+    route = models_bert.attention_route(ModelConfig(**dict(BF16_FIELDS, attention_impl="auto")),
+                                        positions is not None)
+    assert route == (("v1", False) if positions else ("v2", True))
+    _assert_near_the_jax_program(*_jax_and_port_at_bf16(1, "relative_key", "auto", positions), "relative_key")
 
 
 def test_bf16_model_at_depth_stays_near_the_jax_program():
@@ -478,6 +507,64 @@ def test_model_clis_set_tf32_for_their_process(script):
                  f"runpy.run_path({path!r}, run_name={run_name!r})\n")
         out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True, cwd=REPO, timeout=120)
         assert out.stdout.strip().splitlines()[-1] == f"fp32_precision {want}", (run_name, out.stdout, out.stderr)
+
+
+# -- the attention kernels' mode ------------------------------------------------------
+
+
+@pytest.mark.parametrize("setting,want", [("none", "ieee"), ("ieee", "ieee"), ("tf32", "tf32")])
+def test_kernel_mode_resolves_the_caller_at_the_call(setting, want):
+    """"caller" takes the caller's cuBLAS setting when the kernel is called
+    (a "default" model's attention computes as its GEMMs do); the other
+    modes are what they say; anything else raises, never a silent float32."""
+    torch.backends.cuda.matmul.fp32_precision = setting
+    assert precision.kernel_mode("caller") == want
+    for mode in ("ieee", "tf32", "bf16"):
+        assert precision.kernel_mode(mode) == mode
+    for name in ("default", "highest", "", None):
+        with pytest.raises(ValueError, match="is not one of the port's"):
+            precision.kernel_mode(name)
+    assert {precision.mode_of(n) for n in SUPPORTED} <= {"caller", "ieee", "tf32", "bf16"}
+
+
+def _bf16_attention_np(q, k, v, bias, e_lr):
+    """The attention of JAX's einsums at BF16_BF16_F32 in numpy: each
+    product on bf16-rounded operands in float64, the softmax in float64."""
+    q16, k16, v16 = _bf16_np(q), _bf16_np(k), _bf16_np(v)
+    scores = np.einsum("bhld,bhmd->bhlm", q16, k16)
+    if e_lr is not None:
+        scores = scores + np.einsum("bhld,lrd->bhlr", q16, _bf16_np(e_lr))
+    scores = scores / np.sqrt(q.shape[-1]) + bias.numpy()[:, None, None, :].astype(np.float64)
+    probs = np.exp(scores - scores.max(-1, keepdims=True))
+    probs = torch.from_numpy(probs / probs.sum(-1, keepdims=True)).float()
+    return np.einsum("bhlm,bhmd->bhld", _bf16_np(probs), v16)
+
+
+@pytest.mark.parametrize("entry", ["v2", "v2 rel-off", "v1"])
+@pytest.mark.parametrize("mode", ["caller", "ieee", "tf32", "bf16"])
+def test_attention_entries_on_the_cpu_take_the_mode(entry, mode):
+    """Each kernel entry on CPU tensors, under each mode: bf16 products
+    (within float32's rounding of numpy's bf16 program, 1e-5 of the largest
+    output) under "bf16", float32's bits under the rest."""
+    g = torch.Generator().manual_seed(8)
+    b, h, l, d, m = 2, 3, 20, 16, 24
+    q, k, v = (torch.randn(b, h, l, d, generator=g) for _ in range(3))
+    bias = torch.where(torch.arange(l)[None] < torch.tensor([[20], [13]]), 0.0, -10000.0)
+    table = torch.randn(2 * m - 1, d, generator=g) * 0.5
+    pos = torch.randperm(l, generator=g) if entry == "v1" else torch.arange(l)
+    e_lr = None if entry == "v2 rel-off" else table[pos[:, None] - pos[None, :] + m - 1]
+    if entry == "v1":
+        run = lambda mode: attention.fused_attention(q, k, v, bias, e_lr, mode=mode)  # noqa: E731
+    else:
+        kw = dict(rel_table=table, m=m) if e_lr is not None else {}
+        run = lambda mode: attention.fused_attention_v2(q, k, v, bias, mode=mode, **kw)  # noqa: E731
+    out = run(mode)
+    if mode == "bf16":
+        ref = _bf16_attention_np(q, k, v, bias, e_lr)
+        assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
+        assert (out - run("ieee")).abs().max() > 1e-4  # not float32's numbers
+    else:
+        assert torch.equal(out, attention.fused_attention_reference(q, k, v, bias, e_lr))
 
 
 # -- the CPU, weights -------------------------------------------------------------------
