@@ -14,16 +14,17 @@ Phases, each printing lines of its own:
      head sizes 16 and 64; v2 also on strided (B, L, H, D) views of the
      projections, returning a (B, L, H, D) buffer; masked-key invariance.
      Each instance by matmul precision against the plain version in its
-     mode: FMA within 1e-4 (float32); v2 TF32 (tensor cores) within 5e-3
-     relative RMS of float32; v2 bf16 and v1 bf16 within a tenth of the
-     plain bf16 version's relative-RMS distance from float32 and within
-     5e-2 of float32. Kernel, plain (in the instance's mode) and library
+     mode: FMA within 1e-4 (float32); TF32 (tensor cores) within 5e-3
+     relative RMS of float32; bf16 within a tenth of the plain bf16
+     version's relative-RMS distance from float32 and within 5e-2 of
+     float32 (v2 and v1 alike; v1's at every e_lr kind, with masked-key
+     invariance). Kernel, plain (in the instance's mode) and library
      times (SDPA for rel-off), all instances taken in turns in one call, at
      H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
      its bound: the larger of its FLOPs over the instance's peak (67
      TFLOP/s FMA, 495 TF32 tensor cores for TF32 and bf16) and its bytes
-     over 3.35 TB/s; the v2 TF32 instance must beat the FMA one at
-     B = 64, L = 128
+     over 3.35 TB/s; each kernel's TF32 instance must beat its FMA one at
+     B = 64, L = 128 with relative scores
   3. the trained torch fixture loaded through models.io.from_dir onto the
      card under attention_impl "auto" (v2) and "pallas" (v1), against its
      recorded predictions (parity.npz)
@@ -36,10 +37,11 @@ Phases, each printing lines of its own:
   5. the DDPM slice: bin/sample_torch.py's main() over that model directory,
      DDPM T = 1000 over lengths 50..127 once each at batch 64, its chains
      replayed as CUDA graphs; every layer of every reverse step must launch
-     the v2 kernel (12 per step); then a torch.profiler window of a few
+     the v2 kernel (12 per step); then torch.profiler windows of a few
      eager DDPM steps (p_sample_step) under "auto" and "pallas" at both
-     chunk shapes: device operations, busy time and kernel groups per
-     step; "auto" must run 62 fewer device operations per step than
+     chunk shapes, read from the most complete of three (the profiler now
+     and then loses a record): device operations, busy time and kernel
+     groups per step; "auto" must run 62 fewer device operations per step than
      "pallas" at B = 64, L = 128 (no layout copies around the v2 kernel)
   6. the new paths at full width: the flagship under "pallas" through
      sampling.sample (DDPM T = 1000, the same sweep), every layer of every
@@ -151,7 +153,8 @@ Phases, each printing lines of its own:
      graphed twice (capture, replay): bitwise, 12 v2 launches per step each
      run (24,000 for DDPM), ms per step per chunk, capture seconds,
      backbones/s; DDPM under "pallas" (v1 in the graphs) for 200 steps at
-     B = 15, L = 64 and a reconstruction chain from start_t = 250 with its
+     B = 15, L = 64 (at "high": the v1 TF32 instance, every launch of it)
+     and a reconstruction chain from start_t = 250 with its
      history at B = 64, L = 128, graphed twice against eager, bitwise; the
      kernels of a graphed DDPM step's graph (read through the driver API)
      against the eager step's device operations: 2 more (the table reads
@@ -195,8 +198,10 @@ Phases, each printing lines of its own:
      and "BF16_BF16_F32" (whose GEMMs take bf16 values) but the one GEMM with
      a 6-wide operand (FEATURE_GEMMS), and the step graph's 12 v2 nodes all
      of the precision's instance (FMA, TF32, bf16), as are the sweep's
-     24,000 launches; under "BF16_BF16_F32" also a "pallas" step's graph (12
-     nodes of v1's bf16 instance), replayed; (d) the process's
+     24,000 launches; under "default" and "BF16_BF16_F32" also a "pallas"
+     step's graph at 63 x 128 (12 nodes of v1's TF32 or bf16 instance, no
+     other v1 node), 13 steps replayed with the launches counted, and its
+     time per graphed step; (d) the process's
      fp32_precision unchanged after every forward, train step and capture.
      Phases 2-12 run with IEEE float32 GEMMs for the process, so their
      "default" models hold their float32 gates.
@@ -205,8 +210,8 @@ The line before the last is {"kernels": [...]}, one entry per kernel
 instance: the v2 FMA instance's launches are phase 5's, phase 9's, phase
 10's (b) and (d) on both ranks and phase 11's (a) (phase 9 prints its
 rel-off launches apart), v1 FMA's phase 6's, the v2 TF32 and bf16
-instances' phase 13's sweeps at "default" and "BF16_BF16_F32", v1 bf16's
-phase 13's "pallas" steps, each counted under the graphs by their launch
+instances' phase 13's sweeps at "default" and "BF16_BF16_F32", v1 TF32's
+and bf16's phase 13's "pallas" steps, each counted under the graphs by their launch
 accounting (graphs.py); the last is {"ok": true, "device": {...}}. Any
 failure raises, so the script exits non-zero and prints neither.
 
@@ -555,12 +560,14 @@ def phase_kernel() -> dict:
                 if e_kind == "permuted":
                     check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
                         q_, k_, v_, bias, e_lr), q, k, v, bias, out)
-                if e_kind in ("permuted", None):  # the bf16 instance (the repair): float32 FMA of bf16 values
-                    out_b = attention.fused_attention(q, k, v, bias, e_lr, mode="bf16")
-                    worst["v1", "bf16"] = max(worst["v1", "bf16"], check_instance(
-                        f"v1 bf16 {shape} e_lr={e_kind}", "bf16", out_b,
+                for mode in ("tf32", "bf16"):  # the tensor-core instances
+                    out_t = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
+                    worst["v1", mode] = max(worst["v1", mode], check_instance(
+                        f"v1 {mode} {shape} e_lr={e_kind}", mode, out_t,
                         lambda mode_: in_mode(mode_, lambda: attention.fused_attention_reference(
                             q, k, v, bias, e_lr, bf16=mode_ == "bf16"))))
+                    check_masked_keys(f"v1 {mode} {shape} e_lr={e_kind}", lambda q_, k_, v_: (
+                        attention.fused_attention(q_, k_, v_, bias, e_lr, mode=mode)), q, k, v, bias, out_t)
 
         results = {}
         for b, l in TIMED:
@@ -584,10 +591,10 @@ def phase_kernel() -> dict:
                     fns["v2", i] = (lambda mode=mode: attention.fused_attention_v2(*views, bias, mode=mode, **kw2))
                     fns["v2 plain", i] = (lambda mode=mode: v2_plain(q, k, v, bias, kw2, mode))
                 for i in V1.instances:
-                    fns["v1", i] = (lambda bf16=i == "bf16": attention.fused_attention(
-                        q, k, v, bias, e, mode="bf16" if bf16 else "ieee"))
-                    fns["v1 plain", i] = (lambda bf16=i == "bf16": in_mode("bf16" if bf16 else "ieee", lambda: (
-                        attention.fused_attention_reference(q, k, v, bias, e, bf16=bf16))))
+                    mode = "ieee" if i == "fma" else i
+                    fns["v1", i] = (lambda mode=mode: attention.fused_attention(q, k, v, bias, e, mode=mode))
+                    fns["v1 plain", i] = (lambda mode=mode: in_mode(mode, lambda: (
+                        attention.fused_attention_reference(q, k, v, bias, e, bf16=mode == "bf16"))))
                 if library:
                     fns["library"] = library
                 times = in_turns(fns)
@@ -603,9 +610,10 @@ def phase_kernel() -> dict:
                             f"CUDA graph, in turns): kernel {ms:.4f} ms, plain {times[f'{entry} plain', i]:.4f} ms, "
                             f"library {lib_text}; bound {bound_ms * 1e3:.1f} us ({bound_by}), {bound_ms / ms:.1%} of it")
     flagship = {key: results[(*key, True, *TIMED[0])] for key in worst}  # B=64, L=128, rel
-    if not flagship["v2", "tf32"]["kernel"] < flagship["v2", "fma"]["kernel"]:
-        raise RuntimeError(f"[2] the v2 TF32 instance ({flagship['v2', 'tf32']['kernel']} ms) is not faster than "
-                           f"the FMA instance ({flagship['v2', 'fma']['kernel']} ms) at B=64 L=128")
+    for entry in ("v2", "v1"):
+        if not flagship[entry, "tf32"]["kernel"] < flagship[entry, "fma"]["kernel"]:
+            raise RuntimeError(f"[2] the {entry} TF32 instance ({flagship[entry, 'tf32']['kernel']} ms) is not faster "
+                               f"than the FMA instance ({flagship[entry, 'fma']['kernel']} ms) at B=64 L=128")
     return {key: {"max_abs_err": worst[key], "ms": r["kernel"], "plain_ms": r["plain"],
                   "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None}
             for key, r in flagship.items()}
@@ -692,16 +700,16 @@ def reset_counts() -> None:
         lib.launches_by_instance = dict.fromkeys(lib.instances, 0)
 
 
-def check_launches(tag: str, expected: dict, v2_instance: str = "fma") -> None:
+def check_launches(tag: str, expected: dict, instance: str = "fma") -> None:
     """Each kernel's launches since reset_counts() against `expected`, every
-    v2 launch of `v2_instance` (the process runs IEEE float32 but in phase
-    13 and phase 12's "high" models)."""
+    launch of either kernel of `instance` (the process runs IEEE float32 but
+    in phase 13 and phase 12's "high" models)."""
     launched = {V2.name: V2.launches, V1.name: V1.launches}
     by_instance = {lib.name: {i: n for i, n in lib.launches_by_instance.items() if n} for lib in attention.LIBRARIES}
-    log(f"{tag} kernel launches: {launched} (by instance {by_instance}), expected {expected}, v2 all {v2_instance}")
-    if launched != expected or V2.launches_by_instance[v2_instance] != V2.launches:
+    log(f"{tag} kernel launches: {launched} (by instance {by_instance}), expected {expected}, all {instance}")
+    if launched != expected or any(lib.launches_by_instance[instance] != lib.launches for lib in attention.LIBRARIES):
         raise RuntimeError(f"{tag} launched {launched} (by instance {by_instance}), expected {expected}, "
-                           f"v2 all {v2_instance}")
+                           f"all {instance}")
 
 
 def check_angles(tag: str, sampled) -> None:
@@ -759,15 +767,23 @@ def kernel_group(name: str) -> str:
     return "other elementwise"
 
 
+# torch.profiler windows per profile_steps call: now and then a window
+# loses a few device records (a DDPM step at 15 x 64 read 174.5 operations
+# where every step runs 175), so the window with the most events is read
+PROFILE_WINDOWS = 3
+
+
 def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, **config) -> dict:
     """DDPM reverse steps of the flagship under `impl` (p_sample_loop's body:
     one normal draw and p_sample_step), at batch b and length l, its config
     fields replaced by `config`. Wall: the
     host clock around `steps` synchronised steps, profiler off, the median of
-    three. Then one torch.profiler window of `steps` steps: device events
-    (kernels, memcpy, memset) per step, their busy time (the union of their
+    three. Then PROFILE_WINDOWS torch.profiler windows of `steps` steps each;
+    of the window with the most device events (an eager step's operations
+    are fixed; a lost record only lowers the count): device events (kernels,
+    memcpy, memset) per step, their busy time (the union of their
     intervals), the busy share of the first-to-last event span, and device
-    time per kernel group."""
+    time per kernel group; and each window's events per step."""
     model, _ = model_io.from_dir(model_dir, device=DEVICE, attention_impl=impl, **config)
     schedule = DiffusionSchedule.create("cosine", 1000, device=DEVICE)
     x, _, mask = denoiser_inputs(b, l)
@@ -789,10 +805,13 @@ def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, **
             start = time.perf_counter()
             run(steps)
             walls.append((time.perf_counter() - start) / steps * 1e3)
-        with torch.profiler.profile(activities=activities) as prof:
-            run(steps)
-    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
-                    key=lambda e: e.time_range.start)
+        windows = []
+        for _ in range(PROFILE_WINDOWS):
+            with torch.profiler.profile(activities=activities) as prof:
+                run(steps)
+            windows.append(sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                                  key=lambda e: e.time_range.start))
+    events = max(windows, key=len)
     busy, end, groups = 0.0, -math.inf, {}
     for e in events:
         start, stop = e.time_range.start, e.time_range.end
@@ -801,7 +820,8 @@ def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, **
         ms, n = groups.get(kernel_group(e.name), (0.0, 0))
         groups[kernel_group(e.name)] = (ms + (stop - start) / 1e3 / steps, n + 1 / steps)
     span = (end - events[0].time_range.start) if events else 0.0
-    return {"events": len(events) / steps, "copies": groups.get("copy", (0.0, 0))[1],
+    return {"events": len(events) / steps, "windows": [len(w) / steps for w in windows],
+            "copies": groups.get("copy", (0.0, 0))[1],
             "busy_ms": busy / 1e3 / steps, "busy_share": busy / span if span else 0.0,
             "wall_ms": statistics.median(walls), "walls": walls, "groups": groups}
 
@@ -818,7 +838,8 @@ def phase_profile(model_dir: str, card: str) -> dict:
             groups = ", ".join(f"{g} {ms:.4f} ({n:.0f})" for g, (ms, n) in
                                sorted(r["groups"].items(), key=lambda kv: -kv[1][0]))
             log(f"[5] profile DDPM step on {card}, attention_impl={impl!r} B={b} L={l}: "
-                f"{r['events']:.1f} device operations per step ({r['copies']:.1f} copies), "
+                f"{r['events']:.1f} device operations per step ({r['copies']:.1f} copies; windows "
+                f"{', '.join(f'{w:.1f}' for w in r['windows'])}), "
                 f"busy {r['busy_ms']:.4f} ms, busy share {r['busy_share']:.4f}, "
                 f"wall {r['wall_ms']:.4f} ms (profiler off; {', '.join(f'{w:.4f}' for w in r['walls'])}); "
                 f"device ms (operations) per step by group: {groups}")
@@ -2327,7 +2348,7 @@ def phase_graph_chains(model_dir: str) -> None:
             run = samplers[graphs]
             out.setdefault(graphs, []).append(run(x, mask, generator=torch.Generator(device=DEVICE).manual_seed(SEED)))
             check_launches(f"[12] {tag} B={b} L={l}, graphs {graphs}",
-                           {V2.name: 0, V1.name: 0, lib.name: layers * steps}, "tf32")
+                           {V2.name: 0, V1.name: 0, lib.name: layers * steps}, "tf32")  # v1 too: "high" is TF32
         gate_same(f"[12] {tag} B={b} L={l}, {steps} steps, graphed (twice) against eager", out[True],
                   out[False] * 2)
 
@@ -2805,11 +2826,13 @@ def phase_precision(model_dir: str, card: str) -> dict:
     steps on a linear schedule; (c) the GEMM kernels that a DDPM step's graph
     and the train step's graph (forward and backward) hold, and its v2
     nodes, all of the precision's instance (PRECISION_INSTANCES); under
-    "BF16_BF16_F32" a "pallas" step's graph, its v1 nodes all of the bf16
-    instance, replayed; (d) the process's fp32_precision after every
-    forward, train step and capture. The process runs TF32 GEMMs here, as
-    the command-line programs do. Returns the launches of the sweeps (the
-    v2 TF32 and bf16 instances) and of the "pallas" bf16 steps (v1 bf16)."""
+    "default" and "BF16_BF16_F32" a "pallas" step's graph at 63 x 128, its
+    v1 nodes all of the precision's instance (TF32, bf16), replayed 13
+    steps with the launches counted, then timed; (d) the process's
+    fp32_precision after every forward, train step and capture. The process
+    runs TF32 GEMMs here, as the command-line programs do. Returns the
+    launches of the sweeps (the v2 TF32 and bf16 instances) and of the
+    "pallas" steps (the v1 TF32 and bf16 instances)."""
     start_phase = time.perf_counter()
     set_process_default()
     before = torch.backends.cuda.matmul.fp32_precision
@@ -2873,20 +2896,21 @@ def phase_precision(model_dir: str, card: str) -> dict:
         gate_gemm_kinds(f"{what}, a DDPM step's graph at {b} x {l}", precision, gemm_kinds(names),
                         FEATURE_GEMMS["step"])
         gate_kernel_nodes(f"{what}, a DDPM step's graph at {b} x {l}", names, per_replay, {(V2.name, instance): layers})
-        if precision == "BF16_BF16_F32":  # the v1 kernel's bf16 instance in a "pallas" step's graph, replayed
-            b, l = PRECISION_SHAPES[0]
-            xb, _, mb = denoiser_inputs(b, l)
+        if precision != "highest":  # the v1 kernel's instance in a "pallas" step's graph, replayed and timed
             pallas, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision, attention_impl="pallas")
             _, names, per_replay = step_graph_nodes(pallas, table, xb, mb, is_angular)
             gate_kernel_nodes(f"{what}, a 'pallas' DDPM step's graph at {b} x {l}", names, per_replay,
-                              {(V1.name, "bf16"): layers})
+                              {(V1.name, instance): layers})
             reset_counts()
-            replayed_ddpm_steps(pallas, table, xb, mb, is_angular)(10)  # the eager first step, then 12 replays
-            check_launches(f"{what}, 13 'pallas' DDPM steps at {b} x {l}", {V2.name: 0, V1.name: 13 * layers})
-            if V1.launches_by_instance["bf16"] != V1.launches:
-                raise RuntimeError(f"{what}: v1 launches {V1.launches_by_instance}, expected all bf16")
-            launches[V1.name, "bf16"] = V1.launches
-            del pallas
+            run = replayed_ddpm_steps(pallas, table, xb, mb, is_angular)
+            run(10)  # with the eager first step and two replays: 13 steps
+            check_launches(f"{what}, 13 'pallas' DDPM steps at {b} x {l}", {V2.name: 0, V1.name: 13 * layers},
+                           instance)
+            launches[V1.name, instance] = V1.launches
+            walls = wall_ms_per_step(run)
+            log(f"{what}: graphed 'pallas' DDPM step at {b} x {l} (the v1 {instance} instance), median of three "
+                f"windows of 10 replays: {statistics.median(walls):.4f} ms ({', '.join(f'{w:.4f}' for w in walls)})")
+            del pallas, run
         gate_gemm_kinds(f"{what}, the train step's graph (forward and backward)", precision,
                         gemm_kinds(train_step_graph_nodes(trainer, trainer.to_device(host_batches[0]))),
                         FEATURE_GEMMS["train"])
@@ -2948,7 +2972,7 @@ def main() -> None:
 
     # launches: the FMA instances' from the float32 phases (v2: 5, 9, 10, 11; v1: 6); the v2 TF32 and bf16
     # instances' from phase 13's DDPM sweeps at "default" (TF32, as the CLIs set it) and "BF16_BF16_F32";
-    # v1 bf16's from phase 13's "pallas" steps
+    # v1 TF32's and bf16's from phase 13's "pallas" steps at those precisions
     fma_launches = {V2.name: v2_launches + baseline_launches + multiprocess_launches + evaluation_launches,
                     V1.name: v1_launches}
     line = []

@@ -122,15 +122,17 @@
 // on the given device, allocates nothing and does not synchronise. The
 // return value is cudaGetLastError() after the launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 #include <stdint.h>
 
+#include "device.cuh"
 #include "launch.cuh"
 
 namespace {
+
+using namespace attn;
 
 constexpr int kTile = 64;    // query rows per tile, and keys per chunk
 constexpr int kUnit = 64;    // threads per head: 8 row groups x 8 key groups
@@ -168,32 +170,6 @@ struct Args {
   int H, L, M, n_tiles, n_groups;
   float scale2;  // D^-1/2 * log2(e)
 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
 
 // Copies rows [r0, r0 + kTile) of one of q, k, v (`src`) for the block's kHeads
 // heads into `dst` (rows `row` floats apart); rows past L and heads past H
@@ -456,39 +432,6 @@ struct Smem {
   static constexpr int kFloats = kQE + (HAS_REL ? kWarps * 16 * kQEStride : 0);
 };
 
-__device__ __forceinline__ float bf16_value(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// A product's operand as the tensor cores read it: TF32 rounded to nearest
-// (ties away), or, in the bf16 instance, the bf16 value, which TF32 holds exactly.
-template <bool BF16>
-__device__ __forceinline__ uint32_t operand(float x) {
-  if (BF16) return __float_as_uint(bf16_value(x));
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// c += a . b for one m16n8k8 tile: a the 16 x 8 A fragment (rows g, g + 8;
-// columns t, t + 4), b0 and b1 B's rows t and t + 4 of column g.
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 // Copies rows [r0, r0 + rows) of one head of q, k or v (`src` at the head's
 // first float) into `dst`, rows D + 4 floats apart; rows past L are zero-filled.
 template <int D>
@@ -504,33 +447,6 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long lo
     } else {
       *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-  }
-}
-
-// Folds a chunk's scores (log2 units; rows g and g + 8 of the warp in
-// s[n][0..1] and s[n][2..3]) into the running row maxima m and this lane's
-// partial sums l, replacing each score by exp2(s - m_new); rescale[i] is
-// exp2(m_old - m_new) of row g + 8 i (0 on the first chunk).
-__device__ __forceinline__ void fold(float (&s)[kKeys / 8][4], float (&m)[2], float (&l)[2],
-                                     float (&rescale)[2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-    const float m_new = fmaxf(m[i], quad_max(mx));  // finite: every chunk has a key below L
-    rescale[i] = exp2f(m[i] - m_new);
-    m[i] = m_new;
-    float sum = 0.0f;
-#pragma unroll
-    for (int n = 0; n < kKeys / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[n][2 * i + e] = exp2f(s[n][2 * i + e] - m_new);
-        sum += s[n][2 * i + e];
-      }
-    }
-    l[i] = fmaf(l[i], rescale[i], sum);
   }
 }
 

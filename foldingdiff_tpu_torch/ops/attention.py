@@ -22,9 +22,9 @@ model's einsums in that mode:
 
 | kernel mode | v2 instance (rel_attention.cu) | v1 instance (gathered_attention.cu) |
 | --- | --- | --- |
-| "ieee" | "fma": float32 FMA | "fma" |
-| "tf32" | "tf32": TF32 tensor cores | "fma" (more precise than asked) |
-| "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": float32 FMA of bf16 values |
+| "ieee" | "fma": float32 FMA | "fma": float32 FMA |
+| "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores |
+| "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores |
 
 The plain versions compute every product on bf16-rounded operands under
 "bf16" (precision.bf16_einsum) and in float32 otherwise, at the caller's
@@ -126,12 +126,12 @@ class CudaLibrary:
 # instance, device and stream
 REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6,
                             ("fma", "tf32", "bf16"))
-# (q, k, v, bias, e_lr, out, B, H, L, D, has_rel), then the instance (1: bf16), device and stream
-GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, ("fma", "bf16"))
+# (q, k, v, bias, e_lr, out, B, H, L, D, has_rel), then the instance, device and stream
+GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, ("fma", "tf32", "bf16"))
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
 # kernel mode (precision.kernel_mode) -> the instance each kernel runs in it
 V2_INSTANCES = {"ieee": "fma", "tf32": "tf32", "bf16": "bf16"}
-V1_INSTANCES = {"ieee": "fma", "tf32": "fma", "bf16": "bf16"}
+V1_INSTANCES = {"ieee": "fma", "tf32": "tf32", "bf16": "bf16"}
 
 
 def fused_attention_reference(

@@ -27,8 +27,7 @@ models/config.py's docstring maps each name onto a mode of this module:
 - The attention kernels (csrc/) compute their products in the model's mode
   as well (kernel_mode): float32 FMA under "ieee", TF32 tensor cores under
   "tf32" (and "caller" under a caller's TF32), bf16 values on TF32 tensor
-  cores under "bf16" (the v1 kernel: float32 FMA but for "bf16", whose
-  operands it rounds). Their plain versions take bf16 operands under "bf16".
+  cores under "bf16". Their plain versions take bf16 operands under "bf16".
 - The CPU's GEMMs do not read the CUDA setting: "caller", "tf32" and "ieee"
   give the same numbers there.
 """

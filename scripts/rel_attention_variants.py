@@ -64,10 +64,13 @@ TIMED = [(64, 128), (64, 64), (15, 64)]  # (B, L) at H = 12, D = 32, M = 128
 CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (100, 5, 99, 64, 128)]
 
 
-def variant_libraries() -> dict:
-    source = (attention.CSRC_DIR / "rel_attention.cu").read_text()
+def variant_libraries(base: attention.CudaLibrary, substitutions: dict) -> dict:
+    """{variant: a CudaLibrary of base's kernel whose source is base's with
+    the variant's substitutions made, under _build/variants/<variant>/ with
+    the shared headers beside it}."""
+    source = base.source.read_text()
     libs = {}
-    for name, subs in SUBSTITUTIONS.items():
+    for name, subs in substitutions.items():
         text = source
         for old, new in subs:
             if old not in text:
@@ -75,12 +78,31 @@ def variant_libraries() -> dict:
             text = text.replace(old, new)
         directory = attention.BUILD_DIR / "variants" / name
         directory.mkdir(parents=True, exist_ok=True)
-        (directory / "rel_attention.cu").write_text(text)
-        shutil.copy(attention.CSRC_DIR / "launch.cuh", directory / "launch.cuh")
-        lib = attention.CudaLibrary("rel_attention", attention.REL_ATTENTION.argtypes, attention.REL_ATTENTION.instances)
-        lib.source = directory / "rel_attention.cu"
+        (directory / base.source.name).write_text(text)
+        for header in attention.CSRC_DIR.glob("*.cuh"):
+            shutil.copy(header, directory / header.name)
+        lib = attention.CudaLibrary(base.name, base.argtypes, base.instances)
+        lib.source = directory / base.source.name
         libs[name] = lib
     return libs
+
+
+def build_and_report(libs: dict, kernel: str) -> None:
+    """Builds every variant at once (one nvcc each) and prints ptxas's
+    registers and spills per instance of `kernel` (a mangled-name prefix)."""
+    with ThreadPoolExecutor(len(libs)) as pool:
+        reports = dict(zip(libs, pool.map(lambda lib: attention.build([lib])[lib.name], libs.values())))
+    for name, report in reports.items():
+        instance, spill = "?", "?"
+        for line in report.splitlines():
+            if "Function properties for" in line:
+                found = re.search(rf"\d({kernel}(?:_[a-z0-9]+)?_kernel)ILi(\d+)ELb(\d)E", line)
+                instance = "{} D={} rel={}".format(*found.groups()) if found else "?"
+            elif "spill stores" in line:
+                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
+            elif "Used" in line and "registers" in line:
+                regs = re.search(r"Used (\d+) registers", line).group(1)
+                print(f"{name}: {instance}: {regs} registers, {spill} bytes spilled", flush=True)
 
 
 def inputs(b, h, l, d, m, seed=0):
@@ -100,20 +122,8 @@ def on(lib, fn):
 
 def main() -> None:
     card = chip_smoke.phase_card()  # exits without a card
-    libs = variant_libraries()
-    with ThreadPoolExecutor(len(libs)) as pool:
-        reports = dict(zip(libs, pool.map(lambda lib: attention.build([lib])["rel_attention"], libs.values())))
-    for name, report in reports.items():
-        instance, spill = "?", "?"
-        for line in report.splitlines():
-            if "Function properties for" in line:
-                found = re.search(r"rel_attention_kernelILi(\d+)ELb(\d)E", line)
-                instance = "D={} rel={}".format(*found.groups()) if found else "?"
-            elif "spill stores" in line:
-                spill = re.search(r"(\d+) bytes spill stores", line).group(1)
-            elif "Used" in line and "registers" in line:
-                regs = re.search(r"Used (\d+) registers", line).group(1)
-                print(f"{name}: {instance}: {regs} registers, {spill} bytes spilled", flush=True)
+    libs = variant_libraries(attention.REL_ATTENTION, SUBSTITUTIONS)
+    build_and_report(libs, "rel_attention")
 
     results = {}
     original = attention.REL_ATTENTION

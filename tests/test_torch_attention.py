@@ -7,6 +7,8 @@ with those versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 The kernels' build (one nvcc per source, started together) is checked here
 with a stand-in for nvcc.
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -144,6 +146,56 @@ def test_v1_plain_matches_jax_pallas_and_reference(e_lr_kind, seed, masked):
                                      torch.from_numpy(e_lr) if e_lr is not None else None)
     np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), atol=1e-5)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("e_lr_kind,seed,masked", V1_CASES)
+def test_v1_at_tf32_on_cpu_tensors_runs_the_plain_version(e_lr_kind, seed, masked):
+    """mode "tf32" picks the v1 kernel's TF32 instance on the card; on CPU
+    tensors the entry runs the plain version, launches nothing, and agrees
+    with the JAX package's Pallas entry in interpret mode."""
+    q, k, v, bias, e_lr = _v1_inputs(seed, masked)
+    if e_lr_kind == "permuted":
+        e_lr = _permuted_e_lr(64, 16, 64, seed)
+    elif e_lr_kind is None:
+        e_lr = None
+    with jax.default_matmul_precision("highest"):
+        pallas = jax_fused_attention(*[jnp.asarray(a) for a in (q, k, v, bias)],
+                                     jnp.asarray(e_lr) if e_lr is not None else None, interpret=True)
+    args = [torch.from_numpy(a) for a in (q, k, v, bias)] + [torch.from_numpy(e_lr) if e_lr is not None else None]
+    before = dict(attention.GATHERED_ATTENTION.launches_by_instance)
+    ours = attention.fused_attention(*args, mode="tf32")
+    assert attention.GATHERED_ATTENTION.launches_by_instance == before
+    torch.testing.assert_close(ours, attention.fused_attention_reference(*args), rtol=0, atol=0)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), atol=1e-5)
+
+
+def _instance_table() -> dict:
+    """{kernel mode: (v2 instance, v1 instance)} from the table of
+    ops/attention.py's docstring."""
+    rows = {}
+    for line in attention.__doc__.splitlines():
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if len(cells) == 3 and cells[0].startswith('"'):
+            rows[cells[0].strip('"')] = tuple(c.split('"')[1] for c in cells[1:])
+    return rows
+
+
+@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
+def test_instance_maps_are_the_docstring_table(mode):
+    table = _instance_table()
+    assert set(table) == set(attention.V2_INSTANCES) == set(attention.V1_INSTANCES)
+    assert (attention.V2_INSTANCES[mode], attention.V1_INSTANCES[mode]) == table[mode]
+    assert attention.V2_INSTANCES[mode] in attention.REL_ATTENTION.instances
+    assert attention.V1_INSTANCES[mode] in attention.GATHERED_ATTENTION.instances
+
+
+@pytest.mark.parametrize("library,instance", [(lib.name, i) for lib in attention.LIBRARIES for i in lib.instances])
+def test_every_listed_instance_has_its_kernel_in_the_source(library, instance):
+    """The __global__ function that CudaLibrary.kernel_name names (and the
+    card's checks find in a graph's nodes) is in the library's source."""
+    lib = next(lib for lib in attention.LIBRARIES if lib.name == library)
+    name = lib.kernel_name(instance)
+    assert re.search(rf"__global__ void\s+(__launch_bounds__\([^)]*\)\s+)?{name}\(", lib.source.read_text())
 
 
 def test_v1_masked_keys_do_not_change_output():

@@ -297,30 +297,38 @@ def test_gathered_kernel_matches_plain(device, b, h, l, d, m, e_lr_kind):
 @pytest.mark.parametrize("b,h,l,d,m", [(8, 12, 128, 32, 128), (15, 12, 64, 32, 128), (4, 6, 33, 16, 64),
                                        (2, 4, 99, 64, 128), (3, 2, 1, 32, 128)])
 def test_gathered_bf16_instance_matches_its_plain_version(device, b, h, l, d, m, e_lr_kind):
-    """v1 under "bf16": the float32 FMA of bf16 values (q, k, v, e_lr and
+    """v1 under "bf16": bf16 values on TF32 tensor cores (q, k, v, e_lr and
     the normalised P rounded) against the plain version's bf16 products;
-    under "tf32" the FMA instance, more precise than asked."""
+    under "tf32" the TF32 instance against float32."""
     q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=12)
     if e_lr_kind == "random":
         e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(2), device=device) * 0.5
     else:
         e_lr = _e_lr(table, l, m, e_lr_kind) if e_lr_kind else None
     with torch.inference_mode():
-        for mode, instance in (("bf16", "bf16"), ("tf32", "fma")):
-            before = dict(attention.GATHERED_ATTENTION.launches_by_instance)
-            out = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
-            torch.cuda.synchronize()
-            added = {i: n - before[i] for i, n in attention.GATHERED_ATTENTION.launches_by_instance.items()}
-            assert added == {i: int(i == instance) for i in added}
+        for mode in ("bf16", "tf32"):
+            out = _gathered_instance_call(q, k, v, bias, e_lr, mode)
             _check_instance(out, lambda mode_: attention.fused_attention_reference(
-                q, k, v, bias, e_lr, bf16=mode_ == "bf16"), "ieee" if instance == "fma" else mode)
+                q, k, v, bias, e_lr, bf16=mode_ == "bf16"), mode)
+
+
+def _gathered_instance_call(q, k, v, bias, e_lr, mode):
+    """fused_attention in `mode`, which must launch V1_INSTANCES[mode] once
+    and no other instance."""
+    before = dict(attention.GATHERED_ATTENTION.launches_by_instance)
+    out = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
+    torch.cuda.synchronize()
+    added = {i: n - before[i] for i, n in attention.GATHERED_ATTENTION.launches_by_instance.items()}
+    assert added == {i: int(i == attention.V1_INSTANCES[mode]) for i in added}
+    return out
 
 
 # (B, H, L, D) of the v1 kernel's edges: B * H = 15 and 3 leave the last group
-# of 8 pairs ragged; L = 1, 33, 99, 127 end inside a tile of 16 query rows and
-# inside a chunk of keys; D = 16, 32, 64 (chunks of 8, 4, 2 keys); L = 1000
-# needs more than the 227 KB of shared memory that K and V of one pair took in
-# the first design (2 L D + L floats)
+# of 8 pairs (16 in the tensor-core instances) ragged; L = 1, 33, 99, 127 end
+# inside a tile of 16 query rows and inside a chunk of keys; D = 16, 32, 64
+# (FMA chunks of 8, 4, 2 keys; on tensor cores 32, 32, 16); L = 1000 needs
+# more than the 227 KB of shared memory that K and V of one pair took in the
+# first design (2 L D + L floats)
 GATHERED_SHAPES = [(3, 5, 1, 32), (3, 5, 33, 16), (3, 5, 99, 64), (1, 3, 127, 32), (1, 2, 1000, 32)]
 
 
@@ -341,6 +349,32 @@ def test_gathered_kernel_ragged_shapes_and_layouts(device, b, h, l, d, layout):
         ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
     assert out.shape == q.shape and out.device == q.device
     assert (out - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+@pytest.mark.parametrize("b,h,l,d", GATHERED_SHAPES)
+def test_gathered_tensor_core_instances_on_ragged_shapes(device, b, h, l, d, mode):
+    """The TF32 and bf16 instances at the v1 kernel's edges (a ragged group
+    of 16 pairs, L inside a tile of 16 rows and a chunk of keys, L = 1000
+    over 32 chunks, D = 16, 32, 64), e_lr random (not Toeplitz) and none."""
+    q, k, v, bias, _ = _inputs(device, b, h, l, d, l, seed=13)
+    e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(4), device=device) * 0.5
+    with torch.inference_mode():
+        for e in (e_lr, None):
+            out = _gathered_instance_call(q, k, v, bias, e, mode)
+            _check_instance(out, lambda mode_: attention.fused_attention_reference(
+                q, k, v, bias, e, bf16=mode_ == "bf16"), mode)
+
+
+@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+def test_gathered_tensor_core_instances_ignore_masked_keys(device, mode):
+    q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
+    e_lr = _e_lr(table, 96, 128, "permuted")
+    masked = (bias < -1.0)[:, None, :, None]
+    with torch.inference_mode():
+        out1 = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
+        out2 = attention.fused_attention(q, k + 7.0 * masked, v - 3.0 * masked, bias, e_lr, mode=mode)
+    assert (out1 - out2).abs().max().item() <= 1e-5
 
 
 def test_gathered_kernel_ignores_masked_keys(device):
