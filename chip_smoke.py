@@ -19,7 +19,8 @@ Phases, each printing lines of its own:
      version's relative-RMS distance from float32 and within 5e-2 of
      float32 (v2 and v1 alike; v1's at every e_lr kind, with masked-key
      invariance). Kernel, plain (in the instance's mode) and library
-     times (SDPA for rel-off), all instances taken in turns in one call, at
+     times (SDPA for rel-off, in each instance's precision: IEEE float32,
+     TF32 GEMMs, bf16 copies), all instances taken in turns in one call, at
      H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
      its bound: the larger of its FLOPs over the instance's peak (67
      TFLOP/s FMA, 495 TF32 tensor cores for TF32 and bf16) and its bytes
@@ -512,6 +513,29 @@ def v2_plain(q, k, v, bias, kw: dict, mode: str):
     return in_mode(mode, lambda: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode, **kw))
 
 
+def sdpa_by_instance(q, k, v, mask, bias, b: int, l: int) -> dict:
+    """{instance: one PyTorch call of the rel-off function in the instance's
+    precision}, the library yardstick (the port never calls it): SDPA (scale
+    1/sqrt(D), the mask added) on float32 q, k and v under IEEE float32 and
+    under TF32 GEMMs, and on bf16 copies of them. Each is held against the
+    float32 plain version: IEEE within KERNEL_TOL, TF32 within TF32_TOL and
+    bf16 within BF16_TOL relative RMS (bf16 SDPA rounds the unnormalised P,
+    so it is close to, not exactly, the JAX bf16 function)."""
+    qb, kb, vb, mb = (x.to(torch.bfloat16) for x in (q, k, v, mask))
+    sdpa = F.scaled_dot_product_attention
+    libraries = {"fma": lambda: sdpa(q, k, v, attn_mask=mask),
+                 "tf32": lambda: in_mode("tf32", lambda: sdpa(q, k, v, attn_mask=mask)),
+                 "bf16": lambda: sdpa(qb, kb, vb, attn_mask=mb)}
+    f32 = attention.fused_attention_reference(q, k, v, bias)
+    check_err(f"SDPA B={b} L={l} rel-off (the library yardstick, IEEE float32)", libraries["fma"](), f32)
+    for i, tol in (("tf32", TF32_TOL), ("bf16", BF16_TOL)):
+        rms = rel_rms(libraries[i]().float(), f32)
+        log(f"[2] SDPA B={b} L={l} rel-off ({i}): relative RMS against float32 {rms:.3e} (at most {tol})")
+        if not rms <= tol:
+            raise RuntimeError(f"SDPA ({i}) is {rms} from the float32 plain version")
+    return libraries
+
+
 def phase_kernel() -> dict:
     """Returns {(entry, instance): the kernels line's numbers at B = 64,
     L = 128 with relative scores}."""
@@ -579,11 +603,7 @@ def phase_kernel() -> dict:
             for rel in (True, False):
                 kw2 = dict(rel_table=table, m=m) if rel else {}
                 e = e_lr if rel else None
-                library = None
-                if not rel:  # one PyTorch call computes the rel-off function: SDPA, scale 1/sqrt(D), mask added
-                    library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
-                    check_err(f"SDPA B={b} L={l} rel-off (the library yardstick)", library(),
-                              attention.fused_attention_reference(q, k, v, bias))
+                libraries = {} if rel else sdpa_by_instance(q, k, v, mask, bias, b, l)
                 # every instance of a kernel and its plain version in that instance's mode, in turns in one call
                 fns = {}
                 for i in V2.instances:
@@ -595,17 +615,16 @@ def phase_kernel() -> dict:
                     fns["v1", i] = (lambda mode=mode: attention.fused_attention(q, k, v, bias, e, mode=mode))
                     fns["v1 plain", i] = (lambda mode=mode: in_mode(mode, lambda: (
                         attention.fused_attention_reference(q, k, v, bias, e, bf16=mode == "bf16"))))
-                if library:
-                    fns["library"] = library
+                fns.update({("library", i): fn for i, fn in libraries.items()})
                 times = in_turns(fns)
                 for entry, lib in (("v2", V2), ("v1", V1)):
                     for i in lib.instances:
                         bound_ms, bound_by = bound(entry, rel, b, h, l, d, m, i)
                         ms = times[entry, i]
                         results[entry, i, rel, b, l] = {
-                            "kernel": ms, "plain": times[f"{entry} plain", i], "library": times.get("library"),
+                            "kernel": ms, "plain": times[f"{entry} plain", i], "library": times.get(("library", i)),
                             "bound_ms": bound_ms, "bound_by": bound_by}
-                        lib_text = f"{times['library']:.4f} ms (SDPA)" if library else "none"
+                        lib_text = f"{times['library', i]:.4f} ms (SDPA, {i})" if libraries else "none"
                         log(f"[2] time {entry} {i} B={b} H={h} L={l} D={d} {'rel' if rel else 'rel-off'} (device, "
                             f"CUDA graph, in turns): kernel {ms:.4f} ms, plain {times[f'{entry} plain', i]:.4f} ms, "
                             f"library {lib_text}; bound {bound_ms * 1e3:.1f} us ({bound_by}), {bound_ms / ms:.1%} of it")

@@ -1,7 +1,8 @@
 // Device-side helpers shared by the attention kernels of this directory:
 // cp.async copies into shared memory, float32 FMA dot products, and the
-// tensor-core pieces of their TF32 and bf16 instances (operand rounding, one
-// mma.sync m16n8k8 tile, the online softmax's fold over a warp's rows).
+// tensor-core pieces of their TF32 and bf16 instances (operand rounding,
+// ldmatrix fragment loads, one mma.sync m16n8k8 tile, the online softmax's
+// fold over a warp's rows).
 
 #pragma once
 
@@ -51,6 +52,24 @@ __device__ __forceinline__ uint32_t operand(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// The value the tensor cores read for x (operand's bits as a float32), so
+// that an operand rounded once in shared memory needs no conversion per load.
+template <bool BF16>
+__device__ __forceinline__ float rounded(float x) {
+  return __uint_as_float(operand<BF16>(x));
+}
+
+// Four 8 x 4 tiles of 32-bit words from shared memory (ldmatrix on b16
+// pairs): lanes 8 j .. 8 j + 7 give the row addresses of tile j, and lane
+// (g, t) receives word t of row g of tile j in r[j].
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
 }
 
 // c += a . b for one m16n8k8 tile: a the 16 x 8 A fragment (rows g, g + 8;

@@ -4,7 +4,8 @@
 // side of a launch is kept small: a kernel that takes more than the default
 // 48 KB of dynamic shared memory opts in once per kernel instance and device,
 // and the current device is switched only when it is not already the
-// tensors' own.
+// tensors' own. A persistent kernel's grid takes the SM count, read once
+// per device.
 
 #pragma once
 
@@ -33,6 +34,17 @@ inline cudaError_t opt_in_smem(const void* kernel, std::atomic<size_t>* granted,
     while (prev < smem && !granted[device].compare_exchange_weak(prev, smem)) {
     }
   }
+  return err;
+}
+
+// The device's SM count, read once per device: the grid of a persistent kernel.
+inline cudaError_t sm_count(int device, int* count) {
+  static std::atomic<int> counts[kMaxDevices];
+  if (device < kMaxDevices && (*count = counts[device].load(std::memory_order_relaxed)) > 0) {
+    return cudaSuccess;
+  }
+  const cudaError_t err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device < kMaxDevices) counts[device].store(*count, std::memory_order_relaxed);
   return err;
 }
 

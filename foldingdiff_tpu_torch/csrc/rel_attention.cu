@@ -26,13 +26,11 @@
 //           (mma.sync m16n8k8), each operand rounded to TF32 by
 //           cvt.rna.tf32.f32 (to nearest, ties away from zero), float32 sums;
 //   2 bf16  ("BF16_BF16_F32"): rel_attention_bf16_kernel, the TF32 body on
-//           operands rounded to bf16 values (to nearest even): q, k, v and E
-//           as their fragments are loaded, P before p.v. TF32 holds bf16's 8
-//           significant bits, so each product is the exact product of two
-//           bf16 values and the sums are float32, as JAX's preset defines.
-//           P is normalised before it is rounded, as the einsum's operand is
-//           the softmax's output: with more than one chunk of keys a first
-//           pass over the keys finds each row's maximum and sum.
+//           operands rounded to bf16 values (to nearest even): q, k, v and E,
+//           and P before p.v. TF32 holds bf16's 8 significant bits, so each
+//           product is the exact product of two bf16 values and the sums are
+//           float32, as JAX's preset defines. P is normalised before it is
+//           rounded, as the einsum's operand is the softmax's output.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -78,41 +76,66 @@
 // flagship shape: 0.0787 ms, 46% of its 36.1 us bound (NVIDIA H100 80GB HBM3,
 // 700 W; chip_smoke.py phase 2).
 //
-// Tensor-core design (TF32 and bf16). A block of four warps owns 64 query
-// rows of one (b, h), a warp 16 of them, and walks the keys in chunks of 64;
-// its grid is B x H x ceil(L / 64) blocks, 180 at the sampler's small chunk
-// (B = 15, L = 64). Per chunk the block stages K, V, the bias and the 128
-// table rows its rows reach with 16-byte cp.async, rows padded to D + 4
-// floats, so that every fragment load below falls on 32 distinct banks. A
-// warp keeps its q rows as TF32 A fragments in registers for the whole call.
-//   - The relative term is one more product: QE = Q . E_win^T over the 80
-//     table rows (79 used) that the warp's 16 rows reach in the chunk, on the
-//     tensor cores like q.k (a third of the work: on FMA it would set the
-//     floor). QE goes to the warp's own slice of shared memory (rows 88
-//     floats apart) and is read back skewed, rel[r, c] = QE[r, r - c + 63],
-//     as the first value of each score accumulator: the Toeplitz structure
-//     that _skew_rows builds with static rolls on the TPU.
-//   - Scores S = Q . K^T: 8 n-tiles of 8 keys, D / 8 k-steps each; scale and
-//     bias in one FMA, keys past L scored -inf.
-//   - Softmax: row maxima and sums across each row's quad by xor-shuffles;
-//     TF32 online over chunks, the sum kept per lane and reduced once at the
-//     end; bf16 as above.
+// Tensor-core design (TF32 and bf16), resident: L <= 128 at D <= 32, every
+// shipped configuration. A block of eight warps serves work items, each KEYS query
+// rows and keys of one (b, h) pair at 64 < L <= 128 (KEYS = 128, a warp per
+// 16 rows) or of two pairs at L <= 64 (KEYS = 64, four warps each); the
+// blocks are persistent (at most two per SM) and walk the items.
+//   - An item's q, k and v rows and its bias are copied into a stage with
+//     16-byte cp.async by all 256 threads, consecutive threads on consecutive
+//     16 bytes of a row, rows padded to D + 4 floats so that every fragment
+//     load falls on distinct banks: a pair's K and V are staged once, not
+//     once per 64-row tile and 64-key chunk. Each staged operand is then
+//     rounded once in place (cvt.rna.tf32.f32, or to bf16), so no fragment
+//     load converts, and K and E fragments come by ldmatrix.x4 (two k-steps
+//     a load).
+//   - The distance table is resident: the 2 KEYS rows that the windows reach
+//     (offsets l - j from 1 - KEYS to KEYS) are staged and rounded once per
+//     block, for all its items.
+//   - The relative term is one more product: QE = Q . E_win^T per window of
+//     keys (16 at KEYS = 128, 64 at KEYS = 64) over the table rows the
+//     warp's 16 rows reach in it, into the warp's slice of shared memory,
+//     read back skewed, rel[r, c] = QE[r, r - c + window - 1], as the first
+//     value of each score accumulator: the Toeplitz structure that
+//     _skew_rows builds with static rolls on the TPU.
+//   - A warp holds its 16 x KEYS scores in registers (64 floats a lane at
+//     KEYS = 128) and takes each row's exact maximum and sum, as the TPU
+//     kernel does: no online rescale, and P normalised before it is rounded
+//     for p . v in one pass over the keys, in both instances.
 //   - p . v from the score accumulators as they are. The accumulator of an
 //     m16n8 tile holds columns 2t and 2t + 1 of rows g and g + 8, where the
 //     A fragment of m16n8k8 wants columns t and t + 4: the products are
 //     summed over the keys, so the k-step takes its 8 keys in the order
 //     (0, 2, 4, 6, 1, 3, 5, 7) for P and V alike, and each lane reads V rows
 //     2t and 2t + 1. No shuffle, no trip through shared memory.
-// Why mma.sync and not wgmma: at TF32 the operations' floor (4.9 us) is a
-// third of the bytes' (15.0 us), so mma.sync, well below the tensor cores'
-// peak, still leaves the bytes the limit. Measured at the flagship shape:
-// TF32 0.0500 ms, 30% of its 15.0 us bound, against 0.0786 ms for the FMA
-// instance in the same run; bf16 0.0934 ms (its two passes over the keys)
-// (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phase 2). A variant that
-// converted every operand once in shared memory and loaded fragment pairs
-// as float2 (half the loads, a third of the conversions) was no faster, so
-// the instruction stream is not what holds it: each block stages K, V and
-// the window of every chunk from L2 with nothing in flight behind them.
+// What bounds it: latency, not bytes or the tensor cores (the bytes' floor
+// is 15.0 us at the flagship shape, the TF32 products' 4.9 us, so mma.sync
+// and not wgmma, whose TF32 takes only K-major operands and would need V
+// transposed). One block of eight warps per SM ran 23-37% slower than two
+// (16 warps, 128 registers a thread: the scores and fragments need them); at
+// D = 32 the table (36.9 KB), the QE slices (20.5 KB, the reason for 16-key
+// windows; 32 or 64 fit only one block and ran 15% slower) and one stage
+// (55.8 KB) make 113 KB a block. A __syncwarp between n-tiles keeps ptxas from issuing
+// every fragment load of the unrolled loops first, which spilled. At
+// KEYS = 64 an item holds half the work for the same bytes, so one block
+// per SM with a ring of three stages and 64-key windows ran faster. A first
+// design that filled a ring from one producer warp lost to the chunked
+// design by 2x: per-row bulk copies (the TMA unit) serialised at ~17 us an
+// item, and one warp's cp.async could not keep the ring full. Measured at
+// the flagship shape: TF32 0.0456 ms, 33% of its bound, and bf16 0.0462,
+// against the chunked design's 0.0500 and 0.0931 in the same run (NVIDIA
+// H100 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py, and the variants
+// in scripts/rel_attention_variants.py).
+//
+// Chunked tensor-core design, for L > 128 and at D = 64 (no shipped
+// configuration): a
+// block of four warps owns 64 query rows of one (b, h), a warp 16 of them,
+// and walks the keys in chunks of 64, staging K, V, the bias and the 128
+// table rows its rows reach per chunk with 16-byte cp.async; the relative
+// term by an 80-row window per chunk as above; TF32 softmax online over
+// chunks; bf16 with a first pass over the keys that finds each row's maximum
+// and sum, so that P is normalised before it is rounded. Its grid is
+// B x H x ceil(L / 64) blocks.
 //
 // Rows, keys and table rows outside the tensors are zero-filled in shared
 // memory, keys past L are scored -inf, and nothing is stored for rows past L
@@ -168,6 +191,7 @@ struct Args {
   float* out;
   long long sb, sh, sl;  // batch, head and row strides of q, k and v, in floats
   int H, L, M, n_tiles, n_groups;
+  int n_pairs, n_items;  // the resident tensor-core design's (b, h) pairs and work items
   float scale2;  // D^-1/2 * log2(e)
 };
 
@@ -646,20 +670,362 @@ __device__ __forceinline__ void attention(const Args& a) {
 
 }  // namespace tc
 
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, D <= 32 ? 3 : 2) rel_attention_tf32_kernel(const Args a) {
-  tc::attention<D, HAS_REL, false>(a);
+// ---- The resident tensor-core design (L <= 128; the note at the top) -------
+
+namespace rs {
+
+constexpr int kWarps = 8;                  // warps per block, 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = 16 * kWarps;         // rows of each of q, k and v in a stage
+constexpr int kMaxL = kRows;               // the longest sequence: one pair fills a stage
+constexpr int kWindowLong = 16;            // keys per QE window at KEYS = 128 (two blocks per SM)
+constexpr int kWindowShort = 64;           // and at KEYS = 64 (one block per SM)
+constexpr int kStagesLong = 1;             // the ring's depth at KEYS = 128: two blocks per SM
+constexpr int kStagesShort = 3;            // and at KEYS = 64: one block per SM
+constexpr bool kTableResident = true;      // the table staged once per block, else once per item
+constexpr int kSmemBytes = 232448;         // the most shared memory a block may have
+constexpr int kSmemPerSM = 233472;         // an SM's shared memory; each block also takes 1 KB of it
+
+// Offsets (floats) into dynamic shared memory; every row D + 4 floats (4 mod 32).
+template <int D, bool HAS_REL, int KEYS>
+struct Smem {
+  static constexpr int kRow = D + 4;
+  static constexpr int kWindow = KEYS == kMaxL ? kWindowLong : kWindowShort;  // keys per QE window
+  static constexpr int kWarpWin = 16 + kWindow;  // table rows a warp's window spans (kWarpWin - 1 reached)
+  static constexpr int kQEStride = kWarpWin + 8;  // 40 or 88 floats (8 or 24 mod 32): the float2 stores of QE
+                                                  // fall on distinct banks
+  static constexpr int kTable = 0;                                      // 2 KEYS x kRow, HAS_REL only
+  static constexpr int kQE = kTable + (HAS_REL ? 2 * KEYS * kRow : 0);  // kWarps x 16 x kQEStride, HAS_REL only
+  static constexpr int kRing = kQE + (HAS_REL ? kWarps * 16 * kQEStride : 0);
+  static constexpr int kOperands = 3 * kRows * kRow;                    // Q, K and V, kRows x kRow each
+  static constexpr int kStage = kOperands + kRows;                      // then the bias, KEYS per pair
+  static constexpr int kFit = (kSmemBytes / 4 - kRing) / kStage;        // stages that fit
+  static constexpr int kMaxStages = KEYS == kMaxL ? kStagesLong : kStagesShort;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kFloats = kRing + kStages * kStage;
+  // blocks per SM: two where they fit, at D = 32 (at D = 16 ptxas spilled at their 128 registers)
+  static constexpr int kBlocks = D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
+  static_assert(kStages >= 1, "a stage must fit");
+};
+
+// Issues the copies of the table rows that the warps' QE windows reach:
+// shared row x holds offset l - j = x - KEYS + 1, table row x - KEYS + M,
+// zeros outside the table.
+template <int D, int KEYS>
+__device__ __forceinline__ void stage_table(float* dst, const Args& a) {
+  constexpr int kVec = D / 4;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 2 * KEYS * kVec; i += kThreads) {
+    const int x = i / kVec, c = i % kVec;
+    const int e = x - KEYS + a.M;
+    float* d = dst + x * (D + 4) + 4 * c;
+    if (e >= 0 && e < 2 * a.M - 1) {
+      cp_async16(d, a.table + static_cast<long long>(e) * D + 4 * c);
+    } else {
+      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
 }
 
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, D <= 32 ? 3 : 2) rel_attention_bf16_kernel(const Args a) {
-  tc::attention<D, HAS_REL, true>(a);
+// Issues the copies of an item's q, k and v rows into a stage: rows [0, L)
+// of the item's pair p at rows p * KEYS of each tensor's block, 16 bytes a
+// thread, consecutive threads on consecutive pieces of a row; and the pair's
+// bias at p * KEYS of the bias block.
+template <int D, int KEYS>
+__device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
+  constexpr int kVec = D / 4;
+#pragma unroll
+  for (int p = 0; p < kRows / KEYS; ++p) {
+    const int pair = item * (kRows / KEYS) + p;
+    if (pair >= a.n_pairs) break;
+    const long long head = (pair / a.H) * a.sb + (pair % a.H) * a.sh;
+#pragma unroll 1
+    for (int i = threadIdx.x; i < a.L * kVec; i += kThreads) {
+      const int l = i / kVec, c = i % kVec;
+      const long long src = head + l * a.sl + 4 * c;
+      float* d = st + (p * KEYS + l) * (D + 4) + 4 * c;
+      cp_async16(d, a.q + src);
+      cp_async16(d + kRows * (D + 4), a.k + src);
+      cp_async16(d + 2 * kRows * (D + 4), a.v + src);
+    }
+    const float* bias = a.bias + static_cast<long long>(pair / a.H) * a.L;
+#pragma unroll 1
+    for (int j = threadIdx.x; j < a.L; j += kThreads) cp_async4(st + 3 * kRows * (D + 4) + p * KEYS + j, bias + j);
+  }
+}
+
+// Rounds n floats of shared memory (a multiple of 4, 16-byte aligned) in
+// place to the operands the tensor cores read: each staged value once,
+// rather than at every fragment load.
+template <bool BF16>
+__device__ __forceinline__ void round_operands(float* p, int n) {
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+    float4 x = reinterpret_cast<float4*>(p)[i];
+    x = make_float4(rounded<BF16>(x.x), rounded<BF16>(x.y), rounded<BF16>(x.z), rounded<BF16>(x.w));
+    reinterpret_cast<float4*>(p)[i] = x;
+  }
+}
+
+// The B fragments of two k-steps (2 kk2, 2 kk2 + 1) of an n-tile whose 8 rows
+// of D + 4 floats start at `rows`: r = {b0, b1} of the first, then of the second.
+template <int D>
+__device__ __forceinline__ void b_fragments(uint32_t (&r)[4], const float* rows, int kk2) {
+  const int lane = threadIdx.x % 32;
+  ldmatrix_x4(r, rows + (lane % 8) * (D + 4) + 16 * kk2 + 4 * (lane / 8));
+}
+
+// KEYS (64 or 128, at least L): the keys of a pair, and its rows in a stage.
+template <int D, bool HAS_REL, bool BF16, int KEYS>
+__device__ __forceinline__ void attention(const Args& a) {
+  using S = Smem<D, HAS_REL, KEYS>;
+  constexpr int kRow = S::kRow;
+  constexpr int kStages = S::kStages;
+  constexpr int kDT = D / 8;                // k-steps of q.k and q.E, n-tiles of p.v
+  constexpr int kNT = KEYS / 8;             // key n-tiles of a row's scores
+  constexpr int kPairs = kRows / KEYS;      // pairs per item
+  constexpr int kWpp = KEYS / 16;           // warps per pair
+  constexpr int kWindow = S::kWindow, kWarpWin = S::kWarpWin, kQEStride = S::kQEStride;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* ring = smem + S::kRing;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+
+  // K and V rows [L, KEYS) of every slot enter the mma: zeros, which no copy
+  // overwrites
+  const int pad = KEYS - a.L;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kStages * 2 * kPairs * pad * D; i += kThreads) {
+    int r = i / D;
+    const int l = a.L + r % pad;
+    r /= pad;
+    const int p = r % kPairs;
+    r /= kPairs;
+    ring[(r / 2) * S::kStage + ((1 + r % 2) * kRows + p * KEYS + l) * kRow + i % D] = 0.0f;
+  }
+  // the table (with the first item), then the ring's first kStages - 1 items, a copy group each
+  float* table = smem + S::kTable;
+  if (HAS_REL && kTableResident) stage_table<D, KEYS>(table, a);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) {
+    const int item = blockIdx.x + j * gridDim.x;
+    if (item < a.n_items) stage_item<D, KEYS>(ring + j * S::kStage, a, item);
+    cp_async_commit();
+  }
+
+  const int slot = warp / kWpp, lw = 16 * (warp % kWpp);  // the warp's pair slot and first row in it
+  float* qe = smem + S::kQE + warp * 16 * kQEStride;
+  int it = 0;
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x, ++it) {
+    const int stage = it % kStages;
+    float* st = ring + stage * S::kStage;
+    __syncthreads();  // every warp is done with the last item: its stage (refilled now) and the table
+    const int ahead = item + (kStages - 1) * gridDim.x;
+    if (ahead < a.n_items) stage_item<D, KEYS>(ring + (it + kStages - 1) % kStages * S::kStage, a, ahead);
+    if (HAS_REL && !kTableResident) stage_table<D, KEYS>(table, a);
+    cp_async_commit();
+    if (HAS_REL && !kTableResident) {
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<kStages - 1>();  // this item's copies have landed (the later kStages - 1 may not)
+    }
+    __syncthreads();
+    round_operands<BF16>(st, S::kOperands);
+    if (HAS_REL && (it == 0 || !kTableResident)) round_operands<BF16>(table, 2 * KEYS * kRow);
+    __syncthreads();
+
+    const int pair = item * kPairs + slot;
+    if (pair >= a.n_pairs || lw >= a.L) continue;  // warp-uniform: nothing to compute
+    const int b = pair / a.H, h = pair % a.H;
+    const float* qs = st + slot * KEYS * kRow;
+    const float* ks = qs + kRows * kRow;
+    const float* vs = qs + 2 * kRows * kRow;
+    const float* bs = st + S::kOperands + slot * KEYS;
+    float o[kDT][4];  // the warp's output rows, as p.v's accumulators
+    {
+      uint32_t qf[kDT][4];  // the warp's q rows as A fragments
+#pragma unroll
+      for (int kk = 0; kk < kDT; ++kk) {
+        const float* q0 = qs + (lw + g) * kRow + 8 * kk + t;
+        qf[kk][0] = __float_as_uint(q0[0]);
+        qf[kk][1] = __float_as_uint(q0[8 * kRow]);
+        qf[kk][2] = __float_as_uint(q0[4]);
+        qf[kk][3] = __float_as_uint(q0[8 * kRow + 4]);
+      }
+      float s[kNT][4];  // the warp's 16 x KEYS scores, then P
+#pragma unroll
+      for (int c = 0; c < KEYS / kWindow; ++c) {
+        if (HAS_REL) {
+          // QE = Q . E_win^T over the kWarpWin resident table rows that the
+          // warp's rows reach in keys [kWindow c, kWindow (c + 1)), into the
+          // warp's slice
+          const float* ew = table + (lw - kWindow * c - kWindow + KEYS) * kRow;
+#pragma unroll
+          for (int n = 0; n < kWarpWin / 8; ++n) {
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
+              uint32_t e[4];
+              b_fragments<D>(e, ew + 8 * n * kRow, kk2);
+              mma(acc, qf[2 * kk2], e[0], e[1]);
+              mma(acc, qf[2 * kk2 + 1], e[2], e[3]);
+            }
+            float* d = qe + g * kQEStride + 8 * n + 2 * t;
+            *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
+            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(acc[2], acc[3]);
+            __syncwarp();  // n-tile by n-tile (see below); QE written before it is read
+          }
+        }
+        // S = rel + Q . K^T; then scale and bias, in log2 units
+#pragma unroll
+        for (int n = 0; n < kWindow / 8; ++n) {
+          const int nt = kWindow / 8 * c + n;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
+            s[nt][i] = HAS_REL ? qe[r * kQEStride + r - col + kWindow - 1] : 0.0f;
+          }
+#pragma unroll
+          for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
+            uint32_t k[4];
+            b_fragments<D>(k, ks + 8 * nt * kRow, kk2);
+            mma(s[nt], qf[2 * kk2], k[0], k[1]);
+            mma(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * nt + 2 * t + e;
+            const float bias2 = col < a.L ? bs[col] * kLog2e : -INFINITY;
+            s[nt][e] = fmaf(s[nt][e], a.scale2, bias2);
+            s[nt][2 + e] = fmaf(s[nt][2 + e], a.scale2, bias2);
+          }
+          // n-tile by n-tile: shared loads do not cross __syncwarp, so ptxas
+          // does not issue every fragment load of the unrolled loops first
+          // (it spilled at 128 registers; a fence every two or four n-tiles
+          // ran 5% slower); and the window is read before the next one
+          // overwrites it
+          __syncwarp();
+        }
+      }
+
+      // Softmax over the whole row at once: exact maxima and sums
+      float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+      }
+      mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+      mx[1] = quad_max(mx[1]);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[n][i] = exp2f(s[n][i] - mx[i / 2]);
+          sum[i / 2] += s[n][i];
+        }
+      }
+      // P normalised, then rounded as p.v's operand: JAX's einsum takes the
+      // softmax's output as its operand
+      const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[n][i] *= inv[i / 2];
+      }
+
+      // p . v: key n-tile n as one k-step, its keys in the order 2t, 2t + 1
+      // (lane t's a0/a1 and a2/a3 columns) for P and V alike
+#pragma unroll
+      for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const uint32_t pa[4] = {operand<BF16>(s[n][0]), operand<BF16>(s[n][2]), operand<BF16>(s[n][1]),
+                                operand<BF16>(s[n][3])};
+        const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
+#pragma unroll
+        for (int dn = 0; dn < kDT; ++dn) {
+          mma(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
+        }
+        __syncwarp();  // n-tile by n-tile
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = lw + g + 8 * i;
+      if (row >= a.L) continue;
+      float* dst = a.out + ((static_cast<long long>(b) * a.L + row) * a.H + h) * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+      }
+    }
+  }
+}
+
+}  // namespace rs
+
+// KEYS 64 or 128: the resident design for L <= KEYS, one block of eight
+// warps per SM; KEYS 0: the chunked one, three blocks of four warps per SM
+// (two at D = 64).
+template <int KEYS>
+constexpr int kTcThreads = KEYS ? rs::kThreads : tc::kThreads;
+template <int D, bool HAS_REL, int KEYS>
+constexpr int kTcBlocks = KEYS ? rs::Smem<D, HAS_REL, KEYS>::kBlocks : D <= 32 ? 3 : 2;
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS>)
+rel_attention_tf32_kernel(const Args a) {
+  if constexpr (KEYS > 0) {
+    rs::attention<D, HAS_REL, false, KEYS>(a);
+  } else {
+    tc::attention<D, HAS_REL, false>(a);
+  }
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS>)
+rel_attention_bf16_kernel(const Args a) {
+  if constexpr (KEYS > 0) {
+    rs::attention<D, HAS_REL, true, KEYS>(a);
+  } else {
+    tc::attention<D, HAS_REL, true>(a);
+  }
+}
+
+template <int D, bool HAS_REL, bool BF16, int KEYS>
+cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const auto kernel =
+      BF16 ? &rel_attention_bf16_kernel<D, HAS_REL, KEYS> : &rel_attention_tf32_kernel<D, HAS_REL, KEYS>;
+  const size_t smem = sizeof(float) * rs::Smem<D, HAS_REL, KEYS>::kFloats;
+  cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = attn::sm_count(device, &sms)) != cudaSuccess) return err;
+  const long long pairs = static_cast<long long>(B) * a.H;
+  if (pairs > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  a.n_pairs = static_cast<int>(pairs);
+  a.n_items = (a.n_pairs + rs::kRows / KEYS - 1) / (rs::kRows / KEYS);
+  const int slots = sms * rs::Smem<D, HAS_REL, KEYS>::kBlocks;  // persistent: every block resident at once
+  const int blocks = a.n_items < slots ? a.n_items : slots;
+  kernel<<<blocks, rs::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int D, bool HAS_REL, bool BF16>
 cudaError_t launch_tc(Args a, int B, int device, cudaStream_t stream) {
+  // the resident design up to L = 128 at D <= 32; the chunked one for longer
+  // sequences and at D = 64 (no shipped configuration; ptxas spilled there)
+  if constexpr (D <= 32) {
+    if (a.L <= rs::kMaxL) {
+      return a.L <= rs::kMaxL / 2 ? launch_resident<D, HAS_REL, BF16, rs::kMaxL / 2>(a, B, device, stream)
+                                  : launch_resident<D, HAS_REL, BF16, rs::kMaxL>(a, B, device, stream);
+    }
+  }
   static std::atomic<size_t> granted[attn::kMaxDevices];
-  const auto kernel = BF16 ? &rel_attention_bf16_kernel<D, HAS_REL> : &rel_attention_tf32_kernel<D, HAS_REL>;
+  const auto kernel = BF16 ? &rel_attention_bf16_kernel<D, HAS_REL, 0> : &rel_attention_tf32_kernel<D, HAS_REL, 0>;
   const size_t smem = sizeof(float) * tc::Smem<D, HAS_REL>::kFloats;
   const cudaError_t err =
       attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);

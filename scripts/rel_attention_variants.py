@@ -2,13 +2,12 @@
 """
 Design sweep of the v2 attention kernel (foldingdiff_tpu_torch/csrc/
 rel_attention.cu) on one NVIDIA GPU: each variant is the kernel's source with
-one design choice undone by a text substitution, built with nvcc (all
+one design choice changed by a text substitution, built with nvcc (all
 variants at once, one process each) into foldingdiff_tpu_torch/_build/
-variants/, checked against the plain PyTorch version, and timed with the
-final source in the same run.
+variants/, checked against the plain PyTorch version in each instance's mode,
+and timed with the final source in the same run.
 
-Variants:
-  final               the source as it is
+Variants of the FMA instance (timed on it alone):
   d-loop-unrolled     the score loop over D / 4 unrolled (its later loads are
                       hoisted and the registers spill)
   staging-unrolled    the cp.async staging loops unrolled
@@ -17,11 +16,26 @@ Variants:
   two-blocks-per-sm   __launch_bounds__ asking for two blocks of two heads per
                       SM (255 registers) instead of three (168)
   one-head-per-block  one head per block instead of two
+Variants of the TF32 and bf16 instances (timed on both):
+  stages-2            a ring of two stages per block at L > 64 instead of one
+                      (one block per SM: shared memory holds only one then)
+  short-stages-1      one stage at L <= 64 instead of three (two blocks per SM)
+  window-32,          QE windows of 32 or 64 keys at L > 64 instead of 16
+  window-64           (fewer products, more shared memory: one block per SM)
+  short-window-16     QE windows of 16 keys at L <= 64 instead of 64
+  one-block-per-sm    one block of eight warps per SM instead of two
+  table-per-item      the distance table staged again for every work item
+                      instead of once per block
+  chunked             the chunked design (one block per 64 query rows, K, V
+                      and a table window staged per 64-key chunk, bf16 in two
+                      passes) at every L, as it ran before the resident one
+"final", the source as it is, is timed on all three instances.
 
 A substitution whose text is no longer in the source stops the run with an
-error naming the variant. The inputs and the timing (a CUDA graph of 50
-calls, the variants taken in turns, forwards then backwards) are
-chip_smoke.py's.
+error naming the variant (tests/test_torch_attention.py checks them against
+the source on the CPU). The inputs, the checks (chip_smoke.check_instance)
+and the timing (a CUDA graph of 50 calls, the variants taken in turns,
+forwards then backwards) are chip_smoke.py's.
 
 Prints, per variant, ptxas's register and spill report, the largest error
 against the plain version, and device times of the rel and rel-off instances
@@ -56,12 +70,30 @@ SUBSTITUTIONS = {
         ("#pragma unroll 1\n      for (int i = threadIdx.x; i < kWindow * kVec",
          "#pragma unroll\n      for (int i = threadIdx.x; i < kWindow * kVec"),
     ],
-    "v-with-k": [("cp_async_wait<1>();", "cp_async_wait<0>();")],
+    "v-with-k": [("cp_async_wait<1>();\n    __syncthreads();\n\n    // Scores of rows",
+                  "cp_async_wait<0>();\n    __syncthreads();\n\n    // Scores of rows")],
     "two-blocks-per-sm": [("D <= 32 ? 6 / kHeads : 1", "D <= 32 ? 4 / kHeads : 1")],
     "one-head-per-block": [("constexpr int kHeads = 2;", "constexpr int kHeads = 1;")],
+    "stages-2": [("constexpr int kStagesLong = 1;", "constexpr int kStagesLong = 2;")],
+    "short-stages-1": [("constexpr int kStagesShort = 3;", "constexpr int kStagesShort = 1;")],
+    "window-32": [("constexpr int kWindowLong = 16;", "constexpr int kWindowLong = 32;")],
+    "window-64": [("constexpr int kWindowLong = 16;", "constexpr int kWindowLong = 64;")],
+    "short-window-16": [("constexpr int kWindowShort = 64;", "constexpr int kWindowShort = 16;")],
+    "one-block-per-sm": [("<= kSmemPerSM ? 2 : 1;", "<= kSmemPerSM ? 1 : 1;")],
+    "table-per-item": [("constexpr bool kTableResident = true;", "constexpr bool kTableResident = false;")],
+    "chunked": [("  if constexpr (D <= 32) {\n    if (a.L <= rs::kMaxL) {", "  if constexpr (D < 0) {\n    if (a.L <= rs::kMaxL) {")],
 }
+FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
 TIMED = [(64, 128), (64, 64), (15, 64)]  # (B, L) at H = 12, D = 32, M = 128
-CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (100, 5, 99, 64, 128)]
+CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (100, 5, 99, 64, 128),
+           (2, 3, 200, 32, 256), (3, 2, 1, 32, 128)]
+
+
+def instances_of(variant: str) -> tuple:
+    """The instances a variant changes, and so is checked and timed on."""
+    if variant == "final":
+        return ("fma", "tf32", "bf16")
+    return ("fma",) if variant in FMA_VARIANTS else ("tf32", "bf16")
 
 
 def variant_libraries(base: attention.CudaLibrary, substitutions: dict) -> dict:
@@ -96,8 +128,9 @@ def build_and_report(libs: dict, kernel: str) -> None:
         instance, spill = "?", "?"
         for line in report.splitlines():
             if "Function properties for" in line:
-                found = re.search(rf"\d({kernel}(?:_[a-z0-9]+)?_kernel)ILi(\d+)ELb(\d)E", line)
-                instance = "{} D={} rel={}".format(*found.groups()) if found else "?"
+                found = re.search(rf"\d({kernel}(?:_[a-z0-9]+)?_kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?", line)
+                instance = "?" if not found else "{} D={} rel={}".format(*found.groups()[:3]) + (
+                    f" keys={found.group(4)}" if found.group(4) else "")
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)
             elif "Used" in line and "registers" in line:
@@ -120,6 +153,10 @@ def on(lib, fn):
     return run
 
 
+def plain(q, k, v, bias, kw):
+    return lambda mode: chip_smoke.v2_plain(q, k, v, bias, kw, mode)
+
+
 def main() -> None:
     card = chip_smoke.phase_card()  # exits without a card
     libs = variant_libraries(attention.REL_ATTENTION, SUBSTITUTIONS)
@@ -135,25 +172,31 @@ def main() -> None:
                 for b, h, l, d, m in CHECKED:
                     q, k, v, bias, table = inputs(b, h, l, d, m, seed=l + d)
                     for kw in (dict(rel_table=table, m=m), {}):
-                        out = attention.fused_attention_v2(q, k, v, bias, **kw)
-                        ref = attention.fused_attention_v2_reference(q, k, v, bias, **kw)
-                        worst = max(worst, (out - ref).abs().max().item())
-                print(f"{name}: max abs err against the plain version {worst:.3e}", flush=True)
-                if not worst <= 1e-4:
-                    raise RuntimeError(f"{name} disagrees with the plain version: {worst}")
+                        for i in instances_of(name):
+                            out = attention.fused_attention_v2(q, k, v, bias, mode="ieee" if i == "fma" else i, **kw)
+                            if i == "fma":
+                                worst = max(worst, (out - plain(q, k, v, bias, kw)("ieee")).abs().max().item())
+                            else:
+                                chip_smoke.check_instance(f"{name} B={b} H={h} L={l} D={d} rel={bool(kw)} {i}", i,
+                                                          out, plain(q, k, v, bias, kw))
+                if "fma" in instances_of(name):
+                    print(f"{name}: FMA max abs err against the plain version {worst:.3e}", flush=True)
+                    if not worst <= chip_smoke.KERNEL_TOL:
+                        raise RuntimeError(f"{name} disagrees with the plain version: {worst}")
             for b, l in TIMED:
                 q, k, v, bias, table = inputs(b, 12, l, 32, 128)
                 for rel in (True, False):
                     kw = dict(rel_table=table, m=128) if rel else {}
                     key = f"B={b} L={l} {'rel' if rel else 'rel-off'}"
-                    results[key] = chip_smoke.in_turns({name: on(lib, lambda: attention.fused_attention_v2(
-                        q, k, v, bias, **kw)) for name, lib in libs.items()})
+                    results[key] = chip_smoke.in_turns({
+                        f"{name} {i}": on(lib, lambda i=i: attention.fused_attention_v2(
+                            q, k, v, bias, mode="ieee" if i == "fma" else i, **kw))
+                        for name, lib in libs.items() for i in instances_of(name)})
                     print(f"{key} on {card} (device ms): " + ", ".join(
                         f"{name} {ms:.4f}" for name, ms in results[key].items()), flush=True)
     finally:
         attention.REL_ATTENTION = original
     print(json.dumps({"card": card, "ms": results}))
-
 
 if __name__ == "__main__":
     main()

@@ -5,9 +5,12 @@ reference, as tests/test_pallas_attention.py runs them. On a CPU tensor the
 port runs each entry's plain PyTorch version; the CUDA kernels are compared
 with those versions on the card by tests/test_torch_cuda.py and chip_smoke.py.
 The kernels' build (one nvcc per source, started together) is checked here
-with a stand-in for nvcc.
+with a stand-in for nvcc, and the variant scripts' substitutions against the
+kernel sources.
 """
+import ast
 import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -285,3 +288,41 @@ def test_build_starts_one_nvcc_per_source_together(monkeypatch, tmp_path):
     bad.source.write_text("")
     with pytest.raises(RuntimeError, match=r"(?s)nvcc failed.*bad source"):
         attention.build([bad])
+
+
+def _substitutions(script: Path) -> dict:
+    """The SUBSTITUTIONS of a variant script, read from its AST: the
+    assignment and the module-level constants it names, evaluated with no
+    builtins (the scripts import chip_smoke, so they are not imported)."""
+    tree = ast.parse(script.read_text())
+    assigns = {node.targets[0].id: node for node in tree.body
+               if isinstance(node, ast.Assign) and len(node.targets) == 1 and isinstance(node.targets[0], ast.Name)}
+    needed, todo = set(), ["SUBSTITUTIONS"]
+    while todo:
+        name = todo.pop()
+        if name in needed or name not in assigns:
+            continue
+        needed.add(name)
+        todo += [n.id for n in ast.walk(assigns[name].value) if isinstance(n, ast.Name)]
+    namespace = {"__builtins__": {}}
+    for name, node in sorted(assigns.items(), key=lambda kv: kv[1].lineno):
+        if name in needed:
+            exec(compile(ast.Module([node], type_ignores=[]), str(script), "exec"), namespace)
+    return namespace["SUBSTITUTIONS"]
+
+
+@pytest.mark.parametrize("script,library", [("rel_attention_variants.py", attention.REL_ATTENTION),
+                                            ("gathered_attention_variants.py", attention.GATHERED_ATTENTION)])
+def test_variant_substitutions_are_in_the_kernel_source(script, library):
+    """Every text a variant script substitutes is found in the current
+    kernel source, in the order the script applies it (a stale one stops
+    the script's chip run), and every variant but "final" changes it."""
+    substitutions = _substitutions(Path(__file__).resolve().parent.parent / "scripts" / script)
+    source = library.source.read_text()
+    assert substitutions["final"] == []
+    for name, pairs in substitutions.items():
+        text = source
+        for old, new in pairs:
+            assert old in text, f"{script}: {name}: {old!r} is not in {library.source.name}"
+            text = text.replace(old, new)
+        assert (text != source) == (name != "final"), name

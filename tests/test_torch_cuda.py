@@ -186,11 +186,13 @@ def _check_instance(out, run_plain, mode):
 
 # (B, H, L, D, M) of the instances' checks: the flagship and the sweep's two
 # chunks; ragged L inside a 16-row warp tile and an 8-key tile (50, 127, 33,
-# 99); L = 200 over four chunks of keys (the bf16 instance's two passes);
-# L = 1; D 16, 32, 64
+# 99); L = 200 over four chunks of keys (the chunked design past L = 128, the
+# bf16 instance's two passes); L = 1; D 16, 32, 64 (64 on the chunked design);
+# fewer (b, h) pairs than SMs (1 x 1, 3 x 5) and more than one item per
+# persistent block (130 x 12)
 INSTANCE_SHAPES = [(8, 12, 128, 32, 128), (15, 12, 64, 32, 128), (63, 12, 128, 32, 128), (8, 12, 50, 32, 128),
                    (8, 12, 127, 32, 128), (4, 6, 33, 16, 64), (2, 4, 99, 64, 128), (2, 3, 200, 32, 256),
-                   (3, 2, 1, 32, 128)]
+                   (3, 2, 1, 32, 128), (1, 1, 128, 32, 128), (3, 5, 64, 32, 128), (130, 12, 128, 32, 128)]
 
 
 @pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
@@ -210,6 +212,47 @@ def test_v2_instance_on_projection_views_matches_its_plain_version(device, b, h,
         assert out.shape == (b, h, l, d) and out.transpose(1, 2).is_contiguous()  # stored as (B, L, H, D)
         _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
                         mode)
+
+
+@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("b,h,l,d,m", [(4, 12, 128, 32, 128), (5, 3, 50, 64, 128), (2, 6, 200, 16, 256)])
+def test_v2_instance_on_a_slice_of_a_larger_buffer(device, b, h, l, d, m, rel, mode):
+    """q, k and v sliced from one (B, L + 5, 3, H, D) buffer, as a fused
+    projection would leave them: rows 3 H D floats apart, a batch stride of
+    3 (L + 5) H D, beyond L H D."""
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=17)
+    kw = dict(rel_table=table, m=m) if rel else {}
+    buf = torch.randn(b, l + 5, 3, h, d, generator=torch.Generator(device=device).manual_seed(18), device=device)
+    for i, x in enumerate((q, k, v)):
+        buf[:, :l, i] = x.transpose(1, 2)
+    views = [buf[:, :l, i].transpose(1, 2) for i in range(3)]
+    assert views[0].stride() == (3 * (l + 5) * h * d, d, 3 * h * d, 1)
+    with torch.inference_mode():
+        out = attention.fused_attention_v2(*views, bias, mode=mode, **kw)
+        _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
+                        mode)
+
+
+def test_v2_back_to_back_launches_of_different_shapes(device):
+    """Launches of every instance at different shapes (each instance's
+    design re-arms its barriers per launch) on one stream with no
+    synchronisation between them, each held against its plain version
+    after one synchronisation."""
+    shapes = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (3, 2, 1, 32, 128), (130, 12, 128, 32, 128),
+              (2, 4, 99, 64, 128), (2, 3, 200, 32, 256), (1, 1, 128, 32, 128), (4, 6, 33, 16, 64)]
+    runs = []
+    with torch.inference_mode():
+        for i, (b, h, l, d, m) in enumerate(shapes):
+            q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=20 + i)
+            views = _projection_views(q, k, v)
+            for j, mode in enumerate(("tf32", "bf16", "ieee")):
+                kw = dict(rel_table=table, m=m) if (i + j) % 2 else {}
+                runs.append((attention.fused_attention_v2(*views, bias, mode=mode, **kw), (q, k, v, bias), kw, mode))
+        torch.cuda.synchronize()
+        for out, (q, k, v, bias), kw, mode in runs:
+            _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
+                            mode)
 
 
 @pytest.mark.parametrize("mode", ["tf32", "bf16"])
