@@ -5,8 +5,9 @@ Smoke run of the PyTorch port (foldingdiff_tpu_torch) on one NVIDIA GPU.
 Phases, each printing lines of its own:
   0. the card, as nvidia-smi names it with its power limit; fails without CUDA
   1. build both attention kernels (csrc/rel_attention.cu, the v2 entry, and
-     csrc/gathered_attention.cu, the v1 entry) with nvcc, one process each,
-     started together
+     csrc/gathered_attention.cu, the v1 entry) with nvcc, one process per
+     part of each source (ops/attention.py's CudaLibrary.parts), started
+     together
   1. (also) fails if ptxas reports a spill in any kernel instance
   2. each kernel against its plain PyTorch version on the card, with and
      without relative scores (v1: e_lr gathered from arange and from a
@@ -17,15 +18,22 @@ Phases, each printing lines of its own:
      mode: FMA within 1e-4 (float32); TF32 (tensor cores) within 5e-3
      relative RMS of float32; bf16 within a tenth of the plain bf16
      version's relative-RMS distance from float32 and within 5e-2 of
-     float32 (v2 and v1 alike; v1's at every e_lr kind, with masked-key
-     invariance). Kernel, plain (in the instance's mode) and library
-     times (SDPA for rel-off, in each instance's precision: IEEE float32,
-     TF32 GEMMs, bf16 copies), all instances taken in turns in one call, at
-     H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
-     its bound: the larger of its FLOPs over the instance's peak (67
-     TFLOP/s FMA, 495 TF32 tensor cores for TF32 and bf16) and its bytes
-     over 3.35 TB/s; each kernel's TF32 instance must beat its FMA one at
-     B = 64, L = 128 with relative scores
+     float32; the multi-pass instances (tf32x3, bf16x3, bf16x6, bf16x9:
+     the presets' products of TF32 or bf16 parts) within 1e-5 relative RMS
+     of the plain version in their mode and within a tenth of the TF32
+     instance's distance from float32 on the same inputs (v2 and v1 alike;
+     v1's at every e_lr kind, with masked-key invariance). Kernel, plain
+     (in the instance's mode) and library times (SDPA for rel-off, in each
+     instance's precision: IEEE float32, TF32 GEMMs, bf16 copies; IEEE
+     float32 beside the multi-pass rows, float32's products, not the split
+     ones), all instances taken in turns in one call, at H = 12, D = 32 and
+     (B, L) = (64, 128), (64, 64), (15, 64), each beside its bound: the
+     larger of its FLOPs (times the instance's products of parts) over the
+     peak for its operands' type (67 TFLOP/s FMA, 495 TF32 for tf32 and
+     tf32x3, 989 bf16 for bf16 and the bf16 multi-pass instances, which
+     run their bf16 parts on the TF32 tensor cores) and its bytes over
+     3.35 TB/s; each kernel's TF32 instance must beat
+     its FMA one at B = 64, L = 128 with relative scores
   3. the trained torch fixture loaded through models.io.from_dir onto the
      card under attention_impl "auto" (v2) and "pallas" (v1), against its
      recorded predictions (parity.npz)
@@ -185,34 +193,41 @@ Phases, each printing lines of its own:
      "default" under this script's IEEE float32 setting.
  13. matmul_precision: the flagship at "highest" (IEEE float32), "default"
      (under TF32 for the process, as the command-line programs set it:
-     precision.set_process_default) and "BF16_BF16_F32" (bf16 operands,
-     float32 sums and output).
+     precision.set_process_default), "BF16_BF16_F32" (bf16 operands,
+     float32 sums and output) and the multi-pass presets TF32_TF32_F32_X3,
+     BF16_BF16_F32_X3, _X6 and _X9 (products of TF32 or bf16 parts).
      (a) the graphed DDPM step at the sweep's chunks (15 x 64, 63 x 128),
      the -n 1 DDPM sweep in backbones/s and the graphed train step at
      B = 64, L = 128; (b) against "highest" on the same inputs: one flagship
      forward (relative RMS of the difference above 0 and at most 1e-2 at
-     TF32, 5e-2 at bf16: the gate), a full DDPM chain of the trained torch
+     TF32, 5e-2 at bf16, 1e-4 at the multi-pass presets (5e-4 at
+     BF16_BF16_F32_X3) and a tenth of TF32's: the gate), a full DDPM chain
+     of the trained torch
      fixture with the same draws (mean |d angle|) and the loss curve of 20
      train steps on a linear schedule; (c) the GEMM kernels of a DDPM
      step's graph and of the train step's graph, named by cuFuncGetName:
-     all float32 FMA under "highest", all TF32 tensor cores under "default"
-     and "BF16_BF16_F32" (whose GEMMs take bf16 values) but the one GEMM with
-     a 6-wide operand (FEATURE_GEMMS), and the step graph's 12 v2 nodes all
-     of the precision's instance (FMA, TF32, bf16), as are the sweep's
-     24,000 launches; under "default" and "BF16_BF16_F32" also a "pallas"
-     step's graph at 63 x 128 (12 nodes of v1's TF32 or bf16 instance, no
-     other v1 node), 13 steps replayed with the launches counted, and its
-     time per graphed step; (d) the process's
-     fp32_precision unchanged after every forward, train step and capture.
+     all float32 FMA under "highest", all TF32 tensor cores under the rest
+     (bf16 values or parts in TF32 GEMMs) but the one GEMM with a 6-wide
+     operand (FEATURE_GEMMS), the GEMM nodes in the count GEMM_NODES
+     states (one GEMM per dot, a multi-pass preset's over its parts), and the step
+     graph's 12 v2 nodes all of the precision's instance, as are the
+     sweep's 24,000 launches; under every precision but "highest" also a
+     "pallas" step's graph at 63 x 128 (12 nodes of v1's instance of the
+     precision, no other v1 node), 13 steps replayed with the launches
+     counted, and its time per graphed step; (d) the process's
+     fp32_precision unchanged after every forward, train step and capture;
+     (e) bin/sample_torch.py's main() over the sweep on a copy of the
+     flagship directory whose config.json names TF32_TF32_F32_X3, every
+     launch of the v2 tf32x3 instance.
      Phases 2-12 run with IEEE float32 GEMMs for the process, so their
      "default" models hold their float32 gates.
 
 The line before the last is {"kernels": [...]}, one entry per kernel
 instance: the v2 FMA instance's launches are phase 5's, phase 9's, phase
 10's (b) and (d) on both ranks and phase 11's (a) (phase 9 prints its
-rel-off launches apart), v1 FMA's phase 6's, the v2 TF32 and bf16
-instances' phase 13's sweeps at "default" and "BF16_BF16_F32", v1 TF32's
-and bf16's phase 13's "pallas" steps, each counted under the graphs by their launch
+rel-off launches apart), v1 FMA's phase 6's, the other v2 instances'
+phase 13's sweeps at their precisions ("default" for TF32), the other v1
+instances' phase 13's "pallas" steps, each counted under the graphs by their launch
 accounting (graphs.py); the last is {"ok": true, "device": {...}}. Any
 failure raises, so the script exits non-zero and prints neither.
 
@@ -232,6 +247,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -286,6 +302,14 @@ KERNEL_TOL = 1e-4  # kernel vs plain, one attention call (float32, other summati
 # within TF32_TOL of the float32 plain version; bf16 within BF16_SHARE of the
 # plain bf16 version's own distance from float32, and within BF16_TOL of float32
 TF32_TOL, BF16_SHARE, BF16_TOL = 5e-3, 0.1, 5e-2
+# The multi-pass instances (the presets TF32_TF32_F32_X3, BF16_BF16_F32_X3,
+# _X6, _X9: products of TF32 or bf16 parts) within SPLIT_TOL relative RMS of
+# the plain version in their mode (the same products, summed in another
+# order), and at most SPLIT_SHARE of the TF32 instance's distance from
+# float32 on the same inputs
+MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
+TENSOR_CORE = ("tf32", "bf16", *MULTI_PASS)
+SPLIT_TOL, SPLIT_SHARE = 1e-5, 0.1
 DENOISER_TOL = 1e-3  # kernel vs plain through 12 layers
 FIXTURE = REPO / "tests" / "torch_trained_model_for_testing"
 FLAGSHIP = ModelConfig(
@@ -362,17 +386,24 @@ def in_turns(fns: dict) -> dict:
     return {name: sum(t) / 2 for name, t in times.items()}
 
 
-# H100 SXM peaks per instance: float32 outside the tensor cores (FMA); TF32
-# tensor cores (TF32, and bf16, whose bf16 values run on them); HBM3
-PEAK_FLOPS, PEAK_BYTES = {"fma": 67e12, "tf32": 495e12, "bf16": 495e12}, 3.35e12
+# H100 SXM dense peaks per instance, by the type of its operands: float32
+# outside the tensor cores (FMA), TF32 (tf32, tf32x3), bf16 (bf16 and the
+# bf16 multi-pass instances: their products are of bf16 values, though the
+# kernels run them on the TF32 tensor cores); HBM3
+PEAK_FLOPS = {"fma": 67e12, **{i: 989e12 if precision.SPLITS.get(i, ("tf32",))[0] == "bf16" else 495e12
+                                for i in TENSOR_CORE}}
+PEAK_BYTES = 3.35e12
+# the products each instance computes per product of the function
+PRODUCTS = {"fma": 1, "tf32": 1, **{i: len(split[2]) for i, split in precision.SPLITS.items()}}
 
 
 def bound(entry: str, rel: bool, b: int, h: int, l: int, d: int, m: int, instance: str = "fma") -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take for one call,
-    the larger of its FLOPs (q.k, q.E and p.v products, 2 per FMA) over the
-    instance's peak and its bytes (q, k, v, bias and the table or e_lr read
-    once, out written once) over the memory rate."""
-    flops = 2 * b * h * l * l * d * (3 if rel else 2)
+    the larger of its FLOPs (q.k, q.E and p.v products, 2 per FMA, times the
+    instance's products of parts) over the instance's peak and its bytes
+    (q, k, v, bias and the table or e_lr read once, out written once) over
+    the memory rate."""
+    flops = 2 * b * h * l * l * d * (3 if rel else 2) * PRODUCTS[instance]
     floats = 4 * b * h * l * d + b * l + (((2 * m - 1) * d if entry == "v2" else l * l * d) if rel else 0)
     ops_ms, bytes_ms = flops / PEAK_FLOPS[instance] * 1e3, 4 * floats / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -417,13 +448,15 @@ def phase_build() -> None:
     spills = []
     for lib in attention.LIBRARIES:
         report = reports[lib.name]
-        log(f"[1] {lib.library_path().relative_to(REPO)}" + ("" if report else " (already built)"))
+        for part in range(len(lib.parts)):
+            log(f"[1] {lib.library_path(part).relative_to(REPO)}" + ("" if report else " (already built)"))
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[1]   {line.strip()}")
             if re.search(r"[1-9]\d* bytes spill", line):
                 spills.append(f"{lib.name}: {line.strip()}")
-    log(f"[1] built both libraries in {seconds:.3f} s (one nvcc each, in parallel)")
+    log(f"[1] built both libraries in {seconds:.3f} s (one nvcc per part, "
+        f"{sum(len(lib.parts) for lib in attention.LIBRARIES)} in parallel)")
     if spills:
         raise RuntimeError("ptxas spilled registers:\n" + "\n".join(spills))
 
@@ -471,14 +504,17 @@ def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
 
 
-def check_instance(tag: str, mode: str, out: torch.Tensor, plain) -> float:
-    """A tensor-core or bf16 instance's output against plain(mode), the
-    plain version in a mode: TF32 within TF32_TOL relative RMS of float32's
-    (and above 0: the instance took effect); bf16 within BF16_SHARE of the
-    plain bf16 version's relative-RMS distance from float32, and within
-    BF16_TOL of float32. Returns the max abs err against the plain version
-    in the instance's mode (float32's for TF32, whose plain version on the
-    card is cuBLAS's TF32, another rounding)."""
+def check_instance(tag: str, mode: str, out: torch.Tensor, plain, tf32_drift: float | None = None) -> tuple:
+    """A tensor-core instance's output against plain(mode), the plain
+    version in a mode: TF32 within TF32_TOL relative RMS of float32's (and
+    above 0: the instance took effect); bf16 within BF16_SHARE of the plain
+    bf16 version's relative-RMS distance from float32, and within BF16_TOL
+    of float32; a multi-pass instance within SPLIT_TOL of the plain version
+    in its mode and within SPLIT_SHARE of tf32_drift, the TF32 instance's
+    distance from float32 on the same inputs. Returns (the max abs err
+    against the plain version in the instance's mode (float32's for TF32,
+    whose plain version on the card is cuBLAS's TF32, another rounding),
+    the relative RMS against float32)."""
     f32 = plain("ieee")
     if mode == "tf32":
         rms = rel_rms(out, f32)
@@ -487,8 +523,17 @@ def check_instance(tag: str, mode: str, out: torch.Tensor, plain) -> float:
             f"max abs err {err:.3e}")
         if not 0 < rms <= TF32_TOL:
             raise RuntimeError(f"{tag}: the TF32 instance's relative RMS from float32 is {rms}")
-        return err
-    ref = plain("bf16")
+        return err, rms
+    ref = plain(mode)
+    if mode in MULTI_PASS:
+        rms, drift = rel_rms(out, ref), rel_rms(out, f32)
+        err = (out - ref).abs().max().item()
+        log(f"[2] {tag}: relative RMS against the plain {mode} version {rms:.3e} (gate: {SPLIT_TOL}), against "
+            f"float32 {drift:.3e} (gate: {SPLIT_SHARE} of the TF32 instance's {tf32_drift:.3e}); max abs err {err:.3e}")
+        if not (rms <= SPLIT_TOL and drift <= SPLIT_SHARE * tf32_drift):
+            raise RuntimeError(f"{tag}: the {mode} instance is {rms} from its plain version, {drift} from float32 "
+                               f"(the TF32 instance {tf32_drift})")
+        return err, drift
     gap, rms, drift = rel_rms(ref, f32), rel_rms(out, ref), rel_rms(out, f32)
     err = (out - ref).abs().max().item()
     log(f"[2] {tag}: relative RMS against the plain bf16 version {rms:.3e}, its distance from float32 {gap:.3e} "
@@ -496,20 +541,20 @@ def check_instance(tag: str, mode: str, out: torch.Tensor, plain) -> float:
     if not (gap > 0 and rms <= BF16_SHARE * gap and drift <= BF16_TOL):
         raise RuntimeError(f"{tag}: the bf16 instance is {rms} from the plain bf16 version ({gap} from float32), "
                            f"{drift} from float32")
-    return err
+    return err, drift
 
 
 def in_mode(mode: str, fn):
     """fn() with cuBLAS's float32 GEMMs as a model in `mode` runs them: TF32
-    under "tf32" and "bf16" (whose bf16 values TF32 holds), the process's
-    IEEE float32 otherwise."""
-    with precision.matmul_precision("tf32" if mode in ("tf32", "bf16") else "caller"):
+    under "tf32", "bf16" and the multi-pass modes (whose parts TF32 holds),
+    the process's IEEE float32 otherwise."""
+    with precision.matmul_precision("caller" if mode == "ieee" else mode):
         return fn()
 
 
 def v2_plain(q, k, v, bias, kw: dict, mode: str):
-    """The v2 plain version in `mode` (bf16 operands under "bf16"), its
-    einsums as a model in that mode runs them."""
+    """The v2 plain version in `mode` (products of parts under "bf16" and
+    the multi-pass modes), its einsums as a model in that mode runs them."""
     return in_mode(mode, lambda: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode, **kw))
 
 
@@ -562,12 +607,14 @@ def phase_kernel() -> dict:
                     check_masked_keys(f"v2 {shape} on views", lambda q_, k_, v_: attention.fused_attention_v2(
                         *(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q_, k_, v_)), bias, table, m),
                         q, k, v, bias, out)
-                for mode in ("tf32", "bf16"):  # the tensor-core instances, on the projections' views
+                tf32_drift = None
+                for mode in TENSOR_CORE:  # the tensor-core instances, on the projections' views
                     out_t = attention.fused_attention_v2(*views, bias, mode=mode, **kw)
                     check_layout(f"v2 {mode} {shape} on views", out_t, b, h, l, d)
-                    worst["v2", mode] = max(worst["v2", mode], check_instance(
-                        f"v2 {mode} {shape} rel={rel} on (B, L, H, D) views", mode, out_t,
-                        lambda mode_: v2_plain(*views, bias, kw, mode_)))
+                    err, drift = check_instance(f"v2 {mode} {shape} rel={rel} on (B, L, H, D) views", mode, out_t,
+                                                lambda mode_: v2_plain(*views, bias, kw, mode_), tf32_drift)
+                    worst["v2", mode] = max(worst["v2", mode], err)
+                    tf32_drift = drift if mode == "tf32" else tf32_drift
                     if rel:
                         check_masked_keys(f"v2 {mode} {shape} on views", lambda q_, k_, v_: attention.fused_attention_v2(
                             *(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q_, k_, v_)), bias, table, m,
@@ -584,12 +631,15 @@ def phase_kernel() -> dict:
                 if e_kind == "permuted":
                     check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
                         q_, k_, v_, bias, e_lr), q, k, v, bias, out)
-                for mode in ("tf32", "bf16"):  # the tensor-core instances
+                tf32_drift = None
+                for mode in TENSOR_CORE:  # the tensor-core instances
                     out_t = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
-                    worst["v1", mode] = max(worst["v1", mode], check_instance(
+                    err, drift = check_instance(
                         f"v1 {mode} {shape} e_lr={e_kind}", mode, out_t,
                         lambda mode_: in_mode(mode_, lambda: attention.fused_attention_reference(
-                            q, k, v, bias, e_lr, bf16=mode_ == "bf16"))))
+                            q, k, v, bias, e_lr, mode=mode_)), tf32_drift)
+                    worst["v1", mode] = max(worst["v1", mode], err)
+                    tf32_drift = drift if mode == "tf32" else tf32_drift
                     check_masked_keys(f"v1 {mode} {shape} e_lr={e_kind}", lambda q_, k_, v_: (
                         attention.fused_attention(q_, k_, v_, bias, e_lr, mode=mode)), q, k, v, bias, out_t)
 
@@ -614,17 +664,22 @@ def phase_kernel() -> dict:
                     mode = "ieee" if i == "fma" else i
                     fns["v1", i] = (lambda mode=mode: attention.fused_attention(q, k, v, bias, e, mode=mode))
                     fns["v1 plain", i] = (lambda mode=mode: in_mode(mode, lambda: (
-                        attention.fused_attention_reference(q, k, v, bias, e, bf16=mode == "bf16"))))
+                        attention.fused_attention_reference(q, k, v, bias, e, mode=mode))))
                 fns.update({("library", i): fn for i, fn in libraries.items()})
                 times = in_turns(fns)
                 for entry, lib in (("v2", V2), ("v1", V1)):
                     for i in lib.instances:
                         bound_ms, bound_by = bound(entry, rel, b, h, l, d, m, i)
                         ms = times[entry, i]
+                        # the multi-pass rows' yardstick: IEEE SDPA, float32's products (not the split ones)
+                        library = "fma" if i in MULTI_PASS else i
                         results[entry, i, rel, b, l] = {
-                            "kernel": ms, "plain": times[f"{entry} plain", i], "library": times.get(("library", i)),
-                            "bound_ms": bound_ms, "bound_by": bound_by}
-                        lib_text = f"{times['library', i]:.4f} ms (SDPA, {i})" if libraries else "none"
+                            "kernel": ms, "plain": times[f"{entry} plain", i],
+                            "library": times.get(("library", library)), "bound_ms": bound_ms, "bound_by": bound_by}
+                        lib_text = "none"
+                        if libraries:
+                            lib_text = f"{times['library', library]:.4f} ms (SDPA, {library}" + (
+                                ": float32's products, not the split ones)" if i in MULTI_PASS else ")")
                         log(f"[2] time {entry} {i} B={b} H={h} L={l} D={d} {'rel' if rel else 'rel-off'} (device, "
                             f"CUDA graph, in turns): kernel {ms:.4f} ms, plain {times[f'{entry} plain', i]:.4f} ms, "
                             f"library {lib_text}; bound {bound_ms * 1e3:.1f} us ({bound_by}), {bound_ms / ms:.1%} of it")
@@ -743,15 +798,17 @@ def check_angles(tag: str, sampled) -> None:
             raise RuntimeError(f"{tag} generated_{i}: angles not finite in [-pi, pi)")
 
 
-def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict, card: str, steps: int) -> None:
-    """bin/sample_torch.py's main() over the sweep; checks launches, PDBs, CSVs; prints backbones/s."""
+def run_cli(tag: str, model_dir: str, out_dir: str, extra: list, expected: dict, card: str, steps: int,
+            instance: str = "fma") -> None:
+    """bin/sample_torch.py's main() over the sweep; checks launches (all of
+    `instance`), PDBs, CSVs; prints backbones/s."""
     argv = ["-m", model_dir, "-o", out_dir, "-n", "1", "-l", str(SWEEP[0]), str(SWEEP[1]),
             "-b", str(BATCH), "--seed", str(SEED), "--device", DEVICE, "--noplot", *extra]
     reset_counts()
     start = time.perf_counter()
     result = load_script("sample_torch").main(argv)
     wall = time.perf_counter() - start
-    check_launches(tag, expected)
+    check_launches(tag, expected, instance)
 
     n = len(range(*SWEEP))
     pdbs = sorted(Path(out_dir, "sampled_pdb").glob("generated_*.pdb"))
@@ -2740,13 +2797,20 @@ def phase_graphs(model_dir: str, eager_profiles: dict, card: str) -> None:
 
 # -- 13. matmul precision ---------------------------------------------------------
 
-PRECISIONS = ("highest", "default", "BF16_BF16_F32")  # IEEE float32, TF32, bf16 operands (models/config.py)
+# IEEE float32, TF32, bf16 operands, and the multi-pass presets' products of
+# TF32 or bf16 parts (models/config.py)
+MULTI_PASS_PRESETS = ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "BF16_BF16_F32_X9")
+PRECISIONS = ("highest", "default", "BF16_BF16_F32", *MULTI_PASS_PRESETS)
 # The flagship forward's drift from "highest", as the RMS of the difference
 # over the RMS of the output: starting bounds (a reading above one fails the
-# run and is reported, never a quietly wider bound)
-PRECISION_DRIFT = {"default": 1e-2, "BF16_BF16_F32": 5e-2}
+# run and is reported, never a quietly wider bound); the multi-pass presets'
+# also at most PRECISION_TF32_SHARE of "default"'s (TF32) drift
+PRECISION_DRIFT = {"default": 1e-2, "BF16_BF16_F32": 5e-2, "TF32_TF32_F32_X3": 1e-4, "BF16_BF16_F32_X3": 5e-4,
+                   "BF16_BF16_F32_X6": 1e-4, "BF16_BF16_F32_X9": 1e-4}
+PRECISION_TF32_SHARE = 0.1
 # The v2 instance each precision's model runs here (ops/attention.py): "default" under the process's TF32
-PRECISION_INSTANCES = {"highest": "fma", "default": "tf32", "BF16_BF16_F32": "bf16"}
+PRECISION_INSTANCES = {"highest": "fma", "default": "tf32", "BF16_BF16_F32": "bf16",
+                       **{p: precision.mode_of(p) for p in MULTI_PASS_PRESETS}}
 PRECISION_SHAPES = ((15, 64), (63, 128))  # the sweep's two chunks
 PRECISION_STEPS = 20  # timed train steps, and the steps of the loss curves held against "highest"
 GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma", re.I)
@@ -2754,6 +2818,16 @@ GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma", re.I)
 # cores do not take), which cuBLAS runs on a float32 FMA kernel under TF32:
 # one node in a step's graph and one in the train step's (measured)
 FEATURE_GEMMS = {"step": 1, "train": 1}
+# The GEMM nodes of a DDPM step's graph at 63 x 128 and of the train step's
+# graph, per precision: one cuBLAS call per dot (a multi-pass preset's
+# products of parts in one call over the parts), and cuBLAS runs some calls
+# of a long contraction as two kernels (a split-K GEMM and its reduction):
+# under _X6 12 more train nodes (one per layer; the weight gradients
+# contract over 8192 rows times the parts), under _X9 25 more and one more
+# in the step (the card's cuBLAS, measured)
+GEMM_NODES = {"highest": (75, 332), "default": (75, 332), "BF16_BF16_F32": (75, 332),
+              "TF32_TF32_F32_X3": (75, 332), "BF16_BF16_F32_X3": (75, 332),
+              "BF16_BF16_F32_X6": (75, 344), "BF16_BF16_F32_X9": (76, 357)}
 
 
 def gemm_math(name: str) -> str | None:
@@ -2782,12 +2856,14 @@ def gemm_kinds(names: dict) -> dict:
     return kinds
 
 
-def gate_gemm_kinds(tag: str, matmul_precision: str, kinds: dict, feature_gemms: int) -> None:
+def gate_gemm_kinds(tag: str, matmul_precision: str, kinds: dict, feature_gemms: int, nodes: int) -> None:
     """Under "highest" every GEMM node of the graph runs float32 FMA; under
-    "default" (the process's TF32) and "BF16_BF16_F32" (bf16 values in TF32
-    GEMMs) every one TF32 tensor cores but at most `feature_gemms` (the
-    input projection's). A backward pass left outside the model's scope
-    would put its ~150 GEMMs on float32 FMA under "highest"."""
+    "default" (the process's TF32), "BF16_BF16_F32" (bf16 values in TF32
+    GEMMs) and the multi-pass presets (their parts in TF32 GEMMs) every one
+    TF32 tensor cores but at most `feature_gemms` (the input projection's).
+    A backward pass left outside the model's scope would put its ~150 GEMMs
+    on float32 FMA under "highest". `nodes`: the GEMM nodes the graph holds
+    (GEMM_NODES)."""
     counts = {k: sum(v.values()) for k, v in kinds.items()}
     log(f"{tag}: GEMM nodes by their kernels' names {counts}: " +
         "; ".join(f"{k}: {', '.join(f'{n} x {name[:100]}' for name, n in v.items())}" for k, v in kinds.items()))
@@ -2795,6 +2871,9 @@ def gate_gemm_kinds(tag: str, matmul_precision: str, kinds: dict, feature_gemms:
     off = sum(n for k, n in counts.items() if k != want) - (0 if want == "ieee" else feature_gemms)
     if off > 0 or not counts:
         raise RuntimeError(f"{tag}: GEMM nodes {counts} under matmul_precision {matmul_precision!r}")
+    total = sum(counts.values())
+    if total != nodes:
+        raise RuntimeError(f"{tag}: {total} GEMM nodes under matmul_precision {matmul_precision!r}, expected {nodes}")
 
 
 def check_setting_kept(tag: str, before: str) -> None:
@@ -2834,9 +2913,23 @@ def fixture_chain(matmul_precision: str) -> tuple:
     return run(x, mask, generator=torch.Generator(device=DEVICE).manual_seed(SEED)), mask
 
 
-def phase_precision(model_dir: str, card: str) -> dict:
-    """Phase 13: the flagship at matmul_precision "highest", "default" (TF32)
-    and "BF16_BF16_F32". (a) times: a torch.profiler window of eager DDPM
+def precision_cli(model_dir: str, tmp: str, card: str) -> None:
+    """bin/sample_torch.py's main() over the sweep on a copy of the flagship
+    directory whose config.json names TF32_TF32_F32_X3: every layer of every
+    reverse step launches the v2 tf32x3 instance."""
+    copy = Path(tmp, "flagship_tf32x3")
+    shutil.copytree(model_dir, copy)
+    config = json.loads((copy / "config.json").read_text())
+    (copy / "config.json").write_text(json.dumps({**config, "matmul_precision": "TF32_TF32_F32_X3"}))
+    steps = FLAGSHIP_TRAIN_ARGS["timesteps"]
+    run_cli("[13] bin/sample_torch.py, config.json at TF32_TF32_F32_X3", str(copy), str(Path(tmp, "sampled_tf32x3")),
+            [], {V2.name: FLAGSHIP.num_hidden_layers * steps * expected_chunks(), V1.name: 0}, card, steps,
+            instance="tf32x3")
+
+
+def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
+    """Phase 13: the flagship at matmul_precision "highest", "default"
+    (TF32), "BF16_BF16_F32" and the multi-pass presets. (a) times: a torch.profiler window of eager DDPM
     steps at B = 64, L = 128 by kernel group (phase 5's), the graphed DDPM
     step at the sweep's two chunks, the -n 1 DDPM sweep, the graphed train
     step at B = 64, L = 128;
@@ -2845,13 +2938,15 @@ def phase_precision(model_dir: str, card: str) -> dict:
     steps on a linear schedule; (c) the GEMM kernels that a DDPM step's graph
     and the train step's graph (forward and backward) hold, and its v2
     nodes, all of the precision's instance (PRECISION_INSTANCES); under
-    "default" and "BF16_BF16_F32" a "pallas" step's graph at 63 x 128, its
-    v1 nodes all of the precision's instance (TF32, bf16), replayed 13
-    steps with the launches counted, then timed; (d) the process's
-    fp32_precision after every forward, train step and capture. The process
-    runs TF32 GEMMs here, as the command-line programs do. Returns the
-    launches of the sweeps (the v2 TF32 and bf16 instances) and of the
-    "pallas" steps (the v1 TF32 and bf16 instances)."""
+    every precision but "highest" a "pallas" step's graph at 63 x 128, its
+    v1 nodes all of the precision's instance, replayed 13 steps with the
+    launches counted, then timed; both graphs' GEMM nodes in the count
+    GEMM_NODES states; (d) the process's fp32_precision after every
+    forward, train step and capture; (e) bin/sample_torch.py on a copy of
+    the flagship directory whose config.json names TF32_TF32_F32_X3. The
+    process runs TF32 GEMMs here, as the command-line programs do. Returns
+    the launches of the sweeps (the v2 tensor-core instances) and of the
+    "pallas" steps (the v1 tensor-core instances)."""
     start_phase = time.perf_counter()
     set_process_default()
     before = torch.backends.cuda.matmul.fp32_precision
@@ -2887,7 +2982,8 @@ def phase_precision(model_dir: str, card: str) -> dict:
         check_setting_kept(f"{what}, step graphs", before)
         sampler = sampling.build_sampler(model, schedule, features_angular, gen_noise=True)
         walls = []
-        for _ in range(2):  # the first run captures each chunk shape's graphs
+        # the first run captures each chunk shape's graphs; a multi-pass preset's sweep (~25 s) runs once
+        for _ in range(1 if precision in MULTI_PASS_PRESETS else 2):
             reset_counts()
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -2899,8 +2995,8 @@ def phase_precision(model_dir: str, card: str) -> dict:
         launches[V2.name, instance] = V2.launches_by_instance[instance]
         check_setting_kept(f"{what}, sweep", before)
         log(f"{what}: graphed DDPM step, median of three windows of 10 replays: {'; '.join(steps)}; DDPM T=1000 "
-            f"sweep (-n 1 -l {SWEEP[0]} {SWEEP[1]} -b {BATCH}, {n} backbones): {n / walls[1]:.3f} backbones/s "
-            f"(first run, with its captures: {n / walls[0]:.3f})")
+            f"sweep (-n 1 -l {SWEEP[0]} {SWEEP[1]} -b {BATCH}, {n} backbones): {n / walls[-1]:.3f} backbones/s "
+            + (f"(first run, with its captures: {n / walls[0]:.3f})" if len(walls) > 1 else "(with its captures)"))
 
         # (a) the graphed train step; (c) the GEMM kernels of both graphs
         trainer = flagship_trainer(DEVICE, matmul_precision=precision)
@@ -2912,8 +3008,9 @@ def phase_precision(model_dir: str, card: str) -> dict:
         b, l = PRECISION_SHAPES[1]
         xb, _, mb = denoiser_inputs(b, l)
         _, names, per_replay = step_graph_nodes(model, table, xb, mb, is_angular)
-        gate_gemm_kinds(f"{what}, a DDPM step's graph at {b} x {l}", precision, gemm_kinds(names),
-                        FEATURE_GEMMS["step"])
+        gate_gemm_kinds(
+            f"{what}, a DDPM step's graph at {b} x {l}", precision, gemm_kinds(names), FEATURE_GEMMS["step"],
+            GEMM_NODES[precision][0])
         gate_kernel_nodes(f"{what}, a DDPM step's graph at {b} x {l}", names, per_replay, {(V2.name, instance): layers})
         if precision != "highest":  # the v1 kernel's instance in a "pallas" step's graph, replayed and timed
             pallas, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision, attention_impl="pallas")
@@ -2930,9 +3027,10 @@ def phase_precision(model_dir: str, card: str) -> dict:
             log(f"{what}: graphed 'pallas' DDPM step at {b} x {l} (the v1 {instance} instance), median of three "
                 f"windows of 10 replays: {statistics.median(walls):.4f} ms ({', '.join(f'{w:.4f}' for w in walls)})")
             del pallas, run
-        gate_gemm_kinds(f"{what}, the train step's graph (forward and backward)", precision,
-                        gemm_kinds(train_step_graph_nodes(trainer, trainer.to_device(host_batches[0]))),
-                        FEATURE_GEMMS["train"])
+        gate_gemm_kinds(
+            f"{what}, the train step's graph (forward and backward)", precision,
+            gemm_kinds(train_step_graph_nodes(trainer, trainer.to_device(host_batches[0]))), FEATURE_GEMMS["train"],
+            GEMM_NODES[precision][1])
         check_setting_kept(f"{what}, captures", before)
         del trainer, model, sampler
 
@@ -2943,21 +3041,27 @@ def phase_precision(model_dir: str, card: str) -> dict:
 
     ref = forward["highest"]
     (ref_chain, chain_mask), ref_curve = chains["highest"], curves["highest"]
+    tf32_drift = rel_rms(forward["default"], ref)
     for precision in PRECISIONS[1:]:
         diff = forward[precision] - ref
         max_abs, rel = diff.abs().max().item(), (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
+        bound_ = PRECISION_DRIFT[precision]
+        if precision in MULTI_PASS_PRESETS:
+            bound_ = min(bound_, PRECISION_TF32_SHARE * tf32_drift)
         angles = (chains[precision][0] - ref_chain + math.pi) % (2 * math.pi) - math.pi
         mean_angle = (angles.abs() * chain_mask[..., None]).sum().item() / (chain_mask.sum().item() * angles.shape[-1])
         curve = (curves[precision] - ref_curve).abs()
         log(f"[13] {precision!r} against 'highest' on {card}: flagship forward B={BATCH} L=128 max abs diff "
-            f"{max_abs:.3e}, relative RMS {rel:.3e} (gate: above 0, at most {PRECISION_DRIFT[precision]}); the "
+            f"{max_abs:.3e}, relative RMS {rel:.3e} (gate: above 0, at most {bound_:.3e}); the "
             f"trained fixture's DDPM chain (T=100, B=16 L=64, the same draws) mean |d angle| {mean_angle:.3e} rad; "
             f"loss over {PRECISION_STEPS} train steps (linear schedule, dropout 0) max abs diff "
             f"{curve.max().item():.3e}, last {curve[-1].item():.3e} (losses {ref_curve[0].item():.5f} -> "
             f"{ref_curve[-1].item():.5f} at 'highest', {curves[precision][-1].item():.5f} here)")
-        if not 0 < rel <= PRECISION_DRIFT[precision]:
+        if not 0 < rel <= bound_:
             raise RuntimeError(f"[13] the {precision!r} forward's drift from 'highest' is {rel}: expected above 0 "
-                               f"and at most {PRECISION_DRIFT[precision]}")
+                               f"and at most {bound_} (TF32's {tf32_drift})")
+    precision_cli(model_dir, tmp, card)
+    check_setting_kept("[13] bin/sample_torch.py at TF32_TF32_F32_X3", before)
     log(f"[13] fp32_precision {before!r} after every forward, train step and capture; phase 13 in "
         f"{time.perf_counter() - start_phase:.3f} s")
     torch.backends.cuda.matmul.fp32_precision = "ieee"
@@ -2987,11 +3091,11 @@ def main() -> None:
         multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
         evaluation_launches = phase_evaluation(tmp, trained, card)
         phase_graphs(model_dir, eager_profiles, card)
-        precision_launches = phase_precision(model_dir, card)
+        precision_launches = phase_precision(model_dir, tmp, card)
 
-    # launches: the FMA instances' from the float32 phases (v2: 5, 9, 10, 11; v1: 6); the v2 TF32 and bf16
-    # instances' from phase 13's DDPM sweeps at "default" (TF32, as the CLIs set it) and "BF16_BF16_F32";
-    # v1 TF32's and bf16's from phase 13's "pallas" steps at those precisions
+    # launches: the FMA instances' from the float32 phases (v2: 5, 9, 10, 11; v1: 6); the other v2
+    # instances' from phase 13's DDPM sweeps at their precisions ("default": TF32, as the CLIs set it);
+    # the other v1 instances' from phase 13's "pallas" steps at those precisions
     fma_launches = {V2.name: v2_launches + baseline_launches + multiprocess_launches + evaluation_launches,
                     V1.name: v1_launches}
     line = []

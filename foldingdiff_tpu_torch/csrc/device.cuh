@@ -1,8 +1,9 @@
 // Device-side helpers shared by the attention kernels of this directory:
 // cp.async copies into shared memory, float32 FMA dot products, and the
-// tensor-core pieces of their TF32 and bf16 instances (operand rounding,
-// ldmatrix fragment loads, one mma.sync m16n8k8 tile, the online softmax's
-// fold over a warp's rows).
+// tensor-core pieces of their instances (the arithmetics of their products:
+// operand rounding and the parts of the multi-pass presets, ldmatrix
+// fragment loads, one mma.sync m16n8k8 tile and the products of parts, the
+// online softmax's fold over a warp's rows).
 
 #pragma once
 
@@ -11,6 +12,7 @@
 
 #include <math.h>
 #include <stdint.h>
+
 
 namespace attn {
 
@@ -61,6 +63,121 @@ __device__ __forceinline__ float rounded(float x) {
   return __uint_as_float(operand<BF16>(x));
 }
 
+// The arithmetic of a tensor-core instance's products, one per matmul
+// precision of the model (ops/attention.py's table). Each float32 operand x
+// is split into parts x0 = r(x), x1 = r(x - x0), x2 = r(x - x0 - x1), r the
+// rounding to TF32 or to bf16 values, and a fixed list of products of parts
+// is summed in float32, the small terms first, as JAX's DotAlgorithmPreset
+// defines it:
+//   TF32    TF32_TF32_F32      r TF32, x0        a0.b0
+//   BF16    BF16_BF16_F32      r bf16, x0        a0.b0
+//   TF32x3  TF32_TF32_F32_X3   r TF32, x0, x1    a1.b0 + a0.b1 + a0.b0
+//   BF16x3  BF16_BF16_F32_X3   r bf16, x0, x1    the same
+//   BF16x6  BF16_BF16_F32_X6   r bf16, x0..x2    the six with i + j <= 2
+//   BF16x9  BF16_BF16_F32_X9   r bf16, x0..x2    all nine
+// Every subtraction is exact in float32, and every product of two parts is
+// exact on the TF32 tensor cores (a TF32 part has 11 significant bits, a
+// bf16 part 8), so the instances compute the presets' products and differ
+// from the plain versions only in the order of the float32 sums.
+enum class Arith { TF32, BF16, TF32x3, BF16x3, BF16x6, BF16x9 };
+
+template <Arith A>
+constexpr bool kBF16Parts = A != Arith::TF32 && A != Arith::TF32x3;
+
+// An arithmetic's products of parts, the one table of them: 10 i + j for
+// part i of A's operand times part j of B's, smallest first.
+struct Products {
+  int n;
+  int ij[9];
+};
+
+__host__ __device__ constexpr Products products_of(Arith a) {
+  return a == Arith::TF32x3 || a == Arith::BF16x3 ? Products{3, {10, 1, 0}}
+         : a == Arith::BF16x6                     ? Products{6, {20, 11, 2, 10, 1, 0}}
+         : a == Arith::BF16x9                     ? Products{9, {22, 21, 12, 20, 11, 2, 10, 1, 0}}
+                                                  : Products{1, {0}};
+}
+
+// Product p (0 .. kProducts - 1) of an arithmetic: 10 i + j.
+__host__ __device__ constexpr int product_parts(Arith a, int p) { return products_of(a).ij[p]; }
+
+// The parts of an operand: one more than the largest part index.
+__host__ __device__ constexpr int parts_of(Arith a) {
+  int last = 0;
+  for (int p = 0; p < products_of(a).n; ++p) {
+    const int i = product_parts(a, p) / 10, j = product_parts(a, p) % 10;
+    last = i > last ? i : last;
+    last = j > last ? j : last;
+  }
+  return last + 1;
+}
+
+template <Arith A>
+constexpr int kParts = parts_of(A);
+template <Arith A>
+constexpr int kProducts = products_of(A).n;
+
+// The part indices of every product packed two bits each (product p at
+// bits 2p): of A's operand (first) or of B's.
+__host__ __device__ constexpr uint32_t packed_parts(Arith a, bool first) {
+  uint32_t packed = 0;
+  for (int p = 0; p < products_of(a).n; ++p) {
+    packed |= static_cast<uint32_t>(first ? product_parts(a, p) / 10 : product_parts(a, p) % 10) << (2 * p);
+  }
+  return packed;
+}
+
+// What a fragment register holds between its load and its mma: a single-
+// rounding instance's operand, rounded once at the load; a multi-pass
+// instance's float32 value, split at the mma (split, part).
+template <Arith A>
+__device__ __forceinline__ uint32_t held(float x) {
+  return kParts<A> == 1 ? operand<kBF16Parts<A>>(x) : __float_as_uint(x);
+}
+
+// A multi-pass part's rounding: bf16 to nearest even, or TF32 to nearest,
+// ties away, by integer operations (cvt.rna.tf32.f32's result for every
+// finite value; the inline cvt's fixed register cost spilled the largest
+// instances).
+template <Arith A>
+__device__ __forceinline__ uint32_t round_part(float x) {
+  if constexpr (kBF16Parts<A>) {
+    return operand<true>(x);
+  } else {
+    return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  }
+}
+
+// The parts of a held value (held), as the tensor cores read them.
+template <Arith A>
+__device__ __forceinline__ void split(uint32_t (&r)[kParts<A>], uint32_t h) {
+  if constexpr (kParts<A> == 1) {
+    r[0] = h;
+  } else {
+    float x = __uint_as_float(h);
+#pragma unroll
+    for (int i = 0; i < kParts<A>; ++i) {
+      r[i] = round_part<A>(x);
+      x -= __uint_as_float(r[i]);
+    }
+  }
+}
+
+// Part i (0 .. kParts - 1, known at run time) of a held value.
+template <Arith A>
+__device__ __forceinline__ uint32_t part(uint32_t h, int i) {
+  float x = __uint_as_float(h);
+  uint32_t r = round_part<A>(x);
+#pragma unroll
+  for (int k = 1; k < kParts<A>; ++k) {
+    if (k <= i) {
+      x -= __uint_as_float(r);
+      r = round_part<A>(x);
+    }
+  }
+  return r;
+}
+
 // Four 8 x 4 tiles of 32-bit words from shared memory (ldmatrix on b16
 // pairs): lanes 8 j .. 8 j + 7 give the row addresses of tile j, and lane
 // (g, t) receives word t of row g of tile j in r[j].
@@ -79,6 +196,81 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       "{%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += the listed products of the parts ap[.][i] and bp[.][j] of one
+// m16n8k8 tile's operands, from product P on, one mma each, the smallest
+// first (compile-time part indices: the parts stay in registers).
+template <Arith A, int P = 0>
+__device__ __forceinline__ void mma_products(float (&c)[4], const uint32_t (&ap)[4][kParts<A>],
+                                             const uint32_t (&bp)[2][kParts<A>]) {
+  if constexpr (P < kProducts<A>) {
+    constexpr int i = product_parts(A, P) / 10, j = product_parts(A, P) % 10;
+    const uint32_t ai[4] = {ap[0][i], ap[1][i], ap[2][i], ap[3][i]};
+    mma(c, ai, bp[0][j], bp[1][j]);
+    mma_products<A, P + 1>(c, ap, bp);
+  }
+}
+
+// How a multi-pass mma runs its products (mma<A, FORM>). Each fits the
+// registers of the design that calls it: in each of the others ptxas
+// spilled there (measured on every instance at D = 16, 32, 64).
+//   - kUnrolled (the resident v2 design, one block of 255 registers a
+//     thread, and v1's two-part instances): every part of a and b made at
+//     once, the products unrolled; A's parts made anew at every call (the
+//     empty asm hides that a is the same as at the last n-tile: held
+//     across the unrolled n-tiles, they spilled);
+//   - kLoop (v1's three-part instances at D <= 32, 128 registers): every
+//     part made at once, then a loop over the products that picks two, so
+//     that the compiler cannot interleave the products of many tiles;
+//   - kLoopLean (the chunked v2 design at 168 and 255 registers, and v1's
+//     three-part instances at D = 64): a loop over the products that makes
+//     the two parts each one needs, no part outliving its mma; the most
+//     conversions per mma.
+// The loops leave each tile's products to run one after another (v1's
+// three-part instances ran 0.75 and 1.01 ms at B = 64, L = 128 with kLoop,
+// 1.49 and 2.16 with kLoopLean, on an H100 80GB HBM3 at 700 W).
+enum class Form { kUnrolled, kLoop, kLoopLean };
+
+// c += a . b for one m16n8k8 tile in arithmetic A, a and b (as mma's) held
+// values (held), each listed product of their parts one mma into c, the
+// smallest first, run as FORM says.
+template <Arith A, Form FORM = Form::kUnrolled>
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  constexpr uint32_t kFirst = packed_parts(A, true), kSecond = packed_parts(A, false);
+  if constexpr (kParts<A> == 1) {
+    mma(c, a, b0, b1);
+  } else if constexpr (FORM == Form::kLoopLean) {
+#pragma unroll 1
+    for (int p = 0; p < kProducts<A>; ++p) {
+      const int i = (kFirst >> (2 * p)) & 3, j = (kSecond >> (2 * p)) & 3;
+      const uint32_t ai[4] = {part<A>(a[0], i), part<A>(a[1], i), part<A>(a[2], i), part<A>(a[3], i)};
+      mma(c, ai, part<A>(b0, j), part<A>(b1, j));
+    }
+  } else {
+    uint32_t ap[4][kParts<A>], bp[2][kParts<A>];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint32_t x = a[i];
+      if constexpr (FORM == Form::kUnrolled) asm volatile("" : "+r"(x));
+      split<A>(ap[i], x);
+    }
+    split<A>(bp[0], b0);
+    split<A>(bp[1], b1);
+    if constexpr (FORM == Form::kUnrolled) {
+      mma_products<A>(c, ap, bp);
+    } else {
+      auto pick = [](const uint32_t (&r)[kParts<A>], int i) {
+        return i == 0 ? r[0] : i == 1 ? r[1] : r[kParts<A> - 1];
+      };
+#pragma unroll 1
+      for (int p = 0; p < kProducts<A>; ++p) {
+        const int i = (kFirst >> (2 * p)) & 3, j = (kSecond >> (2 * p)) & 3;
+        const uint32_t ai[4] = {pick(ap[0], i), pick(ap[1], i), pick(ap[2], i), pick(ap[3], i)};
+        mma(c, ai, pick(bp[0], j), pick(bp[1], j));
+      }
+    }
+  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {

@@ -13,7 +13,7 @@
 // is gathered from the caller's position ids, so nothing here assumes it is
 // Toeplitz. The relative term is added before the scale, as in HF BERT.
 //
-// Three instances, one per matmul precision of the model (the caller picks
+// Seven instances, one per matmul precision of the model (the caller picks
 // one by `instance`; ops/attention.py maps the model's mode onto it), each
 // computing the products that the JAX model's einsums compute in that mode:
 //   0 FMA   (IEEE float32, "highest"): gathered_attention_kernel, float32 FMA
@@ -30,6 +30,19 @@
 //           P is normalised before it is rounded, as the einsum's operand is
 //           the softmax's output: with more than one chunk of keys a first
 //           pass over the keys finds each row's maximum and sum.
+//   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
+//           gathered_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
+//           multi-pass presets (device.cuh's Arith): the bf16 body with every
+//           operand split into two or three TF32 or bf16 parts at its mma,
+//           and each mma one mma per listed product of parts, the smallest
+//           first, into the same float32 accumulator; P split after it is
+//           normalised (the first pass as for bf16). Fragments are loaded as
+//           float32 and split in registers, so the loads are the TF32
+//           instance's; the products are 3, 6 or 9 times TF32's. At 128
+//           registers a thread the two-part instances (x3) make every part
+//           of a tile's operands at once and unroll their products, the
+//           three-part ones (x6, x9) loop over their products (kForm):
+//           the other way round ptxas spilled.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -160,6 +173,11 @@ constexpr int kThreads = kRows * kPairs;   // a quad of 4 threads owns 2 rows x 
 constexpr int kChunkFloats = 128;          // Jc * D: one staged row of a chunk
 constexpr int kStride = kChunkFloats + 16;  // padded row, 16 mod 32 floats
 constexpr float kLog2e = 1.4426950408889634f;
+// The form of the multi-pass products (device.cuh's Form): at 128 registers
+// a thread each other form spilled somewhere (measured on every instance at
+// D = 16, 32, 64)
+template <Arith A, int D>
+constexpr Form kForm = kParts<A> < 3 ? Form::kUnrolled : D == 64 ? Form::kLoopLean : Form::kLoop;
 
 // Offsets (floats) in one stage: e_lr rows (HAS_REL only) from 0, then K, V, bias.
 template <int D, bool HAS_REL>
@@ -464,32 +482,33 @@ __device__ __forceinline__ int q_offset(int pair, int row, int f) {
   return pair * kQPair<D> + row * D + 4 * (f ^ (D >= 32 ? 4 * (row & 1) : 0));
 }
 
-// The A fragments of a 16-row operand of the staged q tile `qs` whose rows
-// g and g + 8 are (pair p0, row r0) and (p1, r1). The products sum over d,
+// The A fragments (held values, device.cuh's held) of a 16-row operand of
+// the staged q tile `qs` whose rows g and g + 8 are (pair p0, row r0) and
+// (p1, r1). The products sum over d,
 // so a k-step may take any 8 columns that A and B share: k-step 2c + h takes
 // columns 16c + 4t + 2h (k = t) and 16c + 4t + 2h + 1 (k = t + 4), and each
 // lane reads its columns as float4s.
-template <int D, bool BF16>
+template <int D, Arith A>
 __device__ __forceinline__ void q_fragments(uint32_t (&f)[D / 8][4], const float* qs, int p0, int r0, int p1,
                                             int r1, int t) {
 #pragma unroll
   for (int c = 0; c < D / 16; ++c) {
     const float4 u = *reinterpret_cast<const float4*>(qs + q_offset<D>(p0, r0, 4 * c + t));
     const float4 w = *reinterpret_cast<const float4*>(qs + q_offset<D>(p1, r1, 4 * c + t));
-    f[2 * c][0] = operand<BF16>(u.x);
-    f[2 * c][1] = operand<BF16>(w.x);
-    f[2 * c][2] = operand<BF16>(u.y);
-    f[2 * c][3] = operand<BF16>(w.y);
-    f[2 * c + 1][0] = operand<BF16>(u.z);
-    f[2 * c + 1][1] = operand<BF16>(w.z);
-    f[2 * c + 1][2] = operand<BF16>(u.w);
-    f[2 * c + 1][3] = operand<BF16>(w.w);
+    f[2 * c][0] = held<A>(u.x);
+    f[2 * c][1] = held<A>(w.x);
+    f[2 * c][2] = held<A>(u.y);
+    f[2 * c][3] = held<A>(w.y);
+    f[2 * c + 1][0] = held<A>(u.z);
+    f[2 * c + 1][1] = held<A>(w.z);
+    f[2 * c + 1][2] = held<A>(u.w);
+    f[2 * c + 1][3] = held<A>(w.w);
   }
 }
 
 // c += A . B^T over D, this lane's B row row `row` of the (rows, D) matrix at
 // `base` (k-steps as in q_fragments).
-template <int D, bool BF16>
+template <int D, Arith A>
 __device__ __forceinline__ void product(float (&c)[4], const uint32_t (&a)[D / 8][4], const float* base, int rows,
                                         int row, int t) {
   float4 y[D / 16];
@@ -497,8 +516,8 @@ __device__ __forceinline__ void product(float (&c)[4], const uint32_t (&a)[D / 8
   for (int cc = 0; cc < D / 16; ++cc) y[cc] = columns<D>(base, rows, row, cc, t);
 #pragma unroll
   for (int cc = 0; cc < D / 16; ++cc) {
-    mma(c, a[2 * cc], operand<BF16>(y[cc].x), operand<BF16>(y[cc].y));
-    mma(c, a[2 * cc + 1], operand<BF16>(y[cc].z), operand<BF16>(y[cc].w));
+    mma<A, kForm<A, D>>(c, a[2 * cc], held<A>(y[cc].x), held<A>(y[cc].y));
+    mma<A, kForm<A, D>>(c, a[2 * cc + 1], held<A>(y[cc].z), held<A>(y[cc].w));
   }
 }
 
@@ -532,7 +551,7 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[W]) {
   }
 }
 
-template <int D, bool HAS_REL, bool BF16>
+template <int D, bool HAS_REL, Arith A>
 __device__ __forceinline__ void attention(const Args& a) {
   using S = Smem<D, HAS_REL>;
   using V = VCols<D>;
@@ -581,10 +600,11 @@ __device__ __forceinline__ void attention(const Args& a) {
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, inv[2] = {1.0f, 1.0f};
 
   const int n_chunks = (a.L + S::kKeys - 1) / S::kKeys;
-  // bf16 rounds the normalised P: with several chunks, pass 0 finds each
-  // row's maximum and sum first; item i is chunk i % n_chunks of pass
-  // first_pass + i / n_chunks
-  const bool stats_pass = BF16 && n_chunks > 1;
+  // every instance but TF32 rounds or splits the normalised P: with several
+  // chunks, pass 0 finds each row's maximum and sum first; item i is chunk
+  // i % n_chunks of pass first_pass + i / n_chunks
+  constexpr bool kNormalised = A != Arith::TF32;
+  const bool stats_pass = kNormalised && n_chunks > 1;
   const int first_pass = stats_pass ? 0 : 1;
   const int n_items = (2 - first_pass) * n_chunks;
   // Row lr of item i's relative term for the block's 16 pairs, into rel
@@ -595,11 +615,11 @@ __device__ __forceinline__ void attention(const Args& a) {
     const int j0 = (i % n_chunks) * S::kKeys;
     float* buf = smem + (i & 1) * S::kRelBuf;
     uint32_t qr[kKS][4];
-    q_fragments<D, BF16>(qr, qs, g, warp, g + 8, warp, t);
+    q_fragments<D, A>(qr, qs, g, warp, g + 8, warp, t);
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
       float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      product<D, BF16>(acc, qr, e_row, rel_keys, j0 + 8 * nt + g, t);
+      product<D, A>(acc, qr, e_row, rel_keys, j0 + 8 * nt + g, t);
       float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * nt + 2 * t;
       *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
       *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(acc[2], acc[3]);
@@ -621,7 +641,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 
     // S = rel + Q . K^T; then scale and bias, in log2 units
     uint32_t qf[kKS][4];
-    q_fragments<D, BF16>(qf, qs, warp, g, warp, g + 8, t);
+    q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
     float s[kNT][4];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -633,7 +653,7 @@ __device__ __forceinline__ void attention(const Args& a) {
       } else {
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
       }
-      product<D, BF16>(s[nt], qf, kp, keys, j0 + 8 * nt + g, t);
+      product<D, A>(s[nt], qf, kp, keys, j0 + 8 * nt + g, t);
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = j0 + 8 * nt + 2 * t + e;
@@ -644,7 +664,7 @@ __device__ __forceinline__ void attention(const Args& a) {
     }
 
     float rescale[2];
-    if (!BF16) {
+    if (!kNormalised) {
       fold(s, m, l, rescale);  // online: P unnormalised, the output rescaled
 #pragma unroll
       for (int dn = 0; dn < kKS; ++dn) {
@@ -662,7 +682,7 @@ __device__ __forceinline__ void attention(const Args& a) {
         for (int i = 0; i < 4; ++i) s[nt][i] = exp2f(s[nt][i] - m[i / 2]);
       }
     }
-    if (BF16 && pass == 1) {
+    if (kNormalised && pass == 1) {
       if (c == 0) {
         inv[0] = 1.0f / quad_sum(l[0]);
         inv[1] = 1.0f / quad_sum(l[1]);
@@ -670,7 +690,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[nt][i] = bf16_value(s[nt][i] * inv[i / 2]);
+        for (int i = 0; i < 4; ++i) s[nt][i] *= inv[i / 2];
       }
     }
 
@@ -679,8 +699,7 @@ __device__ __forceinline__ void attention(const Args& a) {
       // (lane t's a0/a1 and a2/a3 columns) for P and V alike
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
-        const uint32_t pa[4] = {operand<BF16>(s[nt][0]), operand<BF16>(s[nt][2]), operand<BF16>(s[nt][1]),
-                                operand<BF16>(s[nt][3])};
+        const uint32_t pa[4] = {held<A>(s[nt][0]), held<A>(s[nt][2]), held<A>(s[nt][1]), held<A>(s[nt][3])};
         const int key = j0 + 8 * nt + 2 * t;
         const float* v0 = vp + static_cast<size_t>(key) * D + V::kW * g;
 #pragma unroll
@@ -690,7 +709,7 @@ __device__ __forceinline__ void attention(const Args& a) {
           load_cols(x1, v0 + D + 8 * V::kW * hb, key + 1 < keys);
 #pragma unroll
           for (int dd = 0; dd < V::kW; ++dd) {
-            mma(o[V::kW * hb + dd], pa, operand<BF16>(x0[dd]), operand<BF16>(x1[dd]));
+            mma<A, kForm<A, D>>(o[V::kW * hb + dd], pa, held<A>(x0[dd]), held<A>(x1[dd]));
           }
         }
       }
@@ -698,7 +717,7 @@ __device__ __forceinline__ void attention(const Args& a) {
   }
 
   if (!live) return;
-  if (!BF16) {
+  if (!kNormalised) {
     inv[0] = 1.0f / quad_sum(l[0]);
     inv[1] = 1.0f / quad_sum(l[1]);
   } else {
@@ -725,23 +744,61 @@ __device__ __forceinline__ void attention(const Args& a) {
 
 }  // namespace tc
 
+// One __global__ function per arithmetic, named as ops/attention.py's
+// CudaLibrary.kernel_name names the instance.
 template <int D, bool HAS_REL>
 __global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_tf32_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, false>(a);
+  tc::attention<D, HAS_REL, Arith::TF32>(a);
 }
 
 template <int D, bool HAS_REL>
 __global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, true>(a);
+  tc::attention<D, HAS_REL, Arith::BF16>(a);
 }
 
-template <int D, bool HAS_REL, bool BF16>
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_tf32x3_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::TF32x3>(a);
+}
+
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x3_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::BF16x3>(a);
+}
+
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x6_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::BF16x6>(a);
+}
+
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x9_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::BF16x9>(a);
+}
+
+template <Arith A, int D, bool HAS_REL>
+constexpr auto tc_kernel() {
+  if constexpr (A == Arith::TF32) {
+    return &gathered_attention_tf32_kernel<D, HAS_REL>;
+  } else if constexpr (A == Arith::BF16) {
+    return &gathered_attention_bf16_kernel<D, HAS_REL>;
+  } else if constexpr (A == Arith::TF32x3) {
+    return &gathered_attention_tf32x3_kernel<D, HAS_REL>;
+  } else if constexpr (A == Arith::BF16x3) {
+    return &gathered_attention_bf16x3_kernel<D, HAS_REL>;
+  } else if constexpr (A == Arith::BF16x6) {
+    return &gathered_attention_bf16x6_kernel<D, HAS_REL>;
+  } else {
+    return &gathered_attention_bf16x9_kernel<D, HAS_REL>;
+  }
+}
+
+template <int D, bool HAS_REL, Arith A>
 cudaError_t launch_tc(const float* q, const float* k, const float* v, const float* bias,
                       const float* e_lr, float* out, int B, int H, int L, int device,
                       cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
-  const auto kernel =
-      BF16 ? &gathered_attention_bf16_kernel<D, HAS_REL> : &gathered_attention_tf32_kernel<D, HAS_REL>;
+  const auto kernel = tc_kernel<A, D, HAS_REL>();
   const size_t smem = sizeof(float) * tc::Smem<D, HAS_REL>::kFloats;
   const cudaError_t err =
       attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
@@ -754,26 +811,38 @@ cudaError_t launch_tc(const float* q, const float* k, const float* v, const floa
   return cudaGetLastError();
 }
 
-// instance: 0 FMA, 1 TF32, 2 bf16 (see the note at the top)
+// instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9
+// (see the note at the top)
 template <int D, bool HAS_REL>
 cudaError_t dispatch_instance(const float* q, const float* k, const float* v, const float* bias,
                               const float* e_lr, float* out, int B, int H, int L, int instance,
                               int device, cudaStream_t stream) {
+#define GATHERED_ARGS q, k, v, bias, e_lr, out, B, H, L, device, stream
   switch (instance) {
-    case 0: return launch<D, HAS_REL>(q, k, v, bias, e_lr, out, B, H, L, device, stream);
-    case 1: return launch_tc<D, HAS_REL, false>(q, k, v, bias, e_lr, out, B, H, L, device, stream);
-    case 2: return launch_tc<D, HAS_REL, true>(q, k, v, bias, e_lr, out, B, H, L, device, stream);
-    default: return cudaErrorInvalidValue;
+    case 0: if constexpr (kBuiltInstance<0>) return launch<D, HAS_REL>(GATHERED_ARGS); break;
+    case 1: if constexpr (kBuiltInstance<1>) return launch_tc<D, HAS_REL, Arith::TF32>(GATHERED_ARGS); break;
+    case 2: if constexpr (kBuiltInstance<2>) return launch_tc<D, HAS_REL, Arith::BF16>(GATHERED_ARGS); break;
+    case 3: if constexpr (kBuiltInstance<3>) return launch_tc<D, HAS_REL, Arith::TF32x3>(GATHERED_ARGS); break;
+    case 4: if constexpr (kBuiltInstance<4>) return launch_tc<D, HAS_REL, Arith::BF16x3>(GATHERED_ARGS); break;
+    case 5: if constexpr (kBuiltInstance<5>) return launch_tc<D, HAS_REL, Arith::BF16x6>(GATHERED_ARGS); break;
+    case 6: if constexpr (kBuiltInstance<6>) return launch_tc<D, HAS_REL, Arith::BF16x9>(GATHERED_ARGS); break;
+    default: break;
   }
+#undef GATHERED_ARGS
+  return cudaErrorInvalidValue;  // not an instance of this library's part (launch.cuh)
 }
 
 template <int D>
 cudaError_t dispatch_rel(const float* q, const float* k, const float* v, const float* bias,
                          const float* e_lr, float* out, int B, int H, int L, int has_rel,
                          int instance, int device, cudaStream_t stream) {
-  return has_rel
-             ? dispatch_instance<D, true>(q, k, v, bias, e_lr, out, B, H, L, instance, device, stream)
-             : dispatch_instance<D, false>(q, k, v, bias, e_lr, out, B, H, L, instance, device, stream);
+  if constexpr (!kBuiltHeadDim<D>) {
+    return cudaErrorInvalidValue;  // not a head size of this library's part (launch.cuh)
+  } else {
+    return has_rel
+               ? dispatch_instance<D, true>(q, k, v, bias, e_lr, out, B, H, L, instance, device, stream)
+               : dispatch_instance<D, false>(q, k, v, bias, e_lr, out, B, H, L, instance, device, stream);
+  }
 }
 
 cudaError_t dispatch(const float* q, const float* k, const float* v, const float* bias,
@@ -791,7 +860,7 @@ cudaError_t dispatch(const float* q, const float* k, const float* v, const float
 
 // `e_lr` is the contiguous (L, L, D) tensor, or null when has_rel is 0; q, k,
 // v and e_lr are 16-byte aligned. `instance` picks the arithmetic: 0 FMA,
-// 1 TF32, 2 bf16. `device` is the index of the device that holds the tensors
+// 1 TF32, 2 bf16, 3-6 the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9. `device` is the index of the device that holds the tensors
 // and `stream`.
 extern "C" int gathered_attention_forward(const float* q, const float* k, const float* v,
                                           const float* bias, const float* e_lr, float* out,

@@ -13,7 +13,24 @@
 
 #include <atomic>
 
+// The part of a kernel source a library holds: ops/attention.py builds a
+// source once per group of its instances and head sizes, side by side
+// (CudaLibrary.parts). Bit i of ATTN_INSTANCES is instance i (the C entry's
+// `instance`), bits 0, 1, 2 of ATTN_HEAD_DIMS are D = 16, 32, 64; a launch
+// outside the part returns cudaErrorInvalidValue. All of them by default.
+#ifndef ATTN_INSTANCES
+#define ATTN_INSTANCES 0x7f
+#endif
+#ifndef ATTN_HEAD_DIMS
+#define ATTN_HEAD_DIMS 0x7
+#endif
+
 namespace attn {
+
+template <int I>
+constexpr bool kBuiltInstance = (ATTN_INSTANCES >> I) & 1;
+template <int D>
+constexpr bool kBuiltHeadDim = (ATTN_HEAD_DIMS >> (D == 16 ? 0 : D == 32 ? 1 : 2)) & 1;
 
 constexpr int kMaxDevices = 64;  // devices the opt-in bookkeeping tracks
 

@@ -16,7 +16,7 @@
 // written as a contiguous (B, L, H, D) buffer, the layout the output
 // projection reads.
 //
-// Three instances, one per matmul precision of the model (the caller picks
+// Seven instances, one per matmul precision of the model (the caller picks
 // one by `instance`; ops/attention.py maps the model's mode onto it), each
 // computing the products that the JAX model's einsums compute in that mode:
 //   0 FMA   (IEEE float32, "highest"): rel_attention_kernel, float32 FMA on
@@ -31,6 +31,14 @@
 //           product is the exact product of two bf16 values and the sums are
 //           float32, as JAX's preset defines. P is normalised before it is
 //           rounded, as the einsum's operand is the softmax's output.
+//   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
+//           rel_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
+//           multi-pass presets (device.cuh's Arith): every operand of q.k,
+//           q.E and p.v split into two or three TF32 or bf16 parts, and each
+//           mma of the TF32 body one mma per listed product of parts, the
+//           smallest first, into the same float32 accumulator. P is split
+//           after it is normalised, as the single-rounding instances round
+//           it.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -39,7 +47,9 @@
 // 50.4 MB of q, k, v and out to move. FMA: 36.1 us at the H100's 67 TFLOP/s
 // float32 rate outside the tensor cores against 15.0 us of bytes at 3.35
 // TB/s, so operations bound it. TF32 and bf16: 4.9 us at 495 TFLOP/s, so the
-// bytes bound it, at 15.0 us.
+// bytes bound it, at 15.0 us. The multi-pass instances run 3, 6 or 9 times
+// the products: 14.7 us at X3 (the bytes still bound it, at 15.0), 29.4 us
+// at X6 and 44.1 us at X9 (operations).
 //
 // FMA design: register tiles on the CUDA cores. The SM serves one
 // shared-memory wavefront (32 lanes x 4 bytes) per clock against four
@@ -127,15 +137,28 @@
 // H100 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py, and the variants
 // in scripts/rel_attention_variants.py).
 //
+// Multi-pass instances, resident: K, V, q and the table stay float32 in
+// shared memory (no planes of parts: a stage has no room for them), and each
+// fragment is split into its parts in registers at its mma, the products
+// unrolled (device.cuh's mma<A>), so the loads are the TF32 instance's. The
+// parts and the extra products need more than the 128 registers of two
+// blocks per SM, so these instances run one block of eight warps per SM
+// (255 registers), with a ring of three stages at KEYS = 128 as well. The
+// chunked design below runs them as a loop over the products (device.cuh's
+// Form::kLoopLean): unrolled there, at 168 registers (255 at D = 64), ptxas
+// spilled.
+// The TF32 parts are rounded by integer operations (device.cuh's
+// round_part): with cvt.rna the resident tf32x3 instance spilled 12 bytes.
+//
 // Chunked tensor-core design, for L > 128 and at D = 64 (no shipped
 // configuration): a
 // block of four warps owns 64 query rows of one (b, h), a warp 16 of them,
 // and walks the keys in chunks of 64, staging K, V, the bias and the 128
 // table rows its rows reach per chunk with 16-byte cp.async; the relative
 // term by an 80-row window per chunk as above; TF32 softmax online over
-// chunks; bf16 with a first pass over the keys that finds each row's maximum
-// and sum, so that P is normalised before it is rounded. Its grid is
-// B x H x ceil(L / 64) blocks.
+// chunks; bf16 and the multi-pass instances with a first pass over the keys
+// that finds each row's maximum and sum, so that P is normalised before it
+// is rounded or split. Its grid is B x H x ceil(L / 64) blocks.
 //
 // Rows, keys and table rows outside the tensors are zero-filled in shared
 // memory, keys past L are scored -inf, and nothing is stored for rows past L
@@ -474,7 +497,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, long lo
   }
 }
 
-template <int D, bool HAS_REL, bool BF16>
+template <int D, bool HAS_REL, Arith A>
 __device__ __forceinline__ void attention(const Args& a) {
   using S = Smem<D, HAS_REL>;
   constexpr int kRow = S::kRow;
@@ -499,16 +522,17 @@ __device__ __forceinline__ void attention(const Args& a) {
   const float* bs = smem + S::kBias;
   float* qe = smem + S::kQE + warp * 16 * kQEStride;
 
-  uint32_t qf[kDT][4];  // the warp's q rows as A fragments
+  uint32_t qf[kDT][4];  // the warp's q rows as A fragments (held values)
   float o[kDT][4];      // its output rows, as p.v's accumulators
 #pragma unroll
   for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f}, inv[2] = {1.0f, 1.0f};
 
   const int n_chunks = (a.L + kKeys - 1) / kKeys;
-  // bf16 rounds the normalised P: with several chunks, pass 0 finds each
-  // row's maximum and sum first
-  const bool stats_pass = BF16 && n_chunks > 1;
+  // every instance but TF32 rounds or splits the normalised P: with several
+  // chunks, pass 0 finds each row's maximum and sum first
+  constexpr bool kNormalised = A != Arith::TF32;
+  const bool stats_pass = kNormalised && n_chunks > 1;
   for (int pass = stats_pass ? 0 : 1; pass < 2; ++pass) {
     for (int c = 0; c < n_chunks; ++c) {
       const int j0 = c * kKeys;
@@ -553,10 +577,10 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
           for (int kk = 0; kk < kDT; ++kk) {
             const float* q0 = qs + (16 * warp + g) * kRow + 8 * kk + t;
-            qf[kk][0] = operand<BF16>(q0[0]);
-            qf[kk][1] = operand<BF16>(q0[8 * kRow]);
-            qf[kk][2] = operand<BF16>(q0[4]);
-            qf[kk][3] = operand<BF16>(q0[8 * kRow + 4]);
+            qf[kk][0] = held<A>(q0[0]);
+            qf[kk][1] = held<A>(q0[8 * kRow]);
+            qf[kk][2] = held<A>(q0[4]);
+            qf[kk][3] = held<A>(q0[8 * kRow + 4]);
           }
         }
         if (HAS_REL) {
@@ -568,7 +592,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
             for (int kk = 0; kk < kDT; ++kk) {
               const float* e = ew + (8 * n + g) * kRow + 8 * kk + t;
-              mma(acc, qf[kk], operand<BF16>(e[0]), operand<BF16>(e[4]));
+              mma<A, Form::kLoopLean>(acc, qf[kk], held<A>(e[0]), held<A>(e[4]));
             }
             float* d = qe + g * kQEStride + 8 * n + 2 * t;
             *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
@@ -587,7 +611,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
           for (int kk = 0; kk < kDT; ++kk) {
             const float* k0 = ks + (8 * n + g) * kRow + 8 * kk + t;
-            mma(s[n], qf[kk], operand<BF16>(k0[0]), operand<BF16>(k0[4]));
+            mma<A, Form::kLoopLean>(s[n], qf[kk], held<A>(k0[0]), held<A>(k0[4]));
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -599,7 +623,7 @@ __device__ __forceinline__ void attention(const Args& a) {
         }
 
         float rescale[2];
-        if (!BF16) {
+        if (!kNormalised) {
           fold(s, m, l, rescale);  // online: P unnormalised, the output rescaled
 #pragma unroll
           for (int n = 0; n < kDT; ++n) {
@@ -617,7 +641,7 @@ __device__ __forceinline__ void attention(const Args& a) {
             for (int i = 0; i < 4; ++i) s[n][i] = exp2f(s[n][i] - m[i / 2]);
           }
         }
-        if (BF16 && pass == 1) {
+        if (kNormalised && pass == 1) {
           if (c == 0) {
             inv[0] = 1.0f / quad_sum(l[0]);
             inv[1] = 1.0f / quad_sum(l[1]);
@@ -625,7 +649,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
           for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) s[n][i] = bf16_value(s[n][i] * inv[i / 2]);
+            for (int i = 0; i < 4; ++i) s[n][i] *= inv[i / 2];
           }
         }
       }
@@ -637,12 +661,11 @@ __device__ __forceinline__ void attention(const Args& a) {
         // (lane t's a0/a1 and a2/a3 columns) for P and V alike
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
-          const uint32_t pa[4] = {operand<BF16>(s[n][0]), operand<BF16>(s[n][2]), operand<BF16>(s[n][1]),
-                                  operand<BF16>(s[n][3])};
+          const uint32_t pa[4] = {held<A>(s[n][0]), held<A>(s[n][2]), held<A>(s[n][1]), held<A>(s[n][3])};
           const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
 #pragma unroll
           for (int dn = 0; dn < kDT; ++dn) {
-            mma(o[dn], pa, operand<BF16>(v0[8 * dn]), operand<BF16>(v0[kRow + 8 * dn]));
+            mma<A, Form::kLoopLean>(o[dn], pa, held<A>(v0[8 * dn]), held<A>(v0[kRow + 8 * dn]));
           }
         }
       }
@@ -650,7 +673,7 @@ __device__ __forceinline__ void attention(const Args& a) {
   }
 
   if (!live) return;
-  if (!BF16) {
+  if (!kNormalised) {
     inv[0] = 1.0f / quad_sum(l[0]);
     inv[1] = 1.0f / quad_sum(l[1]);
   } else {
@@ -681,13 +704,14 @@ constexpr int kMaxL = kRows;               // the longest sequence: one pair fil
 constexpr int kWindowLong = 16;            // keys per QE window at KEYS = 128 (two blocks per SM)
 constexpr int kWindowShort = 64;           // and at KEYS = 64 (one block per SM)
 constexpr int kStagesLong = 1;             // the ring's depth at KEYS = 128: two blocks per SM
-constexpr int kStagesShort = 3;            // and at KEYS = 64: one block per SM
+constexpr int kStagesShort = 3;            // and at KEYS = 64, or with multi-pass products: one block per SM
 constexpr bool kTableResident = true;      // the table staged once per block, else once per item
 constexpr int kSmemBytes = 232448;         // the most shared memory a block may have
 constexpr int kSmemPerSM = 233472;         // an SM's shared memory; each block also takes 1 KB of it
 
-// Offsets (floats) into dynamic shared memory; every row D + 4 floats (4 mod 32).
-template <int D, bool HAS_REL, int KEYS>
+// Offsets (floats) into dynamic shared memory; every row D + 4 floats (4 mod
+// 32). SPLIT: a multi-pass instance, one block per SM.
+template <int D, bool HAS_REL, int KEYS, bool SPLIT>
 struct Smem {
   static constexpr int kRow = D + 4;
   static constexpr int kWindow = KEYS == kMaxL ? kWindowLong : kWindowShort;  // keys per QE window
@@ -700,11 +724,12 @@ struct Smem {
   static constexpr int kOperands = 3 * kRows * kRow;                    // Q, K and V, kRows x kRow each
   static constexpr int kStage = kOperands + kRows;                      // then the bias, KEYS per pair
   static constexpr int kFit = (kSmemBytes / 4 - kRing) / kStage;        // stages that fit
-  static constexpr int kMaxStages = KEYS == kMaxL ? kStagesLong : kStagesShort;
+  static constexpr int kMaxStages = KEYS == kMaxL && !SPLIT ? kStagesLong : kStagesShort;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kFloats = kRing + kStages * kStage;
-  // blocks per SM: two where they fit, at D = 32 (at D = 16 ptxas spilled at their 128 registers)
-  static constexpr int kBlocks = D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
+  // blocks per SM: two where they fit, at D = 32 (at D = 16 ptxas spilled at
+  // their 128 registers), and one for the multi-pass instances
+  static constexpr int kBlocks = !SPLIT && D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
   static_assert(kStages >= 1, "a stage must fit");
 };
 
@@ -756,13 +781,14 @@ __device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
 
 // Rounds n floats of shared memory (a multiple of 4, 16-byte aligned) in
 // place to the operands the tensor cores read: each staged value once,
-// rather than at every fragment load.
-template <bool BF16>
+// rather than at every fragment load (single-rounding instances).
+template <Arith A>
 __device__ __forceinline__ void round_operands(float* p, int n) {
+  constexpr bool kBF16 = kBF16Parts<A>;
 #pragma unroll 4
   for (int i = threadIdx.x; i < n / 4; i += kThreads) {
     float4 x = reinterpret_cast<float4*>(p)[i];
-    x = make_float4(rounded<BF16>(x.x), rounded<BF16>(x.y), rounded<BF16>(x.z), rounded<BF16>(x.w));
+    x = make_float4(rounded<kBF16>(x.x), rounded<kBF16>(x.y), rounded<kBF16>(x.z), rounded<kBF16>(x.w));
     reinterpret_cast<float4*>(p)[i] = x;
   }
 }
@@ -776,9 +802,13 @@ __device__ __forceinline__ void b_fragments(uint32_t (&r)[4], const float* rows,
 }
 
 // KEYS (64 or 128, at least L): the keys of a pair, and its rows in a stage.
-template <int D, bool HAS_REL, bool BF16, int KEYS>
+// Shared memory holds the single-rounding instances' operands rounded, the
+// multi-pass instances' float32 values: either way what a fragment load
+// reads is its held value (device.cuh's held).
+template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void attention(const Args& a) {
-  using S = Smem<D, HAS_REL, KEYS>;
+  constexpr bool kSplit = kParts<A> > 1;
+  using S = Smem<D, HAS_REL, KEYS, kSplit>;
   constexpr int kRow = S::kRow;
   constexpr int kStages = S::kStages;
   constexpr int kDT = D / 8;                // k-steps of q.k and q.E, n-tiles of p.v
@@ -831,9 +861,11 @@ __device__ __forceinline__ void attention(const Args& a) {
       cp_async_wait<kStages - 1>();  // this item's copies have landed (the later kStages - 1 may not)
     }
     __syncthreads();
-    round_operands<BF16>(st, S::kOperands);
-    if (HAS_REL && (it == 0 || !kTableResident)) round_operands<BF16>(table, 2 * KEYS * kRow);
-    __syncthreads();
+    if constexpr (!kSplit) {
+      round_operands<A>(st, S::kOperands);
+      if (HAS_REL && (it == 0 || !kTableResident)) round_operands<A>(table, 2 * KEYS * kRow);
+      __syncthreads();
+    }
 
     const int pair = item * kPairs + slot;
     if (pair >= a.n_pairs || lw >= a.L) continue;  // warp-uniform: nothing to compute
@@ -844,7 +876,7 @@ __device__ __forceinline__ void attention(const Args& a) {
     const float* bs = st + S::kOperands + slot * KEYS;
     float o[kDT][4];  // the warp's output rows, as p.v's accumulators
     {
-      uint32_t qf[kDT][4];  // the warp's q rows as A fragments
+      uint32_t qf[kDT][4];  // the warp's q rows as A fragments (held values)
 #pragma unroll
       for (int kk = 0; kk < kDT; ++kk) {
         const float* q0 = qs + (lw + g) * kRow + 8 * kk + t;
@@ -868,8 +900,8 @@ __device__ __forceinline__ void attention(const Args& a) {
             for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
               uint32_t e[4];
               b_fragments<D>(e, ew + 8 * n * kRow, kk2);
-              mma(acc, qf[2 * kk2], e[0], e[1]);
-              mma(acc, qf[2 * kk2 + 1], e[2], e[3]);
+              mma<A>(acc, qf[2 * kk2], e[0], e[1]);
+              mma<A>(acc, qf[2 * kk2 + 1], e[2], e[3]);
             }
             float* d = qe + g * kQEStride + 8 * n + 2 * t;
             *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
@@ -890,8 +922,8 @@ __device__ __forceinline__ void attention(const Args& a) {
           for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
             uint32_t k[4];
             b_fragments<D>(k, ks + 8 * nt * kRow, kk2);
-            mma(s[nt], qf[2 * kk2], k[0], k[1]);
-            mma(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
+            mma<A>(s[nt], qf[2 * kk2], k[0], k[1]);
+            mma<A>(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -926,8 +958,8 @@ __device__ __forceinline__ void attention(const Args& a) {
           sum[i / 2] += s[n][i];
         }
       }
-      // P normalised, then rounded as p.v's operand: JAX's einsum takes the
-      // softmax's output as its operand
+      // P normalised, then rounded or split as p.v's operand: JAX's einsum
+      // takes the softmax's output as its operand
       const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
@@ -941,12 +973,11 @@ __device__ __forceinline__ void attention(const Args& a) {
       for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
-        const uint32_t pa[4] = {operand<BF16>(s[n][0]), operand<BF16>(s[n][2]), operand<BF16>(s[n][1]),
-                                operand<BF16>(s[n][3])};
+        const uint32_t pa[4] = {held<A>(s[n][0]), held<A>(s[n][2]), held<A>(s[n][1]), held<A>(s[n][3])};
         const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
 #pragma unroll
         for (int dn = 0; dn < kDT; ++dn) {
-          mma(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
+          mma<A>(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
         }
         __syncwarp();  // n-tile by n-tile
       }
@@ -967,39 +998,83 @@ __device__ __forceinline__ void attention(const Args& a) {
 }  // namespace rs
 
 // KEYS 64 or 128: the resident design for L <= KEYS, one block of eight
-// warps per SM; KEYS 0: the chunked one, three blocks of four warps per SM
-// (two at D = 64).
+// warps per SM (two at D = 32 for the single-rounding instances); KEYS 0:
+// the chunked one, three blocks of four warps per SM (two at D = 64).
 template <int KEYS>
 constexpr int kTcThreads = KEYS ? rs::kThreads : tc::kThreads;
-template <int D, bool HAS_REL, int KEYS>
-constexpr int kTcBlocks = KEYS ? rs::Smem<D, HAS_REL, KEYS>::kBlocks : D <= 32 ? 3 : 2;
+template <int D, bool HAS_REL, int KEYS, Arith A>
+constexpr int kTcBlocks = KEYS ? rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>::kBlocks : D <= 32 ? 3 : 2;
 
+template <int D, bool HAS_REL, Arith A, int KEYS>
+__device__ __forceinline__ void tc_attention(const Args& a) {
+  if constexpr (KEYS > 0) {
+    rs::attention<D, HAS_REL, A, KEYS>(a);
+  } else {
+    tc::attention<D, HAS_REL, A>(a);
+  }
+}
+
+// One __global__ function per arithmetic, named as ops/attention.py's
+// CudaLibrary.kernel_name names the instance.
 template <int D, bool HAS_REL, int KEYS>
-__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS>)
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::TF32>)
 rel_attention_tf32_kernel(const Args a) {
-  if constexpr (KEYS > 0) {
-    rs::attention<D, HAS_REL, false, KEYS>(a);
-  } else {
-    tc::attention<D, HAS_REL, false>(a);
-  }
+  tc_attention<D, HAS_REL, Arith::TF32, KEYS>(a);
 }
 
 template <int D, bool HAS_REL, int KEYS>
-__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS>)
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::BF16>)
 rel_attention_bf16_kernel(const Args a) {
-  if constexpr (KEYS > 0) {
-    rs::attention<D, HAS_REL, true, KEYS>(a);
+  tc_attention<D, HAS_REL, Arith::BF16, KEYS>(a);
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::TF32x3>)
+rel_attention_tf32x3_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::TF32x3, KEYS>(a);
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::BF16x3>)
+rel_attention_bf16x3_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::BF16x3, KEYS>(a);
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::BF16x6>)
+rel_attention_bf16x6_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::BF16x6, KEYS>(a);
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::BF16x9>)
+rel_attention_bf16x9_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::BF16x9, KEYS>(a);
+}
+
+template <Arith A, int D, bool HAS_REL, int KEYS>
+constexpr auto tc_kernel() {
+  if constexpr (A == Arith::TF32) {
+    return &rel_attention_tf32_kernel<D, HAS_REL, KEYS>;
+  } else if constexpr (A == Arith::BF16) {
+    return &rel_attention_bf16_kernel<D, HAS_REL, KEYS>;
+  } else if constexpr (A == Arith::TF32x3) {
+    return &rel_attention_tf32x3_kernel<D, HAS_REL, KEYS>;
+  } else if constexpr (A == Arith::BF16x3) {
+    return &rel_attention_bf16x3_kernel<D, HAS_REL, KEYS>;
+  } else if constexpr (A == Arith::BF16x6) {
+    return &rel_attention_bf16x6_kernel<D, HAS_REL, KEYS>;
   } else {
-    tc::attention<D, HAS_REL, true>(a);
+    return &rel_attention_bf16x9_kernel<D, HAS_REL, KEYS>;
   }
 }
 
-template <int D, bool HAS_REL, bool BF16, int KEYS>
+template <int D, bool HAS_REL, Arith A, int KEYS>
 cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
+  using S = rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>;
   static std::atomic<size_t> granted[attn::kMaxDevices];
-  const auto kernel =
-      BF16 ? &rel_attention_bf16_kernel<D, HAS_REL, KEYS> : &rel_attention_tf32_kernel<D, HAS_REL, KEYS>;
-  const size_t smem = sizeof(float) * rs::Smem<D, HAS_REL, KEYS>::kFloats;
+  const auto kernel = tc_kernel<A, D, HAS_REL, KEYS>();
+  const size_t smem = sizeof(float) * S::kFloats;
   cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;
   int sms = 0;
@@ -1008,24 +1083,24 @@ cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
   if (pairs > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   a.n_pairs = static_cast<int>(pairs);
   a.n_items = (a.n_pairs + rs::kRows / KEYS - 1) / (rs::kRows / KEYS);
-  const int slots = sms * rs::Smem<D, HAS_REL, KEYS>::kBlocks;  // persistent: every block resident at once
+  const int slots = sms * S::kBlocks;  // persistent: every block resident at once
   const int blocks = a.n_items < slots ? a.n_items : slots;
   kernel<<<blocks, rs::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D, bool HAS_REL, bool BF16>
+template <int D, bool HAS_REL, Arith A>
 cudaError_t launch_tc(Args a, int B, int device, cudaStream_t stream) {
   // the resident design up to L = 128 at D <= 32; the chunked one for longer
   // sequences and at D = 64 (no shipped configuration; ptxas spilled there)
   if constexpr (D <= 32) {
     if (a.L <= rs::kMaxL) {
-      return a.L <= rs::kMaxL / 2 ? launch_resident<D, HAS_REL, BF16, rs::kMaxL / 2>(a, B, device, stream)
-                                  : launch_resident<D, HAS_REL, BF16, rs::kMaxL>(a, B, device, stream);
+      return a.L <= rs::kMaxL / 2 ? launch_resident<D, HAS_REL, A, rs::kMaxL / 2>(a, B, device, stream)
+                                  : launch_resident<D, HAS_REL, A, rs::kMaxL>(a, B, device, stream);
     }
   }
   static std::atomic<size_t> granted[attn::kMaxDevices];
-  const auto kernel = BF16 ? &rel_attention_bf16_kernel<D, HAS_REL, 0> : &rel_attention_tf32_kernel<D, HAS_REL, 0>;
+  const auto kernel = tc_kernel<A, D, HAS_REL, 0>();
   const size_t smem = sizeof(float) * tc::Smem<D, HAS_REL>::kFloats;
   const cudaError_t err =
       attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
@@ -1037,21 +1112,31 @@ cudaError_t launch_tc(Args a, int B, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// instance: 0 FMA, 1 TF32, 2 bf16 (see the note at the top)
+// instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9
+// (see the note at the top)
 template <int D, bool HAS_REL>
 cudaError_t dispatch_instance(const Args& a, int B, int instance, int device, cudaStream_t stream) {
   switch (instance) {
-    case 0: return launch<D, HAS_REL>(a, B, device, stream);
-    case 1: return launch_tc<D, HAS_REL, false>(a, B, device, stream);
-    case 2: return launch_tc<D, HAS_REL, true>(a, B, device, stream);
-    default: return cudaErrorInvalidValue;
+    case 0: if constexpr (kBuiltInstance<0>) return launch<D, HAS_REL>(a, B, device, stream); break;
+    case 1: if constexpr (kBuiltInstance<1>) return launch_tc<D, HAS_REL, Arith::TF32>(a, B, device, stream); break;
+    case 2: if constexpr (kBuiltInstance<2>) return launch_tc<D, HAS_REL, Arith::BF16>(a, B, device, stream); break;
+    case 3: if constexpr (kBuiltInstance<3>) return launch_tc<D, HAS_REL, Arith::TF32x3>(a, B, device, stream); break;
+    case 4: if constexpr (kBuiltInstance<4>) return launch_tc<D, HAS_REL, Arith::BF16x3>(a, B, device, stream); break;
+    case 5: if constexpr (kBuiltInstance<5>) return launch_tc<D, HAS_REL, Arith::BF16x6>(a, B, device, stream); break;
+    case 6: if constexpr (kBuiltInstance<6>) return launch_tc<D, HAS_REL, Arith::BF16x9>(a, B, device, stream); break;
+    default: break;
   }
+  return cudaErrorInvalidValue;  // not an instance of this library's part (launch.cuh)
 }
 
 template <int D>
 cudaError_t dispatch_rel(const Args& a, int B, int has_rel, int instance, int device, cudaStream_t stream) {
-  return has_rel ? dispatch_instance<D, true>(a, B, instance, device, stream)
-                 : dispatch_instance<D, false>(a, B, instance, device, stream);
+  if constexpr (!kBuiltHeadDim<D>) {
+    return cudaErrorInvalidValue;  // not a head size of this library's part (launch.cuh)
+  } else {
+    return has_rel ? dispatch_instance<D, true>(a, B, instance, device, stream)
+                   : dispatch_instance<D, false>(a, B, instance, device, stream);
+  }
 }
 
 }  // namespace
@@ -1060,7 +1145,8 @@ cudaError_t dispatch_rel(const Args& a, int B, int has_rel, int instance, int de
 // strides sb, sh, sl in floats (the last dimension has stride 1), every row
 // 16-byte aligned. out: a contiguous (B, L, H, D) buffer. table:
 // the contiguous (2M - 1, D) distance table, 16-byte aligned, or null when
-// has_rel is 0. `instance` picks the arithmetic: 0 FMA, 1 TF32, 2 bf16.
+// has_rel is 0. `instance` picks the arithmetic: 0 FMA, 1 TF32, 2 bf16, 3-6
+// the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9.
 // `device` is the index of the device that holds the tensors and `stream`.
 extern "C" int rel_attention_forward(const float* q, const float* k, const float* v,
                                      const float* bias, const float* table, float* out,

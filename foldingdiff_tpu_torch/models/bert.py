@@ -49,14 +49,16 @@ the identity there and adds no device operation.
 config.matmul_precision sets every GEMM of the model (precision.py), as
 JAX's bert.py:277-279 scope does: forward() runs under matmul_scope(), the
 trainers run the backward pass under it too (training/trainer.py:
-optimizer_step), and under "BF16_BF16_F32" every Linear and every einsum of
-the plain attention takes bf16 operands with a float32 output, forward and
-backward, remat's recompute included. The fused attention kernels take the
-model's mode too and compute the products that the JAX model's einsums
-compute in it (ops/attention.py's table): the v2 kernel in float32 FMA,
-on TF32 tensor cores, or on bf16 values on them; the v1 kernel in float32
-FMA, on bf16 values under "BF16_BF16_F32". Under "default" the kernel
-follows the caller's TF32 setting at the call, as the GEMMs do.
+optimizer_step), and under "BF16_BF16_F32" and the multi-pass presets
+(TF32_TF32_F32_X3, BF16_BF16_F32_X3, _X6, _X9) every Linear and every
+einsum of the plain attention computes the preset's products of bf16 or
+TF32 parts with a float32 output (precision.linear, precision.einsum),
+forward and backward, remat's recompute included. The fused attention
+kernels take the model's mode too and compute the products that the JAX
+model's einsums compute in it (ops/attention.py's table): in float32 FMA, on
+TF32 tensor cores, or the preset's products of parts on them. Under
+"default" the kernel follows the caller's TF32 setting at the call, as the
+GEMMs do.
 """
 from __future__ import annotations
 
@@ -121,7 +123,6 @@ class SelfAttention(nn.Module):
         self.max_pos = config.max_position_embeddings
         self.probs_dropout = config.attention_probs_dropout_prob
         self.mode = mode = config.matmul_mode
-        self.bf16 = mode == "bf16"
         hidden = config.hidden_size
         self.query = precision.Linear(hidden, hidden, mode)
         self.key = precision.Linear(hidden, hidden, mode)
@@ -155,7 +156,7 @@ class SelfAttention(nn.Module):
             else:
                 ctx = fused_attention_reference(q, k, v, attn_bias, e_lr, key_term=self.key_query,
                                                 dropout_p=self.probs_dropout if self.training else 0.0,
-                                                bf16=self.bf16)
+                                                mode=self.mode)
         return ctx.transpose(1, 2).reshape(b, l, self.n_heads * self.head_size)
 
 

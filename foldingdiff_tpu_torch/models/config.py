@@ -31,22 +31,25 @@ Fields the port reads differently:
   the port's command-line programs set TF32 for the process, XLA:GPU's
   default (precision.set_process_default). Checked at construction:
 
-| matmul_precision (JAX's names) | JAX on an H100 | the port on the H100 |
+| matmul_precision (JAX's names) | JAX on an H100 | the port on the H100 (precision.py's mode) |
 | --- | --- | --- |
-| "default" | the caller's; TF32 by XLA:GPU's default | the caller's; TF32 under the port's programs |
-| "bfloat16" (Precision.DEFAULT) | TF32 | TF32 tensor cores |
-| "high", "tensorfloat32" (Precision.HIGH) | TF32 | TF32 tensor cores |
-| "highest", "float32", preset "F32_F32_F32" | IEEE float32 | IEEE float32 |
-| preset "TF32_TF32_F32" | TF32 | TF32 tensor cores |
-| preset "BF16_BF16_F32" | bf16 operands, f32 sums and output | bf16 operands, f32 sums, f32 output |
-| other presets (*_X3, *_X6, *_X9, F16_*, ANY_F8_*, BF16_BF16_BF16, F64_F64_F64), other strings | their algorithms | ValueError |
+| "default" | the caller's; TF32 by XLA:GPU's default | the caller's; TF32 under the port's programs ("caller") |
+| "bfloat16" (Precision.DEFAULT) | TF32 | TF32 tensor cores ("tf32") |
+| "high", "tensorfloat32" (Precision.HIGH) | TF32 | TF32 tensor cores ("tf32") |
+| "highest", "float32", preset "F32_F32_F32" | IEEE float32 | IEEE float32 ("ieee") |
+| preset "TF32_TF32_F32" | TF32 | TF32 tensor cores ("tf32") |
+| preset "BF16_BF16_F32" | bf16 operands, f32 sums and output | bf16 operands, f32 sums, f32 output ("bf16") |
+| preset "TF32_TF32_F32_X3" | 3 products of TF32 parts, f32 sums | the same products on TF32 tensor cores ("tf32x3") |
+| presets "BF16_BF16_F32_X3", "_X6", "_X9" | 3, 6 or 9 products of bf16 parts, f32 sums | the same products on TF32 tensor cores ("bf16x3", "bf16x6", "bf16x9") |
+| other presets (F16_*, ANY_F8_*, BF16_BF16_BF16, F64_F64_F64), other strings | their algorithms | ValueError |
 
   The fused attention kernels follow the value too (ops/attention.py): both
   run float32 FMA at IEEE float32, TF32 tensor cores at TF32 (and at
-  "default" under a caller's TF32), bf16 values on TF32 tensor cores at
-  "BF16_BF16_F32". On the CPU, whose GEMMs ignore the CUDA TF32 setting,
-  every value but "BF16_BF16_F32" gives float32's numbers, and the kernels'
-  plain versions take bf16 operands at "BF16_BF16_F32".
+  "default" under a caller's TF32), and the presets' products of bf16 or
+  TF32 parts on TF32 tensor cores at "BF16_BF16_F32" and the multi-pass
+  presets. On the CPU, whose GEMMs ignore the CUDA TF32 setting, every value
+  but the presets of precision.SPLITS gives float32's numbers; those compute
+  their products of parts there as on the card.
 """
 from __future__ import annotations
 
@@ -90,7 +93,7 @@ class ModelConfig:
 
     @property
     def matmul_mode(self) -> str:
-        """The mode of precision.py: "caller", "ieee", "tf32" or "bf16"."""
+        """The mode of precision.py: "caller" or one of precision.KERNEL_MODES."""
         return mode_of(self.matmul_precision)
 
     @property

@@ -15,26 +15,35 @@ Each entry launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors. There is no fallback: a CUDA tensor the kernel does not take
 raises, and so does a tensor on any other device.
 
-Each entry takes the model's matmul mode (precision.py: "caller", "ieee",
-"tf32", "bf16"), resolved on the host at the call by precision.kernel_mode,
-and launches the kernel's instance that computes the products of the JAX
-model's einsums in that mode:
+Each entry takes the model's matmul mode (precision.py: "caller" or one of
+precision.KERNEL_MODES), resolved on the host at the call by
+precision.kernel_mode, and launches the kernel's instance that computes the
+products of the JAX model's einsums in that mode:
 
 | kernel mode | v2 instance (rel_attention.cu) | v1 instance (gathered_attention.cu) |
 | --- | --- | --- |
 | "ieee" | "fma": float32 FMA | "fma": float32 FMA |
 | "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores |
 | "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores |
+| "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same |
+| "bf16x3" | "bf16x3": 3 products of bf16 parts on TF32 tensor cores | "bf16x3": the same |
+| "bf16x6" | "bf16x6": 6 products of bf16 parts on TF32 tensor cores | "bf16x6": the same |
+| "bf16x9" | "bf16x9": 9 products of bf16 parts on TF32 tensor cores | "bf16x9": the same |
 
-The plain versions compute every product on bf16-rounded operands under
-"bf16" (precision.bf16_einsum) and in float32 otherwise, at the caller's
-cuBLAS setting; softmax stays float32 in both.
+The plain versions compute every product as precision.einsum does in the
+mode: the preset's products of parts under "bf16" and the multi-pass modes,
+float32 otherwise, at the caller's cuBLAS setting; softmax stays float32 in
+all of them.
 
 Each kernel source is built with nvcc at first use, from the repository's
 sources only, into `foldingdiff_tpu_torch/_build/`; the library name carries
 a hash of the source, the shared headers and the flags, so an edited source
 or flag set builds anew. The libraries have a plain C interface and are
-loaded with ctypes. `build()` compiles several at once, one nvcc each.
+loaded with ctypes. A source is built in parts (CudaLibrary.parts), one
+library each: the same source compiled for a group of its instances and head
+sizes (-DATTN_INSTANCES, -DATTN_HEAD_DIMS), so that the multi-pass
+instances' long compiles run side by side. `build()` compiles every part
+of several sources at once, one nvcc each.
 
 `REL_ATTENTION.launches` and `GATHERED_ATTENTION.launches` count each
 kernel's launches, so a run can show which kernel it went through,
@@ -68,50 +77,70 @@ _ptr, _int = ctypes.c_void_p, ctypes.c_int
 
 
 class CudaLibrary:
-    """One kernel source, csrc/<name>.cu, built into a ctypes library whose
+    """One kernel source, csrc/<name>.cu, built into ctypes libraries whose
     C entry is <name>_forward and whose error text is <name>_error_string.
     The entry's last three arguments are the instance's index in
     `instances`, the device index and the stream; the instance "fma" runs
-    the kernel <name>_kernel, any other <name>_<instance>_kernel."""
+    the kernel <name>_kernel, any other <name>_<instance>_kernel. `parts`
+    groups (instances, head sizes) into libraries of their own, built side
+    by side; one part of everything by default."""
 
-    def __init__(self, name: str, argtypes: Sequence, instances: Sequence[str] = ("fma",)):
+    def __init__(self, name: str, argtypes: Sequence, instances: Sequence[str] = ("fma",),
+                 parts: Sequence[tuple] | None = None):
         self.name = name
         self.source = CSRC_DIR / f"{name}.cu"
         self.argtypes = list(argtypes)  # the entry's arguments before the instance, device and stream
         self.instances = tuple(instances)
+        self.parts = tuple((tuple(i), tuple(d)) for i, d in parts) if parts else ((self.instances, HEAD_DIMS),)
+        if sorted((i, d) for p in self.parts for i in p[0] for d in p[1]) != sorted(
+                (i, d) for i in self.instances for d in HEAD_DIMS):
+            raise ValueError(f"{name}: the parts must hold every (instance, head size) once")
         self.launches = 0
         self.rel_off_launches = 0  # of these, the instance without relative scores (HAS_REL false)
         self.launches_by_instance = dict.fromkeys(self.instances, 0)
-        self._lib = None
+        self._libs = None
 
     def kernel_name(self, instance: str) -> str:
         """The __global__ function of an instance, as the driver names its
         graph nodes (inside the mangled name)."""
         return f"{self.name}_kernel" if instance == "fma" else f"{self.name}_{instance}_kernel"
 
-    def library_path(self) -> Path:
+    def defines(self, part: int) -> list[str]:
+        """nvcc's -D flags of a part: bit i of ATTN_INSTANCES for instance i,
+        bit j of ATTN_HEAD_DIMS for HEAD_DIMS[j]."""
+        instances, dims = self.parts[part]
+        return [f"-DATTN_INSTANCES={sum(1 << self.instances.index(i) for i in instances):#x}",
+                f"-DATTN_HEAD_DIMS={sum(1 << HEAD_DIMS.index(d) for d in dims):#x}"]
+
+    def library_path(self, part: int = 0) -> Path:
         inputs = [self.source, *sorted(CSRC_DIR.glob("*.cuh"))]
-        blob = b"".join(p.read_bytes() for p in inputs) + " ".join(NVCC_FLAGS).encode()
+        blob = b"".join(p.read_bytes() for p in inputs) + " ".join([*NVCC_FLAGS, *self.defines(part)]).encode()
         return BUILD_DIR / f"lib{self.name}_{hashlib.sha256(blob).hexdigest()[:16]}.so"
 
-    def load(self) -> ctypes.CDLL:
-        if self._lib is None:
+    def load(self) -> dict:
+        """{(instance, head size): the loaded library of its part}, every
+        part built first."""
+        if self._libs is None:
             build([self])
-            lib = ctypes.CDLL(str(self.library_path()))
-            forward = getattr(lib, f"{self.name}_forward")
-            forward.argtypes = [*self.argtypes, _int, _int, _ptr]
-            forward.restype = _int
-            error_string = getattr(lib, f"{self.name}_error_string")
-            error_string.argtypes = [_int]
-            error_string.restype = ctypes.c_char_p
-            self._lib = lib
-        return self._lib
+            libs = {}
+            for part, (instances, dims) in enumerate(self.parts):
+                lib = ctypes.CDLL(str(self.library_path(part)))
+                forward = getattr(lib, f"{self.name}_forward")
+                forward.argtypes = [*self.argtypes, _int, _int, _ptr]
+                forward.restype = _int
+                error_string = getattr(lib, f"{self.name}_error_string")
+                error_string.argtypes = [_int]
+                error_string.restype = ctypes.c_char_p
+                libs.update({(i, d): lib for i in instances for d in dims})
+            self._libs = libs
+        return self._libs
 
-    def launch(self, what: str, has_rel: bool, instance: str, device: torch.device, *args) -> None:
-        """Call the C entry with args, the instance, the device and its
-        current stream; raise on a non-zero cudaError_t; count the launch
-        (the rel-off and each instance's apart)."""
-        lib = self.load()
+    def launch(self, what: str, has_rel: bool, instance: str, device: torch.device, d: int, *args) -> None:
+        """Call the C entry of the part holding (instance, head size d) with
+        args, the instance, the device and its current stream; raise on a
+        non-zero cudaError_t; count the launch (the rel-off and each
+        instance's apart)."""
+        lib = self.load()[instance, d]
         err = getattr(lib, f"{self.name}_forward")(
             *args, self.instances.index(instance), device.index, torch.cuda.current_stream(device).cuda_stream)
         if err:
@@ -122,16 +151,27 @@ class CudaLibrary:
         self.launches_by_instance[instance] += 1
 
 
+# Each kernel's instances in the order of its C `instance` index: 0 FMA, 1 TF32, 2 bf16, 3-6 the multi-pass modes
+INSTANCES = ("fma", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9")
+# The parts each source is built in, side by side: the single-rounding
+# instances together, each multi-pass instance of v2 apart and its flagship
+# head size apart from the other two. On an 8-core H100 host both sources
+# built in 145 s as one nvcc each, 77 s with --split-compile=0, 166 s with
+# --split-compile-extended=0, and 39 s as these 12 parts
+# (scripts/nvcc_build_forms.py)
+_SINGLE, _MULTI_PASS = INSTANCES[:3], INSTANCES[3:]
 # (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel), then the
 # instance, device and stream
-REL_ATTENTION = CudaLibrary("rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6,
-                            ("fma", "tf32", "bf16"))
+REL_ATTENTION = CudaLibrary(
+    "rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6, INSTANCES,
+    [(_SINGLE, HEAD_DIMS)] + [((i,), dims) for i in _MULTI_PASS for dims in ((32,), (16, 64))])
 # (q, k, v, bias, e_lr, out, B, H, L, D, has_rel), then the instance, device and stream
-GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, ("fma", "tf32", "bf16"))
+GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, INSTANCES,
+                                 [(_SINGLE, HEAD_DIMS), (_MULTI_PASS[:2], HEAD_DIMS), (_MULTI_PASS[2:], HEAD_DIMS)])
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
 # kernel mode (precision.kernel_mode) -> the instance each kernel runs in it
-V2_INSTANCES = {"ieee": "fma", "tf32": "tf32", "bf16": "bf16"}
-V1_INSTANCES = {"ieee": "fma", "tf32": "tf32", "bf16": "bf16"}
+V2_INSTANCES = {"ieee": "fma", **{mode: mode for mode in precision.KERNEL_MODES[1:]}}
+V1_INSTANCES = dict(V2_INSTANCES)
 
 
 def fused_attention_reference(
@@ -142,17 +182,21 @@ def fused_attention_reference(
     e_lr: torch.Tensor | None = None,
     key_term: bool = False,
     dropout_p: float = 0.0,
-    bf16: bool = False,
+    mode: str = "caller",
 ) -> torch.Tensor:
     """Plain PyTorch version: the einsums of the JAX package's attention_reference.
     key_term adds k[r] . e_lr[l, r] as well: the relative_key_query scores,
     which the denoiser runs on this plain path only, as the JAX package does.
     dropout_p drops attention probabilities, as the denoiser's train mode
-    does (JAX's bert.py:186); the kernels' plain versions leave it 0. bf16
-    takes every einsum on bf16 operands with a float32 output, as a model
-    at matmul_precision "BF16_BF16_F32" does (precision.bf16_einsum); the
-    softmax stays float32."""
-    einsum = precision.bf16_einsum if bf16 else torch.einsum
+    does (JAX's bert.py:186); the kernels' plain versions leave it 0. Every
+    einsum runs in the model's `mode` (precision.einsum): under "bf16" and
+    the multi-pass modes the preset's products of parts with a float32
+    output, as a model at that matmul_precision computes them; the softmax
+    stays float32."""
+
+    def einsum(eq, a, b):
+        return precision.einsum(eq, a, b, mode)
+
     scale = 1.0 / (q.shape[-1] ** 0.5)
     scores = einsum("bhld,bhmd->bhlm", q, k)
     if e_lr is not None:
@@ -185,7 +229,7 @@ def fused_attention(
     """
     kernel_mode = precision.kernel_mode(mode)
     if q.device.type == "cpu":
-        return fused_attention_reference(q, k, v, mask_bias, e_lr, bf16=kernel_mode == "bf16")
+        return fused_attention_reference(q, k, v, mask_bias, e_lr, mode=kernel_mode)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention takes CPU or CUDA tensors, got {q.device}")
     b, h, l, d = _check_inputs(q, k, v, mask_bias)
@@ -199,7 +243,7 @@ def fused_attention(
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it in 16-byte pieces)")
     out = torch.empty_like(q)
     GATHERED_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}", e_lr is not None, V1_INSTANCES[kernel_mode], q.device,
+        f"B={b} H={h} L={l} D={d}", e_lr is not None, V1_INSTANCES[kernel_mode], q.device, d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         e_lr.data_ptr() if e_lr is not None else None, out.data_ptr(),
         b, h, l, d, int(e_lr is not None),
@@ -217,12 +261,12 @@ def fused_attention_v2_reference(
     mode: str = "caller",
 ) -> torch.Tensor:
     """Plain PyTorch version: gather e_lr = table[l - r + M - 1] and run
-    fused_attention_reference, on bf16 operands where `mode` is "bf16"."""
+    fused_attention_reference in `mode`."""
     e_lr = None
     if rel_table is not None:
         pos = torch.arange(q.shape[2], device=q.device)
         e_lr = rel_table[pos[:, None] - pos[None, :] + m - 1]  # (L, L, D)
-    return fused_attention_reference(q, k, v, mask_bias, e_lr, bf16=precision.kernel_mode(mode) == "bf16")
+    return fused_attention_reference(q, k, v, mask_bias, e_lr, mode=mode)
 
 
 def fused_attention_v2(
@@ -267,7 +311,7 @@ def fused_attention_v2(
     out = torch.empty(b, l, h, d, device=q.device)
     sb, sh, sl, _ = q.stride()
     REL_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}", has_rel, V2_INSTANCES[kernel_mode], q.device,
+        f"B={b} H={h} L={l} D={d}", has_rel, V2_INSTANCES[kernel_mode], q.device, d,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
         rel_table.data_ptr() if has_rel else None, out.data_ptr(), sb, sh, sl,
         b, h, l, d, m if has_rel else l, int(has_rel),
@@ -330,30 +374,32 @@ def _nvcc() -> str:
 
 def build(libraries: Sequence[CudaLibrary] = LIBRARIES) -> Dict[str, str]:
     """
-    Compile each library whose source and flag set is not built yet, one
-    nvcc per source, all started together. Returns {name: the compiler's
-    output (ptxas register and shared-memory report)}, "" for a library that
-    already existed. Raises if any build fails.
+    Compile each part of each library whose source and flag set is not
+    built yet, one nvcc per part, all started together. Returns {name: the
+    compiler's output of its parts (ptxas register and shared-memory
+    report)}, "" for a library whose parts all existed. Raises if any build
+    fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
+    running = []
     for lib in libraries:
-        path = lib.library_path()
-        if path.is_file():
-            continue
-        tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(lib.source)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[lib.name] = (proc, cmd, tmp, path)
+        for part in range(len(lib.parts)):
+            path = lib.library_path(part)
+            if path.is_file():
+                continue
+            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, *lib.defines(part), "-o", str(tmp), str(lib.source)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            running.append((lib.name, proc, cmd, tmp, path))
     reports = {lib.name: "" for lib in libraries}
     failures = []
-    for name, (proc, cmd, tmp, path) in running.items():
+    for name, proc, cmd, tmp, path in running:
         output, _ = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"nvcc failed ({' '.join(cmd)}):\n{output}")
             continue
         os.replace(tmp, path)
-        reports[name] = output
+        reports[name] += output
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports

@@ -5,7 +5,8 @@ JAX models read it, which run their forward under
 (and so their backward: JAX's transposes keep each dot's precision).
 
 models/config.py's docstring maps each name onto a mode of this module:
-"caller", "ieee", "tf32" or "bf16"; any other name is a ValueError
+"caller", "ieee", "tf32", "bf16", or one of the multi-pass float32 modes
+"tf32x3", "bf16x3", "bf16x6" and "bf16x9"; any other name is a ValueError
 (mode_of).
 
 - "caller" ("default") enters no scope: the model's GEMMs run at the
@@ -17,17 +18,35 @@ models/config.py's docstring maps each name onto a mode of this module:
   the model runs (matmul_precision), the caller's value restored after.
   Only the new API is used: once fp32_precision is "tf32", reading the
   legacy allow_tf32 raises in torch.
-- "bf16" runs every GEMM of the model on bf16 operands with float32
-  products, sums and output (linear, bf16_einsum), forward and backward,
-  where the cotangent is rounded to bf16 as well, as JAX's transposes of
-  such a dot take bf16 operands. Its GEMMs are float32 GEMMs of the
-  bf16-rounded values under TF32: TF32 holds bf16's 8 bits, and each product
-  of two bf16 values is exact in float32, so the card and the CPU compute
-  the same products and differ only in the order of the float32 sums.
+- "bf16" and the multi-pass modes (SPLITS) run every GEMM of the model as
+  JAX's DotAlgorithmPreset defines it: each float32 operand x is split into
+  parts, x0 = r(x), x1 = r(x - x0) and x2 = r(x - x0 - x1), each rounded by
+  r to bf16 (to nearest even) or to TF32 (to nearest, ties away from zero,
+  as cvt.rna.tf32.f32), and a fixed list of products of parts is summed in
+  float32, the small terms first:
+
+  | mode | preset | r | parts | products |
+  | --- | --- | --- | --- | --- |
+  | "bf16" | BF16_BF16_F32 | bf16 | x0 | a0.b0 |
+  | "tf32x3" | TF32_TF32_F32_X3 | TF32 | x0, x1 | a1.b0 + a0.b1 + a0.b0 |
+  | "bf16x3" | BF16_BF16_F32_X3 | bf16 | x0, x1 | the same |
+  | "bf16x6" | BF16_BF16_F32_X6 | bf16 | x0, x1, x2 | the six with i + j <= 2 |
+  | "bf16x9" | BF16_BF16_F32_X9 | bf16 | x0, x1, x2 | all nine |
+
+  (einsum, linear), forward and backward: the backward's products split
+  the cotangent and the other operand the same way, as JAX's transposes of
+  such a dot keep its preset. Every subtraction above is exact in float32,
+  and so is every product of two parts (TF32 keeps 11 significant bits,
+  bf16 8), so the GEMMs run as float32 GEMMs of the parts under TF32: the
+  card and the CPU compute the same products and differ only in the order
+  of the float32 sums. All the products of a dot are one GEMM, its operands
+  the parts concatenated along a contracted dimension, the small terms
+  first (_product).
 - The attention kernels (csrc/) compute their products in the model's mode
   as well (kernel_mode): float32 FMA under "ieee", TF32 tensor cores under
-  "tf32" (and "caller" under a caller's TF32), bf16 values on TF32 tensor
-  cores under "bf16". Their plain versions take bf16 operands under "bf16".
+  "tf32" (and "caller" under a caller's TF32), and the parts' products of
+  "bf16" and the multi-pass modes on TF32 tensor cores. Their plain versions
+  take the same products (einsum).
 - The CPU's GEMMs do not read the CUDA setting: "caller", "tf32" and "ieee"
   give the same numbers there.
 """
@@ -46,11 +65,25 @@ MODES = {
     "bfloat16": "tf32", "high": "tf32", "tensorfloat32": "tf32", "TF32_TF32_F32": "tf32",
     "highest": "ieee", "float32": "ieee", "F32_F32_F32": "ieee",
     "BF16_BF16_F32": "bf16",
+    "TF32_TF32_F32_X3": "tf32x3",
+    "BF16_BF16_F32_X3": "bf16x3", "BF16_BF16_F32_X6": "bf16x6", "BF16_BF16_F32_X9": "bf16x9",
 }
+# mode -> (the rounding r of a part, the parts of an operand, the products
+# (i, j) of part i of the first operand and part j of the second, smallest first)
+_X3 = ((1, 0), (0, 1), (0, 0))
+SPLITS = {
+    "bf16": ("bf16", 1, ((0, 0),)),
+    "tf32x3": ("tf32", 2, _X3),
+    "bf16x3": ("bf16", 2, _X3),
+    "bf16x6": ("bf16", 3, ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))),
+    "bf16x9": ("bf16", 3, ((2, 2), (2, 1), (1, 2), (2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0))),
+}
+# the arithmetics of the attention kernels' products (kernel_mode)
+KERNEL_MODES = ("ieee", "tf32", *SPLITS)
 
 
 def mode_of(matmul_precision: str) -> str:
-    """The port's mode ("caller", "ieee", "tf32" or "bf16") of a
+    """The port's mode ("caller" or one of KERNEL_MODES) of a
     matmul_precision; ValueError for a name the port does not run, never a
     silent float32."""
     try:
@@ -62,18 +95,18 @@ def mode_of(matmul_precision: str) -> str:
 
 def kernel_mode(mode: str) -> str:
     """The arithmetic of the attention kernels' products under a model's
-    mode: "ieee", "tf32" or "bf16". "caller" takes the caller's setting at
-    the call (or at a CUDA graph's capture): "tf32" where the float32 GEMMs
-    that cuBLAS runs then would be TF32 (torch.backends.cuda.matmul.
-    fp32_precision "tf32", or "none" under torch.backends.fp32_precision
-    "tf32"), else "ieee". ValueError for any other mode."""
+    mode: one of KERNEL_MODES, the mode itself. "caller" takes the caller's
+    setting at the call (or at a CUDA graph's capture): "tf32" where the
+    float32 GEMMs that cuBLAS runs then would be TF32 (torch.backends.cuda.
+    matmul.fp32_precision "tf32", or "none" under torch.backends.
+    fp32_precision "tf32"), else "ieee". ValueError for any other mode."""
     if mode == "caller":
         setting = torch.backends.cuda.matmul.fp32_precision
         if setting == "none":
             setting = torch.backends.fp32_precision
         return "tf32" if setting == "tf32" else "ieee"
-    if mode not in ("ieee", "tf32", "bf16"):
-        raise ValueError(f"mode {mode!r} is not one of the port's: caller, ieee, tf32, bf16")
+    if mode not in KERNEL_MODES:
+        raise ValueError(f"mode {mode!r} is not one of the port's: caller, {', '.join(KERNEL_MODES)}")
     return mode
 
 
@@ -87,9 +120,10 @@ def set_process_default() -> None:
 @contextlib.contextmanager
 def matmul_precision(mode: str) -> Iterator[None]:
     """cuBLAS's float32 GEMMs in IEEE float32 ("ieee") or on TF32 tensor
-    cores ("tf32", and "bf16", whose GEMMs take bf16 values) while the block
-    runs, the caller's fp32_precision restored after, also on an exception;
-    "caller" leaves the caller's setting in place."""
+    cores ("tf32", and the SPLITS modes, whose GEMMs take parts that TF32
+    holds exactly) while the block runs, the caller's fp32_precision
+    restored after, also on an exception; "caller" leaves the caller's
+    setting in place."""
     if mode == "caller":
         yield
         return
@@ -106,45 +140,85 @@ def _to_bf16_values(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
-class _RoundOperand(torch.autograd.Function):
-    """The bf16 rounding of a product's operand; its gradient passes as it
-    is (the product's backward already took bf16 operands)."""
+def to_tf32_values(t: torch.Tensor) -> torch.Tensor:
+    """The TF32 rounding of a float32 tensor as cvt.rna.tf32.f32 computes it
+    (10 stored significand bits, to nearest, ties away from zero), as
+    float32 values: two integer operations on the int32 view, since torch has
+    no TF32 dtype, the same as the attention kernels' multi-pass parts
+    (csrc/device.cuh, round_part). Infinities and the NaN that arithmetic
+    makes pass as they are; a NaN whose payload lies in the 13 low bits
+    alone would become an infinity."""
+    return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def parts(x: torch.Tensor, mode: str) -> list[torch.Tensor]:
+    """The parts x0, x1, ... of a float32 operand in a SPLITS mode: x0 =
+    r(x), x1 = r(x - x0), x2 = r(x - x0 - x1), every subtraction exact."""
+    rounding, n, _ = SPLITS[mode]
+    r = _to_bf16_values if rounding == "bf16" else to_tf32_values
+    out = [r(x)]
+    for _ in range(n - 1):
+        x = x - out[-1]
+        out.append(r(x))
+    return out
+
+
+def _product(eq: str, a_parts, b_parts, products) -> torch.Tensor:
+    """torch.einsum(eq) summed over the products (i, j) of a_parts[i] and
+    b_parts[j], as one einsum: the parts concatenated along a contracted
+    index, the products in their order (the small terms first)."""
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    if len(products) == 1:
+        (i, j), = products
+        return torch.einsum(eq, a_parts[i], b_parts[j])
+    c = next(x for x in sa if x in sb and x not in so)
+    return torch.einsum(eq, torch.cat([a_parts[i] for i, _ in products], dim=sa.index(c)),
+                        torch.cat([b_parts[j] for _, j in products], dim=sb.index(c)))
+
+
+class _SplitProduct(torch.autograd.Function):
+    """torch.einsum(eq, a, b) (two operands, at least one contracted index)
+    in a SPLITS mode: the listed products of the operands' parts. Its
+    backward runs the split products of the cotangent with the other
+    operand, once per operand, as JAX's transposes of such a dot do (a
+    straight-through gradient per part would count the cotangent once per
+    product)."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        return _to_bf16_values(x)
+    def forward(ctx, eq: str, a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+        a_parts, b_parts = parts(a, mode), parts(b, mode)
+        ctx.eq, ctx.mode = eq, mode
+        ctx.save_for_backward(*a_parts, *b_parts)
+        return _product(eq, a_parts, b_parts, SPLITS[mode][2])
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
-        return grad
+    def backward(ctx, grad: torch.Tensor):
+        n, products = SPLITS[ctx.mode][1:]
+        saved = ctx.saved_tensors
+        a_parts, b_parts, g_parts = saved[:n], saved[n:], parts(grad, ctx.mode)
+        (sa, sb), so = ctx.eq.split("->")[0].split(","), ctx.eq.split("->")[1]
+        grad_a = _product(f"{so},{sb}->{sa}", g_parts, b_parts, products) if ctx.needs_input_grad[1] else None
+        grad_b = _product(f"{sa},{so}->{sb}", a_parts, g_parts, products) if ctx.needs_input_grad[2] else None
+        return None, grad_a, grad_b, None
 
 
-class _RoundCotangent(torch.autograd.Function):
-    """The identity on a product's output, whose cotangent is rounded to
-    bf16: the bf16 operand of both backward products."""
-
-    @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
-        return _to_bf16_values(grad)
-
-
-def bf16_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """torch.einsum(eq, a, b) at BF16_BF16_F32: bf16 operands, float32
-    products, sums and output; the backward's products on bf16 operands."""
-    return _RoundCotangent.apply(torch.einsum(eq, _RoundOperand.apply(a), _RoundOperand.apply(b)))
+def einsum(eq: str, a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """torch.einsum(eq, a, b) in a model's mode: in a SPLITS mode the
+    preset's products of the operands' parts (float32 output), forward and
+    backward; else torch.einsum, whose float32 GEMM follows the
+    matmul_precision scope."""
+    if mode not in SPLITS:
+        return torch.einsum(eq, a, b)
+    return _SplitProduct.apply(eq, a, b, mode)
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, mode: str) -> torch.Tensor:
-    """F.linear(x, weight, bias) in a model's mode: under "bf16" the product
-    at BF16_BF16_F32 (bf16_einsum), the bias added in float32; else
-    F.linear, whose float32 GEMM follows the matmul_precision scope."""
-    if mode != "bf16":
+    """F.linear(x, weight, bias) in a model's mode: in a SPLITS mode the
+    product as einsum computes it, the bias added in float32; else F.linear,
+    whose float32 GEMM follows the matmul_precision scope."""
+    if mode not in SPLITS:
         return F.linear(x, weight, bias)
-    out = _RoundCotangent.apply(F.linear(_RoundOperand.apply(x), _RoundOperand.apply(weight)))
+    out = einsum("mk,nk->mn", x.reshape(-1, x.shape[-1]), weight, mode).reshape(*x.shape[:-1], weight.shape[0])
     return out if bias is None else out + bias
 
 

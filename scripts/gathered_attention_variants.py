@@ -67,7 +67,7 @@ def on(lib, fn):
 
 def plain(q, k, v, bias, e_lr):
     return lambda mode: chip_smoke.in_mode(mode, lambda: attention.fused_attention_reference(
-        q, k, v, bias, e_lr, bf16=mode == "bf16"))
+        q, k, v, bias, e_lr, mode=mode))
 
 
 def main() -> None:

@@ -183,7 +183,7 @@ def _instance_table() -> dict:
     return rows
 
 
-@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
+@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9"])
 def test_instance_maps_are_the_docstring_table(mode):
     table = _instance_table()
     assert set(table) == set(attention.V2_INSTANCES) == set(attention.V1_INSTANCES)
@@ -199,6 +199,30 @@ def test_every_listed_instance_has_its_kernel_in_the_source(library, instance):
     lib = next(lib for lib in attention.LIBRARIES if lib.name == library)
     name = lib.kernel_name(instance)
     assert re.search(rf"__global__ void\s+(__launch_bounds__\([^)]*\)\s+)?{name}\(", lib.source.read_text())
+
+
+@pytest.mark.parametrize("mode,tol", [("tf32x3", 1e-5), ("bf16x3", 5e-5), ("bf16x6", 1e-5), ("bf16x9", 1e-5)])
+@pytest.mark.parametrize("l,m,d,rel", CASES)
+def test_multi_pass_plain_versions_are_float32_grade(l, m, d, rel, mode, tol):
+    """Both entries' plain versions in a multi-pass mode (on the CPU): the v2
+    one equals the v1 one on the arange gather bit for bit, and both are
+    within `tol` relative RMS of the JAX package's Pallas entry (interpret
+    mode) at "highest": parts of 16 bits (bf16x3) or more keep the products
+    near float32's, where "bf16" is about 3e-3 away."""
+    q, k, v, bias, table = _inputs(2, 4, l, d, m, seed=l + d + 1)
+    m_arg = m if rel else None
+    with jax.default_matmul_precision("highest"):
+        jq, jk, jv, jb = map(jnp.asarray, (q, k, v, bias))
+        pallas = np.asarray(jax_fused_attention_v2(jq, jk, jv, jb, jnp.asarray(table) if rel else None, m=m_arg,
+                                                   interpret=True))
+    tq, tk, tv, tb = map(torch.from_numpy, (q, k, v, bias))
+    v2 = attention.fused_attention_v2(tq, tk, tv, tb, torch.from_numpy(table) if rel else None, m_arg, mode=mode)
+    e_lr = torch.from_numpy(_gathered(table, l, m)) if rel else None
+    v1 = attention.fused_attention(tq, tk, tv, tb, e_lr, mode=mode)
+    torch.testing.assert_close(v2, v1, rtol=0, atol=0)
+    rms = float(np.sqrt(np.mean((v2.numpy() - pallas) ** 2) / np.mean(pallas ** 2)))
+    bf16 = attention.fused_attention(tq, tk, tv, tb, e_lr, mode="bf16").numpy()
+    assert 0 < rms <= tol and rms < 0.01 * np.sqrt(np.mean((bf16 - pallas) ** 2) / np.mean(pallas ** 2))
 
 
 def test_v1_masked_keys_do_not_change_output():
@@ -252,11 +276,13 @@ class _FakeNvcc:
     writes the output file named after -o."""
 
     events = []
+    commands = []
 
     def __init__(self, cmd, **kwargs):
         self.cmd = cmd
         self.returncode = None
         self.events.append(("start", cmd[-1]))
+        self.commands.append(cmd)
 
     def communicate(self):
         self.events.append(("wait", self.cmd[-1]))
@@ -270,15 +296,25 @@ class _FakeNvcc:
 
 
 def test_build_starts_one_nvcc_per_source_together(monkeypatch, tmp_path):
+    """One nvcc per part of each source (CudaLibrary.parts: the source with
+    the part's -D flags), all started before any is waited for; every
+    (instance, head size) of a library in exactly one part."""
     monkeypatch.setattr(attention, "BUILD_DIR", tmp_path / "_build")
     monkeypatch.setattr(attention, "_nvcc", lambda: "nvcc")
     monkeypatch.setattr(attention.subprocess, "Popen", _FakeNvcc)
-    _FakeNvcc.events = []
+    _FakeNvcc.events, _FakeNvcc.commands = [], []
     reports = attention.build()
-    sources = [str(lib.source) for lib in attention.LIBRARIES]
+    sources = [str(lib.source) for lib in attention.LIBRARIES for _ in lib.parts]
+    assert len(sources) > len(attention.LIBRARIES)
     assert _FakeNvcc.events == [("start", s) for s in sources] + [("wait", s) for s in sources]
+    assert [c[c.index("-o") - 2:c.index("-o")] for c in _FakeNvcc.commands] == [
+        lib.defines(p) for lib in attention.LIBRARIES for p in range(len(lib.parts))]
     assert all("registers" in reports[lib.name] for lib in attention.LIBRARIES)
-    assert all(lib.library_path().is_file() for lib in attention.LIBRARIES)
+    assert all(lib.library_path(p).is_file() for lib in attention.LIBRARIES for p in range(len(lib.parts)))
+    assert len({lib.library_path(p) for lib in attention.LIBRARIES for p in range(len(lib.parts))}) == len(sources)
+    for lib in attention.LIBRARIES:
+        held = [(i, d) for instances, dims in lib.parts for i in instances for d in dims]
+        assert sorted(held) == sorted((i, d) for i in lib.instances for d in attention.HEAD_DIMS)
     _FakeNvcc.events = []
     assert attention.build() == {lib.name: "" for lib in attention.LIBRARIES}  # built: nothing runs
     assert _FakeNvcc.events == []

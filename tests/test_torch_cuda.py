@@ -1,13 +1,14 @@
 """
 Tests that need an NVIDIA GPU: the two CUDA attention kernels
 (csrc/rel_attention.cu, csrc/gathered_attention.cu) against their plain
-PyTorch versions, each instance (v2: float32 FMA, TF32 and bf16 tensor
-cores; v1: FMA and bf16) against the plain version in its mode, the
-wrappers' input checks, a reverse step on the card,
-the CUDA graphs of the reverse chains and the train step against the
-eager ones (bitwise, with the kernels' launches counted), and
-matmul_precision on the card (TF32 and bf16 against "highest", "default"
-at the caller's setting, the caller's setting kept). They skip without a
+PyTorch versions, each instance (float32 FMA, TF32 and bf16 tensor cores,
+and the multi-pass presets' products of parts on them, v2 and v1 alike)
+against the plain version in its mode, the wrappers' input checks, a
+reverse step on the card, the CUDA graphs of the reverse chains and the
+train step against the eager ones (bitwise, with the kernels' launches
+counted), and matmul_precision on the card (TF32, bf16 and the multi-pass
+presets against "highest", "default" at the caller's setting, the
+caller's setting kept; the split Linears against their CPU twins). They skip without a
 card; they run with cuBLAS's float32 GEMMs in IEEE float32 outside the
 models.
 They import no JAX, so they also run on a machine that has none, without the
@@ -168,20 +169,33 @@ def _rel_rms(a, b) -> float:
     return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
 
 
-def _check_instance(out, run_plain, mode):
+# the multi-pass modes (precision.SPLITS but "bf16")
+MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
+TENSOR_CORE_MODES = ("tf32", "bf16", *MULTI_PASS)
+
+
+def _check_instance(out, run_plain, mode, run_kernel=None):
     """An instance's output against the plain version: FMA within 1e-4 of
     float32's; TF32 within 5e-3 relative RMS of float32's; bf16 within a
     tenth of the plain bf16 version's own relative-RMS distance from
-    float32, and within 5e-2 of float32."""
+    float32, and within 5e-2 of float32; a multi-pass instance within 1e-5
+    relative RMS of the plain version in its mode (the same products of
+    parts, summed in another order), and at most a tenth of the TF32
+    instance's distance from float32 (run_kernel("tf32"), the same inputs)."""
     f32 = run_plain("ieee")
     if mode == "ieee":
         assert (out - f32).abs().max().item() <= 1e-4
     elif mode == "tf32":
         assert 0 < _rel_rms(out, f32) <= 5e-3
-    else:
+    elif mode == "bf16":
         plain = run_plain("bf16")
         gap = _rel_rms(plain, f32)
         assert gap > 0 and _rel_rms(out, plain) <= 0.1 * gap and _rel_rms(out, f32) <= 5e-2
+    else:
+        with precision.matmul_precision(mode):  # the plain version's GEMMs as the model runs them: TF32 on parts
+            plain = run_plain(mode)
+        assert _rel_rms(out, plain) <= 1e-5, mode
+        assert _rel_rms(out, f32) <= 0.1 * _rel_rms(run_kernel("tf32"), f32), mode
 
 
 # (B, H, L, D, M) of the instances' checks: the flagship and the sweep's two
@@ -195,7 +209,7 @@ INSTANCE_SHAPES = [(8, 12, 128, 32, 128), (15, 12, 64, 32, 128), (63, 12, 128, 3
                    (3, 2, 1, 32, 128), (1, 1, 128, 32, 128), (3, 5, 64, 32, 128), (130, 12, 128, 32, 128)]
 
 
-@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
+@pytest.mark.parametrize("mode", ["ieee", *TENSOR_CORE_MODES])
 @pytest.mark.parametrize("rel", [True, False])
 @pytest.mark.parametrize("b,h,l,d,m", INSTANCE_SHAPES)
 def test_v2_instance_on_projection_views_matches_its_plain_version(device, b, h, l, d, m, rel, mode):
@@ -211,10 +225,10 @@ def test_v2_instance_on_projection_views_matches_its_plain_version(device, b, h,
         assert {i: n - before[i] for i, n in after.items()} == {i: int(i == instance) for i in after}
         assert out.shape == (b, h, l, d) and out.transpose(1, 2).is_contiguous()  # stored as (B, L, H, D)
         _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
-                        mode)
+                        mode, lambda mode_: attention.fused_attention_v2(*views, bias, mode=mode_, **kw))
 
 
-@pytest.mark.parametrize("mode", ["ieee", "tf32", "bf16"])
+@pytest.mark.parametrize("mode", ["ieee", *TENSOR_CORE_MODES])
 @pytest.mark.parametrize("rel", [True, False])
 @pytest.mark.parametrize("b,h,l,d,m", [(4, 12, 128, 32, 128), (5, 3, 50, 64, 128), (2, 6, 200, 16, 256)])
 def test_v2_instance_on_a_slice_of_a_larger_buffer(device, b, h, l, d, m, rel, mode):
@@ -231,7 +245,7 @@ def test_v2_instance_on_a_slice_of_a_larger_buffer(device, b, h, l, d, m, rel, m
     with torch.inference_mode():
         out = attention.fused_attention_v2(*views, bias, mode=mode, **kw)
         _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
-                        mode)
+                        mode, lambda mode_: attention.fused_attention_v2(*views, bias, mode=mode_, **kw))
 
 
 def test_v2_back_to_back_launches_of_different_shapes(device):
@@ -246,16 +260,16 @@ def test_v2_back_to_back_launches_of_different_shapes(device):
         for i, (b, h, l, d, m) in enumerate(shapes):
             q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=20 + i)
             views = _projection_views(q, k, v)
-            for j, mode in enumerate(("tf32", "bf16", "ieee")):
+            for j, mode in enumerate((*TENSOR_CORE_MODES, "ieee")):
                 kw = dict(rel_table=table, m=m) if (i + j) % 2 else {}
-                runs.append((attention.fused_attention_v2(*views, bias, mode=mode, **kw), (q, k, v, bias), kw, mode))
+                runs.append((attention.fused_attention_v2(*views, bias, mode=mode, **kw), (views, bias), kw, mode))
         torch.cuda.synchronize()
-        for out, (q, k, v, bias), kw, mode in runs:
-            _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_, **kw),
-                            mode)
+        for out, (views, bias), kw, mode in runs:
+            _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(*views, bias, mode=mode_, **kw),
+                            mode, lambda mode_: attention.fused_attention_v2(*views, bias, mode=mode_, **kw))
 
 
-@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+@pytest.mark.parametrize("mode", TENSOR_CORE_MODES)
 def test_v2_instance_ignores_masked_keys(device, mode):
     q, k, v, bias, table = _inputs(device, 64, 12, 96, 32, 128, seed=6)
     masked = (bias < -1.0)[:, None, :, None]
@@ -266,7 +280,7 @@ def test_v2_instance_ignores_masked_keys(device, mode):
     assert (out1 - out2).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+@pytest.mark.parametrize("mode", TENSOR_CORE_MODES)
 def test_v2_instances_refuse_what_they_do_not_take(device, mode):
     """The checks come before the instance: a wrong dtype, layout or
     alignment raises for every mode, and so does a mode the port does not
@@ -291,13 +305,14 @@ def test_v2_instances_refuse_what_they_do_not_take(device, mode):
 def test_default_model_attention_follows_the_callers_setting(device, setting, instance):
     """A "default" model's v2 attention runs the instance that its GEMMs'
     setting names at the call: TF32 under a caller's TF32, FMA otherwise;
-    a "high" model's TF32 and a "BF16_BF16_F32" model's bf16 whatever the
-    caller's setting."""
+    a "high" model's TF32, a "BF16_BF16_F32" model's bf16 and a multi-pass
+    preset's model its own instance whatever the caller's setting."""
     x, mask = _chain_inputs(device)
     t = torch.zeros(x.shape[0], dtype=torch.long, device=device)
     torch.backends.cuda.matmul.fp32_precision = setting
     try:
-        for name, want in (("default", instance), ("high", "tf32"), ("BF16_BF16_F32", "bf16")):
+        for name, want in (("default", instance), ("high", "tf32"), ("BF16_BF16_F32", "bf16"),
+                           *{p: m for p, m in precision.MODES.items() if m in MULTI_PASS}.items()):
             config = dataclasses.replace(GRAPH_CONFIG, matmul_precision=name)
             model = model_io.init_random(config, torch.Generator().manual_seed(1)).to(device).eval()
             before = dict(attention.REL_ATTENTION.launches_by_instance)
@@ -342,17 +357,19 @@ def test_gathered_kernel_matches_plain(device, b, h, l, d, m, e_lr_kind):
 def test_gathered_bf16_instance_matches_its_plain_version(device, b, h, l, d, m, e_lr_kind):
     """v1 under "bf16": bf16 values on TF32 tensor cores (q, k, v, e_lr and
     the normalised P rounded) against the plain version's bf16 products;
-    under "tf32" the TF32 instance against float32."""
+    under "tf32" the TF32 instance against float32; under the multi-pass
+    modes their products of parts against the plain version's."""
     q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=12)
     if e_lr_kind == "random":
         e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(2), device=device) * 0.5
     else:
         e_lr = _e_lr(table, l, m, e_lr_kind) if e_lr_kind else None
     with torch.inference_mode():
-        for mode in ("bf16", "tf32"):
+        for mode in ("bf16", "tf32", *MULTI_PASS):
             out = _gathered_instance_call(q, k, v, bias, e_lr, mode)
             _check_instance(out, lambda mode_: attention.fused_attention_reference(
-                q, k, v, bias, e_lr, bf16=mode_ == "bf16"), mode)
+                q, k, v, bias, e_lr, mode=mode_), mode, lambda mode_: attention.fused_attention(
+                q, k, v, bias, e_lr, mode=mode_))
 
 
 def _gathered_instance_call(q, k, v, bias, e_lr, mode):
@@ -394,7 +411,7 @@ def test_gathered_kernel_ragged_shapes_and_layouts(device, b, h, l, d, layout):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+@pytest.mark.parametrize("mode", TENSOR_CORE_MODES)
 @pytest.mark.parametrize("b,h,l,d", GATHERED_SHAPES)
 def test_gathered_tensor_core_instances_on_ragged_shapes(device, b, h, l, d, mode):
     """The TF32 and bf16 instances at the v1 kernel's edges (a ragged group
@@ -406,10 +423,11 @@ def test_gathered_tensor_core_instances_on_ragged_shapes(device, b, h, l, d, mod
         for e in (e_lr, None):
             out = _gathered_instance_call(q, k, v, bias, e, mode)
             _check_instance(out, lambda mode_: attention.fused_attention_reference(
-                q, k, v, bias, e, bf16=mode_ == "bf16"), mode)
+                q, k, v, bias, e, mode=mode_), mode, lambda mode_: attention.fused_attention(
+                q, k, v, bias, e, mode=mode_))
 
 
-@pytest.mark.parametrize("mode", ["tf32", "bf16"])
+@pytest.mark.parametrize("mode", TENSOR_CORE_MODES)
 def test_gathered_tensor_core_instances_ignore_masked_keys(device, mode):
     q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
     e_lr = _e_lr(table, 96, 128, "permuted")
@@ -615,18 +633,24 @@ def test_adamw_on_the_card_is_capturable_and_matches_optax(device):
         assert _trainer(device, cuda_graphs).optimizer.param_groups[0]["capturable"]
 
 
+MULTI_PASS_DRIFT = {"TF32_TF32_F32_X3": 1e-4, "BF16_BF16_F32_X3": 5e-4, "BF16_BF16_F32_X6": 1e-4,
+                    "BF16_BF16_F32_X9": 1e-4}
+
+
 def test_tf32_and_bf16_forwards_differ_from_highest_within_bounds(device):
     """The same weights at "high" (TF32), "BF16_BF16_F32" and at "default"
     under a caller's TF32 (set_process_default, as the command-line
     programs set it) differ from "highest" by more than 0 (the mode took
     effect) and by at most chip_smoke.py phase 13's bounds (relative RMS 1e-2
-    and 5e-2); "default" under the caller's IEEE setting is "highest" bit
-    for bit. The caller's setting is kept."""
+    and 5e-2); the multi-pass presets by more than 0, at most 1e-4 (5e-4 at
+    BF16_BF16_F32_X3) and at most a tenth of TF32's drift; "default" under
+    the caller's IEEE setting is "highest" bit for bit. The caller's setting
+    is kept."""
     x, mask = _chain_inputs(device)
     t = torch.arange(x.shape[0], device=device) * 7
     outs = {}
     for name, caller in (("highest", "ieee"), ("high", "ieee"), ("BF16_BF16_F32", "ieee"), ("default", "ieee"),
-                         ("default", "tf32")):
+                         ("default", "tf32"), *((p, "ieee") for p in MULTI_PASS_DRIFT)):
         torch.backends.cuda.matmul.fp32_precision = caller
         config = dataclasses.replace(GRAPH_CONFIG, matmul_precision=name)
         model = model_io.init_random(config, torch.Generator().manual_seed(1)).to(device).eval()
@@ -639,6 +663,10 @@ def test_tf32_and_bf16_forwards_differ_from_highest_within_bounds(device):
     for key, bound in ((("high", "ieee"), 1e-2), (("default", "tf32"), 1e-2), (("BF16_BF16_F32", "ieee"), 5e-2)):
         rel = ((outs[key] - ref).square().mean().sqrt() / ref.square().mean().sqrt()).item()
         assert 0 < rel <= bound, (key, rel)
+    tf32 = _rel_rms(outs["high", "ieee"], ref)
+    for name, bound in MULTI_PASS_DRIFT.items():
+        rel = _rel_rms(outs[name, "ieee"], ref)
+        assert 0 < rel <= min(bound, 0.1 * tf32), (name, rel, tf32)
 
 
 @pytest.mark.parametrize("mode", ["bf16", "ieee"])
@@ -661,6 +689,36 @@ def test_bf16_linear_on_the_card_matches_its_plain_version(device, mode):
     assert not torch.equal(results[device][0], results[device][0].bfloat16().float())  # not rounded to bf16
     for ours, ref in zip(results[device], results["cpu"]):
         assert (ours - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("mode", MULTI_PASS)
+def test_multi_pass_linear_on_the_card_matches_its_cpu_twin(device, mode):
+    """The split Linear (forward and both backward products: one TF32 GEMM
+    over the parts of each) on the card under its mode's scope against the
+    same on the CPU: the same exact products, summed in another order; and
+    nearer float32's product than the TF32 GEMM is. Each within 1e-5 of its
+    largest element at up to 8,192 summed products (the bf16 Linear's
+    bound above), and sqrt(K / 8,192) times that at K products, as float32
+    sums of random terms drift: the weight's gradient sums the parts'
+    products over 64 x 128 tokens, K = 24,576 to 73,728."""
+    g = torch.Generator().manual_seed(4)
+    x, w, b = torch.randn(64, 128, 384, generator=g), torch.randn(768, 384, generator=g), torch.randn(768, generator=g)
+    grad = torch.randn(64, 128, 768, generator=g)
+    results = {}
+    for dev in ("cpu", device):
+        xs, ws, bs = (t.detach().to(dev).requires_grad_() for t in (x, w, b))
+        with precision.matmul_precision(mode):
+            out = precision.linear(xs, ws, bs, mode)
+            out.backward(grad.to(dev))
+        results[dev] = [t.detach().cpu() for t in (out, xs.grad, ws.grad, bs.grad)]
+    products = len(precision.SPLITS[mode][2])
+    summed = (products * 384, products * 768, products * 64 * 128, 64 * 128)  # out, x's, w's and b's gradients
+    for ours, ref, k in zip(results[device], results["cpu"], summed):
+        assert (ours - ref).abs().max().item() <= 1e-5 * max(1.0, k / 8192) ** 0.5 * ref.abs().max().item()
+    f32 = torch.nn.functional.linear(x.double(), w.double(), b.double()).float()
+    with precision.matmul_precision("tf32"):
+        tf32 = torch.nn.functional.linear(x.to(device), w.to(device), b.to(device)).cpu()
+    assert _rel_rms(results[device][0], f32) < 0.1 * _rel_rms(tf32, f32)
 
 
 def test_models_and_captures_keep_the_callers_setting(device):

@@ -11,23 +11,30 @@ ModelConfig.matmul_precision in the port (precision.py), on the CPU:
   its mode ("default": the caller's setting, as a JAX model at "default"
   enters no scope), the loss's own forward GEMM the caller's, and the
   caller's setting is back after the step, after a capture body and after
-  an exception in the forward or the backward. Under "BF16_BF16_F32" every
-  GEMM's operands are bf16 values as well;
-- bf16 numerics: precision.linear and bf16_einsum, and their gradients,
-  against numpy products of the bf16-rounded operands (ml_dtypes through
-  jnp.bfloat16) within 1e-6 relative, their output not rounded to bf16;
-- the bf16 model against the JAX model's own program at "BF16_BF16_F32":
-  XLA:CPU ignores the preset (it computes those dots in float32), so the
-  JAX model's forward and gradient are traced to a jaxpr, every dot_general
-  in it is checked to carry the preset with a float32 output (the
-  backward's transposes and the relative-position einsums included), and
-  the jaxpr is evaluated with each such dot on its bf16-rounded operands,
-  which is what the preset defines; the port under "xla" (its einsums) and
-  under "auto" (the attention kernels' plain versions: v2's without
-  position_ids, v1's with them) against JAX's "auto" einsums;
+  an exception in the forward or the backward. Under "BF16_BF16_F32" and
+  the multi-pass presets (TF32_TF32_F32_X3, BF16_BF16_F32_X3, _X6, _X9)
+  every GEMM's operands are parts as well: bf16 values, or TF32 values;
+- the presets' numerics: the TF32 rounding against a bit-exact numpy
+  transcription of cvt.rna.tf32.f32, the parts of an operand, and
+  precision.linear and precision.einsum, and their gradients, against
+  numpy sums of the products of the parts (bf16 through ml_dtypes' bf16,
+  TF32 through that transcription) within 1e-6 relative, their output not
+  rounded to bf16;
+- each preset's model against the JAX model's own program at the preset:
+  XLA:CPU ignores BF16_BF16_F32 and the _X3 and _X6 presets (it computes
+  those dots in float32) and refuses _X9 and TF32_TF32_F32_X3, so the JAX
+  model's forward and gradient are traced to a jaxpr, every dot_general in
+  it is checked to carry the preset with a float32 output (the backward's
+  transposes and the relative-position einsums included), and the jaxpr is
+  evaluated with each such dot computed as the preset defines it: the
+  listed products of the operands' parts, summed in float32; the port
+  under "xla" (its einsums) and under "auto" (the attention kernels' plain
+  versions: v2's without position_ids, v1's with them) against JAX's
+  "auto" einsums;
 - the attention kernels' mode (precision.kernel_mode): "caller" follows the
   caller's cuBLAS setting, other names raise; the entries' plain versions
-  on the CPU take bf16 operands under "bf16" only;
+  on the CPU compute the products of parts under "bf16" and the multi-pass
+  modes only;
 - the model CLIs set TF32 for their process when run as programs, and
   leave the setting alone when imported;
 - the CPU's GEMMs ignore the CUDA setting: a "default" model's output equals
@@ -72,8 +79,22 @@ JAX_NAMES = jax_config.default_matmul_precision._parser.__closure__[0].cell_cont
 SUPPORTED = {
     "default": "caller", "bfloat16": "tf32", "high": "tf32", "tensorfloat32": "tf32", "TF32_TF32_F32": "tf32",
     "highest": "ieee", "float32": "ieee", "F32_F32_F32": "ieee", "BF16_BF16_F32": "bf16",
+    "TF32_TF32_F32_X3": "tf32x3", "BF16_BF16_F32_X3": "bf16x3", "BF16_BF16_F32_X6": "bf16x6",
+    "BF16_BF16_F32_X9": "bf16x9",
 }
-PRECISIONS = ["highest", "default", "BF16_BF16_F32"]
+# The multi-pass presets: mode -> (the rounding of a part, parts, the
+# products (i, j) of part i of the first operand and part j of the second,
+# smallest first), as JAX's DotAlgorithmPreset defines them
+MULTI_PASS = {"TF32_TF32_F32_X3": "tf32x3", "BF16_BF16_F32_X3": "bf16x3", "BF16_BF16_F32_X6": "bf16x6",
+              "BF16_BF16_F32_X9": "bf16x9"}
+PARTS = {
+    "bf16": ("bf16", 1, [(0, 0)]),
+    "tf32x3": ("tf32", 2, [(1, 0), (0, 1), (0, 0)]),
+    "bf16x3": ("bf16", 2, [(1, 0), (0, 1), (0, 0)]),
+    "bf16x6": ("bf16", 3, [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]),
+    "bf16x9": ("bf16", 3, [(i, j) for s in (4, 3, 2, 1, 0) for i in (2, 1, 0) for j in (2, 1, 0) if i + j == s]),
+}
+PRECISIONS = ["highest", "default", "BF16_BF16_F32", *MULTI_PASS]
 SMALL = ModelConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
                     max_position_embeddings=32, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 GEMMS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm}
@@ -94,8 +115,18 @@ def _bf16_values(t: torch.Tensor) -> bool:
     return t.dtype == torch.bfloat16 or torch.equal(t, t.to(torch.bfloat16).to(t.dtype))
 
 
+def _tf32_values(t: torch.Tensor) -> bool:
+    """Every element has a TF32 significand (its 13 low bits zero)."""
+    return t.dtype == torch.float32 and not bool((t.contiguous().view(torch.int32) & 0x1FFF).any())
+
+
+def _parts_kind(t: torch.Tensor) -> str | None:
+    return "bf16" if _bf16_values(t) else "tf32" if _tf32_values(t) else None
+
+
 class GemmLog(TorchDispatchMode):
-    """(fp32_precision, operands are bf16 values) at every GEMM dispatched."""
+    """(fp32_precision, what the operands are: "bf16" values, "tf32" values
+    or None) at every GEMM dispatched."""
 
     def __init__(self):
         super().__init__()
@@ -104,7 +135,8 @@ class GemmLog(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.overloadpacket in GEMMS:
             operands = args[-2:] if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.bmm) else args[1:3]
-            self.calls.append((torch.backends.cuda.matmul.fp32_precision, all(map(_bf16_values, operands))))
+            kinds = {_parts_kind(t) for t in operands}
+            self.calls.append((torch.backends.cuda.matmul.fp32_precision, kinds.pop() if len(kinds) == 1 else None))
         return func(*args, **(kwargs or {}))
 
 
@@ -118,8 +150,9 @@ def _assert_in_mode(calls, mode: str, what: str) -> None:
     want = {"ieee": "ieee", "caller": _caller_for(mode)}.get(mode, "tf32")
     assert calls, f"{what}: no GEMM recorded"
     assert {c[0] for c in calls} == {want}, f"{what}: fp32_precision at the GEMMs {calls}"
-    if mode == "bf16":
-        assert all(c[1] for c in calls), f"{what}: a GEMM on operands that are not bf16 values"
+    if mode in PARTS:
+        rounding = PARTS[mode][0]
+        assert all(c[1] == "bf16" or c[1] == rounding for c in calls), f"{what}: a GEMM on operands not {rounding} parts"
 
 
 def _batch(seed: int = 0):
@@ -282,16 +315,81 @@ def test_the_loss_gemms_see_the_callers_setting_and_errors_restore_it(matmul_pre
     assert torch.backends.cuda.matmul.fp32_precision == caller
 
 
-# -- bf16 numerics ----------------------------------------------------------------
+# -- the presets' numerics ---------------------------------------------------------
 
 
-def _bf16_np(t: torch.Tensor) -> np.ndarray:
-    """The bf16 rounding of a float32 tensor (ml_dtypes), as float64."""
-    return t.detach().numpy().astype(jnp.bfloat16).astype(np.float64)
+def _tf32_np(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 transcribed in float64 for normal float32 values:
+    the significand kept to 11 bits (1 + 10 stored), rounded to nearest,
+    ties away from zero; as float32."""
+    m, e = np.frexp(x.astype(np.float64))  # x = m 2^e, 0.5 <= |m| < 1
+    scaled = m * 2.0 ** 11
+    rounded = np.sign(scaled) * np.floor(np.abs(scaled) + 0.5)
+    return np.ldexp(rounded, e - 11).astype(np.float32)
+
+
+def _bf16_np(t) -> np.ndarray:
+    """The bf16 rounding of a float32 tensor or array (ml_dtypes), as float64."""
+    x = t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    return x.astype(np.float32).astype(jnp.bfloat16).astype(np.float64)
+
+
+def _parts_np(x, mode: str) -> list:
+    """The parts of a float32 operand in a mode, in numpy (float32)."""
+    rounding, n, _ = PARTS[mode]
+    r = (lambda y: _bf16_np(y).astype(np.float32)) if rounding == "bf16" else _tf32_np
+    x = x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+    out = [r(x)]
+    for _ in range(n - 1):
+        x = x - out[-1]
+        out.append(r(x))
+    return out
+
+
+def _product_np(eq: str, a, b, mode: str) -> np.ndarray:
+    """The mode's products of the parts of a and b, summed in float64."""
+    pa, pb = _parts_np(a, mode), _parts_np(b, mode)
+    return sum(np.einsum(eq, pa[i].astype(np.float64), pb[j].astype(np.float64)) for i, j in PARTS[mode][2])
 
 
 def _rel(ours: torch.Tensor, ref: np.ndarray) -> float:
     return float(np.abs(ours.detach().numpy().astype(np.float64) - ref).max() / np.abs(ref).max())
+
+
+def test_tf32_rounding_is_cvt_rna_bit_for_bit():
+    """precision.to_tf32_values against the float64 transcription of
+    cvt.rna.tf32.f32, bit for bit: random values over many binades, exact
+    ties (13 low bits 0x1000) of both signs, which round away from zero,
+    and significands of all ones, which carry into the next binade."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(20000) * 2.0 ** rng.integers(-60, 60, 20000)).astype(np.float32)
+    bits = rng.integers(0x00800000, 0x7F000000, 4000, dtype=np.int64).astype(np.int32)
+    ties = ((bits & ~np.int32(0x1FFF)) | 0x1000).view(np.float32)
+    carries = (bits | 0x007FFFFF).view(np.float32)
+    x = np.concatenate([x, ties, -ties, carries, -carries, np.float32([1.0, -2.5, 3.0e38])])
+    ours = precision.to_tf32_values(torch.from_numpy(x)).numpy()
+    assert np.array_equal(ours.view(np.int32), _tf32_np(x).view(np.int32))
+    assert not (ours.view(np.int32) & 0x1FFF).any()
+    assert (np.abs(precision.to_tf32_values(torch.from_numpy(ties)).numpy()) > np.abs(ties)).all()  # away from 0
+    special = torch.tensor([float("inf"), -float("inf"), float("nan"), -float("nan")])
+    out = precision.to_tf32_values(special)
+    assert out[0] == float("inf") and out[1] == -float("inf") and out[2:].isnan().all()
+
+
+@pytest.mark.parametrize("mode", list(PARTS))
+def test_parts_are_the_presets_parts(mode):
+    """precision.parts: each part is a value of its rounding, the parts are
+    numpy's, and their sum keeps the operand to the bits the parts hold."""
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(12)) * 3
+    ours = precision.parts(x, mode)
+    rounding, n, products = PARTS[mode]
+    assert len(ours) == n and tuple(products) == precision.SPLITS[mode][2] and precision.SPLITS[mode][0] == rounding
+    for p, want in zip(ours, _parts_np(x, mode)):
+        assert np.array_equal(p.numpy(), want)
+        assert (_bf16_values if rounding == "bf16" else _tf32_values)(p)
+    kept = {("bf16", 1): 8, ("bf16", 2): 16, ("tf32", 2): 22, ("bf16", 3): 24}[rounding, n]
+    rest = (x.double() - sum(p.double() for p in ours)).abs()
+    assert (rest <= x.double().abs() * 2.0 ** -kept).all()
 
 
 def test_bf16_linear_and_its_gradients_match_numpy_on_rounded_operands():
@@ -313,16 +411,19 @@ def test_bf16_linear_and_its_gradients_match_numpy_on_rounded_operands():
     assert (out - torch.nn.functional.linear(x, w, b)).abs().max() > 1e-3
 
 
-@pytest.mark.parametrize("eq,shapes", [
+EINSUMS = [
     ("bhld,bhmd->bhlm", ((2, 3, 16, 8), (2, 3, 16, 8))),
     ("bhld,lrd->bhlr", ((2, 3, 16, 8), (16, 16, 8))),
     ("bhrd,lrd->bhlr", ((2, 3, 16, 8), (16, 16, 8))),
     ("bhlm,bhmd->bhld", ((2, 3, 16, 16), (2, 3, 16, 8))),
-])
+]
+
+
+@pytest.mark.parametrize("eq,shapes", EINSUMS)
 def test_bf16_einsum_and_its_gradients_match_numpy_on_rounded_operands(eq, shapes):
     g = torch.Generator().manual_seed(6)
     a, b = (torch.randn(*s, generator=g, requires_grad=True) for s in shapes)
-    out = precision.bf16_einsum(eq, a, b)
+    out = precision.einsum(eq, a, b, "bf16")
     assert out.dtype == torch.float32 and _rel(out, np.einsum(eq, _bf16_np(a), _bf16_np(b))) <= 1e-6
     grad = torch.randn(*out.shape, generator=g)
     out.backward(grad)
@@ -330,6 +431,30 @@ def test_bf16_einsum_and_its_gradients_match_numpy_on_rounded_operands(eq, shape
     g16 = _bf16_np(grad)
     assert _rel(a.grad, np.einsum(f"{so},{sb}->{sa}", g16, _bf16_np(b))) <= 1e-6
     assert _rel(b.grad, np.einsum(f"{sa},{so}->{sb}", _bf16_np(a), g16)) <= 1e-6
+
+
+@pytest.mark.parametrize("mode", list(MULTI_PASS.values()))
+@pytest.mark.parametrize("eq,shapes", [("linear", ((4, 7, 48), (24, 48))), *EINSUMS])
+def test_multi_pass_products_and_their_gradients_match_numpy_on_the_parts(mode, eq, shapes):
+    """precision.linear and precision.einsum in a multi-pass mode: the
+    listed products of the parts (numpy's, summed in float64) within 1e-6
+    relative, forward and for both gradients, whose products split the
+    cotangent as well; and closer to float32's product than "bf16" is."""
+    g = torch.Generator().manual_seed(13)
+    a, b = (torch.randn(*s, generator=g, requires_grad=True) for s in shapes)
+    if eq == "linear":
+        out = precision.linear(a, b, None, mode)
+        eq = "blk,nk->bln"
+    else:
+        out = precision.einsum(eq, a, b, mode)
+    exact = np.einsum(eq, a.detach().double().numpy(), b.detach().double().numpy())
+    assert out.dtype == torch.float32 and _rel(out, _product_np(eq, a, b, mode)) <= 1e-6
+    assert _rel(out, exact) < 0.05 * _rel(precision.einsum(eq, a, b, "bf16"), exact)
+    grad = torch.randn(*out.shape, generator=g)
+    out.backward(grad)
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    assert _rel(a.grad, _product_np(f"{so},{sb}->{sa}", grad, b, mode)) <= 1e-6
+    assert _rel(b.grad, _product_np(f"{sa},{so}->{sb}", a, grad, mode)) <= 1e-6
 
 
 def test_bf16_model_runs_its_linears_and_einsums_in_bf16():
@@ -342,7 +467,7 @@ def test_bf16_model_runs_its_linears_and_einsums_in_bf16():
     linears = [m for m in ours.modules() if isinstance(m, torch.nn.Linear)]
     assert len(linears) == LINEARS and all(
         isinstance(m, precision.Linear) and m.mode == "bf16" for m in linears)
-    assert all(layer.attention.self.bf16 for layer in ours.encoder.layer)
+    assert all(layer.attention.self.mode == "bf16" for layer in ours.encoder.layer)
     batch, t, _ = _batch()
     with torch.no_grad():
         a, b = ours(batch["angles"], t, batch["attn_mask"]), ref(batch["angles"], t, batch["attn_mask"])
@@ -350,16 +475,16 @@ def test_bf16_model_runs_its_linears_and_einsums_in_bf16():
     assert 1e-4 < diff < 5e-2
 
 
-BF16_PRESET = jax.lax.DotAlgorithmPreset.BF16_BF16_F32
 BF16_FIELDS = dict(hidden_size=64, num_attention_heads=4, intermediate_size=96, max_position_embeddings=40,
                    attention_impl="xla", matmul_precision="BF16_BF16_F32")
 
 
-def _eval_at_bf16(jaxpr, consts, *args):
-    """A jaxpr's outputs with every dot_general computed as its
-    BF16_BF16_F32 preset defines it: the operands rounded to bf16, their
-    exact products summed in float32 (XLA:CPU ignores the preset). Asserts
-    that every dot carries the preset."""
+def _eval_at_preset(jaxpr, consts, preset, mode: str, *args):
+    """A jaxpr's outputs with every dot_general computed as `mode`'s preset
+    defines it: the listed products of the operands' parts (PARTS), exact
+    in float32, summed in float32, the small terms first (XLA:CPU ignores
+    the presets or refuses them). Asserts that every dot carries `preset`
+    with a float32 output."""
     env = dict(zip(jaxpr.constvars, consts))
     env.update(zip(jaxpr.invars, args))
 
@@ -369,12 +494,16 @@ def _eval_at_bf16(jaxpr, consts, *args):
     for eqn in jaxpr.eqns:
         ins = [read(v) for v in eqn.invars]
         if eqn.primitive is jax.lax.dot_general_p:
-            assert eqn.params["precision"] == BF16_PRESET, eqn
-            a, b = (x.astype(jnp.bfloat16).astype(jnp.float32) for x in ins)
-            outs = [jax.lax.dot_general(a, b, eqn.params["dimension_numbers"], precision=jax.lax.Precision.HIGHEST)]
+            assert eqn.params["precision"] == preset, eqn
+            (pa, pb), dims = (_parts_np(x, mode) for x in ins), eqn.params["dimension_numbers"]
+            out = None
+            for i, j in PARTS[mode][2]:
+                term = jax.lax.dot_general(pa[i], pb[j], dims, precision=jax.lax.Precision.HIGHEST)
+                out = term if out is None else out + term
+            outs = [out]
             assert outs[0].dtype == eqn.outvars[0].aval.dtype == jnp.float32, eqn  # a float32 output
         elif eqn.primitive.name in ("jit", "pjit"):
-            outs = _eval_at_bf16(eqn.params["jaxpr"].jaxpr, eqn.params["jaxpr"].consts, *ins)
+            outs = _eval_at_preset(eqn.params["jaxpr"].jaxpr, eqn.params["jaxpr"].consts, preset, mode, *ins)
         else:
             assert "dot_general" not in str(eqn.params), eqn  # no dot left unevaluated
             outs = eqn.primitive.bind(*ins, **eqn.params)
@@ -383,57 +512,98 @@ def _eval_at_bf16(jaxpr, consts, *args):
     return [read(v) for v in jaxpr.outvars]
 
 
-def _jax_and_port_at_bf16(layers: int, position_embedding_type: str, attention_impl: str = "xla",
-                          positions: str | None = None):
-    """The JAX model's program at "BF16_BF16_F32" and the port's model on
-    the same weights and inputs: (JAX output, JAX float32 output, port
-    output, {parameter: (port gradient, JAX gradient, JAX float32
-    gradient)}, the JAX jaxpr's dots). The gradients are those of
-    sum(output * proj) for a random proj. Both models run `attention_impl`
-    (JAX computes "auto" and "xla" as the same einsums); `positions`
-    "permuted" gives both a permutation of arange as position_ids."""
-    fields = dict(BF16_FIELDS, num_hidden_layers=layers, position_embedding_type=position_embedding_type,
-                  attention_impl=attention_impl)
-    jax_model = JaxBert(JaxConfig(**fields))
-    variables = jax_io.init_model_variables(jax_model, jax.random.PRNGKey(3), pad=40)
-    params = jax.tree.map(np.asarray, variables["params"])
-    constants = jax.tree.map(np.asarray, variables.get("constants", {}))
-    rng = np.random.default_rng(4)
-    x = rng.uniform(-np.pi, np.pi, (3, 40, 6)).astype(np.float32)
-    t = rng.integers(0, 1000, 3)
-    mask = (np.arange(40)[None] < np.array([[40], [31], [22]])).astype(np.float32)
-    proj = rng.standard_normal((3, 40, 6)).astype(np.float32)
-    pos = None if positions is None else np.tile(rng.permutation(40).astype(np.int32), (3, 1))
+def _jax_case(layers: int, position_embedding_type: str, attention_impl: str, positions: str | None):
+    """The JAX model, its weights, inputs and float32 output and gradient
+    (of sum(output * proj) for a random proj) of one case; `positions`
+    "permuted" gives a permutation of arange as position_ids."""
+    key = (layers, position_embedding_type, attention_impl, positions)
+    if key not in _JAX_CASES:
+        fields = dict(BF16_FIELDS, num_hidden_layers=layers, position_embedding_type=position_embedding_type,
+                      attention_impl=attention_impl, matmul_precision="highest")
+        jax_model = JaxBert(JaxConfig(**fields))
+        variables = jax_io.init_model_variables(jax_model, jax.random.PRNGKey(3), pad=40)
+        params = jax.tree.map(np.asarray, variables["params"])
+        constants = jax.tree.map(np.asarray, variables.get("constants", {}))
+        rng = np.random.default_rng(4)
+        x = rng.uniform(-np.pi, np.pi, (3, 40, 6)).astype(np.float32)
+        t = rng.integers(0, 1000, 3)
+        mask = (np.arange(40)[None] < np.array([[40], [31], [22]])).astype(np.float32)
+        proj = rng.standard_normal((3, 40, 6)).astype(np.float32)
+        pos = None if positions is None else np.tile(rng.permutation(40).astype(np.int32), (3, 1))
+        inputs = (x, t, mask, proj, pos)
+        f32, grads_f32 = jax.value_and_grad(lambda p: _loss(jax_model, constants, inputs)(p), has_aux=True)(params)
+        _JAX_CASES[key] = (fields, params, constants, inputs, np.asarray(f32[1]), grads_f32)
+    return _JAX_CASES[key]
 
-    def loss(p, model=jax_model):
-        out = model.apply({"params": p, "constants": constants}, x, t, mask, position_ids=pos, deterministic=True)
-        return jnp.sum(out * proj), out
 
-    closed = jax.make_jaxpr(jax.value_and_grad(loss, has_aux=True))(params)
-    dots = [e for e in closed.jaxpr.eqns if e.primitive is jax.lax.dot_general_p]
-    dots += [e for j in closed.jaxpr.eqns if j.primitive.name in ("jit", "pjit")
-             for e in j.params["jaxpr"].jaxpr.eqns if e.primitive is jax.lax.dot_general_p]
-    values = _eval_at_bf16(closed.jaxpr, closed.consts, *jax.tree.leaves(params))
-    (_, jax_out), jax_grads = jax.tree.unflatten(jax.tree.structure(jax.eval_shape(
-        jax.value_and_grad(loss, has_aux=True), params)), values)
-    float32 = JaxBert(JaxConfig(**dict(fields, matmul_precision="highest")))
-    jax_f32 = np.asarray(loss(params, float32)[1])
-    grads_f32 = jax.grad(lambda p: loss(p, float32)[0])(params)
-
+def _port_run(fields: dict, params, constants, inputs):
+    """The port's model on the JAX weights and inputs: (output, {parameter:
+    gradient of sum(output * proj)})."""
+    x, t, mask, proj, pos = inputs
     config = ModelConfig(**fields)
     port = BertForDiffusion(config).eval()
     port.load_state_dict(model_io.state_dict_from_flax(params, constants, config), strict=True)
     out = port(torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(mask),
                None if pos is None else torch.from_numpy(pos).long())
     (out * torch.from_numpy(proj)).sum().backward()
+    return out.detach().numpy(), {n: p.grad.numpy() for n, p in port.named_parameters()}
+
+
+_JAX_CASES: dict = {}
+
+
+def _loss(model, constants, inputs):
+    x, t, mask, proj, pos = inputs
+
+    def loss(p):
+        out = model.apply({"params": p, "constants": constants}, x, t, mask, position_ids=pos, deterministic=True)
+        return jnp.sum(out * proj), out
+    return loss
+
+
+def _jax_and_port_at(matmul_precision: str, layers: int, position_embedding_type: str, attention_impl: str = "xla",
+                     positions: str | None = None) -> dict:
+    """The JAX model's program at a preset and the port's model on the same
+    weights and inputs. "out": (JAX output, JAX float32 output, port
+    output); "grads": {parameter: (port gradient, JAX gradient, JAX float32
+    gradient)}; "dots": the JAX jaxpr's dots; "bf16_out": the same program
+    with its dots computed at BF16_BF16_F32 (multi-pass presets). Both
+    models run `attention_impl` (JAX computes "auto" and "xla" as the same
+    einsums)."""
+    fields, params, constants, inputs, jax_f32, grads_f32 = _jax_case(layers, position_embedding_type,
+                                                                      attention_impl, positions)
+    fields = dict(fields, matmul_precision=matmul_precision)
+    preset, mode = getattr(jax.lax.DotAlgorithmPreset, matmul_precision), SUPPORTED[matmul_precision]
+    loss = _loss(JaxBert(JaxConfig(**fields)), constants, inputs)
+    closed = jax.make_jaxpr(jax.value_and_grad(loss, has_aux=True))(params)
+    dots = [e for e in closed.jaxpr.eqns if e.primitive is jax.lax.dot_general_p]
+    dots += [e for j in closed.jaxpr.eqns if j.primitive.name in ("jit", "pjit")
+             for e in j.params["jaxpr"].jaxpr.eqns if e.primitive is jax.lax.dot_general_p]
+    structure = jax.tree.structure(jax.eval_shape(jax.value_and_grad(loss, has_aux=True), params))
+    (_, jax_out), jax_grads = jax.tree.unflatten(
+        structure, _eval_at_preset(closed.jaxpr, closed.consts, preset, mode, *jax.tree.leaves(params)))
+    bf16_out = None
+    if mode != "bf16":
+        (_, bf16_out), _ = jax.tree.unflatten(
+            structure, _eval_at_preset(closed.jaxpr, closed.consts, preset, "bf16", *jax.tree.leaves(params)))
+
+    out, port_grads = _port_run(fields, params, constants, inputs)
+    config = ModelConfig(**fields)
     want, want_f32 = (model_io.state_dict_from_flax(jax.tree.map(np.asarray, g), {}, config)
                       for g in (jax_grads, grads_f32))
-    grads = {n: (p.grad.numpy(), want[n].numpy(), want_f32[n].numpy()) for n, p in port.named_parameters()}
-    return np.asarray(jax_out), jax_f32, out.detach().numpy(), grads, dots
+    grads = {n: (g, want[n].numpy(), want_f32[n].numpy()) for n, g in port_grads.items()}
+    return {"out": (np.asarray(jax_out), jax_f32, out), "grads": grads, "dots": dots,
+            "bf16_out": None if bf16_out is None else np.asarray(bf16_out)}
 
 
 def _rms(a: np.ndarray, ref: np.ndarray) -> float:
     return float(np.sqrt(np.mean((a - ref) ** 2) / np.mean(ref ** 2)))
+
+
+def _assert_dot_count(dots, position_embedding_type: str) -> None:
+    einsums = 4 if position_embedding_type == "relative_key_query" else 3
+    forward = 6 + einsums + 3  # q, k, v, the attention's output and two FFN dense; the input, two decoder dense
+    assert len(dots) == 3 * forward - 1  # each backward transpose but the input's gradient
 
 
 @pytest.mark.parametrize("position_embedding_type", ["relative_key", "relative_key_query"])
@@ -450,14 +620,14 @@ def test_bf16_model_matches_the_jax_program_at_bf16(position_embedding_type):
     and every gradient are held within a tenth of the bf16 program's own
     distance from float32 (relative RMS), and the gradient no dot touches
     (the decoder's output bias, a sum of the cotangent) within 1e-6."""
-    _assert_near_the_jax_program(*_jax_and_port_at_bf16(1, position_embedding_type), position_embedding_type)
+    _assert_near_the_jax_program(_jax_and_port_at("BF16_BF16_F32", 1, position_embedding_type),
+                                 position_embedding_type)
 
 
-def _assert_near_the_jax_program(jax_out, jax_f32, out, grads, dots, position_embedding_type: str) -> None:
+def _assert_near_the_jax_program(case: dict, position_embedding_type: str) -> None:
     """test_bf16_model_matches_the_jax_program_at_bf16's bounds."""
-    einsums = 4 if position_embedding_type == "relative_key_query" else 3
-    forward = 6 + einsums + 3  # q, k, v, the attention's output and two FFN dense; the input, two decoder dense
-    assert len(dots) == 3 * forward - 1  # each backward transpose but the input's gradient
+    (jax_out, jax_f32, out), grads = case["out"], case["grads"]
+    _assert_dot_count(case["dots"], position_embedding_type)
     gap = _rms(jax_out, jax_f32)
     assert gap > 1e-3
     assert np.mean(np.abs(out - jax_out) <= 1e-5 * np.abs(jax_out).max()) >= 0.99
@@ -480,7 +650,8 @@ def test_bf16_auto_model_matches_the_jax_programs_einsums_at_bf16(positions):
     route = models_bert.attention_route(ModelConfig(**dict(BF16_FIELDS, attention_impl="auto")),
                                         positions is not None)
     assert route == (("v1", False) if positions else ("v2", True))
-    _assert_near_the_jax_program(*_jax_and_port_at_bf16(1, "relative_key", "auto", positions), "relative_key")
+    _assert_near_the_jax_program(_jax_and_port_at("BF16_BF16_F32", 1, "relative_key", "auto", positions),
+                                 "relative_key")
 
 
 def test_bf16_model_at_depth_stays_near_the_jax_program():
@@ -489,8 +660,71 @@ def test_bf16_model_at_depth_stays_near_the_jax_program():
     the bf16 program's distance from float32 (relative RMS). Gradients are
     held at one layer: at two, their steps reach about a quarter of that
     distance."""
-    jax_out, jax_f32, out, _, _ = _jax_and_port_at_bf16(2, "relative_key")
+    jax_out, jax_f32, out = _jax_and_port_at("BF16_BF16_F32", 2, "relative_key")["out"]
     assert _rms(out, jax_out) <= 0.1 * _rms(jax_out, jax_f32)
+
+
+# (position_embedding_type, attention_impl, positions): the einsums under
+# "xla" for both relative types, and "auto" without position_ids (the v2
+# plain version) and with permuted ones (the v1 plain version)
+MULTI_PASS_CASES = [("relative_key", "xla", None), ("relative_key_query", "xla", None),
+                    ("relative_key", "auto", None), ("relative_key", "auto", "permuted")]
+
+
+@pytest.mark.parametrize("matmul_precision", list(MULTI_PASS))
+@pytest.mark.parametrize("position_embedding_type,attention_impl,positions", MULTI_PASS_CASES)
+def test_multi_pass_model_matches_the_jax_program_at_its_preset(matmul_precision, position_embedding_type,
+                                                                attention_impl, positions):
+    """One layer at a multi-pass preset against the JAX model's program at
+    it (every dot, the backward's transposes included, carrying the preset;
+    3 forward - 1 dots). The emulation is real: the program's output is at
+    most a hundredth of BF16_BF16_F32's distance from float32. Bounds
+    (relative RMS), none tighter than twice the port's own distance from
+    the JAX model at "highest" on the same case (the float32 floor: the
+    key bias's gradient is a sum that cancels, zero in exact arithmetic
+    under relative_key, so float32's rounding alone moves it by 2e-5 under
+    relative_key_query and by its whole size under relative_key):
+    - TF32_TF32_F32_X3, _X6 and _X9, whose parts keep the operands to 22 or
+      24 bits: the output and every gradient within 1e-5 (the float32 ulps
+      by which the port and XLA differ outside the dots move a part's
+      rounding only by what the next part gives back);
+    - BF16_BF16_F32_X3, whose parts keep 16 bits: there such an ulp moves a
+      second part's rounding, and the product by 2^-17 relative, the order
+      of the program's own distance from float32 (about 1e-5). The output
+      within a tenth of that distance or 1e-5, the larger; each gradient
+      within 1.5 times it or 1e-5 (measured: 0.56-0.77 of it, 1.13 for the
+      key bias under relative_key_query). Those bounds would pass a port
+      that computed this preset in float32, so the port's output and each
+      gradient must also stand at least half the program's distance from
+      float32 off the port's own float32 result (measured: 0.91-1.26 of
+      it), where that distance is over ten times the float32 floor (all but
+      the cancelling key bias and the bias no dot touches)."""
+    if attention_impl == "auto":
+        route = models_bert.attention_route(ModelConfig(**dict(BF16_FIELDS, attention_impl="auto")),
+                                            positions is not None)
+        assert route == (("v1", False) if positions else ("v2", True))
+    case = _jax_and_port_at(matmul_precision, 1, position_embedding_type, attention_impl, positions)
+    _assert_dot_count(case["dots"], position_embedding_type)
+    (jax_out, jax_f32, out), grads = case["out"], case["grads"]
+    assert _rms(jax_out, jax_f32) <= 0.01 * _rms(case["bf16_out"], jax_f32)
+    fields, params, constants, inputs, _, _ = _jax_case(1, position_embedding_type, attention_impl, positions)
+    port_f32, port_grads_f32 = _port_run(dict(fields, matmul_precision="highest"), params, constants, inputs)
+    x3 = matmul_precision == "BF16_BF16_F32_X3"
+
+    def tol(program, f32, floor, share):
+        return max(share * _rms(program, f32) if x3 else 0.0, 1e-5, 2 * floor)
+
+    assert _rms(out, jax_out) <= tol(jax_out, jax_f32, _rms(port_f32, jax_f32), 0.1)
+    for name, (ours, want, want_f32) in grads.items():
+        assert _rms(ours, want) <= tol(want, want_f32, _rms(port_grads_f32[name], want_f32), 1.5), name
+    if x3:  # the port computed the split products, not float32's
+        assert _rms(out, port_f32) >= 0.5 * _rms(jax_out, jax_f32)
+        held = [name for name, (_, want, want_f32) in grads.items()
+                if _rms(want, want_f32) > 10 * _rms(port_grads_f32[name], want_f32)]
+        assert len(held) == len(grads) - 2
+        for name in held:
+            ours, want, want_f32 = grads[name]
+            assert _rms(ours, port_grads_f32[name]) >= 0.5 * _rms(want, want_f32), name
 
 
 @pytest.mark.parametrize("script", ["sample", "train", "partial_noise_reconstruct", "sample_autoregressive",
@@ -519,33 +753,36 @@ def test_kernel_mode_resolves_the_caller_at_the_call(setting, want):
     modes are what they say; anything else raises, never a silent float32."""
     torch.backends.cuda.matmul.fp32_precision = setting
     assert precision.kernel_mode("caller") == want
-    for mode in ("ieee", "tf32", "bf16"):
+    kernel_modes = ("ieee", "tf32", "bf16", *MULTI_PASS.values())
+    assert precision.KERNEL_MODES == kernel_modes
+    for mode in kernel_modes:
         assert precision.kernel_mode(mode) == mode
-    for name in ("default", "highest", "", None):
+    for name in ("default", "highest", "", None, "bf16x2", "TF32_TF32_F32_X3"):
         with pytest.raises(ValueError, match="is not one of the port's"):
             precision.kernel_mode(name)
-    assert {precision.mode_of(n) for n in SUPPORTED} <= {"caller", "ieee", "tf32", "bf16"}
+    assert {precision.mode_of(n) for n in SUPPORTED} == {"caller", *kernel_modes}
 
 
-def _bf16_attention_np(q, k, v, bias, e_lr):
-    """The attention of JAX's einsums at BF16_BF16_F32 in numpy: each
-    product on bf16-rounded operands in float64, the softmax in float64."""
-    q16, k16, v16 = _bf16_np(q), _bf16_np(k), _bf16_np(v)
-    scores = np.einsum("bhld,bhmd->bhlm", q16, k16)
+def _attention_np(q, k, v, bias, e_lr, mode: str):
+    """The attention of JAX's einsums at a preset in numpy: each product the
+    mode's products of the operands' parts in float64, the softmax in
+    float64."""
+    scores = _product_np("bhld,bhmd->bhlm", q, k, mode)
     if e_lr is not None:
-        scores = scores + np.einsum("bhld,lrd->bhlr", q16, _bf16_np(e_lr))
+        scores = scores + _product_np("bhld,lrd->bhlr", q, e_lr, mode)
     scores = scores / np.sqrt(q.shape[-1]) + bias.numpy()[:, None, None, :].astype(np.float64)
     probs = np.exp(scores - scores.max(-1, keepdims=True))
-    probs = torch.from_numpy(probs / probs.sum(-1, keepdims=True)).float()
-    return np.einsum("bhlm,bhmd->bhld", _bf16_np(probs), v16)
+    probs = (probs / probs.sum(-1, keepdims=True)).astype(np.float32)
+    return _product_np("bhlm,bhmd->bhld", probs, v, mode)
 
 
 @pytest.mark.parametrize("entry", ["v2", "v2 rel-off", "v1"])
-@pytest.mark.parametrize("mode", ["caller", "ieee", "tf32", "bf16"])
+@pytest.mark.parametrize("mode", ["caller", "ieee", "tf32", "bf16", *MULTI_PASS.values()])
 def test_attention_entries_on_the_cpu_take_the_mode(entry, mode):
-    """Each kernel entry on CPU tensors, under each mode: bf16 products
-    (within float32's rounding of numpy's bf16 program, 1e-5 of the largest
-    output) under "bf16", float32's bits under the rest."""
+    """Each kernel entry on CPU tensors, under each mode: the preset's
+    products of parts (within float32's rounding of numpy's program, 1e-5
+    of the largest output) under "bf16" and the multi-pass modes, float32's
+    bits under the rest."""
     g = torch.Generator().manual_seed(8)
     b, h, l, d, m = 2, 3, 20, 16, 24
     q, k, v = (torch.randn(b, h, l, d, generator=g) for _ in range(3))
@@ -559,10 +796,13 @@ def test_attention_entries_on_the_cpu_take_the_mode(entry, mode):
         kw = dict(rel_table=table, m=m) if e_lr is not None else {}
         run = lambda mode: attention.fused_attention_v2(q, k, v, bias, mode=mode, **kw)  # noqa: E731
     out = run(mode)
-    if mode == "bf16":
-        ref = _bf16_attention_np(q, k, v, bias, e_lr)
+    if mode in PARTS:
+        ref = _attention_np(q, k, v, bias, e_lr, mode)
         assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
-        assert (out - run("ieee")).abs().max() > 1e-4  # not float32's numbers
+        if mode == "bf16":
+            assert (out - run("ieee")).abs().max() > 1e-4  # not float32's numbers
+        else:
+            assert not torch.equal(out, run("ieee")) and (out - run("ieee")).abs().max() < 1e-4
     else:
         assert torch.equal(out, attention.fused_attention_reference(q, k, v, bias, e_lr))
 
