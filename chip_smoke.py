@@ -30,8 +30,8 @@ Phases, each printing lines of its own:
      (B, L) = (64, 128), (64, 64), (15, 64), each beside its bound: the
      larger of its FLOPs (times the instance's products of parts) over the
      peak for its operands' type (67 TFLOP/s FMA, 495 TF32 for tf32 and
-     tf32x3, 989 bf16 for bf16 and the bf16 multi-pass instances, which
-     run their bf16 parts on the TF32 tensor cores) and its bytes over
+     tf32x3, 989 bf16 for bf16 and the bf16 multi-pass instances, whose
+     parts run on the bf16 tensor cores) and its bytes over
      3.35 TB/s; each kernel's TF32 instance must beat
      its FMA one at B = 64, L = 128 with relative scores
   3. the trained torch fixture loaded through models.io.from_dir onto the
@@ -388,8 +388,8 @@ def in_turns(fns: dict) -> dict:
 
 # H100 SXM dense peaks per instance, by the type of its operands: float32
 # outside the tensor cores (FMA), TF32 (tf32, tf32x3), bf16 (bf16 and the
-# bf16 multi-pass instances: their products are of bf16 values, though the
-# kernels run them on the TF32 tensor cores); HBM3
+# bf16 multi-pass instances: their products are of bf16 values, which the
+# multi-pass kernels run on the bf16 tensor cores); HBM3
 PEAK_FLOPS = {"fma": 67e12, **{i: 989e12 if precision.SPLITS.get(i, ("tf32",))[0] == "bf16" else 495e12
                                 for i in TENSOR_CORE}}
 PEAK_BYTES = 3.35e12
@@ -450,11 +450,16 @@ def phase_build() -> None:
         report = reports[lib.name]
         for part in range(len(lib.parts)):
             log(f"[1] {lib.library_path(part).relative_to(REPO)}" + ("" if report else " (already built)"))
+        name = lib.name
         for line in report.splitlines():
+            found = re.search(rf"Function properties for \S*?\d({lib.name}(?:_[a-z0-9]+)?_kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?",
+                              line)
+            if found:  # the kernel instance the next lines report on
+                name = "{} D={} rel={}".format(*found.groups()[:3]) + (f" keys={found[4]}" if found[4] else "")
             if "registers" in line or "spill" in line:
-                log(f"[1]   {line.strip()}")
+                log(f"[1]   {name}: {line.strip()}")
             if re.search(r"[1-9]\d* bytes spill", line):
-                spills.append(f"{lib.name}: {line.strip()}")
+                spills.append(f"{name}: {line.strip()}")
     log(f"[1] built both libraries in {seconds:.3f} s (one nvcc per part, "
         f"{sum(len(lib.parts) for lib in attention.LIBRARIES)} in parallel)")
     if spills:

@@ -33,16 +33,12 @@
 //   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
 //           gathered_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
 //           multi-pass presets (device.cuh's Arith): the bf16 body with every
-//           operand split into two or three TF32 or bf16 parts at its mma,
-//           and each mma one mma per listed product of parts, the smallest
-//           first, into the same float32 accumulator; P split after it is
-//           normalised (the first pass as for bf16). Fragments are loaded as
-//           float32 and split in registers, so the loads are the TF32
-//           instance's; the products are 3, 6 or 9 times TF32's. At 128
-//           registers a thread the two-part instances (x3) make every part
-//           of a tile's operands at once and unroll their products, the
-//           three-part ones (x6, x9) loop over their products (kForm):
-//           the other way round ptxas spilled.
+//           operand split into two or three TF32 or bf16 parts, the listed
+//           products of parts (3, 6 or 9 times TF32's) summed in float32; P
+//           split after it is normalised (the first pass as for bf16). The
+//           bf16 ones split each operand once and run bf16 mma (below);
+//           TF32x3 splits at each TF32 mma (device.cuh's mma_split), which
+//           beat splitting once.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -147,6 +143,30 @@
 //     chunks and 32 rows per block spilled. The staged q tile removed every
 //     spill at the same speed.
 //
+// Multi-pass design (bf16x3, bf16x6, bf16x9): the tensor-core body above,
+// its operands split once (device.cuh's split4, products):
+//   - q's parts in planes of bf16 values in shared memory, split once per
+//     block from global memory (rows 24 words apart at D = 32, pairs 8 mod
+//     32: the 8-byte fragment loads of either operand fall on distinct
+//     banks), loaded per chunk of 16 columns as products asks for them;
+//   - K, V and e_lr split in registers as each fragment is loaded from L2
+//     (plain loads and a __syncwarp per group: hoisted __ldg loads of every
+//     group spilled at 128 registers); P split per 16 keys from two n-tiles'
+//     score accumulators, which are exactly an m16n8k16 A fragment, V's
+//     rows 2t, 2t + 1, 8 + 2t, 9 + 2t its B;
+//   - every product on the bf16 tensor cores (mma.sync m16n8k16), the
+//     products of kGroupMax = 4 n-tiles (at D <= 32) interleaved, each
+//     k-step taking the table's products smallest first.
+// Measured at the flagship shape with relative scores (NVIDIA H100 80GB
+// HBM3, 700 W, in turns with the form of PR 15: scripts/
+// kernel_times_two_trees.py, scripts/gathered_attention_variants.py):
+// bf16x3 0.1695 -> 0.1109 ms, bf16x6 0.7646 -> 0.1412, bf16x9 1.0276 ->
+// 0.1620; rel-off 0.1066 / 0.4473 / 0.5977 -> 0.0724 / 0.0890 / 0.0993.
+// Against groups of four, the bf16 instances ran -1 to +6% with groups of
+// two and 4-13% slower with one n-tile at a time (no interleaving). TF32x3
+// split once (two TF32 parts, m16n8k8) ran 1-6% slower than its form of PR
+// 15 and keeps that.
+//
 // Rows, keys and pairs outside the tensors read as zeros (zero-filled in
 // shared memory, or not loaded), keys past L are scored -inf, and nothing is
 // stored for rows past L or pairs past B * H.
@@ -173,11 +193,6 @@ constexpr int kThreads = kRows * kPairs;   // a quad of 4 threads owns 2 rows x 
 constexpr int kChunkFloats = 128;          // Jc * D: one staged row of a chunk
 constexpr int kStride = kChunkFloats + 16;  // padded row, 16 mod 32 floats
 constexpr float kLog2e = 1.4426950408889634f;
-// The form of the multi-pass products (device.cuh's Form): at 128 registers
-// a thread each other form spilled somewhere (measured on every instance at
-// D = 16, 32, 64)
-template <Arith A, int D>
-constexpr Form kForm = kParts<A> < 3 ? Form::kUnrolled : D == 64 ? Form::kLoopLean : Form::kLoop;
 
 // Offsets (floats) in one stage: e_lr rows (HAS_REL only) from 0, then K, V, bias.
 template <int D, bool HAS_REL>
@@ -425,7 +440,7 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   return cudaGetLastError();
 }
 
-// ---- Tensor-core instances (TF32, and bf16 on rounded operands) ----------
+// ---- Tensor-core instances (TF32, bf16, and the multi-pass presets) ---------
 
 namespace tc {
 
@@ -452,17 +467,37 @@ struct Args {
 template <int D>
 constexpr int kQPair = kRows * D + 16;
 
+// A multi-pass instance of bf16 parts splits each operand once (the note at
+// the top). TF32x3, whose split-once form ran 1-6% slower than its form of
+// PR 15 (device.cuh's mma_split; PERF.md §6), keeps that.
+template <Arith A, int D>
+constexpr bool kSplitOnce = kParts<A> > 1 && kBF16Parts<A>;
+// n-tiles whose products interleave (device.cuh's products) in the relative
+// term and q.k, at most
+constexpr int kGroupMax = 4;
+
+// q's bf16 planes (kSplitOnce): a part's rows of D bf16 values, 32-bit words
+// apart by kQRowWords (8 or 24 mod 32) and pairs by kQPairWords (8 mod 32),
+// so that the 8-byte fragment loads of a half-warp, rows g of a pair or
+// pairs g of a row, fall on distinct banks
+template <int D>
+constexpr int kQRowWords = D / 2 + ((D / 2) % 16 == 0 ? 8 : 0);
+template <int D>
+constexpr int kQPairWords = kRows * kQRowWords<D> + 8;
+
 // The chunk of keys, and the offsets (floats) into dynamic shared memory:
 // two buffers of the relative term's (pair, row, key) values (HAS_REL only),
-// then the block's q tile, 16 pairs x 16 rows.
-template <int D, bool HAS_REL>
+// then the block's q tile, 16 pairs x 16 rows (kSplitOnce: a plane of q per
+// part, as above).
+template <int D, bool HAS_REL, Arith A>
 struct Smem {
   static constexpr int kKeys = D <= 32 ? 32 : 16;  // keys per chunk
   static constexpr int kRelRow = kKeys % 16 == 0 ? kKeys + 8 : kKeys;  // 8 mod 16
   static constexpr int kRelPair = kRows * kRelRow + 8;                 // 8 mod 32
   static constexpr int kRelBuf = kPairs * kRelPair;
   static constexpr int kQ = HAS_REL ? 2 * kRelBuf : 0;
-  static constexpr int kFloats = kQ + kPairs * kQPair<D>;
+  static constexpr int kQPlane = kPairs * kQPairWords<D>;
+  static constexpr int kFloats = kQ + (kSplitOnce<A, D> ? kParts<A> * kQPlane : kPairs * kQPair<D>);
 };
 
 // Columns 16c + 4t .. 16c + 4t + 3 of row `row` of the (rows, D) matrix at
@@ -516,9 +551,46 @@ __device__ __forceinline__ void product(float (&c)[4], const uint32_t (&a)[D / 8
   for (int cc = 0; cc < D / 16; ++cc) y[cc] = columns<D>(base, rows, row, cc, t);
 #pragma unroll
   for (int cc = 0; cc < D / 16; ++cc) {
-    mma<A, kForm<A, D>>(c, a[2 * cc], held<A>(y[cc].x), held<A>(y[cc].y));
-    mma<A, kForm<A, D>>(c, a[2 * cc + 1], held<A>(y[cc].z), held<A>(y[cc].w));
+    mma_split<A>(c, a[2 * cc], held<A>(y[cc].x), held<A>(y[cc].y));
+    mma_split<A>(c, a[2 * cc + 1], held<A>(y[cc].z), held<A>(y[cc].w));
   }
+}
+
+// kSplitOnce: A's chunk kc (every part, into w) of q's 16-row operand
+// whose rows g and g + 8 are (pair p0, row r0) and (p1, r1), loaded from the
+// planes at `qp` as products asks for it. Chunk kc takes columns
+// 16 kc + 4t .. 16 kc + 4t + 3 as q_fragments does: k = 2t, 2t + 1 are
+// columns 16 kc + 4t, + 1 and k = 2t + 8, 2t + 9 columns 16 kc + 4t + 2, + 3.
+template <int D, bool HAS_REL, Arith A>
+struct QChunks {
+  const float* qp;
+  int p0, r0, p1, r1, t;
+  __device__ __forceinline__ void operator()(int kc, uint32_t (&w)[kParts<A>][4]) const {
+#pragma unroll
+    for (int i = 0; i < kParts<A>; ++i) {
+      const uint32_t* x = reinterpret_cast<const uint32_t*>(qp + i * Smem<D, HAS_REL, A>::kQPlane) + 8 * kc + 2 * t;
+      const uint2 u = *reinterpret_cast<const uint2*>(x + p0 * kQPairWords<D> + r0 * kQRowWords<D>);
+      const uint2 v = *reinterpret_cast<const uint2*>(x + p1 * kQPairWords<D> + r1 * kQRowWords<D>);
+      w[i][0] = u.x, w[i][1] = v.x, w[i][2] = u.y, w[i][3] = v.y;
+    }
+  }
+};
+
+// kSplitOnce: c[n] += A . B^T over D for G n-tiles, the lane's B row of
+// n-tile n row j0 + 8 n + g of the (rows, D) matrix at `base` in global
+// memory, each B chunk split once as it is loaded (columns as QChunks).
+template <int D, bool HAS_REL, Arith A, int G>
+__device__ __forceinline__ void product_once(float (*c)[4], const QChunks<D, HAS_REL, A>& a, const float* base,
+                                             int rows, int j0, int g, int t) {
+  products<A, G, D / 16>(c, a, [&](int kc, int n, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
+    // a plain load, not __ldg's: the compiler does not hoist it past the
+    // fence below (hoisted, every group's loads spilled at 128 registers)
+    const int row = j0 + 8 * n + g;
+    const float4 y = row < rows ? *reinterpret_cast<const float4*>(base + static_cast<size_t>(row) * D + 16 * kc + 4 * t)
+                                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    split4<A>(b, y.x, y.y, y.z, y.w);
+  });
+  __syncwarp();  // group by group
 }
 
 // V's columns as p . v's n-tiles take them: n-tile dn's column g is
@@ -553,7 +625,9 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[W]) {
 
 template <int D, bool HAS_REL, Arith A>
 __device__ __forceinline__ void attention(const Args& a) {
-  using S = Smem<D, HAS_REL>;
+  using S = Smem<D, HAS_REL, A>;
+  constexpr bool kOnce = kSplitOnce<A, D>;
+  constexpr int kGroup = kGroupMax < S::kKeys / 8 ? kGroupMax : S::kKeys / 8;
   using V = VCols<D>;
   constexpr int kKS = D / 8;           // k-steps of q.k and the relative term, n-tiles of p.v
   constexpr int kNT = S::kKeys / 8;    // key n-tiles per chunk
@@ -583,11 +657,21 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll 1
   for (int i = threadIdx.x; i < kPairs * kRows * (D / 4); i += kThreads) {
     const int p = i / (kRows * (D / 4)), r = i / (D / 4) % kRows, f = i % (D / 4);
-    float* d = qs + q_offset<D>(p, r, f);
-    if (n0 + p < a.BH && l0 + r < a.L) {
-      cp_async16(d, a.q + ((static_cast<size_t>(n0 + p) * a.L + l0 + r) * D + 4 * f));
+    const bool in = n0 + p < a.BH && l0 + r < a.L;
+    const size_t src = (static_cast<size_t>(n0 + p) * a.L + l0 + r) * D + 4 * f;
+    if constexpr (kOnce) {  // q's parts, split once for the block
+      const float4 u = in ? __ldg(reinterpret_cast<const float4*>(a.q + src)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      uint32_t w[kParts<A>][2];
+      split4<A>(w, u.x, u.y, u.z, u.w);
+#pragma unroll
+      for (int j = 0; j < kParts<A>; ++j) {
+        *reinterpret_cast<uint2*>(qs + j * S::kQPlane + p * kQPairWords<D> + r * kQRowWords<D> + 2 * f) =
+            make_uint2(w[j][0], w[j][1]);
+      }
+    } else if (in) {
+      cp_async16(qs + q_offset<D>(p, r, f), a.q + src);
     } else {
-      *reinterpret_cast<float4*>(d) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<float4*>(qs + q_offset<D>(p, r, f)) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
   }
   cp_async_commit();
@@ -614,15 +698,32 @@ __device__ __forceinline__ void attention(const Args& a) {
   auto relative_term = [&](int i) {
     const int j0 = (i % n_chunks) * S::kKeys;
     float* buf = smem + (i & 1) * S::kRelBuf;
-    uint32_t qr[kKS][4];
-    q_fragments<D, A>(qr, qs, g, warp, g + 8, warp, t);
+    if constexpr (kOnce) {
+      const QChunks<D, HAS_REL, A> qa{qs, g, warp, g + 8, warp, t};  // row `warp` of the 16 pairs
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      product<D, A>(acc, qr, e_row, rel_keys, j0 + 8 * nt + g, t);
-      float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * nt + 2 * t;
-      *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
-      *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(acc[2], acc[3]);
+      for (int nt = 0; nt < kNT; nt += kGroup) {
+        float acc[kGroup][4];
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+        product_once<D, HAS_REL, A, kGroup>(acc, qa, e_row, rel_keys, j0 + 8 * nt, g, t);
+#pragma unroll
+        for (int n = 0; n < kGroup; ++n) {
+          float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * (nt + n) + 2 * t;
+          *reinterpret_cast<float2*>(d) = make_float2(acc[n][0], acc[n][1]);
+          *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(acc[n][2], acc[n][3]);
+        }
+      }
+    } else {
+      uint32_t qr[kKS][4];
+      q_fragments<D, A>(qr, qs, g, warp, g + 8, warp, t);
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        product<D, A>(acc, qr, e_row, rel_keys, j0 + 8 * nt + g, t);
+        float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * nt + 2 * t;
+        *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
+        *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(acc[2], acc[3]);
+      }
     }
   };
 
@@ -640,8 +741,18 @@ __device__ __forceinline__ void attention(const Args& a) {
     }
 
     // S = rel + Q . K^T; then scale and bias, in log2 units
-    uint32_t qf[kKS][4];
-    q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
+    auto scale_bias = [&](float (&sn)[4], int nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j0 + 8 * nt + 2 * t + e;
+        const float bias2 = col < a.L ? __ldg(bias + col) * kLog2e : -INFINITY;
+        sn[e] = fmaf(sn[e], a.scale2, bias2);
+        sn[2 + e] = fmaf(sn[2 + e], a.scale2, bias2);
+      }
+    };
+    uint32_t qf[kOnce ? 1 : kKS][4];
+    if constexpr (!kOnce) q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
+    const QChunks<D, HAS_REL, A> qa{qs, warp, g, warp, g + 8, t};  // kOnce: pair `warp`'s 16 rows
     float s[kNT][4];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
@@ -653,13 +764,17 @@ __device__ __forceinline__ void attention(const Args& a) {
       } else {
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
       }
-      product<D, A>(s[nt], qf, kp, keys, j0 + 8 * nt + g, t);
+      if constexpr (kOnce) {
+        // a group's products once its n-tiles' rel values are in
+        if (nt % kGroup == kGroup - 1) {
+          const int n0 = nt - kGroup + 1;
+          product_once<D, HAS_REL, A, kGroup>(&s[n0], qa, kp, keys, j0 + 8 * n0, g, t);
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = j0 + 8 * nt + 2 * t + e;
-        const float bias2 = col < a.L ? __ldg(bias + col) * kLog2e : -INFINITY;
-        s[nt][e] = fmaf(s[nt][e], a.scale2, bias2);
-        s[nt][2 + e] = fmaf(s[nt][2 + e], a.scale2, bias2);
+          for (int n = 0; n < kGroup; ++n) scale_bias(s[n0 + n], n0 + n);
+        }
+      } else {
+        product<D, A>(s[nt], qf, kp, keys, j0 + 8 * nt + g, t);
+        scale_bias(s[nt], nt);
       }
     }
 
@@ -695,21 +810,48 @@ __device__ __forceinline__ void attention(const Args& a) {
     }
 
     if (pass == 1) {
-      // p . v: key n-tile nt as one k-step, its keys in the order 2t, 2t + 1
-      // (lane t's a0/a1 and a2/a3 columns) for P and V alike
+      if constexpr (kOnce) {
+        // p . v by 16 keys: P's parts from two n-tiles' accumulators (p_chunk),
+        // V's rows 2t, 2t + 1, 8 + 2t, 9 + 2t of them split once as loaded;
+        // the products of each block of W output n-tiles interleave
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        const uint32_t pa[4] = {held<A>(s[nt][0]), held<A>(s[nt][2]), held<A>(s[nt][1]), held<A>(s[nt][3])};
-        const int key = j0 + 8 * nt + 2 * t;
-        const float* v0 = vp + static_cast<size_t>(key) * D + V::kW * g;
+        for (int kc = 0; kc < kNT / 2; ++kc) {
+          uint32_t pa[1][kParts<A>][4 * kSteps<A>];
+          p_chunk<A>(pa, s[2 * kc], s[2 * kc + 1]);
+          const int key = j0 + 16 * kc + 2 * t;
+          const float* v0 = vp + static_cast<size_t>(key) * D + V::kW * g;
 #pragma unroll
-        for (int hb = 0; hb < V::kBlocks; ++hb) {
-          float x0[V::kW], x1[V::kW];
-          load_cols(x0, v0 + 8 * V::kW * hb, key < keys);
-          load_cols(x1, v0 + D + 8 * V::kW * hb, key + 1 < keys);
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+            float x[4][V::kW];
 #pragma unroll
-          for (int dd = 0; dd < V::kW; ++dd) {
-            mma<A, kForm<A, D>>(o[V::kW * hb + dd], pa, held<A>(x0[dd]), held<A>(x1[dd]));
+            for (int r = 0; r < 4; ++r) {
+              const int dr = (r & 1) + 8 * (r >> 1);  // key, key + 1, key + 8, key + 9
+              load_cols(x[r], v0 + dr * D + 8 * V::kW * hb, key + dr < keys);
+            }
+            products<A, V::kW, 1>(&o[V::kW * hb], HeldChunks<A, 1>{pa},
+                                  [&](int, int dd, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
+                                    split4<A>(b, x[0][dd], x[1][dd], x[2][dd], x[3][dd]);
+                                  });
+            __syncwarp();  // block by block
+          }
+        }
+      } else {
+        // p . v: key n-tile nt as one k-step, its keys in the order 2t, 2t + 1
+        // (lane t's a0/a1 and a2/a3 columns) for P and V alike
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          const uint32_t pa[4] = {held<A>(s[nt][0]), held<A>(s[nt][2]), held<A>(s[nt][1]), held<A>(s[nt][3])};
+          const int key = j0 + 8 * nt + 2 * t;
+          const float* v0 = vp + static_cast<size_t>(key) * D + V::kW * g;
+#pragma unroll
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+            float x0[V::kW], x1[V::kW];
+            load_cols(x0, v0 + 8 * V::kW * hb, key < keys);
+            load_cols(x1, v0 + D + 8 * V::kW * hb, key + 1 < keys);
+#pragma unroll
+            for (int dd = 0; dd < V::kW; ++dd) {
+              mma_split<A>(o[V::kW * hb + dd], pa, held<A>(x0[dd]), held<A>(x1[dd]));
+            }
           }
         }
       }
@@ -799,7 +941,7 @@ cudaError_t launch_tc(const float* q, const float* k, const float* v, const floa
                       cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
   const auto kernel = tc_kernel<A, D, HAS_REL>();
-  const size_t smem = sizeof(float) * tc::Smem<D, HAS_REL>::kFloats;
+  const size_t smem = sizeof(float) * tc::Smem<D, HAS_REL, A>::kFloats;
   const cudaError_t err =
       attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;

@@ -34,11 +34,11 @@
 //   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
 //           rel_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
 //           multi-pass presets (device.cuh's Arith): every operand of q.k,
-//           q.E and p.v split into two or three TF32 or bf16 parts, and each
-//           mma of the TF32 body one mma per listed product of parts, the
-//           smallest first, into the same float32 accumulator. P is split
-//           after it is normalised, as the single-rounding instances round
-//           it.
+//           q.E and p.v split into two or three TF32 or bf16 parts, the
+//           listed products of parts summed in float32, the smallest first
+//           per k-step: bf16 parts on the bf16 tensor cores (m16n8k16), TF32
+//           parts on the TF32 ones. P is split after it is normalised, as
+//           the single-rounding instances round it.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -48,8 +48,9 @@
 // float32 rate outside the tensor cores against 15.0 us of bytes at 3.35
 // TB/s, so operations bound it. TF32 and bf16: 4.9 us at 495 TFLOP/s, so the
 // bytes bound it, at 15.0 us. The multi-pass instances run 3, 6 or 9 times
-// the products: 14.7 us at X3 (the bytes still bound it, at 15.0), 29.4 us
-// at X6 and 44.1 us at X9 (operations).
+// the products: TF32x3 14.7 us at 495 TFLOP/s, bf16x3 7.3, bf16x6 14.7 and
+// bf16x9 22.0 us at bf16's 989, so the bytes bound all but bf16x9
+// (operations).
 //
 // FMA design: register tiles on the CUDA cores. The SM serves one
 // shared-memory wavefront (32 lanes x 4 bytes) per clock against four
@@ -137,16 +138,39 @@
 // H100 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py, and the variants
 // in scripts/rel_attention_variants.py).
 //
-// Multi-pass instances, resident: K, V, q and the table stay float32 in
-// shared memory (no planes of parts: a stage has no room for them), and each
-// fragment is split into its parts in registers at its mma, the products
-// unrolled (device.cuh's mma<A>), so the loads are the TF32 instance's. The
-// parts and the extra products need more than the 128 registers of two
-// blocks per SM, so these instances run one block of eight warps per SM
-// (255 registers), with a ring of three stages at KEYS = 128 as well. The
-// chunked design below runs them as a loop over the products (device.cuh's
-// Form::kLoopLean): unrolled there, at 168 registers (255 at D = 64), ptxas
-// spilled.
+// Multi-pass instances, resident (attention_parts): each operand split once
+// (device.cuh's split4, products), one block of eight warps per SM (255
+// registers, the scores and parts need them):
+//   - the table's parts once per block, K's and V's once per item, into
+//     planes in shared memory (bf16 rows D + 8 values apart, TF32 rows
+//     D + 4 words: ldmatrix's rows on distinct banks), so that each warp
+//     loads its B fragments as split, K and the table by ldmatrix, V by
+//     ldmatrix.trans for bf16 (scalar loads for TF32);
+//   - q's parts into registers once per item from the float32 stage, P's
+//     per 16 keys from two n-tiles' accumulators (an m16n8k16 A fragment as
+//     they are: no key order, no shuffle);
+//   - bf16 parts on m16n8k16, TF32 parts on m16n8k8; each product over a
+//     group of n-tiles (group_of: as many as kGroupWords = 24 registers of
+//     B parts hold) whose accumulators interleave, per k-step the table's
+//     products smallest first; QE by windows of 64 keys for bf16 parts at
+//     KEYS = 128 (fewer table rows per key: 16-key windows ran 9-10%
+//     slower at 64 x 128, scripts/rel_attention_variants.py).
+// At KEYS = 128 and D = 32 shared memory holds the table's parts (61,440
+// bytes at x6 and x9), K's and V's (61,440), the 64-key QE slices (45,056),
+// the bias and one float32 stage (55,808): 224,256 of the 232,448 bytes a
+// block may have. The stage is
+// released once split, so the next item's copies land while this item
+// computes (a second stage, which fits without relative scores, ran no
+// faster). Measured at the flagship shape with relative scores (NVIDIA
+// H100 80GB HBM3, 700 W, in turns with the form of PR 15, which split every
+// fragment at each TF32 mma: scripts/kernel_times_two_trees.py): tf32x3
+// 0.0863 -> 0.0708 ms, bf16x3 0.1091 -> 0.0474, bf16x6 0.1729 -> 0.0631,
+// bf16x9 0.2311 -> 0.0751. TF32x3 at L <= 64 keeps that form (attention,
+// device.cuh's mma_split, a ring of three float32 stages): split once it ran
+// 5-11% slower there without relative scores, its 32-bit planes doubling
+// the shared-memory traffic of bf16's. The chunked design below runs the
+// multi-pass instances as a loop over the products (device.cuh's mma<A>):
+// unrolled there, at 168 registers (255 at D = 64), ptxas spilled.
 // The TF32 parts are rounded by integer operations (device.cuh's
 // round_part): with cvt.rna the resident tf32x3 instance spilled 12 bytes.
 //
@@ -454,7 +478,7 @@ cudaError_t launch(Args a, int B, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- Tensor-core instances (TF32, and bf16 on rounded operands) ----------
+// ---- The chunked tensor-core design (L > 128 or D = 64) -------------------
 
 namespace tc {
 
@@ -592,7 +616,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
             for (int kk = 0; kk < kDT; ++kk) {
               const float* e = ew + (8 * n + g) * kRow + 8 * kk + t;
-              mma<A, Form::kLoopLean>(acc, qf[kk], held<A>(e[0]), held<A>(e[4]));
+              mma<A>(acc, qf[kk], held<A>(e[0]), held<A>(e[4]));
             }
             float* d = qe + g * kQEStride + 8 * n + 2 * t;
             *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
@@ -611,7 +635,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
           for (int kk = 0; kk < kDT; ++kk) {
             const float* k0 = ks + (8 * n + g) * kRow + 8 * kk + t;
-            mma<A, Form::kLoopLean>(s[n], qf[kk], held<A>(k0[0]), held<A>(k0[4]));
+            mma<A>(s[n], qf[kk], held<A>(k0[0]), held<A>(k0[4]));
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -665,7 +689,7 @@ __device__ __forceinline__ void attention(const Args& a) {
           const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
 #pragma unroll
           for (int dn = 0; dn < kDT; ++dn) {
-            mma<A, Form::kLoopLean>(o[dn], pa, held<A>(v0[8 * dn]), held<A>(v0[kRow + 8 * dn]));
+            mma<A>(o[dn], pa, held<A>(v0[8 * dn]), held<A>(v0[kRow + 8 * dn]));
           }
         }
       }
@@ -704,13 +728,15 @@ constexpr int kMaxL = kRows;               // the longest sequence: one pair fil
 constexpr int kWindowLong = 16;            // keys per QE window at KEYS = 128 (two blocks per SM)
 constexpr int kWindowShort = 64;           // and at KEYS = 64 (one block per SM)
 constexpr int kStagesLong = 1;             // the ring's depth at KEYS = 128: two blocks per SM
-constexpr int kStagesShort = 3;            // and at KEYS = 64, or with multi-pass products: one block per SM
+constexpr int kStagesShort = 3;            // and at KEYS = 64, or with TF32x3's parts: one block per SM
+constexpr int kWindowParts = 64;           // keys per QE window of the bf16 multi-pass instances at KEYS = 128
 constexpr bool kTableResident = true;      // the table staged once per block, else once per item
 constexpr int kSmemBytes = 232448;         // the most shared memory a block may have
 constexpr int kSmemPerSM = 233472;         // an SM's shared memory; each block also takes 1 KB of it
 
-// Offsets (floats) into dynamic shared memory; every row D + 4 floats (4 mod
-// 32). SPLIT: a multi-pass instance, one block per SM.
+// Offsets (floats) into dynamic shared memory of the single-rounding
+// instances and TF32x3 at L <= 64 (SPLIT: one block per SM); every row
+// D + 4 floats (4 mod 32).
 template <int D, bool HAS_REL, int KEYS, bool SPLIT>
 struct Smem {
   static constexpr int kRow = D + 4;
@@ -728,7 +754,7 @@ struct Smem {
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kFloats = kRing + kStages * kStage;
   // blocks per SM: two where they fit, at D = 32 (at D = 16 ptxas spilled at
-  // their 128 registers), and one for the multi-pass instances
+  // their 128 registers), and one for TF32x3's parts
   static constexpr int kBlocks = !SPLIT && D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
   static_assert(kStages >= 1, "a stage must fit");
 };
@@ -781,7 +807,7 @@ __device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
 
 // Rounds n floats of shared memory (a multiple of 4, 16-byte aligned) in
 // place to the operands the tensor cores read: each staged value once,
-// rather than at every fragment load (single-rounding instances).
+// rather than at every fragment load.
 template <Arith A>
 __device__ __forceinline__ void round_operands(float* p, int n) {
   constexpr bool kBF16 = kBF16Parts<A>;
@@ -802,9 +828,9 @@ __device__ __forceinline__ void b_fragments(uint32_t (&r)[4], const float* rows,
 }
 
 // KEYS (64 or 128, at least L): the keys of a pair, and its rows in a stage.
-// Shared memory holds the single-rounding instances' operands rounded, the
-// multi-pass instances' float32 values: either way what a fragment load
-// reads is its held value (device.cuh's held).
+// Shared memory holds the single-rounding instances' operands rounded, what
+// a fragment load reads; TF32x3's float32 values, split at each mma
+// (device.cuh's mma_split), where that beats splitting once (kSplitOnce).
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void attention(const Args& a) {
   constexpr bool kSplit = kParts<A> > 1;
@@ -900,8 +926,8 @@ __device__ __forceinline__ void attention(const Args& a) {
             for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
               uint32_t e[4];
               b_fragments<D>(e, ew + 8 * n * kRow, kk2);
-              mma<A>(acc, qf[2 * kk2], e[0], e[1]);
-              mma<A>(acc, qf[2 * kk2 + 1], e[2], e[3]);
+              mma_split<A>(acc, qf[2 * kk2], e[0], e[1]);
+              mma_split<A>(acc, qf[2 * kk2 + 1], e[2], e[3]);
             }
             float* d = qe + g * kQEStride + 8 * n + 2 * t;
             *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
@@ -922,8 +948,8 @@ __device__ __forceinline__ void attention(const Args& a) {
           for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
             uint32_t k[4];
             b_fragments<D>(k, ks + 8 * nt * kRow, kk2);
-            mma<A>(s[nt], qf[2 * kk2], k[0], k[1]);
-            mma<A>(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
+            mma_split<A>(s[nt], qf[2 * kk2], k[0], k[1]);
+            mma_split<A>(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -977,10 +1003,320 @@ __device__ __forceinline__ void attention(const Args& a) {
         const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
 #pragma unroll
         for (int dn = 0; dn < kDT; ++dn) {
-          mma<A>(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
+          mma_split<A>(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
         }
         __syncwarp();  // n-tile by n-tile
       }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = lw + g + 8 * i;
+      if (row >= a.L) continue;
+      float* dst = a.out + ((static_cast<long long>(b) * a.L + row) * a.H + h) * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+      }
+    }
+  }
+}
+
+// ---- The resident design's multi-pass instances: planes of parts ----------
+
+// The multi-pass instances that split each operand once (attention_parts):
+// all but TF32x3 at L <= 64, whose split-once form ran 5-10% slower than its
+// form of PR 15 without relative scores (PERF.md §6); it keeps that
+// (attention, device.cuh's mma_split).
+template <Arith A, int KEYS>
+constexpr bool kSplitOnce = kParts<A> > 1 && !(A == Arith::TF32x3 && KEYS < kMaxL);
+
+// Shared memory of a multi-pass instance (byte offsets): the parts of the
+// resident table, K and V as planes of rows (bf16 parts D + 8 values apart,
+// TF32 parts D + 4 words: ldmatrix's eight rows fall on distinct banks), the
+// QE slices, the bias of the item in use, and one float32 stage of q, k, v
+// and the bias, which the next item's copies fill while this item computes
+// (a second stage, where it fits, ran no faster).
+template <int D, bool HAS_REL, Arith A, int KEYS>
+struct PartsSmem {
+  static constexpr int kWindow = KEYS == kMaxL ? (kBF16Parts<A> ? kWindowParts : kWindowLong) : kWindowShort;
+  static constexpr int kWarpWin = 16 + kWindow;   // table rows a warp's window spans (kWarpWin - 1 reached)
+  static constexpr int kQEStride = kWarpWin + 8;  // floats (8 or 24 mod 32), as Smem's
+  static constexpr int kRowBytes = kBF16Parts<A> ? 2 * (D + 8) : 4 * (D + 4);  // a plane's row
+  static constexpr int kTablePlane = 2 * KEYS * kRowBytes;
+  static constexpr int kPlane = kRows * kRowBytes;                              // K's or V's
+  static constexpr int kTable = 0;                                              // HAS_REL only
+  static constexpr int kK = kTable + (HAS_REL ? kParts<A> * kTablePlane : 0);
+  static constexpr int kV = kK + kParts<A> * kPlane;
+  static constexpr int kQE = kV + kParts<A> * kPlane;                         // HAS_REL only
+  static constexpr int kBias = kQE + (HAS_REL ? 4 * kWarps * 16 * kQEStride : 0);  // kRows floats
+  static constexpr int kStage = kBias + 4 * kRows;                              // stage_item's layout
+  static constexpr int kBytes = kStage + 4 * (3 * kRows * (D + 4) + kRows);
+  static_assert(kBytes <= kSmemBytes && kStage % 16 == 0, "one block of planes and a stage");
+};
+
+// The n-tiles of n whose products interleave in a group (device.cuh's
+// products): the largest divisor of n whose B chunks of every part fit
+// kGroupWords registers, and at least 2.
+constexpr int kGroupWords = 24;
+template <Arith A>
+__host__ __device__ constexpr int group_of(int n) {
+  int g = 2;
+  for (int d = 3; d <= n; ++d) {
+    if (n % d == 0 && d * kParts<A> * 2 * kSteps<A> <= kGroupWords) g = d;
+  }
+  return g;
+}
+
+// Splits the four floats u of row r, columns 4 c4 .. 4 c4 + 3, into the
+// kParts planes at dst (plane_bytes apart, rows ROW bytes apart).
+template <Arith A, int ROW>
+__device__ __forceinline__ void split_into(char* dst, int plane_bytes, int r, int c4, float4 u) {
+  uint32_t w[kParts<A>][2 * kSteps<A>];
+  split4<A>(w, u.x, u.y, u.z, u.w);
+#pragma unroll
+  for (int i = 0; i < kParts<A>; ++i) {
+    char* d = dst + i * plane_bytes + r * ROW;
+    if constexpr (kBF16Parts<A>) {
+      *reinterpret_cast<uint2*>(d + 8 * c4) = make_uint2(w[i][0], w[i][1]);
+    } else {
+      *reinterpret_cast<uint4*>(d + 16 * c4) = make_uint4(w[i][0], w[i][1], w[i][2], w[i][3]);
+    }
+  }
+}
+
+// M (2 or 4) consecutive 8 x 8 b16 matrices of the 8 plane rows at `rows`
+// (ROW bytes apart), by ldmatrix: lane (g, t) receives word t of row g of
+// matrix m in r[m]. From a chunk's first matrix, they are its B chunk: bf16
+// b0, b1 (columns 2t, 2t + 1 and 8 + 2t, 9 + 2t); TF32 b0, b1 of each k-step.
+template <int M, int ROW>
+__device__ __forceinline__ void load_rows(uint32_t (&r)[M], const char* rows) {
+  const int lane = threadIdx.x % 32;
+  const char* row = rows + (lane % 8) * ROW + 16 * (lane / 8 % M);
+  if constexpr (M == 2) {
+    ldmatrix_x2<false>(r, row);
+  } else {
+    static_assert(M == 4, "a chunk is 2 (bf16) or 4 (TF32) matrices");
+    ldmatrix_x4(r, reinterpret_cast<const float*>(row));
+  }
+}
+
+// c[n] += Q . B[n]^T for the G n-tiles whose 8 plane rows start at row0 + 8 n
+// of the planes at `planes` (plane_bytes apart): each B chunk of every part
+// loaded as it was split, once.
+template <int D, Arith A, int G, int ROW>
+__device__ __forceinline__ void plane_products(float (*c)[4], const uint32_t (&qa)[D / 16][kParts<A>][4 * kSteps<A>],
+                                               const char* planes, int plane_bytes, int row0) {
+  products<A, G, D / 16>(c, HeldChunks<A, D / 16>{qa}, [&](int kc, int n, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
+#pragma unroll
+    for (int i = 0; i < kParts<A>; ++i) {
+      load_rows<2 * kSteps<A>, ROW>(b[i], planes + i * plane_bytes + (row0 + 8 * n) * ROW + 32 * kSteps<A> * kc);
+    }
+  });
+  // group by group: shared loads do not cross __syncwarp, so ptxas does not
+  // issue the next groups' fragment loads first (unfenced, it spilled)
+  __syncwarp();
+}
+
+// The multi-pass instances (TF32x3, bf16x3, bf16x6, bf16x9) of the resident
+// design, split once (device.cuh's split4, products): the table's parts once
+// per block, K's and V's once per item, into planes; the warp's q rows into
+// registers once per item; P's once per 16 keys. Every product runs over
+// groups of n-tiles whose accumulators interleave.
+template <int D, bool HAS_REL, Arith A, int KEYS>
+__device__ __forceinline__ void attention_parts(const Args& a) {
+  using S = PartsSmem<D, HAS_REL, A, KEYS>;
+  constexpr int kP = kParts<A>, kSt = kSteps<A>, kKC = D / 16, kRow = S::kRowBytes;
+  constexpr int kNT = KEYS / 8;              // key n-tiles of a row's scores
+  constexpr int kDT = D / 8;                 // n-tiles of p.v
+  constexpr int kPairs = kRows / KEYS;       // pairs per item
+  constexpr int kWpp = KEYS / 16;            // warps per pair
+  constexpr int kWindow = S::kWindow, kQEStride = S::kQEStride;
+  constexpr int kQET = S::kWarpWin / 8;      // QE n-tiles per window
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* stage = reinterpret_cast<float*>(smem + S::kStage);
+  float* bias_s = reinterpret_cast<float*>(smem + S::kBias);
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+
+  // K and V rows [L, KEYS) of every slot enter the mma: zeros in the stage,
+  // which no copy overwrites, split to zeros
+  const int pad = KEYS - a.L;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 2 * kPairs * pad * D; i += kThreads) {
+    int r = i / D;
+    const int l = a.L + r % pad;
+    r /= pad;
+    stage[((1 + r / kPairs) * kRows + (r % kPairs) * KEYS + l) * (D + 4) + i % D] = 0.0f;
+  }
+  if (blockIdx.x < a.n_items) stage_item<D, KEYS>(stage, a, blockIdx.x);
+  cp_async_commit();
+  if (HAS_REL) {
+    // the table's parts, once per block: plane row x holds offset l - j =
+    // x - KEYS + 1, table row x - KEYS + M, zeros outside the table
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * KEYS * (D / 4); i += kThreads) {
+      const int x = i / (D / 4), c4 = i % (D / 4), e = x - KEYS + a.M;
+      const float4 u = e >= 0 && e < 2 * a.M - 1
+                           ? __ldg(reinterpret_cast<const float4*>(a.table + static_cast<long long>(e) * D) + c4)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      split_into<A, kRow>(smem + S::kTable, S::kTablePlane, x, c4, u);
+    }
+  }
+
+  const int slot = warp / kWpp, lw = 16 * (warp % kWpp);  // the warp's pair slot and first row in it
+  float* qe = reinterpret_cast<float*>(smem + S::kQE) + warp * 16 * kQEStride;
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // the item's copies have landed; every warp is done with the last item's planes
+    // K's and V's parts, once per item
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * kRows * (D / 4); i += kThreads) {
+      const int v = i / (kRows * (D / 4)), r = i / (D / 4) % kRows, c4 = i % (D / 4);
+      const float4 u = *reinterpret_cast<const float4*>(stage + ((1 + v) * kRows + r) * (D + 4) + 4 * c4);
+      split_into<A, kRow>(smem + (v ? S::kV : S::kK), S::kPlane, r, c4, u);
+    }
+    for (int j = threadIdx.x; j < kRows; j += kThreads) bias_s[j] = stage[3 * kRows * (D + 4) + j];
+    const int pair = item * kPairs + slot;
+    const bool work = pair < a.n_pairs && lw < a.L;  // warp-uniform
+    // the warp's q rows as A chunks of parts, once per item: k = 2t, 2t + 1,
+    // 2t + 8, 2t + 9 of chunk kc (bf16) or t, t + 4 of each k-step (TF32)
+    uint32_t qa[kKC][kP][4 * kSt];
+    if (work) {
+      const float* q0 = stage + (slot * KEYS + lw + g) * (D + 4);
+      const float* q1 = q0 + 8 * (D + 4);
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        uint32_t lo[kP][2 * kSt], hi[kP][2 * kSt];
+        const int c = 16 * kc;
+        if constexpr (kBF16Parts<A>) {
+          split4<A>(lo, q0[c + 2 * t], q0[c + 2 * t + 1], q1[c + 2 * t], q1[c + 2 * t + 1]);
+          split4<A>(hi, q0[c + 8 + 2 * t], q0[c + 9 + 2 * t], q1[c + 8 + 2 * t], q1[c + 9 + 2 * t]);
+        } else {
+          split4<A>(lo, q0[c + t], q1[c + t], q0[c + t + 4], q1[c + t + 4]);
+          split4<A>(hi, q0[c + 8 + t], q1[c + 8 + t], q0[c + 12 + t], q1[c + 12 + t]);
+        }
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+#pragma unroll
+          for (int w = 0; w < 2 * kSt; ++w) qa[kc][i][w] = lo[i][w], qa[kc][i][2 * kSt + w] = hi[i][w];
+        }
+      }
+    }
+    __syncthreads();  // the planes are written and the stage is read: the next item's copies may land
+    if (item + gridDim.x < a.n_items) stage_item<D, KEYS>(stage, a, item + gridDim.x);
+    cp_async_commit();
+    if (!work) continue;
+    const int b = pair / a.H, h = pair % a.H;
+    const char* kplanes = smem + S::kK + slot * KEYS * kRow;
+    const char* vplanes = smem + S::kV + slot * KEYS * kRow;
+    const float* bs = bias_s + slot * KEYS;
+
+    float s[kNT][4];  // the warp's 16 x KEYS scores, then P
+    if (HAS_REL) {
+#pragma unroll
+      for (int c = 0; c < KEYS / kWindow; ++c) {
+        // QE = Q . E_win^T over the kWarpWin table rows that the warp's rows
+        // reach in keys [kWindow c, kWindow (c + 1)), into the warp's slice
+        const int row0 = lw - kWindow * c - kWindow + KEYS;
+        constexpr int kG = group_of<A>(kQET);
+#pragma unroll
+        for (int n0 = 0; n0 < kQET; n0 += kG) {
+          float acc[kG][4];
+#pragma unroll
+          for (int n = 0; n < kG; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+          plane_products<D, A, kG, kRow>(acc, qa, smem + S::kTable, S::kTablePlane, row0 + 8 * n0);
+#pragma unroll
+          for (int n = 0; n < kG; ++n) {
+            float* d = qe + g * kQEStride + 8 * (n0 + n) + 2 * t;
+            *reinterpret_cast<float2*>(d) = make_float2(acc[n][0], acc[n][1]);
+            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(acc[n][2], acc[n][3]);
+          }
+        }
+        __syncwarp();  // QE written before it is read
+        // rel[r, col] = QE[r, r - col + kWindow - 1]: the first value of each score accumulator
+#pragma unroll
+        for (int n = 0; n < kWindow / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
+            s[kWindow / 8 * c + n][i] = qe[r * kQEStride + r - col + kWindow - 1];
+          }
+        }
+        __syncwarp();  // the window is read before the next one overwrites it
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.0f;
+    }
+    // S = rel + Q . K^T, then scale and bias, in log2 units
+    constexpr int kG = group_of<A>(kNT);
+#pragma unroll
+    for (int n0 = 0; n0 < kNT; n0 += kG) plane_products<D, A, kG, kRow>(&s[n0], qa, kplanes, S::kPlane, 8 * n0);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * n + 2 * t + e;
+        const float bias2 = col < a.L ? bs[col] * kLog2e : -INFINITY;
+        s[n][e] = fmaf(s[n][e], a.scale2, bias2);
+        s[n][2 + e] = fmaf(s[n][2 + e], a.scale2, bias2);
+      }
+    }
+
+    // Softmax over the whole row at once: exact maxima and sums
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - mx[i / 2]);
+        sum[i / 2] += s[n][i];
+      }
+    }
+    // P normalised, then split as p.v's operand: JAX's einsum takes the
+    // softmax's output as its operand
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] *= inv[i / 2];
+    }
+
+    // p . v by 16 keys: P's parts from two n-tiles' accumulators (p_chunk),
+    // V's B chunks of every part and output n-tile as split, the kDT
+    // accumulators' products interleaved
+    float o[kDT][4];
+#pragma unroll
+    for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < KEYS / 16; ++kc) {
+      uint32_t pa[1][kP][4 * kSt];
+      p_chunk<A>(pa, s[2 * kc], s[2 * kc + 1]);
+      products<A, kDT, 1>(o, HeldChunks<A, 1>{pa}, [&](int, int dn, uint32_t (&vb)[kP][2 * kSt]) {
+#pragma unroll
+        for (int i = 0; i < kP; ++i) {
+          const char* plane = vplanes + i * S::kPlane;
+          if constexpr (kBF16Parts<A>) {
+            // keys 16 kc + 8 (m & 1) + lane % 8 of output columns 8 dn ..,
+            // transposed: b0, b1 of n-tile dn
+            const int lane = threadIdx.x % 32;
+            ldmatrix_x2<true>(vb[i], plane + (16 * kc + 8 * (lane / 8 % 2) + lane % 8) * kRow + 16 * dn);
+          } else {
+            // rows 2t, 2t + 1, 8 + 2t, 9 + 2t of the 16 keys, column 8 dn + g
+            const uint32_t* w = reinterpret_cast<const uint32_t*>(plane) + (16 * kc + 2 * t) * (D + 4) + 8 * dn + g;
+            vb[i][0] = w[0], vb[i][1] = w[D + 4], vb[i][2] = w[8 * (D + 4)], vb[i][3] = w[9 * (D + 4)];
+          }
+        }
+      });
+      __syncwarp();  // 16 keys by 16 (see plane_products)
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1003,11 +1339,14 @@ __device__ __forceinline__ void attention(const Args& a) {
 template <int KEYS>
 constexpr int kTcThreads = KEYS ? rs::kThreads : tc::kThreads;
 template <int D, bool HAS_REL, int KEYS, Arith A>
-constexpr int kTcBlocks = KEYS ? rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>::kBlocks : D <= 32 ? 3 : 2;
+constexpr int kTcBlocks = !KEYS ? (D <= 32 ? 3 : 2)
+                        : rs::kSplitOnce<A, KEYS> ? 1 : rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>::kBlocks;
 
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void tc_attention(const Args& a) {
-  if constexpr (KEYS > 0) {
+  if constexpr (KEYS > 0 && rs::kSplitOnce<A, KEYS>) {
+    rs::attention_parts<D, HAS_REL, A, KEYS>(a);
+  } else if constexpr (KEYS > 0) {
     rs::attention<D, HAS_REL, A, KEYS>(a);
   } else {
     tc::attention<D, HAS_REL, A>(a);
@@ -1071,10 +1410,14 @@ constexpr auto tc_kernel() {
 
 template <int D, bool HAS_REL, Arith A, int KEYS>
 cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
-  using S = rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>;
   static std::atomic<size_t> granted[attn::kMaxDevices];
   const auto kernel = tc_kernel<A, D, HAS_REL, KEYS>();
-  const size_t smem = sizeof(float) * S::kFloats;
+  size_t smem = 0;
+  if constexpr (rs::kSplitOnce<A, KEYS>) {
+    smem = rs::PartsSmem<D, HAS_REL, A, KEYS>::kBytes;
+  } else {
+    smem = sizeof(float) * rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>::kFloats;
+  }
   cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;
   int sms = 0;
@@ -1083,7 +1426,7 @@ cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
   if (pairs > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   a.n_pairs = static_cast<int>(pairs);
   a.n_items = (a.n_pairs + rs::kRows / KEYS - 1) / (rs::kRows / KEYS);
-  const int slots = sms * S::kBlocks;  // persistent: every block resident at once
+  const int slots = sms * kTcBlocks<D, HAS_REL, KEYS, A>;  // persistent: every block resident at once
   const int blocks = a.n_items < slots ? a.n_items : slots;
   kernel<<<blocks, rs::kThreads, smem, stream>>>(a);
   return cudaGetLastError();

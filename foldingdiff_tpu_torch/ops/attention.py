@@ -26,9 +26,9 @@ products of the JAX model's einsums in that mode:
 | "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores |
 | "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores |
 | "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same |
-| "bf16x3" | "bf16x3": 3 products of bf16 parts on TF32 tensor cores | "bf16x3": the same |
-| "bf16x6" | "bf16x6": 6 products of bf16 parts on TF32 tensor cores | "bf16x6": the same |
-| "bf16x9" | "bf16x9": 9 products of bf16 parts on TF32 tensor cores | "bf16x9": the same |
+| "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same |
+| "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same |
+| "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same |
 
 The plain versions compute every product as precision.einsum does in the
 mode: the preset's products of parts under "bf16" and the multi-pass modes,

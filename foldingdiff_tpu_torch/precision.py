@@ -45,7 +45,8 @@ models/config.py's docstring maps each name onto a mode of this module:
 - The attention kernels (csrc/) compute their products in the model's mode
   as well (kernel_mode): float32 FMA under "ieee", TF32 tensor cores under
   "tf32" (and "caller" under a caller's TF32), and the parts' products of
-  "bf16" and the multi-pass modes on TF32 tensor cores. Their plain versions
+  "bf16" and "tf32x3" on TF32 tensor cores, of the bf16 multi-pass modes on
+  bf16 tensor cores. Their plain versions
   take the same products (einsum).
 - The CPU's GEMMs do not read the CUDA setting: "caller", "tf32" and "ieee"
   give the same numbers there.

@@ -29,7 +29,13 @@ Variants of the TF32 and bf16 instances (timed on both):
   chunked             the chunked design (one block per 64 query rows, K, V
                       and a table window staged per 64-key chunk, bf16 in two
                       passes) at every L, as it ran before the resident one
-"final", the source as it is, is timed on all three instances.
+Variants of the multi-pass instances' resident design (tf32x3, bf16x3,
+bf16x6, bf16x9; timed on all four):
+  parts-window-16     QE windows of 16 keys for the bf16 parts at L > 64
+                      instead of 64
+  parts-group-48      groups of n-tiles whose B chunks take up to 48
+                      registers instead of 24
+"final", the source as it is, is timed on all seven instances.
 
 A substitution whose text is no longer in the source stops the run with an
 error naming the variant (tests/test_torch_attention.py checks them against
@@ -42,7 +48,7 @@ against the plain version, and device times of the rel and rel-off instances
 at H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), with the card's
 name and power limit. The last line is a JSON object of the times.
 
-Usage: python3 scripts/rel_attention_variants.py
+Usage: python3 scripts/rel_attention_variants.py [VARIANT ...]   (all by default)
 """
 from __future__ import annotations
 
@@ -82,8 +88,11 @@ SUBSTITUTIONS = {
     "one-block-per-sm": [("<= kSmemPerSM ? 2 : 1;", "<= kSmemPerSM ? 1 : 1;")],
     "table-per-item": [("constexpr bool kTableResident = true;", "constexpr bool kTableResident = false;")],
     "chunked": [("  if constexpr (D <= 32) {\n    if (a.L <= rs::kMaxL) {", "  if constexpr (D < 0) {\n    if (a.L <= rs::kMaxL) {")],
+    "parts-window-16": [("constexpr int kWindowParts = 64;", "constexpr int kWindowParts = 16;")],
+    "parts-group-48": [("constexpr int kGroupWords = 24;", "constexpr int kGroupWords = 48;")],
 }
 FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
+MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
 TIMED = [(64, 128), (64, 64), (15, 64)]  # (B, L) at H = 12, D = 32, M = 128
 CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (100, 5, 99, 64, 128),
            (2, 3, 200, 32, 256), (3, 2, 1, 32, 128)]
@@ -92,7 +101,9 @@ CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (
 def instances_of(variant: str) -> tuple:
     """The instances a variant changes, and so is checked and timed on."""
     if variant == "final":
-        return ("fma", "tf32", "bf16")
+        return ("fma", "tf32", "bf16", *MULTI_PASS)
+    if variant.startswith("parts-"):
+        return MULTI_PASS
     return ("fma",) if variant in FMA_VARIANTS else ("tf32", "bf16")
 
 
@@ -113,7 +124,7 @@ def variant_libraries(base: attention.CudaLibrary, substitutions: dict) -> dict:
         (directory / base.source.name).write_text(text)
         for header in attention.CSRC_DIR.glob("*.cuh"):
             shutil.copy(header, directory / header.name)
-        lib = attention.CudaLibrary(base.name, base.argtypes, base.instances)
+        lib = attention.CudaLibrary(base.name, base.argtypes, base.instances, base.parts)
         lib.source = directory / base.source.name
         libs[name] = lib
     return libs
@@ -159,7 +170,9 @@ def plain(q, k, v, bias, kw):
 
 def main() -> None:
     card = chip_smoke.phase_card()  # exits without a card
-    libs = variant_libraries(attention.REL_ATTENTION, SUBSTITUTIONS)
+    only = sys.argv[1:]  # variants to run ("final" always), or all
+    libs = variant_libraries(attention.REL_ATTENTION, {name: subs for name, subs in SUBSTITUTIONS.items()
+                                                        if not only or name == "final" or name in only})
     build_and_report(libs, "rel_attention")
 
     results = {}
@@ -177,8 +190,13 @@ def main() -> None:
                             if i == "fma":
                                 worst = max(worst, (out - plain(q, k, v, bias, kw)("ieee")).abs().max().item())
                             else:
+                                tf32_drift = None  # a multi-pass instance's gate takes the TF32 instance's drift
+                                if i in MULTI_PASS:
+                                    tf32_drift = chip_smoke.rel_rms(
+                                        attention.fused_attention_v2(q, k, v, bias, mode="tf32", **kw),
+                                        plain(q, k, v, bias, kw)("ieee"))
                                 chip_smoke.check_instance(f"{name} B={b} H={h} L={l} D={d} rel={bool(kw)} {i}", i,
-                                                          out, plain(q, k, v, bias, kw))
+                                                          out, plain(q, k, v, bias, kw), tf32_drift)
                 if "fma" in instances_of(name):
                     print(f"{name}: FMA max abs err against the plain version {worst:.3e}", flush=True)
                     if not worst <= chip_smoke.KERNEL_TOL:

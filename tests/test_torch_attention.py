@@ -21,6 +21,7 @@ import torch
 from foldingdiff_tpu.ops.pallas_attention import attention_reference
 from foldingdiff_tpu.ops.pallas_attention import fused_attention as jax_fused_attention
 from foldingdiff_tpu.ops.pallas_attention import fused_attention_v2 as jax_fused_attention_v2
+from foldingdiff_tpu_torch import precision
 from foldingdiff_tpu_torch.ops import attention
 
 
@@ -362,3 +363,115 @@ def test_variant_substitutions_are_in_the_kernel_source(script, library):
             assert old in text, f"{script}: {name}: {old!r} is not in {library.source.name}"
             text = text.replace(old, new)
         assert (text != source) == (name != "final"), name
+
+
+MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
+SPLIT_TOL = 1e-5  # chip_smoke.py's gate: a multi-pass instance against the plain version in its mode
+
+
+def _products_of_device_cuh() -> dict:
+    """{Arith name: (products as (i, j), their order as listed, smallest
+    first)} parsed from csrc/device.cuh's products_of, and {Arith name:
+    rounding} from its kBF16Parts."""
+    text = (attention.CSRC_DIR / "device.cuh").read_text()
+    body = text[text.index("constexpr Products products_of(Arith a) {"):]
+    body = body[:body.index("\n}\n")]
+    table = {}
+    for names, n, ij in re.findall(r"((?:a == Arith::\w+\s*(?:\|\|\s*)?)+)\?\s*Products\{(\d+), \{([\d, ]+)\}\}", body):
+        products = tuple(divmod(int(x), 10) for x in ij.split(","))
+        assert len(products) == int(n)
+        for name in re.findall(r"Arith::(\w+)", names):
+            table[name] = products
+    tf32 = re.search(r"constexpr bool kBF16Parts = ([^;]+);", text).group(1)
+    rounding = {name: "tf32" if f"A != Arith::{name}" in tf32 else "bf16" for name in table}
+    return {name: (table[name], rounding[name]) for name in table}
+
+
+def _arith_of_instance(library) -> dict:
+    """{C instance index: Arith name} from the source's dispatch_instance."""
+    found = re.findall(r"case (\d): if constexpr \(kBuiltInstance<\1>\) return launch\w*<[^>]*Arith::(\w+)>",
+                       library.source.read_text())
+    return {int(i): name for i, name in found}
+
+
+@pytest.mark.parametrize("mode", MULTI_PASS)
+def test_the_kernels_table_of_products_is_the_presets(mode):
+    """One arithmetic for the card and the CPU: each kernel's instance for a
+    multi-pass mode (ops/attention.py's tables, the C `instance` index)
+    dispatches the Arith whose row of device.cuh's products_of lists
+    precision.SPLITS' products of the mode, in its order (smallest first),
+    over as many parts, rounded alike."""
+    rounding, n_parts, products = precision.SPLITS[mode]
+    rows = _products_of_device_cuh()
+    for library, instances in ((attention.REL_ATTENTION, attention.V2_INSTANCES),
+                               (attention.GATHERED_ATTENTION, attention.V1_INSTANCES)):
+        instance = instances[mode]
+        arith = _arith_of_instance(library)[library.instances.index(instance)]
+        assert arith.lower() == mode == instance, (library.name, arith)
+        listed, arith_rounding = rows[arith]
+        assert listed == products, (library.name, listed)
+        assert 1 + max(max(ij) for ij in listed) == n_parts
+        assert arith_rounding == rounding
+
+
+def _model_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, mode: str, init=None) -> torch.Tensor:
+    """torch.einsum(eq, a, b) summed as the multi-pass instances sum it: the
+    operands split once (precision.parts), the contracted index taken in
+    k-steps of 16 values for bf16 parts and 8 for TF32 parts, in order;
+    per k-step the preset's products of parts, the smallest first, each
+    k-step's product summed exactly and added to the float32 accumulator
+    (started at init)."""
+    rounding, _, products = precision.SPLITS[mode]
+    step = 16 if rounding == "bf16" else 8
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    c = next(x for x in sa if x in sb and x not in so)
+    pa, pb = precision.parts(a, mode), precision.parts(b, mode)
+    acc = None if init is None else init.clone()
+    for k0 in range(0, a.shape[sa.index(c)], step):
+        for i, j in products:
+            term = torch.einsum(eq, pa[i].narrow(sa.index(c), k0, min(step, a.shape[sa.index(c)] - k0)).double(),
+                                pb[j].narrow(sb.index(c), k0, min(step, b.shape[sb.index(c)] - k0)).double())
+            acc = term.float() if acc is None else (acc.double() + term).float()
+    return acc
+
+
+def _model_attention(q, k, v, bias, e_lr, mode):
+    """The kernels' order of sums in a multi-pass mode: the score
+    accumulator starts at the relative term (its own accumulator) and takes
+    q.k's products; P, normalised in float32, and V split once; p.v by
+    k-steps of keys."""
+    s = _model_einsum("bhld,lrd->bhlr", q, e_lr, mode) if e_lr is not None else None
+    s = _model_einsum("bhld,bhmd->bhlm", q, k, mode, init=s)
+    p = torch.softmax(s / q.shape[-1] ** 0.5 + bias[:, None, None, :], dim=-1)
+    return _model_einsum("bhlm,bhmd->bhld", p, v, mode)
+
+
+@pytest.mark.parametrize("mode", MULTI_PASS)
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("kernel", ["v2", "v1"])
+def test_the_kernels_order_of_sums_meets_the_split_gate(kernel, rel, mode):
+    """An eager float32 model of the multi-pass instances' accumulation
+    (_model_attention: split once, k-steps of 16 bf16 or 8 TF32 values,
+    per k-step the products smallest first) within SPLIT_TOL relative RMS
+    of each kernel's plain version in the mode, and at most a tenth of
+    TF32's distance from float32: the order of sums can meet chip_smoke.py's
+    phase-2 gate. v1 with a random (not Toeplitz) e_lr."""
+    q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, 40, 32, 48, seed=31))
+    if kernel == "v2":
+        e_lr = torch.from_numpy(_gathered(table.numpy(), 40, 48)) if rel else None
+        plain = attention.fused_attention_v2_reference(q, k, v, bias, table if rel else None, 48 if rel else None,
+                                                       mode=mode)
+    else:
+        rng = np.random.default_rng(32)
+        e_lr = torch.from_numpy((rng.normal(size=(40, 40, 32)) * 0.5).astype(np.float32)) if rel else None
+        plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
+    model = _model_attention(q, k, v, bias, e_lr, mode)
+    f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
+    tf32 = attention.fused_attention_reference(*(precision.to_tf32_values(x) for x in (q, k, v)), bias,
+                                               precision.to_tf32_values(e_lr) if rel else None)
+
+    def rel_rms(x, y):
+        return float((x - y).square().mean().sqrt() / y.square().mean().sqrt())
+
+    assert 0 < rel_rms(model, plain) <= SPLIT_TOL
+    assert rel_rms(model, f32) <= 0.1 * rel_rms(tf32, f32)

@@ -438,6 +438,66 @@ def test_gathered_tensor_core_instances_ignore_masked_keys(device, mode):
     assert (out1 - out2).abs().max().item() <= 1e-5
 
 
+def _at_edge(x: torch.Tensor, edge: str, mode: str) -> torch.Tensor:
+    """x moved to an edge of its parts: "two parts", its first two bf16 parts
+    alone (the third 0); "ties", halfway between two values of the mode's
+    first part (bf16: rounded to even; TF32: away from zero)."""
+    if edge == "ties":
+        bits = x.view(torch.int32)
+        if precision.SPLITS[mode][0] == "bf16":
+            return ((bits & -0x10000) | 0x8000).view(torch.float32)
+        return ((bits & -0x2000) | 0x1000).view(torch.float32)
+    x0 = x.to(torch.bfloat16).float()
+    return x0 + (x - x0).to(torch.bfloat16).float()
+
+
+# The multi-pass instances' inputs at the edges of their parts: q, k and the
+# table (e_lr) two bf16 parts long and V's third part subnormal (V scaled by
+# 2^-111 ~ 3.9e-34); every value at a rounding tie of the mode's first part;
+# magnitudes near 1e30 (q scaled by 2^50 ~ 1.1e15, k and the table by 2^-50,
+# V by 2^100 ~ 1.3e30). The outputs are compared divided by V's scale, exact
+# for a power of two: squared at that scale they leave float32's range
+PART_EDGES = ("two parts, V's third subnormal", "ties", "near 1e30")
+
+
+@pytest.mark.parametrize("edge", PART_EDGES)
+@pytest.mark.parametrize("mode", MULTI_PASS)
+@pytest.mark.parametrize("kernel", ["v2", "v1"])
+def test_multi_pass_instances_take_their_parts_exactly_at_the_edges(device, kernel, mode, edge):
+    """Each multi-pass instance of both kernels against its plain version
+    (the existing gates: 1e-5 relative RMS of the plain version in its mode,
+    a tenth of the TF32 instance's distance from float32) where a part is
+    zero or subnormal, where every value rounds at a tie, and near 1e30:
+    the tensor cores take the parts as the plain version's products do."""
+    b, h, l, d, m = 3, 4, 100, 32, 128
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=40)
+    e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(41), device=device) * 0.5
+    scale = 1.0  # V's
+    if edge == "near 1e30":
+        scale = 2.0 ** 100
+        q, k, v, table, e_lr = q * 2.0 ** 50, k * 2.0 ** -50, v * scale, table * 2.0 ** -50, e_lr * 2.0 ** -50
+    else:
+        q, k, table, e_lr = (_at_edge(x, edge, mode) for x in (q, k, table, e_lr))
+        if edge == "ties":
+            v = _at_edge(v, edge, mode)
+        else:
+            scale = 2.0 ** -111
+            v = v * scale
+    with torch.inference_mode():
+        if kernel == "v2":
+            views = _projection_views(q, k, v)
+            kernel_out = lambda mode_: attention.fused_attention_v2(*views, bias, table, m, mode=mode_)  # noqa: E731
+            plain_out = lambda mode_: attention.fused_attention_v2_reference(  # noqa: E731
+                q, k, v, bias, table, m, mode=mode_)
+        else:
+            kernel_out = lambda mode_: attention.fused_attention(q, k, v, bias, e_lr, mode=mode_)  # noqa: E731
+            plain_out = lambda mode_: attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode_)  # noqa: E731
+        out = kernel_out(mode)
+        assert torch.isfinite(out).all() and out.abs().max() > 0
+        _check_instance(out / scale, lambda mode_: plain_out(mode_) / scale, mode,
+                        lambda mode_: kernel_out(mode_) / scale)
+
+
 def test_gathered_kernel_ignores_masked_keys(device):
     q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
     e_lr = _e_lr(table, 96, 128, "permuted")
