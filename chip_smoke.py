@@ -22,17 +22,23 @@ Phases, each printing lines of its own:
      the presets' products of TF32 or bf16 parts) within 1e-5 relative RMS
      of the plain version in their mode and within a tenth of the TF32
      instance's distance from float32 on the same inputs (v2 and v1 alike;
-     v1's at every e_lr kind, with masked-key invariance). Kernel, plain
+     v1's at every e_lr kind, with masked-key invariance); at H = 12, D = 32
+     and (B, L) = (64, 128), (64, 64), (15, 64), the f64 instances within
+     1e-6 relative RMS of the plain version in their mode (float64
+     products, each dot rounded to float32) and the 16-bit ones (f16,
+     f16f16, bf16bf16: F16_F16_F32, F16_F16_F16, BF16_BF16_BF16) within a
+     tenth of their plain version's distance from float32 (above 0) and
+     within 5e-2 of float32. Kernel, plain
      (in the instance's mode) and library times (SDPA for rel-off, in each
-     instance's precision: IEEE float32, TF32 GEMMs, bf16 copies; IEEE
-     float32 beside the multi-pass rows, float32's products, not the split
-     ones), all instances taken in turns in one call, at H = 12, D = 32 and
-     (B, L) = (64, 128), (64, 64), (15, 64), each beside its bound: the
-     larger of its FLOPs (times the instance's products of parts) over the
-     peak for its operands' type (67 TFLOP/s FMA, 495 TF32 for tf32 and
-     tf32x3, 989 bf16 for bf16 and the bf16 multi-pass instances, whose
-     parts run on the bf16 tensor cores) and its bytes over
-     3.35 TB/s; each kernel's TF32 instance must beat
+     instance's precision: IEEE float32, TF32 GEMMs, bf16, f16 or float64
+     copies; IEEE float32 beside the multi-pass rows, float32's products,
+     not the split ones), all instances taken in turns in one call, at
+     H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
+     its bound: the larger of its FLOPs (times the instance's products of
+     parts) over the peak for its operands' type (67 TFLOP/s FMA, 34 float64
+     FMA for f64, 495 TF32 for tf32 and tf32x3, 989 bf16 or f16 for bf16,
+     the 16-bit instances and the bf16 multi-pass instances) and its bytes
+     over 3.35 TB/s; each kernel's TF32 instance must beat
      its FMA one at B = 64, L = 128 with relative scores
   3. the trained torch fixture loaded through models.io.from_dir onto the
      card under attention_impl "auto" (v2) and "pallas" (v1), against its
@@ -194,20 +200,27 @@ Phases, each printing lines of its own:
  13. matmul_precision: the flagship at "highest" (IEEE float32), "default"
      (under TF32 for the process, as the command-line programs set it:
      precision.set_process_default), "BF16_BF16_F32" (bf16 operands,
-     float32 sums and output) and the multi-pass presets TF32_TF32_F32_X3,
-     BF16_BF16_F32_X3, _X6 and _X9 (products of TF32 or bf16 parts).
-     (a) the graphed DDPM step at the sweep's chunks (15 x 64, 63 x 128),
-     the -n 1 DDPM sweep in backbones/s and the graphed train step at
+     float32 sums and output), the multi-pass presets TF32_TF32_F32_X3,
+     BF16_BF16_F32_X3, _X6 and _X9 (products of TF32 or bf16 parts),
+     F64_F64_F64 (float64 products) and the 16-bit presets F16_F16_F32,
+     F16_F16_F16 and BF16_BF16_BF16 (f16 or bf16 operands; the last two
+     round each dot's output). (a) the graphed DDPM step at the sweep's
+     chunks (15 x 64, 63 x 128), the -n 1 DDPM sweep in backbones/s (not
+     at F64_F64_F64 and the 16-bit presets, whose 66 graphed steps' 792
+     v2 launches are counted instead) and the graphed train step at
      B = 64, L = 128; (b) against "highest" on the same inputs: one flagship
      forward (relative RMS of the difference above 0 and at most 1e-2 at
-     TF32, 5e-2 at bf16, 1e-4 at the multi-pass presets (5e-4 at
-     BF16_BF16_F32_X3) and a tenth of TF32's: the gate), a full DDPM chain
+     TF32 and F16_F16_F32, 2e-2 at F16_F16_F16, 5e-2 at bf16 and
+     BF16_BF16_BF16, 1e-4 at the multi-pass presets (5e-4 at
+     BF16_BF16_F32_X3) and 1e-5 at F64_F64_F64, these two also at most a
+     tenth of TF32's: the gate), a full DDPM chain
      of the trained torch
      fixture with the same draws (mean |d angle|) and the loss curve of 20
      train steps on a linear schedule; (c) the GEMM kernels of a DDPM
      step's graph and of the train step's graph, named by cuFuncGetName:
-     all float32 FMA under "highest", all TF32 tensor cores under the rest
-     (bf16 values or parts in TF32 GEMMs) but the one GEMM with a 6-wide
+     all float32 FMA under "highest", all float64 under F64_F64_F64, all
+     TF32 tensor cores under the rest (bf16 or f16 values or parts in TF32
+     GEMMs) but the one GEMM with a 6-wide
      operand (FEATURE_GEMMS), the GEMM nodes in the count GEMM_NODES
      states (one GEMM per dot, a multi-pass preset's over its parts), and the step
      graph's 12 v2 nodes all of the precision's instance, as are the
@@ -226,7 +239,8 @@ The line before the last is {"kernels": [...]}, one entry per kernel
 instance: the v2 FMA instance's launches are phase 5's, phase 9's, phase
 10's (b) and (d) on both ranks and phase 11's (a) (phase 9 prints its
 rel-off launches apart), v1 FMA's phase 6's, the other v2 instances'
-phase 13's sweeps at their precisions ("default" for TF32), the other v1
+phase 13's sweeps at their precisions ("default" for TF32; the f64 and
+16-bit instances' phase 13's graphed steps), the other v1
 instances' phase 13's "pallas" steps, each counted under the graphs by their launch
 accounting (graphs.py); the last is {"ok": true, "device": {...}}. Any
 failure raises, so the script exits non-zero and prints neither.
@@ -297,6 +311,7 @@ from foldingdiff_tpu_torch.utils_profiling import phase_totals  # noqa: E402
 
 DEVICE = "cuda"
 SEED = 1234
+RUN_START = time.perf_counter()
 KERNEL_TOL = 1e-4  # kernel vs plain, one attention call (float32, other summation order)
 # The tensor-core instances against the plain versions (relative RMS): TF32
 # within TF32_TOL of the float32 plain version; bf16 within BF16_SHARE of the
@@ -310,6 +325,13 @@ TF32_TOL, BF16_SHARE, BF16_TOL = 5e-3, 0.1, 5e-2
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
 TENSOR_CORE = ("tf32", "bf16", *MULTI_PASS)
 SPLIT_TOL, SPLIT_SHARE = 1e-5, 0.1
+# The f64 instances (F64_F64_F64) within F64_TOL relative RMS of the plain
+# version in their mode; the 16-bit ones (F16_F16_F32, F16_F16_F16,
+# BF16_BF16_BF16) within BF16_SHARE of their plain version's distance from
+# float32 and within BF16_TOL of float32, as bf16's; each at the timed shapes
+SIXTEEN_BIT = ("f16", "f16f16", "bf16bf16")
+WIDE_AND_16 = ("f64", *SIXTEEN_BIT)
+F64_TOL = 1e-6
 DENOISER_TOL = 1e-3  # kernel vs plain through 12 layers
 FIXTURE = REPO / "tests" / "torch_trained_model_for_testing"
 FLAGSHIP = ModelConfig(
@@ -387,14 +409,16 @@ def in_turns(fns: dict) -> dict:
 
 
 # H100 SXM dense peaks per instance, by the type of its operands: float32
-# outside the tensor cores (FMA), TF32 (tf32, tf32x3), bf16 (bf16 and the
-# bf16 multi-pass instances: their products are of bf16 values, which the
-# multi-pass kernels run on the bf16 tensor cores); HBM3
-PEAK_FLOPS = {"fma": 67e12, **{i: 989e12 if precision.SPLITS.get(i, ("tf32",))[0] == "bf16" else 495e12
-                                for i in TENSOR_CORE}}
+# outside the tensor cores (FMA), float64 on the FP64 tensor cores (f64:
+# the card's float64 peak, though its kernels run float64 FMA outside them,
+# whose peak is half of it), TF32 (tf32, tf32x3), bf16 or f16 (bf16, the
+# 16-bit instances and the bf16 multi-pass instances: their products are of
+# bf16 or f16 values); HBM3
+PEAK_FLOPS = {"fma": 67e12, "f64": 67e12, **{i: 495e12 if precision.SPLITS.get(i, ("tf32",))[0] == "tf32" else 989e12
+                                             for i in (*TENSOR_CORE, *SIXTEEN_BIT)}}
 PEAK_BYTES = 3.35e12
 # the products each instance computes per product of the function
-PRODUCTS = {"fma": 1, "tf32": 1, **{i: len(split[2]) for i, split in precision.SPLITS.items()}}
+PRODUCTS = {"fma": 1, "tf32": 1, "f64": 1, **{i: len(split[2]) for i, split in precision.SPLITS.items()}}
 
 
 def bound(entry: str, rel: bool, b: int, h: int, l: int, d: int, m: int, instance: str = "fma") -> tuple[float, str]:
@@ -509,50 +533,59 @@ def rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).square().mean().sqrt() / b.square().mean().sqrt()).item()
 
 
-def check_instance(tag: str, mode: str, out: torch.Tensor, plain, tf32_drift: float | None = None) -> tuple:
-    """A tensor-core instance's output against plain(mode), the plain
-    version in a mode: TF32 within TF32_TOL relative RMS of float32's (and
-    above 0: the instance took effect); bf16 within BF16_SHARE of the plain
-    bf16 version's relative-RMS distance from float32, and within BF16_TOL
-    of float32; a multi-pass instance within SPLIT_TOL of the plain version
-    in its mode and within SPLIT_SHARE of tf32_drift, the TF32 instance's
-    distance from float32 on the same inputs. Returns (the max abs err
-    against the plain version in the instance's mode (float32's for TF32,
-    whose plain version on the card is cuBLAS's TF32, another rounding),
-    the relative RMS against float32)."""
+def instance_reading(mode: str, out: torch.Tensor, plain, tf32_drift: float | None = None,
+                     share: float = BF16_SHARE) -> tuple:
+    """(whether out passes the gate of an instance in `mode`, what it read,
+    the max abs err against the plain version in that mode (float32's for
+    TF32, whose plain version on the card is cuBLAS's TF32, another
+    rounding), the relative RMS against float32), plain(mode) being the
+    plain version in a mode. The gates: TF32 within TF32_TOL relative RMS
+    of float32's (and above 0: the instance took effect); bf16 and the
+    16-bit modes within `share` (BF16_SHARE) of the plain version's
+    relative-RMS distance from float32 in their mode (above 0), and within
+    BF16_TOL of float32; f64 within F64_TOL of the plain version in its
+    mode; a multi-pass mode within SPLIT_TOL of it and within SPLIT_SHARE
+    of tf32_drift, the TF32 instance's distance from float32 on the same
+    inputs."""
     f32 = plain("ieee")
     if mode == "tf32":
         rms = rel_rms(out, f32)
         err = (out - f32).abs().max().item()
-        log(f"[2] {tag}: relative RMS against float32 {rms:.3e} (gate: above 0, at most {TF32_TOL}), "
-            f"max abs err {err:.3e}")
-        if not 0 < rms <= TF32_TOL:
-            raise RuntimeError(f"{tag}: the TF32 instance's relative RMS from float32 is {rms}")
-        return err, rms
+        return (0 < rms <= TF32_TOL, f"relative RMS against float32 {rms:.3e} (gate: above 0, at most {TF32_TOL}), "
+                f"max abs err {err:.3e}", err, rms)
     ref = plain(mode)
+    rms, drift, err = rel_rms(out, ref), rel_rms(out, f32), (out - ref).abs().max().item()
+    if mode == "f64":
+        return (rms <= F64_TOL, f"relative RMS against the plain f64 version {rms:.3e} (gate: {F64_TOL}), against "
+                f"float32 {drift:.3e}; max abs err {err:.3e}", err, drift)
     if mode in MULTI_PASS:
-        rms, drift = rel_rms(out, ref), rel_rms(out, f32)
-        err = (out - ref).abs().max().item()
-        log(f"[2] {tag}: relative RMS against the plain {mode} version {rms:.3e} (gate: {SPLIT_TOL}), against "
-            f"float32 {drift:.3e} (gate: {SPLIT_SHARE} of the TF32 instance's {tf32_drift:.3e}); max abs err {err:.3e}")
-        if not (rms <= SPLIT_TOL and drift <= SPLIT_SHARE * tf32_drift):
-            raise RuntimeError(f"{tag}: the {mode} instance is {rms} from its plain version, {drift} from float32 "
-                               f"(the TF32 instance {tf32_drift})")
-        return err, drift
-    gap, rms, drift = rel_rms(ref, f32), rel_rms(out, ref), rel_rms(out, f32)
-    err = (out - ref).abs().max().item()
-    log(f"[2] {tag}: relative RMS against the plain bf16 version {rms:.3e}, its distance from float32 {gap:.3e} "
-        f"(gate: at most {BF16_SHARE} of it), against float32 {drift:.3e} (gate: {BF16_TOL}); max abs err {err:.3e}")
-    if not (gap > 0 and rms <= BF16_SHARE * gap and drift <= BF16_TOL):
-        raise RuntimeError(f"{tag}: the bf16 instance is {rms} from the plain bf16 version ({gap} from float32), "
-                           f"{drift} from float32")
+        return (rms <= SPLIT_TOL and drift <= SPLIT_SHARE * tf32_drift,
+                f"relative RMS against the plain {mode} version {rms:.3e} (gate: {SPLIT_TOL}), against float32 "
+                f"{drift:.3e} (gate: {SPLIT_SHARE} of the TF32 instance's {tf32_drift:.3e}); max abs err {err:.3e}",
+                err, drift)
+    gap = rel_rms(ref, f32)
+    return (gap > 0 and rms <= share * gap and drift <= BF16_TOL,
+            f"relative RMS against the plain {mode} version {rms:.3e} ({rms / gap if gap else math.inf:.3f} of its "
+            f"distance from float32 {gap:.3e}; gate: at most {share} of it), against float32 {drift:.3e} (gate: "
+            f"{BF16_TOL}); max abs err {err:.3e}", err, drift)
+
+
+def check_instance(tag: str, mode: str, out: torch.Tensor, plain, tf32_drift: float | None = None,
+                   share: float = BF16_SHARE) -> tuple:
+    """instance_reading's gate, logged; raises where it fails. Returns (max
+    abs err, relative RMS against float32)."""
+    ok, reading, err, drift = instance_reading(mode, out, plain, tf32_drift, share)
+    log(f"[2] {tag}: {reading}")
+    if not ok:
+        raise RuntimeError(f"{tag}: the {mode} instance fails its gate: {reading}")
     return err, drift
 
 
 def in_mode(mode: str, fn):
     """fn() with cuBLAS's float32 GEMMs as a model in `mode` runs them: TF32
-    under "tf32", "bf16" and the multi-pass modes (whose parts TF32 holds),
-    the process's IEEE float32 otherwise."""
+    under "tf32", "bf16", the 16-bit and the multi-pass modes (whose parts
+    TF32 holds), the process's IEEE float32 otherwise ("f64" runs float64
+    GEMMs)."""
     with precision.matmul_precision("caller" if mode == "ieee" else mode):
         return fn()
 
@@ -563,22 +596,37 @@ def v2_plain(q, k, v, bias, kw: dict, mode: str):
     return in_mode(mode, lambda: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode, **kw))
 
 
+# The SDPA call each instance is timed beside where it is not its own
+# (sdpa_by_instance): the multi-pass rows' is IEEE SDPA, float32's products
+# (not the split ones); the output-rounding 16-bit rows' the f16 or bf16
+# call, whose output is rounded to that type
+LIBRARY_OF = {**{m: "fma" for m in MULTI_PASS}, "f16f16": "f16", "bf16bf16": "bf16"}
+
+
 def sdpa_by_instance(q, k, v, mask, bias, b: int, l: int) -> dict:
-    """{instance: one PyTorch call of the rel-off function in the instance's
-    precision}, the library yardstick (the port never calls it): SDPA (scale
+    """{library: one PyTorch call of the rel-off function in an instance's
+    precision (LIBRARY_OF)}, the library yardstick (the port never calls it): SDPA (scale
     1/sqrt(D), the mask added) on float32 q, k and v under IEEE float32 and
-    under TF32 GEMMs, and on bf16 copies of them. Each is held against the
-    float32 plain version: IEEE within KERNEL_TOL, TF32 within TF32_TOL and
-    bf16 within BF16_TOL relative RMS (bf16 SDPA rounds the unnormalised P,
-    so it is close to, not exactly, the JAX bf16 function)."""
+    under TF32 GEMMs, and on bf16, f16 and float64 copies of them (the
+    16-bit instances take the f16 or bf16 call, whose output is rounded to
+    that type; f64 the float64 call, whose softmax is float64 too). Each is
+    held against the float32 plain version: IEEE and float64 within
+    KERNEL_TOL, TF32 within TF32_TOL and bf16 and f16 within BF16_TOL
+    relative RMS (bf16 SDPA rounds the unnormalised P, so it is close to,
+    not exactly, the JAX bf16 function)."""
     qb, kb, vb, mb = (x.to(torch.bfloat16) for x in (q, k, v, mask))
+    qh, kh, vh, mh = (x.to(torch.float16) for x in (q, k, v, mask))
+    qd, kd, vd, md = (x.double() for x in (q, k, v, mask))
     sdpa = F.scaled_dot_product_attention
     libraries = {"fma": lambda: sdpa(q, k, v, attn_mask=mask),
                  "tf32": lambda: in_mode("tf32", lambda: sdpa(q, k, v, attn_mask=mask)),
-                 "bf16": lambda: sdpa(qb, kb, vb, attn_mask=mb)}
+                 "bf16": lambda: sdpa(qb, kb, vb, attn_mask=mb),
+                 "f64": lambda: sdpa(qd, kd, vd, attn_mask=md),
+                 "f16": lambda: sdpa(qh, kh, vh, attn_mask=mh)}
     f32 = attention.fused_attention_reference(q, k, v, bias)
     check_err(f"SDPA B={b} L={l} rel-off (the library yardstick, IEEE float32)", libraries["fma"](), f32)
-    for i, tol in (("tf32", TF32_TOL), ("bf16", BF16_TOL)):
+    check_err(f"SDPA B={b} L={l} rel-off (float64)", libraries["f64"]().float(), f32)
+    for i, tol in (("tf32", TF32_TOL), ("bf16", BF16_TOL), ("f16", BF16_TOL)):
         rms = rel_rms(libraries[i]().float(), f32)
         log(f"[2] SDPA B={b} L={l} rel-off ({i}): relative RMS against float32 {rms:.3e} (at most {tol})")
         if not rms <= tol:
@@ -586,15 +634,125 @@ def sdpa_by_instance(q, k, v, mask, bias, b: int, l: int) -> dict:
     return libraries
 
 
+# Controls of the f64 and 16-bit gates: each gate, run on an instance that
+# lacks what it holds, must fail, on inputs where that lack shows, and the
+# gated instance passes on the same inputs: (gate, control instance, inputs)
+CONTROLS = (("f64", "ieee", "cancelling"), ("f16", "tf32", "f16-subnormal v"), ("f16f16", "f16", "normal"),
+            ("bf16bf16", "bf16", "normal"))
+CANCEL_SCALE = 64.0  # "cancelling": q.k and q.E sum products of ~64^2 that cancel
+TINY_V = 2.0 ** -16  # "f16-subnormal v": v at f16's subnormal size (its spacing 2^-24)
+F16_OVERFLOW = 7e4  # past f16's largest finite value, 65504
+# The card tests' share for the 16-bit instances (tests/test_torch_cuda.py
+# SHARE), read at B = 3, H = 5, L = 99, D = 64 on those tests' inputs (seed
+# 13, e_lr's 4) and on a second seed (14, 5), v1 and v2
+RAGGED_SHARE = {"f16": 0.2, "f16f16": 0.2, "bf16bf16": 0.1}
+
+
+def control_inputs(kind: str, b: int, h: int, l: int, d: int, m: int, seed: int):
+    """attention_inputs, "normal"; "cancelling": q's first quarter of dims
+    repeated in its second, k's and the table's negated there, both
+    quarters scaled by CANCEL_SCALE, so that q.k and q.E are the second
+    half's O(1) products after partial sums of ~CANCEL_SCALE^2 that cancel
+    exactly (float32 sums keep ~1e-3 of them); "f16-subnormal v": v scaled
+    by TINY_V."""
+    q, k, v, bias, table = attention_inputs(b, h, l, d, m, seed)
+    if kind == "cancelling":
+        quarter = d // 4
+        for x in (q, k, table):
+            x[..., :2 * quarter] *= CANCEL_SCALE
+        q[..., quarter:2 * quarter] = q[..., :quarter]
+        k[..., quarter:2 * quarter] = -k[..., :quarter]
+        table[..., quarter:2 * quarter] = -table[..., :quarter]
+    elif kind == "f16-subnormal v":
+        v = v * TINY_V
+    return q, k, v, bias, table
+
+
+def entry_calls(q, k, v, bias, table, e_lr, m: int) -> dict:
+    """{entry: (kernel(mode), plain(mode))}: v2 on (B, L, H, D) views with
+    the table, v1 with e_lr (each without relative scores where None)."""
+    views = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
+    kw = dict(rel_table=table, m=m) if table is not None else {}
+    return {"v2": (lambda mode: attention.fused_attention_v2(*views, bias, mode=mode, **kw),
+                   lambda mode: v2_plain(q, k, v, bias, kw, mode)),
+            "v1": (lambda mode: attention.fused_attention(q, k, v, bias, e_lr, mode=mode),
+                   lambda mode: in_mode(mode, lambda: attention.fused_attention_reference(q, k, v, bias, e_lr,
+                                                                                         mode=mode)))}
+
+
+def check_controls() -> None:
+    """CONTROLS at B = 64, H = 12, L = 128, D = 32 with relative scores, v2
+    and v1: the gated instance passes, the control fails; on "normal"
+    inputs the FMA instance's reading through the f64 gate and the TF32
+    instance's through the f16 gate are logged (float32 sums and TF32's
+    rounding of N(0, 1) values come close to both there). Then f16's
+    infinities: one value of v past 65504 at key 0 (inside every row's
+    length; q scaled by 0.1, so that no P rounds to 0) makes the f16 and
+    f16f16 instances' outputs +inf or -inf in that column, as their plain
+    versions' are, and the rest passes their gate; the TF32 instance keeps
+    it finite (the control)."""
+    b, h, l, d, m = 64, 12, 128, 32, 128
+    for gate, control, kind in (*CONTROLS, ("f64", "ieee", "normal"), ("f16", "tf32", "normal")):
+        q, k, v, bias, table = control_inputs(kind, b, h, l, d, m, SEED + 7)
+        for entry, (kernel, plain) in entry_calls(q, k, v, bias, table, gathered(table, l, m, False), m).items():
+            tag = f"control {entry} B={b} L={l} rel, {kind} inputs"
+            must_fail = (gate, control, kind) in CONTROLS
+            if must_fail:
+                check_instance(f"{tag}: the {gate} instance", gate, kernel(gate), plain)
+            ok, reading, _, _ = instance_reading(gate, kernel(control), plain)
+            log(f"[2] {tag}: the {control} instance through the {gate} gate ("
+                + ("a control, which must fail it" if must_fail else "read only") + f"): {reading}")
+            if must_fail and ok:
+                raise RuntimeError(f"{tag}: the {control} instance passes the {gate} gate: {reading}")
+    q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED + 8)
+    q = q * 0.1
+    v[:, :, 0, 0], v[:, :, 0, 1] = F16_OVERFLOW, -F16_OVERFLOW
+    for entry, (kernel, plain) in entry_calls(q, k, v, bias, table, gathered(table, l, m, False), m).items():
+        for mode in ("f16", "f16f16", "tf32"):
+            out, ref = kernel(mode)[..., :2], plain("f16" if mode == "tf32" else mode)[..., :2]
+            infinite = bool((ref[..., 0] == math.inf).all() and (ref[..., 1] == -math.inf).all())
+            same = torch.equal(out, ref)
+            log(f"[2] f16 infinities, {entry} {mode} instance: v = +-{F16_OVERFLOW} at key 0 gives "
+                f"{out[..., 0].isposinf().sum().item()} +inf and {out[..., 1].isneginf().sum().item()} -inf of "
+                f"{out[..., 0].numel()} each; the plain f16 version all infinite {infinite}, equal to it {same}"
+                + (" (the control: it must differ)" if mode == "tf32" else ""))
+            if not infinite or same != (mode != "tf32"):
+                raise RuntimeError(f"[2] f16 infinities, {entry} {mode} instance: equal to the plain version {same}")
+            if mode != "tf32":
+                check_instance(f"{entry} {mode} B={b} L={l} rel with v past 65504, the other columns", mode,
+                               kernel(mode)[..., 2:], lambda mode_: plain(mode_)[..., 2:])
+
+
+def check_ragged_shares() -> None:
+    """The 16-bit instances at B = 3, H = 5, L = 99, D = 64, v1 (e_lr
+    random) and v2 (the table), with and without relative scores, on the
+    card tests' inputs and a second seed, against RAGGED_SHARE (the card
+    tests' shares) of their plain version's distance from float32."""
+    b, h, l, d, m = 3, 5, 99, 64, 128
+    for seed, e_seed in ((13, 4), (14, 5)):
+        q, k, v, bias, table = attention_inputs(b, h, l, d, m, seed)
+        e_lr = torch.randn(l, l, d, generator=torch.Generator(device=DEVICE).manual_seed(e_seed), device=DEVICE) * 0.5
+        for rel in (True, False):
+            calls = entry_calls(q, k, v, bias, table if rel else None, e_lr if rel else None, m)
+            for entry, (kernel, plain) in calls.items():
+                for mode, share in RAGGED_SHARE.items():
+                    check_instance(f"{entry} {mode} B={b} H={h} L={l} D={d} rel={rel} seed {seed} (the card tests' "
+                                   f"share)", mode, kernel(mode), plain, share=share)
+
+
 def phase_kernel() -> dict:
     """Returns {(entry, instance): the kernels line's numbers at B = 64,
     L = 128 with relative scores}."""
     worst = {(entry, i): 0.0 for entry, lib in (("v2", V2), ("v1", V1)) for i in lib.instances}
     with torch.inference_mode():
+        check_controls()
+        check_ragged_shares()
         for b, h, l, d, m in KERNEL_SHAPES:
             q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED + l + d)
             views = projection_views(b, h, l, d, SEED + l)
             shape = f"B={b} H={h} L={l} D={d} M={m}"
+            # the f64 and 16-bit instances at the timed shapes
+            modes = TENSOR_CORE + (WIDE_AND_16 if (b, l) in TIMED and (h, d, m) == (12, 32, 128) else ())
             for rel in (True, False):
                 kw = dict(rel_table=table, m=m) if rel else {}
                 out = attention.fused_attention_v2(q, k, v, bias, **kw)
@@ -613,7 +771,7 @@ def phase_kernel() -> dict:
                         *(x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q_, k_, v_)), bias, table, m),
                         q, k, v, bias, out)
                 tf32_drift = None
-                for mode in TENSOR_CORE:  # the tensor-core instances, on the projections' views
+                for mode in modes:  # the tensor-core and f64 instances, on the projections' views
                     out_t = attention.fused_attention_v2(*views, bias, mode=mode, **kw)
                     check_layout(f"v2 {mode} {shape} on views", out_t, b, h, l, d)
                     err, drift = check_instance(f"v2 {mode} {shape} rel={rel} on (B, L, H, D) views", mode, out_t,
@@ -637,7 +795,7 @@ def phase_kernel() -> dict:
                     check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
                         q_, k_, v_, bias, e_lr), q, k, v, bias, out)
                 tf32_drift = None
-                for mode in TENSOR_CORE:  # the tensor-core instances
+                for mode in modes:  # the tensor-core and f64 instances
                     out_t = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
                     err, drift = check_instance(
                         f"v1 {mode} {shape} e_lr={e_kind}", mode, out_t,
@@ -676,8 +834,7 @@ def phase_kernel() -> dict:
                     for i in lib.instances:
                         bound_ms, bound_by = bound(entry, rel, b, h, l, d, m, i)
                         ms = times[entry, i]
-                        # the multi-pass rows' yardstick: IEEE SDPA, float32's products (not the split ones)
-                        library = "fma" if i in MULTI_PASS else i
+                        library = LIBRARY_OF.get(i, i)
                         results[entry, i, rel, b, l] = {
                             "kernel": ms, "plain": times[f"{entry} plain", i],
                             "library": times.get(("library", library)), "bound_ms": bound_ms, "bound_by": bound_by}
@@ -854,12 +1011,13 @@ def kernel_group(name: str) -> str:
 PROFILE_WINDOWS = 3
 
 
-def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, **config) -> dict:
+def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, n_windows: int = PROFILE_WINDOWS,
+                  **config) -> dict:
     """DDPM reverse steps of the flagship under `impl` (p_sample_loop's body:
     one normal draw and p_sample_step), at batch b and length l, its config
     fields replaced by `config`. Wall: the
     host clock around `steps` synchronised steps, profiler off, the median of
-    three. Then PROFILE_WINDOWS torch.profiler windows of `steps` steps each;
+    three. Then `n_windows` torch.profiler windows of `steps` steps each;
     of the window with the most device events (an eager step's operations
     are fixed; a lost record only lowers the count): device events (kernels,
     memcpy, memset) per step, their busy time (the union of their
@@ -887,7 +1045,7 @@ def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, **
             run(steps)
             walls.append((time.perf_counter() - start) / steps * 1e3)
         windows = []
-        for _ in range(PROFILE_WINDOWS):
+        for _ in range(n_windows):
             with torch.profiler.profile(activities=activities) as prof:
                 run(steps)
             windows.append(sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
@@ -1242,10 +1400,10 @@ def dataset_cache_in(tmp: str):
 
 def phase_training(tmp: str, card: str) -> str:
     with dataset_cache_in(tmp):
-        trained = phase_train_cli(tmp, card)
-    phase_step_card_vs_cpu()
-    phase_remat()
-    phase_train_speed(card)
+        trained = timed("phase 7 train CLI", phase_train_cli, tmp, card)
+    timed("phase 7 step card vs CPU", phase_step_card_vs_cpu)
+    timed("phase 7 remat", phase_remat)
+    timed("phase 7 train speed", phase_train_speed, card)
     layers, steps = FLAGSHIP.num_hidden_layers, 50
     run_cli("[7] ddim-50 from the trained directory", trained, str(Path(tmp, "trained_ddim")),
             ["--method", "ddim", "--ddim_steps", str(steps)],
@@ -1438,11 +1596,11 @@ def phase_debug_training(tmp: str, card: str) -> None:
 
 def phase_surface(tmp: str, model_dir: str, trained: str, card: str) -> None:
     with dataset_cache_in(tmp):
-        phase_reconstruction(tmp, trained, card)
-        phase_reconstruction_card_vs_cpu(tmp, trained)
-    phase_history(model_dir, tmp, card)
-    phase_cart_coords(tmp, card)
-    phase_debug_training(tmp, card)
+        timed("phase 8 reconstruction", phase_reconstruction, tmp, trained, card)
+        timed("phase 8 reconstruction card vs CPU", phase_reconstruction_card_vs_cpu, tmp, trained)
+    timed("phase 8 history", phase_history, model_dir, tmp, card)
+    timed("phase 8 Cartesian coordinates", phase_cart_coords, tmp, card)
+    timed("phase 8 debug training", phase_debug_training, tmp, card)
 
 
 AR_CONFIG = REPO / "config_jsons" / "synthetic_full_angles_cosine.json"  # the AR baseline's training config
@@ -2273,14 +2431,14 @@ def phase_evaluation(tmp: str, trained: str, card: str) -> int:
     directory and corpus. Returns (a)'s v2 launches."""
     start = time.perf_counter()
     with dataset_cache_in(tmp):
-        launches = phase_eval_sampling(tmp, trained, card)
-        phase_eval_lddt(tmp, card)
-        phase_eval_designability(tmp, trained, card)
-        phase_eval_structures(tmp)
-        phase_eval_featurizer(tmp)
-        phase_eval_positional(card)
-        phase_eval_lock_and_diagnostics(tmp, card)
-        phase_eval_figure_clis(tmp)
+        launches = timed("phase 11 sampling", phase_eval_sampling, tmp, trained, card)
+        timed("phase 11 lDDT", phase_eval_lddt, tmp, card)
+        timed("phase 11 designability", phase_eval_designability, tmp, trained, card)
+        timed("phase 11 structures", phase_eval_structures, tmp)
+        timed("phase 11 featurizer", phase_eval_featurizer, tmp)
+        timed("phase 11 positional", phase_eval_positional, card)
+        timed("phase 11 lock and diagnostics", phase_eval_lock_and_diagnostics, tmp, card)
+        timed("phase 11 figure CLIs", phase_eval_figure_clis, tmp)
     log(f"[11] the evaluation path in {time.perf_counter() - start:.3f} s")
     return launches
 
@@ -2792,11 +2950,11 @@ def phase_graph_training(card: str) -> None:
 
 def phase_graphs(model_dir: str, eager_profiles: dict, card: str) -> None:
     start = time.perf_counter()
-    phase_graph_draws()
-    phase_graph_sweeps(model_dir, card)
-    phase_graph_chains(model_dir)
-    phase_graph_profile(model_dir, eager_profiles, card)
-    phase_graph_training(card)
+    timed("phase 12 draws", phase_graph_draws)
+    timed("phase 12 sweeps", phase_graph_sweeps, model_dir, card)
+    timed("phase 12 chains", phase_graph_chains, model_dir)
+    timed("phase 12 profile", phase_graph_profile, model_dir, eager_profiles, card)
+    timed("phase 12 training", phase_graph_training, card)
     log(f"[12] CUDA graphs in {time.perf_counter() - start:.3f} s")
 
 
@@ -2805,19 +2963,30 @@ def phase_graphs(model_dir: str, eager_profiles: dict, card: str) -> None:
 # IEEE float32, TF32, bf16 operands, and the multi-pass presets' products of
 # TF32 or bf16 parts (models/config.py)
 MULTI_PASS_PRESETS = ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "BF16_BF16_F32_X6", "BF16_BF16_F32_X9")
-PRECISIONS = ("highest", "default", "BF16_BF16_F32", *MULTI_PASS_PRESETS)
+# float64 products, and the 16-bit presets (f16 operands; f16 operands and
+# output; bf16 operands and output): run without the sweep and the eager
+# profile, their v2 launches counted on the graphed steps instead
+WIDE_AND_16_PRESETS = ("F64_F64_F64", "F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16")
+PRECISIONS = ("highest", "default", "BF16_BF16_F32", *MULTI_PASS_PRESETS, *WIDE_AND_16_PRESETS)
 # The flagship forward's drift from "highest", as the RMS of the difference
 # over the RMS of the output: starting bounds (a reading above one fails the
 # run and is reported, never a quietly wider bound); the multi-pass presets'
-# also at most PRECISION_TF32_SHARE of "default"'s (TF32) drift
+# also at most PRECISION_TF32_SHARE of "default"'s (TF32) drift, and so is
+# F64_F64_F64's; F16_F16_F32 as TF32 (both keep 11 significant bits),
+# F16_F16_F16 twice that (its outputs rounded too), BF16_BF16_BF16 as bf16
 PRECISION_DRIFT = {"default": 1e-2, "BF16_BF16_F32": 5e-2, "TF32_TF32_F32_X3": 1e-4, "BF16_BF16_F32_X3": 5e-4,
-                   "BF16_BF16_F32_X6": 1e-4, "BF16_BF16_F32_X9": 1e-4}
+                   "BF16_BF16_F32_X6": 1e-4, "BF16_BF16_F32_X9": 1e-4, "F64_F64_F64": 1e-5, "F16_F16_F32": 1e-2,
+                   "F16_F16_F16": 2e-2, "BF16_BF16_BF16": 5e-2}
 PRECISION_TF32_SHARE = 0.1
 # The v2 instance each precision's model runs here (ops/attention.py): "default" under the process's TF32
 PRECISION_INSTANCES = {"highest": "fma", "default": "tf32", "BF16_BF16_F32": "bf16",
-                       **{p: precision.mode_of(p) for p in MULTI_PASS_PRESETS}}
+                       **{p: precision.mode_of(p) for p in (*MULTI_PASS_PRESETS, *WIDE_AND_16_PRESETS)}}
 PRECISION_SHAPES = ((15, 64), (63, 128))  # the sweep's two chunks
 PRECISION_STEPS = 20  # timed train steps, and the steps of the loss curves held against "highest"
+# The eager profile's steps at each swept precision, in one window: it
+# gates nothing, and the profiler's reading of a multi-pass preset's ~1,600
+# operations per step took ~30 s a precision at 3 windows of 10
+PRECISION_PROFILE_STEPS = 5
 GEMM_KERNEL = re.compile(r"gemm|gemv|nvjet|xmma", re.I)
 # The input projection's GEMM (K = 6: rows of 24 bytes, which TF32 tensor
 # cores do not take), which cuBLAS runs on a float32 FMA kernel under TF32:
@@ -2829,19 +2998,28 @@ FEATURE_GEMMS = {"step": 1, "train": 1}
 # of a long contraction as two kernels (a split-K GEMM and its reduction):
 # under _X6 12 more train nodes (one per layer; the weight gradients
 # contract over 8192 rows times the parts), under _X9 25 more and one more
-# in the step (the card's cuBLAS, measured)
+# in the step, under F64_F64_F64 (float64 GEMMs on the FP64 tensor cores,
+# sm90_xmma_gemm_f64f64_*) 73 more train nodes (the card's cuBLAS, measured)
 GEMM_NODES = {"highest": (75, 332), "default": (75, 332), "BF16_BF16_F32": (75, 332),
               "TF32_TF32_F32_X3": (75, 332), "BF16_BF16_F32_X3": (75, 332),
-              "BF16_BF16_F32_X6": (75, 344), "BF16_BF16_F32_X9": (76, 357)}
+              "BF16_BF16_F32_X6": (75, 344), "BF16_BF16_F32_X9": (76, 357), "F64_F64_F64": (75, 405),
+              "F16_F16_F32": (75, 332), "F16_F16_F16": (75, 332), "BF16_BF16_BF16": (75, 332)}
+
+
+# The GEMMs' arithmetic each precision's graphs must hold (gate_gemm_kinds)
+GEMM_MATH = {"highest": "ieee", "F64_F64_F64": "f64"}
 
 
 def gemm_math(name: str) -> str | None:
     """What a kernel's (mangled) name says of the GEMM it runs: "tf32" (TF32
-    tensor cores), "bf16" (bf16 operands on tensor cores), "ieee" (float32
-    FMA), "unplaced" for a GEMM kernel none of these patterns places; None
-    for a kernel that runs no GEMM (split-K's reduction included)."""
+    tensor cores), "bf16" (bf16 operands on tensor cores), "f64" (float64),
+    "ieee" (float32 FMA), "unplaced" for a GEMM kernel none of these
+    patterns places; None for a kernel that runs no GEMM (split-K's
+    reduction included)."""
     if not GEMM_KERNEL.search(name) or "splitKreduce" in name:
         return None
+    if re.search(r"f64|dgemm|dmma|double", name, re.I):
+        return "f64"
     if re.search(r"bf16|nvjet_tss", name):
         return "bf16"
     if re.search(r"tf32|tensorop_s1688|tensorop_s16816", name):
@@ -2862,18 +3040,19 @@ def gemm_kinds(names: dict) -> dict:
 
 
 def gate_gemm_kinds(tag: str, matmul_precision: str, kinds: dict, feature_gemms: int, nodes: int) -> None:
-    """Under "highest" every GEMM node of the graph runs float32 FMA; under
-    "default" (the process's TF32), "BF16_BF16_F32" (bf16 values in TF32
-    GEMMs) and the multi-pass presets (their parts in TF32 GEMMs) every one
-    TF32 tensor cores but at most `feature_gemms` (the input projection's).
-    A backward pass left outside the model's scope would put its ~150 GEMMs
-    on float32 FMA under "highest". `nodes`: the GEMM nodes the graph holds
-    (GEMM_NODES)."""
+    """Under "highest" every GEMM node of the graph runs float32 FMA, under
+    "F64_F64_F64" every one float64; under "default" (the process's TF32),
+    "BF16_BF16_F32" (bf16 values in TF32 GEMMs), the 16-bit presets (f16 or
+    bf16 values in TF32 GEMMs) and the multi-pass presets (their parts in
+    TF32 GEMMs) every one TF32 tensor cores but at most `feature_gemms` (the
+    input projection's). A backward pass left outside the model's scope
+    would put its ~150 GEMMs on float32 FMA under "highest". `nodes`: the
+    GEMM nodes the graph holds (GEMM_NODES)."""
     counts = {k: sum(v.values()) for k, v in kinds.items()}
     log(f"{tag}: GEMM nodes by their kernels' names {counts}: " +
         "; ".join(f"{k}: {', '.join(f'{n} x {name[:100]}' for name, n in v.items())}" for k, v in kinds.items()))
-    want = "ieee" if matmul_precision == "highest" else "tf32"
-    off = sum(n for k, n in counts.items() if k != want) - (0 if want == "ieee" else feature_gemms)
+    want = GEMM_MATH.get(matmul_precision, "tf32")
+    off = sum(n for k, n in counts.items() if k != want) - (feature_gemms if want == "tf32" else 0)
     if off > 0 or not counts:
         raise RuntimeError(f"{tag}: GEMM nodes {counts} under matmul_precision {matmul_precision!r}")
     total = sum(counts.values())
@@ -2934,10 +3113,12 @@ def precision_cli(model_dir: str, tmp: str, card: str) -> None:
 
 def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
     """Phase 13: the flagship at matmul_precision "highest", "default"
-    (TF32), "BF16_BF16_F32" and the multi-pass presets. (a) times: a torch.profiler window of eager DDPM
-    steps at B = 64, L = 128 by kernel group (phase 5's), the graphed DDPM
-    step at the sweep's two chunks, the -n 1 DDPM sweep, the graphed train
-    step at B = 64, L = 128;
+    (TF32), "BF16_BF16_F32", the multi-pass presets, F64_F64_F64 and the
+    16-bit presets. (a) times: a torch.profiler window of eager DDPM steps
+    at B = 64, L = 128 by kernel group (phase 5's), the graphed DDPM step
+    at the sweep's two chunks, the -n 1 DDPM sweep, the graphed train step
+    at B = 64, L = 128 (F64_F64_F64 and the 16-bit presets without the
+    profile and the sweep, their graphed steps' launches counted);
     (b) drift from "highest" on the same inputs: one forward (the gate), a
     full DDPM chain of the trained fixture, and the loss curve of 20 train
     steps on a linear schedule; (c) the GEMM kernels that a DDPM step's graph
@@ -2950,8 +3131,8 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
     forward, train step and capture; (e) bin/sample_torch.py on a copy of
     the flagship directory whose config.json names TF32_TF32_F32_X3. The
     process runs TF32 GEMMs here, as the command-line programs do. Returns
-    the launches of the sweeps (the v2 tensor-core instances) and of the
-    "pallas" steps (the v1 tensor-core instances)."""
+    the launches of the sweeps or graphed steps (the other v2 instances)
+    and of the "pallas" steps (the other v1 instances)."""
     start_phase = time.perf_counter()
     set_process_default()
     before = torch.backends.cuda.matmul.fp32_precision
@@ -2968,40 +3149,63 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
     for precision in PRECISIONS:
         instance = PRECISION_INSTANCES[precision]
         what = f"[13] matmul_precision {precision!r} on {card}"
+        seconds, mark = {}, time.perf_counter()
+
+        def lap(part: str) -> None:  # host seconds of each part of this precision's column
+            nonlocal mark
+            seconds[part], mark = time.perf_counter() - mark, time.perf_counter()
+
         model, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision)
         with torch.inference_mode():
             forward[precision] = model(x, t, mask)
         check_setting_kept(f"{what}, forward", before)
-        r = profile_steps(model_dir, "auto", BATCH, FLAGSHIP.max_position_embeddings, matmul_precision=precision)
-        groups = ", ".join(f"{g} {ms:.4f} ({k:.0f})"
-                           for g, (ms, k) in sorted(r["groups"].items(), key=lambda kv: -kv[1][0]))
-        log(f"{what}: profile of an eager DDPM step B={BATCH} L=128: {r['events']:.1f} device operations, busy "
-            f"{r['busy_ms']:.4f} ms; device ms (operations) per step by group: {groups}")
+        lap("forward")
+        swept = precision not in WIDE_AND_16_PRESETS
+        if swept:
+            r = profile_steps(model_dir, "auto", BATCH, FLAGSHIP.max_position_embeddings, PRECISION_PROFILE_STEPS, 1,
+                              matmul_precision=precision)
+            groups = ", ".join(f"{g} {ms:.4f} ({k:.0f})"
+                               for g, (ms, k) in sorted(r["groups"].items(), key=lambda kv: -kv[1][0]))
+            log(f"{what}: profile of an eager DDPM step B={BATCH} L=128: {r['events']:.1f} device operations, busy "
+                f"{r['busy_ms']:.4f} ms; device ms (operations) per step by group: {groups}")
+            lap("profile")
 
-        # (a) the graphed DDPM step at each chunk shape, and the sweep
+        # (a) the graphed DDPM step at each chunk shape (its launches counted
+        # where no sweep runs), and the sweep
         steps = []
+        reset_counts()
         for b, l in PRECISION_SHAPES:
             xb, _, mb = denoiser_inputs(b, l)
             walls = wall_ms_per_step(replayed_ddpm_steps(model, table, xb, mb, is_angular))
             steps.append(f"{b} x {l} {statistics.median(walls):.4f} ms ({', '.join(f'{w:.4f}' for w in walls)})")
         check_setting_kept(f"{what}, step graphs", before)
-        sampler = sampling.build_sampler(model, schedule, features_angular, gen_noise=True)
-        walls = []
-        # the first run captures each chunk shape's graphs; a multi-pass preset's sweep (~25 s) runs once
-        for _ in range(1 if precision in MULTI_PASS_PRESETS else 2):
-            reset_counts()
-            torch.cuda.synchronize()
-            start = time.perf_counter()
-            sampling.sample(model, schedule, is_angular=features_angular, pad=empty.pad, n=1, sweep_lengths=SWEEP,
-                            batch_size=BATCH, bucket_multiple=BUCKET, mean_offset=empty.get_masked_means(),
-                            seed=SEED, sampler=sampler)
-            walls.append(time.perf_counter() - start)
-        check_launches(f"{what}, DDPM sweep", {V2.name: layers * steps_t * expected_chunks(), V1.name: 0}, instance)
-        launches[V2.name, instance] = V2.launches_by_instance[instance]
-        check_setting_kept(f"{what}, sweep", before)
-        log(f"{what}: graphed DDPM step, median of three windows of 10 replays: {'; '.join(steps)}; DDPM T=1000 "
-            f"sweep (-n 1 -l {SWEEP[0]} {SWEEP[1]} -b {BATCH}, {n} backbones): {n / walls[-1]:.3f} backbones/s "
-            + (f"(first run, with its captures: {n / walls[0]:.3f})" if len(walls) > 1 else "(with its captures)"))
+        if not swept:
+            # replayed_ddpm_steps' eager step and two replays, then wall_ms_per_step's 3 windows of 10, per shape
+            check_launches(f"{what}, graphed DDPM steps", {V2.name: len(PRECISION_SHAPES) * 33 * layers, V1.name: 0},
+                           instance)
+            launches[V2.name, instance] = V2.launches_by_instance[instance]
+            log(f"{what}: graphed DDPM step, median of three windows of 10 replays: {'; '.join(steps)}")
+        else:
+            sampler = sampling.build_sampler(model, schedule, features_angular, gen_noise=True)
+            walls = []
+            # the first run captures each chunk shape's graphs; a multi-pass preset's sweep (~25 s) runs once
+            for _ in range(1 if precision in MULTI_PASS_PRESETS else 2):
+                reset_counts()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                sampling.sample(model, schedule, is_angular=features_angular, pad=empty.pad, n=1, sweep_lengths=SWEEP,
+                                batch_size=BATCH, bucket_multiple=BUCKET, mean_offset=empty.get_masked_means(),
+                                seed=SEED, sampler=sampler)
+                walls.append(time.perf_counter() - start)
+            check_launches(f"{what}, DDPM sweep", {V2.name: layers * steps_t * expected_chunks(), V1.name: 0},
+                           instance)
+            launches[V2.name, instance] = V2.launches_by_instance[instance]
+            check_setting_kept(f"{what}, sweep", before)
+            log(f"{what}: graphed DDPM step, median of three windows of 10 replays: {'; '.join(steps)}; DDPM T=1000 "
+                f"sweep (-n 1 -l {SWEEP[0]} {SWEEP[1]} -b {BATCH}, {n} backbones): {n / walls[-1]:.3f} backbones/s "
+                + (f"(first run, with its captures: {n / walls[0]:.3f})" if len(walls) > 1 else "(with its captures)"))
+            del sampler
+        lap("DDPM steps and sweep")
 
         # (a) the graphed train step; (c) the GEMM kernels of both graphs
         trainer = flagship_trainer(DEVICE, matmul_precision=precision)
@@ -3017,6 +3221,7 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
             f"{what}, a DDPM step's graph at {b} x {l}", precision, gemm_kinds(names), FEATURE_GEMMS["step"],
             GEMM_NODES[precision][0])
         gate_kernel_nodes(f"{what}, a DDPM step's graph at {b} x {l}", names, per_replay, {(V2.name, instance): layers})
+        lap("train steps and a step's graph")
         if precision != "highest":  # the v1 kernel's instance in a "pallas" step's graph, replayed and timed
             pallas, _ = model_io.from_dir(model_dir, device=DEVICE, matmul_precision=precision, attention_impl="pallas")
             _, names, per_replay = step_graph_nodes(pallas, table, xb, mb, is_angular)
@@ -3032,17 +3237,22 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
             log(f"{what}: graphed 'pallas' DDPM step at {b} x {l} (the v1 {instance} instance), median of three "
                 f"windows of 10 replays: {statistics.median(walls):.4f} ms ({', '.join(f'{w:.4f}' for w in walls)})")
             del pallas, run
+            lap("'pallas' steps")
         gate_gemm_kinds(
             f"{what}, the train step's graph (forward and backward)", precision,
             gemm_kinds(train_step_graph_nodes(trainer, trainer.to_device(host_batches[0]))), FEATURE_GEMMS["train"],
             GEMM_NODES[precision][1])
         check_setting_kept(f"{what}, captures", before)
-        del trainer, model, sampler
+        del trainer, model
+        lap("the train step's graph")
 
         # (b) the fixture's chain and the loss curve
         chains[precision] = fixture_chain(precision)
+        lap("fixture chain")
         curves[precision] = loss_curve(precision, host_batches)
         check_setting_kept(f"{what}, fixture chain and loss curve", before)
+        lap("loss curve")
+        log(f"{what}: host seconds by part: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
 
     ref = forward["highest"]
     (ref_chain, chain_mask), ref_curve = chains["highest"], curves["highest"]
@@ -3051,7 +3261,7 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
         diff = forward[precision] - ref
         max_abs, rel = diff.abs().max().item(), (diff.square().mean().sqrt() / ref.square().mean().sqrt()).item()
         bound_ = PRECISION_DRIFT[precision]
-        if precision in MULTI_PASS_PRESETS:
+        if precision in (*MULTI_PASS_PRESETS, "F64_F64_F64"):
             bound_ = min(bound_, PRECISION_TF32_SHARE * tf32_drift)
         angles = (chains[precision][0] - ref_chain + math.pi) % (2 * math.pi) - math.pi
         mean_angle = (angles.abs() * chain_mask[..., None]).sum().item() / (chain_mask.sum().item() * angles.shape[-1])
@@ -3065,7 +3275,9 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
         if not 0 < rel <= bound_:
             raise RuntimeError(f"[13] the {precision!r} forward's drift from 'highest' is {rel}: expected above 0 "
                                f"and at most {bound_} (TF32's {tf32_drift})")
+    start_cli = time.perf_counter()
     precision_cli(model_dir, tmp, card)
+    log(f"[13] bin/sample_torch.py at TF32_TF32_F32_X3 in {time.perf_counter() - start_cli:.1f} s")
     check_setting_kept("[13] bin/sample_torch.py at TF32_TF32_F32_X3", before)
     log(f"[13] fp32_precision {before!r} after every forward, train step and capture; phase 13 in "
         f"{time.perf_counter() - start_phase:.3f} s")
@@ -3073,11 +3285,19 @@ def phase_precision(model_dir: str, tmp: str, card: str) -> dict:
     return launches
 
 
+def timed(tag: str, fn, *args):
+    """fn(*args), its host seconds logged with the run's seconds so far."""
+    start = time.perf_counter()
+    out = fn(*args)
+    log(f"[time] {tag} in {time.perf_counter() - start:.1f} s; {time.perf_counter() - RUN_START:.1f} s into the run")
+    return out
+
+
 def main() -> None:
     card = phase_card()
-    phase_build()
-    kernels = phase_kernel()
-    phase_fixture()
+    timed("phase 1", phase_build)
+    kernels = timed("phase 2", phase_kernel)
+    timed("phase 3", phase_fixture)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         model_dir, absolute_dir = str(Path(tmp, "flagship")), str(Path(tmp, "absolute"))
         mean_offset = np.random.default_rng(SEED).uniform(-np.pi, np.pi, 6)
@@ -3086,21 +3306,22 @@ def main() -> None:
             train_args = {**FLAGSHIP_TRAIN_ARGS, "position_embedding_type": config.position_embedding_type}
             model_io.save_model_dir(path, config, weights.state_dict(), train_args, mean_offset)
             del weights
-        phase_denoiser(model_dir, absolute_dir)
-        v2_launches = phase_slice(model_dir, str(Path(tmp, "sampled")), card)
-        eager_profiles = phase_profile(model_dir, card)
-        v1_launches = phase_new_paths(model_dir, tmp, card)
-        trained = phase_training(tmp, card)
-        phase_surface(tmp, model_dir, trained, card)
-        baseline_launches = phase_baseline_models(tmp, card)
-        multiprocess_launches = phase_multiprocess(tmp, model_dir, card)
-        evaluation_launches = phase_evaluation(tmp, trained, card)
-        phase_graphs(model_dir, eager_profiles, card)
-        precision_launches = phase_precision(model_dir, tmp, card)
+        timed("phase 4", phase_denoiser, model_dir, absolute_dir)
+        v2_launches = timed("phase 5", phase_slice, model_dir, str(Path(tmp, "sampled")), card)
+        eager_profiles = timed("phase 5 profile", phase_profile, model_dir, card)
+        v1_launches = timed("phase 6", phase_new_paths, model_dir, tmp, card)
+        trained = timed("phase 7", phase_training, tmp, card)
+        timed("phase 8", phase_surface, tmp, model_dir, trained, card)
+        baseline_launches = timed("phase 9", phase_baseline_models, tmp, card)
+        multiprocess_launches = timed("phase 10", phase_multiprocess, tmp, model_dir, card)
+        evaluation_launches = timed("phase 11", phase_evaluation, tmp, trained, card)
+        timed("phase 12", phase_graphs, model_dir, eager_profiles, card)
+        precision_launches = timed("phase 13", phase_precision, model_dir, tmp, card)
 
     # launches: the FMA instances' from the float32 phases (v2: 5, 9, 10, 11; v1: 6); the other v2
-    # instances' from phase 13's DDPM sweeps at their precisions ("default": TF32, as the CLIs set it);
-    # the other v1 instances' from phase 13's "pallas" steps at those precisions
+    # instances' from phase 13's DDPM sweeps at their precisions ("default": TF32, as the CLIs set it;
+    # the f64 and 16-bit instances' from its graphed steps); the other v1 instances' from phase 13's
+    # "pallas" steps at those precisions
     fma_launches = {V2.name: v2_launches + baseline_launches + multiprocess_launches + evaluation_launches,
                     V1.name: v1_launches}
     line = []

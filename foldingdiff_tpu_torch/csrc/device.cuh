@@ -1,14 +1,17 @@
 // Device-side helpers shared by the attention kernels of this directory:
 // cp.async copies into shared memory, float32 FMA dot products, and the
 // tensor-core pieces of their instances (the arithmetics of their products:
-// operand rounding and the parts of the multi-pass presets, ldmatrix
-// fragment loads, mma.sync m16n8k8 (TF32) and m16n8k16 (bf16) tiles, the
-// products of parts split once and run over independent accumulators, the
-// online softmax's fold over a warp's rows).
+// operand rounding, the output rounding of the 16-bit presets and the parts
+// of the multi-pass presets, ldmatrix fragment loads, mma.sync m16n8k8
+// (TF32) and m16n8k16 (bf16) tiles, the products of parts split once and
+// run over independent accumulators, the online softmax's fold over a
+// warp's rows); and the float64 design that both kernels' f64 instances
+// share (namespace f64).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
@@ -47,6 +50,13 @@ __device__ __forceinline__ float bf16_value(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+// f16's rounding (to nearest even; past 65504 an infinity, subnormals kept)
+// as a float32 value: 11 significant bits at most, which TF32 holds exactly
+// (f16's subnormals are float32 normals).
+__device__ __forceinline__ float f16_value(float x) {
+  return __half2float(__float2half_rn(x));
+}
+
 // A product's operand as the tensor cores read it: TF32 rounded to nearest
 // (ties away), or, in the bf16 instances, the bf16 value, which TF32 holds exactly.
 template <bool BF16>
@@ -57,34 +67,63 @@ __device__ __forceinline__ uint32_t operand(float x) {
   return r;
 }
 
-// The value the tensor cores read for x (operand's bits as a float32), so
-// that an operand rounded once in shared memory needs no conversion per load.
-template <bool BF16>
-__device__ __forceinline__ float rounded(float x) {
-  return __uint_as_float(operand<BF16>(x));
-}
-
-// The arithmetic of a tensor-core instance's products, one per matmul
-// precision of the model (ops/attention.py's table). Each float32 operand x
-// is split into parts x0 = r(x), x1 = r(x - x0), x2 = r(x - x0 - x1), r the
-// rounding to TF32 or to bf16 values, and a fixed list of products of parts
-// is summed in float32, the small terms first, as JAX's DotAlgorithmPreset
-// defines it:
-//   TF32    TF32_TF32_F32      r TF32, x0        a0.b0
-//   BF16    BF16_BF16_F32      r bf16, x0        a0.b0
-//   TF32x3  TF32_TF32_F32_X3   r TF32, x0, x1    a1.b0 + a0.b1 + a0.b0
-//   BF16x3  BF16_BF16_F32_X3   r bf16, x0, x1    the same
-//   BF16x6  BF16_BF16_F32_X6   r bf16, x0..x2    the six with i + j <= 2
-//   BF16x9  BF16_BF16_F32_X9   r bf16, x0..x2    all nine
+// The arithmetic of an instance's products, one per matmul precision of the
+// model (ops/attention.py's table). Each float32 operand x is split into
+// parts x0 = r(x), x1 = r(x - x0), x2 = r(x - x0 - x1), r the rounding to
+// TF32, bf16 or f16 values, and a fixed list of products of parts is summed
+// in float32, the small terms first, as JAX's DotAlgorithmPreset defines
+// it; F16F16 and BF16BF16 then round each dot's output once (output):
+//   TF32      TF32_TF32_F32      r TF32, x0        a0.b0
+//   BF16      BF16_BF16_F32      r bf16, x0        a0.b0
+//   TF32x3    TF32_TF32_F32_X3   r TF32, x0, x1    a1.b0 + a0.b1 + a0.b0
+//   BF16x3    BF16_BF16_F32_X3   r bf16, x0, x1    the same
+//   BF16x6    BF16_BF16_F32_X6   r bf16, x0..x2    the six with i + j <= 2
+//   BF16x9    BF16_BF16_F32_X9   r bf16, x0..x2    all nine
+//   F16       F16_F16_F32        r f16, x0         a0.b0
+//   F16F16    F16_F16_F16        r f16, x0         a0.b0, rounded to f16
+//   BF16BF16  BF16_BF16_BF16     r bf16, x0        a0.b0, rounded to bf16
 // Every subtraction is exact in float32, and every product of two parts is
-// exact in float32 (a TF32 part has 11 significant bits, a bf16 part 8):
-// TF32 parts run on the TF32 tensor cores, bf16 parts on the bf16 ones, so
-// the instances compute the presets' products and differ from the plain
-// versions only in the order of the float32 sums.
-enum class Arith { TF32, BF16, TF32x3, BF16x3, BF16x6, BF16x9 };
+// exact in float32 (a TF32 or f16 part has 11 significant bits, a bf16 part
+// 8): the multi-pass instances' bf16 parts run on the bf16 tensor cores,
+// every other part on the TF32 ones, so the instances compute the presets'
+// products and differ from the plain versions only in the order of the
+// float32 sums. F64 (F64_F64_F64) is not a tensor-core arithmetic: its
+// instances run the float64 design below (namespace f64).
+enum class Arith { TF32, BF16, TF32x3, BF16x3, BF16x6, BF16x9, F64, F16, F16F16, BF16BF16 };
 
 template <Arith A>
-constexpr bool kBF16Parts = A != Arith::TF32 && A != Arith::TF32x3;
+constexpr bool kBF16Parts = A == Arith::BF16 || A == Arith::BF16x3 || A == Arith::BF16x6 || A == Arith::BF16x9 ||
+                            A == Arith::BF16BF16;
+template <Arith A>
+constexpr bool kF16Operands = A == Arith::F16 || A == Arith::F16F16;
+// F16F16 and BF16BF16 round each dot's output (output below)
+template <Arith A>
+constexpr bool kRoundsOutput = A == Arith::F16F16 || A == Arith::BF16BF16;
+
+// A single-rounding instance's operand as the tensor cores read it: TF32
+// (operand<false>), or the bf16 or f16 value, which TF32 holds exactly.
+template <Arith A>
+__device__ __forceinline__ uint32_t operand_of(float x) {
+  if constexpr (kF16Operands<A>) {
+    return __float_as_uint(f16_value(x));
+  } else {
+    return operand<kBF16Parts<A>>(x);
+  }
+}
+
+// A dot's output as the instance leaves it: rounded once to f16 (F16F16) or
+// to bf16 (BF16BF16), to nearest even, from the float32 sum of its products;
+// else the sum itself.
+template <Arith A>
+__device__ __forceinline__ float output(float x) {
+  if constexpr (A == Arith::F16F16) {
+    return f16_value(x);
+  } else if constexpr (A == Arith::BF16BF16) {
+    return bf16_value(x);
+  } else {
+    return x;
+  }
+}
 
 // An arithmetic's products of parts, the one table of them: 10 i + j for
 // part i of A's operand times part j of B's, smallest first.
@@ -135,7 +174,7 @@ __host__ __device__ constexpr uint32_t packed_parts(Arith a, bool first) {
 // value.
 template <Arith A>
 __device__ __forceinline__ uint32_t held(float x) {
-  return kParts<A> == 1 ? operand<kBF16Parts<A>>(x) : __float_as_uint(x);
+  return kParts<A> == 1 ? operand_of<A>(x) : __float_as_uint(x);
 }
 
 // A multi-pass part's rounding: bf16 to nearest even, or TF32 to nearest,
@@ -478,5 +517,231 @@ __device__ __forceinline__ void fold(float (&s)[NT][4], float (&m)[2], float (&l
     l[i] = fmaf(l[i], rescale[i], sum);
   }
 }
+
+// ---- The f64 instances (F64_F64_F64): float64 FMA on the CUDA cores -------
+//
+// Both kernels' f64 instances, one design: every product in float64 (two
+// float32 values multiply exactly there) and each dot's output rounded to
+// float32, q.k and the relative term each on its own before their sum, and
+// p.v over every key; softmax in float32, online over the keys in exp2
+// units, the scale folded in. A block of 256 threads owns kRows = 16 query
+// rows of kPairs = 4 (b, h) pairs; warp w holds 8 rows of pair w / 2, a quad
+// of lanes per row, each lane the dimensions 4 (tq + 4 i) .. + 3 of D (its
+// q slice and its output slice in float64 registers), and the quad sums its
+// partial dots with two xor-shuffles, which leave the same bits in every
+// lane. The block walks the keys in chunks of kChunk = 1024 / D and stages
+// each chunk's K and V rows of its pairs in shared memory as float64, and
+// v2's table window of the chunk too, so that each value is converted to
+// float64 once per block, not once per (row, key): a first form that read
+// float32 rows from L1 and converted every operand at its use (41
+// conversions a lane and key against 24 FMAs) ran 0.5634 ms at the flagship
+// shape with relative scores, this one 0.4323 (v2; NVIDIA H100 80GB HBM3,
+// 700 W, chip_smoke.py phase 2). v1's e_lr rows, one per (row, key), are
+// read from L1 and converted at their use. Rows and pairs past the tensors
+// compute on the last ones (their quads' shuffles need them) and store
+// nothing; keys past L are not visited.
+namespace f64 {
+
+constexpr int kRows = 16;   // query rows per block
+constexpr int kPairs = 4;   // (b, h) pairs per block
+constexpr int kLanes = 4;   // lanes per (row, pair)
+constexpr int kThreads = kRows * kPairs * kLanes;
+constexpr int kGroup = 4;   // keys whose dots run together
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Blocks per SM the launch bounds ask for: two (128 registers) where the
+// q and output slices are at most 16 doubles each, one at D = 64.
+template <int D>
+constexpr int kBlocks = D <= 32 ? 2 : 1;
+
+template <int D>
+constexpr int kChunk = 1024 / D;  // keys per staged chunk, a multiple of kGroup
+template <int D>
+constexpr int kRowD = D + 2;      // a staged row in doubles: 8 quads' 16-byte loads spread over the banks
+
+// Shared memory (doubles): K and V of the chunk per pair, then (v2) the
+// table rows the block's rows reach in it, row x = (l - l0) - (j - j0) +
+// kChunk - 1.
+template <int D, bool TABLE>
+struct Smem {
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kPairs * kChunk<D> * kRowD<D>;
+  static constexpr int kE = kV + kPairs * kChunk<D> * kRowD<D>;
+  static constexpr int kWindow = kRows + kChunk<D> - 1;
+  static constexpr int kDoubles = kE + (TABLE ? kWindow * kRowD<D> : 0);
+};
+
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;     // (B, L)
+  const float* rel;      // the v2 (2M - 1, D) table (TABLE), or v1's (L, L, D) e_lr
+  float* out;
+  long long sb, sh, sl;  // batch, head and row strides of q, k and v, in floats
+  long long ob, oh, ol;  // and of out
+  int H, L, M;
+  long long BH;
+  int n_tiles;
+  float scale2;          // D^-1/2 * log2(e)
+};
+
+__device__ __forceinline__ double quad_sum(double x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The quad's dot of q (this lane's float64 slice qd) with the staged row at
+// `row` (doubles), rounded to float32.
+template <int D>
+__device__ __forceinline__ float staged_dot(const double (&qd)[D / 16][4], const double* row, int tq) {
+  double acc = 0.0;
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    const double2 a = *reinterpret_cast<const double2*>(row + 4 * (tq + 4 * i));
+    const double2 b = *reinterpret_cast<const double2*>(row + 4 * (tq + 4 * i) + 2);
+    acc = fma(qd[i][0], a.x, acc);
+    acc = fma(qd[i][1], a.y, acc);
+    acc = fma(qd[i][2], b.x, acc);
+    acc = fma(qd[i][3], b.y, acc);
+  }
+  return static_cast<float>(quad_sum(acc));
+}
+
+// The same with a float32 row in global memory (read through L1).
+template <int D>
+__device__ __forceinline__ float global_dot(const double (&qd)[D / 16][4], const float* row, int tq) {
+  double acc = 0.0;
+#pragma unroll
+  for (int i = 0; i < D / 16; ++i) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(row) + tq + 4 * i);
+    acc = fma(qd[i][0], static_cast<double>(x.x), acc);
+    acc = fma(qd[i][1], static_cast<double>(x.y), acc);
+    acc = fma(qd[i][2], static_cast<double>(x.z), acc);
+    acc = fma(qd[i][3], static_cast<double>(x.w), acc);
+  }
+  return static_cast<float>(quad_sum(acc));
+}
+
+// Four float32 values of global memory at src (or zeros) as float64 at dst.
+__device__ __forceinline__ void stage4(double* dst, const float* src, bool in) {
+  const float4 x = in ? __ldg(reinterpret_cast<const float4*>(src)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  reinterpret_cast<double2*>(dst)[0] = make_double2(x.x, x.y);
+  reinterpret_cast<double2*>(dst)[1] = make_double2(x.z, x.w);
+}
+
+// TABLE: the relative term of row l and key j is q . table[l - j + M - 1]
+// (v2); else q . e_lr[l, j] (v1).
+template <int D, bool HAS_REL, bool TABLE>
+__device__ __forceinline__ void attention(const Args& a) {
+  using S = Smem<D, TABLE>;
+  constexpr int kSlice = D / 16;  // float4 pieces per lane
+  constexpr int kC = kChunk<D>, kR = kRowD<D>;
+  extern __shared__ double2 smem2[];
+  double* smem = reinterpret_cast<double*>(smem2);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tq = lane % kLanes;
+  const int l0 = (blockIdx.x % a.n_tiles) * kRows;
+  const long long n0 = static_cast<long long>(blockIdx.x / a.n_tiles) * kPairs;
+  const int slot = warp / 2;  // the warp's pair in the block
+  const int row = l0 + 8 * (warp % 2) + lane / kLanes;
+  const bool live = row < a.L && n0 + slot < a.BH;
+  const int l = row < a.L ? row : a.L - 1;
+  const long long n = n0 + slot < a.BH ? n0 + slot : a.BH - 1;
+  const long long b = n / a.H, h = n % a.H;
+  const float* bias = a.bias + b * a.L;
+
+  double qd[kSlice][4];
+  double o[kSlice][4];
+#pragma unroll
+  for (int i = 0; i < kSlice; ++i) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(a.q + b * a.sb + h * a.sh + l * a.sl) + tq + 4 * i);
+    qd[i][0] = x.x, qd[i][1] = x.y, qd[i][2] = x.z, qd[i][3] = x.w;
+    o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.0;
+  }
+  float m = -INFINITY, sum = 0.0f;
+
+  for (int j0 = 0; j0 < a.L; j0 += kC) {
+    __syncthreads();  // the last chunk's reads are done
+    // K and V rows j0 .. j0 + kC of the block's pairs, zeros past L and BH
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kPairs * kC * (D / 4); i += kThreads) {
+      const int p = i / (kC * (D / 4)), jj = i / (D / 4) % kC, c = i % (D / 4);
+      const long long np = n0 + p;
+      const bool in = np < a.BH && j0 + jj < a.L;
+      const long long src = in ? (np / a.H) * a.sb + (np % a.H) * a.sh + (j0 + jj) * a.sl + 4 * c : 0;
+      stage4(smem + S::kK + (p * kC + jj) * kR + 4 * c, a.k + src, in);
+      stage4(smem + S::kV + (p * kC + jj) * kR + 4 * c, a.v + src, in);
+    }
+    if (HAS_REL && TABLE) {
+#pragma unroll 1
+      for (int i = threadIdx.x; i < S::kWindow * (D / 4); i += kThreads) {
+        const int x = i / (D / 4), c = i % (D / 4);
+        const int e = x + l0 - j0 - (kC - 1) + a.M - 1;
+        const bool in = e >= 0 && e < 2 * a.M - 1;
+        stage4(smem + S::kE + x * kR + 4 * c, a.rel + (in ? static_cast<long long>(e) * D + 4 * c : 0), in);
+      }
+    }
+    __syncthreads();
+
+    const int n_keys = min(kC, a.L - j0);
+    // Keys by groups of kGroup: their dots are independent chains, which
+    // the quads' shuffles and the FMAs' latency need (one key at a time ran
+    // each dot as one dependent chain); the online softmax takes each
+    // group's maximum once. Staged rows past L are zeros, scored -inf.
+#pragma unroll 1
+    for (int jj = 0; jj < n_keys; jj += kGroup) {
+      float sc[kGroup];
+      float mx = m;
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        const int j = jj + g;
+        float score = staged_dot<D>(qd, smem + S::kK + (slot * kC + j) * kR, tq);
+        if (HAS_REL) {
+          score += TABLE ? staged_dot<D>(qd, smem + S::kE + ((l - l0) - j + kC - 1) * kR, tq)
+                         : global_dot<D>(qd, a.rel + (static_cast<long long>(l) * a.L + min(j0 + j, a.L - 1)) * D, tq);
+        }
+        sc[g] = j < n_keys ? fmaf(score, a.scale2, __ldg(bias + min(j0 + j, a.L - 1)) * kLog2e) : -INFINITY;
+        mx = fmaxf(mx, sc[g]);
+      }
+      if (mx > m) {  // a new maximum (always at the first group): rescale what is summed
+        const float r = exp2f(m - mx);
+        sum *= r;
+#pragma unroll
+        for (int i = 0; i < kSlice; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[i][e] *= r;
+        }
+        m = mx;
+      }
+#pragma unroll
+      for (int g = 0; g < kGroup; ++g) {
+        const float p = exp2f(sc[g] - m);
+        sum += p;
+        const double pd = p;
+        const double* vr = smem + S::kV + (slot * kC + jj + g) * kR;
+#pragma unroll
+        for (int i = 0; i < kSlice; ++i) {
+          const double2 x = *reinterpret_cast<const double2*>(vr + 4 * (tq + 4 * i));
+          const double2 y = *reinterpret_cast<const double2*>(vr + 4 * (tq + 4 * i) + 2);
+          o[i][0] = fma(pd, x.x, o[i][0]);
+          o[i][1] = fma(pd, x.y, o[i][1]);
+          o[i][2] = fma(pd, y.x, o[i][2]);
+          o[i][3] = fma(pd, y.y, o[i][3]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+  const double inv = 1.0 / static_cast<double>(sum);
+  float4* dst = reinterpret_cast<float4*>(a.out + b * a.ob + h * a.oh + row * a.ol);
+#pragma unroll
+  for (int i = 0; i < kSlice; ++i) {
+    dst[tq + 4 * i] = make_float4(static_cast<float>(o[i][0] * inv), static_cast<float>(o[i][1] * inv),
+                                  static_cast<float>(o[i][2] * inv), static_cast<float>(o[i][3] * inv));
+  }
+}
+
+}  // namespace f64
 
 }  // namespace attn

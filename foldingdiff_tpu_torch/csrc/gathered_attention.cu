@@ -13,7 +13,7 @@
 // is gathered from the caller's position ids, so nothing here assumes it is
 // Toeplitz. The relative term is added before the scale, as in HF BERT.
 //
-// Seven instances, one per matmul precision of the model (the caller picks
+// Eleven instances, one per matmul precision of the model (the caller picks
 // one by `instance`; ops/attention.py maps the model's mode onto it), each
 // computing the products that the JAX model's einsums compute in that mode:
 //   0 FMA   (IEEE float32, "highest"): gathered_attention_kernel, float32 FMA
@@ -39,6 +39,17 @@
 //           bf16 ones split each operand once and run bf16 mma (below);
 //           TF32x3 splits at each TF32 mma (device.cuh's mma_split), which
 //           beat splitting once.
+//   7 f64   ("F64_F64_F64"): gathered_attention_f64_kernel, every product in
+//           float64 on the CUDA cores, each dot's output rounded to float32
+//           (device.cuh's f64 design, which v2 shares);
+//   8-10    ("F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"):
+//           gathered_attention_{f16,f16f16,bf16bf16}_kernel, the bf16
+//           instance's body on operands rounded to f16 values (f16, f16f16)
+//           or bf16 values (bf16bf16); f16f16 and bf16bf16 then round each
+//           dot's output once to f16 or bf16 (device.cuh's output): q.k and
+//           q.e_lr each before their sum, p.v before it is stored. The sums
+//           stay float32, which is how the port reads those presets
+//           (precision.py).
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -721,8 +732,8 @@ __device__ __forceinline__ void attention(const Args& a) {
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         product<D, A>(acc, qr, e_row, rel_keys, j0 + 8 * nt + g, t);
         float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * nt + 2 * t;
-        *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
-        *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(acc[2], acc[3]);
+        *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
+        *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
       }
     }
   };
@@ -753,14 +764,19 @@ __device__ __forceinline__ void attention(const Args& a) {
     uint32_t qf[kOnce ? 1 : kKS][4];
     if constexpr (!kOnce) q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
     const QChunks<D, HAS_REL, A> qa{qs, warp, g, warp, g + 8, t};  // kOnce: pair `warp`'s 16 rows
+    // n-tile nt's relative term: the first value of its score accumulators,
+    // or, under kRoundsOutput, added once Q . K^T is rounded
+    auto rel_of = [&](float (&r)[4], int nt) {
+      const float* p = rel + warp * S::kRelPair + g * S::kRelRow + 8 * nt + 2 * t;
+      const float2 r0 = *reinterpret_cast<const float2*>(p);
+      const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * S::kRelRow);
+      r[0] = r0.x, r[1] = r0.y, r[2] = r1.x, r[3] = r1.y;
+    };
     float s[kNT][4];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      if (HAS_REL) {
-        const float* r = rel + warp * S::kRelPair + g * S::kRelRow + 8 * nt + 2 * t;
-        const float2 r0 = *reinterpret_cast<const float2*>(r);
-        const float2 r1 = *reinterpret_cast<const float2*>(r + 8 * S::kRelRow);
-        s[nt][0] = r0.x, s[nt][1] = r0.y, s[nt][2] = r1.x, s[nt][3] = r1.y;
+      if (HAS_REL && !kRoundsOutput<A>) {
+        rel_of(s[nt], nt);
       } else {
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
       }
@@ -774,6 +790,12 @@ __device__ __forceinline__ void attention(const Args& a) {
         }
       } else {
         product<D, A>(s[nt], qf, kp, keys, j0 + 8 * nt + g, t);
+        if constexpr (kRoundsOutput<A>) {
+          float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          if (HAS_REL) rel_of(r, nt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[nt][i] = output<A>(s[nt][i]) + r[i];
+        }
         scale_bias(s[nt], nt);
       }
     }
@@ -877,7 +899,7 @@ __device__ __forceinline__ void attention(const Args& a) {
       for (int e = 0; e < 2; ++e) {
         float x[V::kW];
 #pragma unroll
-        for (int dd = 0; dd < V::kW; ++dd) x[dd] = o[V::kW * hb + dd][2 * i + e] * inv[i];
+        for (int dd = 0; dd < V::kW; ++dd) x[dd] = output<A>(o[V::kW * hb + dd][2 * i + e] * inv[i]);
         store_cols(dst + 8 * V::kW * hb + V::kW * (2 * t + e), x);
       }
     }
@@ -918,6 +940,27 @@ __global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x9_ker
   tc::attention<D, HAS_REL, Arith::BF16x9>(a);
 }
 
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_f16_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::F16>(a);
+}
+
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_f16f16_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::F16F16>(a);
+}
+
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16bf16_kernel(const tc::Args a) {
+  tc::attention<D, HAS_REL, Arith::BF16BF16>(a);
+}
+
+// The f64 instance: device.cuh's float64 design, the relative term from e_lr
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(f64::kThreads, f64::kBlocks<D>) gathered_attention_f64_kernel(const f64::Args a) {
+  f64::attention<D, HAS_REL, false>(a);
+}
+
 template <Arith A, int D, bool HAS_REL>
 constexpr auto tc_kernel() {
   if constexpr (A == Arith::TF32) {
@@ -930,8 +973,15 @@ constexpr auto tc_kernel() {
     return &gathered_attention_bf16x3_kernel<D, HAS_REL>;
   } else if constexpr (A == Arith::BF16x6) {
     return &gathered_attention_bf16x6_kernel<D, HAS_REL>;
-  } else {
+  } else if constexpr (A == Arith::BF16x9) {
     return &gathered_attention_bf16x9_kernel<D, HAS_REL>;
+  } else if constexpr (A == Arith::F16) {
+    return &gathered_attention_f16_kernel<D, HAS_REL>;
+  } else if constexpr (A == Arith::F16F16) {
+    return &gathered_attention_f16f16_kernel<D, HAS_REL>;
+  } else {
+    static_assert(A == Arith::BF16BF16, "a tensor-core arithmetic");
+    return &gathered_attention_bf16bf16_kernel<D, HAS_REL>;
   }
 }
 
@@ -953,8 +1003,26 @@ cudaError_t launch_tc(const float* q, const float* k, const float* v, const floa
   return cudaGetLastError();
 }
 
-// instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9
-// (see the note at the top)
+// The f64 instance over contiguous (B, H, L, D) q, k, v and out.
+template <int D, bool HAS_REL>
+cudaError_t launch_f64(const float* q, const float* k, const float* v, const float* bias,
+                       const float* e_lr, float* out, int B, int H, int L, int device, cudaStream_t stream) {
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const size_t smem = sizeof(double) * f64::Smem<D, false>::kDoubles;
+  const cudaError_t err = attn::opt_in_smem(
+      reinterpret_cast<const void*>(&gathered_attention_f64_kernel<D, HAS_REL>), granted, device, smem);
+  if (err != cudaSuccess) return err;
+  const long long bh = static_cast<long long>(B) * H, head = static_cast<long long>(L) * D;
+  const f64::Args a{q, k, v, bias, e_lr, out, H * head, head, D, H * head, head, D,
+                    H, L, 0, bh, (L + f64::kRows - 1) / f64::kRows, kLog2e / sqrtf(static_cast<float>(D))};
+  const long long blocks = a.n_tiles * ((bh + f64::kPairs - 1) / f64::kPairs);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  gathered_attention_f64_kernel<D, HAS_REL><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9,
+// 7 f64, 8 f16, 9 f16f16, 10 bf16bf16 (see the note at the top)
 template <int D, bool HAS_REL>
 cudaError_t dispatch_instance(const float* q, const float* k, const float* v, const float* bias,
                               const float* e_lr, float* out, int B, int H, int L, int instance,
@@ -968,6 +1036,10 @@ cudaError_t dispatch_instance(const float* q, const float* k, const float* v, co
     case 4: if constexpr (kBuiltInstance<4>) return launch_tc<D, HAS_REL, Arith::BF16x3>(GATHERED_ARGS); break;
     case 5: if constexpr (kBuiltInstance<5>) return launch_tc<D, HAS_REL, Arith::BF16x6>(GATHERED_ARGS); break;
     case 6: if constexpr (kBuiltInstance<6>) return launch_tc<D, HAS_REL, Arith::BF16x9>(GATHERED_ARGS); break;
+    case 7: if constexpr (kBuiltInstance<7>) return launch_f64<D, HAS_REL>(GATHERED_ARGS); break;
+    case 8: if constexpr (kBuiltInstance<8>) return launch_tc<D, HAS_REL, Arith::F16>(GATHERED_ARGS); break;
+    case 9: if constexpr (kBuiltInstance<9>) return launch_tc<D, HAS_REL, Arith::F16F16>(GATHERED_ARGS); break;
+    case 10: if constexpr (kBuiltInstance<10>) return launch_tc<D, HAS_REL, Arith::BF16BF16>(GATHERED_ARGS); break;
     default: break;
   }
 #undef GATHERED_ARGS
@@ -1002,8 +1074,9 @@ cudaError_t dispatch(const float* q, const float* k, const float* v, const float
 
 // `e_lr` is the contiguous (L, L, D) tensor, or null when has_rel is 0; q, k,
 // v and e_lr are 16-byte aligned. `instance` picks the arithmetic: 0 FMA,
-// 1 TF32, 2 bf16, 3-6 the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9. `device` is the index of the device that holds the tensors
-// and `stream`.
+// 1 TF32, 2 bf16, 3-6 the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9,
+// 7 f64, 8-10 the 16-bit presets f16, f16f16, bf16bf16. `device` is the
+// index of the device that holds the tensors and `stream`.
 extern "C" int gathered_attention_forward(const float* q, const float* k, const float* v,
                                           const float* bias, const float* e_lr, float* out,
                                           int B, int H, int L, int D, int has_rel, int instance,

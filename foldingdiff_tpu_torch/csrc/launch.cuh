@@ -19,7 +19,7 @@
 // `instance`), bits 0, 1, 2 of ATTN_HEAD_DIMS are D = 16, 32, 64; a launch
 // outside the part returns cudaErrorInvalidValue. All of them by default.
 #ifndef ATTN_INSTANCES
-#define ATTN_INSTANCES 0x7f
+#define ATTN_INSTANCES 0x7ff
 #endif
 #ifndef ATTN_HEAD_DIMS
 #define ATTN_HEAD_DIMS 0x7

@@ -16,7 +16,7 @@
 // written as a contiguous (B, L, H, D) buffer, the layout the output
 // projection reads.
 //
-// Seven instances, one per matmul precision of the model (the caller picks
+// Eleven instances, one per matmul precision of the model (the caller picks
 // one by `instance`; ops/attention.py maps the model's mode onto it), each
 // computing the products that the JAX model's einsums compute in that mode:
 //   0 FMA   (IEEE float32, "highest"): rel_attention_kernel, float32 FMA on
@@ -39,6 +39,17 @@
 //           per k-step: bf16 parts on the bf16 tensor cores (m16n8k16), TF32
 //           parts on the TF32 ones. P is split after it is normalised, as
 //           the single-rounding instances round it.
+//   7 f64   ("F64_F64_F64"): rel_attention_f64_kernel, every product in
+//           float64 on the CUDA cores, each dot's output rounded to float32
+//           (device.cuh's f64 design, which v1 shares);
+//   8-10    ("F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"):
+//           rel_attention_{f16,f16f16,bf16bf16}_kernel, the bf16 instance's
+//           body on operands rounded to f16 values (f16, f16f16) or bf16
+//           values (bf16bf16); f16f16 and bf16bf16 then round each dot's
+//           output once to f16 or bf16 (device.cuh's output): q.k and q.E
+//           each before their sum (their accumulators apart), p.v before
+//           it is stored. The sums stay float32, which is how the port reads
+//           those presets (precision.py).
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -50,7 +61,10 @@
 // bytes bound it, at 15.0 us. The multi-pass instances run 3, 6 or 9 times
 // the products: TF32x3 14.7 us at 495 TFLOP/s, bf16x3 7.3, bf16x6 14.7 and
 // bf16x9 22.0 us at bf16's 989, so the bytes bound all but bf16x9
-// (operations).
+// (operations). f64: 36.1 us at the H100's 67 TFLOP/s float64 peak, its
+// FP64 tensor cores' (operations; the float64 FMA these instances run peaks
+// at half of it); the 16-bit instances' products 2.4 us at 989 TFLOP/s, so
+// the bytes bound them.
 //
 // FMA design: register tiles on the CUDA cores. The SM serves one
 // shared-memory wavefront (32 lanes x 4 bytes) per clock against four
@@ -619,23 +633,29 @@ __device__ __forceinline__ void attention(const Args& a) {
               mma<A>(acc, qf[kk], held<A>(e[0]), held<A>(e[4]));
             }
             float* d = qe + g * kQEStride + 8 * n + 2 * t;
-            *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
-            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(acc[2], acc[3]);
+            *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
+            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
           }
           __syncwarp();
         }
-        // S = rel + Q . K^T; then scale and bias, in log2 units
+        // S = rel + Q . K^T (under kRoundsOutput Q . K^T rounded first, then
+        // rel added); then scale and bias, in log2 units
+        const auto rel = [&](int n, int i) {
+          const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
+          return HAS_REL ? qe[r * kQEStride + r - col + kKeys - 1] : 0.0f;
+        };
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
-            s[n][i] = HAS_REL ? qe[r * kQEStride + r - col + kKeys - 1] : 0.0f;
-          }
+          for (int i = 0; i < 4; ++i) s[n][i] = kRoundsOutput<A> ? 0.0f : rel(n, i);
 #pragma unroll
           for (int kk = 0; kk < kDT; ++kk) {
             const float* k0 = ks + (8 * n + g) * kRow + 8 * kk + t;
             mma<A>(s[n], qf[kk], held<A>(k0[0]), held<A>(k0[4]));
+          }
+          if constexpr (kRoundsOutput<A>) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[n][i] = output<A>(s[n][i]) + rel(n, i);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -710,7 +730,8 @@ __device__ __forceinline__ void attention(const Args& a) {
     float* dst = a.out + ((static_cast<long long>(b) * a.L + row) * a.H + h) * D + 2 * t;
 #pragma unroll
     for (int dn = 0; dn < kDT; ++dn) {
-      *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(o[dn][2 * i] * inv[i], o[dn][2 * i + 1] * inv[i]);
+      *reinterpret_cast<float2*>(dst + 8 * dn) =
+          make_float2(output<A>(o[dn][2 * i] * inv[i]), output<A>(o[dn][2 * i + 1] * inv[i]));
     }
   }
 }
@@ -735,9 +756,9 @@ constexpr int kSmemBytes = 232448;         // the most shared memory a block may
 constexpr int kSmemPerSM = 233472;         // an SM's shared memory; each block also takes 1 KB of it
 
 // Offsets (floats) into dynamic shared memory of the single-rounding
-// instances and TF32x3 at L <= 64 (SPLIT: one block per SM); every row
-// D + 4 floats (4 mod 32).
-template <int D, bool HAS_REL, int KEYS, bool SPLIT>
+// instances and TF32x3 at L <= 64 (ONE_BLOCK: one block per SM, kOneBlock);
+// every row D + 4 floats (4 mod 32).
+template <int D, bool HAS_REL, int KEYS, bool ONE_BLOCK>
 struct Smem {
   static constexpr int kRow = D + 4;
   static constexpr int kWindow = KEYS == kMaxL ? kWindowLong : kWindowShort;  // keys per QE window
@@ -750,12 +771,12 @@ struct Smem {
   static constexpr int kOperands = 3 * kRows * kRow;                    // Q, K and V, kRows x kRow each
   static constexpr int kStage = kOperands + kRows;                      // then the bias, KEYS per pair
   static constexpr int kFit = (kSmemBytes / 4 - kRing) / kStage;        // stages that fit
-  static constexpr int kMaxStages = KEYS == kMaxL && !SPLIT ? kStagesLong : kStagesShort;
+  static constexpr int kMaxStages = KEYS == kMaxL && !ONE_BLOCK ? kStagesLong : kStagesShort;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kFloats = kRing + kStages * kStage;
   // blocks per SM: two where they fit, at D = 32 (at D = 16 ptxas spilled at
-  // their 128 registers), and one for TF32x3's parts
-  static constexpr int kBlocks = !SPLIT && D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
+  // their 128 registers), and one for TF32x3's parts and the output roundings
+  static constexpr int kBlocks = !ONE_BLOCK && D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
   static_assert(kStages >= 1, "a stage must fit");
 };
 
@@ -810,11 +831,11 @@ __device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
 // rather than at every fragment load.
 template <Arith A>
 __device__ __forceinline__ void round_operands(float* p, int n) {
-  constexpr bool kBF16 = kBF16Parts<A>;
+  const auto r = [](float x) { return __uint_as_float(operand_of<A>(x)); };
 #pragma unroll 4
   for (int i = threadIdx.x; i < n / 4; i += kThreads) {
     float4 x = reinterpret_cast<float4*>(p)[i];
-    x = make_float4(rounded<kBF16>(x.x), rounded<kBF16>(x.y), rounded<kBF16>(x.z), rounded<kBF16>(x.w));
+    x = make_float4(r(x.x), r(x.y), r(x.z), r(x.w));
     reinterpret_cast<float4*>(p)[i] = x;
   }
 }
@@ -827,6 +848,12 @@ __device__ __forceinline__ void b_fragments(uint32_t (&r)[4], const float* rows,
   ldmatrix_x4(r, rows + (lane % 8) * (D + 4) + 16 * kk2 + 4 * (lane / 8));
 }
 
+// One block per SM (255 registers) for a multi-pass instance, and for the
+// instances that round each dot's output (at two blocks' 128 registers, the
+// rounded q.k and the relative term held apart spilled at KEYS = 128).
+template <Arith A>
+constexpr bool kOneBlock = kParts<A> > 1 || kRoundsOutput<A>;
+
 // KEYS (64 or 128, at least L): the keys of a pair, and its rows in a stage.
 // Shared memory holds the single-rounding instances' operands rounded, what
 // a fragment load reads; TF32x3's float32 values, split at each mma
@@ -834,7 +861,7 @@ __device__ __forceinline__ void b_fragments(uint32_t (&r)[4], const float* rows,
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void attention(const Args& a) {
   constexpr bool kSplit = kParts<A> > 1;
-  using S = Smem<D, HAS_REL, KEYS, kSplit>;
+  using S = Smem<D, HAS_REL, KEYS, kOneBlock<A>>;
   constexpr int kRow = S::kRow;
   constexpr int kStages = S::kStages;
   constexpr int kDT = D / 8;                // k-steps of q.k and q.E, n-tiles of p.v
@@ -930,26 +957,32 @@ __device__ __forceinline__ void attention(const Args& a) {
               mma_split<A>(acc, qf[2 * kk2 + 1], e[2], e[3]);
             }
             float* d = qe + g * kQEStride + 8 * n + 2 * t;
-            *reinterpret_cast<float2*>(d) = make_float2(acc[0], acc[1]);
-            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(acc[2], acc[3]);
+            *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
+            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
             __syncwarp();  // n-tile by n-tile (see below); QE written before it is read
           }
         }
-        // S = rel + Q . K^T; then scale and bias, in log2 units
+        // S = rel + Q . K^T (under kRoundsOutput Q . K^T rounded first, then
+        // rel added); then scale and bias, in log2 units
+        const auto rel = [&](int n, int i) {
+          const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
+          return HAS_REL ? qe[r * kQEStride + r - col + kWindow - 1] : 0.0f;
+        };
 #pragma unroll
         for (int n = 0; n < kWindow / 8; ++n) {
           const int nt = kWindow / 8 * c + n;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
-            s[nt][i] = HAS_REL ? qe[r * kQEStride + r - col + kWindow - 1] : 0.0f;
-          }
+          for (int i = 0; i < 4; ++i) s[nt][i] = kRoundsOutput<A> ? 0.0f : rel(n, i);
 #pragma unroll
           for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
             uint32_t k[4];
             b_fragments<D>(k, ks + 8 * nt * kRow, kk2);
             mma_split<A>(s[nt], qf[2 * kk2], k[0], k[1]);
             mma_split<A>(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
+          }
+          if constexpr (kRoundsOutput<A>) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) s[nt][i] = output<A>(s[nt][i]) + rel(n, i);
           }
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
@@ -1015,7 +1048,7 @@ __device__ __forceinline__ void attention(const Args& a) {
       float* dst = a.out + ((static_cast<long long>(b) * a.L + row) * a.H + h) * D + 2 * t;
 #pragma unroll
       for (int dn = 0; dn < kDT; ++dn) {
-        *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(o[dn][2 * i], o[dn][2 * i + 1]);
+        *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(output<A>(o[dn][2 * i]), output<A>(o[dn][2 * i + 1]));
       }
     }
   }
@@ -1340,7 +1373,7 @@ template <int KEYS>
 constexpr int kTcThreads = KEYS ? rs::kThreads : tc::kThreads;
 template <int D, bool HAS_REL, int KEYS, Arith A>
 constexpr int kTcBlocks = !KEYS ? (D <= 32 ? 3 : 2)
-                        : rs::kSplitOnce<A, KEYS> ? 1 : rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>::kBlocks;
+                        : rs::kSplitOnce<A, KEYS> ? 1 : rs::Smem<D, HAS_REL, KEYS, rs::kOneBlock<A>>::kBlocks;
 
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void tc_attention(const Args& a) {
@@ -1391,6 +1424,30 @@ rel_attention_bf16x9_kernel(const Args a) {
   tc_attention<D, HAS_REL, Arith::BF16x9, KEYS>(a);
 }
 
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::F16>)
+rel_attention_f16_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::F16, KEYS>(a);
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::F16F16>)
+rel_attention_f16f16_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::F16F16, KEYS>(a);
+}
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(kTcThreads<KEYS>, kTcBlocks<D, HAS_REL, KEYS, Arith::BF16BF16>)
+rel_attention_bf16bf16_kernel(const Args a) {
+  tc_attention<D, HAS_REL, Arith::BF16BF16, KEYS>(a);
+}
+
+// The f64 instance: device.cuh's float64 design, the relative term from the table
+template <int D, bool HAS_REL>
+__global__ void __launch_bounds__(f64::kThreads, f64::kBlocks<D>) rel_attention_f64_kernel(const f64::Args a) {
+  f64::attention<D, HAS_REL, true>(a);
+}
+
 template <Arith A, int D, bool HAS_REL, int KEYS>
 constexpr auto tc_kernel() {
   if constexpr (A == Arith::TF32) {
@@ -1403,8 +1460,15 @@ constexpr auto tc_kernel() {
     return &rel_attention_bf16x3_kernel<D, HAS_REL, KEYS>;
   } else if constexpr (A == Arith::BF16x6) {
     return &rel_attention_bf16x6_kernel<D, HAS_REL, KEYS>;
-  } else {
+  } else if constexpr (A == Arith::BF16x9) {
     return &rel_attention_bf16x9_kernel<D, HAS_REL, KEYS>;
+  } else if constexpr (A == Arith::F16) {
+    return &rel_attention_f16_kernel<D, HAS_REL, KEYS>;
+  } else if constexpr (A == Arith::F16F16) {
+    return &rel_attention_f16f16_kernel<D, HAS_REL, KEYS>;
+  } else {
+    static_assert(A == Arith::BF16BF16, "a tensor-core arithmetic");
+    return &rel_attention_bf16bf16_kernel<D, HAS_REL, KEYS>;
   }
 }
 
@@ -1416,7 +1480,7 @@ cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
   if constexpr (rs::kSplitOnce<A, KEYS>) {
     smem = rs::PartsSmem<D, HAS_REL, A, KEYS>::kBytes;
   } else {
-    smem = sizeof(float) * rs::Smem<D, HAS_REL, KEYS, (kParts<A> > 1)>::kFloats;
+    smem = sizeof(float) * rs::Smem<D, HAS_REL, KEYS, rs::kOneBlock<A>>::kFloats;
   }
   cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;
@@ -1455,8 +1519,26 @@ cudaError_t launch_tc(Args a, int B, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9
-// (see the note at the top)
+// The f64 instance over (B, H, L, D) views: out is the (B, L, H, D) buffer.
+template <int D, bool HAS_REL>
+cudaError_t launch_f64(const Args& a, int B, int device, cudaStream_t stream) {
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const size_t smem = sizeof(double) * f64::Smem<D, HAS_REL>::kDoubles;
+  const cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(&rel_attention_f64_kernel<D, HAS_REL>),
+                                            granted, device, smem);
+  if (err != cudaSuccess) return err;
+  const long long bh = static_cast<long long>(B) * a.H;
+  const f64::Args f{a.q, a.k, a.v, a.bias, a.table, a.out, a.sb, a.sh, a.sl,
+                    static_cast<long long>(a.L) * a.H * D, D, static_cast<long long>(a.H) * D,
+                    a.H, a.L, a.M, bh, (a.L + f64::kRows - 1) / f64::kRows, a.scale2};
+  const long long blocks = f.n_tiles * ((bh + f64::kPairs - 1) / f64::kPairs);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  rel_attention_f64_kernel<D, HAS_REL><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(f);
+  return cudaGetLastError();
+}
+
+// instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9,
+// 7 f64, 8 f16, 9 f16f16, 10 bf16bf16 (see the note at the top)
 template <int D, bool HAS_REL>
 cudaError_t dispatch_instance(const Args& a, int B, int instance, int device, cudaStream_t stream) {
   switch (instance) {
@@ -1467,6 +1549,10 @@ cudaError_t dispatch_instance(const Args& a, int B, int instance, int device, cu
     case 4: if constexpr (kBuiltInstance<4>) return launch_tc<D, HAS_REL, Arith::BF16x3>(a, B, device, stream); break;
     case 5: if constexpr (kBuiltInstance<5>) return launch_tc<D, HAS_REL, Arith::BF16x6>(a, B, device, stream); break;
     case 6: if constexpr (kBuiltInstance<6>) return launch_tc<D, HAS_REL, Arith::BF16x9>(a, B, device, stream); break;
+    case 7: if constexpr (kBuiltInstance<7>) return launch_f64<D, HAS_REL>(a, B, device, stream); break;
+    case 8: if constexpr (kBuiltInstance<8>) return launch_tc<D, HAS_REL, Arith::F16>(a, B, device, stream); break;
+    case 9: if constexpr (kBuiltInstance<9>) return launch_tc<D, HAS_REL, Arith::F16F16>(a, B, device, stream); break;
+    case 10: if constexpr (kBuiltInstance<10>) return launch_tc<D, HAS_REL, Arith::BF16BF16>(a, B, device, stream); break;
     default: break;
   }
   return cudaErrorInvalidValue;  // not an instance of this library's part (launch.cuh)
@@ -1489,7 +1575,8 @@ cudaError_t dispatch_rel(const Args& a, int B, int has_rel, int instance, int de
 // 16-byte aligned. out: a contiguous (B, L, H, D) buffer. table:
 // the contiguous (2M - 1, D) distance table, 16-byte aligned, or null when
 // has_rel is 0. `instance` picks the arithmetic: 0 FMA, 1 TF32, 2 bf16, 3-6
-// the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9.
+// the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9, 7 f64, 8-10 the
+// 16-bit presets f16, f16f16, bf16bf16.
 // `device` is the index of the device that holds the tensors and `stream`.
 extern "C" int rel_attention_forward(const float* q, const float* k, const float* v,
                                      const float* bias, const float* table, float* out,

@@ -40,16 +40,34 @@ Fields the port reads differently:
 | preset "TF32_TF32_F32" | TF32 | TF32 tensor cores ("tf32") |
 | preset "BF16_BF16_F32" | bf16 operands, f32 sums and output | bf16 operands, f32 sums, f32 output ("bf16") |
 | preset "TF32_TF32_F32_X3" | 3 products of TF32 parts, f32 sums | the same products on TF32 tensor cores ("tf32x3") |
-| presets "BF16_BF16_F32_X3", "_X6", "_X9" | 3, 6 or 9 products of bf16 parts, f32 sums | the same products on TF32 tensor cores ("bf16x3", "bf16x6", "bf16x9") |
-| other presets (F16_*, ANY_F8_*, BF16_BF16_BF16, F64_F64_F64), other strings | their algorithms | ValueError |
+| presets "BF16_BF16_F32_X3", "_X6", "_X9" | 3, 6 or 9 products of bf16 parts, f32 sums | the same products, bf16 parts, f32 sums ("bf16x3", "bf16x6", "bf16x9") |
+| preset "F64_F64_F64" | operands cast to f64, an f64 dot, its result cast to f32 | the same: float64 GEMMs, their outputs cast to float32 ("f64") |
+| preset "F16_F16_F32" | f16 operands, f32 accumulation and output | f16 values in float32 GEMMs under TF32, exact products, f32 sums and output ("f16") |
+| preset "F16_F16_F16" | f16 operands, a dot with an f16 result | as "f16", each dot's result rounded once to f16 ("f16f16") |
+| preset "BF16_BF16_BF16" | bf16 operands, a dot with a bf16 result | bf16 values in float32 GEMMs, each dot's result rounded once to bf16 ("bf16bf16") |
+| presets "ANY_F8_ANY_F8_F32", "_F32_FAST_ACCUM", "ANY_F8_ANY_F8_ANY", "_ANY_FAST_ACCUM" | refused at lowering for float32 operands ("requires both inputs to have float8 dtypes"), on a GPU too | ValueError, the same outcome |
+| other strings | refused | ValueError |
+
+  F16_F16_F16 and BF16_BF16_BF16 name a 16-bit accumulation, which cannot
+  be observed here from XLA:GPU. The port reads them as f32 sums of the
+  products of the 16-bit values with the dot's result rounded once to the
+  16-bit type: XLA:CPU computes F16_F16_F16 so (to one f16 step), the dot
+  that JAX lowers for a GPU has an f16 or bf16 result type, and tensor
+  cores have no bf16 accumulator (precision.py). Under tensor parallelism
+  (parallel/tp.py) the row-parallel layers sum the ranks' unrounded
+  partial products in float32 and round the sum once at those two
+  presets, as one device rounds its dot.
 
   The fused attention kernels follow the value too (ops/attention.py): both
   run float32 FMA at IEEE float32, TF32 tensor cores at TF32 (and at
-  "default" under a caller's TF32), and the presets' products of bf16 or
-  TF32 parts on TF32 tensor cores at "BF16_BF16_F32" and the multi-pass
-  presets. On the CPU, whose GEMMs ignore the CUDA TF32 setting, every value
-  but the presets of precision.SPLITS gives float32's numbers; those compute
-  their products of parts there as on the card.
+  "default" under a caller's TF32), the bf16 values of "BF16_BF16_F32" and
+  the TF32 parts of "TF32_TF32_F32_X3" on TF32 tensor cores, the bf16 parts
+  of the other multi-pass presets on bf16 tensor cores, the f16 or bf16
+  values of the 16-bit presets on TF32 tensor cores (each dot's output
+  rounded where the preset says), and float64 FMA at F64_F64_F64. On the
+  CPU, whose GEMMs ignore the CUDA TF32 setting, every value but the
+  presets of precision.SPLITS and F64_F64_F64 gives float32's numbers;
+  those compute their products there as on the card.
 """
 from __future__ import annotations
 

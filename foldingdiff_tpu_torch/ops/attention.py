@@ -29,11 +29,18 @@ products of the JAX model's einsums in that mode:
 | "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same |
 | "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same |
 | "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same |
+| "f64" | "f64": float64 FMA on the CUDA cores, each dot's output rounded to float32 | "f64": the same |
+| "f16" | "f16": f16 values on TF32 tensor cores | "f16": the same |
+| "f16f16" | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16 | "f16f16": the same |
+| "bf16bf16" | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16 | "bf16bf16": the same |
 
 The plain versions compute every product as precision.einsum does in the
-mode: the preset's products of parts under "bf16" and the multi-pass modes,
+mode: the preset's products of parts under "bf16", the 16-bit modes and the
+multi-pass modes (under "f16f16" and "bf16bf16" each product's output
+rounded on its own: q.k and q.E, then their sum), float64's under "f64",
 float32 otherwise, at the caller's cuBLAS setting; softmax stays float32 in
-all of them.
+all of them. No mode runs another mode's instance, and a build or launch
+that fails raises.
 
 Each kernel source is built with nvcc at first use, from the repository's
 sources only, into `foldingdiff_tpu_torch/_build/`; the library name carries
@@ -151,23 +158,26 @@ class CudaLibrary:
         self.launches_by_instance[instance] += 1
 
 
-# Each kernel's instances in the order of its C `instance` index: 0 FMA, 1 TF32, 2 bf16, 3-6 the multi-pass modes
-INSTANCES = ("fma", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9")
+# Each kernel's instances in the order of its C `instance` index: 0 FMA, 1 TF32, 2 bf16, 3-6 the multi-pass
+# modes, 7 f64, 8-10 the 16-bit modes f16, f16f16 and bf16bf16 (precision.KERNEL_MODES' order)
+INSTANCES = ("fma", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9", "f64", "f16", "f16f16", "bf16bf16")
 # The parts each source is built in, side by side: the single-rounding
 # instances together, each multi-pass instance of v2 apart and its flagship
-# head size apart from the other two. On an 8-core H100 host both sources
-# built in 145 s as one nvcc each, 77 s with --split-compile=0, 166 s with
-# --split-compile-extended=0, and 39 s as these 12 parts
-# (scripts/nvcc_build_forms.py)
-_SINGLE, _MULTI_PASS = INSTANCES[:3], INSTANCES[3:]
+# head size apart from the other two, and the f64 and 16-bit instances in
+# two parts. On an 8-core H100 host both sources (seven instances) built in
+# 145 s as one nvcc each, 77 s with --split-compile=0, 166 s with
+# --split-compile-extended=0, and 39 s as 12 parts (scripts/nvcc_build_forms.py)
+_SINGLE, _MULTI_PASS, _WIDE_AND_16 = INSTANCES[:3], INSTANCES[3:7], INSTANCES[7:]
+_NEW_PARTS = [(_WIDE_AND_16[:2], HEAD_DIMS), (_WIDE_AND_16[2:], HEAD_DIMS)]
 # (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel), then the
 # instance, device and stream
 REL_ATTENTION = CudaLibrary(
     "rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6, INSTANCES,
-    [(_SINGLE, HEAD_DIMS)] + [((i,), dims) for i in _MULTI_PASS for dims in ((32,), (16, 64))])
+    [(_SINGLE, HEAD_DIMS), *_NEW_PARTS] + [((i,), dims) for i in _MULTI_PASS for dims in ((32,), (16, 64))])
 # (q, k, v, bias, e_lr, out, B, H, L, D, has_rel), then the instance, device and stream
 GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, INSTANCES,
-                                 [(_SINGLE, HEAD_DIMS), (_MULTI_PASS[:2], HEAD_DIMS), (_MULTI_PASS[2:], HEAD_DIMS)])
+                                 [(_SINGLE, HEAD_DIMS), *_NEW_PARTS, (_MULTI_PASS[:2], HEAD_DIMS),
+                                  (_MULTI_PASS[2:], HEAD_DIMS)])
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
 # kernel mode (precision.kernel_mode) -> the instance each kernel runs in it
 V2_INSTANCES = {"ieee": "fma", **{mode: mode for mode in precision.KERNEL_MODES[1:]}}
@@ -192,7 +202,9 @@ def fused_attention_reference(
     einsum runs in the model's `mode` (precision.einsum): under "bf16" and
     the multi-pass modes the preset's products of parts with a float32
     output, as a model at that matmul_precision computes them; the softmax
-    stays float32."""
+    stays float32. Under "f16f16" and "bf16bf16" each product's output is
+    rounded on its own, q.k and q.e_lr before their sum, as the JAX einsums
+    at those presets round them."""
 
     def einsum(eq, a, b):
         return precision.einsum(eq, a, b, mode)

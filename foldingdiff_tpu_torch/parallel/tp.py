@@ -170,7 +170,9 @@ class ColumnParallelLinear(nn.Module):
 
 class RowParallelLinear(nn.Module):
     """This model rank's input features of a Linear: its partial product
-    summed over the model axis by g, then the full bias, added once."""
+    summed over the model axis by g, then rounded once as the mode rounds a
+    product's output (f16 or bf16 under "f16f16" and "bf16bf16"), so that
+    the sum is read as one device reads it, then the full bias, added once."""
 
     def __init__(self, full: precision.Linear, mesh: Mesh) -> None:
         super().__init__()
@@ -180,7 +182,8 @@ class RowParallelLinear(nn.Module):
         self.bias = nn.Parameter(full.bias.detach().clone())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _ReduceFromModel.apply(precision.linear(x, self.weight, None, self.mode), self.mesh) + self.bias
+        partial = precision.linear(x, self.weight, None, self.mode, rounded=False)
+        return precision.round_output(_ReduceFromModel.apply(partial, self.mesh), self.mode) + self.bias
 
 
 def shard_params(model: nn.Module, mesh: Mesh2D) -> nn.Module:

@@ -382,8 +382,8 @@ def _products_of_device_cuh() -> dict:
         assert len(products) == int(n)
         for name in re.findall(r"Arith::(\w+)", names):
             table[name] = products
-    tf32 = re.search(r"constexpr bool kBF16Parts = ([^;]+);", text).group(1)
-    rounding = {name: "tf32" if f"A != Arith::{name}" in tf32 else "bf16" for name in table}
+    bf16 = re.search(r"constexpr bool kBF16Parts = ([^;]+);", text).group(1)
+    rounding = {name: "bf16" if re.search(rf"A == Arith::{name}\b", bf16) else "tf32" for name in table}
     return {name: (table[name], rounding[name]) for name in table}
 
 

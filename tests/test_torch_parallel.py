@@ -28,7 +28,8 @@ masks), and t, noise and the AR causal lengths are injected.
 - Megatron TP over (1, 2), (2, 1), (2, 2) and (1, 4): the forward within 1e-5
   of one device, one train step (parameters and Adam moments) equal to one
   device's, the spec rules against JAX's, a head count the model axis does
-  not divide refused.
+  not divide refused; and over (1, 2) at F16_F16_F32 and F16_F16_F16
+  against one device at each preset.
 - bin/train_torch.py --multihost and the parallel.multihost worker as two
   processes each.
 """
@@ -74,6 +75,9 @@ LENGTHS = [32, 30, 28, 12, 10, 9]  # over 2 ranks: rows 0-2 hold 90 positions, r
 AR_LENGTHS = [20, 32, 0, 7, 0]  # zero-length rows, and a zero row of padding over 2 ranks
 SAMPLE_LENGTHS = [20, 21, 22, 23, 24, 25, 26]  # batch 4: chunks of 4 and 3, the second padded over 2 ranks
 TP_MESHES = {2: [(1, 2), (2, 1)], 4: [(2, 2), (1, 4)]}
+# (1, 2) TP steps at presets other than float32's: f16 operands, float32
+# sums; and the same with each product's output rounded to f16
+TP_PRESETS = ("F16_F16_F32", "F16_F16_F16")
 FIT_KW = dict(lr=3e-4, batch_size=4, lr_scheduler="LinearWarmup", seed=0)
 GROUP_TIMEOUT = 240  # seconds for a group's workers to finish
 
@@ -119,14 +123,15 @@ def _dp_kw(case: str, b: int) -> dict:
     return dict(lr=LR, batch_size=b, max_epochs=1, lr_scheduler=None, seed=0, **DP_CASES[case])
 
 
-def _dp_step(case: str, b: int, mesh=None) -> dict:
+def _dp_step(case: str, b: int, mesh=None, **fields) -> dict:
     """One train step of the port, over the mesh's ranks or in this process:
     its loss and terms, the gradients of the global loss (the L1 term's
     added, as JAX's value_and_grad gives them, before the clip), the
-    parameters and the Adam moments after the step."""
+    parameters and the Adam moments after the step; `fields` of the model's
+    config (matmul_precision)."""
     kw = _dp_kw(case, b)
     tb, tt, tn = _tensors(*_dp_inputs(b))
-    probe = Trainer(_model(), _schedule(), TrainConfig(**kw), 1, mesh=mesh)
+    probe = Trainer(_model(**fields), _schedule(), TrainConfig(**kw), 1, mesh=mesh)
     probe.model.train()
     probe._loss_terms(tb, tt, tn).mean().backward()
     named = list(probe.model.named_parameters())
@@ -134,7 +139,7 @@ def _dp_step(case: str, b: int, mesh=None) -> dict:
         mesh.reduce_gradients(named)
     l1 = kw.get("l1_norm", 0.0)
     grads = {n: (p.grad + l1 * torch.where(p >= 0, 1.0, -1.0)).numpy() for n, p in named}
-    trainer = Trainer(_model(), _schedule(), TrainConfig(**kw), 1, mesh=mesh)
+    trainer = Trainer(_model(**fields), _schedule(), TrainConfig(**kw), 1, mesh=mesh)
     avg, terms = trainer.train_step(tb, tt, tn)
     out = {"avg": avg.item(), "terms": terms.numpy(), "grads": grads,
            "params": {n: p.detach().numpy().copy() for n, p in trainer.model.named_parameters()},
@@ -217,10 +222,11 @@ def _tp_inputs():
 
 
 # -- the workers ----------------------------------------------------------------
-def _tp_case(shape) -> dict:
+def _tp_case(shape, **fields) -> dict:
     mesh = tp.make_mesh_2d(*shape)
-    out = {"forward": tp.TPRunner(_model(), mesh)(*_tp_inputs()).numpy()}
-    trainer = tp.shard_train_state(Trainer(_model(), _schedule(), TrainConfig(**_dp_kw("smooth_l1", 5)), 1), mesh)
+    out = {"forward": tp.TPRunner(_model(**fields), mesh)(*_tp_inputs()).numpy()}
+    trainer = tp.shard_train_state(Trainer(_model(**fields), _schedule(), TrainConfig(**_dp_kw("smooth_l1", 5)), 1),
+                                   mesh)
     avg, terms = tp.tp_train_step(trainer, *_tensors(*_dp_inputs(5)))
     out.update(avg=avg.item(), terms=terms.numpy(),
                params={n: t.numpy() for n, t in tp.full_state_dict(trainer.model, mesh).items()
@@ -250,6 +256,7 @@ def _two_rank_cases(tmp: Path) -> dict:
     out["resumed_params"] = {n: p.detach().numpy().copy() for n, p in resumed.model.named_parameters()}
 
     out["tp"] = {shape: _tp_case(shape) for shape in TP_MESHES[2]}
+    out["tp_presets"] = {preset: _tp_case((1, 2), matmul_precision=preset) for preset in TP_PRESETS}
     try:
         tp.TPRunner(_model(hidden_size=48, num_attention_heads=3, intermediate_size=96), tp.make_mesh_2d(1, 2))
     except ValueError as e:
@@ -622,6 +629,74 @@ def test_tp_train_step_matches_one_device(two, four, shape):
         for n, m in r["moments"].items():
             for k, v in m.items():
                 np.testing.assert_allclose(v, one["moments"][n][k], rtol=1e-4, atol=1e-8, err_msg=f"{n} {k}")
+
+
+def _check_tp_at_preset(two, preset: str, share: float, loss: float, terms: float, moments: float,
+                        key_bias_moments: float) -> None:
+    """A (1, 2) TP forward and train step at `preset` against one device at
+    it: the forward within `share` of the preset's own distance from
+    float32 (relative RMS) and at least half that distance off float32's
+    forward; the loss within `loss`, its terms within `terms`; the
+    parameters after the step within 1e-5 where the gradient clears a
+    hundredth of its tensor's largest, elsewhere within 2 lr (an element
+    whose gradient's sign those steps set moves by about lr either way, and
+    so do the key biases, whose gradients are float noise); the Adam moments
+    within `moments` of their tensor's largest, the key biases' within
+    `key_bias_moments`."""
+    one = _dp_step("smooth_l1", 5, matmul_precision=preset)
+    with torch.no_grad():
+        want = _model(matmul_precision=preset).eval()(*_tp_inputs()).numpy()
+        f32 = _model().eval()(*_tp_inputs()).numpy()
+
+    def rms(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2) / np.mean(b ** 2)))
+
+    gap = rms(want, f32)
+    assert gap > 1e-5
+    # the key biases' gradients are float noise (softmax ignores a shift of a query's scores), at f16 steps here
+    floors = {n: np.inf if n.endswith("key.bias") else 1e-2 * np.abs(g).max() for n, g in one["grads"].items()}
+    for r in two:
+        got = r["tp_presets"][preset]
+        assert rms(got["forward"], want) <= share * gap and rms(got["forward"], f32) >= 0.5 * gap
+        np.testing.assert_allclose(got["avg"], one["avg"], atol=loss, rtol=0)
+        np.testing.assert_allclose(got["terms"], one["terms"], atol=terms, rtol=0)
+        _check_params(got["params"], one["params"], one["grads"], LR, floors=floors, atol=1e-5)
+        for n, m in got["moments"].items():
+            for k, v in m.items():
+                ref = one["moments"][n][k]
+                bound = key_bias_moments if n.endswith("key.bias") else moments * np.abs(ref).max()
+                assert np.abs(v - ref).max() <= bound, (n, k)
+
+
+def test_tp_at_f16_f16_f32_matches_one_device(two):
+    """A (1, 2) TP forward and train step at F16_F16_F32 (every GEMM of
+    f16-rounded operands, its products exact, summed in float32), against
+    one device at the preset. The column- and row-parallel layers compute
+    the same products as one device, the row-parallel ones summed in
+    another order: float32 ulps, which move a downstream operand by an f16
+    step where they meet an f16 rounding boundary. So the forward is held
+    within half the preset's own distance from float32 (measured 0.29) and
+    at least half that distance off float32's forward (measured 0.97); the
+    loss within 1e-5 and its terms within 5e-5 (measured 2.9e-6 and
+    2.0e-5); the parameters as _check_params holds them (measured: at most
+    1.97e-3 where the gradient sets the sign); the Adam moments within a
+    thousandth of their tensor's largest (measured 8.0e-4 of it), the key
+    biases' within 1e-7 (noise: measured 8.3e-8)."""
+    _check_tp_at_preset(two, "F16_F16_F32", share=0.5, loss=1e-5, terms=5e-5, moments=1e-3, key_bias_moments=1e-7)
+
+
+def test_tp_at_f16_f16_f16_matches_one_device(two):
+    """The same at F16_F16_F16, whose products' outputs are rounded to f16:
+    a row-parallel layer sums the ranks' unrounded partial products and
+    rounds the sum once, as one device rounds its product. Held: the
+    forward within half the preset's distance from float32 (measured 0.38;
+    rounding each rank's partial product before the sum reads 1.00), the
+    loss within 5e-5 and its terms within 2e-4 (measured 1.2e-5 and
+    7.2e-5), the moments within 2.5e-3 of their largest (measured 1.4e-3;
+    3.8e-3 with the partials rounded), the key biases' within 5e-7
+    (measured 1.3e-7)."""
+    _check_tp_at_preset(two, "F16_F16_F16", share=0.5, loss=5e-5, terms=2e-4, moments=2.5e-3,
+                        key_bias_moments=5e-7)
 
 
 def _flax_path(name: str) -> str:

@@ -3,6 +3,8 @@ ModelConfig.matmul_precision in the port (precision.py), on the CPU:
 - the names: every value of JAX's default_matmul_precision enum maps onto
   the port's mode as models/config.py's table says, or raises ValueError at
   the config's and the model's construction, as does an unknown string;
+  the four ANY_F8_* presets raise, and JAX's own lowering of the model for
+  a GPU refuses them for float32 operands;
 - the scope: a TorchDispatchMode records torch.backends.cuda.matmul.
   fp32_precision (the setting cuBLAS reads) at every GEMM (aten mm, addmm,
   bmm, baddbmm) of a small denoiser's forward and of its train step's
@@ -11,15 +13,21 @@ ModelConfig.matmul_precision in the port (precision.py), on the CPU:
   its mode ("default": the caller's setting, as a JAX model at "default"
   enters no scope), the loss's own forward GEMM the caller's, and the
   caller's setting is back after the step, after a capture body and after
-  an exception in the forward or the backward. Under "BF16_BF16_F32" and
-  the multi-pass presets (TF32_TF32_F32_X3, BF16_BF16_F32_X3, _X6, _X9)
-  every GEMM's operands are parts as well: bf16 values, or TF32 values;
+  an exception in the forward or the backward. Under "BF16_BF16_F32", the
+  16-bit presets (F16_F16_F32, F16_F16_F16, BF16_BF16_BF16) and the
+  multi-pass presets (TF32_TF32_F32_X3, BF16_BF16_F32_X3, _X6, _X9) every
+  GEMM's operands are parts as well: bf16, f16 or TF32 values; under
+  F64_F64_F64 they are float64 tensors;
 - the presets' numerics: the TF32 rounding against a bit-exact numpy
   transcription of cvt.rna.tf32.f32, the parts of an operand, and
   precision.linear and precision.einsum, and their gradients, against
   numpy sums of the products of the parts (bf16 through ml_dtypes' bf16,
   TF32 through that transcription) within 1e-6 relative, their output not
-  rounded to bf16;
+  rounded to bf16; the 16-bit modes' products (f16 through numpy's
+  float16: an infinity past 65504, where JAX's F16_F16_F16 dot has one)
+  with their output roundings, and "f64"'s float64 products; every f16
+  value is a TF32 value; XLA:CPU's F16_F16_F16 dot is the port's reading
+  (float32 sums, the result rounded once);
 - each preset's model against the JAX model's own program at the preset:
   XLA:CPU ignores BF16_BF16_F32 and the _X3 and _X6 presets (it computes
   those dots in float32) and refuses _X9 and TF32_TF32_F32_X3, so the JAX
@@ -30,7 +38,10 @@ ModelConfig.matmul_precision in the port (precision.py), on the CPU:
   listed products of the operands' parts, summed in float32; the port
   under "xla" (its einsums) and under "auto" (the attention kernels' plain
   versions: v2's without position_ids, v1's with them) against JAX's
-  "auto" einsums;
+  "auto" einsums; F64_F64_F64 and F16_F16_F16 against XLA:CPU's own output
+  and gradients, F16_F16_F32 and BF16_BF16_BF16 (which XLA:CPU refuses)
+  against the jaxpr evaluated dot by dot, the 16-bit ones with their
+  output rounding;
 - the attention kernels' mode (precision.kernel_mode): "caller" follows the
   caller's cuBLAS setting, other names raise; the entries' plain versions
   on the CPU compute the products of parts under "bf16" and the multi-pass
@@ -41,11 +52,14 @@ ModelConfig.matmul_precision in the port (precision.py), on the CPU:
   a "highest" model's bit for bit, so the JAX-parity tests keep their
   tolerances whatever the config says;
 - a config.json naming "highest" comes back through models.io and is
-  honoured; a "default" config's file stays the JAX package's.
+  honoured; a "default" config's file stays the JAX package's; the JAX
+  mini model's directory naming F64_F64_F64 or a 16-bit preset loads and
+  samples.
 """
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 
@@ -61,6 +75,7 @@ from foldingdiff_tpu.models import io as jax_io
 from foldingdiff_tpu.models.bert import BertForDiffusion as JaxBert
 from foldingdiff_tpu.models.config import ModelConfig as JaxConfig
 from foldingdiff_tpu_torch import precision
+from foldingdiff_tpu_torch.diffusion import sampling
 from foldingdiff_tpu_torch.diffusion.schedules import DiffusionSchedule
 from foldingdiff_tpu_torch.models import bert as models_bert
 from foldingdiff_tpu_torch.models import io as model_io
@@ -80,8 +95,12 @@ SUPPORTED = {
     "default": "caller", "bfloat16": "tf32", "high": "tf32", "tensorfloat32": "tf32", "TF32_TF32_F32": "tf32",
     "highest": "ieee", "float32": "ieee", "F32_F32_F32": "ieee", "BF16_BF16_F32": "bf16",
     "TF32_TF32_F32_X3": "tf32x3", "BF16_BF16_F32_X3": "bf16x3", "BF16_BF16_F32_X6": "bf16x6",
-    "BF16_BF16_F32_X9": "bf16x9",
+    "BF16_BF16_F32_X9": "bf16x9", "F64_F64_F64": "f64",
+    "F16_F16_F32": "f16", "F16_F16_F16": "f16f16", "BF16_BF16_BF16": "bf16bf16",
 }
+# The presets that JAX refuses for float32 operands at lowering, on a GPU too
+# ("requires both inputs to have float8 dtypes"): the port raises for them
+ANY_F8 = ("ANY_F8_ANY_F8_F32", "ANY_F8_ANY_F8_F32_FAST_ACCUM", "ANY_F8_ANY_F8_ANY", "ANY_F8_ANY_F8_ANY_FAST_ACCUM")
 # The multi-pass presets: mode -> (the rounding of a part, parts, the
 # products (i, j) of part i of the first operand and part j of the second,
 # smallest first), as JAX's DotAlgorithmPreset defines them
@@ -93,8 +112,14 @@ PARTS = {
     "bf16x3": ("bf16", 2, [(1, 0), (0, 1), (0, 0)]),
     "bf16x6": ("bf16", 3, [(2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)]),
     "bf16x9": ("bf16", 3, [(i, j) for s in (4, 3, 2, 1, 0) for i in (2, 1, 0) for j in (2, 1, 0) if i + j == s]),
+    "f16": ("f16", 1, [(0, 0)]),
+    "f16f16": ("f16", 1, [(0, 0)]),
+    "bf16bf16": ("bf16", 1, [(0, 0)]),
 }
-PRECISIONS = ["highest", "default", "BF16_BF16_F32", *MULTI_PASS]
+# The 16-bit presets: mode -> the rounding of each dot's output (None: float32)
+SIXTEEN_BIT = {"F16_F16_F32": "f16", "F16_F16_F16": "f16f16", "BF16_BF16_BF16": "bf16bf16"}
+OUTPUT = {"f16": None, "f16f16": "f16", "bf16bf16": "bf16"}
+PRECISIONS = ["highest", "default", "BF16_BF16_F32", *MULTI_PASS, "F64_F64_F64", *SIXTEEN_BIT]
 SMALL = ModelConfig(hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
                     max_position_embeddings=32, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
 GEMMS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm}
@@ -120,13 +145,23 @@ def _tf32_values(t: torch.Tensor) -> bool:
     return t.dtype == torch.float32 and not bool((t.contiguous().view(torch.int32) & 0x1FFF).any())
 
 
-def _parts_kind(t: torch.Tensor) -> str | None:
-    return "bf16" if _bf16_values(t) else "tf32" if _tf32_values(t) else None
+def _f16_values(t: torch.Tensor) -> bool:
+    return t.dtype == torch.float32 and torch.equal(t, t.to(torch.float16).to(t.dtype))
+
+
+def _parts_kind(t: torch.Tensor) -> frozenset:
+    """What a GEMM operand's values are: {"f64"} for a float64 tensor, else
+    those of "bf16", "f16" and "tf32" values that every element is (a bf16
+    or f16 value is a TF32 value too)."""
+    if t.dtype == torch.float64:
+        return frozenset({"f64"})
+    return frozenset(k for k, values in (("bf16", _bf16_values), ("f16", _f16_values), ("tf32", _tf32_values))
+                     if values(t))
 
 
 class GemmLog(TorchDispatchMode):
-    """(fp32_precision, what the operands are: "bf16" values, "tf32" values
-    or None) at every GEMM dispatched."""
+    """(fp32_precision, what both operands are: the kinds of values that
+    _parts_kind finds in each) at every GEMM dispatched."""
 
     def __init__(self):
         super().__init__()
@@ -135,24 +170,27 @@ class GemmLog(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.overloadpacket in GEMMS:
             operands = args[-2:] if func.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.bmm) else args[1:3]
-            kinds = {_parts_kind(t) for t in operands}
-            self.calls.append((torch.backends.cuda.matmul.fp32_precision, kinds.pop() if len(kinds) == 1 else None))
+            kinds = frozenset.intersection(*(_parts_kind(t) for t in operands))
+            self.calls.append((torch.backends.cuda.matmul.fp32_precision, kinds))
         return func(*args, **(kwargs or {}))
 
 
 def _caller_for(mode: str) -> str:
     """A caller's setting other than what the model's mode sets ("none",
     torch's default, which no scope sets, for a "caller" model)."""
-    return {"ieee": "tf32", "caller": "none"}.get(mode, "ieee")
+    return {"ieee": "tf32", "f64": "tf32", "caller": "none"}.get(mode, "ieee")
 
 
 def _assert_in_mode(calls, mode: str, what: str) -> None:
-    want = {"ieee": "ieee", "caller": _caller_for(mode)}.get(mode, "tf32")
+    """Every GEMM at the mode's setting ("ieee" under "ieee" and "f64",
+    TF32 under the others but "caller"), on the mode's parts (bf16, f16 or
+    TF32 values) or, under "f64", on float64 tensors."""
+    want = {"ieee": "ieee", "f64": "ieee", "caller": _caller_for(mode)}.get(mode, "tf32")
     assert calls, f"{what}: no GEMM recorded"
     assert {c[0] for c in calls} == {want}, f"{what}: fp32_precision at the GEMMs {calls}"
-    if mode in PARTS:
-        rounding = PARTS[mode][0]
-        assert all(c[1] == "bf16" or c[1] == rounding for c in calls), f"{what}: a GEMM on operands not {rounding} parts"
+    if mode in PARTS or mode == "f64":
+        values = "f64" if mode == "f64" else PARTS[mode][0]
+        assert all(values in c[1] for c in calls), f"{what}: a GEMM on operands not {values} values"
 
 
 def _batch(seed: int = 0):
@@ -334,10 +372,22 @@ def _bf16_np(t) -> np.ndarray:
     return x.astype(np.float32).astype(jnp.bfloat16).astype(np.float64)
 
 
+def _f16_np(t) -> np.ndarray:
+    """The f16 rounding of a float32 tensor or array (numpy's float16: to
+    nearest even, an infinity past 65504), as float64."""
+    x = t.detach().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+    with np.errstate(over="ignore"):
+        return x.astype(np.float32).astype(np.float16).astype(np.float64)
+
+
+NP_ROUNDINGS = {"bf16": lambda y: _bf16_np(y).astype(np.float32), "f16": lambda y: _f16_np(y).astype(np.float32),
+                "tf32": _tf32_np}
+
+
 def _parts_np(x, mode: str) -> list:
     """The parts of a float32 operand in a mode, in numpy (float32)."""
     rounding, n, _ = PARTS[mode]
-    r = (lambda y: _bf16_np(y).astype(np.float32)) if rounding == "bf16" else _tf32_np
+    r = NP_ROUNDINGS[rounding]
     x = x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
     out = [r(x)]
     for _ in range(n - 1):
@@ -347,9 +397,16 @@ def _parts_np(x, mode: str) -> list:
 
 
 def _product_np(eq: str, a, b, mode: str) -> np.ndarray:
-    """The mode's products of the parts of a and b, summed in float64."""
+    """The mode's products of the parts of a and b, summed in float64; under
+    "f16f16" and "bf16bf16" the sum rounded to f16 or bf16 (from float32);
+    under "f64" the float64 product rounded to float32."""
+    if mode == "f64":
+        a, b = (x.detach().numpy() if isinstance(x, torch.Tensor) else np.asarray(x) for x in (a, b))
+        return np.einsum(eq, a.astype(np.float64), b.astype(np.float64)).astype(np.float32).astype(np.float64)
     pa, pb = _parts_np(a, mode), _parts_np(b, mode)
-    return sum(np.einsum(eq, pa[i].astype(np.float64), pb[j].astype(np.float64)) for i, j in PARTS[mode][2])
+    out = sum(np.einsum(eq, pa[i].astype(np.float64), pb[j].astype(np.float64)) for i, j in PARTS[mode][2])
+    rounding = OUTPUT.get(mode)
+    return out if rounding is None else NP_ROUNDINGS[rounding](out.astype(np.float32)).astype(np.float64)
 
 
 def _rel(ours: torch.Tensor, ref: np.ndarray) -> float:
@@ -386,8 +443,8 @@ def test_parts_are_the_presets_parts(mode):
     assert len(ours) == n and tuple(products) == precision.SPLITS[mode][2] and precision.SPLITS[mode][0] == rounding
     for p, want in zip(ours, _parts_np(x, mode)):
         assert np.array_equal(p.numpy(), want)
-        assert (_bf16_values if rounding == "bf16" else _tf32_values)(p)
-    kept = {("bf16", 1): 8, ("bf16", 2): 16, ("tf32", 2): 22, ("bf16", 3): 24}[rounding, n]
+        assert {"bf16": _bf16_values, "f16": _f16_values, "tf32": _tf32_values}[rounding](p)
+    kept = {("bf16", 1): 8, ("f16", 1): 11, ("bf16", 2): 16, ("tf32", 2): 22, ("bf16", 3): 24}[rounding, n]
     rest = (x.double() - sum(p.double() for p in ours)).abs()
     assert (rest <= x.double().abs() * 2.0 ** -kept).all()
 
@@ -457,6 +514,140 @@ def test_multi_pass_products_and_their_gradients_match_numpy_on_the_parts(mode, 
     assert _rel(b.grad, _product_np(f"{sa},{so}->{sb}", a, grad, mode)) <= 1e-6
 
 
+def test_tf32_rounding_keeps_every_f16_value():
+    """Every finite f16 value, subnormals included, is a TF32 value: the
+    TF32 GEMMs of the f16 modes' operands round nothing, so they compute
+    the exact products of the f16 values."""
+    halves = np.arange(1 << 16, dtype=np.uint16).view(np.float16)
+    values = halves[np.isfinite(halves)].astype(np.float32)
+    assert np.array_equal(precision.to_tf32_values(torch.from_numpy(values.copy())).numpy().view(np.int32),
+                          values.view(np.int32))
+
+
+def _ulp16(x: np.ndarray, rounding: str) -> np.ndarray:
+    """The spacing of f16 or bf16 values at |x| (f16's subnormal spacing
+    below its normals)."""
+    bits, smallest = {"f16": (10, -24), "bf16": (7, -133)}[rounding]
+    e = np.floor(np.log2(np.maximum(np.abs(x), 2.0 ** -140)))
+    return 2.0 ** np.maximum(e - bits, smallest)
+
+
+def _assert_16_bit_close(ours: torch.Tensor, ref: np.ndarray, mode: str) -> None:
+    """The port's product against numpy's: within 1e-6 relative under
+    "f16" (float32 output); under "f16f16" and "bf16bf16" equal at 99% of
+    the elements and within one 16-bit step at all (the port's float32 sum
+    and numpy's float64 sum may round to two neighbours)."""
+    rounding = OUTPUT[mode]
+    if rounding is None:
+        assert _rel(ours, ref) <= 1e-6
+        return
+    got = ours.detach().numpy().astype(np.float64)
+    assert np.array_equal(got, NP_ROUNDINGS[rounding](got.astype(np.float32)))  # rounded to the 16-bit type
+    assert np.all(np.abs(got - ref) <= _ulp16(ref, rounding)) and np.mean(got == ref) >= 0.99
+
+
+@pytest.mark.parametrize("mode", list(SIXTEEN_BIT.values()))
+@pytest.mark.parametrize("eq,shapes", [("linear", ((4, 7, 48), (24, 48))), *EINSUMS])
+def test_16_bit_products_and_their_gradients_match_numpy(mode, eq, shapes):
+    """precision.linear and precision.einsum in the 16-bit modes: the
+    products of the operands rounded to f16 (numpy's float16) or bf16
+    (ml_dtypes), summed in float32, under "f16f16" and "bf16bf16" the sum
+    rounded once to f16 or bf16; forward and both gradients, whose products
+    round the cotangent and their output the same way; the linear's bias
+    added in float32 after the rounding."""
+    g = torch.Generator().manual_seed(14)
+    a, b = (torch.randn(*s, generator=g, requires_grad=True) for s in shapes)
+    if eq == "linear":
+        bias = torch.randn(shapes[1][0], generator=g)
+        out = precision.linear(a, b, None, mode)
+        assert torch.equal(precision.linear(a, b, bias, mode), out + bias)
+        eq = "blk,nk->bln"
+    else:
+        out = precision.einsum(eq, a, b, mode)
+    assert out.dtype == torch.float32
+    _assert_16_bit_close(out, _product_np(eq, a, b, mode), mode)
+    grad = torch.randn(*out.shape, generator=g)
+    out.backward(grad)
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    _assert_16_bit_close(a.grad, _product_np(f"{so},{sb}->{sa}", grad, b, mode), mode)
+    _assert_16_bit_close(b.grad, _product_np(f"{sa},{so}->{sb}", a, grad, mode), mode)
+
+
+@pytest.mark.parametrize("eq,shapes", [("linear", ((4, 7, 48), (24, 48))), *EINSUMS])
+def test_f64_products_and_their_gradients_match_numpy_in_float64(eq, shapes):
+    """precision.linear and precision.einsum under "f64": numpy's float64
+    product rounded once to float32, forward and both gradients (within
+    float32's rounding: 2^-24 relative of the largest element), on float64
+    GEMMs; nearer the exact product than IEEE float32's GEMM is."""
+    g = torch.Generator().manual_seed(15)
+    a, b = (torch.randn(*s, generator=g, requires_grad=True) for s in shapes)
+    if eq == "linear":
+        out = precision.linear(a, b, None, "f64")
+        eq = "blk,nk->bln"
+    else:
+        out = precision.einsum(eq, a, b, "f64")
+    with GemmLog() as log:
+        precision.einsum(eq, a.detach(), b.detach(), "f64")
+    assert out.dtype == torch.float32 and log.calls and all("f64" in c[1] for c in log.calls)
+    exact = np.einsum(eq, a.detach().double().numpy(), b.detach().double().numpy())
+    assert np.abs(out.detach().numpy() - exact.astype(np.float32)).max() <= 2.0 ** -24 * np.abs(exact).max()
+    assert _rel(out, exact) < _rel(torch.einsum(eq, a, b), exact)
+    grad = torch.randn(*out.shape, generator=g)
+    out.backward(grad)
+    (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
+    for ours, want in ((a.grad, np.einsum(f"{so},{sb}->{sa}", grad.double().numpy(), b.detach().double().numpy())),
+                       (b.grad, np.einsum(f"{sa},{so}->{sb}", a.detach().double().numpy(), grad.double().numpy()))):
+        assert ours.dtype == torch.float32
+        assert np.abs(ours.numpy() - want.astype(np.float32)).max() <= 2.0 ** -24 * np.abs(want).max()
+
+
+def test_f16_operands_and_outputs_past_65504_give_jaxs_infinities():
+    """An operand past f16's largest value (65504) is an infinity under the
+    f16 modes, and so is a finite product past it under F16_F16_F16 (the
+    output rounded to f16): the port's product has them where JAX's dot at
+    F16_F16_F16 on XLA:CPU has them, and equals it elsewhere to one f16
+    step; under F16_F16_F32 the product past 65504 stays finite."""
+    a = np.full((4, 8), 0.5, np.float32)
+    a[0, 0] = 70000.0  # an infinity in f16
+    a[1] = 300.0       # row 1 . column 0 = 8 x 300 x 300 = 720,000: past 65504
+    b = np.full((8, 3), 0.25, np.float32)
+    b[:, 0] = 300.0
+    b[:, 1] = -1.0
+    with jax.default_matmul_precision("F16_F16_F16"):
+        want = np.asarray(jax.jit(jnp.dot)(a, b)).astype(np.float64)
+    ours = precision.einsum("ij,jk->ik", torch.from_numpy(a), torch.from_numpy(b), "f16f16").numpy()
+    assert np.isinf(want[0, 0]) and np.isinf(want[0, 1]) and want[0, 1] < 0 and np.isinf(want[1, 0])
+    assert np.array_equal(np.isinf(ours), np.isinf(want)) and np.array_equal(np.sign(ours), np.sign(want))
+    finite = np.isfinite(want)
+    assert np.all(np.abs(ours[finite] - want[finite]) <= _ulp16(want[finite], "f16"))
+    f16 = precision.einsum("ij,jk->ik", torch.from_numpy(a), torch.from_numpy(b), "f16").numpy()
+    assert np.isinf(f16[0, 0]) and np.isinf(f16[0, 1]) and f16[1, 0] == 720000.0
+
+
+def test_xla_cpu_f16_f16_f16_rounds_the_float32_sum_once():
+    """The reading of F16_F16_F16 that the port takes (precision.py): f16
+    operands, their products summed in float32, the result rounded once to
+    f16. XLA:CPU's dot at the preset is the port's at 99% of the elements
+    and within one f16 step at every other, or, where the sum cancels to
+    far below its terms, within what float32 sums in another order give
+    (2^-20 of the sum of the terms' magnitudes; measured: one element of
+    2,048 at a thousandth of that); an f16 sum rounded at every add is not
+    (equal at under half)."""
+    rng = np.random.default_rng(16)
+    a, b = rng.standard_normal((64, 512)).astype(np.float32), rng.standard_normal((512, 32)).astype(np.float32)
+    with jax.default_matmul_precision("F16_F16_F16"):
+        xla = np.asarray(jax.jit(jnp.dot)(a, b)).astype(np.float64)
+    ours = precision.einsum("ij,jk->ik", torch.from_numpy(a), torch.from_numpy(b), "f16f16").numpy()
+    magnitudes = np.abs(_f16_np(a)) @ np.abs(_f16_np(b))
+    assert np.all(np.abs(ours - xla) <= np.maximum(_ulp16(xla, "f16"), 2.0 ** -20 * magnitudes))
+    assert np.mean(ours == xla) >= 0.99
+    a16, b16 = a.astype(np.float16), b.astype(np.float16)
+    stepwise = np.zeros((64, 32), np.float16)
+    for k in range(512):
+        stepwise = (stepwise.astype(np.float32) + np.outer(a16[:, k], b16[k]).astype(np.float32)).astype(np.float16)
+    assert np.mean(stepwise.astype(np.float64) == xla) < 0.5
+
+
 def test_bf16_model_runs_its_linears_and_einsums_in_bf16():
     """Every Linear of a "BF16_BF16_F32" model is a precision.Linear in bf16
     mode and its plain attention takes bf16 operands; its output differs
@@ -482,9 +673,10 @@ BF16_FIELDS = dict(hidden_size=64, num_attention_heads=4, intermediate_size=96, 
 def _eval_at_preset(jaxpr, consts, preset, mode: str, *args):
     """A jaxpr's outputs with every dot_general computed as `mode`'s preset
     defines it: the listed products of the operands' parts (PARTS), exact
-    in float32, summed in float32, the small terms first (XLA:CPU ignores
-    the presets or refuses them). Asserts that every dot carries `preset`
-    with a float32 output."""
+    in float32, summed in float32, the small terms first, and under
+    "f16f16" and "bf16bf16" the sum rounded once to f16 or bf16 (OUTPUT)
+    (XLA:CPU ignores the presets or refuses them). Asserts that every dot
+    carries `preset` with a float32 output."""
     env = dict(zip(jaxpr.constvars, consts))
     env.update(zip(jaxpr.invars, args))
 
@@ -500,6 +692,8 @@ def _eval_at_preset(jaxpr, consts, preset, mode: str, *args):
             for i, j in PARTS[mode][2]:
                 term = jax.lax.dot_general(pa[i], pb[j], dims, precision=jax.lax.Precision.HIGHEST)
                 out = term if out is None else out + term
+            if OUTPUT.get(mode):
+                out = NP_ROUNDINGS[OUTPUT[mode]](np.asarray(out))
             outs = [out]
             assert outs[0].dtype == eqn.outvars[0].aval.dtype == jnp.float32, eqn  # a float32 output
         elif eqn.primitive.name in ("jit", "pjit"):
@@ -550,6 +744,8 @@ def _port_run(fields: dict, params, constants, inputs):
 
 
 _JAX_CASES: dict = {}
+# The presets that XLA:CPU computes itself (the rest it refuses, or computes in float32)
+XLA_CPU_PRESETS = ("F64_F64_F64", "F16_F16_F16")
 
 
 def _loss(model, constants, inputs):
@@ -569,7 +765,9 @@ def _jax_and_port_at(matmul_precision: str, layers: int, position_embedding_type
     gradient)}; "dots": the JAX jaxpr's dots; "bf16_out": the same program
     with its dots computed at BF16_BF16_F32 (multi-pass presets). Both
     models run `attention_impl` (JAX computes "auto" and "xla" as the same
-    einsums)."""
+    einsums). The JAX output and gradients are XLA:CPU's own where it runs
+    the preset (XLA_CPU_PRESETS), else the jaxpr evaluated dot by dot
+    (_eval_at_preset)."""
     fields, params, constants, inputs, jax_f32, grads_f32 = _jax_case(layers, position_embedding_type,
                                                                       attention_impl, positions)
     fields = dict(fields, matmul_precision=matmul_precision)
@@ -580,10 +778,13 @@ def _jax_and_port_at(matmul_precision: str, layers: int, position_embedding_type
     dots += [e for j in closed.jaxpr.eqns if j.primitive.name in ("jit", "pjit")
              for e in j.params["jaxpr"].jaxpr.eqns if e.primitive is jax.lax.dot_general_p]
     structure = jax.tree.structure(jax.eval_shape(jax.value_and_grad(loss, has_aux=True), params))
-    (_, jax_out), jax_grads = jax.tree.unflatten(
-        structure, _eval_at_preset(closed.jaxpr, closed.consts, preset, mode, *jax.tree.leaves(params)))
+    if matmul_precision in XLA_CPU_PRESETS:
+        (_, jax_out), jax_grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    else:
+        (_, jax_out), jax_grads = jax.tree.unflatten(
+            structure, _eval_at_preset(closed.jaxpr, closed.consts, preset, mode, *jax.tree.leaves(params)))
     bf16_out = None
-    if mode != "bf16":
+    if mode in MULTI_PASS.values():
         (_, bf16_out), _ = jax.tree.unflatten(
             structure, _eval_at_preset(closed.jaxpr, closed.consts, preset, "bf16", *jax.tree.leaves(params)))
 
@@ -727,6 +928,79 @@ def test_multi_pass_model_matches_the_jax_program_at_its_preset(matmul_precision
             assert _rms(ours, port_grads_f32[name]) >= 0.5 * _rms(want, want_f32), name
 
 
+@pytest.mark.parametrize("matmul_precision", ["F64_F64_F64", *SIXTEEN_BIT])
+@pytest.mark.parametrize("position_embedding_type,attention_impl,positions", MULTI_PASS_CASES)
+def test_f64_and_16_bit_models_match_the_jax_model_at_their_preset(matmul_precision, position_embedding_type,
+                                                                   attention_impl, positions):
+    """One layer at F64_F64_F64 or a 16-bit preset against the JAX model at
+    it (every dot, the backward's transposes included, carrying the preset;
+    3 forward - 1 dots): XLA:CPU's own output and gradients at F64_F64_F64
+    and F16_F16_F16, the jaxpr evaluated dot by dot at F16_F16_F32 and
+    BF16_BF16_BF16, which XLA:CPU refuses. The port under "xla" (both
+    relative types) and under "auto" (the v2 kernel's plain version without
+    position_ids, v1's with them). Bounds (relative RMS), none tighter than
+    twice the port's own distance from the JAX model at "highest" on the
+    same case (the float32 floor):
+    - F64_F64_F64: the output and every gradient within 1e-6 (measured: the
+      output 2.1e-7 to 2.4e-7, every gradient at most 0.58 of its bound);
+    - the 16-bit presets: the output within half the JAX preset's own
+      distance from "highest" (the program's from float32, which must
+      exceed 1e-5: the preset took effect), each gradient within 1.5 times
+      it (within 1e-6 where it is 0: the bias no dot touches), and the port
+      at least half that distance off its own float32 result (output and
+      each gradient that distance holds above ten times the float32 floor),
+      so that float32's products fail. Not a tenth, as the bf16 test holds:
+      the port's LayerNorm, softmax and GELU differ from XLA's by float32
+      ulps at a third of the elements, and where such an ulp meets an f16
+      rounding boundary the operand moves by an f16 step, eight times as
+      often as a bf16 step; moving the LayerNorm scales alone by one ulp
+      moves the port's own F16_F16_F16 output by 0.25 of the distance.
+      Measured: the output 0.21-0.43 of the distance at the f16 presets
+      (0.0 at BF16_BF16_BF16, whose output rounding absorbs the ulps), the
+      gradients at most 0.52 (1.2 for the cancelling key bias under
+      relative_key_query), the port 0.88-1.0 of it off float32."""
+    if attention_impl == "auto":
+        route = models_bert.attention_route(ModelConfig(**dict(BF16_FIELDS, attention_impl="auto")),
+                                            positions is not None)
+        assert route == (("v1", False) if positions else ("v2", True))
+    case = _jax_and_port_at(matmul_precision, 1, position_embedding_type, attention_impl, positions)
+    _assert_dot_count(case["dots"], position_embedding_type)
+    (jax_out, jax_f32, out), grads = case["out"], case["grads"]
+    fields, params, constants, inputs, _, _ = _jax_case(1, position_embedding_type, attention_impl, positions)
+    port_f32, port_grads_f32 = _port_run(dict(fields, matmul_precision="highest"), params, constants, inputs)
+    if matmul_precision == "F64_F64_F64":
+        assert _rms(out, jax_out) <= max(1e-6, 2 * _rms(port_f32, jax_f32))
+        for name, (ours, want, want_f32) in grads.items():
+            assert _rms(ours, want) <= max(1e-6, 2 * _rms(port_grads_f32[name], want_f32)), name
+        return
+    gap = _rms(jax_out, jax_f32)
+    assert gap > 1e-5
+    assert _rms(out, jax_out) <= max(0.5 * gap, 2 * _rms(port_f32, jax_f32))
+    assert _rms(out, port_f32) >= 0.5 * gap
+    for name, (ours, want, want_f32) in grads.items():
+        gap, floor = _rms(want, want_f32), _rms(port_grads_f32[name], want_f32)
+        assert _rms(ours, want) <= (max(1.5 * gap, 2 * floor) if gap else 1e-6), name
+        if gap > 10 * floor:
+            assert _rms(ours, port_grads_f32[name]) >= 0.5 * gap, name
+
+
+@pytest.mark.parametrize("name", ANY_F8)
+def test_any_f8_presets_are_refused_as_jax_refuses_them(name):
+    """JAX's own lowering of the model for a GPU (lowering_platforms
+    ("cuda",)) raises for float32 operands at the ANY_F8_* presets ("requires
+    both inputs to have float8 dtypes"), so a config naming one runs in
+    neither package: the port raises ValueError at the config and at the
+    model."""
+    fields, params, constants, inputs, _, _ = _jax_case(1, "relative_key", "xla", None)
+    loss = _loss(JaxBert(JaxConfig(**dict(fields, matmul_precision=name))), constants, inputs)
+    with pytest.raises(ValueError, match="requires both inputs to have float8 dtypes"):
+        jax.jit(jax.value_and_grad(loss, has_aux=True)).trace(params).lower(lowering_platforms=("cuda",))
+    for make in (precision.mode_of, lambda n: ModelConfig(matmul_precision=n),
+                 lambda n: dataclasses.replace(SMALL, matmul_precision=n)):
+        with pytest.raises(ValueError, match=f"matmul_precision {name!r} is not one the port runs"):
+            make(name)
+
+
 @pytest.mark.parametrize("script", ["sample", "train", "partial_noise_reconstruct", "sample_autoregressive",
                                     "train_autoregressive"])
 def test_model_clis_set_tf32_for_their_process(script):
@@ -753,7 +1027,7 @@ def test_kernel_mode_resolves_the_caller_at_the_call(setting, want):
     modes are what they say; anything else raises, never a silent float32."""
     torch.backends.cuda.matmul.fp32_precision = setting
     assert precision.kernel_mode("caller") == want
-    kernel_modes = ("ieee", "tf32", "bf16", *MULTI_PASS.values())
+    kernel_modes = ("ieee", "tf32", "bf16", *MULTI_PASS.values(), "f64", *SIXTEEN_BIT.values())
     assert precision.KERNEL_MODES == kernel_modes
     for mode in kernel_modes:
         assert precision.kernel_mode(mode) == mode
@@ -777,12 +1051,18 @@ def _attention_np(q, k, v, bias, e_lr, mode: str):
 
 
 @pytest.mark.parametrize("entry", ["v2", "v2 rel-off", "v1"])
-@pytest.mark.parametrize("mode", ["caller", "ieee", "tf32", "bf16", *MULTI_PASS.values()])
+@pytest.mark.parametrize("mode", ["caller", "ieee", "tf32", "bf16", *MULTI_PASS.values(), "f64",
+                                  *SIXTEEN_BIT.values()])
 def test_attention_entries_on_the_cpu_take_the_mode(entry, mode):
     """Each kernel entry on CPU tensors, under each mode: the preset's
     products of parts (within float32's rounding of numpy's program, 1e-5
-    of the largest output) under "bf16" and the multi-pass modes, float32's
-    bits under the rest."""
+    of the largest output) under "bf16", the 16-bit and the multi-pass
+    modes (the output roundings of "f16f16" and "bf16bf16" on each product),
+    the float64 products under "f64", float32's bits under the rest. Under
+    "f16f16" and "bf16bf16" a score or an output may sit a 16-bit step off
+    numpy's (its float64 softmax moves P by float32 ulps): at most 1% of
+    the outputs, and within a tenth of the mode's distance from the float64
+    products (relative RMS)."""
     g = torch.Generator().manual_seed(8)
     b, h, l, d, m = 2, 3, 20, 16, 24
     q, k, v = (torch.randn(b, h, l, d, generator=g) for _ in range(3))
@@ -796,10 +1076,15 @@ def test_attention_entries_on_the_cpu_take_the_mode(entry, mode):
         kw = dict(rel_table=table, m=m) if e_lr is not None else {}
         run = lambda mode: attention.fused_attention_v2(q, k, v, bias, mode=mode, **kw)  # noqa: E731
     out = run(mode)
-    if mode in PARTS:
+    if mode in PARTS or mode == "f64":
         ref = _attention_np(q, k, v, bias, e_lr, mode)
-        assert np.abs(out.numpy() - ref).max() <= 1e-5 * np.abs(ref).max()
-        if mode == "bf16":
+        near = np.abs(out.numpy() - ref) <= 1e-5 * np.abs(ref).max()
+        if OUTPUT.get(mode):  # float32's ulps in the softmax may move a rounded score or output by a step
+            exact = _attention_np(q, k, v, bias, e_lr, "f64")
+            assert np.mean(near) >= 0.99 and _rms(out.numpy(), ref) <= 0.1 * _rms(ref, exact)
+        else:
+            assert near.all()
+        if mode in ("bf16", *SIXTEEN_BIT.values()):
             assert (out - run("ieee")).abs().max() > 1e-4  # not float32's numbers
         else:
             assert not torch.equal(out, run("ieee")) and (out - run("ieee")).abs().max() < 1e-4
@@ -850,3 +1135,33 @@ def test_config_json_carries_matmul_precision(tmp_path):
     assert model_io.from_dir(str(tmp_path / "highest"), device="cpu",
                              matmul_precision="default")[0].config.matmul_mode == "caller"
     assert os.path.isfile(tmp_path / "highest" / "training_args.json")
+
+
+@pytest.mark.parametrize("matmul_precision", ["F64_F64_F64", *SIXTEEN_BIT])
+def test_a_jax_model_directory_at_a_new_preset_loads_and_samples(tmp_path, matmul_precision):
+    """The JAX package's trained mini model, its config.json naming
+    F64_F64_F64 or a 16-bit preset: models.io.from_dir loads it in that
+    mode (state_dict_from_flax unchanged), its forward differs from the
+    same weights at "highest" by the preset's rounding, and sampling.sample
+    returns finite angles."""
+    src = os.path.join(REPO, "tests", "mini_model_for_testing", "results")
+    dst = tmp_path / "model"
+    shutil.copytree(src, dst)
+    config = json.loads((dst / "config.json").read_text())
+    (dst / "config.json").write_text(json.dumps({**config, "matmul_precision": matmul_precision}))
+    model, train_args = model_io.from_dir(str(dst), device="cpu")
+    ref, _ = model_io.from_dir(src, device="cpu", matmul_precision="highest")
+    assert model.config.matmul_precision == matmul_precision
+    assert model.config.matmul_mode == SUPPORTED[matmul_precision]
+    batch, t, _ = _batch()
+    x = batch["angles"][..., :model.config.n_inputs]
+    mask = batch["attn_mask"]
+    with torch.no_grad():
+        out, want = model(x, t, mask), ref(x, t, mask)
+    drift = float((out - want).square().mean().sqrt() / want.square().mean().sqrt())
+    assert 0 < drift < (1e-5 if matmul_precision == "F64_F64_F64" else 5e-2)
+    schedule = DiffusionSchedule.create(train_args["variance_schedule"], 5, device="cpu")
+    sampled = sampling.sample(model, schedule, is_angular=[True] * 5 + [False], pad=64, lengths=[12, 16],
+                              batch_size=2, seed=3)
+    assert [a.shape for a in sampled] == [(12, 6), (16, 6)] and all(np.isfinite(a).all() for a in sampled)
+
