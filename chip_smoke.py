@@ -12,8 +12,10 @@ Phases, each printing lines of its own:
   2. each kernel against its plain PyTorch version on the card, with and
      without relative scores (v1: e_lr gathered from arange and from a
      permuted position vector, and random), at the denoiser's shapes and
-     head sizes 16 and 64; v2 also on strided (B, L, H, D) views of the
-     projections, returning a (B, L, H, D) buffer; masked-key invariance.
+     head sizes 16 and 64; both on contiguous q, k, v and on strided
+     (B, L, H, D) views of the projections, each returning a view of a
+     (B, L, H, D) buffer (v1 without e_lr launches the v2 kernel's rel-off
+     instance); masked-key invariance; the instances on the views.
      Each instance by matmul precision against the plain version in its
      mode: FMA within 1e-4 (float32); TF32 (tensor cores) within 5e-3
      relative RMS of float32; bf16 within a tenth of the plain bf16
@@ -47,8 +49,8 @@ Phases, each printing lines of its own:
      M = 128) with seeded random weights, read back from a model directory,
      "auto" (12 v2 launches), "pallas" (12 v1) and "auto" with permuted
      position_ids (12 v1, no v2) against "plain" at B = 64, L = 128, timed;
-     and a 12 x 384 `absolute` config under "pallas" (v1 without e_lr)
-     against "plain"
+     and a 12 x 384 `absolute` config under "pallas" (the v1 entry without
+     e_lr: 12 launches of the v2 kernel's rel-off instance) against "plain"
   5. the DDPM slice: bin/sample_torch.py's main() over that model directory,
      DDPM T = 1000 over lengths 50..127 once each at batch 64, its chains
      replayed as CUDA graphs; every layer of every reverse step must launch
@@ -56,8 +58,9 @@ Phases, each printing lines of its own:
      eager DDPM steps (p_sample_step) under "auto" and "pallas" at both
      chunk shapes, read from the most complete of three (the profiler now
      and then loses a record): device operations, busy time and kernel
-     groups per step; "auto" must run 62 fewer device operations per step than
-     "pallas" at B = 64, L = 128 (no layout copies around the v2 kernel)
+     groups per step; "auto" must run 14 fewer device operations per step than
+     "pallas" at B = 64, L = 128 (pallas's 12 e_lr gathers and 2 index
+     operations: no layout copies around either kernel)
   6. the new paths at full width: the flagship under "pallas" through
      sampling.sample (DDPM T = 1000, the same sweep), every layer of every
      step launching the v1 kernel and none the v2; then bin/sample_torch.py
@@ -476,10 +479,11 @@ def phase_build() -> None:
             log(f"[1] {lib.library_path(part).relative_to(REPO)}" + ("" if report else " (already built)"))
         name = lib.name
         for line in report.splitlines():
-            found = re.search(rf"Function properties for \S*?\d({lib.name}(?:_[a-z0-9]+)?_kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?",
-                              line)
+            found = re.search(rf"Function properties for \S*?\d({lib.name}(?:_[a-z0-9]+)?_kernel)ILi(\d+)E"
+                              r"(?:Lb(\d)E)?(?:Li(\d+)E)?", line)
             if found:  # the kernel instance the next lines report on
-                name = "{} D={} rel={}".format(*found.groups()[:3]) + (f" keys={found[4]}" if found[4] else "")
+                name = "{} D={}".format(*found.groups()[:2]) + (f" rel={found[3]}" if found[3] else "") + (
+                    f" keys={found[4]}" if found[4] else "")
             if "registers" in line or "spill" in line:
                 log(f"[1]   {name}: {line.strip()}")
             if re.search(r"[1-9]\d* bytes spill", line):
@@ -788,23 +792,36 @@ def phase_kernel() -> dict:
                                        device=DEVICE) * 0.5
                 else:
                     e_lr = gathered(table, l, m, e_kind == "permuted") if e_kind else None
+                # without e_lr the v1 entry launches the v2 kernel's rel-off instance: its rows are v2's
+                rel = e_kind is not None
                 out = attention.fused_attention(q, k, v, bias, e_lr)
                 ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
-                worst["v1", "fma"] = max(worst["v1", "fma"], check_err(f"v1 {shape} e_lr={e_kind}", out, ref))
+                err = check_err(f"v1 {shape} e_lr={e_kind}", out, ref)
+                check_layout(f"v1 {shape} e_lr={e_kind}", out, b, h, l, d)
+                out_s = attention.fused_attention(*views, bias, e_lr)
+                ref_s = attention.fused_attention_reference(*views, bias, e_lr)
+                err = max(err, check_err(f"v1 {shape} e_lr={e_kind} on (B, L, H, D) views", out_s, ref_s))
+                check_layout(f"v1 {shape} e_lr={e_kind} on views", out_s, b, h, l, d)
+                if rel:
+                    worst["v1", "fma"] = max(worst["v1", "fma"], err)
                 if e_kind == "permuted":
                     check_masked_keys(f"v1 {shape}", lambda q_, k_, v_: attention.fused_attention(
                         q_, k_, v_, bias, e_lr), q, k, v, bias, out)
                 tf32_drift = None
-                for mode in modes:  # the tensor-core and f64 instances
-                    out_t = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
+                for mode in modes:  # the tensor-core and f64 instances, on the projections' views
+                    out_t = attention.fused_attention(*views, bias, e_lr, mode=mode)
+                    check_layout(f"v1 {mode} {shape} e_lr={e_kind} on views", out_t, b, h, l, d)
                     err, drift = check_instance(
-                        f"v1 {mode} {shape} e_lr={e_kind}", mode, out_t,
+                        f"v1 {mode} {shape} e_lr={e_kind} on (B, L, H, D) views", mode, out_t,
                         lambda mode_: in_mode(mode_, lambda: attention.fused_attention_reference(
-                            q, k, v, bias, e_lr, mode=mode_)), tf32_drift)
-                    worst["v1", mode] = max(worst["v1", mode], err)
+                            *views, bias, e_lr, mode=mode_)), tf32_drift)
+                    if rel:
+                        worst["v1", mode] = max(worst["v1", mode], err)
                     tf32_drift = drift if mode == "tf32" else tf32_drift
-                    check_masked_keys(f"v1 {mode} {shape} e_lr={e_kind}", lambda q_, k_, v_: (
-                        attention.fused_attention(q_, k_, v_, bias, e_lr, mode=mode)), q, k, v, bias, out_t)
+                    check_masked_keys(f"v1 {mode} {shape} e_lr={e_kind} on views", lambda q_, k_, v_: (
+                        attention.fused_attention(*(x.transpose(1, 2).contiguous().transpose(1, 2)
+                                                    for x in (q_, k_, v_)), bias, e_lr, mode=mode)),
+                        q, k, v, bias, attention.fused_attention(q, k, v, bias, e_lr, mode=mode))
 
         results = {}
         for b, l in TIMED:
@@ -823,9 +840,9 @@ def phase_kernel() -> dict:
                     mode = "ieee" if i == "fma" else i
                     fns["v2", i] = (lambda mode=mode: attention.fused_attention_v2(*views, bias, mode=mode, **kw2))
                     fns["v2 plain", i] = (lambda mode=mode: v2_plain(q, k, v, bias, kw2, mode))
-                for i in V1.instances:
+                for i in V1.instances:  # without e_lr: the v2 kernel's rel-off instance, through the v1 entry
                     mode = "ieee" if i == "fma" else i
-                    fns["v1", i] = (lambda mode=mode: attention.fused_attention(q, k, v, bias, e, mode=mode))
+                    fns["v1", i] = (lambda mode=mode: attention.fused_attention(*views, bias, e, mode=mode))
                     fns["v1 plain", i] = (lambda mode=mode: in_mode(mode, lambda: (
                         attention.fused_attention_reference(q, k, v, bias, e, mode=mode))))
                 fns.update({("library", i): fn for i, fn in libraries.items()})
@@ -892,7 +909,7 @@ def phase_denoiser(model_dir: str, absolute_dir: str) -> None:
     layers = FLAGSHIP.num_hidden_layers
     for name, path, routes in (
         ("flagship", model_dir, (("auto", None, V2), ("pallas", None, V1), ("auto", perm, V1))),
-        ("absolute 12x384", absolute_dir, (("pallas", None, V1),)),
+        ("absolute 12x384", absolute_dir, (("pallas", None, V2),)),  # the v1 entry without e_lr: v2's rel-off
     ):
         plain, _ = model_io.from_dir(path, device=DEVICE, attention_impl="plain")
         for impl, pos, lib in routes:
@@ -902,6 +919,10 @@ def phase_denoiser(model_dir: str, absolute_dir: str) -> None:
                 reset_counts()
                 out = model(x, t, mask, pos)
                 check_launches(f"[4] {name} {what}", {V2.name: 0, V1.name: 0, lib.name: layers})
+                rel_off = layers if name.startswith("absolute") else 0
+                if V2.rel_off_launches != rel_off or V1.rel_off_launches:
+                    raise RuntimeError(f"[4] {name} {what}: {V2.rel_off_launches} v2 and {V1.rel_off_launches} v1 "
+                                       f"rel-off launches, expected {rel_off} and 0")
                 err = (out - plain(x, t, mask, pos)).abs().max().item()
                 log(f"[4] {name} denoiser B={b} L={l}, {what} vs plain: max abs err {err:.3e}")
                 if not err <= DENOISER_TOL:
@@ -1067,7 +1088,7 @@ def profile_steps(model_dir: str, impl: str, b: int, l: int, steps: int = 10, n_
 
 def phase_profile(model_dir: str, card: str) -> dict:
     """Device operations per DDPM step under "auto" (v2 on the projections'
-    views) and "pallas" (v1 on contiguous copies, with its e_lr gather), of
+    views) and "pallas" (v1 on the same views, with its e_lr gather), of
     the eager step (p_sample_step, not a graph). Returns the profiles by
     (impl, B, L)."""
     profiles = {}
@@ -1087,9 +1108,9 @@ def phase_profile(model_dir: str, card: str) -> dict:
         raise RuntimeError("torch.profiler recorded no device events")
     gap = pallas["events"] - auto["events"]
     log(f"[5] device operations per step at B={BATCH} L=128: auto {auto['events']:.1f}, pallas {pallas['events']:.1f}, "
-        f"gap {gap:.1f} (expected 62: pallas's 12 gathers, 2 index operations and 48 layout copies)")
-    if gap != 62:
-        raise RuntimeError(f"auto runs {gap} fewer device operations per step than pallas, expected 62")
+        f"gap {gap:.1f} (expected 14: pallas's 12 gathers and 2 index operations; no layout copies)")
+    if gap != 14:
+        raise RuntimeError(f"auto runs {gap} fewer device operations per step than pallas, expected 14")
     return profiles
 
 

@@ -1,17 +1,22 @@
 // Fused BERT self-attention over a gathered relative-position tensor, for Hopper.
 //
-// Replaces the Pallas TPU kernels foldingdiff_tpu/ops/pallas_attention.py:
-// _attn_rel_kernel with _one_head_t (HAS_REL = true) and _attn_kernel
-// (HAS_REL = false), entry fused_attention. For every (b, h) pair and query
-// row l it computes
+// Replaces the Pallas TPU kernel foldingdiff_tpu/ops/pallas_attention.py:
+// _attn_rel_kernel with _one_head_t, entry fused_attention. For every (b, h)
+// pair and query row l it computes
 //
 //   s[j]   = (q[l] . k[j] + q[l] . e_lr[l, j]) * D^-1/2 + bias[b, j]
 //   out[l] = softmax_j(s) . v
 //
-// with q, k, v, out (B, H, L, D) float32 contiguous, bias (B, L) the additive
-// key mask (0 or -10000) and e_lr any (L, L, D) float32 tensor, contiguous: it
-// is gathered from the caller's position ids, so nothing here assumes it is
-// Toeplitz. The relative term is added before the scale, as in HF BERT.
+// with q, k, v (B, H, L, D) float32 views in any layout whose last dimension
+// has stride 1 and whose rows start on 16 bytes (the denoiser passes the
+// (B, L, H, D) projections as they are), out written as a contiguous
+// (B, L, H, D) buffer (the layout the output projection reads), bias (B, L)
+// the additive key mask (0 or -10000) and e_lr any (L, L, D) float32 tensor,
+// contiguous: it is gathered from the caller's position ids, so nothing here
+// assumes it is Toeplitz. The relative term is added before the scale, as in
+// HF BERT. Without relative scores (_attn_kernel) the entry launches the v2
+// kernel's rel-off instance of the same mode (csrc/rel_attention.cu), which
+// computes the same function: this source has no rel-off instance.
 //
 // Eleven instances, one per matmul precision of the model (the caller picks
 // one by `instance`; ops/attention.py maps the model's mode onto it), each
@@ -28,17 +33,16 @@
 //           bf16's 8 significant bits, so each product is the exact product of
 //           two bf16 values and the sums are float32, as JAX's preset defines.
 //           P is normalised before it is rounded, as the einsum's operand is
-//           the softmax's output: with more than one chunk of keys a first
-//           pass over the keys finds each row's maximum and sum.
+//           the softmax's output.
 //   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
 //           gathered_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
-//           multi-pass presets (device.cuh's Arith): the bf16 body with every
-//           operand split into two or three TF32 or bf16 parts, the listed
-//           products of parts (3, 6 or 9 times TF32's) summed in float32; P
-//           split after it is normalised (the first pass as for bf16). The
-//           bf16 ones split each operand once and run bf16 mma (below);
-//           TF32x3 splits at each TF32 mma (device.cuh's mma_split), which
-//           beat splitting once.
+//           multi-pass presets (device.cuh's Arith): the chunked body with
+//           every operand split into two or three TF32 or bf16 parts, the
+//           listed products of parts (3, 6 or 9 times TF32's) summed in
+//           float32; P split after it is normalised (a first pass over the
+//           keys finds each row's maximum and sum). The bf16 ones split each
+//           operand once and run bf16 mma (below); TF32x3 splits at each TF32
+//           mma (device.cuh's mma_split), which beat splitting once.
 //   7 f64   ("F64_F64_F64"): gathered_attention_f64_kernel, every product in
 //           float64 on the CUDA cores, each dot's output rounded to float32
 //           (device.cuh's f64 design, which v2 shares);
@@ -101,31 +105,105 @@
 // (e_lr once, q, k, v, out). It stays float32 FMA for IEEE parity, which on
 // tensor cores would need the 3xTF32 split (three products per term).
 //
-// Tensor-core design (TF32 and bf16). The products cost 4.9 us per flagship
-// call at the 495 TFLOP/s TF32 rate. The relative term is not a product
-// over query rows: rel[n, l, j] = q[n, l] . e_lr[l, j] takes another e_lr
-// row block for every row l. It is one over pairs at a fixed row:
-// (pairs x D) . (D x keys). So a block of 16 warps (512 threads) owns
-// P = 16 pairs and R = 16 query rows, and walks the keys in chunks of 32
-// (16 at D = 64):
-//   - The relative term. Warp w computes row l0 + w for the 16 pairs:
-//     C = Q_l . E_l^T, the pairs the m16n8k8 tile's 16 rows, the chunk's
-//     keys its columns, E_l's B fragments read from L2 (each e_lr element
-//     once per block, for 16 pairs: 100 MB per flagship call). It stores C
+// Tensor-core designs. The products cost 4.9 us per flagship call at the 495
+// TFLOP/s TF32 rate. The relative term is not a product over query rows:
+// rel[n, l, j] = q[n, l] . e_lr[l, j] takes another e_lr row block for every
+// row l. It is one over pairs at a fixed row: (pairs x D) . (D x keys). So a
+// block of 16 warps (512 threads) owns P = 16 pairs and R = 16 query rows:
+// warp w computes the relative term of row l0 + w for the 16 pairs (the
+// m16n8k8 tile's 16 rows, keys its columns), reading e_lr's B fragments
+// from L2, and then pair n0 + w's scores, softmax and p . v for the 16 rows,
+// as the v2 kernel's tensor-core warps do. K, V and the bias of a pair are
+// read by its warp alone, straight from L2 into fragments: nothing of them
+// is shared within the block, so nothing of them is staged. Per flagship
+// call a block of P pairs and R rows reads e_lr once per (block, row) and K
+// and V once per (block, pair): 768 x 128 x (16 KB / P + 32 KB / R), 302 MB
+// at P = R = 16 (100 MB e_lr, 201 MB K and V), and 25 MB of q and out.
+//
+// Resident tensor-core design (TF32, bf16 and the 16-bit instances at
+// L <= 128 and D <= 32, every shipped configuration): one pass over the
+// keys. A warp takes each of its pair's rows' exact maximum and sum over
+// every key and normalises P before it is rounded, as v2's resident design
+// does, so that no instance reads e_lr and K a second time for the row
+// statistics (the chunked body's bf16 pass over the keys cost 0.1198
+// against TF32's 0.0778 ms, its e_lr and K bytes 527 MB against 327 MB).
+// Per work item (16 pairs, 16 rows):
+//   - The relative term first, every key at once: warp w's row of e_lr
+//     (keys x D, from L2, kRelGroup = 4 n-tiles of loads in flight)
+//     against the 16 pairs' q rows, into the store rel[pair][row][key] in
+//     shared memory (rows KEYS + 8 floats apart, pairs 16 (KEYS + 8) + 8:
+//     8 mod 32, so that the float2 stores of the row-warp and the float2
+//     loads of the pair-warp fall on distinct banks); one barrier, then
+//     every pair-warp reads its 16 rows of it. Two barriers per item, where
+//     the chunked body takes one per 32 keys.
+//   - The scores of 64 keys at a time (kChunkNT = 8 n-tiles, 32 registers
+//     a lane) are held in registers; at KEYS = 128 the first chunk is
+//     parked in the store, each lane over the relative term it has just
+//     read, and read back for the row sums and for p . v (its
+//     exponentials taken again there, with the same bits). Every score in
+//     registers (64 a lane at KEYS = 128) spilled at 128 registers a thread.
+//   - Persistent blocks (one per SM) walk the items; each block stages its
+//     next item's q tile and the bias rows of its pairs with cp.async into
+//     a second stage while this item computes, so no block starts on an
+//     exposed wait (the bias read from L2 at its use was hoisted by ptxas
+//     for every key at once, and spilled).
+//   - K and V are read from L2 in groups of kLoadGroup = 4 n-tiles, plain
+//     loads fenced by __syncwarp between groups, their row stride hidden
+//     from the optimiser (opaque) and the chunks a loop, not unrolled, so
+//     that ptxas neither hoists every load nor holds every row's offset
+//     and predicate across the item loop (either spilled).
+//   - Clusters of C blocks (measured, not kept): the C blocks of a cluster
+//     owned C groups of 16 pairs at the same rows, each row's e_lr read by
+//     C warps of one block (in L1 after the first) and its relative term
+//     stored into all C blocks' stores (distributed shared memory), which
+//     divided e_lr's L2 bytes by C; q's A fragments for it came from L2.
+// At KEYS = 128, D = 32 shared memory holds the store (139,776 bytes) and
+// two stages of a q tile and 16 bias rows (83,968).
+// L2 bytes per flagship call (B = 64, H = 12, L = 128, D = 32): e_lr
+// ceil(BH / 16) L^2 D 4 = 100.7 MB, K and V ceil(L / 16) BH L D 8 =
+// 201.3 MB, q and out 25.2 MB: 327 MB (the clusters of C blocks read e_lr's
+// 100.7 MB / C and q's 12.6 MB again: 289 MB at C = 2, 264 MB at C = 4).
+// Measured at the flagship shape with e_lr on the projections' views
+// (scripts/gathered_attention_variants.py, NVIDIA H100 80GB HBM3, 700 W,
+// the variants in turns; TF32 / bf16 / f16 / f16f16 / bf16bf16 ms):
+//   final (C = 1, load groups of 4, 64-key chunks, 327 MB)
+//                        0.0679 / 0.0682 / 0.0645 / 0.0644 / 0.0705
+//   cluster-2 (289 MB)   0.0753 / 0.0756 / 0.0748 / 0.0741 / 0.0788
+//   cluster-4 (264 MB)   0.1020 / 0.1034 / 0.1015 / 0.1010 / 0.1091
+//   load groups of 1     0.0835 / 0.0870 / 0.0824 / 0.0831 / 0.0904
+//   load groups of 2     0.0689 / 0.0720 / 0.0678 / 0.0681 / 0.0746
+//   e_lr groups of 8     0.0676 / 0.0693 / 0.0650 / 0.0652 / 0.0706
+//   32-key chunks        0.0661 / 0.0687 / 0.0656 / 0.0651 / 0.0712
+// against the chunked body's 0.0779 / 0.1201 / 0.0995 / 0.0999 / 0.1316
+// (scripts/kernel_times_two_trees.py, in turns). Fewer L2 bytes did not buy
+// time: the clusters' two cluster-wide barriers per item and their stores
+// into other blocks' shared memory cost more than the e_lr reads they save
+// (and at 128 registers they spilled). 327 MB in 0.0679 ms is 4.8 TB/s of
+// L2 reads, where the chunked body read 327 MB (TF32) in 0.0779 ms, 4.2:
+// what bounds the design now is not measured (no profiler reads stalls on
+// the card's machine). The 64-key and 32-key chunks ran within 2% of each
+// other, e_lr groups of 8 the same.
+// Integer rounding of TF32 operands (device.cuh's round_part) instead of
+// cvt.rna ran 0.0657 against 0.0662 ms, within the runs' spread: not kept.
+//
+// Chunked tensor-core design (the multi-pass instances, and the others at
+// L > 128 or D = 64): the block above walks the keys in chunks of 32 (16 at
+// D = 64):
+//   - The relative term. Warp w computes row l0 + w for the 16 pairs: C =
+//     Q_l . E_l^T, E_l's B fragments read from L2 (each e_lr element once
+//     per block, for 16 pairs: 100 MB per flagship call). It stores C
 //     transposed into one of two (pair, row, key) buffers in shared memory
 //     (rows Jc + 8 floats apart, pairs 16 (Jc + 8) + 8: the float2 stores
 //     and loads fall on 32 distinct banks), one chunk ahead, so a chunk
 //     needs one barrier.
-//   - Then warp w takes pair n0 + w's 16 rows, as the v2 kernel's
-//     tensor-core warps do: scores start from the buffer's rel values,
-//     S += Q . K^T, then scale and bias in one FMA, keys past L scored -inf;
-//     the softmax online over chunks (bf16: normalised, as above); p . v from
-//     the score accumulators as they are, each k-step's keys in the order
+//   - Then warp w takes pair n0 + w's 16 rows: scores start from the
+//     buffer's rel values, S += Q . K^T, then scale and bias in one FMA, keys
+//     past L scored -inf; the softmax online over chunks (TF32), or with a
+//     first pass over the keys that finds each row's maximum and sum, so
+//     that P is normalised before it is rounded or split; p . v from the
+//     score accumulators as they are, each k-step's keys in the order
 //     (0, 2, 4, 6, 1, 3, 5, 7) for P and V alike (the accumulator holds
 //     columns 2t, 2t + 1 where the A fragment wants t, t + 4).
-//   - K, V and the bias of a pair are read by its warp alone, so the warp
-//     reads their fragments straight from L2 (201 MB of K and V per flagship
-//     call); nothing of them is staged.
 //   - Both A operands come from the block's 16 x 16 x D q tile, staged once
 //     in shared memory (rows with their 16-float halves swapped on odd rows,
 //     pairs 16 mod 32 floats apart: conflict-free either way) and loaded per
@@ -136,9 +214,23 @@
 //     16c + 4t + 2h + 1 (k = t + 4), so that every lane reads its q, K and
 //     e_lr columns as float4s; p . v's output columns are permuted the same
 //     way, so that V is read and out written as float4s.
+//   - K and V are read at the row stride of the caller's views (the
+//     projections' (B, L, H, D) layout): a lane's rows of a
+//     group of n-tiles then need an address each, where rows D floats apart
+//     sat at fixed offsets from one. For bf16x9 the stride is hidden from
+//     the optimiser (kHideKStride, kHideVStride; it spilled otherwise), for
+//     TF32x3 K's. bf16x3 on the views ran 3.5% slower at 64 x 128 than
+//     the earlier form on contiguous rows D apart (0.1144 against 0.1105
+//     ms, scripts/kernel_times_two_trees.py, NVIDIA H100 80GB HBM3, 700 W),
+//     the other multi-pass instances within 0.9% or faster. None of K's
+//     addresses as a chunk base and a 32-bit lane offset, as 64-bit
+//     products or through __ldg, or V's four row pointers taken once per
+//     chunk, won that back (the variants k-lane-offset, k-wide, k-ldg,
+//     v-rows: bf16x3 0.1157, 0.1144, 0.1133, 0.1139 against this form's
+//     0.1137 ms, in turns on the same card).
 // Measured at the flagship shape (scripts/gathered_attention_variants.py,
 // NVIDIA H100 80GB HBM3, 700 W, in turns with the FMA instance's 0.1364 ms):
-// TF32 0.0773 ms with e_lr, 0.0468 without; bf16 0.1237 (two passes).
+// TF32 0.0773 ms; bf16 0.1237 (two passes).
 // What the design went through, in that script's runs:
 //   - K, V and e_lr staged per chunk of 8 keys through a cp.async ring, two
 //     barriers per chunk: 0.1078 ms. Its time tracked the chunks, not the
@@ -154,8 +246,8 @@
 //     chunks and 32 rows per block spilled. The staged q tile removed every
 //     spill at the same speed.
 //
-// Multi-pass design (bf16x3, bf16x6, bf16x9): the tensor-core body above,
-// its operands split once (device.cuh's split4, products):
+// Multi-pass design (bf16x3, bf16x6, bf16x9): the chunked body above, its
+// operands split once (device.cuh's split4, products):
 //   - q's parts in planes of bf16 values in shared memory, split once per
 //     block from global memory (rows 24 words apart at D = 32, pairs 8 mod
 //     32: the 8-byte fragment loads of either operand fall on distinct
@@ -169,14 +261,14 @@
 //     products of kGroupMax = 4 n-tiles (at D <= 32) interleaved, each
 //     k-step taking the table's products smallest first.
 // Measured at the flagship shape with relative scores (NVIDIA H100 80GB
-// HBM3, 700 W, in turns with the form of PR 15: scripts/
-// kernel_times_two_trees.py, scripts/gathered_attention_variants.py):
-// bf16x3 0.1695 -> 0.1109 ms, bf16x6 0.7646 -> 0.1412, bf16x9 1.0276 ->
-// 0.1620; rel-off 0.1066 / 0.4473 / 0.5977 -> 0.0724 / 0.0890 / 0.0993.
-// Against groups of four, the bf16 instances ran -1 to +6% with groups of
-// two and 4-13% slower with one n-tile at a time (no interleaving). TF32x3
-// split once (two TF32 parts, m16n8k8) ran 1-6% slower than its form of PR
-// 15 and keeps that.
+// HBM3, 700 W, in turns with the earlier form, which split every fragment
+// at each TF32 mma: scripts/kernel_times_two_trees.py,
+// scripts/gathered_attention_variants.py): bf16x3 0.1695 -> 0.1109 ms,
+// bf16x6 0.7646 -> 0.1412, bf16x9 1.0276 -> 0.1620. Against groups of four,
+// the bf16 instances ran -1 to +6% with groups of two and 4-13% slower with
+// one n-tile at a time (no interleaving). TF32x3 split once (two TF32
+// parts, m16n8k8) ran 1-6% slower than that earlier form (device.cuh's
+// mma_split) and keeps it.
 //
 // Rows, keys and pairs outside the tensors read as zeros (zero-filled in
 // shared memory, or not loaded), keys past L are scored -inf, and nothing is
@@ -198,18 +290,70 @@ namespace {
 
 using namespace attn;
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// What every instance's kernel reads: q, k and v as (B, H, L, D) views with
+// the strides below, out the contiguous (B, L, H, D) buffer, e_lr the
+// contiguous (L, L, D) tensor.
+struct Args {
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* bias;
+  const float* e_lr;
+  float* out;
+  long long sb, sh;  // batch and head strides of q, k and v, in floats
+  int sl;            // and their row stride: L sl < 2^31, so row offsets are 32-bit
+  int H, L;
+  long long BH;
+  int n_tiles;   // tiles of 16 query rows
+  int n_items;   // the resident design's work items
+  float scale2;  // D^-1/2 * log2(e)
+};
+
+// The offset (floats) of (b, h) pair n = b H + h in q, k and v (B H < 2^31:
+// 32-bit division).
+__device__ __forceinline__ long long head_of(const Args& a, int n) {
+  return static_cast<long long>(n / a.H) * a.sb + static_cast<long long>(n % a.H) * a.sh;
+}
+
+// A row stride hidden from the optimiser: an offset computed from it is
+// computed where it is used, not once for every row of every n-tile of the
+// unrolled loops and held in registers across them (where they spilled).
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// Row l of pair n in the (B, L, H, D) output buffer.
+template <int D>
+__device__ __forceinline__ float* out_row(const Args& a, int n, int l) {
+  return a.out + (static_cast<long long>(n / a.H) * a.L + l) * a.H * D + (n % a.H) * D;
+}
+
+// The offsets (floats) of pair n = b H + h, from one division: in q, k and
+// v, and in the (B, L, H, D) output (its row 0; row l is l H D further).
+struct PairOffsets {
+  long long head, out;
+};
+
+template <int D>
+__device__ __forceinline__ PairOffsets pair_offsets(const Args& a, int n) {
+  const int b = n / a.H, h = n - b * a.H;
+  return {b * a.sb + h * a.sh, static_cast<long long>(b) * a.L * a.H * D + h * D};
+}
+
 constexpr int kRows = 16;                  // R: query rows per block
 constexpr int kPairs = 8;                  // P: (b, h) pairs per block
 constexpr int kThreads = kRows * kPairs;   // a quad of 4 threads owns 2 rows x 2 pairs
 constexpr int kChunkFloats = 128;          // Jc * D: one staged row of a chunk
 constexpr int kStride = kChunkFloats + 16;  // padded row, 16 mod 32 floats
-constexpr float kLog2e = 1.4426950408889634f;
 
-// Offsets (floats) in one stage: e_lr rows (HAS_REL only) from 0, then K, V, bias.
-template <int D, bool HAS_REL>
+// Offsets (floats) in one stage: e_lr rows from 0, then K, V, bias.
+template <int D>
 struct Stage {
   static constexpr int kKeys = kChunkFloats / D;  // Jc
-  static constexpr int kK = HAS_REL ? kRows * kStride : 0;
+  static constexpr int kK = kRows * kStride;
   static constexpr int kV = kK + kPairs * kStride;
   static constexpr int kBias = kV + kPairs * kStride;
   static constexpr int kFloats = kBias + kPairs * kKeys;  // multiple of 4
@@ -222,70 +366,83 @@ __device__ __forceinline__ void axpy4(float p, const float4 x, float4& y) {
   y.w = fmaf(p, x.w, y.w);
 }
 
+// What this thread stages in every chunk: piece it of stage_chunk's K and V
+// loop is pair (threadIdx.x + it kThreads) / (Jc D / 4), and its bias entry
+// (threadIdx.x < P Jc) pair threadIdx.x / Jc, the same in every chunk, whose
+// offsets in k and v and in the bias (or -1 past B H) are computed once: a
+// division per chunk cost the FMA instance 3-6% at L = 64.
+constexpr int kKVPieces = kPairs * (kChunkFloats / 4) / kThreads;
+struct ChunkOffsets {
+  long long kv[kKVPieces];
+  long long bias;
+};
+
+template <int D>
+__device__ __forceinline__ ChunkOffsets chunk_offsets(const Args& a, int n0) {
+  ChunkOffsets o;
+#pragma unroll
+  for (int it = 0; it < kKVPieces; ++it) {
+    const int n = n0 + (threadIdx.x + it * kThreads) / (kChunkFloats / 4);
+    o.kv[it] = n < a.BH ? head_of(a, n) : -1;
+  }
+  const int n = n0 + threadIdx.x / Stage<D>::kKeys;
+  o.bias = threadIdx.x < kPairs * Stage<D>::kKeys && n < a.BH ? static_cast<long long>(n / a.H) * a.L : -1;
+  return o;
+}
+
 // Issues the copies of the chunk of keys [j0, j0 + Jc) into `st`: e_lr rows
-// l0.. of the tile, K and V rows and bias entries of pairs n0... What lies
-// outside the tensors is zero-filled with plain stores.
-template <int D, bool HAS_REL>
-__device__ __forceinline__ void stage_chunk(float* st, const float* __restrict__ k,
-                                            const float* __restrict__ v,
-                                            const float* __restrict__ bias,
-                                            const float* __restrict__ e_lr, int H, int L,
-                                            long long BH, int l0, long long n0, int j0) {
-  using S = Stage<D, HAS_REL>;
+// l0.. of the tile, K and V rows (of the pairs whose offsets kv_heads gave)
+// and bias entries of pairs n0... What lies outside the tensors is
+// zero-filled with plain stores.
+template <int D>
+__device__ __forceinline__ void stage_chunk(float* st, const Args& a, const ChunkOffsets& off, int l0, int j0) {
+  using S = Stage<D>;
   constexpr int kVec = kChunkFloats / 4;  // float4 per staged row
   static_assert(kRows * kVec % kThreads == 0 && kPairs * kVec % kThreads == 0, "even staging");
   const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   const int t = threadIdx.x;
-  if (HAS_REL) {
 #pragma unroll
-    for (int it = 0; it < kRows * kVec / kThreads; ++it) {
-      const int i = t + it * kThreads;
-      const int r = i / kVec, c = i % kVec;
-      float* dst = st + r * kStride + 4 * c;
-      const int l = l0 + r, j = j0 + (4 * c) / D;
-      if (l < L && j < L) {
-        cp_async16(dst, e_lr + (static_cast<size_t>(l) * L + j0) * D + 4 * c);
-      } else {
-        *reinterpret_cast<float4*>(dst) = zero;
-      }
+  for (int it = 0; it < kRows * kVec / kThreads; ++it) {
+    const int i = t + it * kThreads;
+    const int r = i / kVec, c = i % kVec;
+    float* dst = st + r * kStride + 4 * c;
+    const int l = l0 + r, j = j0 + (4 * c) / D;
+    if (l < a.L && j < a.L) {
+      cp_async16(dst, a.e_lr + (static_cast<size_t>(l) * a.L + j0) * D + 4 * c);
+    } else {
+      *reinterpret_cast<float4*>(dst) = zero;
     }
   }
 #pragma unroll
-  for (int it = 0; it < kPairs * kVec / kThreads; ++it) {
+  for (int it = 0; it < kKVPieces; ++it) {
     const int i = t + it * kThreads;
     const int p = i / kVec, c = i % kVec;
-    const long long n = n0 + p;
     const int j = j0 + (4 * c) / D;
     float* kd = st + S::kK + p * kStride + 4 * c;
     float* vd = st + S::kV + p * kStride + 4 * c;
-    if (n < BH && j < L) {
-      const size_t off = (static_cast<size_t>(n) * L + j0) * D + 4 * c;
-      cp_async16(kd, k + off);
-      cp_async16(vd, v + off);
+    if (off.kv[it] >= 0 && j < a.L) {
+      const long long at = off.kv[it] + j * a.sl + (4 * c) % D;
+      cp_async16(kd, a.k + at);
+      cp_async16(vd, a.v + at);
     } else {
       *reinterpret_cast<float4*>(kd) = zero;
       *reinterpret_cast<float4*>(vd) = zero;
     }
   }
   if (t < kPairs * S::kKeys) {
-    const int p = t / S::kKeys, jj = t % S::kKeys;
-    const long long n = n0 + p;
+    const int jj = t % S::kKeys;
     float* dst = st + S::kBias + t;
-    if (n < BH && j0 + jj < L) {
-      cp_async4(dst, bias + static_cast<size_t>(n / H) * L + j0 + jj);
+    if (off.bias >= 0 && j0 + jj < a.L) {
+      cp_async4(dst, a.bias + off.bias + j0 + jj);
     } else {
       *dst = 0.0f;
     }
   }
 }
 
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(kThreads, D <= 32 ? 3 : 1)
-gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ bias,
-                          const float* __restrict__ e_lr, float* __restrict__ out, int H, int L,
-                          long long BH, int n_tiles, float scale) {
-  using S = Stage<D, HAS_REL>;
+template <int D>
+__global__ void __launch_bounds__(kThreads, D <= 32 ? 3 : 1) gathered_attention_kernel(const Args a) {
+  using S = Stage<D>;
   constexpr int Jc = S::kKeys;
   constexpr int kSlice = D / 16;  // float4 pieces of a D-vector per thread
   extern __shared__ float4 smem4[];
@@ -300,8 +457,11 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
   const int r0 = 2 * (quad >> 2);
   const int pa = (quad & 1) + ((quad >> 1) & 1) * 4;  // 0, 1, 4, 5
   const int pb = pa + 2;
-  const int l0 = (blockIdx.x % n_tiles) * kRows;
-  const long long n0 = static_cast<long long>(blockIdx.x / n_tiles) * kPairs;
+  const int l0 = (blockIdx.x % a.n_tiles) * kRows;
+  const int n0 = (blockIdx.x / a.n_tiles) * kPairs;
+  const ChunkOffsets offsets = chunk_offsets<D>(a, n0);
+  // the offsets of pairs pa and pb in q and in out, one division each
+  const PairOffsets pair[2] = {pair_offsets<D>(a, n0 + pa), pair_offsets<D>(a, n0 + pb)};
 
   // output o = 2 * row + pair: (r0, pa), (r0, pb), (r0 + 1, pa), (r0 + 1, pb)
   float4 qr[4][kSlice];
@@ -310,9 +470,9 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
 #pragma unroll
   for (int o = 0; o < 4; ++o) {
     const int l = l0 + r0 + (o >> 1);
-    const long long n = n0 + ((o & 1) ? pb : pa);
-    const bool live = l < L && n < BH;
-    const float* src = q + (static_cast<size_t>(live ? n : 0) * L + (live ? l : 0)) * D;
+    const int n = n0 + ((o & 1) ? pb : pa);
+    const bool live = l < a.L && n < a.BH;
+    const float* src = a.q + (live ? pair[o & 1].head + l * a.sl : 0);
 #pragma unroll
     for (int i = 0; i < kSlice; ++i) {
       qr[o][i] = live ? __ldg(reinterpret_cast<const float4*>(src) + tq + 4 * i)
@@ -322,15 +482,13 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
     row_max[o] = -INFINITY;
     denom[o] = 0.0f;
   }
-  const float scale2 = scale * kLog2e;  // scores in log2 units, for exp2f
 
-  const int n_chunks = (L + Jc - 1) / Jc;
-  stage_chunk<D, HAS_REL>(smem, k, v, bias, e_lr, H, L, BH, l0, n0, 0);
+  const int n_chunks = (a.L + Jc - 1) / Jc;
+  stage_chunk<D>(smem, a, offsets, l0, 0);
   cp_async_commit();
   for (int c = 0; c < n_chunks; ++c) {
     if (c + 1 < n_chunks) {
-      stage_chunk<D, HAS_REL>(smem + ((c + 1) & 1) * S::kFloats, k, v, bias, e_lr, H, L, BH, l0,
-                              n0, (c + 1) * Jc);
+      stage_chunk<D>(smem + ((c + 1) & 1) * S::kFloats, a, offsets, l0, (c + 1) * Jc);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -339,7 +497,7 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
     __syncthreads();
 
     const float* st = smem + (c & 1) * S::kFloats;
-    const float4* e0 = reinterpret_cast<const float4*>(st + r0 * kStride);  // HAS_REL only
+    const float4* e0 = reinterpret_cast<const float4*>(st + r0 * kStride);
     const float4* e1 = reinterpret_cast<const float4*>(st + (r0 + 1) * kStride);
     const float4* ka = reinterpret_cast<const float4*>(st + S::kK + pa * kStride);
     const float4* kb = reinterpret_cast<const float4*>(st + S::kK + pb * kStride);
@@ -347,7 +505,7 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
     const float4* vb = reinterpret_cast<const float4*>(st + S::kV + pb * kStride);
     const float* bias_a = st + S::kBias + pa * Jc;
     const float* bias_b = st + S::kBias + pb * Jc;
-    const int valid = min(Jc, L - c * Jc);
+    const int valid = min(Jc, a.L - c * Jc);
 
     float s[4][Jc];
 #pragma unroll
@@ -361,13 +519,11 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
         part[1] = dot4(qr[1][i], kxb, part[1]);
         part[2] = dot4(qr[2][i], kxa, part[2]);
         part[3] = dot4(qr[3][i], kxb, part[3]);
-        if (HAS_REL) {
-          const float4 ex0 = e0[x], ex1 = e1[x];
-          part[0] = dot4(qr[0][i], ex0, part[0]);
-          part[1] = dot4(qr[1][i], ex0, part[1]);
-          part[2] = dot4(qr[2][i], ex1, part[2]);
-          part[3] = dot4(qr[3][i], ex1, part[3]);
-        }
+        const float4 ex0 = e0[x], ex1 = e1[x];
+        part[0] = dot4(qr[0][i], ex0, part[0]);
+        part[1] = dot4(qr[1][i], ex0, part[1]);
+        part[2] = dot4(qr[2][i], ex1, part[2]);
+        part[3] = dot4(qr[3][i], ex1, part[3]);
       }
       const float ba = bias_a[jj] * kLog2e, bb = bias_b[jj] * kLog2e;
 #pragma unroll
@@ -375,7 +531,7 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
         // sum over the quad: every lane ends with the same bits
         part[o] += __shfl_xor_sync(0xffffffffu, part[o], 1);
         part[o] += __shfl_xor_sync(0xffffffffu, part[o], 2);
-        s[o][jj] = jj < valid ? fmaf(part[o], scale2, (o & 1) ? bb : ba) : -INFINITY;
+        s[o][jj] = jj < valid ? fmaf(part[o], a.scale2, (o & 1) ? bb : ba) : -INFINITY;
       }
     }
 
@@ -420,38 +576,34 @@ gathered_attention_kernel(const float* __restrict__ q, const float* __restrict__
 #pragma unroll
   for (int o = 0; o < 4; ++o) {
     const int l = l0 + r0 + (o >> 1);
-    const long long n = n0 + ((o & 1) ? pb : pa);
-    if (l >= L || n >= BH) continue;
+    const int n = n0 + ((o & 1) ? pb : pa);
+    if (l >= a.L || n >= a.BH) continue;
     const float inv = 1.0f / denom[o];
-    float4* dst = reinterpret_cast<float4*>(out + (static_cast<size_t>(n) * L + l) * D);
+    float4* dst = reinterpret_cast<float4*>(a.out + pair[o & 1].out + static_cast<long long>(l) * a.H * D);
 #pragma unroll
     for (int i = 0; i < kSlice; ++i) {
-      const float4 a = acc[o][i];
-      dst[tq + 4 * i] = make_float4(a.x * inv, a.y * inv, a.z * inv, a.w * inv);
+      const float4 x = acc[o][i];
+      dst[tq + 4 * i] = make_float4(x.x * inv, x.y * inv, x.z * inv, x.w * inv);
     }
   }
 }
 
-template <int D, bool HAS_REL>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* bias,
-                   const float* e_lr, float* out, int B, int H, int L, int device,
-                   cudaStream_t stream) {
+template <int D>
+cudaError_t launch(Args a, int device, cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
-  const auto kernel = &gathered_attention_kernel<D, HAS_REL>;
-  const size_t smem = 2 * sizeof(float) * Stage<D, HAS_REL>::kFloats;
+  const auto kernel = &gathered_attention_kernel<D>;
+  const size_t smem = 2 * sizeof(float) * Stage<D>::kFloats;
   const cudaError_t err =
       attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;
-  const long long bh = static_cast<long long>(B) * H;
-  const int n_tiles = (L + kRows - 1) / kRows;
-  const long long blocks = n_tiles * ((bh + kPairs - 1) / kPairs);
+  const long long blocks = a.n_tiles * ((a.BH + kPairs - 1) / kPairs);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      q, k, v, bias, e_lr, out, H, L, bh, n_tiles, 1.0f / sqrtf(static_cast<float>(D)));
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// ---- Tensor-core instances (TF32, bf16, and the multi-pass presets) ---------
+// ---- The chunked tensor-core design (the multi-pass instances; the others
+// at L > 128 or D = 64) ------------------------------------------------------
 
 namespace tc {
 
@@ -460,19 +612,6 @@ constexpr int kRows = 16;    // query rows per block: the M of q.k and p.v
 constexpr int kWarps = 16;   // warp w: row l0 + w of the relative term, then pair n0 + w's rows
 constexpr int kThreads = 32 * kWarps;
 static_assert(kWarps == kPairs && kWarps == kRows, "one pair and one query row per warp");
-
-struct Args {
-  const float* q;
-  const float* k;
-  const float* v;
-  const float* bias;
-  const float* e_lr;
-  float* out;
-  int H, L;
-  long long BH;
-  int n_tiles;
-  float scale2;  // D^-1/2 * log2(e)
-};
 
 // Floats between two pairs' rows in the staged q tile (16 mod 32).
 template <int D>
@@ -487,6 +626,16 @@ constexpr bool kSplitOnce = kParts<A> > 1 && kBF16Parts<A>;
 // term and q.k, at most
 constexpr int kGroupMax = 4;
 
+// Whether the row stride of K and e_lr (product, product_once) and of V
+// (p . v) is hidden from the optimiser (opaque): for bf16x9, whose groups'
+// row offsets, held across the loop, spilled otherwise (4-6% slower
+// without), and K's for TF32x3 (1-4% faster with it); bf16x3 and bf16x6
+// ran 5-9% slower with it (PERF.md §6).
+template <Arith A>
+constexpr bool kHideKStride = A == Arith::BF16x9 || A == Arith::TF32x3;
+template <Arith A>
+constexpr bool kHideVStride = A == Arith::BF16x9;
+
 // q's bf16 planes (kSplitOnce): a part's rows of D bf16 values, 32-bit words
 // apart by kQRowWords (8 or 24 mod 32) and pairs by kQPairWords (8 mod 32),
 // so that the 8-byte fragment loads of a half-warp, rows g of a pair or
@@ -497,25 +646,26 @@ template <int D>
 constexpr int kQPairWords = kRows * kQRowWords<D> + 8;
 
 // The chunk of keys, and the offsets (floats) into dynamic shared memory:
-// two buffers of the relative term's (pair, row, key) values (HAS_REL only),
-// then the block's q tile, 16 pairs x 16 rows (kSplitOnce: a plane of q per
-// part, as above).
-template <int D, bool HAS_REL, Arith A>
+// two buffers of the relative term's (pair, row, key) values, then the
+// block's q tile, 16 pairs x 16 rows (kSplitOnce: a plane of q per part, as
+// above).
+template <int D, Arith A>
 struct Smem {
   static constexpr int kKeys = D <= 32 ? 32 : 16;  // keys per chunk
   static constexpr int kRelRow = kKeys % 16 == 0 ? kKeys + 8 : kKeys;  // 8 mod 16
   static constexpr int kRelPair = kRows * kRelRow + 8;                 // 8 mod 32
   static constexpr int kRelBuf = kPairs * kRelPair;
-  static constexpr int kQ = HAS_REL ? 2 * kRelBuf : 0;
+  static constexpr int kQ = 2 * kRelBuf;
   static constexpr int kQPlane = kPairs * kQPairWords<D>;
   static constexpr int kFloats = kQ + (kSplitOnce<A, D> ? kParts<A> * kQPlane : kPairs * kQPair<D>);
 };
 
 // Columns 16c + 4t .. 16c + 4t + 3 of row `row` of the (rows, D) matrix at
-// `base` in global memory; zero for a row past `rows`.
+// `base` in global memory, rows `stride` floats apart; zero for a row past
+// `rows`.
 template <int D>
-__device__ __forceinline__ float4 columns(const float* base, int rows, int row, int c, int t) {
-  return row < rows ? __ldg(reinterpret_cast<const float4*>(base + static_cast<size_t>(row) * D + 16 * c + 4 * t))
+__device__ __forceinline__ float4 columns(const float* base, int stride, int rows, int row, int c, int t) {
+  return row < rows ? __ldg(reinterpret_cast<const float4*>(base + row * stride + 16 * c + 4 * t))
                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 }
 
@@ -528,12 +678,26 @@ __device__ __forceinline__ int q_offset(int pair, int row, int f) {
   return pair * kQPair<D> + row * D + 4 * (f ^ (D >= 32 ? 4 * (row & 1) : 0));
 }
 
-// The A fragments (held values, device.cuh's held) of a 16-row operand of
-// the staged q tile `qs` whose rows g and g + 8 are (pair p0, row r0) and
-// (p1, r1). The products sum over d,
-// so a k-step may take any 8 columns that A and B share: k-step 2c + h takes
-// columns 16c + 4t + 2h (k = t) and 16c + 4t + 2h + 1 (k = t + 4), and each
-// lane reads its columns as float4s.
+// The A fragments (held values, device.cuh's held) of a 16-row operand whose
+// rows g and g + 8 hold the float4 pieces u(c) and w(c) (columns 16c + 4t ..
+// 16c + 4t + 3). The products sum over d, so a k-step may take any 8
+// columns that A and B share: k-step 2c + h takes columns 16c + 4t + 2h
+// (k = t) and 16c + 4t + 2h + 1 (k = t + 4), and each lane reads its columns
+// as float4s.
+template <Arith A>
+__device__ __forceinline__ void a_fragments(uint32_t (&f0)[4], uint32_t (&f1)[4], const float4 u, const float4 w) {
+  f0[0] = held<A>(u.x);
+  f0[1] = held<A>(w.x);
+  f0[2] = held<A>(u.y);
+  f0[3] = held<A>(w.y);
+  f1[0] = held<A>(u.z);
+  f1[1] = held<A>(w.z);
+  f1[2] = held<A>(u.w);
+  f1[3] = held<A>(w.w);
+}
+
+// The A fragments of a 16-row operand of the staged q tile `qs` whose rows
+// g and g + 8 are (pair p0, row r0) and (p1, r1).
 template <int D, Arith A>
 __device__ __forceinline__ void q_fragments(uint32_t (&f)[D / 8][4], const float* qs, int p0, int r0, int p1,
                                             int r1, int t) {
@@ -541,25 +705,19 @@ __device__ __forceinline__ void q_fragments(uint32_t (&f)[D / 8][4], const float
   for (int c = 0; c < D / 16; ++c) {
     const float4 u = *reinterpret_cast<const float4*>(qs + q_offset<D>(p0, r0, 4 * c + t));
     const float4 w = *reinterpret_cast<const float4*>(qs + q_offset<D>(p1, r1, 4 * c + t));
-    f[2 * c][0] = held<A>(u.x);
-    f[2 * c][1] = held<A>(w.x);
-    f[2 * c][2] = held<A>(u.y);
-    f[2 * c][3] = held<A>(w.y);
-    f[2 * c + 1][0] = held<A>(u.z);
-    f[2 * c + 1][1] = held<A>(w.z);
-    f[2 * c + 1][2] = held<A>(u.w);
-    f[2 * c + 1][3] = held<A>(w.w);
+    a_fragments<A>(f[2 * c], f[2 * c + 1], u, w);
   }
 }
 
 // c += A . B^T over D, this lane's B row row `row` of the (rows, D) matrix at
-// `base` (k-steps as in q_fragments).
+// `base` (rows `stride` floats apart; k-steps as in a_fragments).
 template <int D, Arith A>
-__device__ __forceinline__ void product(float (&c)[4], const uint32_t (&a)[D / 8][4], const float* base, int rows,
-                                        int row, int t) {
+__device__ __forceinline__ void product(float (&c)[4], const uint32_t (&a)[D / 8][4], const float* base,
+                                        int stride, int rows, int row, int t) {
   float4 y[D / 16];
+  const int st = kHideKStride<A> ? opaque(stride) : stride;
 #pragma unroll
-  for (int cc = 0; cc < D / 16; ++cc) y[cc] = columns<D>(base, rows, row, cc, t);
+  for (int cc = 0; cc < D / 16; ++cc) y[cc] = columns<D>(base, st, rows, row, cc, t);
 #pragma unroll
   for (int cc = 0; cc < D / 16; ++cc) {
     mma_split<A>(c, a[2 * cc], held<A>(y[cc].x), held<A>(y[cc].y));
@@ -572,14 +730,14 @@ __device__ __forceinline__ void product(float (&c)[4], const uint32_t (&a)[D / 8
 // planes at `qp` as products asks for it. Chunk kc takes columns
 // 16 kc + 4t .. 16 kc + 4t + 3 as q_fragments does: k = 2t, 2t + 1 are
 // columns 16 kc + 4t, + 1 and k = 2t + 8, 2t + 9 columns 16 kc + 4t + 2, + 3.
-template <int D, bool HAS_REL, Arith A>
+template <int D, Arith A>
 struct QChunks {
   const float* qp;
   int p0, r0, p1, r1, t;
   __device__ __forceinline__ void operator()(int kc, uint32_t (&w)[kParts<A>][4]) const {
 #pragma unroll
     for (int i = 0; i < kParts<A>; ++i) {
-      const uint32_t* x = reinterpret_cast<const uint32_t*>(qp + i * Smem<D, HAS_REL, A>::kQPlane) + 8 * kc + 2 * t;
+      const uint32_t* x = reinterpret_cast<const uint32_t*>(qp + i * Smem<D, A>::kQPlane) + 8 * kc + 2 * t;
       const uint2 u = *reinterpret_cast<const uint2*>(x + p0 * kQPairWords<D> + r0 * kQRowWords<D>);
       const uint2 v = *reinterpret_cast<const uint2*>(x + p1 * kQPairWords<D> + r1 * kQRowWords<D>);
       w[i][0] = u.x, w[i][1] = v.x, w[i][2] = u.y, w[i][3] = v.y;
@@ -589,15 +747,16 @@ struct QChunks {
 
 // kSplitOnce: c[n] += A . B^T over D for G n-tiles, the lane's B row of
 // n-tile n row j0 + 8 n + g of the (rows, D) matrix at `base` in global
-// memory, each B chunk split once as it is loaded (columns as QChunks).
-template <int D, bool HAS_REL, Arith A, int G>
-__device__ __forceinline__ void product_once(float (*c)[4], const QChunks<D, HAS_REL, A>& a, const float* base,
-                                             int rows, int j0, int g, int t) {
+// memory (rows `stride` floats apart), each B chunk split once as it is
+// loaded (columns as QChunks).
+template <int D, Arith A, int G>
+__device__ __forceinline__ void product_once(float (*c)[4], const QChunks<D, A>& a, const float* base,
+                                             int stride, int rows, int j0, int g, int t) {
   products<A, G, D / 16>(c, a, [&](int kc, int n, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
     // a plain load, not __ldg's: the compiler does not hoist it past the
     // fence below (hoisted, every group's loads spilled at 128 registers)
-    const int row = j0 + 8 * n + g;
-    const float4 y = row < rows ? *reinterpret_cast<const float4*>(base + static_cast<size_t>(row) * D + 16 * kc + 4 * t)
+    const int row = j0 + 8 * n + g, st = kHideKStride<A> ? opaque(stride) : stride;
+    const float4 y = row < rows ? *reinterpret_cast<const float4*>(base + row * st + 16 * kc + 4 * t)
                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     split4<A>(b, y.x, y.y, y.z, y.w);
   });
@@ -613,14 +772,18 @@ struct VCols {
   static constexpr int kBlocks = D / (8 * kW);
 };
 
-// W consecutive floats of global memory at p, or zeros where `live` is false.
-template <int W>
+// W consecutive floats of global memory at p, or zeros where `live` is false;
+// a plain load (PLAIN), which ptxas does not hoist past a __syncwarp, or
+// __ldg's.
+template <int W, bool PLAIN = false>
 __device__ __forceinline__ void load_cols(float (&x)[W], const float* p, bool live) {
   if constexpr (W == 4) {
-    const float4 u = live ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 u = !live ? make_float4(0.0f, 0.0f, 0.0f, 0.0f)
+                     : PLAIN ? *reinterpret_cast<const float4*>(p) : __ldg(reinterpret_cast<const float4*>(p));
     x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w;
   } else {
-    const float2 u = live ? __ldg(reinterpret_cast<const float2*>(p)) : make_float2(0.0f, 0.0f);
+    const float2 u = !live ? make_float2(0.0f, 0.0f)
+                     : PLAIN ? *reinterpret_cast<const float2*>(p) : __ldg(reinterpret_cast<const float2*>(p));
     x[0] = u.x, x[1] = u.y;
   }
 }
@@ -634,9 +797,35 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[W]) {
   }
 }
 
-template <int D, bool HAS_REL, Arith A>
+// Stores p . v's accumulators o of rows l0 + g and l0 + g + 8 of pair n
+// (o[W hb + dd][2 i + e] is row l0 + g + 8 i, column 8W hb + W (2t + e) + dd),
+// each scaled by inv[i] and rounded as the instance's output; nothing for a
+// row past L.
+template <int D, Arith A>
+__device__ __forceinline__ void store_rows(const Args& a, int n, int l0, const float (&o)[D / 8][4],
+                                           const float (&inv)[2], int g, int t) {
+  using V = VCols<D>;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = l0 + g + 8 * i;
+    if (row >= a.L) continue;
+    float* dst = out_row<D>(a, n, row);
+#pragma unroll
+    for (int hb = 0; hb < V::kBlocks; ++hb) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x[V::kW];
+#pragma unroll
+        for (int dd = 0; dd < V::kW; ++dd) x[dd] = output<A>(o[V::kW * hb + dd][2 * i + e] * inv[i]);
+        store_cols(dst + 8 * V::kW * hb + V::kW * (2 * t + e), x);
+      }
+    }
+  }
+}
+
+template <int D, Arith A>
 __device__ __forceinline__ void attention(const Args& a) {
-  using S = Smem<D, HAS_REL, A>;
+  using S = Smem<D, A>;
   constexpr bool kOnce = kSplitOnce<A, D>;
   constexpr int kGroup = kGroupMax < S::kKeys / 8 ? kGroupMax : S::kKeys / 8;
   using V = VCols<D>;
@@ -646,16 +835,17 @@ __device__ __forceinline__ void attention(const Args& a) {
   float* smem = reinterpret_cast<float*>(smem4);
 
   const int l0 = (blockIdx.x % a.n_tiles) * kRows;
-  const long long n0 = static_cast<long long>(blockIdx.x / a.n_tiles) * kPairs;
+  const int n0 = (blockIdx.x / a.n_tiles) * kPairs;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   // The warp's pair; past B * H its q, K and V read as zeros and nothing is stored
-  const long long n = n0 + warp;
+  const int n = n0 + warp;
   const bool live = n < a.BH;
   const int keys = live ? a.L : 0;  // K and V rows the warp reads
-  const float* kp = a.k + static_cast<size_t>(live ? n : 0) * a.L * D;
-  const float* vp = a.v + static_cast<size_t>(live ? n : 0) * a.L * D;
-  const float* bias = a.bias + static_cast<size_t>(live ? n / a.H : 0) * a.L;
+  const long long head = live ? head_of(a, n) : 0;
+  const float* kp = a.k + head;
+  const float* vp = a.v + head;
+  const float* bias = a.bias + static_cast<long long>(live ? n / a.H : 0) * a.L;
   const int lr = l0 + warp;  // the warp's row of the relative term
   const int rel_keys = lr < a.L ? a.L : 0;
   const float* e_row = a.e_lr + static_cast<size_t>(rel_keys ? lr : 0) * a.L * D;  // e_lr[lr]: (L, D)
@@ -669,9 +859,9 @@ __device__ __forceinline__ void attention(const Args& a) {
   for (int i = threadIdx.x; i < kPairs * kRows * (D / 4); i += kThreads) {
     const int p = i / (kRows * (D / 4)), r = i / (D / 4) % kRows, f = i % (D / 4);
     const bool in = n0 + p < a.BH && l0 + r < a.L;
-    const size_t src = (static_cast<size_t>(n0 + p) * a.L + l0 + r) * D + 4 * f;
+    const float* src = a.q + (in ? head_of(a, n0 + p) + (l0 + r) * a.sl + 4 * f : 0);
     if constexpr (kOnce) {  // q's parts, split once for the block
-      const float4 u = in ? __ldg(reinterpret_cast<const float4*>(a.q + src)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float4 u = in ? __ldg(reinterpret_cast<const float4*>(src)) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       uint32_t w[kParts<A>][2];
       split4<A>(w, u.x, u.y, u.z, u.w);
 #pragma unroll
@@ -680,7 +870,7 @@ __device__ __forceinline__ void attention(const Args& a) {
             make_uint2(w[j][0], w[j][1]);
       }
     } else if (in) {
-      cp_async16(qs + q_offset<D>(p, r, f), a.q + src);
+      cp_async16(qs + q_offset<D>(p, r, f), src);
     } else {
       *reinterpret_cast<float4*>(qs + q_offset<D>(p, r, f)) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
@@ -710,13 +900,13 @@ __device__ __forceinline__ void attention(const Args& a) {
     const int j0 = (i % n_chunks) * S::kKeys;
     float* buf = smem + (i & 1) * S::kRelBuf;
     if constexpr (kOnce) {
-      const QChunks<D, HAS_REL, A> qa{qs, g, warp, g + 8, warp, t};  // row `warp` of the 16 pairs
+      const QChunks<D, A> qa{qs, g, warp, g + 8, warp, t};  // row `warp` of the 16 pairs
 #pragma unroll
       for (int nt = 0; nt < kNT; nt += kGroup) {
         float acc[kGroup][4];
 #pragma unroll
         for (int n = 0; n < kGroup; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-        product_once<D, HAS_REL, A, kGroup>(acc, qa, e_row, rel_keys, j0 + 8 * nt, g, t);
+        product_once<D, A, kGroup>(acc, qa, e_row, D, rel_keys, j0 + 8 * nt, g, t);
 #pragma unroll
         for (int n = 0; n < kGroup; ++n) {
           float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * (nt + n) + 2 * t;
@@ -730,7 +920,7 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        product<D, A>(acc, qr, e_row, rel_keys, j0 + 8 * nt + g, t);
+        product<D, A>(acc, qr, e_row, D, rel_keys, j0 + 8 * nt + g, t);
         float* d = buf + g * S::kRelPair + warp * S::kRelRow + 8 * nt + 2 * t;
         *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
         *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
@@ -738,18 +928,16 @@ __device__ __forceinline__ void attention(const Args& a) {
     }
   };
 
-  if (HAS_REL) relative_term(0);
+  relative_term(0);
 #pragma unroll 1
   for (int it = 0; it < n_items; ++it) {
     const int pass = first_pass + it / n_chunks, c = it % n_chunks, j0 = c * S::kKeys;
     const float* rel = smem + (it & 1) * S::kRelBuf;
-    if (HAS_REL) {
-      // item it's relative term is in rel buffer it % 2; every warp is done
-      // with the other buffer, which the next item's relative term fills,
-      // interleaved by the compiler with this item's work below
-      __syncthreads();
-      relative_term(it + 1);
-    }
+    // item it's relative term is in rel buffer it % 2; every warp is done
+    // with the other buffer, which the next item's relative term fills,
+    // interleaved by the compiler with this item's work below
+    __syncthreads();
+    relative_term(it + 1);
 
     // S = rel + Q . K^T; then scale and bias, in log2 units
     auto scale_bias = [&](float (&sn)[4], int nt) {
@@ -763,7 +951,7 @@ __device__ __forceinline__ void attention(const Args& a) {
     };
     uint32_t qf[kOnce ? 1 : kKS][4];
     if constexpr (!kOnce) q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
-    const QChunks<D, HAS_REL, A> qa{qs, warp, g, warp, g + 8, t};  // kOnce: pair `warp`'s 16 rows
+    const QChunks<D, A> qa{qs, warp, g, warp, g + 8, t};  // kOnce: pair `warp`'s 16 rows
     // n-tile nt's relative term: the first value of its score accumulators,
     // or, under kRoundsOutput, added once Q . K^T is rounded
     auto rel_of = [&](float (&r)[4], int nt) {
@@ -775,7 +963,7 @@ __device__ __forceinline__ void attention(const Args& a) {
     float s[kNT][4];
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) {
-      if (HAS_REL && !kRoundsOutput<A>) {
+      if (!kRoundsOutput<A>) {
         rel_of(s[nt], nt);
       } else {
         s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
@@ -784,15 +972,15 @@ __device__ __forceinline__ void attention(const Args& a) {
         // a group's products once its n-tiles' rel values are in
         if (nt % kGroup == kGroup - 1) {
           const int n0 = nt - kGroup + 1;
-          product_once<D, HAS_REL, A, kGroup>(&s[n0], qa, kp, keys, j0 + 8 * n0, g, t);
+          product_once<D, A, kGroup>(&s[n0], qa, kp, a.sl, keys, j0 + 8 * n0, g, t);
 #pragma unroll
           for (int n = 0; n < kGroup; ++n) scale_bias(s[n0 + n], n0 + n);
         }
       } else {
-        product<D, A>(s[nt], qf, kp, keys, j0 + 8 * nt + g, t);
+        product<D, A>(s[nt], qf, kp, a.sl, keys, j0 + 8 * nt + g, t);
         if constexpr (kRoundsOutput<A>) {
-          float r[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          if (HAS_REL) rel_of(r, nt);
+          float r[4];
+          rel_of(r, nt);
 #pragma unroll
           for (int i = 0; i < 4; ++i) s[nt][i] = output<A>(s[nt][i]) + r[i];
         }
@@ -840,15 +1028,15 @@ __device__ __forceinline__ void attention(const Args& a) {
         for (int kc = 0; kc < kNT / 2; ++kc) {
           uint32_t pa[1][kParts<A>][4 * kSteps<A>];
           p_chunk<A>(pa, s[2 * kc], s[2 * kc + 1]);
-          const int key = j0 + 16 * kc + 2 * t;
-          const float* v0 = vp + static_cast<size_t>(key) * D + V::kW * g;
+          const int key = j0 + 16 * kc + 2 * t, sl = kHideVStride<A> ? opaque(a.sl) : a.sl;
+          const float* v0 = vp + key * sl + V::kW * g;
 #pragma unroll
           for (int hb = 0; hb < V::kBlocks; ++hb) {
             float x[4][V::kW];
 #pragma unroll
             for (int r = 0; r < 4; ++r) {
               const int dr = (r & 1) + 8 * (r >> 1);  // key, key + 1, key + 8, key + 9
-              load_cols(x[r], v0 + dr * D + 8 * V::kW * hb, key + dr < keys);
+              load_cols(x[r], v0 + dr * sl + 8 * V::kW * hb, key + dr < keys);
             }
             products<A, V::kW, 1>(&o[V::kW * hb], HeldChunks<A, 1>{pa},
                                   [&](int, int dd, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
@@ -863,13 +1051,13 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) {
           const uint32_t pa[4] = {held<A>(s[nt][0]), held<A>(s[nt][2]), held<A>(s[nt][1]), held<A>(s[nt][3])};
-          const int key = j0 + 8 * nt + 2 * t;
-          const float* v0 = vp + static_cast<size_t>(key) * D + V::kW * g;
+          const int key = j0 + 8 * nt + 2 * t, sl = kHideVStride<A> ? opaque(a.sl) : a.sl;
+          const float* v0 = vp + key * sl + V::kW * g;
 #pragma unroll
           for (int hb = 0; hb < V::kBlocks; ++hb) {
             float x0[V::kW], x1[V::kW];
             load_cols(x0, v0 + 8 * V::kW * hb, key < keys);
-            load_cols(x1, v0 + D + 8 * V::kW * hb, key + 1 < keys);
+            load_cols(x1, v0 + sl + 8 * V::kW * hb, key + 1 < keys);
 #pragma unroll
             for (int dd = 0; dd < V::kW; ++dd) {
               mma_split<A>(o[V::kW * hb + dd], pa, held<A>(x0[dd]), held<A>(x1[dd]));
@@ -887,203 +1075,512 @@ __device__ __forceinline__ void attention(const Args& a) {
   } else {
     inv[0] = inv[1] = 1.0f;  // P was normalised
   }
-  // o[W hb + dd][2 i + e] is row l0 + g + 8 i, column 8W hb + W (2t + e) + dd
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = l0 + g + 8 * i;
-    if (row >= a.L) continue;
-    float* dst = a.out + (static_cast<size_t>(n) * a.L + row) * D;
-#pragma unroll
-    for (int hb = 0; hb < V::kBlocks; ++hb) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float x[V::kW];
-#pragma unroll
-        for (int dd = 0; dd < V::kW; ++dd) x[dd] = output<A>(o[V::kW * hb + dd][2 * i + e] * inv[i]);
-        store_cols(dst + 8 * V::kW * hb + V::kW * (2 * t + e), x);
-      }
-    }
-  }
+  store_rows<D, A>(a, n, l0, o, inv, g, t);
 }
 
 }  // namespace tc
 
-// One __global__ function per arithmetic, named as ops/attention.py's
-// CudaLibrary.kernel_name names the instance.
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_tf32_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::TF32>(a);
+// ---- The resident tensor-core design (TF32, bf16 and the 16-bit instances
+// at L <= 128 and D <= 32; the note at the top) -----------------------------
+
+namespace rs {
+
+constexpr int kWarps = 16;                 // warp w: row w of the relative term, then pair w's rows
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPairs = 16;                 // pairs per block and item: the M of the relative term's products
+constexpr int kRows = 16;                  // query rows per item: the M of q.k and p.v
+constexpr int kMaxL = 128;                 // the longest sequence: every key's scores in registers
+constexpr int kRelGroup = 4;               // e_lr n-tiles whose loads are in flight at once, per warp
+constexpr int kLoadGroup = 4;              // K or V n-tiles whose loads are in flight at once, per warp
+constexpr int kChunkNT = 8;                // n-tiles (of 8 keys) whose scores a warp holds in registers
+
+// Offsets (floats) into dynamic shared memory: the relative term's store
+// rel[pair][row][key] (rows KEYS + 8 floats apart, pairs 16 (KEYS + 8) + 8,
+// both 8 mod 32), then two stages, the item's and the next one's, each a q
+// tile and the 16 pairs' bias rows (KEYS floats apart; read as staged: a
+// bias read from L2 at its use was hoisted by ptxas for every key at once,
+// and spilled).
+template <int D, int KEYS>
+struct Smem {
+  static constexpr int kRelRow = KEYS + 8;
+  static constexpr int kRelPair = kRows * kRelRow + 8;
+  static constexpr int kQTile = kPairs * tc::kQPair<D>;
+  static constexpr int kBias = kQTile;                 // in a stage
+  static constexpr int kStage = kQTile + kPairs * KEYS;
+  static constexpr int kStages = kPairs * kRelPair;
+  static constexpr int kFloats = kStages + 2 * kStage;
+  static_assert(4 * kFloats <= 232448, "the store and two stages fit a block");
+};
+
+// The first of the 16 pairs of item `item`.
+__device__ __forceinline__ int first_pair(const Args& a, int item) {
+  return (item / a.n_tiles) * kPairs;
 }
 
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::BF16>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_tf32x3_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::TF32x3>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x3_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::BF16x3>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x6_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::BF16x6>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x9_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::BF16x9>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_f16_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::F16>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_f16f16_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::F16F16>(a);
-}
-
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16bf16_kernel(const tc::Args a) {
-  tc::attention<D, HAS_REL, Arith::BF16BF16>(a);
-}
-
-// The f64 instance: device.cuh's float64 design, the relative term from e_lr
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(f64::kThreads, f64::kBlocks<D>) gathered_attention_f64_kernel(const f64::Args a) {
-  f64::attention<D, HAS_REL, false>(a);
-}
-
-template <Arith A, int D, bool HAS_REL>
-constexpr auto tc_kernel() {
-  if constexpr (A == Arith::TF32) {
-    return &gathered_attention_tf32_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::BF16) {
-    return &gathered_attention_bf16_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::TF32x3) {
-    return &gathered_attention_tf32x3_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::BF16x3) {
-    return &gathered_attention_bf16x3_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::BF16x6) {
-    return &gathered_attention_bf16x6_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::BF16x9) {
-    return &gathered_attention_bf16x9_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::F16) {
-    return &gathered_attention_f16_kernel<D, HAS_REL>;
-  } else if constexpr (A == Arith::F16F16) {
-    return &gathered_attention_f16f16_kernel<D, HAS_REL>;
-  } else {
-    static_assert(A == Arith::BF16BF16, "a tensor-core arithmetic");
-    return &gathered_attention_bf16bf16_kernel<D, HAS_REL>;
+// Issues the copies of a stage of the block's pairs in `item`: the q tile
+// (rows l0.. of its 16 pairs, tc::q_offset's layout; zeros past L and
+// B * H) and each pair's bias row (keys below L, of pairs below B * H: no
+// other entry is read).
+template <int D, int KEYS>
+__device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
+  const int l0 = (item % a.n_tiles) * kRows;
+  const int n0 = first_pair(a, item);
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kPairs * kRows * (D / 4); i += kThreads) {
+    const int p = i / (kRows * (D / 4)), r = i / (D / 4) % kRows, f = i % (D / 4);
+    float* dst = st + tc::q_offset<D>(p, r, f);
+    if (n0 + p < a.BH && l0 + r < a.L) {
+      cp_async16(dst, a.q + head_of(a, n0 + p) + (l0 + r) * a.sl + 4 * f);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kPairs * a.L; i += kThreads) {
+    const int p = i / a.L, j = i % a.L;
+    if (n0 + p < a.BH) {
+      cp_async4(st + Smem<D, KEYS>::kBias + p * KEYS + j, a.bias + static_cast<long long>((n0 + p) / a.H) * a.L + j);
+    }
   }
 }
 
-template <int D, bool HAS_REL, Arith A>
-cudaError_t launch_tc(const float* q, const float* k, const float* v, const float* bias,
-                      const float* e_lr, float* out, int B, int H, int L, int device,
-                      cudaStream_t stream) {
+template <int D, Arith A, int KEYS>
+__device__ __forceinline__ void attention(const Args& a) {
+  using S = Smem<D, KEYS>;
+  using V = tc::VCols<D>;
+  constexpr int kKS = D / 8;    // k-steps of q.k and q.e_lr, n-tiles of p.v
+  constexpr int kNT = KEYS / 8;  // key n-tiles of a row's scores
+  constexpr int kChunks = kNT / kChunkNT;  // chunks of keys whose scores a warp holds at once
+  static_assert(kNT % kRelGroup == 0 && kChunkNT % kLoadGroup == 0 && kNT % kChunkNT == 0, "whole groups");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* stages = smem + S::kStages;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int first = blockIdx.x, stride = gridDim.x;  // the block's first item, and the blocks
+
+  if (first < a.n_items) stage_item<D, KEYS>(stages, a, first);
+  cp_async_commit();
+  int it = 0;
+#pragma unroll 1
+  for (int item = first; item < a.n_items; item += stride, ++it) {
+    const float* qs = stages + (it & 1) * S::kStage;  // the item's q tile, then its bias rows
+    cp_async_wait<0>();
+    // the item's stage has landed; every warp is done with the last item's
+    // store and stage, which the next copies now refill
+    __syncthreads();
+    if (item + stride < a.n_items) {
+      stage_item<D, KEYS>(stages + ((it + 1) & 1) * S::kStage, a, item + stride);
+    }
+    cp_async_commit();
+    const int l0 = (item % a.n_tiles) * kRows;
+
+    // The relative term of row lr = l0 + warp for 16 pairs, every key below
+    // L at once: Q_lr . e_lr[lr]^T, the pairs the m16n8k8 tile's rows, keys
+    // its columns
+    const int lr = l0 + warp;
+    if (lr < a.L) {
+      uint32_t qr[kKS][4];  // rows g and g + 8: pairs g and g + 8 at row lr
+      tc::q_fragments<D, A>(qr, qs, g, warp, g + 8, warp, t);
+      const float* e_row = a.e_lr + static_cast<size_t>(lr) * a.L * D;
+      float* dst = smem + g * S::kRelPair + warp * S::kRelRow + 2 * t;
+      const int n_used = (a.L + 7) / 8;  // key n-tiles that reach a key below L
+#pragma unroll 1
+      for (int nt0 = 0; nt0 < n_used; nt0 += kRelGroup) {
+        float4 y[kRelGroup][D / 16];
+#pragma unroll
+        for (int n = 0; n < kRelGroup; ++n) {
+#pragma unroll
+          for (int cc = 0; cc < D / 16; ++cc) y[n][cc] = tc::columns<D>(e_row, D, a.L, 8 * (nt0 + n) + g, cc, t);
+        }
+#pragma unroll
+        for (int n = 0; n < kRelGroup; ++n) {
+          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int cc = 0; cc < D / 16; ++cc) {
+            mma_split<A>(acc, qr[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));
+            mma_split<A>(acc, qr[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));
+          }
+          float* d = dst + 8 * (nt0 + n);
+          *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
+          *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
+        }
+      }
+    }
+    __syncthreads();  // every relative term of the item is in the store
+
+    const int n = first_pair(a, item) + warp;  // the warp's pair
+    if (n >= a.BH) continue;  // warp-uniform: nothing to compute
+    const long long head = head_of(a, n);
+    const float* kp = a.k + head;
+    const float* vp = a.v + head;
+    const float* bias = qs + S::kBias + warp * KEYS;  // the pair's, staged
+
+    // This lane's slots of the store: rows g and g + 8 of the warp's pair,
+    // n-tile nt's columns 2t and 2t + 1 at rp + 8 nt and rp + 8 kRelRow +
+    // 8 nt, read (the relative term) and rewritten (parked scores) by this
+    // lane alone
+    float* rp = smem + warp * S::kRelPair + g * S::kRelRow + 2 * t;
+    const auto load2 = [&](float (&r)[4], int nt) {
+      const float2 r0 = *reinterpret_cast<const float2*>(rp + 8 * nt);
+      const float2 r1 = *reinterpret_cast<const float2*>(rp + 8 * S::kRelRow + 8 * nt);
+      r[0] = r0.x, r[1] = r0.y, r[2] = r1.x, r[3] = r1.y;
+    };
+    uint32_t qf[kKS][4];  // pair `warp`'s rows g and g + 8
+    tc::q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
+
+    // S = rel + Q . K^T (under kRoundsOutput Q . K^T rounded first, then rel
+    // added); then scale and bias, in log2 units; keys past L -inf. The
+    // scores of one chunk of kChunkNT n-tiles (64 keys) at a time are held in
+    // registers; the chunks before the last are parked in the store, over
+    // their relative term (held for every key, 64 score registers spilled at
+    // 128 a thread)
+    float s[kChunkNT][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+    // a loop, not unrolled: unrolled over the chunks, ptxas held every
+    // chunk's invariants (columns, predicates) across the item loop and
+    // spilled
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+      for (int n0 = 0; n0 < kChunkNT; n0 += kLoadGroup) {
+        float4 y[kLoadGroup][D / 16];
+        const int sl = opaque(a.sl);
+#pragma unroll
+        for (int n = 0; n < kLoadGroup; ++n) {
+          const int row = 8 * (kChunkNT * c + n0 + n) + g;
+#pragma unroll
+          for (int cc = 0; cc < D / 16; ++cc) {
+            // plain loads, which ptxas does not hoist past the fence below
+            y[n][cc] = row < a.L ? *reinterpret_cast<const float4*>(kp + row * sl + 16 * cc + 4 * t)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kLoadGroup; ++n) {
+          const int nt = kChunkNT * c + n0 + n;
+          float* sn = s[n0 + n];
+          float r[4];
+          load2(r, nt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sn[i] = kRoundsOutput<A> ? 0.0f : r[i];
+#pragma unroll
+          for (int cc = 0; cc < D / 16; ++cc) {
+            mma_split<A>(s[n0 + n], qf[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));
+            mma_split<A>(s[n0 + n], qf[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (kRoundsOutput<A>) sn[i] = output<A>(sn[i]) + r[i];
+            const int col = 8 * nt + 2 * t + i % 2;
+            // the store's columns past L hold no relative term: scored -inf outright
+            sn[i] = col < a.L ? fmaf(sn[i], a.scale2, bias[col] * kLog2e) : -INFINITY;
+          }
+          mx[0] = fmaxf(mx[0], fmaxf(sn[0], sn[1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sn[2], sn[3]));
+          if (c + 1 < kChunks) {  // parked
+            *reinterpret_cast<float2*>(rp + 8 * nt) = make_float2(sn[0], sn[1]);
+            *reinterpret_cast<float2*>(rp + 8 * S::kRelRow + 8 * nt) = make_float2(sn[2], sn[3]);
+          }
+        }
+        __syncwarp();  // group by group
+      }
+    }
+
+    // Softmax over the whole row: exact maxima and sums (the parked chunks'
+    // exponentials taken again where P is made, with the same bits); P
+    // normalised, then rounded as p.v's operand (JAX's einsum takes the
+    // softmax's output as its operand)
+    constexpr int kParked = kNT - kChunkNT;  // n-tiles of the parked chunks
+    mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kChunkNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - mx[i / 2]);
+        sum[i / 2] += s[n][i];
+      }
+    }
+#pragma unroll 4
+    for (int nt = 0; nt < kParked; ++nt) {
+      float r[4];
+      load2(r, nt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i / 2] += exp2f(r[i] - mx[i / 2]);
+    }
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+
+    // p . v: key n-tile nt as one k-step, its keys in the order 2t, 2t + 1
+    // (lane t's a0/a1 and a2/a3 columns) for P and V alike; V's rows past L
+    // read as zeros (P is 0 there). The parked chunks' P from the store, in
+    // a loop over their groups of n-tiles, the last chunk's from registers.
+    float o[kKS][4];
+#pragma unroll
+    for (int dn = 0; dn < kKS; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.0f;
+    // p.v over the group of kLoadGroup n-tiles from nt0, P of its n-tile n by p_of(n, p)
+    const auto pv_group = [&](int nt0, auto p_of) {
+      float x[kLoadGroup][2][V::kBlocks][V::kW];
+      const int sl = opaque(a.sl);
+#pragma unroll
+      for (int n = 0; n < kLoadGroup; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = 8 * (nt0 + n) + 2 * t + e;
+#pragma unroll
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+            tc::load_cols<V::kW, true>(x[n][e][hb], vp + key * sl + V::kW * g + 8 * V::kW * hb, key < a.L);
+          }
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kLoadGroup; ++n) {
+        float p[4];
+        p_of(n, p);
+        const uint32_t pa[4] = {held<A>(p[0]), held<A>(p[2]), held<A>(p[1]), held<A>(p[3])};
+#pragma unroll
+        for (int hb = 0; hb < V::kBlocks; ++hb) {
+#pragma unroll
+          for (int dd = 0; dd < V::kW; ++dd) {
+            mma_split<A>(o[V::kW * hb + dd], pa, held<A>(x[n][0][hb][dd]), held<A>(x[n][1][hb][dd]));
+          }
+        }
+      }
+      __syncwarp();  // group by group
+    };
+#pragma unroll 1
+    for (int nt0 = 0; nt0 < kParked; nt0 += kLoadGroup) {
+      pv_group(nt0, [&](int n, float (&p)[4]) {
+        load2(p, nt0 + n);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = exp2f(p[i] - mx[i / 2]) * inv[i / 2];
+      });
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < kChunkNT; n0 += kLoadGroup) {
+      pv_group(kParked + n0, [&](int n, float (&p)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = s[n0 + n][i] * inv[i / 2];
+      });
+    }
+    const float one[2] = {1.0f, 1.0f};  // P was normalised
+    tc::store_rows<D, A>(a, n, l0, o, one, g, t);
+  }
+}
+
+}  // namespace rs
+
+// KEYS 64 or 128: the resident design for L <= KEYS; KEYS 0: the chunked one.
+template <int D, Arith A, int KEYS>
+__device__ __forceinline__ void tc_attention(const Args& a) {
+  if constexpr (KEYS > 0) {
+    rs::attention<D, A, KEYS>(a);
+  } else {
+    tc::attention<D, A>(a);
+  }
+}
+
+static_assert(rs::kThreads == tc::kThreads, "both designs run blocks of 16 warps");
+
+// One __global__ function per arithmetic, named as ops/attention.py's
+// CudaLibrary.kernel_name names the instance.
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_tf32_kernel(const Args a) {
+  tc_attention<D, Arith::TF32, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16_kernel(const Args a) {
+  tc_attention<D, Arith::BF16, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_tf32x3_kernel(const Args a) {
+  tc_attention<D, Arith::TF32x3, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x3_kernel(const Args a) {
+  tc_attention<D, Arith::BF16x3, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x6_kernel(const Args a) {
+  tc_attention<D, Arith::BF16x6, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16x9_kernel(const Args a) {
+  tc_attention<D, Arith::BF16x9, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_f16_kernel(const Args a) {
+  tc_attention<D, Arith::F16, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_f16f16_kernel(const Args a) {
+  tc_attention<D, Arith::F16F16, KEYS>(a);
+}
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16bf16_kernel(const Args a) {
+  tc_attention<D, Arith::BF16BF16, KEYS>(a);
+}
+
+// The f64 instance: device.cuh's float64 design, the relative term from e_lr
+template <int D>
+__global__ void __launch_bounds__(f64::kThreads, f64::kBlocks<D>) gathered_attention_f64_kernel(const f64::Args a) {
+  f64::attention<D, true, false>(a);
+}
+
+template <Arith A, int D, int KEYS>
+constexpr auto tc_kernel() {
+  if constexpr (A == Arith::TF32) {
+    return &gathered_attention_tf32_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::BF16) {
+    return &gathered_attention_bf16_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::TF32x3) {
+    return &gathered_attention_tf32x3_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::BF16x3) {
+    return &gathered_attention_bf16x3_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::BF16x6) {
+    return &gathered_attention_bf16x6_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::BF16x9) {
+    return &gathered_attention_bf16x9_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::F16) {
+    return &gathered_attention_f16_kernel<D, KEYS>;
+  } else if constexpr (A == Arith::F16F16) {
+    return &gathered_attention_f16f16_kernel<D, KEYS>;
+  } else {
+    static_assert(A == Arith::BF16BF16, "a tensor-core arithmetic");
+    return &gathered_attention_bf16bf16_kernel<D, KEYS>;
+  }
+}
+
+// The resident design: persistent blocks, one per SM, walking
+// ceil(BH / 16) x n_tiles items.
+template <int D, Arith A, int KEYS>
+cudaError_t launch_resident(Args a, int device, cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
-  const auto kernel = tc_kernel<A, D, HAS_REL>();
-  const size_t smem = sizeof(float) * tc::Smem<D, HAS_REL, A>::kFloats;
+  const auto kernel = tc_kernel<A, D, KEYS>();
+  const size_t smem = sizeof(float) * rs::Smem<D, KEYS>::kFloats;
+  cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
+  if (err != cudaSuccess) return err;
+  const long long items = (a.BH + rs::kPairs - 1) / rs::kPairs * a.n_tiles;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  a.n_items = static_cast<int>(items);
+  int sms = 0;
+  if ((err = attn::sm_count(device, &sms)) != cudaSuccess) return err;
+  const int blocks = a.n_items < sms ? a.n_items : sms;
+  kernel<<<blocks, rs::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int D, Arith A>
+cudaError_t launch_tc(Args a, int device, cudaStream_t stream) {
+  // the resident design up to L = 128 at D <= 32 for the single-rounding
+  // instances; the chunked one for the multi-pass instances, longer
+  // sequences and D = 64 (no shipped configuration)
+  if constexpr (D <= 32 && kParts<A> == 1) {
+    if (a.L <= rs::kMaxL) {
+      return a.L <= rs::kMaxL / 2 ? launch_resident<D, A, rs::kMaxL / 2>(a, device, stream)
+                                  : launch_resident<D, A, rs::kMaxL>(a, device, stream);
+    }
+  }
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const auto kernel = tc_kernel<A, D, 0>();
+  const size_t smem = sizeof(float) * tc::Smem<D, A>::kFloats;
   const cudaError_t err =
       attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
   if (err != cudaSuccess) return err;
-  tc::Args a{q, k, v, bias, e_lr, out, H, L, static_cast<long long>(B) * H, (L + tc::kRows - 1) / tc::kRows,
-             kLog2e / sqrtf(static_cast<float>(D))};
   const long long blocks = a.n_tiles * ((a.BH + tc::kPairs - 1) / tc::kPairs);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned>(blocks), tc::kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// The f64 instance over contiguous (B, H, L, D) q, k, v and out.
-template <int D, bool HAS_REL>
-cudaError_t launch_f64(const float* q, const float* k, const float* v, const float* bias,
-                       const float* e_lr, float* out, int B, int H, int L, int device, cudaStream_t stream) {
+// The f64 instance over (B, H, L, D) views: out is the (B, L, H, D) buffer.
+template <int D>
+cudaError_t launch_f64(const Args& a, int device, cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
   const size_t smem = sizeof(double) * f64::Smem<D, false>::kDoubles;
   const cudaError_t err = attn::opt_in_smem(
-      reinterpret_cast<const void*>(&gathered_attention_f64_kernel<D, HAS_REL>), granted, device, smem);
+      reinterpret_cast<const void*>(&gathered_attention_f64_kernel<D>), granted, device, smem);
   if (err != cudaSuccess) return err;
-  const long long bh = static_cast<long long>(B) * H, head = static_cast<long long>(L) * D;
-  const f64::Args a{q, k, v, bias, e_lr, out, H * head, head, D, H * head, head, D,
-                    H, L, 0, bh, (L + f64::kRows - 1) / f64::kRows, kLog2e / sqrtf(static_cast<float>(D))};
-  const long long blocks = a.n_tiles * ((bh + f64::kPairs - 1) / f64::kPairs);
+  const f64::Args f{a.q, a.k, a.v, a.bias, a.e_lr, a.out, a.sb, a.sh, static_cast<long long>(a.sl),
+                    static_cast<long long>(a.L) * a.H * D, D, static_cast<long long>(a.H) * D,
+                    a.H, a.L, 0, a.BH, (a.L + f64::kRows - 1) / f64::kRows, a.scale2};
+  const long long blocks = f.n_tiles * ((a.BH + f64::kPairs - 1) / f64::kPairs);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gathered_attention_f64_kernel<D, HAS_REL><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(a);
+  gathered_attention_f64_kernel<D><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(f);
   return cudaGetLastError();
 }
 
 // instance: 0 FMA, 1 TF32, 2 bf16, 3 TF32x3, 4 bf16x3, 5 bf16x6, 6 bf16x9,
 // 7 f64, 8 f16, 9 f16f16, 10 bf16bf16 (see the note at the top)
-template <int D, bool HAS_REL>
-cudaError_t dispatch_instance(const float* q, const float* k, const float* v, const float* bias,
-                              const float* e_lr, float* out, int B, int H, int L, int instance,
-                              int device, cudaStream_t stream) {
-#define GATHERED_ARGS q, k, v, bias, e_lr, out, B, H, L, device, stream
-  switch (instance) {
-    case 0: if constexpr (kBuiltInstance<0>) return launch<D, HAS_REL>(GATHERED_ARGS); break;
-    case 1: if constexpr (kBuiltInstance<1>) return launch_tc<D, HAS_REL, Arith::TF32>(GATHERED_ARGS); break;
-    case 2: if constexpr (kBuiltInstance<2>) return launch_tc<D, HAS_REL, Arith::BF16>(GATHERED_ARGS); break;
-    case 3: if constexpr (kBuiltInstance<3>) return launch_tc<D, HAS_REL, Arith::TF32x3>(GATHERED_ARGS); break;
-    case 4: if constexpr (kBuiltInstance<4>) return launch_tc<D, HAS_REL, Arith::BF16x3>(GATHERED_ARGS); break;
-    case 5: if constexpr (kBuiltInstance<5>) return launch_tc<D, HAS_REL, Arith::BF16x6>(GATHERED_ARGS); break;
-    case 6: if constexpr (kBuiltInstance<6>) return launch_tc<D, HAS_REL, Arith::BF16x9>(GATHERED_ARGS); break;
-    case 7: if constexpr (kBuiltInstance<7>) return launch_f64<D, HAS_REL>(GATHERED_ARGS); break;
-    case 8: if constexpr (kBuiltInstance<8>) return launch_tc<D, HAS_REL, Arith::F16>(GATHERED_ARGS); break;
-    case 9: if constexpr (kBuiltInstance<9>) return launch_tc<D, HAS_REL, Arith::F16F16>(GATHERED_ARGS); break;
-    case 10: if constexpr (kBuiltInstance<10>) return launch_tc<D, HAS_REL, Arith::BF16BF16>(GATHERED_ARGS); break;
-    default: break;
-  }
-#undef GATHERED_ARGS
-  return cudaErrorInvalidValue;  // not an instance of this library's part (launch.cuh)
-}
-
 template <int D>
-cudaError_t dispatch_rel(const float* q, const float* k, const float* v, const float* bias,
-                         const float* e_lr, float* out, int B, int H, int L, int has_rel,
-                         int instance, int device, cudaStream_t stream) {
+cudaError_t dispatch_instance(const Args& a, int instance, int device, cudaStream_t s) {
   if constexpr (!kBuiltHeadDim<D>) {
     return cudaErrorInvalidValue;  // not a head size of this library's part (launch.cuh)
   } else {
-    return has_rel
-               ? dispatch_instance<D, true>(q, k, v, bias, e_lr, out, B, H, L, instance, device, stream)
-               : dispatch_instance<D, false>(q, k, v, bias, e_lr, out, B, H, L, instance, device, stream);
-  }
-}
-
-cudaError_t dispatch(const float* q, const float* k, const float* v, const float* bias,
-                     const float* e_lr, float* out, int B, int H, int L, int D, int has_rel,
-                     int instance, int device, cudaStream_t s) {
-  switch (D) {
-    case 16: return dispatch_rel<16>(q, k, v, bias, e_lr, out, B, H, L, has_rel, instance, device, s);
-    case 32: return dispatch_rel<32>(q, k, v, bias, e_lr, out, B, H, L, has_rel, instance, device, s);
-    case 64: return dispatch_rel<64>(q, k, v, bias, e_lr, out, B, H, L, has_rel, instance, device, s);
-    default: return cudaErrorInvalidValue;
+    switch (instance) {
+      case 0: if constexpr (kBuiltInstance<0>) return launch<D>(a, device, s); break;
+      case 1: if constexpr (kBuiltInstance<1>) return launch_tc<D, Arith::TF32>(a, device, s); break;
+      case 2: if constexpr (kBuiltInstance<2>) return launch_tc<D, Arith::BF16>(a, device, s); break;
+      case 3: if constexpr (kBuiltInstance<3>) return launch_tc<D, Arith::TF32x3>(a, device, s); break;
+      case 4: if constexpr (kBuiltInstance<4>) return launch_tc<D, Arith::BF16x3>(a, device, s); break;
+      case 5: if constexpr (kBuiltInstance<5>) return launch_tc<D, Arith::BF16x6>(a, device, s); break;
+      case 6: if constexpr (kBuiltInstance<6>) return launch_tc<D, Arith::BF16x9>(a, device, s); break;
+      case 7: if constexpr (kBuiltInstance<7>) return launch_f64<D>(a, device, s); break;
+      case 8: if constexpr (kBuiltInstance<8>) return launch_tc<D, Arith::F16>(a, device, s); break;
+      case 9: if constexpr (kBuiltInstance<9>) return launch_tc<D, Arith::F16F16>(a, device, s); break;
+      case 10: if constexpr (kBuiltInstance<10>) return launch_tc<D, Arith::BF16BF16>(a, device, s); break;
+      default: break;
+    }
+    return cudaErrorInvalidValue;  // not an instance of this library's part (launch.cuh)
   }
 }
 
 }  // namespace
 
-// `e_lr` is the contiguous (L, L, D) tensor, or null when has_rel is 0; q, k,
-// v and e_lr are 16-byte aligned. `instance` picks the arithmetic: 0 FMA,
-// 1 TF32, 2 bf16, 3-6 the multi-pass presets TF32x3, bf16x3, bf16x6, bf16x9,
-// 7 f64, 8-10 the 16-bit presets f16, f16f16, bf16bf16. `device` is the
-// index of the device that holds the tensors and `stream`.
+// q, k, v: (B, H, L, D) float32 views that share the (batch, head, row)
+// strides sb, sh, sl in floats (the last dimension has stride 1), every row
+// 16-byte aligned. out: a contiguous (B, L, H, D) buffer. e_lr: the
+// contiguous (L, L, D) tensor, 16-byte aligned. `instance` picks the
+// arithmetic: 0 FMA, 1 TF32, 2 bf16, 3-6 the multi-pass presets TF32x3,
+// bf16x3, bf16x6, bf16x9, 7 f64, 8-10 the 16-bit presets f16, f16f16,
+// bf16bf16. `device` is the index of the device that holds the tensors and
+// `stream`.
 extern "C" int gathered_attention_forward(const float* q, const float* k, const float* v,
                                           const float* bias, const float* e_lr, float* out,
-                                          int B, int H, int L, int D, int has_rel, int instance,
-                                          int device, void* stream) {
+                                          long long sb, long long sh, long long sl, int B, int H, int L,
+                                          int D, int instance, int device, void* stream) {
+  Args a{};
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = bias;
+  a.e_lr = e_lr;
+  a.out = out;
+  a.sb = sb;
+  a.sh = sh;
+  a.sl = static_cast<int>(sl);
+  a.H = H;
+  a.L = L;
+  a.BH = static_cast<long long>(B) * H;
+  a.n_tiles = (L + kRows - 1) / kRows;
+  a.scale2 = kLog2e / sqrtf(static_cast<float>(D));
   return attn::on_device(device, [&] {
-    return dispatch(q, k, v, bias, e_lr, out, B, H, L, D, has_rel, instance, device,
-                    static_cast<cudaStream_t>(stream));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (D) {
+      case 16: return dispatch_instance<16>(a, instance, device, s);
+      case 32: return dispatch_instance<32>(a, instance, device, s);
+      case 64: return dispatch_instance<64>(a, instance, device, s);
+      default: return cudaErrorInvalidValue;
+    }
   });
 }
 

@@ -140,13 +140,14 @@ class SelfAttention(nn.Module):
         positions it names, needed by the "v1" and "plain" entries."""
         b, l, _ = hidden.shape
 
-        def heads(x):  # (B, L, H*D) -> (B, H, L, D); the v2 kernel reads this view as it is
+        def heads(x):  # (B, L, H*D) -> (B, H, L, D); both kernels read this view as it is
             x = x.view(b, l, self.n_heads, self.head_size).transpose(1, 2)
-            return x if route == "v2" else x.contiguous()
+            return x if route in ("v2", "v1") else x.contiguous()
 
         q, k, v = heads(self.query(hidden)), heads(self.key(hidden)), heads(self.value(hidden))
         table = self.distance_embedding.weight if self.distance_embedding is not None else None
-        if route == "v2":  # returns a view of a (B, L, H, D) buffer: the reshape below copies nothing
+        # each kernel returns a view of a (B, L, H, D) buffer: the reshape below copies nothing
+        if route == "v2":
             ctx = fused_attention_v2(q, k, v, attn_bias, rel_table=table,
                                      m=self.max_pos if table is not None else None, mode=self.mode)
         else:

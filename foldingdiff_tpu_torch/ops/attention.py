@@ -3,13 +3,16 @@ Fused BERT attention (counterpart of foldingdiff_tpu/ops/pallas_attention.py).
 
 Two entries, as in the JAX package, each with a plain PyTorch version beside it:
 - `fused_attention_v2` (the raw (2M-1, D) `relative_key` table, arange
-  positions) launches the CUDA kernel of csrc/rel_attention.cu, which reads
-  q, k and v in the projections' layout (strided (B, H, L, D) views of
-  (B, L, H, D) storage) and returns such a view; `fused_attention_v2_reference`
-  is its plain version.
+  positions) launches the CUDA kernel of csrc/rel_attention.cu;
+  `fused_attention_v2_reference` is its plain version.
 - `fused_attention` (any gathered (L, L, D) tensor e_lr) launches the CUDA
-  kernel of csrc/gathered_attention.cu; `fused_attention_reference` is its
-  plain version, the einsums of the JAX package's attention_reference.
+  kernel of csrc/gathered_attention.cu; without e_lr it launches the v2
+  kernel's rel-off instance of the same mode, which computes the same
+  function (the JAX package's _attn_kernel and _attn_kernel_v2 do too).
+  `fused_attention_reference` is its plain version, the einsums of the JAX
+  package's attention_reference.
+Both kernels read q, k and v in the projections' layout (strided (B, H, L, D)
+views of (B, L, H, D) storage) and return such a view.
 
 Each entry launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors. There is no fallback: a CUDA tensor the kernel does not take
@@ -20,19 +23,26 @@ precision.KERNEL_MODES), resolved on the host at the call by
 precision.kernel_mode, and launches the kernel's instance that computes the
 products of the JAX model's einsums in that mode:
 
-| kernel mode | v2 instance (rel_attention.cu) | v1 instance (gathered_attention.cu) |
+| kernel mode | v2 instance (rel_attention.cu) | v1 instance (gathered_attention.cu), and its body |
 | --- | --- | --- |
 | "ieee" | "fma": float32 FMA | "fma": float32 FMA |
-| "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores |
-| "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores |
-| "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same |
-| "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same |
-| "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same |
-| "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same |
+| "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores; resident |
+| "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores; resident |
+| "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same; chunked |
+| "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same; chunked |
+| "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; chunked |
+| "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same; chunked |
 | "f64" | "f64": float64 FMA on the CUDA cores, each dot's output rounded to float32 | "f64": the same |
-| "f16" | "f16": f16 values on TF32 tensor cores | "f16": the same |
-| "f16f16" | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16 | "f16f16": the same |
-| "bf16bf16" | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16 | "bf16bf16": the same |
+| "f16" | "f16": f16 values on TF32 tensor cores | "f16": the same; resident |
+| "f16f16" | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16 | "f16f16": the same; resident |
+| "bf16bf16" | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16 | "bf16bf16": the same; resident |
+
+The v1 tensor-core instances run one of two bodies (csrc/gathered_attention.cu's
+note): "resident" (persistent blocks, one pass over the keys, every row's
+maximum and sum over all keys before P is rounded) at L <= 128 and D <= 32,
+"chunked" (32-key chunks, a first pass over the keys for the row statistics
+where P is rounded or split) beyond, and for the multi-pass instances at
+every length. Without e_lr, v1 runs the v2 column's instance.
 
 The plain versions compute every product as precision.einsum does in the
 mode: the preset's products of parts under "bf16", the 16-bit modes and the
@@ -56,6 +66,9 @@ of several sources at once, one nvcc each.
 kernel's launches, so a run can show which kernel it went through,
 `.rel_off_launches` the launches without relative scores and
 `.launches_by_instance` those of each instance; nothing else changes them.
+`fused_attention` without e_lr counts on REL_ATTENTION (its
+`rel_off_launches`), whose kernel it launches: GATHERED_ATTENTION counts
+only launches with relative scores.
 """
 from __future__ import annotations
 
@@ -174,8 +187,9 @@ _NEW_PARTS = [(_WIDE_AND_16[:2], HEAD_DIMS), (_WIDE_AND_16[2:], HEAD_DIMS)]
 REL_ATTENTION = CudaLibrary(
     "rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6, INSTANCES,
     [(_SINGLE, HEAD_DIMS), *_NEW_PARTS] + [((i,), dims) for i in _MULTI_PASS for dims in ((32,), (16, 64))])
-# (q, k, v, bias, e_lr, out, B, H, L, D, has_rel), then the instance, device and stream
-GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [_int] * 5, INSTANCES,
+# (q, k, v, bias, e_lr, out, batch, head and row strides of q, k and v, B, H, L, D), then the instance, device
+# and stream
+GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 4, INSTANCES,
                                  [(_SINGLE, HEAD_DIMS), *_NEW_PARTS, (_MULTI_PASS[:2], HEAD_DIMS),
                                   (_MULTI_PASS[2:], HEAD_DIMS)])
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
@@ -236,31 +250,50 @@ def fused_attention(
     each product in `mode` (the module docstring's table). Forward only: the
     kernel records no autograd graph.
 
-    The kernel reads e_lr contiguous, as the denoiser's gather writes it; a
-    view in another layout is copied here first.
+    The kernel reads q, k and v in any layout whose last dimension has
+    stride 1 and whose rows start on 16 bytes, such as the
+    `.view(B, L, H, D).transpose(1, 2)` of the projections, and returns a
+    (B, H, L, D) view of a contiguous (B, L, H, D) buffer, as
+    fused_attention_v2 does. It reads e_lr contiguous, as the denoiser's
+    gather writes it; a view in another layout is copied here first.
+    Without e_lr this is fused_attention_v2 without a table: the v2 kernel's
+    rel-off instance, counted on REL_ATTENTION.
     """
     kernel_mode = precision.kernel_mode(mode)
     if q.device.type == "cpu":
         return fused_attention_reference(q, k, v, mask_bias, e_lr, mode=kernel_mode)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention takes CPU or CUDA tensors, got {q.device}")
-    b, h, l, d = _check_inputs(q, k, v, mask_bias)
-    if e_lr is not None:
-        if e_lr.shape != (l, l, d):
-            raise ValueError(f"e_lr must be {(l, l, d)}, got {tuple(e_lr.shape)}")
-        _check_tensor("e_lr", e_lr, q.device)
-        e_lr = e_lr.contiguous()
-    for name, t in {"q": q, "k": k, "v": v, "e_lr": e_lr}.items():
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary (the kernel copies it in 16-byte pieces)")
-    out = torch.empty_like(q)
+    if e_lr is None:
+        return fused_attention_v2(q, k, v, mask_bias, mode=mode)
+    b, h, l, d, e_lr = _check_gathered_inputs(q, k, v, mask_bias, e_lr)
+    out = torch.empty(b, l, h, d, device=q.device)
+    sb, sh, sl, _ = q.stride()
     GATHERED_ATTENTION.launch(
-        f"B={b} H={h} L={l} D={d}", e_lr is not None, V1_INSTANCES[kernel_mode], q.device, d,
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(),
-        e_lr.data_ptr() if e_lr is not None else None, out.data_ptr(),
-        b, h, l, d, int(e_lr is not None),
+        f"B={b} H={h} L={l} D={d}", True, V1_INSTANCES[kernel_mode], q.device, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_bias.data_ptr(), e_lr.data_ptr(), out.data_ptr(),
+        sb, sh, sl, b, h, l, d,
     )
-    return out
+    return out.transpose(1, 2)
+
+
+def _check_gathered_inputs(q, k, v, mask_bias, e_lr):
+    """The v1 kernel's host-side checks: _check_inputs' (strided q, k and v)
+    and e_lr's device, dtype and (L, L, D) shape; returns (B, H, L, D) and
+    e_lr contiguous (a view in another layout copied), 16-byte aligned."""
+    b, h, l, d = _check_inputs(q, k, v, mask_bias)
+    if e_lr.shape != (l, l, d):
+        raise ValueError(f"e_lr must be {(l, l, d)}, got {tuple(e_lr.shape)}")
+    _check_tensor("e_lr", e_lr, q.device)
+    e_lr = e_lr.contiguous()
+    if e_lr.data_ptr() % 16:
+        raise ValueError("e_lr must start on a 16-byte boundary (the kernel copies it in 16-byte pieces)")
+    if b * h * -(-l // 16) > 2**31 - 1:
+        raise ValueError(f"B={b} H={h} L={l} exceeds the kernel's grid limit of 2^31 - 1 blocks")
+    if q.stride(2) * l > 2**31 - 1:
+        raise ValueError(f"a row stride of {q.stride(2)} floats over L={l} rows exceeds the kernel's 32-bit "
+                         "row offsets")
+    return b, h, l, d, e_lr
 
 
 def fused_attention_v2_reference(
@@ -308,7 +341,7 @@ def fused_attention_v2(
         return fused_attention_v2_reference(q, k, v, mask_bias, rel_table, m, kernel_mode)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention_v2 takes CPU or CUDA tensors, got {q.device}")
-    b, h, l, d = _check_inputs(q, k, v, mask_bias, strided=True)
+    b, h, l, d = _check_inputs(q, k, v, mask_bias)
     has_rel = rel_table is not None
     if has_rel:
         _check_tensor("rel_table", rel_table, q.device)
@@ -340,17 +373,16 @@ def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise RuntimeError("the attention kernels are forward-only; call them under torch.inference_mode()")
 
 
-def _check_inputs(q, k, v, mask_bias, strided: bool = False):
+def _check_inputs(q, k, v, mask_bias):
     """Checks shared by both kernels: device, dtype, layout and shapes of q,
-    k, v and the bias, and the head size. The v1 kernel takes contiguous q,
-    k, v. With `strided` (the v2 kernel) q, k and v share any strides whose
-    last is 1 and whose rows start on 16 bytes. Kept lean: the sampler's
-    small chunks are bound by the host."""
+    k, v and the bias, and the head size. q, k and v share any strides whose
+    last is 1 and whose rows start on 16 bytes; the bias is contiguous. Kept
+    lean: the sampler's small chunks are bound by the host."""
     device = q.device
     for name, t in (("q", q), ("k", k), ("v", v), ("mask_bias", mask_bias)):
         _check_tensor(name, t, device)
-        if (t is mask_bias or not strided) and not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    if not mask_bias.is_contiguous():
+        raise ValueError("mask_bias must be contiguous")
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, L, D), got {tuple(q.shape)}")
     shape = q.shape
@@ -361,8 +393,6 @@ def _check_inputs(q, k, v, mask_bias, strided: bool = False):
         raise ValueError(f"mask_bias must be {(b, l)}, got {tuple(mask_bias.shape)}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head size {d} not in the kernel's {HEAD_DIMS}")
-    if not strided:
-        return b, h, l, d
     st = q.stride()
     if k.stride() != st or v.stride() != st:
         raise ValueError(f"q, k and v must share strides, got {st} {k.stride()} {v.stride()}")

@@ -8,27 +8,45 @@ process each) into foldingdiff_tpu_torch/_build/variants/, checked against
 the plain PyTorch version in each instance's mode, and timed with the final
 source and the FMA instance in the same run.
 
-Variants:
-  final             the source as it is: chunks of 32 keys (16 at D = 64)
-  keys-16           chunks of 16 keys at D <= 32
-  keys-64           chunks of 64 keys at D <= 32
-  d64-keys-8        chunks of 8 keys at D = 64
-  d64-keys-32       chunks of 32 keys at D = 64
-(those on the TF32 and bf16 instances) and, on the multi-pass instances
-(tf32x3, bf16x3, bf16x6, bf16x9),
+Variants of the resident design (the TF32, bf16 and 16-bit instances at
+L <= 128, D <= 32; timed on those five):
+  final             the source as it is: one block of 16 pairs per SM, K's
+                    and V's loads four n-tiles at a time, e_lr's four,
+                    scores held 64 keys at a time
+  load-group-1,     K's and V's loads one or two n-tiles at a time instead
+  load-group-2      of four
+  rel-group-8       e_lr's loads eight n-tiles at a time instead of four
+  chunk-32          scores held in registers 32 keys at a time instead of
+                    64 (the earlier chunks parked in shared memory)
+Variants of the chunked design (the multi-pass instances everywhere, the
+others at L > 128 or D = 64):
+  keys-16, keys-64  chunks of 16 or 64 keys at D <= 32 (the multi-pass
+                    instances)
+  d64-keys-8,       chunks of 8 or 32 keys at D = 64 (checked at D = 64,
+  d64-keys-32       timed on TF32 and bf16)
   parts-group-1     no interleaving: one n-tile's products at a time
   parts-group-2     the products of two n-tiles interleaved instead of four
+                    (these two on the multi-pass instances)
+  hide-k-strides,   K's (and e_lr's) or V's row stride hidden from the
+  hide-v-strides    optimiser for every multi-pass instance, not bf16x9's
+                    and TF32x3's (K) or bf16x9's (V) alone
+  k-lane-offset,    K's row addresses in the split-once instances as a
+  k-wide, k-ldg     per-chunk base and a 32-bit lane offset, as 64-bit
+                    products, or through __ldg instead of plain loads
+  v-rows            V's four row pointers a lane reads per 16 keys taken
+                    once per chunk and advanced by 16 rows
 
 A substitution whose text is no longer in the source stops the run with an
-error naming the variant. The inputs, the checks (chip_smoke.check_instance)
-and the timing (a CUDA graph of 50 calls, the variants taken in turns,
-forwards then backwards) are chip_smoke.py's.
+error naming the variant. The inputs (q, k and v as the projections'
+(B, L, H, D) views, as the denoiser hands them over), the checks
+(chip_smoke.check_instance) and the timing (a CUDA graph of 50 calls, the
+variants taken in turns, forwards then backwards) are chip_smoke.py's.
 
 Prints, per variant, ptxas's register and spill report, the checks, and
-device times of the variants' instances with and without relative scores
-at H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), beside the FMA
-instance, with the card's name and power limit. The last line is a JSON
-object of the times.
+device times of the variants' instances with relative scores at H = 12,
+D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), beside the FMA instance,
+with the card's name and power limit. The last line is a JSON object of the
+times.
 
 Usage: python3 scripts/gathered_attention_variants.py [VARIANT ...]   (all by default)
 """
@@ -49,8 +67,30 @@ from foldingdiff_tpu_torch.ops import attention  # noqa: E402
 from rel_attention_variants import build_and_report, variant_libraries  # noqa: E402
 
 KEYS = "static constexpr int kKeys = D <= 32 ? 32 : 16;"
+K_PRODUCTS = "  products<A, G, D / 16>(c, a, [&](int kc, int n, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {"
+K_LOAD = "*reinterpret_cast<const float4*>(base + row * st + 16 * kc + 4 * t)"
+V_CHUNK = "for (int kc = 0; kc < kNT / 2; ++kc) {\n"
+V_LOAD = "load_cols(x[r], v0 + dr * sl + 8 * V::kW * hb, key + dr < keys);"
 SUBSTITUTIONS = {
     "final": [],
+    "load-group-1": [("constexpr int kLoadGroup = 4;", "constexpr int kLoadGroup = 1;")],
+    "load-group-2": [("constexpr int kLoadGroup = 4;", "constexpr int kLoadGroup = 2;")],
+    "rel-group-8": [("constexpr int kRelGroup = 4;", "constexpr int kRelGroup = 8;")],
+    "chunk-32": [("constexpr int kChunkNT = 8;", "constexpr int kChunkNT = 4;")],
+    "hide-k-strides": [("constexpr bool kHideKStride = A == Arith::BF16x9 || A == Arith::TF32x3;",
+                        "constexpr bool kHideKStride = kParts<A> > 1;")],
+    "hide-v-strides": [("constexpr bool kHideVStride = A == Arith::BF16x9;", "constexpr bool kHideVStride = kParts<A> > 1;")],
+    "k-lane-offset": [(K_PRODUCTS, "  const int st0 = kHideKStride<A> ? opaque(stride) : stride;\n"
+                                   "  const float* kb = base + j0 * st0;\n"
+                                   "  const int lo = g * st0 + 4 * t;\n" + K_PRODUCTS),
+                      (K_LOAD, "*reinterpret_cast<const float4*>(kb + (lo + 8 * n * st0) + 16 * kc)")],
+    "k-wide": [(K_LOAD, "*reinterpret_cast<const float4*>(base + static_cast<long long>(row) * st + 16 * kc + 4 * t)")],
+    "k-ldg": [(K_LOAD, "__ldg(reinterpret_cast<const float4*>(base + row * st + 16 * kc + 4 * t))")],
+    "v-rows": [(V_CHUNK, "const int vsl = kHideVStride<A> ? opaque(a.sl) : a.sl;\n"
+                         "        const float* vr0 = vp + (j0 + 2 * t) * vsl + V::kW * g;\n"
+                         "        const float* vr[4] = {vr0, vr0 + vsl, vr0 + 8 * vsl, vr0 + 9 * vsl};\n"
+                         "        " + V_CHUNK),
+               (V_LOAD, "load_cols(x[r], vr[r] + kc * (16 * vsl) + 8 * V::kW * hb, key + dr < keys);")],
     "keys-16": [(KEYS, KEYS.replace("? 32 :", "? 16 :"))],
     "keys-64": [(KEYS, KEYS.replace("? 32 :", "? 64 :"))],
     "d64-keys-8": [(KEYS, KEYS.replace(": 16;", ": 8;"))],
@@ -58,15 +98,22 @@ SUBSTITUTIONS = {
     "parts-group-1": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 1;")],
     "parts-group-2": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 2;")],
 }
-SINGLE, MULTI_PASS = ("tf32", "bf16"), ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
+RESIDENT = ("tf32", "bf16", "f16", "f16f16", "bf16bf16")
+MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
 
 
 def modes_of(variant: str) -> tuple:
     """The instances a variant changes, and so is checked and timed on."""
-    return (*SINGLE, *MULTI_PASS) if variant == "final" else MULTI_PASS if variant.startswith("parts-") else SINGLE
+    if variant == "final":
+        return (*RESIDENT, *MULTI_PASS)
+    if variant.startswith(("parts-", "keys-", "hide-", "k-", "v-")):
+        return MULTI_PASS
+    return ("tf32", "bf16") if variant.startswith("d64-") else RESIDENT
+
+
 TIMED = [(64, 128), (64, 64), (15, 64)]  # (B, L) at H = 12, D = 32, M = 128
 CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (3, 5, 99, 64, 128),
-           (1, 2, 1000, 32, 1000)]
+           (5, 7, 65, 32, 128), (1, 2, 1000, 32, 1000)]
 
 
 def on(lib, fn):
@@ -75,6 +122,12 @@ def on(lib, fn):
         attention.GATHERED_ATTENTION = lib
         return fn()
     return run
+
+
+def projection_views(q, k, v) -> list:
+    """q, k, v (B, H, L, D) as the denoiser hands them over: views of
+    (B, L, H, D) storage."""
+    return [x.transpose(1, 2).contiguous().transpose(1, 2) for x in (q, k, v)]
 
 
 def plain(q, k, v, bias, e_lr):
@@ -97,29 +150,29 @@ def main() -> None:
                 attention.GATHERED_ATTENTION = lib
                 for b, h, l, d, m in CHECKED:
                     q, k, v, bias, table = chip_smoke.attention_inputs(b, h, l, d, m, seed=l + d)
-                    for e_lr in (chip_smoke.gathered(table, l, m, permuted=True), None):
-                        tf32_drift = None
-                        for mode in ("tf32", *modes_of(name)):  # TF32 first: the multi-pass gates take its drift
-                            _, drift = chip_smoke.check_instance(
-                                f"{name} B={b} H={h} L={l} D={d} rel={e_lr is not None} {mode}", mode,
-                                attention.fused_attention(q, k, v, bias, e_lr, mode=mode), plain(q, k, v, bias, e_lr),
-                                tf32_drift)
-                            tf32_drift = drift if mode == "tf32" else tf32_drift
+                    views = projection_views(q, k, v)
+                    e_lr = chip_smoke.gathered(table, l, m, permuted=True)
+                    tf32_drift = None
+                    for mode in dict.fromkeys(("tf32", *modes_of(name))):  # TF32 first: the multi-pass gates take its drift
+                        _, drift = chip_smoke.check_instance(
+                            f"{name} B={b} H={h} L={l} D={d} {mode}", mode,
+                            attention.fused_attention(*views, bias, e_lr, mode=mode), plain(q, k, v, bias, e_lr),
+                            tf32_drift)
+                        tf32_drift = drift if mode == "tf32" else tf32_drift
             for b, l in TIMED:
                 q, k, v, bias, table = chip_smoke.attention_inputs(b, 12, l, 32, 128, chip_smoke.SEED)
+                views = projection_views(q, k, v)
                 e_lr = chip_smoke.gathered(table, l, 128, permuted=False)
-                for rel in (True, False):
-                    e = e_lr if rel else None
-                    fns = {"fma": lambda: attention.fused_attention(q, k, v, bias, e, mode="ieee")}
-                    for name, lib in libs.items():
-                        for mode in modes_of(name):
-                            fns[f"{name} {mode}"] = on(lib, lambda mode=mode: attention.fused_attention(
-                                q, k, v, bias, e, mode=mode))
-                    key = f"B={b} L={l} {'rel' if rel else 'rel-off'}"
-                    results[key] = chip_smoke.in_turns({n: on(original, f) if n == "fma" else f
-                                                        for n, f in fns.items()})
-                    print(f"{key} on {card} (device ms): " + ", ".join(
-                        f"{name} {ms:.4f}" for name, ms in results[key].items()), flush=True)
+                fns = {"fma": lambda: attention.fused_attention(*views, bias, e_lr, mode="ieee")}
+                for name, lib in libs.items():
+                    for mode in modes_of(name):
+                        fns[f"{name} {mode}"] = on(lib, lambda mode=mode: attention.fused_attention(
+                            *views, bias, e_lr, mode=mode))
+                key = f"B={b} L={l} rel"
+                results[key] = chip_smoke.in_turns({n: on(original, f) if n == "fma" else f
+                                                    for n, f in fns.items()})
+                print(f"{key} on {card} (device ms): " + ", ".join(
+                    f"{name} {ms:.4f}" for name, ms in results[key].items()), flush=True)
     finally:
         attention.GATHERED_ATTENTION = original
     print(json.dumps({"card": card, "ms": results}))

@@ -139,8 +139,9 @@ def build_and_report(libs: dict, kernel: str) -> None:
         instance, spill = "?", "?"
         for line in report.splitlines():
             if "Function properties for" in line:
-                found = re.search(rf"\d({kernel}(?:_[a-z0-9]+)?_kernel)ILi(\d+)ELb(\d)E(?:Li(\d+)E)?", line)
-                instance = "?" if not found else "{} D={} rel={}".format(*found.groups()[:3]) + (
+                found = re.search(rf"\d({kernel}(?:_[a-z0-9]+)?_kernel)ILi(\d+)E(?:Lb(\d)E)?(?:Li(\d+)E)?", line)
+                instance = "?" if not found else "{} D={}".format(*found.groups()[:2]) + (
+                    f" rel={found.group(3)}" if found.group(3) else "") + (
                     f" keys={found.group(4)}" if found.group(4) else "")
             elif "spill stores" in line:
                 spill = re.search(r"(\d+) bytes spill stores", line).group(1)

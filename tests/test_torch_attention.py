@@ -91,22 +91,54 @@ def test_v2_layout_checks():
     q, k, v, bias, _ = _inputs(2, 3, 16, 32, 16, seed=10)
     views = _projection_views(q, k, v)
     bias = torch.from_numpy(bias)
-    assert attention._check_inputs(*views, bias, strided=True) == (2, 3, 16, 32)
-    with pytest.raises(ValueError, match="contiguous"):  # the v1 kernel takes contiguous q, k, v only
-        attention._check_inputs(*views, bias)
+    assert attention._check_inputs(*views, bias) == (2, 3, 16, 32)
+    assert attention._check_inputs(*map(torch.from_numpy, (q, k, v)), bias) == (2, 3, 16, 32)
     wide = torch.zeros(2, 3, 16, 64)[..., ::2]  # last-dimension stride 2
     with pytest.raises(ValueError, match="last-dimension stride of 1"):
-        attention._check_inputs(wide, wide, wide, bias, strided=True)
+        attention._check_inputs(wide, wide, wide, bias)
     with pytest.raises(ValueError, match="share strides"):
-        attention._check_inputs(wide, *views[1:], bias, strided=True)
+        attention._check_inputs(wide, *views[1:], bias)
     shifted = torch.zeros(2 * 16 * 3 * 32 + 1)[1:].view(2, 16, 3, 32).transpose(1, 2)  # 4 bytes off
     with pytest.raises(ValueError, match="16-byte"):
-        attention._check_inputs(views[0], shifted, views[2], bias, strided=True)
+        attention._check_inputs(views[0], shifted, views[2], bias)
     odd_rows = torch.zeros(2, 16, 3, 34)[..., :32].transpose(1, 2)  # rows 34 floats apart
     with pytest.raises(ValueError, match="16-byte"):
-        attention._check_inputs(odd_rows, odd_rows, odd_rows, bias, strided=True)
+        attention._check_inputs(odd_rows, odd_rows, odd_rows, bias)
     with pytest.raises(ValueError, match="mask_bias must be contiguous"):
-        attention._check_inputs(*views, torch.zeros(16, 2).t(), strided=True)
+        attention._check_inputs(*views, torch.zeros(16, 2).t())
+
+
+def test_v1_layout_checks():
+    """What the v1 kernel takes, checked on the host before any launch, as
+    v2's: the projections' strided views (or contiguous q, k, v) whose last
+    stride is 1 and whose rows start on 16 bytes, and e_lr (L, L, D) float32,
+    a view in another layout copied to the contiguous tensor the kernel
+    reads."""
+    q, k, v, bias, _ = _inputs(2, 3, 16, 32, 16, seed=11)
+    views = _projection_views(q, k, v)
+    bias = torch.from_numpy(bias)
+    e_lr = torch.from_numpy(_v1_inputs(11, b=2, h=3, l=16, d=32)[4])
+    b, h, l, d, got = attention._check_gathered_inputs(*views, bias, e_lr)
+    assert (b, h, l, d) == (2, 3, 16, 32) and got is e_lr
+    b, h, l, d, got = attention._check_gathered_inputs(*map(torch.from_numpy, (q, k, v)), bias, e_lr)
+    assert (b, h, l, d) == (2, 3, 16, 32) and got is e_lr
+    permuted = e_lr.permute(2, 1, 0).contiguous().permute(2, 1, 0)  # (L, L, D) view of a (D, L, L) tensor
+    got = attention._check_gathered_inputs(*views, bias, permuted)[4]
+    assert got.is_contiguous() and torch.equal(got, e_lr)
+    wide = torch.zeros(2, 3, 16, 64)[..., ::2]  # last-dimension stride 2
+    with pytest.raises(ValueError, match="last-dimension stride of 1"):
+        attention._check_gathered_inputs(wide, wide, wide, bias, e_lr)
+    with pytest.raises(ValueError, match="share strides"):
+        attention._check_gathered_inputs(views[0], torch.from_numpy(k), views[2], bias, e_lr)
+    shifted = torch.zeros(2 * 16 * 3 * 32 + 1)[1:].view(2, 16, 3, 32).transpose(1, 2)  # 4 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        attention._check_gathered_inputs(views[0], shifted, views[2], bias, e_lr)
+    with pytest.raises(ValueError, match="e_lr must be"):
+        attention._check_gathered_inputs(*views, bias, e_lr[:8])
+    with pytest.raises(TypeError, match="float32"):
+        attention._check_gathered_inputs(*views, bias, e_lr.double())
+    with pytest.raises(ValueError, match="head size"):
+        attention._check_gathered_inputs(*(x[..., :24] for x in views), bias, e_lr[..., :24])
 
 
 def _v1_inputs(seed, masked=True, b=4, h=6, l=64, d=16):
@@ -150,6 +182,29 @@ def test_v1_plain_matches_jax_pallas_and_reference(e_lr_kind, seed, masked):
                                      torch.from_numpy(e_lr) if e_lr is not None else None)
     np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), atol=1e-5)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("e_lr_kind,seed,masked", V1_CASES)
+def test_v1_on_projection_views_matches_jax_pallas(e_lr_kind, seed, masked):
+    """The "pallas" route's call on the CPU: the v1 entry on the
+    projections' (B, L, H, D) views, as the denoiser now hands them over,
+    against the JAX package's Pallas entry (interpret mode) on the same
+    numpy inputs; equal to the call on contiguous q, k, v."""
+    q, k, v, bias, e_lr = _v1_inputs(seed, masked)
+    if e_lr_kind == "permuted":
+        e_lr = _permuted_e_lr(64, 16, 64, seed)
+    elif e_lr_kind is None:
+        e_lr = None
+    with jax.default_matmul_precision("highest"):
+        pallas = jax_fused_attention(*[jnp.asarray(a) for a in (q, k, v, bias)],
+                                     jnp.asarray(e_lr) if e_lr is not None else None, interpret=True)
+    views = _projection_views(q, k, v)
+    assert not views[0].is_contiguous()
+    e = torch.from_numpy(e_lr) if e_lr is not None else None
+    ours = attention.fused_attention(*views, torch.from_numpy(bias), e)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(pallas), atol=1e-5)
+    contiguous = attention.fused_attention(*map(torch.from_numpy, (q, k, v, bias)), e)
+    torch.testing.assert_close(ours, contiguous, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("e_lr_kind,seed,masked", V1_CASES)

@@ -366,13 +366,16 @@ def test_gathered_kernel_matches_plain(device, b, h, l, d, m, e_lr_kind):
         e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(2), device=device) * 0.5
     else:
         e_lr = _e_lr(table, l, m, e_lr_kind) if e_lr_kind else None
+    # without e_lr the v1 entry launches the v2 kernel's rel-off instance, counted there
+    lib = attention.GATHERED_ATTENTION if e_lr is not None else attention.REL_ATTENTION
     with torch.inference_mode():
-        before = attention.GATHERED_ATTENTION.launches
+        before = lib.launches
         out = attention.fused_attention(q, k, v, bias, e_lr)
         torch.cuda.synchronize()
-        assert attention.GATHERED_ATTENTION.launches == before + 1
+        assert lib.launches == before + 1
         ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
     assert out.shape == q.shape and out.device == q.device
+    assert out.stride() == (l * h * d, d, h * d, 1)  # a view of a (B, L, H, D) buffer
     assert (out - ref).abs().max().item() <= 1e-4
 
 
@@ -399,36 +402,52 @@ def test_gathered_bf16_instance_matches_its_plain_version(device, b, h, l, d, m,
 
 def _gathered_instance_call(q, k, v, bias, e_lr, mode):
     """fused_attention in `mode`, which must launch V1_INSTANCES[mode] once
-    and no other instance."""
-    before = dict(attention.GATHERED_ATTENTION.launches_by_instance)
+    and no other instance; without e_lr the v2 kernel's V2_INSTANCES[mode],
+    its rel-off instance, and nothing of the v1 kernel."""
+    libs = (attention.GATHERED_ATTENTION, attention.REL_ATTENTION)
+    before = [dict(lib.launches_by_instance) for lib in libs]
+    rel_off = attention.REL_ATTENTION.rel_off_launches
     out = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
     torch.cuda.synchronize()
-    added = {i: n - before[i] for i, n in attention.GATHERED_ATTENTION.launches_by_instance.items()}
-    assert added == {i: int(i == attention.V1_INSTANCES[mode]) for i in added}
+    launched = libs[0] if e_lr is not None else libs[1]
+    want = attention.V1_INSTANCES[mode] if e_lr is not None else attention.V2_INSTANCES[mode]
+    for lib, was in zip(libs, before):
+        added = {i: n - was[i] for i, n in lib.launches_by_instance.items()}
+        assert added == {i: int(lib is launched and i == want) for i in added}
+    assert attention.REL_ATTENTION.rel_off_launches == rel_off + (e_lr is None)
+    b, h, l, d = q.shape
+    assert out.shape == q.shape and out.stride() == (l * h * d, d, h * d, 1)
     return out
 
 
-# (B, H, L, D) of the v1 kernel's edges: B * H = 15 and 3 leave the last group
-# of 8 pairs (16 in the tensor-core instances) ragged; L = 1, 33, 99, 127 end
-# inside a tile of 16 query rows and inside a chunk of keys; D = 16, 32, 64
-# (FMA chunks of 8, 4, 2 keys; on tensor cores 32, 32, 16); L = 1000 needs
-# more than the 227 KB of shared memory that K and V of one pair took in the
-# first design (2 L D + L floats)
-GATHERED_SHAPES = [(3, 5, 1, 32), (3, 5, 33, 16), (3, 5, 99, 64), (1, 3, 127, 32), (1, 2, 1000, 32)]
+# (B, H, L, D) of the v1 kernel's edges: B * H = 15, 3, 35, 33, 18 and 7
+# leave the last group of 8 pairs (16 in the tensor-core instances) ragged;
+# L = 1, 16, 17, 33, 63, 64, 65, 99, 127, 128 end at or inside a tile of 16
+# query rows and a chunk of keys, and on either side of the resident
+# design's two key counts (64, 128); L = 129 and 1000 run the chunked design
+# past them; D = 16, 32, 64 (FMA chunks of 8, 4, 2 keys; on tensor cores 32,
+# 32, 16; D = 64 on the chunked design); L = 1000 needs more than the 227 KB
+# of shared memory that K and V of one pair took in the first design
+# (2 L D + L floats)
+GATHERED_SHAPES = [(3, 5, 1, 32), (3, 5, 33, 16), (3, 5, 99, 64), (1, 3, 127, 32), (1, 2, 1000, 32),
+                   (5, 7, 16, 32), (5, 7, 17, 32), (3, 11, 63, 32), (3, 11, 64, 16), (3, 6, 65, 32),
+                   (1, 7, 128, 32), (1, 7, 129, 32)]
 
 
-@pytest.mark.parametrize("layout", ["contiguous", "permuted view"])
+@pytest.mark.parametrize("layout", ["contiguous", "permuted view", "projection views"])
 @pytest.mark.parametrize("b,h,l,d", GATHERED_SHAPES)
 def test_gathered_kernel_ragged_shapes_and_layouts(device, b, h, l, d, layout):
     """e_lr random (not Toeplitz), contiguous or a permuted view of a
-    (D, L_key, L_query) tensor, which the wrapper copies."""
+    (D, L_key, L_query) tensor, which the wrapper copies; or q, k and v as
+    the projections' (B, L, H, D) views, which the kernel reads as they are."""
     q, k, v, bias, _ = _inputs(device, b, h, l, d, l)
     e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(3), device=device) * 0.5
     if layout == "permuted view":
         e_lr = e_lr.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
     with torch.inference_mode():
         before = attention.GATHERED_ATTENTION.launches
-        out = attention.fused_attention(q, k, v, bias, e_lr)
+        out = attention.fused_attention(*qkv, bias, e_lr)
         torch.cuda.synchronize()
         assert attention.GATHERED_ATTENTION.launches == before + 1
         ref = attention.fused_attention_reference(q, k, v, bias, e_lr)
@@ -436,14 +455,19 @@ def test_gathered_kernel_ragged_shapes_and_layouts(device, b, h, l, d, layout):
     assert (out - ref).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("layout", ["contiguous", "projection views"])
 @pytest.mark.parametrize("mode", INSTANCE_MODES)
 @pytest.mark.parametrize("b,h,l,d", GATHERED_SHAPES)
-def test_gathered_tensor_core_instances_on_ragged_shapes(device, b, h, l, d, mode):
-    """The TF32 and bf16 instances at the v1 kernel's edges (a ragged group
-    of 16 pairs, L inside a tile of 16 rows and a chunk of keys, L = 1000
-    over 32 chunks, D = 16, 32, 64), e_lr random (not Toeplitz) and none."""
+def test_gathered_tensor_core_instances_on_ragged_shapes(device, b, h, l, d, mode, layout):
+    """Every instance at the v1 kernel's edges (GATHERED_SHAPES: ragged
+    groups of pairs, L inside a tile of 16 rows and a chunk of keys and on
+    either side of the resident design's limits, L = 1000 over 32 chunks,
+    D = 16, 32, 64), on contiguous q, k, v and on the projections' views,
+    e_lr random (not Toeplitz) and none (the v2 kernel's rel-off instance)."""
     q, k, v, bias, _ = _inputs(device, b, h, l, d, l, seed=13)
     e_lr = torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(4), device=device) * 0.5
+    if layout == "projection views":
+        q, k, v = _projection_views(q, k, v)
     with torch.inference_mode():
         for e in (e_lr, None):
             out = _gathered_instance_call(q, k, v, bias, e, mode)
@@ -452,10 +476,13 @@ def test_gathered_tensor_core_instances_on_ragged_shapes(device, b, h, l, d, mod
                 q, k, v, bias, e, mode=mode_))
 
 
+@pytest.mark.parametrize("l", [17, 65, 96, 128, 160])
 @pytest.mark.parametrize("mode", INSTANCE_MODES)
-def test_gathered_tensor_core_instances_ignore_masked_keys(device, mode):
-    q, k, v, bias, table = _inputs(device, 4, 6, 96, 32, 128, seed=1)
-    e_lr = _e_lr(table, 96, 128, "permuted")
+def test_gathered_tensor_core_instances_ignore_masked_keys(device, mode, l):
+    """e_lr from permuted positions (not Toeplitz), at lengths of both
+    tensor-core designs."""
+    q, k, v, bias, table = _inputs(device, 4, 6, l, 32, 256, seed=1)
+    e_lr = _e_lr(table, l, 256, "permuted")
     masked = (bias < -1.0)[:, None, :, None]
     with torch.inference_mode():
         out1 = attention.fused_attention(q, k, v, bias, e_lr, mode=mode)
@@ -539,8 +566,8 @@ def test_gathered_wrapper_rejects_what_the_kernel_does_not_take(device):
     with torch.inference_mode():
         with pytest.raises(TypeError, match="float32"):
             attention.fused_attention(q, k, v, bias, e_lr.double())
-        with pytest.raises(ValueError, match="contiguous"):
-            attention.fused_attention(q, k.transpose(1, 2), v, bias, e_lr)
+        with pytest.raises(ValueError, match="share strides"):
+            attention.fused_attention(q, _projection_views(q, k, v)[1], v, bias, e_lr)
         with pytest.raises(ValueError, match="head size"):
             attention.fused_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
                                       v[..., :24].contiguous(), bias)

@@ -118,9 +118,8 @@ def test_attention_impls_match_jax_einsum_path(jax_einsum_reference, position_em
 
 @pytest.mark.parametrize("attention_impl", ["auto", "pallas_v2", "pallas"])
 def test_kernel_routes_get_their_layouts_and_match_jax(jax_einsum_reference, monkeypatch, attention_impl):
-    """The v2 entry gets the projections' (B, L, H, D) views uncopied; the v1
-    entry gets contiguous (B, H, L, D) copies. Either way the model stays
-    within 1e-5 of the JAX einsum path."""
+    """Both kernel entries get the projections' (B, L, H, D) views uncopied,
+    and the model stays within 1e-5 of the JAX einsum path."""
     from foldingdiff_tpu_torch.models import bert
 
     seen = []
@@ -133,9 +132,8 @@ def test_kernel_routes_get_their_layouts_and_match_jax(jax_einsum_reference, mon
     model = _port_model(params, constants, "relative_key", attention_impl)
     np.testing.assert_allclose(_torch_forward(model, *inputs), ref, atol=1e-5)
     b, l, h, d = 3, 40, SMALL["num_attention_heads"], SMALL["hidden_size"] // SMALL["num_attention_heads"]
-    entry, strides = ("fused_attention", (h * l * d, l * d, d, 1)) if attention_impl == "pallas" else (
-        "fused_attention_v2", (l * h * d, d, h * d, 1))
-    assert seen == [(entry, [strides] * 3)] * SMALL["num_hidden_layers"]
+    entry = "fused_attention" if attention_impl == "pallas" else "fused_attention_v2"
+    assert seen == [(entry, [(l * h * d, d, h * d, 1)] * 3)] * SMALL["num_hidden_layers"]
 
 
 @pytest.mark.parametrize("attention_impl", ["auto", "pallas", "xla", "plain"])
