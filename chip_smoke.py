@@ -37,8 +37,9 @@ Phases, each printing lines of its own:
      not the split ones), all instances taken in turns in one call, at
      H = 12, D = 32 and (B, L) = (64, 128), (64, 64), (15, 64), each beside
      its bound: the larger of its FLOPs (times the instance's products of
-     parts) over the peak for its operands' type (67 TFLOP/s FMA, 34 float64
-     FMA for f64, 495 TF32 for tf32 and tf32x3, 989 bf16 or f16 for bf16,
+     parts) over the peak for its operands' type (67 TFLOP/s FMA, 67
+     float64 for f64, the FP64 tensor cores' peak, 495 TF32 for tf32 and
+     tf32x3, 989 bf16 or f16 for bf16,
      the 16-bit instances and the bf16 multi-pass instances) and its bytes
      over 3.35 TB/s; each kernel's TF32 instance must beat
      its FMA one at B = 64, L = 128 with relative scores
@@ -413,10 +414,10 @@ def in_turns(fns: dict) -> dict:
 
 # H100 SXM dense peaks per instance, by the type of its operands: float32
 # outside the tensor cores (FMA), float64 on the FP64 tensor cores (f64:
-# the card's float64 peak, though its kernels run float64 FMA outside them,
-# whose peak is half of it), TF32 (tf32, tf32x3), bf16 or f16 (bf16, the
-# 16-bit instances and the bf16 multi-pass instances: their products are of
-# bf16 or f16 values); HBM3
+# the card's float64 peak, which its resident bodies run on, DMMA; the
+# float64 FMA design past L = 128 and at D = 64 peaks at half of it), TF32
+# (tf32, tf32x3), bf16 or f16 (bf16, the 16-bit instances and the bf16
+# multi-pass instances: their products are of bf16 or f16 values); HBM3
 PEAK_FLOPS = {"fma": 67e12, "f64": 67e12, **{i: 495e12 if precision.SPLITS.get(i, ("tf32",))[0] == "tf32" else 989e12
                                              for i in (*TENSOR_CORE, *SIXTEEN_BIT)}}
 PEAK_BYTES = 3.35e12

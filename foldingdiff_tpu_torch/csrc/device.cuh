@@ -5,8 +5,9 @@
 // of the multi-pass presets, ldmatrix fragment loads, mma.sync m16n8k8
 // (TF32) and m16n8k16 (bf16) tiles, the products of parts split once and
 // run over independent accumulators, the online softmax's fold over a
-// warp's rows); and the float64 design that both kernels' f64 instances
-// share (namespace f64).
+// warp's rows); and the float64 pieces of both kernels' f64 instances
+// (namespace f64: the float64 FMA design they run past L = 128 and at
+// D = 64, and the DMMA fragments of their resident bodies).
 
 #pragma once
 
@@ -87,8 +88,9 @@ __device__ __forceinline__ uint32_t operand(float x) {
 // 8): the multi-pass instances' bf16 parts run on the bf16 tensor cores,
 // every other part on the TF32 ones, so the instances compute the presets'
 // products and differ from the plain versions only in the order of the
-// float32 sums. F64 (F64_F64_F64) is not a tensor-core arithmetic: its
-// instances run the float64 design below (namespace f64).
+// float32 sums. F64 (F64_F64_F64) is none of these: its instances run
+// float64 products (namespace f64), on the FP64 tensor cores in the
+// resident designs.
 enum class Arith { TF32, BF16, TF32x3, BF16x3, BF16x6, BF16x9, F64, F16, F16F16, BF16BF16 };
 
 template <Arith A>
@@ -518,9 +520,14 @@ __device__ __forceinline__ void fold(float (&s)[NT][4], float (&m)[2], float (&l
   }
 }
 
-// ---- The f64 instances (F64_F64_F64): float64 FMA on the CUDA cores -------
+// ---- The f64 instances (F64_F64_F64) past the resident designs: float64
+// FMA on the CUDA cores --------------------------------------------------------
 //
-// Both kernels' f64 instances, one design: every product in float64 (two
+// Since both kernels' f64 instances run their products on the FP64 tensor
+// cores in their resident designs (L <= 128 at D <= 32, every shipped
+// configuration; the DMMA pieces below), this design runs them only at
+// L > 128 and at D = 64. Both kernels' f64 instances share it: every
+// product in float64 (two
 // float32 values multiply exactly there) and each dot's output rounded to
 // float32, q.k and the relative term each on its own before their sum, and
 // p.v over every key; softmax in float32, online over the keys in exp2
@@ -740,6 +747,65 @@ __device__ __forceinline__ void attention(const Args& a) {
     dst[tq + 4 * i] = make_float4(static_cast<float>(o[i][0] * inv), static_cast<float>(o[i][1] * inv),
                                   static_cast<float>(o[i][2] * inv), static_cast<float>(o[i][3] * inv));
   }
+}
+
+// ---- DMMA: float64 products on the FP64 tensor cores ----------------------
+//
+// The resident bodies of both kernels' f64 instances (L <= 128, D <= 32)
+// run their products as mma.sync m16n8k16 with float64 operands and
+// accumulators (sm_90), at the FP64 tensor cores' 67 TFLOP/s. Its fragments
+// (CUTLASS's SM90_16x8x16_F64F64F64F64_TN): lane (g, t) = (lane / 4,
+// lane % 4) holds A's value i at row g + 8 (i % 2), column t + 4 (i / 2),
+// B's value j at row t + 4 j, column g, and the accumulator's c0, c1 at row
+// g, columns 2t, 2t + 1, c2, c3 at row g + 8. The products sum over the
+// contracted dimension, so its order is free as long as A and B agree: a
+// "chunk" is 16 of its values, and lane t takes the four values
+// 4t .. 4t + 3 of a chunk (columns 16 c + 4t .. of q, K and the table, read
+// as 16-byte vectors) as k = t, t + 4, t + 8, t + 12; of p.v's keys, the
+// four its score accumulators hold (2t, 2t + 1 of two n-tiles), so that P
+// is an A operand as it lies. m16n8k8 and m16n8k4, timed in both kernels,
+// were not kept (the kernels' notes give their times).
+
+// c += one chunk's products, one m16n8k16: r0 and r8 the lane's four A
+// values of rows g and g + 8 (float values widened here), b its four B
+// values, value j of each at k = t + 4 j.
+template <typename TA>
+__device__ __forceinline__ void dmma_chunk(double (&c)[4], const TA (&r0)[4], const TA (&r8)[4],
+                                           const double (&b)[4]) {
+  const double a[8] = {r0[0], r8[0], r0[1], r8[1], r0[2], r8[2], r0[3], r8[3]};
+  asm("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]), "d"(a[6]), "d"(a[7]), "d"(b[0]),
+        "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+// Four floats widened to float64.
+__device__ __forceinline__ void widen(double (&x)[4], const float4 u) {
+  x[0] = u.x, x[1] = u.y, x[2] = u.z, x[3] = u.w;
+}
+
+// Four consecutive values of shared memory (16-byte aligned) as float64:
+// two 16-byte loads of doubles, or one of floats widened.
+__device__ __forceinline__ void load4(double (&x)[4], const double* p) {
+  const double2 u = reinterpret_cast<const double2*>(p)[0], w = reinterpret_cast<const double2*>(p)[1];
+  x[0] = u.x, x[1] = u.y, x[2] = w.x, x[3] = w.y;
+}
+
+__device__ __forceinline__ void load4(double (&x)[4], const float* p) {
+  widen(x, *reinterpret_cast<const float4*>(p));
+}
+
+// Two consecutive doubles (16-byte aligned) into x[0], x[1].
+__device__ __forceinline__ void load2(double* x, const double* p) {
+  const double2 u = *reinterpret_cast<const double2*>(p);
+  x[0] = u.x, x[1] = u.y;
+}
+
+// Four floats stored widened as consecutive doubles (16-byte aligned).
+__device__ __forceinline__ void store4(double* p, const float4 u) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(u.x, u.y);
+  reinterpret_cast<double2*>(p)[1] = make_double2(u.z, u.w);
 }
 
 }  // namespace f64

@@ -44,8 +44,10 @@
 //           operand once and run bf16 mma (below); TF32x3 splits at each TF32
 //           mma (device.cuh's mma_split), which beat splitting once.
 //   7 f64   ("F64_F64_F64"): gathered_attention_f64_kernel, every product in
-//           float64 on the CUDA cores, each dot's output rounded to float32
-//           (device.cuh's f64 design, which v2 shares);
+//           float64, each dot's output rounded to float32: on the FP64
+//           tensor cores (mma.sync m16n8k16 f64, DMMA) in the resident
+//           design (attention_f64, below), and past it float64 FMA on the
+//           CUDA cores (device.cuh's f64 design, which v2 shares);
 //   8-10    ("F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"):
 //           gathered_attention_{f16,f16f16,bf16bf16}_kernel, the bf16
 //           instance's body on operands rounded to f16 values (f16, f16f16)
@@ -186,6 +188,39 @@
 // Integer rounding of TF32 operands (device.cuh's round_part) instead of
 // cvt.rna ran 0.0657 against 0.0662 ms, within the runs' spread: not kept.
 //
+// The f64 instance, resident (attention_f64; L <= 128 at D <= 32): the
+// design above with its products on the FP64 tensor cores, mma.sync
+// m16n8k16 with float64 operands and accumulators (device.cuh's dmma), a
+// chunk of 16 values of the contracted dimension per mma, lane t taking
+// values 4t .. 4t + 3 of it (as v2's attention_f64 does):
+//   - the relative term, over pairs at a fixed row, each rounded to
+//     float32 into the store; q's chunks widened once per item, e_lr's B
+//     values as they are loaded from L2 (kF64RelGroup = 4 n-tiles in
+//     flight): each serves the tile's 16 pairs, 4 widenings per lane per
+//     2,048-FMA mma, and no warp reads another's row, so staging it in
+//     float64 (no room: the store and two stages take 223,744 bytes) would
+//     add a shared-memory round trip and save no widening;
+//   - each pair-warp's q.k from a zero float64 accumulator, rounded to
+//     float32, plus the stored relative term in float32; K and V widened as
+//     loaded (kF64KGroup, kF64VGroup = 2 n-tiles in flight); exact row
+//     statistics; P normalised, widened exactly, p.v in float64 into the
+//     output columns tc::VCols permutes, rounded to float32 once;
+//   - 32 keys of scores at a time in registers (kF64ChunkNT), the rest
+//     parked in the store: q's float64 chunks (32 registers at D = 32) and
+//     p.v's accumulators (32) leave no room for 64 (72-112 bytes spilled).
+// Measured with e_lr against the float64 FMA design in turns (NVIDIA H100
+// 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py): 0.4272 -> 0.0776 ms
+// at the flagship shape, 0.1089 -> 0.0272 at 64 x 64, 0.0380 -> 0.0139 at
+// 15 x 64. The variants in turns (scripts/gathered_attention_variants.py;
+// ms at 64 x 128 / 64 x 64 / 15 x 64): this form 0.0773 / 0.0265 / 0.0136;
+// m16n8k8 0.0770 / 0.0270 / 0.0140; m16n8k4 0.0780 / 0.0283 / 0.0143;
+// 64-key chunks 0.0772 / 0.0310 / 0.0153 (spilled); e_lr groups of 2
+// 0.0789 / 0.0269 / 0.0138; K groups of 4 0.0764 / 0.0266 / 0.0135 (8
+// bytes spilled at KEYS = 64); V groups of 4 0.0753 / 0.0271 / 0.0139 (52
+// bytes spilled). The m16n8k8 and m16n8k4 forms were not kept, and their
+// code is gone (device.cuh's dmma_chunk is m16n8k16). At 0.0776 ms the
+// 1.2 G float64 FMA of a call run at 47% of the FP64 tensor cores' peak.
+//
 // Chunked tensor-core design (the multi-pass instances, and the others at
 // L > 128 or D = 64): the block above walks the keys in chunks of 32 (16 at
 // D = 64):
@@ -282,6 +317,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "device.cuh"
 #include "launch.cuh"
@@ -1369,6 +1406,270 @@ __device__ __forceinline__ void attention(const Args& a) {
   }
 }
 
+// ---- The resident design's f64 instance: float64 products on DMMA -----------
+
+constexpr int kF64RelGroup = 4;   // e_lr n-tiles whose loads are in flight at once, per warp
+constexpr int kF64KGroup = 2;     // K n-tiles whose loads are in flight at once
+constexpr int kF64VGroup = 2;     // V n-tiles whose loads are in flight at once (even: p.v takes 16 keys)
+constexpr int kF64ChunkNT = 4;    // n-tiles (of 8 keys) whose scores a warp holds in registers
+
+// Values 16 c + 4t .. 16 c + 4t + 3 of row (pair p, row r) of the staged q
+// tile (tc::q_offset's layout), widened.
+template <int D>
+__device__ __forceinline__ void q_chunk(double (&x)[4], const float* qs, int p, int r, int c, int t) {
+  f64::widen(x, *reinterpret_cast<const float4*>(qs + tc::q_offset<D>(p, r, 4 * c + t)));
+}
+
+// The f64 instance (F64_F64_F64) of the resident design, on the FP64 tensor
+// cores: the relative term as float64 products over pairs at a fixed row,
+// rounded to float32 into the store; then each pair-warp's q.k in float64,
+// rounded to float32, plus the stored relative term in float32; exact row
+// statistics; P normalised, widened exactly, and p.v in float64, rounded to
+// float32 once at the store. e_lr, K and V are widened as their fragments
+// are loaded from L2 (each value enters one mma: a B value serves the 16
+// rows or pairs of the tile), q's chunks once per item from the staged tile.
+template <int D, int KEYS>
+__device__ __forceinline__ void attention_f64(const Args& a) {
+  using S = Smem<D, KEYS>;
+  using V = tc::VCols<D>;
+  constexpr int kKC = D / 16;    // chunks of q.k and q.e_lr
+  constexpr int kKS = D / 8;     // n-tiles of p.v
+  constexpr int kNT = KEYS / 8;  // key n-tiles of a row's scores
+  constexpr int kChunks = kNT / kF64ChunkNT;
+  static_assert(kNT % kF64RelGroup == 0 && kF64ChunkNT % kF64KGroup == 0 && kF64ChunkNT % kF64VGroup == 0 &&
+                    kF64VGroup % 2 == 0 && kNT % kF64ChunkNT == 0, "whole groups");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* stages = smem + S::kStages;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int first = blockIdx.x, stride = gridDim.x;  // the block's first item, and the blocks
+
+  if (first < a.n_items) stage_item<D, KEYS>(stages, a, first);
+  cp_async_commit();
+  int it = 0;
+#pragma unroll 1
+  for (int item = first; item < a.n_items; item += stride, ++it) {
+    const float* qs = stages + (it & 1) * S::kStage;  // the item's q tile, then its bias rows
+    cp_async_wait<0>();
+    // the item's stage has landed; every warp is done with the last item's
+    // store and stage, which the next copies now refill
+    __syncthreads();
+    if (item + stride < a.n_items) {
+      stage_item<D, KEYS>(stages + ((it + 1) & 1) * S::kStage, a, item + stride);
+    }
+    cp_async_commit();
+    const int l0 = (item % a.n_tiles) * kRows;
+
+    // The relative term of row lr = l0 + warp for 16 pairs, every key below
+    // L at once: Q_lr . e_lr[lr]^T in float64, the pairs the tile's rows,
+    // keys its columns, each rounded to float32
+    const int lr = l0 + warp;
+    if (lr < a.L) {
+      double qr[kKC][2][4];  // pairs g and g + 8 at row lr
+#pragma unroll
+      for (int c = 0; c < kKC; ++c) {
+        q_chunk<D>(qr[c][0], qs, g, warp, c, t);
+        q_chunk<D>(qr[c][1], qs, g + 8, warp, c, t);
+      }
+      const float* e_row = a.e_lr + static_cast<size_t>(lr) * a.L * D;
+      float* dst = smem + g * S::kRelPair + warp * S::kRelRow + 2 * t;
+      const int n_used = (a.L + 7) / 8;  // key n-tiles that reach a key below L
+#pragma unroll 1
+      for (int nt0 = 0; nt0 < n_used; nt0 += kF64RelGroup) {
+        float4 y[kF64RelGroup][kKC];
+#pragma unroll
+        for (int n = 0; n < kF64RelGroup; ++n) {
+#pragma unroll
+          for (int cc = 0; cc < kKC; ++cc) y[n][cc] = tc::columns<D>(e_row, D, a.L, 8 * (nt0 + n) + g, cc, t);
+        }
+        double acc[kF64RelGroup][4] = {};
+#pragma unroll
+        for (int cc = 0; cc < kKC; ++cc) {
+#pragma unroll
+          for (int n = 0; n < kF64RelGroup; ++n) {
+            double b[4];
+            f64::widen(b, y[n][cc]);
+            f64::dmma_chunk(acc[n], qr[cc][0], qr[cc][1], b);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kF64RelGroup; ++n) {
+          float* d = dst + 8 * (nt0 + n);
+          *reinterpret_cast<float2*>(d) = make_float2(static_cast<float>(acc[n][0]), static_cast<float>(acc[n][1]));
+          *reinterpret_cast<float2*>(d + 8 * S::kRelPair) =
+              make_float2(static_cast<float>(acc[n][2]), static_cast<float>(acc[n][3]));
+        }
+      }
+    }
+    __syncthreads();  // every relative term of the item is in the store
+
+    const int n = first_pair(a, item) + warp;  // the warp's pair
+    if (n >= a.BH) continue;  // warp-uniform: nothing to compute
+    const long long head = head_of(a, n);
+    const float* kp = a.k + head;
+    const float* vp = a.v + head;
+    const float* bias = qs + S::kBias + warp * KEYS;  // the pair's, staged
+
+    // This lane's slots of the store (rows g and g + 8, n-tile nt's columns
+    // 2t and 2t + 1), read (the relative term) and rewritten (parked
+    // scores) by this lane alone, as in attention
+    float* rp = smem + warp * S::kRelPair + g * S::kRelRow + 2 * t;
+    const auto load2 = [&](float (&r)[4], int nt) {
+      const float2 r0 = *reinterpret_cast<const float2*>(rp + 8 * nt);
+      const float2 r1 = *reinterpret_cast<const float2*>(rp + 8 * S::kRelRow + 8 * nt);
+      r[0] = r0.x, r[1] = r0.y, r[2] = r1.x, r[3] = r1.y;
+    };
+    double qf[kKC][2][4];  // pair `warp`'s rows g and g + 8
+#pragma unroll
+    for (int c = 0; c < kKC; ++c) {
+      q_chunk<D>(qf[c][0], qs, warp, g, c, t);
+      q_chunk<D>(qf[c][1], qs, warp, g + 8, c, t);
+    }
+
+    // S = round(Q . K^T) + rel in float32, then scale and bias, in log2
+    // units; keys past L -inf. kF64ChunkNT n-tiles of scores at a time in
+    // registers, the chunks before the last parked in the store
+    float s[kF64ChunkNT][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+      for (int n0 = 0; n0 < kF64ChunkNT; n0 += kF64KGroup) {
+        float4 y[kF64KGroup][kKC];
+        const int sl = opaque(a.sl);
+#pragma unroll
+        for (int n = 0; n < kF64KGroup; ++n) {
+          const int row = 8 * (kF64ChunkNT * c + n0 + n) + g;
+#pragma unroll
+          for (int cc = 0; cc < kKC; ++cc) {
+            // plain loads, which ptxas does not hoist past the fence below
+            y[n][cc] = row < a.L ? *reinterpret_cast<const float4*>(kp + row * sl + 16 * cc + 4 * t)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+        double acc[kF64KGroup][4] = {};
+#pragma unroll
+        for (int cc = 0; cc < kKC; ++cc) {
+#pragma unroll
+          for (int n = 0; n < kF64KGroup; ++n) {
+            double b[4];
+            f64::widen(b, y[n][cc]);
+            f64::dmma_chunk(acc[n], qf[cc][0], qf[cc][1], b);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kF64KGroup; ++n) {
+          const int nt = kF64ChunkNT * c + n0 + n;
+          float* sn = s[n0 + n];
+          float r[4];
+          load2(r, nt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = 8 * nt + 2 * t + i % 2;
+            // the store's columns past L hold no relative term: scored -inf outright
+            sn[i] = col < a.L ? fmaf(static_cast<float>(acc[n][i]) + r[i], a.scale2, bias[col] * kLog2e) : -INFINITY;
+          }
+          mx[0] = fmaxf(mx[0], fmaxf(sn[0], sn[1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sn[2], sn[3]));
+          if (c + 1 < kChunks) {  // parked
+            *reinterpret_cast<float2*>(rp + 8 * nt) = make_float2(sn[0], sn[1]);
+            *reinterpret_cast<float2*>(rp + 8 * S::kRelRow + 8 * nt) = make_float2(sn[2], sn[3]);
+          }
+        }
+        __syncwarp();  // group by group
+      }
+    }
+
+    // Softmax over the whole row: exact maxima and sums (the parked chunks'
+    // exponentials taken again where P is made, with the same bits); P
+    // normalised in float32, then widened exactly
+    constexpr int kParked = kNT - kF64ChunkNT;  // n-tiles of the parked chunks
+    mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int nt = 0; nt < kF64ChunkNT; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[nt][i] = exp2f(s[nt][i] - mx[i / 2]);
+        sum[i / 2] += s[nt][i];
+      }
+    }
+#pragma unroll 4
+    for (int nt = 0; nt < kParked; ++nt) {
+      float r[4];
+      load2(r, nt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i / 2] += exp2f(r[i] - mx[i / 2]);
+    }
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+
+    // p . v by 16 keys: P of rows g and g + 8 at keys 2t, 2t + 1 of two
+    // n-tiles as they lie, V's rows at the same keys (their columns as
+    // tc::VCols permutes them, read as W-float vectors); V's rows past L
+    // read as zeros (P is 0 there). The parked chunks' P from the store,
+    // the last chunk's from registers
+    double o[kKS][4] = {};
+    // p.v over the kF64VGroup n-tiles from nt0, P of its n-tile n by p_of(n, p)
+    const auto pv_group = [&](int nt0, auto p_of) {
+      float x[kF64VGroup][2][V::kBlocks][V::kW];
+      const int sl = opaque(a.sl);
+#pragma unroll
+      for (int n = 0; n < kF64VGroup; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = 8 * (nt0 + n) + 2 * t + e;
+#pragma unroll
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+            tc::load_cols<V::kW, true>(x[n][e][hb], vp + key * sl + V::kW * g + 8 * V::kW * hb, key < a.L);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kF64VGroup / 2; ++m) {
+        float pa[4], pb[4];
+        p_of(2 * m, pa);
+        p_of(2 * m + 1, pb);
+        const float p0[4] = {pa[0], pa[1], pb[0], pb[1]}, p8[4] = {pa[2], pa[3], pb[2], pb[3]};
+#pragma unroll
+        for (int hb = 0; hb < V::kBlocks; ++hb) {
+#pragma unroll
+          for (int dd = 0; dd < V::kW; ++dd) {
+            const double bv[4] = {x[2 * m][0][hb][dd], x[2 * m][1][hb][dd], x[2 * m + 1][0][hb][dd],
+                                  x[2 * m + 1][1][hb][dd]};
+            f64::dmma_chunk(o[V::kW * hb + dd], p0, p8, bv);
+          }
+        }
+      }
+      __syncwarp();  // group by group
+    };
+#pragma unroll 1
+    for (int nt0 = 0; nt0 < kParked; nt0 += kF64VGroup) {
+      pv_group(nt0, [&](int nn, float (&p)[4]) {
+        load2(p, nt0 + nn);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = exp2f(p[i] - mx[i / 2]) * inv[i / 2];
+      });
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < kF64ChunkNT; n0 += kF64VGroup) {
+      pv_group(kParked + n0, [&](int nn, float (&p)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = s[n0 + nn][i] * inv[i / 2];
+      });
+    }
+    float o32[kKS][4];  // rounded to float32 once
+#pragma unroll
+    for (int dn = 0; dn < kKS; ++dn) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) o32[dn][i] = static_cast<float>(o[dn][i]);
+    }
+    const float one[2] = {1.0f, 1.0f};  // P was normalised
+    tc::store_rows<D, Arith::F64>(a, n, l0, o32, one, g, t);
+  }
+}
+
 }  // namespace rs
 
 // KEYS 64 or 128: the resident design for L <= KEYS; KEYS 0: the chunked one.
@@ -1430,10 +1731,21 @@ __global__ void __launch_bounds__(tc::kThreads, 1) gathered_attention_bf16bf16_k
   tc_attention<D, Arith::BF16BF16, KEYS>(a);
 }
 
-// The f64 instance: device.cuh's float64 design, the relative term from e_lr
-template <int D>
-__global__ void __launch_bounds__(f64::kThreads, f64::kBlocks<D>) gathered_attention_f64_kernel(const f64::Args a) {
-  f64::attention<D, true, false>(a);
+// The f64 instance: at KEYS 64 or 128 the resident design on the FP64
+// tensor cores (rs::attention_f64, one block of 16 warps per SM); at KEYS 0
+// (L > 128 or D = 64, no shipped configuration) device.cuh's float64 FMA
+// design, the relative term from e_lr
+template <int KEYS>
+using F64Args = std::conditional_t<KEYS == 0, f64::Args, Args>;
+
+template <int D, int KEYS>
+__global__ void __launch_bounds__(KEYS ? rs::kThreads : f64::kThreads, KEYS ? 1 : f64::kBlocks<D>)
+gathered_attention_f64_kernel(const F64Args<KEYS> a) {
+  if constexpr (KEYS > 0) {
+    rs::attention_f64<D, KEYS>(a);
+  } else {
+    f64::attention<D, true, false>(a);
+  }
 }
 
 template <Arith A, int D, int KEYS>
@@ -1502,20 +1814,47 @@ cudaError_t launch_tc(Args a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The f64 instance's resident design: persistent blocks, one per SM,
+// walking ceil(BH / 16) x n_tiles items.
+template <int D, int KEYS>
+cudaError_t launch_f64_resident(Args a, int device, cudaStream_t stream) {
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const auto kernel = &gathered_attention_f64_kernel<D, KEYS>;
+  const size_t smem = sizeof(float) * rs::Smem<D, KEYS>::kFloats;
+  cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
+  if (err != cudaSuccess) return err;
+  const long long items = (a.BH + rs::kPairs - 1) / rs::kPairs * a.n_tiles;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  a.n_items = static_cast<int>(items);
+  int sms = 0;
+  if ((err = attn::sm_count(device, &sms)) != cudaSuccess) return err;
+  const int blocks = a.n_items < sms ? a.n_items : sms;
+  kernel<<<blocks, rs::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The f64 instance over (B, H, L, D) views: out is the (B, L, H, D) buffer.
+// The resident design up to L = 128 at D <= 32; the float64 FMA design
+// beyond.
 template <int D>
 cudaError_t launch_f64(const Args& a, int device, cudaStream_t stream) {
+  if constexpr (D <= 32) {
+    if (a.L <= rs::kMaxL) {
+      return a.L <= rs::kMaxL / 2 ? launch_f64_resident<D, rs::kMaxL / 2>(a, device, stream)
+                                  : launch_f64_resident<D, rs::kMaxL>(a, device, stream);
+    }
+  }
   static std::atomic<size_t> granted[attn::kMaxDevices];
   const size_t smem = sizeof(double) * f64::Smem<D, false>::kDoubles;
   const cudaError_t err = attn::opt_in_smem(
-      reinterpret_cast<const void*>(&gathered_attention_f64_kernel<D>), granted, device, smem);
+      reinterpret_cast<const void*>(&gathered_attention_f64_kernel<D, 0>), granted, device, smem);
   if (err != cudaSuccess) return err;
   const f64::Args f{a.q, a.k, a.v, a.bias, a.e_lr, a.out, a.sb, a.sh, static_cast<long long>(a.sl),
                     static_cast<long long>(a.L) * a.H * D, D, static_cast<long long>(a.H) * D,
                     a.H, a.L, 0, a.BH, (a.L + f64::kRows - 1) / f64::kRows, a.scale2};
   const long long blocks = f.n_tiles * ((a.BH + f64::kPairs - 1) / f64::kPairs);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gathered_attention_f64_kernel<D><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(f);
+  gathered_attention_f64_kernel<D, 0><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(f);
   return cudaGetLastError();
 }
 

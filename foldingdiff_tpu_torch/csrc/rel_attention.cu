@@ -40,8 +40,10 @@
 //           parts on the TF32 ones. P is split after it is normalised, as
 //           the single-rounding instances round it.
 //   7 f64   ("F64_F64_F64"): rel_attention_f64_kernel, every product in
-//           float64 on the CUDA cores, each dot's output rounded to float32
-//           (device.cuh's f64 design, which v1 shares);
+//           float64, each dot's output rounded to float32: on the FP64
+//           tensor cores (mma.sync m16n8k16 f64, DMMA) in the resident
+//           design (attention_f64, below), and past it float64 FMA on the
+//           CUDA cores (device.cuh's f64 design, which v1 shares);
 //   8-10    ("F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"):
 //           rel_attention_{f16,f16f16,bf16bf16}_kernel, the bf16 instance's
 //           body on operands rounded to f16 values (f16, f16f16) or bf16
@@ -62,9 +64,9 @@
 // the products: TF32x3 14.7 us at 495 TFLOP/s, bf16x3 7.3, bf16x6 14.7 and
 // bf16x9 22.0 us at bf16's 989, so the bytes bound all but bf16x9
 // (operations). f64: 36.1 us at the H100's 67 TFLOP/s float64 peak, its
-// FP64 tensor cores' (operations; the float64 FMA these instances run peaks
-// at half of it); the 16-bit instances' products 2.4 us at 989 TFLOP/s, so
-// the bytes bound them.
+// FP64 tensor cores', which the resident f64 body runs on (operations; the
+// float64 FMA design past it peaks at half of it); the 16-bit instances'
+// products 2.4 us at 989 TFLOP/s, so the bytes bound them.
 //
 // FMA design: register tiles on the CUDA cores. The SM serves one
 // shared-memory wavefront (32 lanes x 4 bytes) per clock against four
@@ -188,6 +190,43 @@
 // The TF32 parts are rounded by integer operations (device.cuh's
 // round_part): with cvt.rna the resident tf32x3 instance spilled 12 bytes.
 //
+// The f64 instance, resident (attention_f64; L <= 128 at D <= 32): the
+// products on the FP64 tensor cores, mma.sync m16n8k16 with float64
+// operands and accumulators (device.cuh's dmma), where the float64 FMA
+// design read one 8-byte shared-memory operand per FMA (its pace: ~9.7 GB
+// of shared-memory reads per flagship call with relative scores). One block
+// of eight warps per SM walks the work items above:
+//   - the table is widened to float64 once per block, K once per item into
+//     rows D + 2 doubles apart, V transposed (a row per dimension of a
+//     pair, KEYS + 8 doubles apart), so that no fragment load converts and
+//     the 16-byte fragment loads of a quarter-warp fall on distinct banks;
+//     q's chunks into registers once per item; one float32 stage, which the
+//     next item's copies fill once it is widened;
+//   - a chunk of 16 values of the contracted dimension is one m16n8k16:
+//     lane t takes values 4t .. 4t + 3 of it (of D: one 16-byte vector of
+//     q, K or the table; of p.v's keys the four its score accumulators hold,
+//     2t, 2t + 1 of two n-tiles, so P is the A operand as it lies);
+//   - q.k and q.E each from a zero float64 accumulator, rounded to float32
+//     on its own (QE by 32-key windows into the warp's float32 slice, read
+//     back skewed), then summed in float32: no accumulator is seeded with
+//     the relative term, since one float64 sum of both is another rounding;
+//     scale, bias and the exact row statistics in float32; P normalised,
+//     widened exactly, p.v in float64, rounded to float32 once at the store.
+// At KEYS = 128, D = 32 shared memory holds the table (69,632 bytes), K and
+// V (69,632), the QE slices (28,672), the bias and the stage (56,320):
+// 224,256 bytes; registers 227 (189 without relative scores), no spill.
+// Measured at the flagship shape against the float64 FMA design in turns
+// (NVIDIA H100 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py): 0.4341
+// -> 0.0693 ms with relative scores, 0.3011 -> 0.0462 without. The
+// variants in turns (scripts/rel_attention_variants.py; ms with / without
+// relative scores): m16n8k16 0.0697 / 0.0462, m16n8k8 0.0728 / 0.0465,
+// m16n8k4 0.0793 / 0.0492; 16-key QE windows 0.0766 / 0.0457; K, V and the
+// table held as float32 and widened at each fragment load 0.0729 / 0.0456
+// (0.0157 against 0.0164 ms without relative scores at 64 x 64, its planes
+// half the size). The m16n8k8, m16n8k4 and float32-plane forms were not
+// kept, and their code is gone. A 64-key window does not fit beside the
+// stage.
+//
 // Chunked tensor-core design, for L > 128 and at D = 64 (no shipped
 // configuration): a
 // block of four warps owns 64 query rows of one (b, h), a warp 16 of them,
@@ -210,6 +249,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "device.cuh"
 #include "launch.cuh"
@@ -1364,6 +1405,265 @@ __device__ __forceinline__ void attention_parts(const Args& a) {
   }
 }
 
+// ---- The resident design's f64 instance: float64 products on DMMA -----------
+
+constexpr int kWindowF64 = 32;  // keys per QE window at KEYS = 128
+constexpr int kGroupF64 = 4;    // the most n-tiles whose mma interleave (their accumulators live at once)
+
+// The largest divisor of n up to kGroupF64.
+__host__ __device__ constexpr int group_of_f64(int n) {
+  int best = 1;
+  for (int d = 2; d <= kGroupF64 && d <= n; ++d) best = n % d == 0 ? d : best;
+  return best;
+}
+
+// Shared memory of the f64 instance (byte offsets): the resident table, K
+// and V of the item as planes of doubles, the QE slices, the bias of the
+// item in use, and one float32 stage (stage_item's layout) that the next
+// item's copies fill while this item computes. K's and the table's rows are
+// kRowK values apart, so that the 16-byte loads of a quarter-warp (rows g,
+// g + 1, values 16 c + 4t ..) fall on distinct banks; V is transposed, a row
+// per dimension per pair, kRowV = KEYS + 8 values apart, so that its
+// 2-value loads (keys 16 kc + 2t ..) of rows g .. do too.
+template <int D, bool HAS_REL, int KEYS>
+struct F64Smem {
+  static constexpr int kWindow = KEYS == kMaxL ? kWindowF64 : kWindowShort;
+  static constexpr int kWarpWin = 16 + kWindow;   // table rows a warp's window spans (kWarpWin - 1 reached)
+  static constexpr int kQEStride = kWarpWin + 8;  // floats (8 or 24 mod 32), as Smem's
+  static constexpr int kRowK = D + 2;
+  static constexpr int kRowV = KEYS + 8;
+  static constexpr int kTable = 0;                                               // HAS_REL only
+  static constexpr int kK = kTable + (HAS_REL ? 8 * 2 * KEYS * kRowK : 0);
+  static constexpr int kV = kK + 8 * kRows * kRowK;
+  static constexpr int kQE = kV + 8 * (kRows / KEYS) * D * kRowV;                // HAS_REL only
+  static constexpr int kBias = kQE + (HAS_REL ? 4 * kWarps * 16 * kQEStride : 0);  // kRows floats
+  static constexpr int kStage = kBias + 4 * kRows;
+  static constexpr int kBytes = kStage + 4 * (3 * kRows * (D + 4) + kRows);
+  static_assert(kBytes <= kSmemBytes && kK % 16 == 0 && kV % 16 == 0 && kQE % 16 == 0 && kStage % 16 == 0,
+                "one block of planes and a stage");
+};
+
+// c[n] += Q . B[n]^T over D for G n-tiles: qa q's chunks (rows g, g + 8,
+// values 16 kc + 4t ..), B's rows the plane rows rows + (8 n + g) ROW; the G
+// accumulators' mma interleave.
+template <int D, int G, int ROW>
+__device__ __forceinline__ void dmma_rows(double (*c)[4], const double (&qa)[D / 16][2][4], const double* rows) {
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    double b[G][4];
+#pragma unroll
+    for (int n = 0; n < G; ++n) f64::load4(b[n], rows + (8 * n + g) * ROW + 16 * kc + 4 * t);
+#pragma unroll
+    for (int n = 0; n < G; ++n) f64::dmma_chunk(c[n], qa[kc][0], qa[kc][1], b[n]);
+  }
+}
+
+// The f64 instance (F64_F64_F64) of the resident design, on the FP64 tensor
+// cores: q.k and q.E each a float64 product rounded to float32 on its own,
+// then summed in float32 (no accumulator is seeded with the relative term:
+// one float64 sum of both would be another rounding); scale, bias and
+// softmax in float32 over the whole row at once; P normalised, widened
+// exactly, and p.v in float64, rounded to float32 once at the store. The
+// table is widened once per block, K and V once per item, q into registers
+// once per item (the note at the top).
+template <int D, bool HAS_REL, int KEYS>
+__device__ __forceinline__ void attention_f64(const Args& a) {
+  using S = F64Smem<D, HAS_REL, KEYS>;
+  constexpr int kRowK = S::kRowK, kRowV = S::kRowV;
+  constexpr int kNT = KEYS / 8;              // key n-tiles of a row's scores
+  constexpr int kDT = D / 8;                 // n-tiles of p.v
+  constexpr int kKC = D / 16;                // chunks of q.k and q.E
+  constexpr int kPairs = kRows / KEYS;       // pairs per item
+  constexpr int kWpp = KEYS / 16;            // warps per pair
+  constexpr int kWindow = S::kWindow, kQEStride = S::kQEStride;
+  constexpr int kQET = S::kWarpWin / 8;      // QE n-tiles per window
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  double* table = reinterpret_cast<double*>(smem + S::kTable);
+  double* kplane = reinterpret_cast<double*>(smem + S::kK);
+  double* vplane = reinterpret_cast<double*>(smem + S::kV);
+  float* stage = reinterpret_cast<float*>(smem + S::kStage);
+  float* bias_s = reinterpret_cast<float*>(smem + S::kBias);
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+
+  // K and V rows [L, KEYS) of every slot enter the mma: zeros in the stage,
+  // which no copy overwrites, widened to zeros
+  const int pad = KEYS - a.L;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 2 * kPairs * pad * D; i += kThreads) {
+    int r = i / D;
+    const int l = a.L + r % pad;
+    r /= pad;
+    stage[((1 + r / kPairs) * kRows + (r % kPairs) * KEYS + l) * (D + 4) + i % D] = 0.0f;
+  }
+  if (blockIdx.x < a.n_items) stage_item<D, KEYS>(stage, a, blockIdx.x);
+  cp_async_commit();
+  if (HAS_REL) {
+    // the table, once per block: row x holds offset l - j = x - KEYS + 1,
+    // table row x - KEYS + M, zeros outside the table
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * KEYS * (D / 4); i += kThreads) {
+      const int x = i / (D / 4), c4 = i % (D / 4), e = x - KEYS + a.M;
+      const float4 u = e >= 0 && e < 2 * a.M - 1
+                           ? __ldg(reinterpret_cast<const float4*>(a.table + static_cast<long long>(e) * D) + c4)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      f64::store4(table + x * kRowK + 4 * c4, u);
+    }
+  }
+
+  const int slot = warp / kWpp, lw = 16 * (warp % kWpp);  // the warp's pair slot and first row in it
+  float* qe = reinterpret_cast<float*>(smem + S::kQE) + warp * 16 * kQEStride;
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // the item's copies have landed; every warp is done with the last item's planes
+    // K as rows, once per item
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kRows * (D / 4); i += kThreads) {
+      const int r = i / (D / 4), c4 = i % (D / 4);
+      f64::store4(kplane + r * kRowK + 4 * c4, *reinterpret_cast<const float4*>(stage + (kRows + r) * (D + 4) + 4 * c4));
+    }
+    // V transposed, once per item: consecutive threads on consecutive keys
+#pragma unroll 1
+    for (int i = threadIdx.x; i < kRows * (D / 4); i += kThreads) {
+      const int r = i % kRows, c4 = i / kRows;
+      const float4 u = *reinterpret_cast<const float4*>(stage + (2 * kRows + r) * (D + 4) + 4 * c4);
+      double* d = vplane + ((r / KEYS) * D + 4 * c4) * kRowV + r % KEYS;
+      d[0] = u.x, d[kRowV] = u.y, d[2 * kRowV] = u.z, d[3 * kRowV] = u.w;
+    }
+    for (int j = threadIdx.x; j < kRows; j += kThreads) bias_s[j] = stage[3 * kRows * (D + 4) + j];
+    const int pair = item * kPairs + slot;
+    const bool work = pair < a.n_pairs && lw < a.L;  // warp-uniform
+    // the warp's q rows g and g + 8 as float64 A chunks, once per item
+    double qa[kKC][2][4];
+    if (work) {
+      const float* q0 = stage + (slot * KEYS + lw + g) * (D + 4) + 4 * t;
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        f64::load4(qa[kc][0], q0 + 16 * kc);
+        f64::load4(qa[kc][1], q0 + 8 * (D + 4) + 16 * kc);
+      }
+    }
+    __syncthreads();  // the planes are written and the stage is read: the next item's copies may land
+    if (item + gridDim.x < a.n_items) stage_item<D, KEYS>(stage, a, item + gridDim.x);
+    cp_async_commit();
+    if (!work) continue;
+    const int b = pair / a.H, h = pair % a.H;
+    const double* ks = kplane + slot * KEYS * kRowK;
+    const double* vt = vplane + slot * D * kRowV;
+    const float* bs = bias_s + slot * KEYS;
+
+    float s[kNT][4];  // the warp's 16 x KEYS scores, then P
+    if (HAS_REL) {
+#pragma unroll
+      for (int c = 0; c < KEYS / kWindow; ++c) {
+        // QE = Q . E_win^T over the kWarpWin table rows that the warp's rows
+        // reach in keys [kWindow c, kWindow (c + 1)), each rounded to float32,
+        // into the warp's slice
+        const double* ew = table + (lw - kWindow * c - kWindow + KEYS) * kRowK;
+        constexpr int kG = group_of_f64(kQET);
+#pragma unroll
+        for (int n0 = 0; n0 < kQET; n0 += kG) {
+          double acc[kG][4] = {};
+          dmma_rows<D, kG, kRowK>(acc, qa, ew + 8 * n0 * kRowK);
+#pragma unroll
+          for (int n = 0; n < kG; ++n) {
+            float* d = qe + g * kQEStride + 8 * (n0 + n) + 2 * t;
+            *reinterpret_cast<float2*>(d) = make_float2(static_cast<float>(acc[n][0]), static_cast<float>(acc[n][1]));
+            *reinterpret_cast<float2*>(d + 8 * kQEStride) =
+                make_float2(static_cast<float>(acc[n][2]), static_cast<float>(acc[n][3]));
+          }
+          __syncwarp();  // group by group: ptxas does not issue the next groups' loads first
+        }
+        // rel[r, col] = QE[r, r - col + kWindow - 1]
+#pragma unroll
+        for (int n = 0; n < kWindow / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
+            s[kWindow / 8 * c + n][i] = qe[r * kQEStride + r - col + kWindow - 1];
+          }
+        }
+        __syncwarp();  // the window is read before the next one overwrites it
+      }
+    }
+    // S = round(Q . K^T) + rel in float32, then scale and bias, in log2 units
+    constexpr int kG = group_of_f64(kNT);
+#pragma unroll
+    for (int n0 = 0; n0 < kNT; n0 += kG) {
+      double acc[kG][4] = {};
+      dmma_rows<D, kG, kRowK>(acc, qa, ks + 8 * n0 * kRowK);
+#pragma unroll
+      for (int n = 0; n < kG; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int col = 8 * (n0 + n) + 2 * t + i % 2;
+          const float x = HAS_REL ? static_cast<float>(acc[n][i]) + s[n0 + n][i] : static_cast<float>(acc[n][i]);
+          s[n0 + n][i] = col < a.L ? fmaf(x, a.scale2, bs[col] * kLog2e) : -INFINITY;
+        }
+      }
+      __syncwarp();  // group by group
+    }
+
+    // Softmax over the whole row at once: exact maxima and sums
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - mx[i / 2]);
+        sum[i / 2] += s[n][i];
+      }
+    }
+    // P normalised in float32, then widened exactly: the einsum's operand is
+    // the softmax's output
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] *= inv[i / 2];
+    }
+
+    // p . v by 16 keys: P of rows g and g + 8 at keys 2t, 2t + 1 of n-tiles
+    // 2 kc and 2 kc + 1 as they lie, V^T's rows 8 dn + g at the same keys;
+    // the kDT accumulators' mma interleave
+    double o[kDT][4] = {};
+#pragma unroll
+    for (int kc = 0; kc < KEYS / 16; ++kc) {
+      const float p0[4] = {s[2 * kc][0], s[2 * kc][1], s[2 * kc + 1][0], s[2 * kc + 1][1]};
+      const float p8[4] = {s[2 * kc][2], s[2 * kc][3], s[2 * kc + 1][2], s[2 * kc + 1][3]};
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        double bv[4];
+        const double* vr = vt + (8 * dn + g) * kRowV + 16 * kc + 2 * t;
+        f64::load2(bv, vr);
+        f64::load2(bv + 2, vr + 8);
+        f64::dmma_chunk(o[dn], p0, p8, bv);
+      }
+      __syncwarp();  // 16 keys by 16
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = lw + g + 8 * i;
+      if (row >= a.L) continue;
+      float* dst = a.out + ((static_cast<long long>(b) * a.L + row) * a.H + h) * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        *reinterpret_cast<float2*>(dst + 8 * dn) =
+            make_float2(static_cast<float>(o[dn][2 * i]), static_cast<float>(o[dn][2 * i + 1]));
+      }
+    }
+  }
+}
+
 }  // namespace rs
 
 // KEYS 64 or 128: the resident design for L <= KEYS, one block of eight
@@ -1442,10 +1742,21 @@ rel_attention_bf16bf16_kernel(const Args a) {
   tc_attention<D, HAS_REL, Arith::BF16BF16, KEYS>(a);
 }
 
-// The f64 instance: device.cuh's float64 design, the relative term from the table
-template <int D, bool HAS_REL>
-__global__ void __launch_bounds__(f64::kThreads, f64::kBlocks<D>) rel_attention_f64_kernel(const f64::Args a) {
-  f64::attention<D, HAS_REL, true>(a);
+// The f64 instance: at KEYS 64 or 128 the resident design on the FP64
+// tensor cores (rs::attention_f64, one block of eight warps per SM); at
+// KEYS 0 (L > 128 or D = 64, no shipped configuration) device.cuh's float64
+// FMA design, the relative term from the table
+template <int KEYS>
+using F64Args = std::conditional_t<KEYS == 0, f64::Args, Args>;
+
+template <int D, bool HAS_REL, int KEYS>
+__global__ void __launch_bounds__(KEYS ? rs::kThreads : f64::kThreads, KEYS ? 1 : f64::kBlocks<D>)
+rel_attention_f64_kernel(const F64Args<KEYS> a) {
+  if constexpr (KEYS > 0) {
+    rs::attention_f64<D, HAS_REL, KEYS>(a);
+  } else {
+    f64::attention<D, HAS_REL, true>(a);
+  }
 }
 
 template <Arith A, int D, bool HAS_REL, int KEYS>
@@ -1519,12 +1830,39 @@ cudaError_t launch_tc(Args a, int B, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The f64 instance's resident design: persistent blocks, one per SM.
+template <int D, bool HAS_REL, int KEYS>
+cudaError_t launch_f64_resident(Args a, int B, int device, cudaStream_t stream) {
+  static std::atomic<size_t> granted[attn::kMaxDevices];
+  const auto kernel = &rel_attention_f64_kernel<D, HAS_REL, KEYS>;
+  const size_t smem = rs::F64Smem<D, HAS_REL, KEYS>::kBytes;
+  cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(kernel), granted, device, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  if ((err = attn::sm_count(device, &sms)) != cudaSuccess) return err;
+  const long long pairs = static_cast<long long>(B) * a.H;
+  if (pairs > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  a.n_pairs = static_cast<int>(pairs);
+  a.n_items = (a.n_pairs + rs::kRows / KEYS - 1) / (rs::kRows / KEYS);
+  const int blocks = a.n_items < sms ? a.n_items : sms;
+  kernel<<<blocks, rs::kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // The f64 instance over (B, H, L, D) views: out is the (B, L, H, D) buffer.
+// The resident design up to L = 128 at D <= 32; the float64 FMA design
+// beyond.
 template <int D, bool HAS_REL>
 cudaError_t launch_f64(const Args& a, int B, int device, cudaStream_t stream) {
+  if constexpr (D <= 32) {
+    if (a.L <= rs::kMaxL) {
+      return a.L <= rs::kMaxL / 2 ? launch_f64_resident<D, HAS_REL, rs::kMaxL / 2>(a, B, device, stream)
+                                  : launch_f64_resident<D, HAS_REL, rs::kMaxL>(a, B, device, stream);
+    }
+  }
   static std::atomic<size_t> granted[attn::kMaxDevices];
   const size_t smem = sizeof(double) * f64::Smem<D, HAS_REL>::kDoubles;
-  const cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(&rel_attention_f64_kernel<D, HAS_REL>),
+  const cudaError_t err = attn::opt_in_smem(reinterpret_cast<const void*>(&rel_attention_f64_kernel<D, HAS_REL, 0>),
                                             granted, device, smem);
   if (err != cudaSuccess) return err;
   const long long bh = static_cast<long long>(B) * a.H;
@@ -1533,7 +1871,7 @@ cudaError_t launch_f64(const Args& a, int B, int device, cudaStream_t stream) {
                     a.H, a.L, a.M, bh, (a.L + f64::kRows - 1) / f64::kRows, a.scale2};
   const long long blocks = f.n_tiles * ((bh + f64::kPairs - 1) / f64::kPairs);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  rel_attention_f64_kernel<D, HAS_REL><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(f);
+  rel_attention_f64_kernel<D, HAS_REL, 0><<<static_cast<unsigned>(blocks), f64::kThreads, smem, stream>>>(f);
   return cudaGetLastError();
 }
 

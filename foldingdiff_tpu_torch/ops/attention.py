@@ -32,7 +32,7 @@ products of the JAX model's einsums in that mode:
 | "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same; chunked |
 | "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; chunked |
 | "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same; chunked |
-| "f64" | "f64": float64 FMA on the CUDA cores, each dot's output rounded to float32 | "f64": the same |
+| "f64" | "f64": float64 products on the FP64 tensor cores (DMMA), each dot's output rounded to float32 | "f64": the same; resident |
 | "f16" | "f16": f16 values on TF32 tensor cores | "f16": the same; resident |
 | "f16f16" | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16 | "f16f16": the same; resident |
 | "bf16bf16" | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16 | "bf16bf16": the same; resident |
@@ -42,7 +42,9 @@ note): "resident" (persistent blocks, one pass over the keys, every row's
 maximum and sum over all keys before P is rounded) at L <= 128 and D <= 32,
 "chunked" (32-key chunks, a first pass over the keys for the row statistics
 where P is rounded or split) beyond, and for the multi-pass instances at
-every length. Without e_lr, v1 runs the v2 column's instance.
+every length. The f64 instances of both kernels run their kernel's resident
+design on the FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on
+the CUDA cores beyond. Without e_lr, v1 runs the v2 column's instance.
 
 The plain versions compute every product as precision.einsum does in the
 mode: the preset's products of parts under "bf16", the 16-bit modes and the

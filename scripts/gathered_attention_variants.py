@@ -35,6 +35,13 @@ others at L > 128 or D = 64):
                     products, or through __ldg instead of plain loads
   v-rows            V's four row pointers a lane reads per 16 keys taken
                     once per chunk and advanced by 16 rows
+Variants of the f64 instance's resident design (DMMA; timed on it):
+  f64-chunk-64      scores held in registers 64 keys at a time instead of 32
+  f64-rel-group-2   e_lr's loads two n-tiles at a time instead of four
+  f64-k-group-4,    K's or V's loads four n-tiles at a time instead of two
+  f64-v-group-4
+A variant but "final" is built as one part of the instances it is run on
+(and TF32's, which every check runs first).
 
 A substitution whose text is no longer in the source stops the run with an
 error naming the variant. The inputs (q, k and v as the projections'
@@ -97,6 +104,10 @@ SUBSTITUTIONS = {
     "d64-keys-32": [(KEYS, KEYS.replace(": 16;", ": 32;"))],
     "parts-group-1": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 1;")],
     "parts-group-2": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 2;")],
+    "f64-chunk-64": [("constexpr int kF64ChunkNT = 4;", "constexpr int kF64ChunkNT = 8;")],
+    "f64-rel-group-2": [("constexpr int kF64RelGroup = 4;", "constexpr int kF64RelGroup = 2;")],
+    "f64-k-group-4": [("constexpr int kF64KGroup = 2;", "constexpr int kF64KGroup = 4;")],
+    "f64-v-group-4": [("constexpr int kF64VGroup = 2;", "constexpr int kF64VGroup = 4;")],
 }
 RESIDENT = ("tf32", "bf16", "f16", "f16f16", "bf16bf16")
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
@@ -105,7 +116,9 @@ MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
 def modes_of(variant: str) -> tuple:
     """The instances a variant changes, and so is checked and timed on."""
     if variant == "final":
-        return (*RESIDENT, *MULTI_PASS)
+        return (*RESIDENT, *MULTI_PASS, "f64")
+    if variant.startswith("f64-"):
+        return ("f64",)
     if variant.startswith(("parts-", "keys-", "hide-", "k-", "v-")):
         return MULTI_PASS
     return ("tf32", "bf16") if variant.startswith("d64-") else RESIDENT
@@ -139,7 +152,8 @@ def main() -> None:
     card = chip_smoke.phase_card()  # exits without a card
     only = sys.argv[1:]  # variants to run ("final" always), or all
     libs = variant_libraries(attention.GATHERED_ATTENTION, {name: subs for name, subs in SUBSTITUTIONS.items()
-                                                             if not only or name == "final" or name in only})
+                                                             if not only or name == "final" or name in only},
+                             lambda name: tuple(dict.fromkeys(("tf32", *modes_of(name)))))
     build_and_report(libs, "gathered_attention")
 
     results = {}

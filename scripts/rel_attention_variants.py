@@ -35,7 +35,11 @@ bf16x6, bf16x9; timed on all four):
                       instead of 64
   parts-group-48      groups of n-tiles whose B chunks take up to 48
                       registers instead of 24
-"final", the source as it is, is timed on all seven instances.
+Variants of the f64 instance's resident design (DMMA; timed on it):
+  f64-window-16       QE windows of 16 keys at L > 64 instead of 32
+"final", the source as it is, is timed on all eight instances. A variant
+but "final" is built as one part of the instances it is run on (and
+TF32's, which the multi-pass checks read).
 
 A substitution whose text is no longer in the source stops the run with an
 error naming the variant (tests/test_torch_attention.py checks them against
@@ -90,6 +94,7 @@ SUBSTITUTIONS = {
     "chunked": [("  if constexpr (D <= 32) {\n    if (a.L <= rs::kMaxL) {", "  if constexpr (D < 0) {\n    if (a.L <= rs::kMaxL) {")],
     "parts-window-16": [("constexpr int kWindowParts = 64;", "constexpr int kWindowParts = 16;")],
     "parts-group-48": [("constexpr int kGroupWords = 24;", "constexpr int kGroupWords = 48;")],
+    "f64-window-16": [("constexpr int kWindowF64 = 32;", "constexpr int kWindowF64 = 16;")],
 }
 FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
@@ -101,16 +106,20 @@ CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (
 def instances_of(variant: str) -> tuple:
     """The instances a variant changes, and so is checked and timed on."""
     if variant == "final":
-        return ("fma", "tf32", "bf16", *MULTI_PASS)
+        return ("fma", "tf32", "bf16", *MULTI_PASS, "f64")
     if variant.startswith("parts-"):
         return MULTI_PASS
+    if variant.startswith("f64-"):
+        return ("f64",)
     return ("fma",) if variant in FMA_VARIANTS else ("tf32", "bf16")
 
 
-def variant_libraries(base: attention.CudaLibrary, substitutions: dict) -> dict:
+def variant_libraries(base: attention.CudaLibrary, substitutions: dict, instances_of=None) -> dict:
     """{variant: a CudaLibrary of base's kernel whose source is base's with
     the variant's substitutions made, under _build/variants/<variant>/ with
-    the shared headers beside it}."""
+    the shared headers beside it}. Given instances_of (variant -> the
+    instances it is run on), a variant but "final" is built as one part of
+    those instances alone."""
     source = base.source.read_text()
     libs = {}
     for name, subs in substitutions.items():
@@ -126,6 +135,8 @@ def variant_libraries(base: attention.CudaLibrary, substitutions: dict) -> dict:
             shutil.copy(header, directory / header.name)
         lib = attention.CudaLibrary(base.name, base.argtypes, base.instances, base.parts)
         lib.source = directory / base.source.name
+        if instances_of and name != "final":
+            lib.parts = ((instances_of(name), attention.HEAD_DIMS),)
         libs[name] = lib
     return libs
 
@@ -173,7 +184,8 @@ def main() -> None:
     card = chip_smoke.phase_card()  # exits without a card
     only = sys.argv[1:]  # variants to run ("final" always), or all
     libs = variant_libraries(attention.REL_ATTENTION, {name: subs for name, subs in SUBSTITUTIONS.items()
-                                                        if not only or name == "final" or name in only})
+                                                        if not only or name == "final" or name in only},
+                             lambda name: tuple(dict.fromkeys(("tf32", *instances_of(name)))))
     build_and_report(libs, "rel_attention")
 
     results = {}

@@ -290,6 +290,69 @@ def test_v1_masked_keys_do_not_change_output():
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
 
 
+F64_TOL = 1e-6  # chip_smoke.py's gate: the f64 instances against the plain version in their mode
+CANCEL_SCALE = 64.0
+
+
+def _cancelling_inputs(b, h, l, d, m, seed):
+    """chip_smoke.control_inputs' "cancelling" inputs, from numpy: q's first
+    quarter of dims repeated in its second, k's and the table's negated
+    there, both quarters scaled by CANCEL_SCALE, so that q.k and q.E are the
+    second half's O(1) products after partial sums of ~CANCEL_SCALE^2 that
+    cancel exactly (float32 sums keep ~1e-3 of them)."""
+    q, k, v, bias, table = _inputs(b, h, l, d, m, seed)
+    quarter = d // 4
+    for x in (q, k, table):
+        x[..., :2 * quarter] *= CANCEL_SCALE
+    q[..., quarter:2 * quarter] = q[..., :quarter]
+    k[..., quarter:2 * quarter] = -k[..., :quarter]
+    table[..., quarter:2 * quarter] = -table[..., :quarter]
+    return q, k, v, bias, table
+
+
+def _rel_rms(a, b) -> float:
+    return float(np.sqrt(np.mean((a - b) ** 2)) / np.sqrt(np.mean(b ** 2)))
+
+
+def _f64_plain_and_jax(entry, rel, l, d, mode):
+    """(the port's plain version of `entry` in `mode`, JAX's
+    attention_reference at F64_F64_F64 on XLA:CPU) on cancelling inputs; v2
+    hands JAX e_lr gathered from the table."""
+    m = 64
+    q, k, v, bias, table = _cancelling_inputs(2, 3, l, d, m, seed=l + d)
+    e_lr = _gathered(table, l, m) if rel else None
+    tq, tk, tv, tb = map(torch.from_numpy, (q, k, v, bias))
+    if entry == "v2":
+        ours = attention.fused_attention_v2_reference(tq, tk, tv, tb, torch.from_numpy(table) if rel else None,
+                                                      m if rel else None, mode=mode)
+    else:
+        ours = attention.fused_attention_reference(tq, tk, tv, tb, torch.from_numpy(e_lr) if rel else None, mode=mode)
+    with jax.default_matmul_precision("F64_F64_F64"):
+        ref = attention_reference(*map(jnp.asarray, (q, k, v, bias)), jnp.asarray(e_lr) if rel else None)
+    return ours.numpy(), np.asarray(ref)
+
+
+F64_CASES = [(entry, rel, l, d) for entry in ("v1", "v2") for rel in (True, False) for l, d in ((33, 16), (64, 32))]
+
+
+@pytest.mark.parametrize("entry,rel,l,d", F64_CASES)
+def test_f64_plain_versions_match_jax_at_f64_on_cancelling_inputs(entry, rel, l, d):
+    """The oracle of the f64 instances: each plain version in mode "f64"
+    (float64 products, each dot rounded to float32 on its own) within
+    F64_TOL relative RMS of JAX's einsums at F64_F64_F64, on inputs whose
+    dots cancel partial sums of ~64^2."""
+    ours, ref = _f64_plain_and_jax(entry, rel, l, d, "f64")
+    assert _rel_rms(ours, ref) <= F64_TOL
+
+
+@pytest.mark.parametrize("entry,rel,l,d", F64_CASES)
+def test_float32_plain_version_misses_the_f64_gate_on_cancelling_inputs(entry, rel, l, d):
+    """The control: the float32 plain version on the same inputs stands
+    outside F64_TOL of JAX at F64_F64_F64, so the gate sees float32 sums."""
+    ours, ref = _f64_plain_and_jax(entry, rel, l, d, "ieee")
+    assert _rel_rms(ours, ref) > F64_TOL
+
+
 def test_v2_reference_is_v1_reference_on_the_arange_gather():
     q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, 20, 16, 32, seed=7))
     e_lr = torch.from_numpy(_gathered(table.numpy(), 20, 32))

@@ -490,6 +490,100 @@ def test_gathered_tensor_core_instances_ignore_masked_keys(device, mode, l):
     assert (out1 - out2).abs().max().item() <= 1e-5
 
 
+# (L, D) of the f64 instances' resident boundary: L = 64 and 65 on either
+# side of the resident design's two key counts, 128 and 129 on either side
+# of its limit; D = 64 and L = 129 run the float64 FMA design
+F64_EDGES = [(l, d) for l in (64, 65, 128, 129) for d in (16, 32, 64)]
+
+
+def _e_lr_of(kind, table, l, m, d, device):
+    if kind == "random":  # not Toeplitz
+        return torch.randn(l, l, d, generator=torch.Generator(device=device).manual_seed(5), device=device) * 0.5
+    return _e_lr(table, l, m, kind) if kind else None
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "projection views"])
+@pytest.mark.parametrize("l,d", F64_EDGES)
+def test_f64_instances_at_the_resident_boundary(device, l, d, layout):
+    """The f64 instances on either side of their resident design's limits
+    (B * H = 15: a ragged last item of v1's 16 pairs and of v2's two at
+    L <= 64): v2 with and without the table, v1 with e_lr from arange, from
+    permuted positions and random, and without it (the v2 rel-off
+    instance), each launched once and within 1e-6 relative RMS of the plain
+    version in mode "f64"."""
+    b, h, m = 3, 5, 256
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=17)
+    qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
+    with torch.inference_mode():
+        for kw in (dict(rel_table=table, m=m), {}):
+            before = attention.REL_ATTENTION.launches_by_instance["f64"]
+            out = attention.fused_attention_v2(*qkv, bias, mode="f64", **kw)
+            torch.cuda.synchronize()
+            assert attention.REL_ATTENTION.launches_by_instance["f64"] == before + 1
+            assert out.stride() == (l * h * d, d, h * d, 1)
+            assert _rel_rms(out, attention.fused_attention_v2_reference(q, k, v, bias, mode="f64", **kw)) <= 1e-6
+        for kind in ("arange", "permuted", "random", None):
+            e_lr = _e_lr_of(kind, table, l, m, d, device)
+            out = _gathered_instance_call(*qkv, bias, e_lr, "f64")
+            assert _rel_rms(out, attention.fused_attention_reference(q, k, v, bias, e_lr, mode="f64")) <= 1e-6, kind
+
+
+@pytest.mark.parametrize("l,d", [(64, 32), (65, 16), (128, 32), (129, 32)])
+def test_f64_instances_ignore_masked_keys(device, l, d):
+    """Values at masked keys do not reach the f64 instances' output: v2 with
+    and without the table, v1 with e_lr from permuted positions."""
+    q, k, v, bias, table = _inputs(device, 4, 6, l, d, 256, seed=2)
+    e_lr = _e_lr(table, l, 256, "permuted")
+    masked = (bias < -1.0)[:, None, :, None]
+    runs = (lambda k_, v_: attention.fused_attention_v2(q, k_, v_, bias, table, 256, mode="f64"),
+            lambda k_, v_: attention.fused_attention_v2(q, k_, v_, bias, mode="f64"),
+            lambda k_, v_: attention.fused_attention(q, k_, v_, bias, e_lr, mode="f64"))
+    with torch.inference_mode():
+        for run in runs:
+            assert (run(k, v) - run(k + 7.0 * masked, v - 3.0 * masked)).abs().max().item() <= 1e-5
+
+
+def _cancelling_inputs(device, b, h, l, d, m, seed):
+    """chip_smoke.control_inputs' "cancelling" inputs: q's first quarter of
+    dims repeated in its second, k's and the table's negated there, both
+    quarters scaled by 64, so that q.k and q.E are the second half's O(1)
+    products after partial sums of ~64^2 that cancel exactly (float32 sums
+    keep ~1e-3 of them)."""
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed)
+    quarter = d // 4
+    for x in (q, k, table):
+        x[..., :2 * quarter] *= 64.0
+    q[..., quarter:2 * quarter] = q[..., :quarter]
+    k[..., quarter:2 * quarter] = -k[..., :quarter]
+    table[..., quarter:2 * quarter] = -table[..., :quarter]
+    return q, k, v, bias, table
+
+
+@pytest.mark.parametrize("b,h,l,d", [(4, 6, 64, 32), (3, 5, 99, 16), (2, 3, 128, 32)])
+def test_f64_instances_hold_the_f64_gate_on_cancelling_inputs(device, b, h, l, d):
+    """On cancelling inputs the f64 instances (v2 with and without the
+    table, v1 with e_lr) stand within 1e-6 relative RMS of the plain
+    version in mode "f64"; at D = 32, where eight cancelled terms of ~64^2
+    meet in each dot, the FMA instance, whose float32 sums keep ~1e-3 of
+    them, outside it (the control, as chip_smoke.py runs it). At D = 16
+    four such terms leave the FMA instance inside the gate (2.6e-7 at
+    B = 3, H = 5, L = 99 on an H100), so there it is no control."""
+    m = 128
+    q, k, v, bias, table = _cancelling_inputs(device, b, h, l, d, m, seed=19)
+    e_lr = _e_lr(table, l, m, "permuted")
+    calls = (lambda mode: attention.fused_attention_v2(q, k, v, bias, table, m, mode=mode),
+             lambda mode: attention.fused_attention_v2(q, k, v, bias, mode=mode),
+             lambda mode: attention.fused_attention(q, k, v, bias, e_lr, mode=mode))
+    plains = (attention.fused_attention_v2_reference(q, k, v, bias, table, m, mode="f64"),
+              attention.fused_attention_v2_reference(q, k, v, bias, mode="f64"),
+              attention.fused_attention_reference(q, k, v, bias, e_lr, mode="f64"))
+    with torch.inference_mode():
+        for call, plain in zip(calls, plains):
+            assert _rel_rms(call("f64"), plain) <= 1e-6
+            if d == 32:
+                assert _rel_rms(call("ieee"), plain) > 1e-6
+
+
 def _at_edge(x: torch.Tensor, edge: str, mode: str) -> torch.Tensor:
     """x moved to an edge of its parts: "two parts", its first two bf16 parts
     alone (the third 0); "ties", halfway between two values of the mode's
