@@ -172,8 +172,8 @@ __host__ __device__ constexpr uint32_t packed_parts(Arith a, bool first) {
 
 // What a fragment register holds between its load and its mma: a single-
 // rounding instance's operand, rounded once at the load; in the forms that
-// split at the mma (mma<A>, mma_split), a multi-pass instance's float32
-// value.
+// split at the mma (mma<A>, mma_split) or split held fragments once
+// (split_fragments), a multi-pass instance's float32 value.
 template <Arith A>
 __device__ __forceinline__ uint32_t held(float x) {
   return kParts<A> == 1 ? operand_of<A>(x) : __float_as_uint(x);
@@ -264,8 +264,8 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
 // part outliving its mma: the chunked v2 design's form (L > 128 or D = 64,
 // no shipped configuration), whose registers hold nothing more (ptxas
 // spilled with every part made at once there). The resident v2 design and
-// v1 split each operand once instead (split4, products below), but for
-// TF32x3 where that lost (mma_split above).
+// v1 split each operand once instead (split4, products below), and so
+// does TF32x3 there (mma_split above runs it in v1's chunked body).
 template <Arith A>
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   constexpr uint32_t kFirst = packed_parts(A, true), kSecond = packed_parts(A, false);
@@ -297,9 +297,9 @@ __device__ __forceinline__ void mma_split_products(float (&c)[4], const uint32_t
 
 // c += a . b for one m16n8k8 tile in arithmetic A, a and b (as mma's) held
 // values (held): every part of both made at the call, the listed products
-// unrolled, the smallest first. The TF32x3 instances' form where it beats
-// splitting once (v1, and the resident v2 design at L <= 64; PERF.md §6):
-// A's parts are made anew at every call (the empty asm hides that a is the
+// unrolled, the smallest first. The TF32x3 instance's form in v1's chunked
+// body (L > 128 or D = 64), where it beat splitting once (PERF.md §6): A's
+// parts are made anew at every call (the empty asm hides that a is the
 // same as at the last n-tile: held across the unrolled n-tiles, they
 // spilled). The single-rounding instances' one mma.
 template <Arith A>
@@ -338,8 +338,9 @@ __device__ __forceinline__ void mma_split(float (&c)[4], const uint32_t (&a)[4],
 // loop over the products, to fit 128 registers); at B = 64, H = 12, L = 128,
 // D = 32 with relative scores, v1's bf16x9 went 1.0276 -> 0.1620 ms, v2's
 // 0.2311 -> 0.0751 (NVIDIA H100 80GB HBM3, 700 W, in turns:
-// scripts/kernel_times_two_trees.py). TF32x3 keeps mma_split where that won
-// (PERF.md §6).
+// scripts/kernel_times_two_trees.py). TF32x3 splits once in both kernels'
+// resident designs too, its A parts from held fragments (split_fragments),
+// and keeps mma_split in v1's chunked body, where that won (PERF.md §6).
 
 // k-steps per chunk of 16 contracted values: one m16n8k16 for bf16 parts, two m16n8k8 for TF32
 template <Arith A>
@@ -439,6 +440,25 @@ __device__ __forceinline__ void products(float (*c)[4], const AChunk& a_chunk, c
     for (int n = 0; n < G; ++n) b_chunk(kc, n, b[n]);
 #pragma unroll
     for (int s = 0; s < kSteps<A>; ++s) mma_products<A, G>(c, a, b, s);
+  }
+}
+
+// Held A fragments (held) of 2 KC m16n8k8 k-steps split into their TF32
+// parts once, as KC chunks of products: w[kc][i] holds part i of chunk kc,
+// words 4 s .. 4 s + 3 those of k-step 2 kc + s.
+template <Arith A, int KC>
+__device__ __forceinline__ void split_fragments(uint32_t (&w)[KC][kParts<A>][4 * kSteps<A>],
+                                                const uint32_t (&f)[2 * KC][4]) {
+  static_assert(!kBF16Parts<A>, "TF32 parts: a chunk is two k-steps of m16n8k8");
+#pragma unroll
+  for (int ks = 0; ks < 2 * KC; ++ks) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t p[kParts<A>];
+      split<A>(p, f[ks][e]);
+#pragma unroll
+      for (int i = 0; i < kParts<A>; ++i) w[ks / 2][i][4 * (ks % 2) + e] = p[i];
+    }
   }
 }
 

@@ -36,13 +36,15 @@
 //           the softmax's output.
 //   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
 //           gathered_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
-//           multi-pass presets (device.cuh's Arith): the chunked body with
-//           every operand split into two or three TF32 or bf16 parts, the
-//           listed products of parts (3, 6 or 9 times TF32's) summed in
-//           float32; P split after it is normalised (a first pass over the
-//           keys finds each row's maximum and sum). The bf16 ones split each
-//           operand once and run bf16 mma (below); TF32x3 splits at each TF32
-//           mma (device.cuh's mma_split), which beat splitting once.
+//           multi-pass presets (device.cuh's Arith): every operand split
+//           into two or three TF32 or bf16 parts, the listed products of
+//           parts (3, 6 or 9 times TF32's) summed in float32; P split after
+//           it is normalised. TF32x3 runs the resident design (below) at
+//           L <= 128 and D <= 32, each operand split once, its row
+//           statistics exact over every key in one pass; the bf16 ones run
+//           the chunked body, split once, on bf16 mma, a first pass over the
+//           keys finding each row's maximum and sum, and so does TF32x3
+//           beyond, split at each TF32 mma (device.cuh's mma_split).
 //   7 f64   ("F64_F64_F64"): gathered_attention_f64_kernel, every product in
 //           float64, each dot's output rounded to float32: on the FP64
 //           tensor cores (mma.sync m16n8k16 f64, DMMA) in the resident
@@ -122,8 +124,8 @@
 // and V once per (block, pair): 768 x 128 x (16 KB / P + 32 KB / R), 302 MB
 // at P = R = 16 (100 MB e_lr, 201 MB K and V), and 25 MB of q and out.
 //
-// Resident tensor-core design (TF32, bf16 and the 16-bit instances at
-// L <= 128 and D <= 32, every shipped configuration): one pass over the
+// Resident tensor-core design (TF32, bf16, TF32x3 and the 16-bit instances
+// at L <= 128 and D <= 32, every shipped configuration): one pass over the
 // keys. A warp takes each of its pair's rows' exact maximum and sum over
 // every key and normalises P before it is rounded, as v2's resident design
 // does, so that no instance reads e_lr and K a second time for the row
@@ -221,9 +223,46 @@
 // code is gone (device.cuh's dmma_chunk is m16n8k16). At 0.0776 ms the
 // 1.2 G float64 FMA of a call run at 47% of the FP64 tensor cores' peak.
 //
-// Chunked tensor-core design (the multi-pass instances, and the others at
-// L > 128 or D = 64): the block above walks the keys in chunks of 32 (16 at
-// D = 64):
+// The TF32x3 instance, resident (L <= 128 at D <= 32): the design above
+// with each dot's three products of TF32 parts, per k-step a1.b0, a0.b1,
+// a0.b0 into one float32 accumulator (device.cuh's products), where the
+// chunked body below made two passes over the keys (the first for each
+// row's maximum and sum, then q.k and q.e_lr again: 15 products of parts
+// per key and dimension against 9, e_lr and K read from L2 twice):
+//   - each operand split once (kSplitOnce): q's parts once per item into
+//     registers (the row-warp's 16 pairs, then the pair-warp's 16 rows: 32
+//     registers at D = 32), e_lr's, K's and V's chunks of 16 values as
+//     they are loaded from L2 (each enters the mma of one group), P's per
+//     16 keys from two n-tiles' accumulators (device.cuh's p_chunk); the
+//     products of a group of n-tiles interleave;
+//   - e_lr loaded and multiplied by groups of four n-tiles, K and V by
+//     two, the scores held 64 keys at a time at KEYS = 128 (the first
+//     chunk parked in the store) and 32 at KEYS = 64;
+//   - K and V read from L2 at the views' row stride, as the other resident
+//     instances read them: staging K's rows in shared memory does not fit
+//     (the store and two stages take 223,744 of the 232,448 bytes a block
+//     may have at KEYS = 128, D = 32; 16 K rows per warp, double-buffered,
+//     would take 65,536 more).
+// Its sums are the chunked body's but for the row statistics (taken over
+// every key at once, P = exp2(s - max) times the sum's reciprocal), and
+// interleaving n-tiles changes no accumulator's order. Measured in turns
+// (scripts/gathered_attention_variants.py, NVIDIA H100 80GB HBM3, 700 W;
+// ms at 64 x 128 / 64 x 64 / 15 x 64 with e_lr): the chunked body 0.1273
+// / 0.0462 / 0.0237; this design split once, 32-key chunks, groups of
+// two: 0.0783 / 0.0264 / 0.0139, again 0.0781 / 0.0264 / 0.0139; split at
+// each mma instead (its 12 words of parts made at every mma) 0.0780 /
+// 0.0273 / 0.0144; 64-key chunks 0.0758 / 0.0270 / 0.0141 and 0.0760 /
+// 0.0271 / 0.0139; e_lr's groups of four 0.0763 / 0.0260 / 0.0138; both
+// 0.0750 / 0.0271 / 0.0140 (128 registers, no spill): kept, 64-key chunks
+// at KEYS = 128 only; K's groups of four 0.0775 / 0.0266 / 0.0141 (with
+// 64-key chunks 4 bytes spilled at KEYS = 64), e_lr's and K's 0.0759 /
+// 0.0276 / 0.0144 (48 bytes spilled with 64-key chunks); V's groups of four
+// 0.0765 / 0.0263 / 0.0138. At 64 x 128 it runs within 11% of the TF32
+// instance's one product (0.0679).
+//
+// Chunked tensor-core design (the bf16 multi-pass instances, and the others
+// at L > 128 or D = 64): the block above walks the keys in chunks of 32 (16
+// at D = 64):
 //   - The relative term. Warp w computes row l0 + w for the 16 pairs: C =
 //     Q_l . E_l^T, E_l's B fragments read from L2 (each e_lr element once
 //     per block, for 16 pairs: 100 MB per flagship call). It stores C
@@ -302,8 +341,8 @@
 // bf16x6 0.7646 -> 0.1412, bf16x9 1.0276 -> 0.1620. Against groups of four,
 // the bf16 instances ran -1 to +6% with groups of two and 4-13% slower with
 // one n-tile at a time (no interleaving). TF32x3 split once (two TF32
-// parts, m16n8k8) ran 1-6% slower than that earlier form (device.cuh's
-// mma_split) and keeps it.
+// parts, m16n8k8) ran 1-6% slower in this body than that earlier form
+// (device.cuh's mma_split), which it keeps past the resident design.
 //
 // Rows, keys and pairs outside the tensors read as zeros (zero-filled in
 // shared memory, or not loaded), keys past L are scored -inf, and nothing is
@@ -655,8 +694,9 @@ template <int D>
 constexpr int kQPair = kRows * D + 16;
 
 // A multi-pass instance of bf16 parts splits each operand once (the note at
-// the top). TF32x3, whose split-once form ran 1-6% slower than its form of
-// PR 15 (device.cuh's mma_split; PERF.md §6), keeps that.
+// the top). TF32x3, whose split-once form ran 1-6% slower in this body than
+// splitting at each mma (device.cuh's mma_split; PERF.md §6), keeps that
+// here, past the resident design.
 template <Arith A, int D>
 constexpr bool kSplitOnce = kParts<A> > 1 && kBF16Parts<A>;
 // n-tiles whose products interleave (device.cuh's products) in the relative
@@ -1117,8 +1157,8 @@ __device__ __forceinline__ void attention(const Args& a) {
 
 }  // namespace tc
 
-// ---- The resident tensor-core design (TF32, bf16 and the 16-bit instances
-// at L <= 128 and D <= 32; the note at the top) -----------------------------
+// ---- The resident tensor-core design (TF32, bf16, TF32x3 and the 16-bit
+// instances at L <= 128 and D <= 32; the note at the top) -------------------
 
 namespace rs {
 
@@ -1130,6 +1170,26 @@ constexpr int kMaxL = 128;                 // the longest sequence: every key's 
 constexpr int kRelGroup = 4;               // e_lr n-tiles whose loads are in flight at once, per warp
 constexpr int kLoadGroup = 4;              // K or V n-tiles whose loads are in flight at once, per warp
 constexpr int kChunkNT = 8;                // n-tiles (of 8 keys) whose scores a warp holds in registers
+// The TF32x3 instance's (the note at the top): its operands split once
+// (kSplitOnce; else at each mma, device.cuh's mma_split), its scores held 64
+// keys at a time at KEYS = 128 and 32 at KEYS = 64, e_lr loaded and
+// multiplied by groups of four n-tiles, K and V of two (q's and P's parts
+// take the registers)
+template <Arith A>
+constexpr bool kSplitOnce = kParts<A> > 1;
+constexpr int kX3ChunkNT = 8;              // at KEYS = 128
+constexpr int kX3ChunkNTShort = 4;         // at KEYS = 64
+constexpr int kX3RelGroup = 4;
+constexpr int kX3KGroup = 2;
+constexpr int kX3VGroup = 2;               // even: p.v takes 16 keys a chunk
+template <Arith A, int KEYS>
+constexpr int kChunkNTOf = kParts<A> == 1 ? kChunkNT : KEYS == kMaxL ? kX3ChunkNT : kX3ChunkNTShort;
+template <Arith A>
+constexpr int kRelGroupOf = kParts<A> > 1 ? kX3RelGroup : kRelGroup;
+template <Arith A>
+constexpr int kKGroupOf = kParts<A> > 1 ? kX3KGroup : kLoadGroup;
+template <Arith A>
+constexpr int kVGroupOf = kParts<A> > 1 ? kX3VGroup : kLoadGroup;
 
 // Offsets (floats) into dynamic shared memory: the relative term's store
 // rel[pair][row][key] (rows KEYS + 8 floats apart, pairs 16 (KEYS + 8) + 8,
@@ -1186,9 +1246,12 @@ __device__ __forceinline__ void attention(const Args& a) {
   using S = Smem<D, KEYS>;
   using V = tc::VCols<D>;
   constexpr int kKS = D / 8;    // k-steps of q.k and q.e_lr, n-tiles of p.v
+  constexpr int kKC = D / 16;   // chunks of q.k and q.e_lr (two k-steps) of TF32x3's parts
   constexpr int kNT = KEYS / 8;  // key n-tiles of a row's scores
-  constexpr int kChunks = kNT / kChunkNT;  // chunks of keys whose scores a warp holds at once
-  static_assert(kNT % kRelGroup == 0 && kChunkNT % kLoadGroup == 0 && kNT % kChunkNT == 0, "whole groups");
+  constexpr int kCNT = kChunkNTOf<A, KEYS>, kRG = kRelGroupOf<A>, kKG = kKGroupOf<A>, kVG = kVGroupOf<A>;
+  constexpr int kChunks = kNT / kCNT;  // chunks of keys whose scores a warp holds at once
+  static_assert(kNT % kRG == 0 && kCNT % kKG == 0 && kCNT % kVG == 0 && kVG % 2 == 0 && kNT % kCNT == 0,
+                "whole groups");
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* stages = smem + S::kStages;
@@ -1222,25 +1285,42 @@ __device__ __forceinline__ void attention(const Args& a) {
       const float* e_row = a.e_lr + static_cast<size_t>(lr) * a.L * D;
       float* dst = smem + g * S::kRelPair + warp * S::kRelRow + 2 * t;
       const int n_used = (a.L + 7) / 8;  // key n-tiles that reach a key below L
+      uint32_t qa[kSplitOnce<A> ? kKC : 1][kParts<A>][4 * kSteps<A>];  // TF32x3: qr's parts
+      if constexpr (kSplitOnce<A>) split_fragments<A, kKC>(qa, qr);
 #pragma unroll 1
-      for (int nt0 = 0; nt0 < n_used; nt0 += kRelGroup) {
-        float4 y[kRelGroup][D / 16];
+      for (int nt0 = 0; nt0 < n_used; nt0 += kRG) {
+        float4 y[kRG][D / 16];
 #pragma unroll
-        for (int n = 0; n < kRelGroup; ++n) {
+        for (int n = 0; n < kRG; ++n) {
 #pragma unroll
           for (int cc = 0; cc < D / 16; ++cc) y[n][cc] = tc::columns<D>(e_row, D, a.L, 8 * (nt0 + n) + g, cc, t);
         }
+        if constexpr (kSplitOnce<A>) {
+          // TF32x3: each chunk of e_lr split as loaded, the group's products
+          // interleaved (device.cuh's products)
+          float acc[kRG][4] = {};
+          products<A, kRG, kKC>(acc, HeldChunks<A, kKC>{qa}, [&](int kc, int n, uint32_t (&b)[kParts<A>][4]) {
+            split4<A>(b, y[n][kc].x, y[n][kc].y, y[n][kc].z, y[n][kc].w);
+          });
 #pragma unroll
-        for (int n = 0; n < kRelGroup; ++n) {
-          float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-          for (int cc = 0; cc < D / 16; ++cc) {
-            mma_split<A>(acc, qr[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));
-            mma_split<A>(acc, qr[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));
+          for (int n = 0; n < kRG; ++n) {
+            float* d = dst + 8 * (nt0 + n);
+            *reinterpret_cast<float2*>(d) = make_float2(acc[n][0], acc[n][1]);
+            *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(acc[n][2], acc[n][3]);
           }
-          float* d = dst + 8 * (nt0 + n);
-          *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
-          *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
+        } else {
+#pragma unroll
+          for (int n = 0; n < kRG; ++n) {
+            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+            for (int cc = 0; cc < D / 16; ++cc) {
+              mma_split<A>(acc, qr[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));
+              mma_split<A>(acc, qr[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));
+            }
+            float* d = dst + 8 * (nt0 + n);
+            *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
+            *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
+          }
         }
       }
     }
@@ -1265,14 +1345,16 @@ __device__ __forceinline__ void attention(const Args& a) {
     };
     uint32_t qf[kKS][4];  // pair `warp`'s rows g and g + 8
     tc::q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
+    uint32_t qa[kSplitOnce<A> ? kKC : 1][kParts<A>][4 * kSteps<A>];  // TF32x3: qf's parts, once per item
+    if constexpr (kSplitOnce<A>) split_fragments<A, kKC>(qa, qf);
 
     // S = rel + Q . K^T (under kRoundsOutput Q . K^T rounded first, then rel
     // added); then scale and bias, in log2 units; keys past L -inf. The
-    // scores of one chunk of kChunkNT n-tiles (64 keys) at a time are held in
-    // registers; the chunks before the last are parked in the store, over
-    // their relative term (held for every key, 64 score registers spilled at
-    // 128 a thread)
-    float s[kChunkNT][4];
+    // scores of one chunk of kCNT n-tiles (64 keys; TF32x3's 32 at
+    // KEYS = 64) at a time are held in registers; the chunks before the last
+    // are parked in the store, over their relative term (held for every key,
+    // 64 score registers spilled at 128 a thread)
+    float s[kCNT][4];
     float mx[2] = {-INFINITY, -INFINITY};
     // a loop, not unrolled: unrolled over the chunks, ptxas held every
     // chunk's invariants (columns, predicates) across the item loop and
@@ -1280,12 +1362,12 @@ __device__ __forceinline__ void attention(const Args& a) {
 #pragma unroll 1
     for (int c = 0; c < kChunks; ++c) {
 #pragma unroll
-      for (int n0 = 0; n0 < kChunkNT; n0 += kLoadGroup) {
-        float4 y[kLoadGroup][D / 16];
+      for (int n0 = 0; n0 < kCNT; n0 += kKG) {
+        float4 y[kKG][D / 16];
         const int sl = opaque(a.sl);
 #pragma unroll
-        for (int n = 0; n < kLoadGroup; ++n) {
-          const int row = 8 * (kChunkNT * c + n0 + n) + g;
+        for (int n = 0; n < kKG; ++n) {
+          const int row = 8 * (kCNT * c + n0 + n) + g;
 #pragma unroll
           for (int cc = 0; cc < D / 16; ++cc) {
             // plain loads, which ptxas does not hoist past the fence below
@@ -1293,18 +1375,30 @@ __device__ __forceinline__ void attention(const Args& a) {
                                  : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
           }
         }
+        if constexpr (kSplitOnce<A>) {
+          // TF32x3: the group's accumulators start at their relative term and
+          // take q.k's products of parts, each chunk of K split as loaded,
+          // the group's products interleaved
 #pragma unroll
-        for (int n = 0; n < kLoadGroup; ++n) {
-          const int nt = kChunkNT * c + n0 + n;
+          for (int n = 0; n < kKG; ++n) load2(s[n0 + n], kCNT * c + n0 + n);
+          products<A, kKG, kKC>(&s[n0], HeldChunks<A, kKC>{qa}, [&](int kc, int n, uint32_t (&b)[kParts<A>][4]) {
+            split4<A>(b, y[n][kc].x, y[n][kc].y, y[n][kc].z, y[n][kc].w);
+          });
+        }
+#pragma unroll
+        for (int n = 0; n < kKG; ++n) {
+          const int nt = kCNT * c + n0 + n;
           float* sn = s[n0 + n];
           float r[4];
-          load2(r, nt);
+          if constexpr (!kSplitOnce<A>) {
+            load2(r, nt);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) sn[i] = kRoundsOutput<A> ? 0.0f : r[i];
+            for (int i = 0; i < 4; ++i) sn[i] = kRoundsOutput<A> ? 0.0f : r[i];
 #pragma unroll
-          for (int cc = 0; cc < D / 16; ++cc) {
-            mma_split<A>(s[n0 + n], qf[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));
-            mma_split<A>(s[n0 + n], qf[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));
+            for (int cc = 0; cc < D / 16; ++cc) {
+              mma_split<A>(s[n0 + n], qf[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));
+              mma_split<A>(s[n0 + n], qf[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));
+            }
           }
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
@@ -1328,12 +1422,12 @@ __device__ __forceinline__ void attention(const Args& a) {
     // exponentials taken again where P is made, with the same bits); P
     // normalised, then rounded as p.v's operand (JAX's einsum takes the
     // softmax's output as its operand)
-    constexpr int kParked = kNT - kChunkNT;  // n-tiles of the parked chunks
+    constexpr int kParked = kNT - kCNT;  // n-tiles of the parked chunks
     mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
     mx[1] = quad_max(mx[1]);
     float sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int n = 0; n < kChunkNT; ++n) {
+    for (int n = 0; n < kCNT; ++n) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         s[n][i] = exp2f(s[n][i] - mx[i / 2]);
@@ -1356,12 +1450,12 @@ __device__ __forceinline__ void attention(const Args& a) {
     float o[kKS][4];
 #pragma unroll
     for (int dn = 0; dn < kKS; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.0f;
-    // p.v over the group of kLoadGroup n-tiles from nt0, P of its n-tile n by p_of(n, p)
+    // p.v over the group of kVG n-tiles from nt0, P of its n-tile n by p_of(n, p)
     const auto pv_group = [&](int nt0, auto p_of) {
-      float x[kLoadGroup][2][V::kBlocks][V::kW];
+      float x[kVG][2][V::kBlocks][V::kW];
       const int sl = opaque(a.sl);
 #pragma unroll
-      for (int n = 0; n < kLoadGroup; ++n) {
+      for (int n = 0; n < kVG; ++n) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = 8 * (nt0 + n) + 2 * t + e;
@@ -1371,23 +1465,43 @@ __device__ __forceinline__ void attention(const Args& a) {
           }
         }
       }
+      if constexpr (kSplitOnce<A>) {
+        // TF32x3: P's parts once per 16 keys (two n-tiles' accumulators,
+        // device.cuh's p_chunk), V's split as loaded, the products of the
+        // output n-tiles interleaved
 #pragma unroll
-      for (int n = 0; n < kLoadGroup; ++n) {
-        float p[4];
-        p_of(n, p);
-        const uint32_t pa[4] = {held<A>(p[0]), held<A>(p[2]), held<A>(p[1]), held<A>(p[3])};
+        for (int m = 0; m < kVG / 2; ++m) {
+          float p0[4], p1[4];
+          p_of(2 * m, p0);
+          p_of(2 * m + 1, p1);
+          uint32_t pa[1][kParts<A>][4 * kSteps<A>];
+          p_chunk<A>(pa, p0, p1);
 #pragma unroll
-        for (int hb = 0; hb < V::kBlocks; ++hb) {
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+            products<A, V::kW, 1>(&o[V::kW * hb], HeldChunks<A, 1>{pa}, [&](int, int dd, uint32_t (&b)[kParts<A>][4]) {
+              split4<A>(b, x[2 * m][0][hb][dd], x[2 * m][1][hb][dd], x[2 * m + 1][0][hb][dd], x[2 * m + 1][1][hb][dd]);
+            });
+          }
+        }
+      } else {
 #pragma unroll
-          for (int dd = 0; dd < V::kW; ++dd) {
-            mma_split<A>(o[V::kW * hb + dd], pa, held<A>(x[n][0][hb][dd]), held<A>(x[n][1][hb][dd]));
+        for (int n = 0; n < kVG; ++n) {
+          float p[4];
+          p_of(n, p);
+          const uint32_t pa[4] = {held<A>(p[0]), held<A>(p[2]), held<A>(p[1]), held<A>(p[3])};
+#pragma unroll
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+#pragma unroll
+            for (int dd = 0; dd < V::kW; ++dd) {
+              mma_split<A>(o[V::kW * hb + dd], pa, held<A>(x[n][0][hb][dd]), held<A>(x[n][1][hb][dd]));
+            }
           }
         }
       }
       __syncwarp();  // group by group
     };
 #pragma unroll 1
-    for (int nt0 = 0; nt0 < kParked; nt0 += kLoadGroup) {
+    for (int nt0 = 0; nt0 < kParked; nt0 += kVG) {
       pv_group(nt0, [&](int n, float (&p)[4]) {
         load2(p, nt0 + n);
 #pragma unroll
@@ -1395,7 +1509,7 @@ __device__ __forceinline__ void attention(const Args& a) {
       });
     }
 #pragma unroll
-    for (int n0 = 0; n0 < kChunkNT; n0 += kLoadGroup) {
+    for (int n0 = 0; n0 < kCNT; n0 += kVG) {
       pv_group(kParked + n0, [&](int n, float (&p)[4]) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) p[i] = s[n0 + n][i] * inv[i / 2];
@@ -1794,9 +1908,9 @@ cudaError_t launch_resident(Args a, int device, cudaStream_t stream) {
 template <int D, Arith A>
 cudaError_t launch_tc(Args a, int device, cudaStream_t stream) {
   // the resident design up to L = 128 at D <= 32 for the single-rounding
-  // instances; the chunked one for the multi-pass instances, longer
-  // sequences and D = 64 (no shipped configuration)
-  if constexpr (D <= 32 && kParts<A> == 1) {
+  // instances and TF32x3; the chunked one for the bf16 multi-pass
+  // instances, longer sequences and D = 64 (no shipped configuration)
+  if constexpr (D <= 32 && (kParts<A> == 1 || A == Arith::TF32x3)) {
     if (a.L <= rs::kMaxL) {
       return a.L <= rs::kMaxL / 2 ? launch_resident<D, A, rs::kMaxL / 2>(a, device, stream)
                                   : launch_resident<D, A, rs::kMaxL>(a, device, stream);

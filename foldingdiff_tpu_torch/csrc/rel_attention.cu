@@ -178,13 +178,28 @@
 // released once split, so the next item's copies land while this item
 // computes (a second stage, which fits without relative scores, ran no
 // faster). Measured at the flagship shape with relative scores (NVIDIA
-// H100 80GB HBM3, 700 W, in turns with the form of PR 15, which split every
+// H100 80GB HBM3, 700 W, in turns with the earlier form, which split every
 // fragment at each TF32 mma: scripts/kernel_times_two_trees.py): tf32x3
 // 0.0863 -> 0.0708 ms, bf16x3 0.1091 -> 0.0474, bf16x6 0.1729 -> 0.0631,
-// bf16x9 0.2311 -> 0.0751. TF32x3 at L <= 64 keeps that form (attention,
-// device.cuh's mma_split, a ring of three float32 stages): split once it ran
-// 5-11% slower there without relative scores, its 32-bit planes doubling
-// the shared-memory traffic of bf16's. The chunked design below runs the
+// bf16x9 0.2311 -> 0.0751. TF32x3 at L <= 64 runs the single-rounding
+// instances' body instead (attention: one block per SM, a ring of three
+// float32 stages), since planes of parts ran 5-11% slower there without
+// relative scores, their 32-bit words doubling the shared-memory traffic
+// of bf16's. It splits once all the same (kSplitAtLoad): q's parts into
+// registers once per item, each K, table and V fragment as it is loaded
+// from the float32 stage (ldmatrix for K and the table, scalar loads of
+// V's rows 2t, 2t + 1, 8 + 2t, 9 + 2t per 16 keys), P's per 16 keys, the
+// products of groups of n-tiles interleaved (group_of, as many as
+// kX3GroupWords = 48 registers of B parts hold: five QE n-tiles, four
+// score n-tiles, the four of p.v). Its sums are those of the form that
+// split at each mma. Measured in turns (scripts/rel_attention_variants.py,
+// NVIDIA H100 80GB HBM3, 700 W; ms at 64 x 64 rel / rel-off, 15 x 64 rel /
+// rel-off): split at each mma 0.0216 / 0.0139 / 0.0091 / 0.0064 and
+// 0.0213 / 0.0139 / 0.0089 / 0.0063; split at the load, groups of 24 words
+// (two n-tiles) 0.0193 / 0.0135 / 0.0084 / 0.0062 and 0.0189 / 0.0136 /
+// 0.0083 / 0.0062; of 32 words 0.0190 / 0.0135 / 0.0082 / 0.0061; of 48
+// 0.0185 / 0.0136 / 0.0080 / 0.0062 (kept); of 80 0.0192 / 0.0139 / 0.0083
+// / 0.0063. The chunked design below runs the
 // multi-pass instances as a loop over the products (device.cuh's mma<A>):
 // unrolled there, at 168 registers (255 at D = 64), ptxas spilled.
 // The TF32 parts are rounded by integer operations (device.cuh's
@@ -889,16 +904,47 @@ __device__ __forceinline__ void b_fragments(uint32_t (&r)[4], const float* rows,
   ldmatrix_x4(r, rows + (lane % 8) * (D + 4) + 16 * kk2 + 4 * (lane / 8));
 }
 
+// TF32x3's B chunk kk2 (every part) of an n-tile whose 8 rows of D + 4
+// floats start at `rows`: b_fragments' words split as loaded.
+template <Arith A, int D>
+__device__ __forceinline__ void split_rows(uint32_t (&b)[kParts<A>][4], const float* rows, int kk2) {
+  uint32_t w[4];
+  b_fragments<D>(w, rows, kk2);
+  split4<A>(b, __uint_as_float(w[0]), __uint_as_float(w[1]), __uint_as_float(w[2]), __uint_as_float(w[3]));
+}
+
 // One block per SM (255 registers) for a multi-pass instance, and for the
 // instances that round each dot's output (at two blocks' 128 registers, the
 // rounded q.k and the relative term held apart spilled at KEYS = 128).
 template <Arith A>
 constexpr bool kOneBlock = kParts<A> > 1 || kRoundsOutput<A>;
 
+// The n-tiles of n whose products interleave in a group (device.cuh's
+// products): the largest divisor of n whose B chunks of every part fit
+// `words` registers (kGroupWords in the planes of parts, kX3GroupWords in
+// TF32x3's split at the load), and at least 2.
+constexpr int kGroupWords = 24;
+constexpr int kX3GroupWords = 48;
+template <Arith A>
+__host__ __device__ constexpr int group_of(int n, int words = kGroupWords) {
+  int g = 2;
+  for (int d = 3; d <= n; ++d) {
+    if (n % d == 0 && d * kParts<A> * 2 * kSteps<A> <= words) g = d;
+  }
+  return g;
+}
+
+// TF32x3 at L <= 64 (attention): each fragment of K, the table and V split
+// into its parts once, as it is loaded from the float32 stage, q's parts once
+// per item, the products of groups of n-tiles interleaved (device.cuh's
+// products); else every operand split at each mma (device.cuh's mma_split).
+template <Arith A>
+constexpr bool kSplitAtLoad = kParts<A> > 1;
+
 // KEYS (64 or 128, at least L): the keys of a pair, and its rows in a stage.
 // Shared memory holds the single-rounding instances' operands rounded, what
-// a fragment load reads; TF32x3's float32 values, split at each mma
-// (device.cuh's mma_split), where that beats splitting once (kSplitOnce).
+// a fragment load reads; TF32x3's float32 values, split as loaded
+// (kSplitAtLoad) where planes of parts (kSplitOnce) lost.
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void attention(const Args& a) {
   constexpr bool kSplit = kParts<A> > 1;
@@ -979,6 +1025,8 @@ __device__ __forceinline__ void attention(const Args& a) {
         qf[kk][2] = __float_as_uint(q0[4]);
         qf[kk][3] = __float_as_uint(q0[8 * kRow + 4]);
       }
+      uint32_t qa[kSplitAtLoad<A> ? kDT / 2 : 1][kParts<A>][4 * kSteps<A>];  // TF32x3: qf's parts
+      if constexpr (kSplitAtLoad<A>) split_fragments<A, kDT / 2>(qa, qf);
       float s[kNT][4];  // the warp's 16 x KEYS scores, then P
 #pragma unroll
       for (int c = 0; c < KEYS / kWindow; ++c) {
@@ -987,20 +1035,40 @@ __device__ __forceinline__ void attention(const Args& a) {
           // warp's rows reach in keys [kWindow c, kWindow (c + 1)), into the
           // warp's slice
           const float* ew = table + (lw - kWindow * c - kWindow + KEYS) * kRow;
+          if constexpr (kSplitAtLoad<A>) {
+            // TF32x3: groups of n-tiles, each B fragment split as loaded
+            constexpr int kG = group_of<A>(kWarpWin / 8, kX3GroupWords);
 #pragma unroll
-          for (int n = 0; n < kWarpWin / 8; ++n) {
-            float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+            for (int n0 = 0; n0 < kWarpWin / 8; n0 += kG) {
+              float acc[kG][4] = {};
+              products<A, kG, kDT / 2>(acc, HeldChunks<A, kDT / 2>{qa},
+                                       [&](int kc, int n, uint32_t (&b)[kParts<A>][4]) {
+                                         split_rows<A, D>(b, ew + 8 * (n0 + n) * kRow, kc);
+                                       });
 #pragma unroll
-            for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
-              uint32_t e[4];
-              b_fragments<D>(e, ew + 8 * n * kRow, kk2);
-              mma_split<A>(acc, qf[2 * kk2], e[0], e[1]);
-              mma_split<A>(acc, qf[2 * kk2 + 1], e[2], e[3]);
+              for (int n = 0; n < kG; ++n) {
+                float* d = qe + g * kQEStride + 8 * (n0 + n) + 2 * t;
+                *reinterpret_cast<float2*>(d) = make_float2(acc[n][0], acc[n][1]);
+                *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(acc[n][2], acc[n][3]);
+              }
+              __syncwarp();  // group by group; QE written before it is read
             }
-            float* d = qe + g * kQEStride + 8 * n + 2 * t;
-            *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
-            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
-            __syncwarp();  // n-tile by n-tile (see below); QE written before it is read
+          } else {
+#pragma unroll
+            for (int n = 0; n < kWarpWin / 8; ++n) {
+              float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+              for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
+                uint32_t e[4];
+                b_fragments<D>(e, ew + 8 * n * kRow, kk2);
+                mma_split<A>(acc, qf[2 * kk2], e[0], e[1]);
+                mma_split<A>(acc, qf[2 * kk2 + 1], e[2], e[3]);
+              }
+              float* d = qe + g * kQEStride + 8 * n + 2 * t;
+              *reinterpret_cast<float2*>(d) = make_float2(output<A>(acc[0]), output<A>(acc[1]));
+              *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(output<A>(acc[2]), output<A>(acc[3]));
+              __syncwarp();  // n-tile by n-tile (see below); QE written before it is read
+            }
           }
         }
         // S = rel + Q . K^T (under kRoundsOutput Q . K^T rounded first, then
@@ -1009,35 +1077,65 @@ __device__ __forceinline__ void attention(const Args& a) {
           const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
           return HAS_REL ? qe[r * kQEStride + r - col + kWindow - 1] : 0.0f;
         };
+        if constexpr (kSplitAtLoad<A>) {
+          // TF32x3: groups of n-tiles from their relative term, each B
+          // fragment of K split as loaded
+          constexpr int kG = group_of<A>(kWindow / 8, kX3GroupWords);
 #pragma unroll
-        for (int n = 0; n < kWindow / 8; ++n) {
-          const int nt = kWindow / 8 * c + n;
+          for (int n0 = 0; n0 < kWindow / 8; n0 += kG) {
+            const int nt0 = kWindow / 8 * c + n0;
 #pragma unroll
-          for (int i = 0; i < 4; ++i) s[nt][i] = kRoundsOutput<A> ? 0.0f : rel(n, i);
+            for (int n = 0; n < kG; ++n) {
 #pragma unroll
-          for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
-            uint32_t k[4];
-            b_fragments<D>(k, ks + 8 * nt * kRow, kk2);
-            mma_split<A>(s[nt], qf[2 * kk2], k[0], k[1]);
-            mma_split<A>(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
+              for (int i = 0; i < 4; ++i) s[nt0 + n][i] = rel(n0 + n, i);
+            }
+            products<A, kG, kDT / 2>(&s[nt0], HeldChunks<A, kDT / 2>{qa},
+                                     [&](int kc, int n, uint32_t (&b)[kParts<A>][4]) {
+                                       split_rows<A, D>(b, ks + 8 * (nt0 + n) * kRow, kc);
+                                     });
+#pragma unroll
+            for (int n = 0; n < kG; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = 8 * (nt0 + n) + 2 * t + e;
+                const float bias2 = col < a.L ? bs[col] * kLog2e : -INFINITY;
+                s[nt0 + n][e] = fmaf(s[nt0 + n][e], a.scale2, bias2);
+                s[nt0 + n][2 + e] = fmaf(s[nt0 + n][2 + e], a.scale2, bias2);
+              }
+            }
+            __syncwarp();  // group by group; the window is read before the next one overwrites it
           }
-          if constexpr (kRoundsOutput<A>) {
+        } else {
 #pragma unroll
-            for (int i = 0; i < 4; ++i) s[nt][i] = output<A>(s[nt][i]) + rel(n, i);
-          }
+          for (int n = 0; n < kWindow / 8; ++n) {
+            const int nt = kWindow / 8 * c + n;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = 8 * nt + 2 * t + e;
-            const float bias2 = col < a.L ? bs[col] * kLog2e : -INFINITY;
-            s[nt][e] = fmaf(s[nt][e], a.scale2, bias2);
-            s[nt][2 + e] = fmaf(s[nt][2 + e], a.scale2, bias2);
+            for (int i = 0; i < 4; ++i) s[nt][i] = kRoundsOutput<A> ? 0.0f : rel(n, i);
+#pragma unroll
+            for (int kk2 = 0; kk2 < kDT / 2; ++kk2) {
+              uint32_t k[4];
+              b_fragments<D>(k, ks + 8 * nt * kRow, kk2);
+              mma_split<A>(s[nt], qf[2 * kk2], k[0], k[1]);
+              mma_split<A>(s[nt], qf[2 * kk2 + 1], k[2], k[3]);
+            }
+            if constexpr (kRoundsOutput<A>) {
+#pragma unroll
+              for (int i = 0; i < 4; ++i) s[nt][i] = output<A>(s[nt][i]) + rel(n, i);
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = 8 * nt + 2 * t + e;
+              const float bias2 = col < a.L ? bs[col] * kLog2e : -INFINITY;
+              s[nt][e] = fmaf(s[nt][e], a.scale2, bias2);
+              s[nt][2 + e] = fmaf(s[nt][2 + e], a.scale2, bias2);
+            }
+            // n-tile by n-tile: shared loads do not cross __syncwarp, so ptxas
+            // does not issue every fragment load of the unrolled loops first
+            // (it spilled at 128 registers; a fence every two or four n-tiles
+            // ran 5% slower); and the window is read before the next one
+            // overwrites it
+            __syncwarp();
           }
-          // n-tile by n-tile: shared loads do not cross __syncwarp, so ptxas
-          // does not issue every fragment load of the unrolled loops first
-          // (it spilled at 128 registers; a fence every two or four n-tiles
-          // ran 5% slower); and the window is read before the next one
-          // overwrites it
-          __syncwarp();
         }
       }
 
@@ -1071,15 +1169,32 @@ __device__ __forceinline__ void attention(const Args& a) {
       // (lane t's a0/a1 and a2/a3 columns) for P and V alike
 #pragma unroll
       for (int n = 0; n < kDT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
+      if constexpr (kSplitAtLoad<A>) {
+        // TF32x3 by 16 keys: P's parts from two n-tiles' accumulators
+        // (p_chunk), V's rows 2t, 2t + 1, 8 + 2t, 9 + 2t of them split as
+        // loaded, the kDT accumulators' products interleaved
 #pragma unroll
-      for (int n = 0; n < kNT; ++n) {
-        const uint32_t pa[4] = {held<A>(s[n][0]), held<A>(s[n][2]), held<A>(s[n][1]), held<A>(s[n][3])};
-        const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
-#pragma unroll
-        for (int dn = 0; dn < kDT; ++dn) {
-          mma_split<A>(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
+        for (int kc = 0; kc < KEYS / 16; ++kc) {
+          uint32_t pa[1][kParts<A>][4 * kSteps<A>];
+          p_chunk<A>(pa, s[2 * kc], s[2 * kc + 1]);
+          const float* v0 = vs + (16 * kc + 2 * t) * kRow + g;
+          products<A, kDT, 1>(o, HeldChunks<A, 1>{pa}, [&](int, int dn, uint32_t (&b)[kParts<A>][4]) {
+            const float* w = v0 + 8 * dn;
+            split4<A>(b, w[0], w[kRow], w[8 * kRow], w[9 * kRow]);
+          });
+          __syncwarp();  // 16 keys by 16
         }
-        __syncwarp();  // n-tile by n-tile
+      } else {
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          const uint32_t pa[4] = {held<A>(s[n][0]), held<A>(s[n][2]), held<A>(s[n][1]), held<A>(s[n][3])};
+          const float* v0 = vs + (8 * n + 2 * t) * kRow + g;
+#pragma unroll
+          for (int dn = 0; dn < kDT; ++dn) {
+            mma_split<A>(o[dn], pa, __float_as_uint(v0[8 * dn]), __float_as_uint(v0[kRow + 8 * dn]));
+          }
+          __syncwarp();  // n-tile by n-tile
+        }
       }
     }
 #pragma unroll
@@ -1097,10 +1212,10 @@ __device__ __forceinline__ void attention(const Args& a) {
 
 // ---- The resident design's multi-pass instances: planes of parts ----------
 
-// The multi-pass instances that split each operand once (attention_parts):
-// all but TF32x3 at L <= 64, whose split-once form ran 5-10% slower than its
-// form of PR 15 without relative scores (PERF.md §6); it keeps that
-// (attention, device.cuh's mma_split).
+// The multi-pass instances that split each operand once into planes of
+// parts (attention_parts): all but TF32x3 at L <= 64, whose planes ran
+// 5-10% slower there without relative scores (PERF.md §6) than splitting at
+// each mma; it runs attention, split at the load (kSplitAtLoad).
 template <Arith A, int KEYS>
 constexpr bool kSplitOnce = kParts<A> > 1 && !(A == Arith::TF32x3 && KEYS < kMaxL);
 
@@ -1127,19 +1242,6 @@ struct PartsSmem {
   static constexpr int kBytes = kStage + 4 * (3 * kRows * (D + 4) + kRows);
   static_assert(kBytes <= kSmemBytes && kStage % 16 == 0, "one block of planes and a stage");
 };
-
-// The n-tiles of n whose products interleave in a group (device.cuh's
-// products): the largest divisor of n whose B chunks of every part fit
-// kGroupWords registers, and at least 2.
-constexpr int kGroupWords = 24;
-template <Arith A>
-__host__ __device__ constexpr int group_of(int n) {
-  int g = 2;
-  for (int d = 3; d <= n; ++d) {
-    if (n % d == 0 && d * kParts<A> * 2 * kSteps<A> <= kGroupWords) g = d;
-  }
-  return g;
-}
 
 // Splits the four floats u of row r, columns 4 c4 .. 4 c4 + 3, into the
 // kParts planes at dst (plane_bytes apart, rows ROW bytes apart).

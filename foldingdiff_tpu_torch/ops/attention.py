@@ -28,7 +28,7 @@ products of the JAX model's einsums in that mode:
 | "ieee" | "fma": float32 FMA | "fma": float32 FMA |
 | "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores; resident |
 | "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores; resident |
-| "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same; chunked |
+| "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same; resident |
 | "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same; chunked |
 | "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; chunked |
 | "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same; chunked |
@@ -41,8 +41,8 @@ The v1 tensor-core instances run one of two bodies (csrc/gathered_attention.cu's
 note): "resident" (persistent blocks, one pass over the keys, every row's
 maximum and sum over all keys before P is rounded) at L <= 128 and D <= 32,
 "chunked" (32-key chunks, a first pass over the keys for the row statistics
-where P is rounded or split) beyond, and for the multi-pass instances at
-every length. The f64 instances of both kernels run their kernel's resident
+where P is rounded or split) beyond, and for the bf16 multi-pass instances
+at every length. The f64 instances of both kernels run their kernel's resident
 design on the FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on
 the CUDA cores beyond. Without e_lr, v1 runs the v2 column's instance.
 
@@ -178,10 +178,14 @@ class CudaLibrary:
 INSTANCES = ("fma", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9", "f64", "f16", "f16f16", "bf16bf16")
 # The parts each source is built in, side by side: the single-rounding
 # instances together, each multi-pass instance of v2 apart and its flagship
-# head size apart from the other two, and the f64 and 16-bit instances in
-# two parts. On an 8-core H100 host both sources (seven instances) built in
-# 145 s as one nvcc each, 77 s with --split-compile=0, 166 s with
-# --split-compile-extended=0, and 39 s as 12 parts (scripts/nvcc_build_forms.py)
+# head size apart from the other two, v1's tf32x3 and bf16x3 apart and its
+# bf16x6 and bf16x9 together, and the f64 and 16-bit instances in two parts.
+# On an 8-core H100 host both sources (seven instances) built in 145 s as
+# one nvcc each, 77 s with --split-compile=0, 166 s with
+# --split-compile-extended=0, and 39 s as 12 parts (scripts/nvcc_build_forms.py).
+# A part's SASS text is padded to its widest instruction: v1's bf16x3 built
+# beside tf32x3's resident kernels read the same instructions one column
+# wider (scripts/sass_two_trees.py compares the text)
 _SINGLE, _MULTI_PASS, _WIDE_AND_16 = INSTANCES[:3], INSTANCES[3:7], INSTANCES[7:]
 _NEW_PARTS = [(_WIDE_AND_16[:2], HEAD_DIMS), (_WIDE_AND_16[2:], HEAD_DIMS)]
 # (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel), then the
@@ -192,8 +196,8 @@ REL_ATTENTION = CudaLibrary(
 # (q, k, v, bias, e_lr, out, batch, head and row strides of q, k and v, B, H, L, D), then the instance, device
 # and stream
 GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 4, INSTANCES,
-                                 [(_SINGLE, HEAD_DIMS), *_NEW_PARTS, (_MULTI_PASS[:2], HEAD_DIMS),
-                                  (_MULTI_PASS[2:], HEAD_DIMS)])
+                                 [(_SINGLE, HEAD_DIMS), *_NEW_PARTS, (_MULTI_PASS[:1], HEAD_DIMS),
+                                  (_MULTI_PASS[1:2], HEAD_DIMS), (_MULTI_PASS[2:], HEAD_DIMS)])
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
 # kernel mode (precision.kernel_mode) -> the instance each kernel runs in it
 V2_INSTANCES = {"ieee": "fma", **{mode: mode for mode in precision.KERNEL_MODES[1:]}}

@@ -35,6 +35,20 @@ others at L > 128 or D = 64):
                     products, or through __ldg instead of plain loads
   v-rows            V's four row pointers a lane reads per 16 keys taken
                     once per chunk and advanced by 16 rows
+Variants of the TF32x3 instance's resident design (timed on it):
+  x3-split-at-mma   every operand split at each mma (device.cuh's
+                    mma_split) instead of once: q's parts per item, e_lr's,
+                    K's and V's as loaded, P's per 16 keys
+  x3-chunk-32,      scores held in registers 32 keys at a time at KEYS = 128
+  x3-short-chunk-64 instead of 64, or all 64 at KEYS = 64 instead of 32
+  x3-rel-group-2    e_lr's loads and products two n-tiles at a time instead
+                    of four
+  x3-k-group-4,     K's or V's four n-tiles at a time instead of two (K's
+  x3-v-group-4      spilled 4 bytes at KEYS = 64)
+  x3-chunked        the chunked design's two passes over the keys, as before
+                    the resident one (K staged in shared memory does not
+                    fit beside the store and the two stages: the source's
+                    note)
 Variants of the f64 instance's resident design (DMMA; timed on it):
   f64-chunk-64      scores held in registers 64 keys at a time instead of 32
   f64-rel-group-2   e_lr's loads two n-tiles at a time instead of four
@@ -104,6 +118,13 @@ SUBSTITUTIONS = {
     "d64-keys-32": [(KEYS, KEYS.replace(": 16;", ": 32;"))],
     "parts-group-1": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 1;")],
     "parts-group-2": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 2;")],
+    "x3-split-at-mma": [("constexpr bool kSplitOnce = kParts<A> > 1;", "constexpr bool kSplitOnce = false;")],
+    "x3-chunk-32": [("constexpr int kX3ChunkNT = 8;", "constexpr int kX3ChunkNT = 4;")],
+    "x3-short-chunk-64": [("constexpr int kX3ChunkNTShort = 4;", "constexpr int kX3ChunkNTShort = 8;")],
+    "x3-rel-group-2": [("constexpr int kX3RelGroup = 4;", "constexpr int kX3RelGroup = 2;")],
+    "x3-k-group-4": [("constexpr int kX3KGroup = 2;", "constexpr int kX3KGroup = 4;")],
+    "x3-v-group-4": [("constexpr int kX3VGroup = 2;", "constexpr int kX3VGroup = 4;")],
+    "x3-chunked": [("(kParts<A> == 1 || A == Arith::TF32x3)", "kParts<A> == 1")],
     "f64-chunk-64": [("constexpr int kF64ChunkNT = 4;", "constexpr int kF64ChunkNT = 8;")],
     "f64-rel-group-2": [("constexpr int kF64RelGroup = 4;", "constexpr int kF64RelGroup = 2;")],
     "f64-k-group-4": [("constexpr int kF64KGroup = 2;", "constexpr int kF64KGroup = 4;")],
@@ -119,6 +140,8 @@ def modes_of(variant: str) -> tuple:
         return (*RESIDENT, *MULTI_PASS, "f64")
     if variant.startswith("f64-"):
         return ("f64",)
+    if variant.startswith("x3-"):
+        return ("tf32x3",)
     if variant.startswith(("parts-", "keys-", "hide-", "k-", "v-")):
         return MULTI_PASS
     return ("tf32", "bf16") if variant.startswith("d64-") else RESIDENT

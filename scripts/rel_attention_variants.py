@@ -35,6 +35,14 @@ bf16x6, bf16x9; timed on all four):
                       instead of 64
   parts-group-48      groups of n-tiles whose B chunks take up to 48
                       registers instead of 24
+Variants of the TF32x3 instance at L <= 64 (the resident design's float32
+stages; timed on it):
+  x3-split-at-mma     every operand split at each mma (device.cuh's
+                      mma_split) instead of q's parts once per item and each
+                      K, table and V fragment's as loaded
+  x3-group-24,        groups of n-tiles whose B parts take up to 24, 32 or
+  x3-group-32,        80 registers instead of 48 (2, 2 or 10 n-tiles of QE
+  x3-group-80         and 2, 4 or 8 of the scores instead of 5 and 4)
 Variants of the f64 instance's resident design (DMMA; timed on it):
   f64-window-16       QE windows of 16 keys at L > 64 instead of 32
 "final", the source as it is, is timed on all eight instances. A variant
@@ -94,6 +102,10 @@ SUBSTITUTIONS = {
     "chunked": [("  if constexpr (D <= 32) {\n    if (a.L <= rs::kMaxL) {", "  if constexpr (D < 0) {\n    if (a.L <= rs::kMaxL) {")],
     "parts-window-16": [("constexpr int kWindowParts = 64;", "constexpr int kWindowParts = 16;")],
     "parts-group-48": [("constexpr int kGroupWords = 24;", "constexpr int kGroupWords = 48;")],
+    "x3-split-at-mma": [("constexpr bool kSplitAtLoad = kParts<A> > 1;", "constexpr bool kSplitAtLoad = false;")],
+    "x3-group-24": [("constexpr int kX3GroupWords = 48;", "constexpr int kX3GroupWords = 24;")],
+    "x3-group-32": [("constexpr int kX3GroupWords = 48;", "constexpr int kX3GroupWords = 32;")],
+    "x3-group-80": [("constexpr int kX3GroupWords = 48;", "constexpr int kX3GroupWords = 80;")],
     "f64-window-16": [("constexpr int kWindowF64 = 32;", "constexpr int kWindowF64 = 16;")],
 }
 FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
@@ -111,6 +123,8 @@ def instances_of(variant: str) -> tuple:
         return MULTI_PASS
     if variant.startswith("f64-"):
         return ("f64",)
+    if variant.startswith("x3-"):
+        return ("tf32x3",)
     return ("fma",) if variant in FMA_VARIANTS else ("tf32", "bf16")
 
 

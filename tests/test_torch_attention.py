@@ -553,14 +553,24 @@ def _model_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, mode: str, init=Non
     return acc
 
 
-def _model_attention(q, k, v, bias, e_lr, mode):
+def _model_attention(q, k, v, bias, e_lr, mode, resident=False):
     """The kernels' order of sums in a multi-pass mode: the score
     accumulator starts at the relative term (its own accumulator) and takes
     q.k's products; P, normalised in float32, and V split once; p.v by
-    k-steps of keys."""
+    k-steps of keys. resident: the softmax as the resident bodies take it in
+    one pass over every key (scale and bias in log2 units by one fused
+    multiply-add, each row's exact maximum and sum, P = exp2(s - max) times
+    the sum's reciprocal, then split); else torch's softmax."""
     s = _model_einsum("bhld,lrd->bhlr", q, e_lr, mode) if e_lr is not None else None
     s = _model_einsum("bhld,bhmd->bhlm", q, k, mode, init=s)
-    p = torch.softmax(s / q.shape[-1] ** 0.5 + bias[:, None, None, :], dim=-1)
+    if resident:
+        log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+        scale2 = log2e / torch.tensor(float(q.shape[-1])).sqrt()  # the kernels' a.scale2, float32
+        s2 = (s.double() * scale2.double() + (bias * log2e)[:, None, None, :].double()).float()  # fmaf
+        p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+        p = p * (1.0 / p.sum(-1, keepdim=True))
+    else:
+        p = torch.softmax(s / q.shape[-1] ** 0.5 + bias[:, None, None, :], dim=-1)
     return _model_einsum("bhlm,bhmd->bhld", p, v, mode)
 
 
@@ -573,7 +583,9 @@ def test_the_kernels_order_of_sums_meets_the_split_gate(kernel, rel, mode):
     per k-step the products smallest first) within SPLIT_TOL relative RMS
     of each kernel's plain version in the mode, and at most a tenth of
     TF32's distance from float32: the order of sums can meet chip_smoke.py's
-    phase-2 gate. v1 with a random (not Toeplitz) e_lr."""
+    phase-2 gate. v1 with a random (not Toeplitz) e_lr. TF32x3 as its
+    resident bodies take it at this L (v1's one pass, v2's split at the
+    load): exact row statistics before P is split."""
     q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, 40, 32, 48, seed=31))
     if kernel == "v2":
         e_lr = torch.from_numpy(_gathered(table.numpy(), 40, 48)) if rel else None
@@ -583,7 +595,42 @@ def test_the_kernels_order_of_sums_meets_the_split_gate(kernel, rel, mode):
         rng = np.random.default_rng(32)
         e_lr = torch.from_numpy((rng.normal(size=(40, 40, 32)) * 0.5).astype(np.float32)) if rel else None
         plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
-    model = _model_attention(q, k, v, bias, e_lr, mode)
+    model = _model_attention(q, k, v, bias, e_lr, mode, resident=mode == "tf32x3")
+    f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
+    tf32 = attention.fused_attention_reference(*(precision.to_tf32_values(x) for x in (q, k, v)), bias,
+                                               precision.to_tf32_values(e_lr) if rel else None)
+
+    def rel_rms(x, y):
+        return float((x - y).square().mean().sqrt() / y.square().mean().sqrt())
+
+    assert 0 < rel_rms(model, plain) <= SPLIT_TOL
+    assert rel_rms(model, f32) <= 0.1 * rel_rms(tf32, f32)
+
+
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("l", [17, 64, 65, 128])
+@pytest.mark.parametrize("kernel", ["v2", "v1"])
+def test_the_resident_tf32x3_order_of_sums_meets_the_split_gate(kernel, l, rel):
+    """The resident TF32x3 bodies' order of sums (_model_attention with
+    resident=True: one pass over the keys, each row's exact maximum and sum
+    in exp2 units before P is split, q.k's products on top of the relative
+    term, each k-step's products smallest first; interleaving n-tiles does
+    not reorder any accumulator's sums) within SPLIT_TOL relative RMS of the
+    plain version in the mode, and at most a tenth of TF32's distance from
+    float32, on either side of the resident designs' key counts (64, 128),
+    some keys masked: v1 with a random (not Toeplitz) e_lr (or without it,
+    the v2 rel-off instance), v2 with its table (or without)."""
+    q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, l, 32, 128, seed=50 + l))
+    assert (bias < 0).any()
+    if kernel == "v2":
+        e_lr = torch.from_numpy(_gathered(table.numpy(), l, 128)) if rel else None
+        plain = attention.fused_attention_v2_reference(q, k, v, bias, table if rel else None, 128 if rel else None,
+                                                       mode="tf32x3")
+    else:
+        rng = np.random.default_rng(51 + l)
+        e_lr = torch.from_numpy((rng.normal(size=(l, l, 32)) * 0.5).astype(np.float32)) if rel else None
+        plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode="tf32x3")
+    model = _model_attention(q, k, v, bias, e_lr, "tf32x3", resident=True)
     f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
     tf32 = attention.fused_attention_reference(*(precision.to_tf32_values(x) for x in (q, k, v)), bias,
                                                precision.to_tf32_values(e_lr) if rel else None)

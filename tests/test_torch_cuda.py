@@ -543,6 +543,58 @@ def test_f64_instances_ignore_masked_keys(device, l, d):
             assert (run(k, v) - run(k + 7.0 * masked, v - 3.0 * masked)).abs().max().item() <= 1e-5
 
 
+# (L, D) of the TF32x3 instances' resident boundary: L = 64 and 65 on either
+# side of the resident designs' two key counts (v2's split-at-load body at
+# L <= 64, its planes of parts beyond; v1's one-pass body at both), 128 and
+# 129 on either side of their limit; D = 64 and L = 129 run the chunked
+# designs
+TF32X3_EDGES = [(l, d) for l in (64, 65, 128, 129) for d in (16, 32, 64)]
+SPLIT_TOL = 1e-5  # a multi-pass instance against the plain version in its mode (_check_instance)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "projection views"])
+@pytest.mark.parametrize("l,d", TF32X3_EDGES)
+def test_tf32x3_instances_at_the_resident_boundary(device, l, d, layout):
+    """The tf32x3 instances on either side of their resident designs' limits
+    (B * H = 15: a ragged last item of v1's 16 pairs and of v2's two at
+    L <= 64): v2 with and without the table, v1 with e_lr from arange, from
+    permuted positions and random, each launched once and within SPLIT_TOL
+    relative RMS of the plain version in mode "tf32x3"."""
+    b, h, m = 3, 5, 256
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=23)
+    qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
+    with torch.inference_mode(), precision.matmul_precision("tf32x3"):  # the plain versions' GEMMs: TF32 on parts
+        for kw in (dict(rel_table=table, m=m), {}):
+            before = attention.REL_ATTENTION.launches_by_instance["tf32x3"]
+            out = attention.fused_attention_v2(*qkv, bias, mode="tf32x3", **kw)
+            torch.cuda.synchronize()
+            assert attention.REL_ATTENTION.launches_by_instance["tf32x3"] == before + 1
+            assert out.stride() == (l * h * d, d, h * d, 1)
+            plain = attention.fused_attention_v2_reference(q, k, v, bias, mode="tf32x3", **kw)
+            assert _rel_rms(out, plain) <= SPLIT_TOL, bool(kw)
+        for kind in ("arange", "permuted", "random"):
+            e_lr = _e_lr_of(kind, table, l, m, d, device)
+            out = _gathered_instance_call(*qkv, bias, e_lr, "tf32x3")
+            plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode="tf32x3")
+            assert _rel_rms(out, plain) <= SPLIT_TOL, kind
+
+
+@pytest.mark.parametrize("l", [17, 65, 128])
+def test_tf32x3_instances_ignore_masked_keys(device, l):
+    """Values at masked keys do not reach the tf32x3 instances' output: v2
+    with and without the table, v1 with e_lr from permuted positions."""
+    q, k, v, bias, table = _inputs(device, 4, 6, l, 32, 256, seed=3)
+    bias[0, l // 2 + 1:] = -10000.0  # at least one masked key
+    e_lr = _e_lr(table, l, 256, "permuted")
+    masked = (bias < -1.0)[:, None, :, None]
+    runs = (lambda k_, v_: attention.fused_attention_v2(q, k_, v_, bias, table, 256, mode="tf32x3"),
+            lambda k_, v_: attention.fused_attention_v2(q, k_, v_, bias, mode="tf32x3"),
+            lambda k_, v_: attention.fused_attention(q, k_, v_, bias, e_lr, mode="tf32x3"))
+    with torch.inference_mode():
+        for run in runs:
+            assert (run(k, v) - run(k + 7.0 * masked, v - 3.0 * masked)).abs().max().item() <= 1e-5
+
+
 def _cancelling_inputs(device, b, h, l, d, m, seed):
     """chip_smoke.control_inputs' "cancelling" inputs: q's first quarter of
     dims repeated in its second, k's and the table's negated there, both
