@@ -691,7 +691,8 @@ def check_controls() -> None:
     inputs the FMA instance's reading through the f64 gate and the TF32
     instance's through the f16 gate are logged (float32 sums and TF32's
     rounding of N(0, 1) values come close to both there). Then f16's
-    infinities: one value of v past 65504 at key 0 (inside every row's
+    infinities, with and without relative scores (v1 without them runs the
+    v2 rel-off instance): one value of v past 65504 at key 0 (inside every row's
     length; q scaled by 0.1, so that no P rounds to 0) makes the f16 and
     f16f16 instances' outputs +inf or -inf in that column, as their plain
     versions' are, and the rest passes their gate; the TF32 instance keeps
@@ -712,20 +713,23 @@ def check_controls() -> None:
     q, k, v, bias, table = attention_inputs(b, h, l, d, m, SEED + 8)
     q = q * 0.1
     v[:, :, 0, 0], v[:, :, 0, 1] = F16_OVERFLOW, -F16_OVERFLOW
-    for entry, (kernel, plain) in entry_calls(q, k, v, bias, table, gathered(table, l, m, False), m).items():
-        for mode in ("f16", "f16f16", "tf32"):
-            out, ref = kernel(mode)[..., :2], plain("f16" if mode == "tf32" else mode)[..., :2]
-            infinite = bool((ref[..., 0] == math.inf).all() and (ref[..., 1] == -math.inf).all())
-            same = torch.equal(out, ref)
-            log(f"[2] f16 infinities, {entry} {mode} instance: v = +-{F16_OVERFLOW} at key 0 gives "
-                f"{out[..., 0].isposinf().sum().item()} +inf and {out[..., 1].isneginf().sum().item()} -inf of "
-                f"{out[..., 0].numel()} each; the plain f16 version all infinite {infinite}, equal to it {same}"
-                + (" (the control: it must differ)" if mode == "tf32" else ""))
-            if not infinite or same != (mode != "tf32"):
-                raise RuntimeError(f"[2] f16 infinities, {entry} {mode} instance: equal to the plain version {same}")
-            if mode != "tf32":
-                check_instance(f"{entry} {mode} B={b} L={l} rel with v past 65504, the other columns", mode,
-                               kernel(mode)[..., 2:], lambda mode_: plain(mode_)[..., 2:])
+    for rel in (True, False):
+        calls = entry_calls(q, k, v, bias, table if rel else None, gathered(table, l, m, False) if rel else None, m)
+        for entry, (kernel, plain) in calls.items():
+            tag = f"{entry} {'rel' if rel else 'rel-off'}"
+            for mode in ("f16", "f16f16", "tf32"):
+                out, ref = kernel(mode)[..., :2], plain("f16" if mode == "tf32" else mode)[..., :2]
+                infinite = bool((ref[..., 0] == math.inf).all() and (ref[..., 1] == -math.inf).all())
+                same = torch.equal(out, ref)
+                log(f"[2] f16 infinities, {tag} {mode} instance: v = +-{F16_OVERFLOW} at key 0 gives "
+                    f"{out[..., 0].isposinf().sum().item()} +inf and {out[..., 1].isneginf().sum().item()} -inf of "
+                    f"{out[..., 0].numel()} each; the plain f16 version all infinite {infinite}, equal to it {same}"
+                    + (" (the control: it must differ)" if mode == "tf32" else ""))
+                if not infinite or same != (mode != "tf32"):
+                    raise RuntimeError(f"[2] f16 infinities, {tag} {mode} instance: equal to the plain version {same}")
+                if mode != "tf32":
+                    check_instance(f"{tag} {mode} B={b} L={l} with v past 65504, the other columns", mode,
+                                   kernel(mode)[..., 2:], lambda mode_: plain(mode_)[..., 2:])
 
 
 def check_ragged_shares() -> None:

@@ -3,9 +3,10 @@
 // tensor-core pieces of their instances (the arithmetics of their products:
 // operand rounding, the output rounding of the 16-bit presets and the parts
 // of the multi-pass presets, ldmatrix fragment loads, mma.sync m16n8k8
-// (TF32) and m16n8k16 (bf16) tiles, the products of parts split once and
-// run over independent accumulators, the online softmax's fold over a
-// warp's rows); and the float64 pieces of both kernels' f64 instances
+// (TF32) and m16n8k16 (bf16 and f16) tiles, the products of parts split once
+// and run over independent accumulators, the 16-bit operands of the
+// output-rounding instances, the online softmax's fold over a warp's
+// rows); and the float64 pieces of both kernels' f64 instances
 // (namespace f64: the float64 FMA design they run past L = 128 and at
 // D = 64, and the DMMA fragments of their resident bodies).
 
@@ -86,9 +87,10 @@ __device__ __forceinline__ uint32_t operand(float x) {
 // Every subtraction is exact in float32, and every product of two parts is
 // exact in float32 (a TF32 or f16 part has 11 significant bits, a bf16 part
 // 8): the multi-pass instances' bf16 parts run on the bf16 tensor cores,
-// every other part on the TF32 ones, so the instances compute the presets'
-// products and differ from the plain versions only in the order of the
-// float32 sums. F64 (F64_F64_F64) is none of these: its instances run
+// every other part on the TF32 ones (but in v2's resident body of F16F16 and
+// BF16BF16, whose f16 or bf16 values run on their own: mma16 below), so the
+// instances compute the presets' products and differ from the plain
+// versions only in the order of the float32 sums. F64 (F64_F64_F64) is none of these: its instances run
 // float64 products (namespace f64), on the FP64 tensor cores in the
 // resident designs.
 enum class Arith { TF32, BF16, TF32x3, BF16x3, BF16x6, BF16x9, F64, F16, F16F16, BF16BF16 };
@@ -362,6 +364,65 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// ---- The output-rounding instances (F16F16, BF16BF16) on 16-bit operands:
+// each operand rounded once to f16 or bf16 (as operand_of rounds it) and
+// held as such, the products on the f16 or bf16 tensor cores (m16n8k16,
+// float32 accumulators: every product of two 16-bit values is exact in
+// float32) ---------------------------------------------------------------------
+
+// c += a . b for one m16n8k16 tile of f16 values: the fragments as mma_bf16's.
+__device__ __forceinline__ void mma_f16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                        uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to A's 16-bit type, lo in the low half: f16 (to
+// nearest even; past 65504 an infinity, subnormals kept) under F16F16, else
+// bf16 (to nearest even): the values f16_value and bf16_value give.
+template <Arith A>
+__device__ __forceinline__ uint32_t pack16(float lo, float hi) {
+  if constexpr (kF16Operands<A>) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  } else {
+    return pack_bf16(lo, hi);
+  }
+}
+
+// A 16-bit value of A's type (its bits in the low half of x) as a float, exactly.
+template <Arith A>
+__device__ __forceinline__ float unpack16(uint32_t x) {
+  if constexpr (kF16Operands<A>) {
+    return __half2float(__ushort_as_half(static_cast<unsigned short>(x)));
+  } else {
+    return __uint_as_float(x << 16);
+  }
+}
+
+// c += a . b for one m16n8k16 tile of A's 16-bit values (a: a0 .. a3).
+template <Arith A>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  if constexpr (kF16Operands<A>) {
+    mma_f16(c, a[0], a[1], a[2], a[3], b0, b1);
+  } else {
+    mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
+  }
+}
+
+// Four 8 x 8 tiles of b16 values from shared memory, transposed: lanes
+// 8 j .. 8 j + 7 give the row addresses of tile j, and lane (g, t) receives
+// the b16 values of rows 2t and 2t + 1 of tile j's column g in r[j].
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s)
+               : "memory");
 }
 
 // Splits four floats into their parts, as fragment words of one k-chunk:

@@ -45,13 +45,16 @@
 //           design (attention_f64, below), and past it float64 FMA on the
 //           CUDA cores (device.cuh's f64 design, which v1 shares);
 //   8-10    ("F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"):
-//           rel_attention_{f16,f16f16,bf16bf16}_kernel, the bf16 instance's
-//           body on operands rounded to f16 values (f16, f16f16) or bf16
-//           values (bf16bf16); f16f16 and bf16bf16 then round each dot's
-//           output once to f16 or bf16 (device.cuh's output): q.k and q.E
-//           each before their sum (their accumulators apart), p.v before
-//           it is stored. The sums stay float32, which is how the port reads
-//           those presets (precision.py).
+//           rel_attention_{f16,f16f16,bf16bf16}_kernel, operands rounded to
+//           f16 values (f16, f16f16) or bf16 values (bf16bf16); f16f16 and
+//           bf16bf16 then round each dot's output once to f16 or bf16
+//           (device.cuh's output): q.k and q.E each before their sum (their
+//           accumulators apart), p.v before it is stored. The sums stay
+//           float32, which is how the port reads those presets
+//           (precision.py). f16 runs the bf16 instance's body (TF32 tensor
+//           cores); f16f16 and bf16bf16 run theirs on 16-bit operands, on
+//           the f16 or bf16 tensor cores (mma.sync m16n8k16, attention_half)
+//           in the resident design, and the bf16 body in the chunked one.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -204,6 +207,63 @@
 // unrolled there, at 168 registers (255 at D = 64), ptxas spilled.
 // The TF32 parts are rounded by integer operations (device.cuh's
 // round_part): with cvt.rna the resident tf32x3 instance spilled 12 bytes.
+//
+// Output-rounding instances, resident (attention_half; f16f16 and
+// bf16bf16 at L <= 128, D <= 32): 16-bit operands. They ran the body above
+// (the float32 stage rounded in place, products on m16n8k8 of 32-bit words,
+// one block per SM: at two blocks' 128 registers the rounded q.k and the
+// relative term held apart spilled), 0.0512 / 0.0562 ms at the flagship
+// shape with relative scores. The bytes bound them (15.0 us; the products
+// 2.4 us at 989 TFLOP/s); what held them was the latency of each item's
+// copy, rounding pass and products at eight warps per SM.
+//   - q, K, V and the table are rounded to f16 or bf16 once, as they leave
+//     the float32 stage (the table once per block), into planes of rows
+//     D + 8 values apart, and the stage is released to the next item's
+//     copies; K and the table come by ldmatrix (x4: both chunks of D = 32
+//     at once), V by ldmatrix.trans (two output n-tiles a load);
+//   - every product is one m16n8k16 on the f16 or bf16 tensor cores with a
+//     float32 accumulator (device.cuh's mma16): half the mma instructions
+//     and half the shared-memory bytes of the TF32 body's fragments;
+//   - q.k and q.E each from a zero accumulator, rounded on its own: QE by
+//     windows of 32 keys into the warp's slice as 16-bit values (each is
+//     rounded to A's type anyway: half the slice, so that two blocks fit),
+//     read back skewed and added to the rounded q.k of the window's keys;
+//     P normalised, then packed to 16 bits (32 registers at KEYS = 128, not
+//     64), the A fragments of p.v as they lie;
+//   - two blocks of eight warps per SM at KEYS = 128, where 768 items of
+//     the flagship shape make 2.9 rounds of 264 blocks (128 registers: QE's
+//     and the window's products one n-tile at a time with relative scores;
+//     two to four at a time spilled 16-24 bytes in three of the forms tried
+//     and ran no faster in the others); one at
+//     KEYS = 64, where 384 items of two pairs over 264 blocks left a second
+//     round two thirds empty.
+// Measured at the flagship shape in turns with the body above (NVIDIA H100
+// 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py): f16f16 0.0512 ->
+// 0.0346 ms and bf16bf16 0.0562 -> 0.0349 with relative scores, 0.0313 ->
+// 0.0251 and 0.0329 -> 0.0255 without (bf16 or f16 SDPA 0.0248-0.0249:
+// the 50.4 MB of float32 q, k, v and out at 2.0 TB/s, against SDPA's 16-bit
+// inputs). The variants in turns (scripts/rel_attention_variants.py; ms of
+// f16f16 / bf16bf16 at 64 x 128 rel, rel-off; 64 x 64 rel, rel-off; 15 x 64
+// rel, rel-off): this form 0.0339 / 0.0347, 0.0252 / 0.0254; 0.0138 /
+// 0.0138, 0.0113 / 0.0116; 0.0063 / 0.0063, 0.0050 / 0.0051. One block per
+// SM at KEYS = 128 0.0404 / 0.0405, 0.0277 / 0.0277; a ring of two stages
+// there (one block) 0.0420 / 0.0425, 0.0275 / 0.0277; 16-key QE windows
+// 0.0356 / 0.0366, 64-key (one block) 0.0394 / 0.0398; items of 64 query
+// rows (blocks of four warps, K and V of a pair staged for each half) 0.0464
+// / 0.0470, 0.0289 / 0.0293; 0.0139 / 0.0140, 0.0109 / 0.0111; 0.0069 /
+// 0.0071, 0.0048 / 0.0049. At KEYS = 64: two blocks per SM 0.0146 /
+// 0.0148, 0.0124 / 0.0125; rings of two or three stages 0.0144 / 0.0145,
+// 0.0107 / 0.0113 and 0.0151 / 0.0152, 0.0109 / 0.0112; 16-key windows
+// 0.0142 / 0.0143. Groups of two score n-tiles instead of four, and of two
+// QE n-tiles at KEYS = 128, ran within 1%. The rings of stages and the
+// 64-row items were not kept, and their code is gone. A body of its own,
+// not attention_parts with one part: the roundings need q.k from a zero
+// accumulator and the rounded QE added after it (attention_parts seeds
+// each score accumulator with the relative term), its 16-bit QE slices and
+// packed P are what fit two blocks, and f16 operands there would give
+// device.cuh's split4, p_chunk and products, which v1 shares, a second
+// 16-bit type. The chunked design keeps these instances past L = 128 and
+// at D = 64, on the TF32 tensor cores.
 //
 // The f64 instance, resident (attention_f64; L <= 128 at D <= 32): the
 // products on the FP64 tensor cores, mma.sync m16n8k16 with float64
@@ -831,7 +891,7 @@ struct Smem {
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kFloats = kRing + kStages * kStage;
   // blocks per SM: two where they fit, at D = 32 (at D = 16 ptxas spilled at
-  // their 128 registers), and one for TF32x3's parts and the output roundings
+  // their 128 registers), and one for TF32x3's parts
   static constexpr int kBlocks = !ONE_BLOCK && D == 32 && 2 * (4 * kFloats + 1024) <= kSmemPerSM ? 2 : 1;
   static_assert(kStages >= 1, "a stage must fit");
 };
@@ -913,11 +973,13 @@ __device__ __forceinline__ void split_rows(uint32_t (&b)[kParts<A>][4], const fl
   split4<A>(b, __uint_as_float(w[0]), __uint_as_float(w[1]), __uint_as_float(w[2]), __uint_as_float(w[3]));
 }
 
-// One block per SM (255 registers) for a multi-pass instance, and for the
-// instances that round each dot's output (at two blocks' 128 registers, the
-// rounded q.k and the relative term held apart spilled at KEYS = 128).
+// One block per SM (255 registers) for a multi-pass instance (TF32x3 at
+// L <= 64 is the one that runs this body). The instances that round each
+// dot's output ran here at one block per SM too (at two blocks' 128
+// registers the rounded q.k and the relative term held apart spilled at
+// KEYS = 128); they run attention_half, whose 16-bit operands fit two.
 template <Arith A>
-constexpr bool kOneBlock = kParts<A> > 1 || kRoundsOutput<A>;
+constexpr bool kOneBlock = kParts<A> > 1;
 
 // The n-tiles of n whose products interleave in a group (device.cuh's
 // products): the largest divisor of n whose B chunks of every part fit
@@ -1507,17 +1569,296 @@ __device__ __forceinline__ void attention_parts(const Args& a) {
   }
 }
 
+// ---- The resident design's output-rounding instances: 16-bit planes -------
+
+// The instances that round each dot's output (f16f16, bf16bf16) run
+// attention_half in the resident design (the note at the top).
+template <Arith A>
+constexpr bool kHalfBody = kRoundsOutput<A>;
+
+constexpr int kHalfBlocksLong = 2;     // blocks per SM at KEYS = 128 (128 registers a thread)
+constexpr int kHalfBlocksShort = 1;    // and at KEYS = 64
+constexpr int kHalfWindowLong = 32;    // keys per QE window at KEYS = 128
+constexpr int kHalfWindowShort = 64;   // and at KEYS = 64
+constexpr int kHalfGroup = 4;          // the most n-tiles whose mma interleave
+constexpr int kHalfGroupLongRel = 1;   // and in QE and the scores with relative scores at KEYS = 128
+
+// The largest divisor of n up to `most`: the n-tiles of n whose mma
+// interleave (their accumulators live at once).
+__host__ __device__ constexpr int group_upto(int n, int most) {
+  int best = 1;
+  for (int d = 2; d <= most && d <= n; ++d) best = n % d == 0 ? d : best;
+  return best;
+}
+
+// Shared memory of attention_half (byte offsets): 16-bit planes of the
+// resident table (HAS_REL), K and V of the item (rows D + 8 values apart:
+// ldmatrix's eight rows fall on distinct banks), the warps' QE slices as
+// 16-bit values (each QE is rounded to A's type), the bias of the item in
+// use, and one float32 stage (stage_item's layout), which the next item's
+// copies fill while this one computes.
+template <int D, bool HAS_REL, int KEYS>
+struct HalfSmem {
+  static constexpr int kWindow = KEYS == kMaxL ? kHalfWindowLong : kHalfWindowShort;  // keys per QE window
+  static constexpr int kWarpWin = 16 + kWindow;   // table rows a warp's window spans (kWarpWin - 1 reached)
+  static constexpr int kQEStride = kWarpWin + 8;  // values (28 or 44 words): the 4-byte stores of QE fall on
+                                                  // distinct banks
+  static constexpr int kRowBytes = 2 * (D + 8);   // a plane's row
+  static constexpr int kTable = 0;                                             // 2 KEYS rows, HAS_REL only
+  static constexpr int kK = kTable + (HAS_REL ? 2 * KEYS * kRowBytes : 0);
+  static constexpr int kV = kK + kRows * kRowBytes;
+  static constexpr int kQE = kV + kRows * kRowBytes;                           // HAS_REL only
+  static constexpr int kBias = kQE + (HAS_REL ? 2 * kWarps * 16 * kQEStride : 0);  // kRows floats
+  static constexpr int kStage = kBias + 4 * kRows;
+  static constexpr int kBytes = kStage + 4 * (3 * kRows * (D + 4) + kRows);
+  static constexpr int kBlocks = KEYS == kMaxL ? kHalfBlocksLong : kHalfBlocksShort;  // per SM
+  // n-tiles whose mma interleave in QE and in the scores
+  static constexpr int kGroupRel = KEYS == kMaxL ? kHalfGroupLongRel : kHalfGroup;
+  static_assert(kBlocks * (kBytes + 1024) <= kSmemPerSM && kStage % 16 == 0, "kBlocks blocks of planes and a stage");
+};
+
+// c[n] += Q . B[n]^T over D for G n-tiles whose 8 plane rows (ROW bytes
+// apart) start at rows + 8 n ROW: qa the warp's q rows as A chunks of 16
+// values; each n-tile's B chunks by one ldmatrix (x4 at D = 32: both
+// chunks); the G accumulators' mma interleave.
+template <int D, Arith A, int G, int ROW>
+__device__ __forceinline__ void half_products(float (*c)[4], const uint32_t (&qa)[D / 16][4], const char* rows) {
+  static_assert(D == 16 || D == 32, "the resident design's head sizes");
+  const int lane = threadIdx.x % 32;
+  uint32_t b[G][D / 8];
+#pragma unroll
+  for (int n = 0; n < G; ++n) {
+    const char* row = rows + (8 * n + lane % 8) * ROW + 16 * (lane / 8 % (D / 8));
+    if constexpr (D == 32) {
+      ldmatrix_x4(b[n], reinterpret_cast<const float*>(row));
+    } else {
+      ldmatrix_x2<false>(b[n], row);
+    }
+  }
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+#pragma unroll
+    for (int n = 0; n < G; ++n) mma16<A>(c[n], qa[kc], b[n][2 * kc], b[n][2 * kc + 1]);
+  }
+}
+
+// A score in log2 units: x scaled, plus key col's bias (-inf past L).
+__device__ __forceinline__ float scored(float x, const Args& a, const float* bs, int col) {
+  const float bias2 = col < a.L ? bs[col] * kLog2e : -INFINITY;
+  return fmaf(x, a.scale2, bias2);
+}
+
+// The output-rounding instances (f16f16, bf16bf16) of the resident design,
+// on 16-bit operands: the table rounded to A's type once per block, K and V
+// once per item, into planes; the warp's q rows into registers once per
+// item; every product one m16n8k16 on the f16 or bf16 tensor cores. q.k and
+// q.E each from a zero accumulator, rounded to A's type on its own, then
+// summed in float32; scale, bias and the exact row statistics in float32; P
+// normalised, then rounded; p.v rounded once at the store.
+template <int D, bool HAS_REL, Arith A, int KEYS>
+__device__ __forceinline__ void attention_half(const Args& a) {
+  using S = HalfSmem<D, HAS_REL, KEYS>;
+  constexpr int kRow = S::kRowBytes, kSRow = D + 4;  // a plane's row (bytes) and a stage's (floats)
+  constexpr int kNT = KEYS / 8;                      // key n-tiles of a row's scores
+  constexpr int kDT = D / 8;                         // n-tiles of p.v
+  constexpr int kKC = D / 16;                        // chunks of q.k and q.E
+  constexpr int kPairs = kRows / KEYS;               // pairs per item
+  constexpr int kWpp = KEYS / 16;                    // warps per pair
+  constexpr int kWindow = S::kWindow, kQEStride = S::kQEStride;
+  constexpr int kQET = S::kWarpWin / 8;              // QE n-tiles per window
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  float* stage = reinterpret_cast<float*>(smem + S::kStage);
+  float* bias_s = reinterpret_cast<float*>(smem + S::kBias);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // K and V rows [L, KEYS) of every slot enter the mma: zeros in the stage,
+  // which no copy overwrites, rounded to zeros
+  const int pad = KEYS - a.L;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < 2 * kPairs * pad * D; i += kThreads) {
+    int r = i / D;
+    const int l = a.L + r % pad;
+    r /= pad;
+    stage[((1 + r / kPairs) * kRows + (r % kPairs) * KEYS + l) * kSRow + i % D] = 0.0f;
+  }
+  if (blockIdx.x < a.n_items) stage_item<D, KEYS>(stage, a, blockIdx.x);
+  cp_async_commit();
+  if (HAS_REL) {
+    // the table, once per block: plane row x holds offset l - j =
+    // x - KEYS + 1, table row x - KEYS + M, zeros outside the table
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * KEYS * (D / 4); i += kThreads) {
+      const int x = i / (D / 4), c4 = i % (D / 4), e = x - KEYS + a.M;
+      const float4 u = e >= 0 && e < 2 * a.M - 1
+                           ? __ldg(reinterpret_cast<const float4*>(a.table + static_cast<long long>(e) * D) + c4)
+                           : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      *reinterpret_cast<uint2*>(smem + S::kTable + x * kRow + 8 * c4) =
+          make_uint2(pack16<A>(u.x, u.y), pack16<A>(u.z, u.w));
+    }
+  }
+
+  const int slot = warp / kWpp, lw = 16 * (warp % kWpp);  // the warp's pair slot and first row in it
+  uint32_t* qe_w = reinterpret_cast<uint32_t*>(smem + S::kQE) + warp * 8 * kQEStride;  // the warp's QE slice
+  const unsigned short* qe = reinterpret_cast<const unsigned short*>(qe_w);
+  for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
+    cp_async_wait<0>();
+    __syncthreads();  // the item's copies have landed; every warp is done with the last item's planes
+    // K's and V's planes, once per item
+#pragma unroll 1
+    for (int i = threadIdx.x; i < 2 * kRows * (D / 4); i += kThreads) {
+      const int v = i / (kRows * (D / 4)), r = i / (D / 4) % kRows, c4 = i % (D / 4);
+      const float4 u = *reinterpret_cast<const float4*>(stage + ((1 + v) * kRows + r) * kSRow + 4 * c4);
+      *reinterpret_cast<uint2*>(smem + (v ? S::kV : S::kK) + r * kRow + 8 * c4) =
+          make_uint2(pack16<A>(u.x, u.y), pack16<A>(u.z, u.w));
+    }
+    for (int j = threadIdx.x; j < kRows; j += kThreads) bias_s[j] = stage[3 * kRows * kSRow + j];
+    const int pair = item * kPairs + slot;
+    const bool work = pair < a.n_pairs && lw < a.L;  // warp-uniform
+    // the warp's q rows as A chunks, once per item: rows g, g + 8, columns
+    // 2t, 2t + 1 and 2t + 8, 2t + 9 of chunk kc
+    uint32_t qa[kKC][4];
+    if (work) {
+      const float* q0 = stage + (slot * KEYS + lw + g) * kSRow + 2 * t;
+      const float* q1 = q0 + 8 * kSRow;
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        const float2 x0 = *reinterpret_cast<const float2*>(q0 + 16 * kc);
+        const float2 x1 = *reinterpret_cast<const float2*>(q1 + 16 * kc);
+        const float2 y0 = *reinterpret_cast<const float2*>(q0 + 16 * kc + 8);
+        const float2 y1 = *reinterpret_cast<const float2*>(q1 + 16 * kc + 8);
+        qa[kc][0] = pack16<A>(x0.x, x0.y);
+        qa[kc][1] = pack16<A>(x1.x, x1.y);
+        qa[kc][2] = pack16<A>(y0.x, y0.y);
+        qa[kc][3] = pack16<A>(y1.x, y1.y);
+      }
+    }
+    __syncthreads();  // the planes are written and the stage is read: the next item's copies may land
+    if (item + gridDim.x < a.n_items) stage_item<D, KEYS>(stage, a, item + gridDim.x);
+    cp_async_commit();
+    if (!work) continue;
+    const int b = pair / a.H, h = pair % a.H;
+    const char* kp = smem + S::kK + slot * KEYS * kRow;
+    const char* vp = smem + S::kV + slot * KEYS * kRow;
+    const float* bs = bias_s + slot * KEYS;
+
+    // S = round(Q . K^T) + round(Q . E) in float32, then scale and bias, in log2 units
+    float s[kNT][4];  // the warp's 16 x KEYS scores
+    if constexpr (HAS_REL) {
+#pragma unroll
+      for (int c = 0; c < KEYS / kWindow; ++c) {
+        // QE = Q . E_win^T over the kWarpWin table rows that the warp's rows
+        // reach in keys [kWindow c, kWindow (c + 1)), each rounded to A's
+        // type, into the warp's slice
+        const char* ew = smem + S::kTable + (lw - kWindow * c - kWindow + KEYS) * kRow;
+        constexpr int kGQ = group_upto(kQET, S::kGroupRel);
+#pragma unroll
+        for (int n0 = 0; n0 < kQET; n0 += kGQ) {
+          float acc[kGQ][4] = {};
+          half_products<D, A, kGQ, kRow>(acc, qa, ew + 8 * n0 * kRow);
+#pragma unroll
+          for (int n = 0; n < kGQ; ++n) {
+            uint32_t* d = qe_w + (g * kQEStride + 8 * (n0 + n) + 2 * t) / 2;
+            d[0] = pack16<A>(acc[n][0], acc[n][1]);
+            d[4 * kQEStride] = pack16<A>(acc[n][2], acc[n][3]);
+          }
+          __syncwarp();  // group by group: ptxas does not issue the next groups' loads first
+        }
+        // the window's scores: q.k rounded, then rel[r, col] = QE[r, r - col + kWindow - 1] added
+        constexpr int kGK = group_upto(kWindow / 8, S::kGroupRel);
+#pragma unroll
+        for (int n0 = 0; n0 < kWindow / 8; n0 += kGK) {
+          float acc[kGK][4] = {};
+          half_products<D, A, kGK, kRow>(acc, qa, kp + 8 * (kWindow / 8 * c + n0) * kRow);
+#pragma unroll
+          for (int n = 0; n < kGK; ++n) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = g + 8 * (i / 2), col = 8 * (n0 + n) + 2 * t + i % 2, nt = kWindow / 8 * c + n0 + n;
+              const float rel = unpack16<A>(qe[r * kQEStride + r - col + kWindow - 1]);
+              s[nt][i] = scored(output<A>(acc[n][i]) + rel, a, bs, 8 * nt + 2 * t + i % 2);
+            }
+          }
+          __syncwarp();  // group by group; the window is read before the next one overwrites it
+        }
+      }
+    } else {
+      constexpr int kGK = group_upto(kNT, kHalfGroup);
+#pragma unroll
+      for (int n0 = 0; n0 < kNT; n0 += kGK) {
+        float acc[kGK][4] = {};
+        half_products<D, A, kGK, kRow>(acc, qa, kp + 8 * n0 * kRow);
+#pragma unroll
+        for (int n = 0; n < kGK; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[n0 + n][i] = scored(output<A>(acc[n][i]), a, bs, 8 * (n0 + n) + 2 * t + i % 2);
+        }
+        __syncwarp();  // group by group
+      }
+    }
+
+    // Softmax over the whole row at once: exact maxima and sums
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[n][0], s[n][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[n][2], s[n][3]));
+    }
+    mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - mx[i / 2]);
+        sum[i / 2] += s[n][i];
+      }
+    }
+    // P normalised, then rounded to A's type as p.v's operand (JAX's einsum
+    // takes the softmax's output as its operand): rows g and g + 8 of n-tile
+    // n at keys 2t, 2t + 1, an m16n8k16 A fragment's words as they lie
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+    uint32_t pp[kNT][2];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      pp[n][0] = pack16<A>(s[n][0] * inv[0], s[n][1] * inv[0]);
+      pp[n][1] = pack16<A>(s[n][2] * inv[1], s[n][3] * inv[1]);
+    }
+
+    // p . v by 16 keys: V's B fragments of two output n-tiles by one
+    // ldmatrix.x4.trans (keys 16 kc + 8 (m & 1) + lane % 8 of columns
+    // 8 (dn + m / 2) ..), the kDT accumulators' mma interleaved
+    float o[kDT][4] = {};
+    const char* vrow = vp + (8 * (lane / 8 % 2) + lane % 8) * kRow + 16 * (lane / 16);
+#pragma unroll
+    for (int kc = 0; kc < KEYS / 16; ++kc) {
+      const uint32_t pa[4] = {pp[2 * kc][0], pp[2 * kc][1], pp[2 * kc + 1][0], pp[2 * kc + 1][1]};
+#pragma unroll
+      for (int dn = 0; dn < kDT; dn += 2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vrow + 16 * kc * kRow + 16 * dn);
+        mma16<A>(o[dn], pa, vb[0], vb[1]);
+        mma16<A>(o[dn + 1], pa, vb[2], vb[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = lw + g + 8 * i;
+      if (row >= a.L) continue;
+      float* dst = a.out + ((static_cast<long long>(b) * a.L + row) * a.H + h) * D + 2 * t;
+#pragma unroll
+      for (int dn = 0; dn < kDT; ++dn) {
+        *reinterpret_cast<float2*>(dst + 8 * dn) = make_float2(output<A>(o[dn][2 * i]), output<A>(o[dn][2 * i + 1]));
+      }
+    }
+  }
+}
+
 // ---- The resident design's f64 instance: float64 products on DMMA -----------
 
 constexpr int kWindowF64 = 32;  // keys per QE window at KEYS = 128
 constexpr int kGroupF64 = 4;    // the most n-tiles whose mma interleave (their accumulators live at once)
-
-// The largest divisor of n up to kGroupF64.
-__host__ __device__ constexpr int group_of_f64(int n) {
-  int best = 1;
-  for (int d = 2; d <= kGroupF64 && d <= n; ++d) best = n % d == 0 ? d : best;
-  return best;
-}
 
 // Shared memory of the f64 instance (byte offsets): the resident table, K
 // and V of the item as planes of doubles, the QE slices, the bias of the
@@ -1664,7 +2005,7 @@ __device__ __forceinline__ void attention_f64(const Args& a) {
         // reach in keys [kWindow c, kWindow (c + 1)), each rounded to float32,
         // into the warp's slice
         const double* ew = table + (lw - kWindow * c - kWindow + KEYS) * kRowK;
-        constexpr int kG = group_of_f64(kQET);
+        constexpr int kG = group_upto(kQET, kGroupF64);
 #pragma unroll
         for (int n0 = 0; n0 < kQET; n0 += kG) {
           double acc[kG][4] = {};
@@ -1691,7 +2032,7 @@ __device__ __forceinline__ void attention_f64(const Args& a) {
       }
     }
     // S = round(Q . K^T) + rel in float32, then scale and bias, in log2 units
-    constexpr int kG = group_of_f64(kNT);
+    constexpr int kG = group_upto(kNT, kGroupF64);
 #pragma unroll
     for (int n0 = 0; n0 < kNT; n0 += kG) {
       double acc[kG][4] = {};
@@ -1769,17 +2110,31 @@ __device__ __forceinline__ void attention_f64(const Args& a) {
 }  // namespace rs
 
 // KEYS 64 or 128: the resident design for L <= KEYS, one block of eight
-// warps per SM (two at D = 32 for the single-rounding instances); KEYS 0:
-// the chunked one, three blocks of four warps per SM (two at D = 64).
+// warps per SM (two at D = 32 for the single-rounding instances, and at
+// KEYS = 128 for the output-rounding ones); KEYS 0: the chunked one, three
+// blocks of four warps per SM (two at D = 64).
 template <int KEYS>
 constexpr int kTcThreads = KEYS ? rs::kThreads : tc::kThreads;
 template <int D, bool HAS_REL, int KEYS, Arith A>
-constexpr int kTcBlocks = !KEYS ? (D <= 32 ? 3 : 2)
-                        : rs::kSplitOnce<A, KEYS> ? 1 : rs::Smem<D, HAS_REL, KEYS, rs::kOneBlock<A>>::kBlocks;
+constexpr int tc_blocks() {
+  if constexpr (!KEYS) {
+    return D <= 32 ? 3 : 2;
+  } else if constexpr (rs::kHalfBody<A>) {
+    return rs::HalfSmem<D, HAS_REL, KEYS>::kBlocks;
+  } else if constexpr (rs::kSplitOnce<A, KEYS>) {
+    return 1;
+  } else {
+    return rs::Smem<D, HAS_REL, KEYS, rs::kOneBlock<A>>::kBlocks;
+  }
+}
+template <int D, bool HAS_REL, int KEYS, Arith A>
+constexpr int kTcBlocks = tc_blocks<D, HAS_REL, KEYS, A>();
 
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void tc_attention(const Args& a) {
-  if constexpr (KEYS > 0 && rs::kSplitOnce<A, KEYS>) {
+  if constexpr (KEYS > 0 && rs::kHalfBody<A>) {
+    rs::attention_half<D, HAS_REL, A, KEYS>(a);
+  } else if constexpr (KEYS > 0 && rs::kSplitOnce<A, KEYS>) {
     rs::attention_parts<D, HAS_REL, A, KEYS>(a);
   } else if constexpr (KEYS > 0) {
     rs::attention<D, HAS_REL, A, KEYS>(a);
@@ -1890,7 +2245,9 @@ cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
   static std::atomic<size_t> granted[attn::kMaxDevices];
   const auto kernel = tc_kernel<A, D, HAS_REL, KEYS>();
   size_t smem = 0;
-  if constexpr (rs::kSplitOnce<A, KEYS>) {
+  if constexpr (rs::kHalfBody<A>) {
+    smem = rs::HalfSmem<D, HAS_REL, KEYS>::kBytes;
+  } else if constexpr (rs::kSplitOnce<A, KEYS>) {
     smem = rs::PartsSmem<D, HAS_REL, A, KEYS>::kBytes;
   } else {
     smem = sizeof(float) * rs::Smem<D, HAS_REL, KEYS, rs::kOneBlock<A>>::kFloats;

@@ -34,8 +34,8 @@ products of the JAX model's einsums in that mode:
 | "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same; chunked |
 | "f64" | "f64": float64 products on the FP64 tensor cores (DMMA), each dot's output rounded to float32 | "f64": the same; resident |
 | "f16" | "f16": f16 values on TF32 tensor cores | "f16": the same; resident |
-| "f16f16" | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16 | "f16f16": the same; resident |
-| "bf16bf16" | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16 | "bf16bf16": the same; resident |
+| "f16f16" | "f16f16": f16 values on f16 tensor cores (TF32 ones in the chunked design), each dot's output rounded to f16 | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16; resident |
+| "bf16bf16" | "bf16bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), each dot's output rounded to bf16 | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16; resident |
 
 The v1 tensor-core instances run one of two bodies (csrc/gathered_attention.cu's
 note): "resident" (persistent blocks, one pass over the keys, every row's
@@ -44,7 +44,10 @@ maximum and sum over all keys before P is rounded) at L <= 128 and D <= 32,
 where P is rounded or split) beyond, and for the bf16 multi-pass instances
 at every length. The f64 instances of both kernels run their kernel's resident
 design on the FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on
-the CUDA cores beyond. Without e_lr, v1 runs the v2 column's instance.
+the CUDA cores beyond. The v2 f16f16 and bf16bf16 instances run their
+resident design on 16-bit operands (m16n8k16) at L <= 128 and D <= 32, and
+the chunked design on TF32 tensor cores beyond (csrc/rel_attention.cu's
+note). Without e_lr, v1 runs the v2 column's instance.
 
 The plain versions compute every product as precision.einsum does in the
 mode: the preset's products of parts under "bf16", the 16-bit modes and the

@@ -45,7 +45,22 @@ stages; timed on it):
   x3-group-80         and 2, 4 or 8 of the scores instead of 5 and 4)
 Variants of the f64 instance's resident design (DMMA; timed on it):
   f64-window-16       QE windows of 16 keys at L > 64 instead of 32
-"final", the source as it is, is timed on all eight instances. A variant
+Variants of the output-rounding instances' resident design (attention_half,
+16-bit planes; timed on f16f16 and bf16bf16):
+  half-long-one-block one block of eight warps per SM at L > 64 (255
+                      registers) instead of two (128)
+  half-short-two-blocks
+                      two blocks per SM at L <= 64 instead of one
+  half-window-16,     QE windows of 16 or 64 keys at L > 64 instead of 32
+  half-window-64      (64: one block per SM with relative scores)
+  half-short-window-16
+                      QE windows of 16 keys at L <= 64 instead of 64
+  half-group-2        at most two n-tiles whose mma interleave instead of four
+  half-long-rel-group-2
+                      two n-tiles of QE and of the scores interleaved with
+                      relative scores at L > 64 instead of one
+"final", the source as it is, is timed on all eleven instances (f16, on
+the single-rounding body, is the output-rounding variants' yardstick). A variant
 but "final" is built as one part of the instances it is run on (and
 TF32's, which the multi-pass checks read).
 
@@ -107,9 +122,18 @@ SUBSTITUTIONS = {
     "x3-group-32": [("constexpr int kX3GroupWords = 48;", "constexpr int kX3GroupWords = 32;")],
     "x3-group-80": [("constexpr int kX3GroupWords = 48;", "constexpr int kX3GroupWords = 80;")],
     "f64-window-16": [("constexpr int kWindowF64 = 32;", "constexpr int kWindowF64 = 16;")],
+    "half-long-one-block": [("constexpr int kHalfBlocksLong = 2;", "constexpr int kHalfBlocksLong = 1;")],
+    "half-short-two-blocks": [("constexpr int kHalfBlocksShort = 1;", "constexpr int kHalfBlocksShort = 2;")],
+    "half-window-16": [("constexpr int kHalfWindowLong = 32;", "constexpr int kHalfWindowLong = 16;")],
+    "half-window-64": [("constexpr int kHalfWindowLong = 32;", "constexpr int kHalfWindowLong = 64;"),
+                       ("constexpr int kHalfBlocksLong = 2;", "constexpr int kHalfBlocksLong = 1;")],
+    "half-short-window-16": [("constexpr int kHalfWindowShort = 64;", "constexpr int kHalfWindowShort = 16;")],
+    "half-group-2": [("constexpr int kHalfGroup = 4;", "constexpr int kHalfGroup = 2;")],
+    "half-long-rel-group-2": [("constexpr int kHalfGroupLongRel = 1;", "constexpr int kHalfGroupLongRel = 2;")],
 }
 FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
+ROUNDING = ("f16f16", "bf16bf16")  # the output-rounding instances (attention_half)
 TIMED = [(64, 128), (64, 64), (15, 64)]  # (B, L) at H = 12, D = 32, M = 128
 CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (100, 5, 99, 64, 128),
            (2, 3, 200, 32, 256), (3, 2, 1, 32, 128)]
@@ -118,7 +142,9 @@ CHECKED = [(64, 12, 128, 32, 128), (15, 12, 64, 32, 128), (16, 6, 33, 16, 64), (
 def instances_of(variant: str) -> tuple:
     """The instances a variant changes, and so is checked and timed on."""
     if variant == "final":
-        return ("fma", "tf32", "bf16", *MULTI_PASS, "f64")
+        return ("fma", "tf32", "bf16", *MULTI_PASS, "f64", "f16", *ROUNDING)
+    if variant.startswith("half-"):
+        return ROUNDING
     if variant.startswith("parts-"):
         return MULTI_PASS
     if variant.startswith("f64-"):

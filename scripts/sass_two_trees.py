@@ -10,16 +10,24 @@ each function's SASS is compared between the trees.
 A function is named by its mangled name with the anonymous namespace's
 per-file hash taken out (it changes with the source's text, not with the
 code). Prints the count of functions whose SASS is the same in both trees
-and, by instance, head size, relative flag and KEYS, those that differ and
-those found in one tree only (an instance whose template arguments
-changed); last a JSON object of the counts and names. Exits non-zero if a function of an instance not named by --changing
-differs or is found in one tree only.
+and, by instance, head size, relative flag and KEYS, those whose text
+differs only in its spacing ("spacing": the same instructions and
+encodings; cuobjdump pads a library's text to its widest instruction, so
+a kernel beside new, wider instructions reads wider), those that differ
+and those found in one tree only (an instance whose template arguments
+changed). Beside each function that differs it prints how many lines of
+its text changed (a diff of the texts, spacing aside) and whether its
+instructions are the same ones in another order (the instructions without
+their addresses, encodings and operand reuse flags, as a multiset). Last a
+JSON object of the counts and names. Exits non-zero if a function of an
+instance not named by --changing differs or is found in one tree only.
 
 Usage: python3 scripts/sass_two_trees.py OTHER_TREE [--changing f64 ...]
 """
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import os
 import re
@@ -71,6 +79,27 @@ def tree_functions(tree: str) -> dict:
     return found
 
 
+def instructions(text: str) -> list:
+    """The instructions of a function's SASS text in order, without their
+    addresses, encodings and operand reuse flags."""
+    found = []
+    for line in text.splitlines():
+        line = re.sub(r"/\*.*?\*/", "", line).replace(".reuse", "")
+        if line.strip():
+            found.append(" ".join(line.split()))
+    return found
+
+
+def changes(other: str, this: str) -> str:
+    """How the SASS text of one function differs between the trees."""
+    a, b = [" ".join(l.split()) for l in other.splitlines()], [" ".join(l.split()) for l in this.splitlines()]
+    changed = sum(1 for l in difflib.unified_diff(a, b, lineterm="", n=0)
+                  if l[:1] in "+-" and not l.startswith(("+++", "---")))
+    reordered = sorted(instructions(other)) == sorted(instructions(this))
+    return f"{changed} of {len(a)} and {len(b)} lines changed" + (
+        "; the same instructions in another order" if reordered else "")
+
+
 def describe(name: str) -> tuple[str, str]:
     """(instance, a readable tag) of a mangled kernel name."""
     m = INSTANCE.search(name)
@@ -87,19 +116,24 @@ def main() -> None:
     parser.add_argument("--changing", nargs="*", default=[], help="instances whose SASS may differ")
     args = parser.parse_args()
     other, this = tree_functions(str(Path(args.other).resolve())), tree_functions(str(REPO))
-    result = {"same": [], "differ": [], "only_other": [], "only_this": []}
+    result = {"same": [], "spacing": [], "differ": [], "only_other": [], "only_this": []}
     for name in sorted(set(other) | set(this)):
-        key = "same" if other.get(name) == this.get(name) else (
-            "differ" if name in other and name in this else "only_other" if name in other else "only_this")
+        if name in other and name in this:
+            key = "same" if other[name] == this[name] else (
+                "spacing" if other[name].split() == this[name].split() else "differ")
+        else:
+            key = "only_other" if name in other else "only_this"
         result[key].append(name)
     bad = []
     for key, names in result.items():
         print(f"{key}: {len(names)} functions", flush=True)
         for name in names:
             instance, tag = describe(name)
-            if key != "same":
+            if key == "differ":
+                print(f"  {tag}: {changes(other[name], this[name])}", flush=True)
+            elif key != "same":
                 print(f"  {tag}", flush=True)
-                if instance not in args.changing:
+                if key != "spacing" and instance not in args.changing:
                     bad.append(tag)
     by_instance = {}
     for name in result["same"]:

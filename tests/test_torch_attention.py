@@ -445,6 +445,15 @@ def test_build_starts_one_nvcc_per_source_together(monkeypatch, tmp_path):
         attention.build([bad])
 
 
+@pytest.mark.parametrize("library", attention.LIBRARIES, ids=lambda lib: lib.name)
+def test_the_output_rounding_instances_build_in_a_part_of_their_own(library):
+    """f16f16 and bf16bf16 build in one part that holds no other instance,
+    at every head size: a change to their bodies leaves the machine code of
+    every other instance as it was (scripts/sass_two_trees.py compares it)."""
+    parts = [(instances, dims) for instances, dims in library.parts if {"f16f16", "bf16bf16"} & set(instances)]
+    assert parts == [(("f16f16", "bf16bf16"), attention.HEAD_DIMS)]
+
+
 def _substitutions(script: Path) -> dict:
     """The SUBSTITUTIONS of a variant script, read from its AST: the
     assignment and the module-level constants it names, evaluated with no

@@ -579,6 +579,72 @@ def test_tf32x3_instances_at_the_resident_boundary(device, l, d, layout):
             assert _rel_rms(out, plain) <= SPLIT_TOL, kind
 
 
+# (L, D) of the output-rounding instances' resident boundary: L = 63, 64,
+# 65, 127, 128 and 129 on either side of the resident design's two key
+# counts (v2's 16-bit planes at L <= 64 and L <= 128, two pairs or one per
+# item), D = 16 and 32; D = 64 and L = 129 run the chunked design
+ROUNDING_EDGES = [(l, d) for l in (63, 64, 65, 127, 128, 129) for d in (16, 32)] + [(64, 64), (128, 64)]
+
+
+@pytest.mark.parametrize("mode", ["f16f16", "bf16bf16"])
+@pytest.mark.parametrize("layout", ["contiguous", "projection views"])
+@pytest.mark.parametrize("l,d", ROUNDING_EDGES)
+def test_rounding_instances_at_the_resident_boundary(device, l, d, layout, mode):
+    """The f16f16 and bf16bf16 instances on either side of their resident
+    design's limits (B * H = 15: a ragged last item of v2's two pairs at
+    L <= 64): v2 with and without the table, each launched once and within
+    SHARE of the plain version's distance from float32 (_check_instance)."""
+    b, h, m = 3, 5, 256
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=29)
+    qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
+    with torch.inference_mode():
+        for kw in (dict(rel_table=table, m=m), {}):
+            before = dict(attention.REL_ATTENTION.launches_by_instance)
+            out = attention.fused_attention_v2(*qkv, bias, mode=mode, **kw)
+            torch.cuda.synchronize()
+            after = attention.REL_ATTENTION.launches_by_instance
+            assert {i: n - before[i] for i, n in after.items()} == {i: int(i == mode) for i in after}
+            assert out.stride() == (l * h * d, d, h * d, 1)
+            _check_instance(out, lambda mode_: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode_,
+                                                                                       **kw), mode)
+
+
+F16_OVERFLOW = 7e4  # past f16's largest finite value, 65504 (chip_smoke.py's)
+
+
+@pytest.mark.parametrize("entry", ["v2", "v1"])
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("l", [64, 128])
+def test_f16_instances_keep_f16_infinities(device, l, rel, entry):
+    """chip_smoke.py's f16 infinities, with and without relative scores: one
+    value of v past 65504 at key 0 (inside every row's length; q scaled by
+    0.1, so that no P rounds to 0) makes the f16 and f16f16 instances'
+    outputs +inf or -inf in that column, equal to their plain versions',
+    and the other columns pass their gate; the TF32 instance keeps it finite
+    (the control). v1 without relative scores is the v2 rel-off instance."""
+    b, h, d, m = 8, 12, 32, 128
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=31)
+    q = q * 0.1
+    v[:, :, 0, 0], v[:, :, 0, 1] = F16_OVERFLOW, -F16_OVERFLOW
+    if entry == "v2":
+        kw = dict(rel_table=table, m=m) if rel else {}
+        kernel = lambda mode: attention.fused_attention_v2(*_projection_views(q, k, v), bias, mode=mode, **kw)
+        plain = lambda mode: attention.fused_attention_v2_reference(q, k, v, bias, mode=mode, **kw)
+    else:
+        e_lr = _e_lr(table, l, m, "permuted") if rel else None
+        kernel = lambda mode: _gathered_instance_call(q, k, v, bias, e_lr, mode)
+        plain = lambda mode: attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
+    with torch.inference_mode():
+        for mode in ("f16", "f16f16", "tf32"):
+            with precision.matmul_precision(mode):  # the plain version's GEMMs as the model runs them: TF32
+                ref = plain("f16" if mode == "tf32" else mode)[..., :2]
+            assert (ref[..., 0] == np.inf).all() and (ref[..., 1] == -np.inf).all()
+            out = kernel(mode)
+            assert torch.equal(out[..., :2], ref) == (mode != "tf32"), mode
+            if mode != "tf32":
+                _check_instance(out[..., 2:], lambda mode_: plain(mode_)[..., 2:], mode)
+
+
 @pytest.mark.parametrize("l", [17, 65, 128])
 def test_tf32x3_instances_ignore_masked_keys(device, l):
     """Values at masked keys do not reach the tf32x3 instances' output: v2
