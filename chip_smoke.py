@@ -643,7 +643,7 @@ def sdpa_by_instance(q, k, v, mask, bias, b: int, l: int) -> dict:
 # lacks what it holds, must fail, on inputs where that lack shows, and the
 # gated instance passes on the same inputs: (gate, control instance, inputs)
 CONTROLS = (("f64", "ieee", "cancelling"), ("f16", "tf32", "f16-subnormal v"), ("f16f16", "f16", "normal"),
-            ("bf16bf16", "bf16", "normal"))
+            ("f16", "f16f16", "normal"), ("bf16bf16", "bf16", "normal"))
 CANCEL_SCALE = 64.0  # "cancelling": q.k and q.E sum products of ~64^2 that cancel
 TINY_V = 2.0 ** -16  # "f16-subnormal v": v at f16's subnormal size (its spacing 2^-24)
 F16_OVERFLOW = 7e4  # past f16's largest finite value, 65504

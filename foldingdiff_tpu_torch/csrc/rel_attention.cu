@@ -51,10 +51,11 @@
 //           (device.cuh's output): q.k and q.E each before their sum (their
 //           accumulators apart), p.v before it is stored. The sums stay
 //           float32, which is how the port reads those presets
-//           (precision.py). f16 runs the bf16 instance's body (TF32 tensor
-//           cores); f16f16 and bf16bf16 run theirs on 16-bit operands, on
-//           the f16 or bf16 tensor cores (mma.sync m16n8k16, attention_half)
-//           in the resident design, and the bf16 body in the chunked one.
+//           (precision.py). All three run on 16-bit operands, on the f16 or
+//           bf16 tensor cores (mma.sync m16n8k16, attention_half), in the
+//           resident design, f16 with no output rounding and its relative
+//           term in float32; the chunked design runs them on the bf16
+//           body's TF32 tensor cores.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -208,14 +209,15 @@
 // The TF32 parts are rounded by integer operations (device.cuh's
 // round_part): with cvt.rna the resident tf32x3 instance spilled 12 bytes.
 //
-// Output-rounding instances, resident (attention_half; f16f16 and
-// bf16bf16 at L <= 128, D <= 32): 16-bit operands. They ran the body above
-// (the float32 stage rounded in place, products on m16n8k8 of 32-bit words,
-// one block per SM: at two blocks' 128 registers the rounded q.k and the
-// relative term held apart spilled), 0.0512 / 0.0562 ms at the flagship
-// shape with relative scores. The bytes bound them (15.0 us; the products
-// 2.4 us at 989 TFLOP/s); what held them was the latency of each item's
-// copy, rounding pass and products at eight warps per SM.
+// 16-bit instances, resident (attention_half; f16, f16f16 and bf16bf16 at
+// L <= 128, D <= 32): 16-bit operands. They ran the body above (the float32
+// stage rounded in place, products on m16n8k8 of 32-bit words; f16f16 and
+// bf16bf16 at one block per SM: at two blocks' 128 registers the rounded
+// q.k and the relative term held apart spilled), f16f16 and bf16bf16 0.0512
+// / 0.0562 ms at the flagship shape with relative scores. The bytes bound
+// them (15.0 us; the products 2.4 us at 989 TFLOP/s); what held them was
+// the latency of each item's copy, rounding pass and products at eight
+// warps per SM.
 //   - q, K, V and the table are rounded to f16 or bf16 once, as they leave
 //     the float32 stage (the table once per block), into planes of rows
 //     D + 8 values apart, and the stage is released to the next item's
@@ -264,6 +266,34 @@
 // device.cuh's split4, p_chunk and products, which v1 shares, a second
 // 16-bit type. The chunked design keeps these instances past L = 128 and
 // at D = 64, on the TF32 tensor cores.
+//   f16 runs this body without the roundings (output<F16> is the float32
+// sum) and keeps its relative term in float32: rounding QE to f16, which
+// F16_F16_F32 does not do, would fail its gate (a tenth of the plain
+// version's distance from float32). So its QE slices hold float32 values,
+// by 16-key windows at KEYS = 128 (rows kWarpWin + 8 = 40 floats apart),
+// and each score accumulator is seeded with its relative term, as
+// attention_parts seeds them: QE window by window into the slice, read back
+// skewed into the scores, then q.k onto them by groups of four n-tiles, each
+// group scaled and biased before the next (the bias of all 128 keys loaded
+// at once held 32 registers, and the kernel spilled 8-24 bytes at 128). Two
+// blocks fit at KEYS = 128 with the stage's rows unpadded: 111,616 bytes a
+// block at D = 32, where a padded stage needs 117,760, 4,096 more than two
+// blocks have. Measured at the flagship shape against the body above in
+// turns (NVIDIA H100 80GB HBM3, 700 W; scripts/rel_attention_variants.py;
+// ms at 64 x 128 rel, rel-off; 64 x 64 rel, rel-off; 15 x 64 rel, rel-off):
+// this form 0.0352, 0.0249; 0.0138, 0.0111; 0.0063, 0.0051; the body above
+// 0.0449, 0.0287; 0.0153, 0.0114; 0.0071, 0.0054 (f16f16 in the same run
+// 0.0342, 0.0254; 0.0136, 0.0111; 0.0064, 0.0052). Tried: 32-key windows
+// in rows of 48 floats (kWarpWin: what fits two blocks), rows 1 and 2 of
+// every four swapped so that the skewed reads fall two to a bank, 0.0352,
+// 0.0247; 0.0143, 0.0111 (rows of 80 at KEYS = 64); in order, four to a
+// bank, 0.0387; 0.0151; one block per SM at KEYS = 128 (32-key windows, a
+// padded stage) 0.0397, 0.0271; q.k one or two n-tiles at a time 0.0356,
+// 0.0351 (rel, 64 x 128); each window's QE added after q.k's own sum, as
+// f16f16 adds its rounded QE, spilled 24 bytes (0.0397 with 32-key windows),
+// and so did the seeded form that scaled the scores after all of q.k. The
+// swapped rows were not kept (no faster at 64 x 128, slower at 64 x 64),
+// and their code is gone.
 //
 // The f64 instance, resident (attention_f64; L <= 128 at D <= 32): the
 // products on the FP64 tensor cores, mma.sync m16n8k16 with float64
@@ -916,10 +946,10 @@ __device__ __forceinline__ void stage_table(float* dst, const Args& a) {
 }
 
 // Issues the copies of an item's q, k and v rows into a stage: rows [0, L)
-// of the item's pair p at rows p * KEYS of each tensor's block, 16 bytes a
-// thread, consecutive threads on consecutive pieces of a row; and the pair's
-// bias at p * KEYS of the bias block.
-template <int D, int KEYS>
+// of the item's pair p at rows p * KEYS of each tensor's block, ROW floats
+// apart, 16 bytes a thread, consecutive threads on consecutive pieces of a
+// row; and the pair's bias at p * KEYS of the bias block.
+template <int D, int KEYS, int ROW = D + 4>
 __device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
   constexpr int kVec = D / 4;
 #pragma unroll
@@ -931,14 +961,14 @@ __device__ __forceinline__ void stage_item(float* st, const Args& a, int item) {
     for (int i = threadIdx.x; i < a.L * kVec; i += kThreads) {
       const int l = i / kVec, c = i % kVec;
       const long long src = head + l * a.sl + 4 * c;
-      float* d = st + (p * KEYS + l) * (D + 4) + 4 * c;
+      float* d = st + (p * KEYS + l) * ROW + 4 * c;
       cp_async16(d, a.q + src);
-      cp_async16(d + kRows * (D + 4), a.k + src);
-      cp_async16(d + 2 * kRows * (D + 4), a.v + src);
+      cp_async16(d + kRows * ROW, a.k + src);
+      cp_async16(d + 2 * kRows * ROW, a.v + src);
     }
     const float* bias = a.bias + static_cast<long long>(pair / a.H) * a.L;
 #pragma unroll 1
-    for (int j = threadIdx.x; j < a.L; j += kThreads) cp_async4(st + 3 * kRows * (D + 4) + p * KEYS + j, bias + j);
+    for (int j = threadIdx.x; j < a.L; j += kThreads) cp_async4(st + 3 * kRows * ROW + p * KEYS + j, bias + j);
   }
 }
 
@@ -1569,17 +1599,21 @@ __device__ __forceinline__ void attention_parts(const Args& a) {
   }
 }
 
-// ---- The resident design's output-rounding instances: 16-bit planes -------
+// ---- The resident design's 16-bit instances: 16-bit planes ----------------
 
-// The instances that round each dot's output (f16f16, bf16bf16) run
-// attention_half in the resident design (the note at the top).
+// The 16-bit instances (f16, f16f16, bf16bf16) run attention_half in the
+// resident design (the note at the top); f16, which rounds no dot's output,
+// keeps its relative term in float32 (kF32Rel).
 template <Arith A>
-constexpr bool kHalfBody = kRoundsOutput<A>;
+constexpr bool kHalfBody = kRoundsOutput<A> || A == Arith::F16;
+template <Arith A>
+constexpr bool kF32Rel = !kRoundsOutput<A>;
 
 constexpr int kHalfBlocksLong = 2;     // blocks per SM at KEYS = 128 (128 registers a thread)
 constexpr int kHalfBlocksShort = 1;    // and at KEYS = 64
 constexpr int kHalfWindowLong = 32;    // keys per QE window at KEYS = 128
 constexpr int kHalfWindowShort = 64;   // and at KEYS = 64
+constexpr int kHalfWindowF32 = 16;     // and f16's at KEYS = 128 (float32 QE slices)
 constexpr int kHalfGroup = 4;          // the most n-tiles whose mma interleave
 constexpr int kHalfGroupLongRel = 1;   // and in QE and the scores with relative scores at KEYS = 128
 
@@ -1593,24 +1627,30 @@ __host__ __device__ constexpr int group_upto(int n, int most) {
 
 // Shared memory of attention_half (byte offsets): 16-bit planes of the
 // resident table (HAS_REL), K and V of the item (rows D + 8 values apart:
-// ldmatrix's eight rows fall on distinct banks), the warps' QE slices as
-// 16-bit values (each QE is rounded to A's type), the bias of the item in
-// use, and one float32 stage (stage_item's layout), which the next item's
-// copies fill while this one computes.
-template <int D, bool HAS_REL, int KEYS>
+// ldmatrix's eight rows fall on distinct banks), the warps' QE slices, the
+// bias of the item in use, and one float32 stage (stage_item's layout, rows
+// kSRow floats apart), which the next item's copies fill while this one
+// computes. The QE slices hold 16-bit values where each QE is rounded to A's
+// type, else (F32_REL) float32 values, by 16-key windows at KEYS = 128, and
+// the stage's rows are then not padded: two blocks' shared memory at
+// KEYS = 128 (111,616 bytes a block at D = 32).
+template <int D, bool HAS_REL, int KEYS, bool F32_REL>
 struct HalfSmem {
-  static constexpr int kWindow = KEYS == kMaxL ? kHalfWindowLong : kHalfWindowShort;  // keys per QE window
+  static constexpr bool kF32QE = HAS_REL && F32_REL;
+  static constexpr int kWindow =  // keys per QE window
+      KEYS != kMaxL ? kHalfWindowShort : kF32QE ? kHalfWindowF32 : kHalfWindowLong;
   static constexpr int kWarpWin = 16 + kWindow;   // table rows a warp's window spans (kWarpWin - 1 reached)
-  static constexpr int kQEStride = kWarpWin + 8;  // values (28 or 44 words): the 4-byte stores of QE fall on
-                                                  // distinct banks
+  static constexpr int kQEStride = kWarpWin + 8;  // values (16-bit: 28 or 44 words; float32: 40 or 88): the
+                                                  // 4- or 8-byte stores of QE fall on distinct banks
+  static constexpr int kSRow = kF32QE ? D : D + 4;  // a stage's row (floats)
   static constexpr int kRowBytes = 2 * (D + 8);   // a plane's row
   static constexpr int kTable = 0;                                             // 2 KEYS rows, HAS_REL only
   static constexpr int kK = kTable + (HAS_REL ? 2 * KEYS * kRowBytes : 0);
   static constexpr int kV = kK + kRows * kRowBytes;
   static constexpr int kQE = kV + kRows * kRowBytes;                           // HAS_REL only
-  static constexpr int kBias = kQE + (HAS_REL ? 2 * kWarps * 16 * kQEStride : 0);  // kRows floats
+  static constexpr int kBias = kQE + (HAS_REL ? (kF32QE ? 4 : 2) * kWarps * 16 * kQEStride : 0);  // kRows floats
   static constexpr int kStage = kBias + 4 * kRows;
-  static constexpr int kBytes = kStage + 4 * (3 * kRows * (D + 4) + kRows);
+  static constexpr int kBytes = kStage + 4 * (3 * kRows * kSRow + kRows);
   static constexpr int kBlocks = KEYS == kMaxL ? kHalfBlocksLong : kHalfBlocksShort;  // per SM
   // n-tiles whose mma interleave in QE and in the scores
   static constexpr int kGroupRel = KEYS == kMaxL ? kHalfGroupLongRel : kHalfGroup;
@@ -1648,17 +1688,19 @@ __device__ __forceinline__ float scored(float x, const Args& a, const float* bs,
   return fmaf(x, a.scale2, bias2);
 }
 
-// The output-rounding instances (f16f16, bf16bf16) of the resident design,
-// on 16-bit operands: the table rounded to A's type once per block, K and V
-// once per item, into planes; the warp's q rows into registers once per
-// item; every product one m16n8k16 on the f16 or bf16 tensor cores. q.k and
+// The 16-bit instances (f16, f16f16, bf16bf16) of the resident design: the
+// table rounded to A's type once per block, K and V once per item, into
+// planes; the warp's q rows into registers once per item; every product one
+// m16n8k16 on the f16 or bf16 tensor cores. f16f16 and bf16bf16: q.k and
 // q.E each from a zero accumulator, rounded to A's type on its own, then
-// summed in float32; scale, bias and the exact row statistics in float32; P
-// normalised, then rounded; p.v rounded once at the store.
+// summed in float32; f16: q.k onto score accumulators seeded with the
+// float32 QE (its slices hold float32 values). Scale, bias and the exact row
+// statistics in float32; P normalised, then rounded; p.v's output as the
+// instance leaves it (device.cuh's output) at the store.
 template <int D, bool HAS_REL, Arith A, int KEYS>
 __device__ __forceinline__ void attention_half(const Args& a) {
-  using S = HalfSmem<D, HAS_REL, KEYS>;
-  constexpr int kRow = S::kRowBytes, kSRow = D + 4;  // a plane's row (bytes) and a stage's (floats)
+  using S = HalfSmem<D, HAS_REL, KEYS, kF32Rel<A>>;
+  constexpr int kRow = S::kRowBytes, kSRow = S::kSRow;  // a plane's row (bytes) and a stage's (floats)
   constexpr int kNT = KEYS / 8;                      // key n-tiles of a row's scores
   constexpr int kDT = D / 8;                         // n-tiles of p.v
   constexpr int kKC = D / 16;                        // chunks of q.k and q.E
@@ -1683,7 +1725,7 @@ __device__ __forceinline__ void attention_half(const Args& a) {
     r /= pad;
     stage[((1 + r / kPairs) * kRows + (r % kPairs) * KEYS + l) * kSRow + i % D] = 0.0f;
   }
-  if (blockIdx.x < a.n_items) stage_item<D, KEYS>(stage, a, blockIdx.x);
+  if (blockIdx.x < a.n_items) stage_item<D, KEYS, kSRow>(stage, a, blockIdx.x);
   cp_async_commit();
   if (HAS_REL) {
     // the table, once per block: plane row x holds offset l - j =
@@ -1702,6 +1744,7 @@ __device__ __forceinline__ void attention_half(const Args& a) {
   const int slot = warp / kWpp, lw = 16 * (warp % kWpp);  // the warp's pair slot and first row in it
   uint32_t* qe_w = reinterpret_cast<uint32_t*>(smem + S::kQE) + warp * 8 * kQEStride;  // the warp's QE slice
   const unsigned short* qe = reinterpret_cast<const unsigned short*>(qe_w);
+  float* qe_f = reinterpret_cast<float*>(smem + S::kQE) + warp * 16 * kQEStride;  // the same, F32_REL
   for (int item = blockIdx.x; item < a.n_items; item += gridDim.x) {
     cp_async_wait<0>();
     __syncthreads();  // the item's copies have landed; every warp is done with the last item's planes
@@ -1735,7 +1778,7 @@ __device__ __forceinline__ void attention_half(const Args& a) {
       }
     }
     __syncthreads();  // the planes are written and the stage is read: the next item's copies may land
-    if (item + gridDim.x < a.n_items) stage_item<D, KEYS>(stage, a, item + gridDim.x);
+    if (item + gridDim.x < a.n_items) stage_item<D, KEYS, kSRow>(stage, a, item + gridDim.x);
     cp_async_commit();
     if (!work) continue;
     const int b = pair / a.H, h = pair % a.H;
@@ -1743,9 +1786,55 @@ __device__ __forceinline__ void attention_half(const Args& a) {
     const char* vp = smem + S::kV + slot * KEYS * kRow;
     const float* bs = bias_s + slot * KEYS;
 
-    // S = round(Q . K^T) + round(Q . E) in float32, then scale and bias, in log2 units
     float s[kNT][4];  // the warp's 16 x KEYS scores
-    if constexpr (HAS_REL) {
+    if constexpr (S::kF32QE) {
+      // S = rel + Q . K^T in float32 (f16: no dot's output rounded), each
+      // score accumulator seeded with its relative term, then scale and
+      // bias, in log2 units
+#pragma unroll
+      for (int c = 0; c < KEYS / kWindow; ++c) {
+        // QE = Q . E_win^T over the kWarpWin table rows that the warp's rows
+        // reach in keys [kWindow c, kWindow (c + 1)), into the warp's slice
+        const char* ew = smem + S::kTable + (lw - kWindow * c - kWindow + KEYS) * kRow;
+        constexpr int kGQ = group_upto(kQET, S::kGroupRel);
+#pragma unroll
+        for (int n0 = 0; n0 < kQET; n0 += kGQ) {
+          float acc[kGQ][4] = {};
+          half_products<D, A, kGQ, kRow>(acc, qa, ew + 8 * n0 * kRow);
+#pragma unroll
+          for (int n = 0; n < kGQ; ++n) {
+            float* d = qe_f + g * kQEStride + 8 * (n0 + n) + 2 * t;
+            *reinterpret_cast<float2*>(d) = make_float2(acc[n][0], acc[n][1]);
+            *reinterpret_cast<float2*>(d + 8 * kQEStride) = make_float2(acc[n][2], acc[n][3]);
+          }
+          __syncwarp();  // group by group: ptxas does not issue the next groups' loads first
+        }
+        // rel[r, col] = QE[r, r - col + kWindow - 1], the window's scores' first values
+#pragma unroll
+        for (int n = 0; n < kWindow / 8; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int r = g + 8 * (i / 2), col = 8 * n + 2 * t + i % 2;
+            s[kWindow / 8 * c + n][i] = qe_f[r * kQEStride + r - col + kWindow - 1];
+          }
+        }
+        __syncwarp();  // the window is read before the next one overwrites it
+      }
+      constexpr int kGK = group_upto(kNT, kHalfGroup);
+#pragma unroll
+      for (int n0 = 0; n0 < kNT; n0 += kGK) {
+        half_products<D, A, kGK, kRow>(&s[n0], qa, kp + 8 * n0 * kRow);
+#pragma unroll
+        for (int n = n0; n < n0 + kGK; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[n][i] = scored(s[n][i], a, bs, 8 * n + 2 * t + i % 2);
+        }
+        // group by group: ptxas does not issue the next groups' loads first, the
+        // bias's either (all of them at once held 32 registers and spilled)
+        __syncwarp();
+      }
+    } else if constexpr (HAS_REL) {
+      // S = round(Q . K^T) + round(Q . E) in float32, then scale and bias, in log2 units
 #pragma unroll
       for (int c = 0; c < KEYS / kWindow; ++c) {
         // QE = Q . E_win^T over the kWarpWin table rows that the warp's rows
@@ -2120,7 +2209,7 @@ constexpr int tc_blocks() {
   if constexpr (!KEYS) {
     return D <= 32 ? 3 : 2;
   } else if constexpr (rs::kHalfBody<A>) {
-    return rs::HalfSmem<D, HAS_REL, KEYS>::kBlocks;
+    return rs::HalfSmem<D, HAS_REL, KEYS, rs::kF32Rel<A>>::kBlocks;
   } else if constexpr (rs::kSplitOnce<A, KEYS>) {
     return 1;
   } else {
@@ -2246,7 +2335,7 @@ cudaError_t launch_resident(Args a, int B, int device, cudaStream_t stream) {
   const auto kernel = tc_kernel<A, D, HAS_REL, KEYS>();
   size_t smem = 0;
   if constexpr (rs::kHalfBody<A>) {
-    smem = rs::HalfSmem<D, HAS_REL, KEYS>::kBytes;
+    smem = rs::HalfSmem<D, HAS_REL, KEYS, rs::kF32Rel<A>>::kBytes;
   } else if constexpr (rs::kSplitOnce<A, KEYS>) {
     smem = rs::PartsSmem<D, HAS_REL, A, KEYS>::kBytes;
   } else {

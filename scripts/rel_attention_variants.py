@@ -59,8 +59,18 @@ Variants of the output-rounding instances' resident design (attention_half,
   half-long-rel-group-2
                       two n-tiles of QE and of the scores interleaved with
                       relative scores at L > 64 instead of one
-"final", the source as it is, is timed on all eleven instances (f16, on
-the single-rounding body, is the output-rounding variants' yardstick). A variant
+Variants of the f16 instance on that design (its QE slices of float32
+values by 16-key windows at L > 64, each score accumulator seeded with its
+relative term; timed on f16):
+  f16-one-block       one block of eight warps per SM at L > 64 (255
+                      registers), 32-key QE windows and the stage's rows
+                      padded, instead of two blocks, 16-key windows and an
+                      unpadded stage
+  f16-qk-group-1,     the q.k products onto the seeded scores one or two
+  f16-qk-group-2      n-tiles at a time instead of four
+  f16-tf32-body       the single-rounding instances' body (TF32 tensor
+                      cores on f16 values), as f16 ran before attention_half
+"final", the source as it is, is timed on all eleven instances. A variant
 but "final" is built as one part of the instances it is run on (and
 TF32's, which the multi-pass checks read).
 
@@ -94,6 +104,8 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
 from foldingdiff_tpu_torch.ops import attention  # noqa: E402
 
+F16_QK = ("constexpr int kGK = group_upto(kNT, kHalfGroup);\n#pragma unroll\n"  # f16's q.k onto the seeded scores
+          "      for (int n0 = 0; n0 < kNT; n0 += kGK) {\n        half_products<D, A, kGK, kRow>(&s[n0]")
 SUBSTITUTIONS = {
     "final": [],
     "d-loop-unrolled": [("#pragma unroll 1\n    for (int d4", "#pragma unroll\n    for (int d4")],
@@ -130,6 +142,12 @@ SUBSTITUTIONS = {
     "half-short-window-16": [("constexpr int kHalfWindowShort = 64;", "constexpr int kHalfWindowShort = 16;")],
     "half-group-2": [("constexpr int kHalfGroup = 4;", "constexpr int kHalfGroup = 2;")],
     "half-long-rel-group-2": [("constexpr int kHalfGroupLongRel = 1;", "constexpr int kHalfGroupLongRel = 2;")],
+    "f16-one-block": [("constexpr int kHalfBlocksLong = 2;", "constexpr int kHalfBlocksLong = 1;"),
+                      ("constexpr int kHalfWindowF32 = 16;", "constexpr int kHalfWindowF32 = 32;"),
+                      ("kSRow = kF32QE ? D : D + 4;", "kSRow = D + 4;")],
+    "f16-qk-group-1": [(F16_QK, F16_QK.replace("group_upto(kNT, kHalfGroup)", "1"))],
+    "f16-qk-group-2": [(F16_QK, F16_QK.replace("group_upto(kNT, kHalfGroup)", "group_upto(kNT, 2)"))],
+    "f16-tf32-body": [("kHalfBody = kRoundsOutput<A> || A == Arith::F16;", "kHalfBody = kRoundsOutput<A>;")],
 }
 FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
@@ -145,6 +163,8 @@ def instances_of(variant: str) -> tuple:
         return ("fma", "tf32", "bf16", *MULTI_PASS, "f64", "f16", *ROUNDING)
     if variant.startswith("half-"):
         return ROUNDING
+    if variant.startswith("f16-"):
+        return ("f16",)
     if variant.startswith("parts-"):
         return MULTI_PASS
     if variant.startswith("f64-"):

@@ -454,6 +454,18 @@ def test_the_output_rounding_instances_build_in_a_part_of_their_own(library):
     assert parts == [(("f16f16", "bf16bf16"), attention.HEAD_DIMS)]
 
 
+def test_the_f16_instance_builds_in_a_part_of_its_own():
+    """v2's f16 instance builds in a part that holds no other instance, at
+    every head size, beside f64's and the output-rounding pair's own parts:
+    its resident body (attention_half with float32 QE slices) changes
+    without touching their machine code, whose SASS text a shared part
+    would pad to the widest instruction of all of them. v1's f16 keeps its
+    part beside f64, since its kernel is not changed with v2's."""
+    parts = attention.REL_ATTENTION.parts
+    assert [p for p in parts if "f16" in p[0]] == [(("f16",), attention.HEAD_DIMS)]
+    assert [p for p in parts if "f64" in p[0]] == [(("f64",), attention.HEAD_DIMS)]
+
+
 def _substitutions(script: Path) -> dict:
     """The SUBSTITUTIONS of a variant script, read from its AST: the
     assignment and the module-level constants it names, evaluated with no

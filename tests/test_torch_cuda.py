@@ -579,21 +579,23 @@ def test_tf32x3_instances_at_the_resident_boundary(device, l, d, layout):
             assert _rel_rms(out, plain) <= SPLIT_TOL, kind
 
 
-# (L, D) of the output-rounding instances' resident boundary: L = 63, 64,
+# (L, D) of the 16-bit instances' resident boundary: L = 63, 64,
 # 65, 127, 128 and 129 on either side of the resident design's two key
 # counts (v2's 16-bit planes at L <= 64 and L <= 128, two pairs or one per
 # item), D = 16 and 32; D = 64 and L = 129 run the chunked design
 ROUNDING_EDGES = [(l, d) for l in (63, 64, 65, 127, 128, 129) for d in (16, 32)] + [(64, 64), (128, 64)]
 
 
-@pytest.mark.parametrize("mode", ["f16f16", "bf16bf16"])
+@pytest.mark.parametrize("mode", ["f16", "f16f16", "bf16bf16"])
 @pytest.mark.parametrize("layout", ["contiguous", "projection views"])
 @pytest.mark.parametrize("l,d", ROUNDING_EDGES)
 def test_rounding_instances_at_the_resident_boundary(device, l, d, layout, mode):
-    """The f16f16 and bf16bf16 instances on either side of their resident
-    design's limits (B * H = 15: a ragged last item of v2's two pairs at
-    L <= 64): v2 with and without the table, each launched once and within
-    SHARE of the plain version's distance from float32 (_check_instance)."""
+    """The 16-bit instances that run v2's attention_half (f16, with its
+    float32 QE slices, f16f16 and bf16bf16) on either side of their
+    resident design's limits (B * H = 15: a ragged last item of v2's two
+    pairs at L <= 64): v2 with and without the table, each launched once and
+    within SHARE of the plain version's distance from float32
+    (_check_instance)."""
     b, h, m = 3, 5, 256
     q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=29)
     qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
