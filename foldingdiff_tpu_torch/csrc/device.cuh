@@ -87,11 +87,12 @@ __device__ __forceinline__ uint32_t operand(float x) {
 // Every subtraction is exact in float32, and every product of two parts is
 // exact in float32 (a TF32 or f16 part has 11 significant bits, a bf16 part
 // 8): the multi-pass instances' bf16 parts run on the bf16 tensor cores,
-// every other part on the TF32 ones (but in v2's resident body of F16,
-// F16F16 and BF16BF16, whose f16 or bf16 values run on their own: mma16
-// below, F16 with no output rounding and its relative term in float32), so the
-// instances compute the presets' products and differ from the plain
-// versions only in the order of the float32 sums. F64 (F64_F64_F64) is none of these: its instances run
+// every other part on the TF32 ones (but in v2's resident body of BF16,
+// F16, F16F16 and BF16BF16, whose bf16 or f16 values run on their own:
+// mma16 below, BF16 and F16 with no output rounding and their relative term
+// in float32), so the instances compute the presets' products and differ
+// from the plain versions only in the order of the float32 sums. F64
+// (F64_F64_F64) is none of these: its instances run
 // float64 products (namespace f64), on the FP64 tensor cores in the
 // resident designs.
 enum class Arith { TF32, BF16, TF32x3, BF16x3, BF16x6, BF16x9, F64, F16, F16F16, BF16BF16 };

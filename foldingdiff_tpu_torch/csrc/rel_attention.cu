@@ -25,12 +25,15 @@
 //           rel_attention_tf32_kernel, q.k, q.E and p.v on TF32 tensor cores
 //           (mma.sync m16n8k8), each operand rounded to TF32 by
 //           cvt.rna.tf32.f32 (to nearest, ties away from zero), float32 sums;
-//   2 bf16  ("BF16_BF16_F32"): rel_attention_bf16_kernel, the TF32 body on
-//           operands rounded to bf16 values (to nearest even): q, k, v and E,
-//           and P before p.v. TF32 holds bf16's 8 significant bits, so each
-//           product is the exact product of two bf16 values and the sums are
-//           float32, as JAX's preset defines. P is normalised before it is
-//           rounded, as the einsum's operand is the softmax's output.
+//   2 bf16  ("BF16_BF16_F32"): rel_attention_bf16_kernel, operands rounded
+//           to bf16 values (to nearest even): q, k, v and E, and P before
+//           p.v. Each product is the exact product of two bf16 values and
+//           the sums are float32, as JAX's preset defines. P is normalised
+//           before it is rounded, as the einsum's operand is the softmax's
+//           output. In the resident design the products run on the bf16
+//           tensor cores (mma.sync m16n8k16, attention_half, with the 16-bit
+//           instances below), the relative term float32; in the chunked
+//           design on the TF32 ones, which hold bf16's 8 significant bits.
 //   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
 //           rel_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
 //           multi-pass presets (device.cuh's Arith): every operand of q.k,
@@ -53,9 +56,9 @@
 //           float32, which is how the port reads those presets
 //           (precision.py). All three run on 16-bit operands, on the f16 or
 //           bf16 tensor cores (mma.sync m16n8k16, attention_half), in the
-//           resident design, f16 with no output rounding and its relative
-//           term in float32; the chunked design runs them on the bf16
-//           body's TF32 tensor cores.
+//           resident design, f16 as bf16 does, with no output rounding and
+//           its relative term in float32; the chunked design runs them on
+//           the bf16 body's TF32 tensor cores.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -63,14 +66,14 @@
 // multiply-adds per (b, h) pair (q.k, q.E and p.v), 2.42 GFLOP in all, and
 // 50.4 MB of q, k, v and out to move. FMA: 36.1 us at the H100's 67 TFLOP/s
 // float32 rate outside the tensor cores against 15.0 us of bytes at 3.35
-// TB/s, so operations bound it. TF32 and bf16: 4.9 us at 495 TFLOP/s, so the
-// bytes bound it, at 15.0 us. The multi-pass instances run 3, 6 or 9 times
+// TB/s, so operations bound it. TF32: 4.9 us at 495 TFLOP/s, so the bytes
+// bound it, at 15.0 us. The multi-pass instances run 3, 6 or 9 times
 // the products: TF32x3 14.7 us at 495 TFLOP/s, bf16x3 7.3, bf16x6 14.7 and
 // bf16x9 22.0 us at bf16's 989, so the bytes bound all but bf16x9
 // (operations). f64: 36.1 us at the H100's 67 TFLOP/s float64 peak, its
 // FP64 tensor cores', which the resident f64 body runs on (operations; the
-// float64 FMA design past it peaks at half of it); the 16-bit instances'
-// products 2.4 us at 989 TFLOP/s, so the bytes bound them.
+// float64 FMA design past it peaks at half of it); bf16's and the 16-bit
+// instances' products 2.4 us at 989 TFLOP/s, so the bytes bound them.
 //
 // FMA design: register tiles on the CUDA cores. The SM serves one
 // shared-memory wavefront (32 lanes x 4 bytes) per clock against four
@@ -107,8 +110,9 @@
 // flagship shape: 0.0787 ms, 46% of its 36.1 us bound (NVIDIA H100 80GB HBM3,
 // 700 W; chip_smoke.py phase 2).
 //
-// Tensor-core design (TF32 and bf16), resident: L <= 128 at D <= 32, every
-// shipped configuration. A block of eight warps serves work items, each KEYS query
+// Tensor-core design (TF32), resident: L <= 128 at D <= 32, every shipped
+// configuration. bf16 ran it too, its operands rounded to bf16 values in
+// the stage, until the 16-bit-plane body below took it. A block of eight warps serves work items, each KEYS query
 // rows and keys of one (b, h) pair at 64 < L <= 128 (KEYS = 128, a warp per
 // 16 rows) or of two pairs at L <= 64 (KEYS = 64, four warps each); the
 // blocks are persistent (at most two per SM) and walk the items.
@@ -132,7 +136,7 @@
 //   - A warp holds its 16 x KEYS scores in registers (64 floats a lane at
 //     KEYS = 128) and takes each row's exact maximum and sum, as the TPU
 //     kernel does: no online rescale, and P normalised before it is rounded
-//     for p . v in one pass over the keys, in both instances.
+//     for p . v in one pass over the keys.
 //   - p . v from the score accumulators as they are. The accumulator of an
 //     m16n8 tile holds columns 2t and 2t + 1 of rows g and g + 8, where the
 //     A fragment of m16n8k8 wants columns t and t + 4: the products are
@@ -153,10 +157,15 @@
 // design that filled a ring from one producer warp lost to the chunked
 // design by 2x: per-row bulk copies (the TMA unit) serialised at ~17 us an
 // item, and one warp's cp.async could not keep the ring full. Measured at
-// the flagship shape: TF32 0.0456 ms, 33% of its bound, and bf16 0.0462,
-// against the chunked design's 0.0500 and 0.0931 in the same run (NVIDIA
-// H100 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py, and the variants
-// in scripts/rel_attention_variants.py).
+// the flagship shape: TF32 0.0456 ms, 33% of its bound, and bf16 on it
+// 0.0462, against the chunked design's 0.0500 and 0.0931 in the same run
+// (NVIDIA H100 80GB HBM3, 700 W; scripts/kernel_times_two_trees.py, and the
+// variants in scripts/rel_attention_variants.py). bf16 on this body read
+// 0.0464 / 0.0313 ms at 64 x 128 with / without relative scores, 0.0162 /
+// 0.0123 at 64 x 64, 0.0075 / 0.0056 at 15 x 64, where attention_half read
+// 0.0357 / 0.0256, 0.0141 / 0.0112, 0.0065 / 0.0053 in turns with it
+// (NVIDIA H100 80GB HBM3, 700.00 W; scripts/rel_attention_variants.py
+// bf16-tf32-body).
 //
 // Multi-pass instances, resident (attention_parts): each operand split once
 // (device.cuh's split4, products), one block of eight warps per SM (255
@@ -185,8 +194,8 @@
 // H100 80GB HBM3, 700 W, in turns with the earlier form, which split every
 // fragment at each TF32 mma: scripts/kernel_times_two_trees.py): tf32x3
 // 0.0863 -> 0.0708 ms, bf16x3 0.1091 -> 0.0474, bf16x6 0.1729 -> 0.0631,
-// bf16x9 0.2311 -> 0.0751. TF32x3 at L <= 64 runs the single-rounding
-// instances' body instead (attention: one block per SM, a ring of three
+// bf16x9 0.2311 -> 0.0751. TF32x3 at L <= 64 runs the TF32 instance's
+// body instead (attention: one block per SM, a ring of three
 // float32 stages), since planes of parts ran 5-11% slower there without
 // relative scores, their 32-bit words doubling the shared-memory traffic
 // of bf16's. It splits once all the same (kSplitAtLoad): q's parts into
@@ -209,12 +218,12 @@
 // The TF32 parts are rounded by integer operations (device.cuh's
 // round_part): with cvt.rna the resident tf32x3 instance spilled 12 bytes.
 //
-// 16-bit instances, resident (attention_half; f16, f16f16 and bf16bf16 at
-// L <= 128, D <= 32): 16-bit operands. They ran the body above (the float32
-// stage rounded in place, products on m16n8k8 of 32-bit words; f16f16 and
-// bf16bf16 at one block per SM: at two blocks' 128 registers the rounded
-// q.k and the relative term held apart spilled), f16f16 and bf16bf16 0.0512
-// / 0.0562 ms at the flagship shape with relative scores. The bytes bound
+// 16-bit instances, resident (attention_half; bf16, f16, f16f16 and
+// bf16bf16 at L <= 128, D <= 32): 16-bit operands. They ran the body above
+// (the float32 stage rounded in place, products on m16n8k8 of 32-bit words;
+// f16f16 and bf16bf16 at one block per SM: at two blocks' 128 registers the
+// rounded q.k and the relative term held apart spilled), f16f16 and
+// bf16bf16 0.0512 / 0.0562 ms at the flagship shape with relative scores. The bytes bound
 // them (15.0 us; the products 2.4 us at 989 TFLOP/s); what held them was
 // the latency of each item's copy, rounding pass and products at eight
 // warps per SM.
@@ -266,20 +275,21 @@
 // device.cuh's split4, p_chunk and products, which v1 shares, a second
 // 16-bit type. The chunked design keeps these instances past L = 128 and
 // at D = 64, on the TF32 tensor cores.
-//   f16 runs this body without the roundings (output<F16> is the float32
-// sum) and keeps its relative term in float32: rounding QE to f16, which
-// F16_F16_F32 does not do, would fail its gate (a tenth of the plain
-// version's distance from float32). So its QE slices hold float32 values,
-// by 16-key windows at KEYS = 128 (rows kWarpWin + 8 = 40 floats apart),
-// and each score accumulator is seeded with its relative term, as
+//   f16 and bf16 run this body without the roundings (output<A> is the
+// float32 sum) and keep their relative term in float32: rounding QE to f16
+// or bf16, which F16_F16_F32 and BF16_BF16_F32 do not do, would fail their
+// gate (a tenth of the plain version's distance from float32). So their QE
+// slices hold float32 values, by 16-key windows at KEYS = 128 (rows
+// kWarpWin + 8 = 40 floats apart), and each score accumulator is seeded
+// with its relative term, as
 // attention_parts seeds them: QE window by window into the slice, read back
 // skewed into the scores, then q.k onto them by groups of four n-tiles, each
 // group scaled and biased before the next (the bias of all 128 keys loaded
 // at once held 32 registers, and the kernel spilled 8-24 bytes at 128). Two
 // blocks fit at KEYS = 128 with the stage's rows unpadded: 111,616 bytes a
 // block at D = 32, where a padded stage needs 117,760, 4,096 more than two
-// blocks have. Measured at the flagship shape against the body above in
-// turns (NVIDIA H100 80GB HBM3, 700 W; scripts/rel_attention_variants.py;
+// blocks have. f16 measured at the flagship shape against the body above
+// in turns (NVIDIA H100 80GB HBM3, 700 W; scripts/rel_attention_variants.py;
 // ms at 64 x 128 rel, rel-off; 64 x 64 rel, rel-off; 15 x 64 rel, rel-off):
 // this form 0.0352, 0.0249; 0.0138, 0.0111; 0.0063, 0.0051; the body above
 // 0.0449, 0.0287; 0.0153, 0.0114; 0.0071, 0.0054 (f16f16 in the same run
@@ -293,7 +303,12 @@
 // f16f16 adds its rounded QE, spilled 24 bytes (0.0397 with 32-key windows),
 // and so did the seeded form that scaled the scores after all of q.k. The
 // swapped rows were not kept (no faster at 64 x 128, slower at 64 x 64),
-// and their code is gone.
+// and their code is gone. bf16 runs the same form on bf16 planes and bf16
+// mma (kF32Rel, m16n8k16 BF16; 128 registers, no spill, at D = 16 and 32):
+// 0.0357, 0.0256; 0.0141, 0.0112; 0.0065, 0.0053 against the body above's
+// 0.0464, 0.0313; 0.0162, 0.0123; 0.0075, 0.0056, and f16's 0.0358,
+// 0.0255; 0.0141, 0.0112; 0.0064, 0.0053 in the same run (NVIDIA H100 80GB
+// HBM3, 700.00 W; scripts/rel_attention_variants.py bf16-tf32-body).
 //
 // The f64 instance, resident (attention_f64; L <= 128 at D <= 32): the
 // products on the FP64 tensor cores, mma.sync m16n8k16 with float64
@@ -901,8 +916,8 @@ constexpr bool kTableResident = true;      // the table staged once per block, e
 constexpr int kSmemBytes = 232448;         // the most shared memory a block may have
 constexpr int kSmemPerSM = 233472;         // an SM's shared memory; each block also takes 1 KB of it
 
-// Offsets (floats) into dynamic shared memory of the single-rounding
-// instances and TF32x3 at L <= 64 (ONE_BLOCK: one block per SM, kOneBlock);
+// Offsets (floats) into dynamic shared memory of the TF32 instance and
+// TF32x3 at L <= 64 (ONE_BLOCK: one block per SM, kOneBlock);
 // every row D + 4 floats (4 mod 32).
 template <int D, bool HAS_REL, int KEYS, bool ONE_BLOCK>
 struct Smem {
@@ -1034,7 +1049,7 @@ template <Arith A>
 constexpr bool kSplitAtLoad = kParts<A> > 1;
 
 // KEYS (64 or 128, at least L): the keys of a pair, and its rows in a stage.
-// Shared memory holds the single-rounding instances' operands rounded, what
+// Shared memory holds the TF32 instance's operands rounded, what
 // a fragment load reads; TF32x3's float32 values, split as loaded
 // (kSplitAtLoad) where planes of parts (kSplitOnce) lost.
 template <int D, bool HAS_REL, Arith A, int KEYS>
@@ -1601,11 +1616,11 @@ __device__ __forceinline__ void attention_parts(const Args& a) {
 
 // ---- The resident design's 16-bit instances: 16-bit planes ----------------
 
-// The 16-bit instances (f16, f16f16, bf16bf16) run attention_half in the
-// resident design (the note at the top); f16, which rounds no dot's output,
-// keeps its relative term in float32 (kF32Rel).
+// The 16-bit instances (bf16, f16, f16f16, bf16bf16) run attention_half in
+// the resident design (the note at the top); bf16 and f16, which round no
+// dot's output, keep their relative term in float32 (kF32Rel).
 template <Arith A>
-constexpr bool kHalfBody = kRoundsOutput<A> || A == Arith::F16;
+constexpr bool kHalfBody = kRoundsOutput<A> || A == Arith::F16 || A == Arith::BF16;
 template <Arith A>
 constexpr bool kF32Rel = !kRoundsOutput<A>;
 
@@ -1688,13 +1703,14 @@ __device__ __forceinline__ float scored(float x, const Args& a, const float* bs,
   return fmaf(x, a.scale2, bias2);
 }
 
-// The 16-bit instances (f16, f16f16, bf16bf16) of the resident design: the
-// table rounded to A's type once per block, K and V once per item, into
-// planes; the warp's q rows into registers once per item; every product one
-// m16n8k16 on the f16 or bf16 tensor cores. f16f16 and bf16bf16: q.k and
-// q.E each from a zero accumulator, rounded to A's type on its own, then
-// summed in float32; f16: q.k onto score accumulators seeded with the
-// float32 QE (its slices hold float32 values). Scale, bias and the exact row
+// The 16-bit instances (bf16, f16, f16f16, bf16bf16) of the resident
+// design: the table rounded to A's type once per block, K and V once per
+// item, into planes; the warp's q rows into registers once per item; every
+// product one m16n8k16 on the f16 or bf16 tensor cores. f16f16 and
+// bf16bf16: q.k and q.E each from a zero accumulator, rounded to A's type
+// on its own, then summed in float32; bf16 and f16: q.k onto score
+// accumulators seeded with the float32 QE (their slices hold float32
+// values). Scale, bias and the exact row
 // statistics in float32; P normalised, then rounded; p.v's output as the
 // instance leaves it (device.cuh's output) at the store.
 template <int D, bool HAS_REL, Arith A, int KEYS>
@@ -1788,9 +1804,9 @@ __device__ __forceinline__ void attention_half(const Args& a) {
 
     float s[kNT][4];  // the warp's 16 x KEYS scores
     if constexpr (S::kF32QE) {
-      // S = rel + Q . K^T in float32 (f16: no dot's output rounded), each
-      // score accumulator seeded with its relative term, then scale and
-      // bias, in log2 units
+      // S = rel + Q . K^T in float32 (bf16, f16: no dot's output rounded),
+      // each score accumulator seeded with its relative term, then scale
+      // and bias, in log2 units
 #pragma unroll
       for (int c = 0; c < KEYS / kWindow; ++c) {
         // QE = Q . E_win^T over the kWarpWin table rows that the warp's rows
@@ -2199,8 +2215,8 @@ __device__ __forceinline__ void attention_f64(const Args& a) {
 }  // namespace rs
 
 // KEYS 64 or 128: the resident design for L <= KEYS, one block of eight
-// warps per SM (two at D = 32 for the single-rounding instances, and at
-// KEYS = 128 for the output-rounding ones); KEYS 0: the chunked one, three
+// warps per SM (two at D = 32 for TF32, and at KEYS = 128 for the 16-bit
+// instances); KEYS 0: the chunked one, three
 // blocks of four warps per SM (two at D = 64).
 template <int KEYS>
 constexpr int kTcThreads = KEYS ? rs::kThreads : tc::kThreads;

@@ -27,7 +27,7 @@ products of the JAX model's einsums in that mode:
 | --- | --- | --- |
 | "ieee" | "fma": float32 FMA | "fma": float32 FMA |
 | "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores; resident |
-| "bf16" | "bf16": bf16 values on TF32 tensor cores | "bf16": bf16 values on TF32 tensor cores; resident |
+| "bf16" | "bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), no dot's output rounded, the relative term float32 | "bf16": bf16 values on TF32 tensor cores; resident |
 | "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same; resident |
 | "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same; chunked |
 | "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; chunked |
@@ -44,8 +44,8 @@ maximum and sum over all keys before P is rounded) at L <= 128 and D <= 32,
 where P is rounded or split) beyond, and for the bf16 multi-pass instances
 at every length. The f64 instances of both kernels run their kernel's resident
 design on the FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on
-the CUDA cores beyond. The v2 f16, f16f16 and bf16bf16 instances run
-their resident design on 16-bit operands (m16n8k16) at L <= 128 and
+the CUDA cores beyond. The v2 bf16, f16, f16f16 and bf16bf16 instances
+run their resident design on 16-bit operands (m16n8k16) at L <= 128 and
 D <= 32, and the chunked design on TF32 tensor cores beyond
 (csrc/rel_attention.cu's note). Without e_lr, v1 runs the v2 column's
 instance.
@@ -184,7 +184,8 @@ INSTANCES = ("fma", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9", "f64
 # instances together, each multi-pass instance of v2 apart and its flagship
 # head size apart from the other two, v1's tf32x3 and bf16x3 apart and its
 # bf16x6 and bf16x9 together, and the f64 and 16-bit instances in two parts
-# (three in v2: f64, f16 and the output-rounding pair apart).
+# (three in v2: f64, f16 and the output-rounding pair apart, and v2's bf16
+# apart from FMA and TF32).
 # On an 8-core H100 host both sources (seven instances) built in 145 s as
 # one nvcc each, 77 s with --split-compile=0, 166 s with
 # --split-compile-extended=0, and 39 s as 12 parts (scripts/nvcc_build_forms.py).
@@ -197,7 +198,7 @@ _NEW_PARTS = [(_WIDE_AND_16[:2], HEAD_DIMS), (_WIDE_AND_16[2:], HEAD_DIMS)]
 # instance, device and stream
 REL_ATTENTION = CudaLibrary(
     "rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6, INSTANCES,
-    [(_SINGLE, HEAD_DIMS), (("f64",), HEAD_DIMS), (("f16",), HEAD_DIMS), _NEW_PARTS[1]]
+    [(_SINGLE[:2], HEAD_DIMS), (("bf16",), HEAD_DIMS), (("f64",), HEAD_DIMS), (("f16",), HEAD_DIMS), _NEW_PARTS[1]]
     + [((i,), dims) for i in _MULTI_PASS for dims in ((32,), (16, 64))])
 # (q, k, v, bias, e_lr, out, batch, head and row strides of q, k and v, B, H, L, D), then the instance, device
 # and stream

@@ -16,7 +16,7 @@ Variants of the FMA instance (timed on it alone):
   two-blocks-per-sm   __launch_bounds__ asking for two blocks of two heads per
                       SM (255 registers) instead of three (168)
   one-head-per-block  one head per block instead of two
-Variants of the TF32 and bf16 instances (timed on both):
+Variants of the TF32 instance's resident body (timed on it):
   stages-2            a ring of two stages per block at L > 64 instead of one
                       (one block per SM: shared memory holds only one then)
   short-stages-1      one stage at L <= 64 instead of three (two blocks per SM)
@@ -29,6 +29,7 @@ Variants of the TF32 and bf16 instances (timed on both):
   chunked             the chunked design (one block per 64 query rows, K, V
                       and a table window staged per 64-key chunk, bf16 in two
                       passes) at every L, as it ran before the resident one
+                      (timed on TF32 and bf16)
 Variants of the multi-pass instances' resident design (tf32x3, bf16x3,
 bf16x6, bf16x9; timed on all four):
   parts-window-16     QE windows of 16 keys for the bf16 parts at L > 64
@@ -59,17 +60,20 @@ Variants of the output-rounding instances' resident design (attention_half,
   half-long-rel-group-2
                       two n-tiles of QE and of the scores interleaved with
                       relative scores at L > 64 instead of one
-Variants of the f16 instance on that design (its QE slices of float32
-values by 16-key windows at L > 64, each score accumulator seeded with its
-relative term; timed on f16):
+Variants of the f16 and bf16 instances on that design (their QE slices of
+float32 values by 16-key windows at L > 64, each score accumulator seeded
+with its relative term; timed on f16 and bf16, but f16-tf32-body on f16
+and bf16-tf32-body on bf16):
   f16-one-block       one block of eight warps per SM at L > 64 (255
                       registers), 32-key QE windows and the stage's rows
                       padded, instead of two blocks, 16-key windows and an
                       unpadded stage
   f16-qk-group-1,     the q.k products onto the seeded scores one or two
   f16-qk-group-2      n-tiles at a time instead of four
-  f16-tf32-body       the single-rounding instances' body (TF32 tensor
-                      cores on f16 values), as f16 ran before attention_half
+  f16-tf32-body       the TF32 instance's resident body (TF32 tensor cores
+                      on f16 values), as f16 ran before attention_half
+  bf16-tf32-body      the same for bf16 (TF32 tensor cores on bf16 values),
+                      as bf16 ran before attention_half
 "final", the source as it is, is timed on all eleven instances. A variant
 but "final" is built as one part of the instances it is run on (and
 TF32's, which the multi-pass checks read).
@@ -147,7 +151,10 @@ SUBSTITUTIONS = {
                       ("kSRow = kF32QE ? D : D + 4;", "kSRow = D + 4;")],
     "f16-qk-group-1": [(F16_QK, F16_QK.replace("group_upto(kNT, kHalfGroup)", "1"))],
     "f16-qk-group-2": [(F16_QK, F16_QK.replace("group_upto(kNT, kHalfGroup)", "group_upto(kNT, 2)"))],
-    "f16-tf32-body": [("kHalfBody = kRoundsOutput<A> || A == Arith::F16;", "kHalfBody = kRoundsOutput<A>;")],
+    "f16-tf32-body": [("kHalfBody = kRoundsOutput<A> || A == Arith::F16 || A == Arith::BF16;",
+                       "kHalfBody = kRoundsOutput<A> || A == Arith::BF16;")],
+    "bf16-tf32-body": [("kHalfBody = kRoundsOutput<A> || A == Arith::F16 || A == Arith::BF16;",
+                        "kHalfBody = kRoundsOutput<A> || A == Arith::F16;")],
 }
 FMA_VARIANTS = ("d-loop-unrolled", "staging-unrolled", "v-with-k", "two-blocks-per-sm", "one-head-per-block")
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
@@ -163,15 +170,19 @@ def instances_of(variant: str) -> tuple:
         return ("fma", "tf32", "bf16", *MULTI_PASS, "f64", "f16", *ROUNDING)
     if variant.startswith("half-"):
         return ROUNDING
+    if variant.endswith("-tf32-body"):
+        return (variant.split("-")[0],)
     if variant.startswith("f16-"):
-        return ("f16",)
+        return ("f16", "bf16")
     if variant.startswith("parts-"):
         return MULTI_PASS
     if variant.startswith("f64-"):
         return ("f64",)
     if variant.startswith("x3-"):
         return ("tf32x3",)
-    return ("fma",) if variant in FMA_VARIANTS else ("tf32", "bf16")
+    if variant == "chunked":
+        return ("tf32", "bf16")
+    return ("fma",) if variant in FMA_VARIANTS else ("tf32",)
 
 
 def variant_libraries(base: attention.CudaLibrary, substitutions: dict, instances_of=None) -> dict:

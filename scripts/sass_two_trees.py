@@ -21,8 +21,12 @@ instructions are the same ones in another order (the instructions without
 their addresses, encodings and operand reuse flags, as a multiset). Last a
 JSON object of the counts and names. Exits non-zero if a function of an
 instance not named by --changing differs or is found in one tree only.
+With --opcodes, it also prints, for each function of the --changing
+instances in this tree, how many of its instructions have each opcode
+(an opcode matches the instructions whose own opcode starts with it, as
+HMMA.1688 matches HMMA.1688.F32.TF32).
 
-Usage: python3 scripts/sass_two_trees.py OTHER_TREE [--changing f64 ...]
+Usage: python3 scripts/sass_two_trees.py OTHER_TREE [--changing f64 ...] [--opcodes HMMA.1688 ...]
 """
 from __future__ import annotations
 
@@ -114,6 +118,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("other")
     parser.add_argument("--changing", nargs="*", default=[], help="instances whose SASS may differ")
+    parser.add_argument("--opcodes", nargs="*", default=[], help="opcodes to count in the changing instances")
     args = parser.parse_args()
     other, this = tree_functions(str(Path(args.other).resolve())), tree_functions(str(REPO))
     result = {"same": [], "spacing": [], "differ": [], "only_other": [], "only_this": []}
@@ -133,15 +138,23 @@ def main() -> None:
                 print(f"  {tag}: {changes(other[name], this[name])}", flush=True)
             elif key != "same":
                 print(f"  {tag}", flush=True)
-                if key != "spacing" and instance not in args.changing:
-                    bad.append(tag)
+            if key in ("differ", "only_other", "only_this") and instance not in args.changing:
+                bad.append(tag)
     by_instance = {}
     for name in result["same"]:
         instance = describe(name)[0]
         by_instance[instance] = by_instance.get(instance, 0) + 1
     print(f"same SASS by instance: {by_instance}")
+    opcodes = {}
+    for name in sorted(this):
+        instance, tag = describe(name)
+        if args.opcodes and instance in args.changing:
+            ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in instructions(this[name])]
+            opcodes[tag] = {op: sum(o.startswith(op) for o in ops) for op in args.opcodes}
+            print(f"opcodes of {tag}: {opcodes[tag]}", flush=True)
     print(json.dumps({"counts": {k: len(v) for k, v in result.items()}, "same_by_instance": by_instance,
-                      "not_same": {k: [describe(n)[1] for n in v] for k, v in result.items() if k != "same"}}))
+                      "not_same": {k: [describe(n)[1] for n in v] for k, v in result.items() if k != "same"},
+                      "opcodes": opcodes}))
     if bad:
         raise SystemExit(f"SASS differs outside {args.changing}: {bad}")
 

@@ -466,6 +466,20 @@ def test_the_f16_instance_builds_in_a_part_of_its_own():
     assert [p for p in parts if "f64" in p[0]] == [(("f64",), attention.HEAD_DIMS)]
 
 
+def test_the_bf16_instance_builds_in_a_part_of_its_own():
+    """v2's bf16 instance builds in a part that holds no other instance, at
+    every head size, and FMA and TF32 keep theirs without it: its resident
+    body (attention_half with float32 QE slices) changes without touching
+    their machine code, whose SASS text a shared part would pad to the
+    widest instruction of all of them. v1's bf16 keeps its part beside FMA
+    and TF32, since its kernel is not changed with v2's."""
+    parts = attention.REL_ATTENTION.parts
+    assert [p for p in parts if "bf16" in p[0]] == [(("bf16",), attention.HEAD_DIMS)]
+    assert [p for p in parts if {"fma", "tf32"} & set(p[0])] == [(("fma", "tf32"), attention.HEAD_DIMS)]
+    assert [p for p in attention.GATHERED_ATTENTION.parts if "bf16" in p[0]] == [
+        (("fma", "tf32", "bf16"), attention.HEAD_DIMS)]
+
+
 def _substitutions(script: Path) -> dict:
     """The SUBSTITUTIONS of a variant script, read from its AST: the
     assignment and the module-level constants it names, evaluated with no
@@ -556,12 +570,12 @@ def test_the_kernels_table_of_products_is_the_presets(mode):
 def _model_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, mode: str, init=None) -> torch.Tensor:
     """torch.einsum(eq, a, b) summed as the multi-pass instances sum it: the
     operands split once (precision.parts), the contracted index taken in
-    k-steps of 16 values for bf16 parts and 8 for TF32 parts, in order;
+    k-steps of 16 values for bf16 and f16 parts and 8 for TF32 parts, in order;
     per k-step the preset's products of parts, the smallest first, each
     k-step's product summed exactly and added to the float32 accumulator
     (started at init)."""
     rounding, _, products = precision.SPLITS[mode]
-    step = 16 if rounding == "bf16" else 8
+    step = 8 if rounding == "tf32" else 16
     (sa, sb), so = eq.split("->")[0].split(","), eq.split("->")[1]
     c = next(x for x in sa if x in sb and x not in so)
     pa, pb = precision.parts(a, mode), precision.parts(b, mode)
@@ -661,3 +675,44 @@ def test_the_resident_tf32x3_order_of_sums_meets_the_split_gate(kernel, l, rel):
 
     assert 0 < rel_rms(model, plain) <= SPLIT_TOL
     assert rel_rms(model, f32) <= 0.1 * rel_rms(tf32, f32)
+
+
+@pytest.mark.parametrize("rel", [True, False])
+@pytest.mark.parametrize("l", [17, 64, 65, 128])
+@pytest.mark.parametrize("d", [16, 32])
+def test_the_half_body_order_of_sums_meets_the_bf16_gate(d, l, rel):
+    """The order of sums of v2's bf16 instance on attention_half
+    (_model_attention with resident=True: q, k, v and the table rounded to
+    bf16 values once, QE in float32 by k-steps of 16 values,
+    each score accumulator seeded with it and q.k's products added on top,
+    the row statistics in one pass, P normalised then rounded, p.v by
+    k-steps of 16 keys) within BF16_SHARE of the plain version's distance
+    from float32 and within BF16_TOL of float32 (chip_smoke.py's gate),
+    on either side of the resident design's key counts (64, 128) at both
+    of its head sizes, some keys masked. With relative scores the same
+    order with QE rounded to bf16, as bf16bf16 rounds it, fails that gate:
+    the relative term stays float32 (kF32Rel)."""
+    mode, share, tol = "bf16", 0.1, 5e-2  # chip_smoke.py's BF16_SHARE and BF16_TOL
+    q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, l, d, 128, seed=70 + l + d))
+    assert (bias < 0).any()
+    e_lr = torch.from_numpy(_gathered(table.numpy(), l, 128)) if rel else None
+    plain = attention.fused_attention_v2_reference(q, k, v, bias, table if rel else None, 128 if rel else None,
+                                                   mode=mode)
+    f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
+
+    def rel_rms(x, y):
+        return float((x - y).square().mean().sqrt() / y.square().mean().sqrt())
+
+    gap = rel_rms(plain, f32)
+    model = _model_attention(q, k, v, bias, e_lr, mode, resident=True)
+    assert 0 < rel_rms(model, plain) <= share * gap
+    assert rel_rms(model, f32) <= tol
+    if rel:
+        rounded_qe = precision.ROUNDINGS[mode](_model_einsum("bhld,lrd->bhlr", q, e_lr, mode))
+        s = _model_einsum("bhld,bhmd->bhlm", q, k, mode, init=rounded_qe)
+        log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+        scale2 = log2e / torch.tensor(float(d)).sqrt()
+        s2 = (s.double() * scale2.double() + (bias * log2e)[:, None, None, :].double()).float()
+        p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+        control = _model_einsum("bhlm,bhmd->bhld", p * (1.0 / p.sum(-1, keepdim=True)), v, mode)
+        assert rel_rms(control, plain) > share * gap

@@ -586,12 +586,12 @@ def test_tf32x3_instances_at_the_resident_boundary(device, l, d, layout):
 ROUNDING_EDGES = [(l, d) for l in (63, 64, 65, 127, 128, 129) for d in (16, 32)] + [(64, 64), (128, 64)]
 
 
-@pytest.mark.parametrize("mode", ["f16", "f16f16", "bf16bf16"])
+@pytest.mark.parametrize("mode", ["bf16", "f16", "f16f16", "bf16bf16"])
 @pytest.mark.parametrize("layout", ["contiguous", "projection views"])
 @pytest.mark.parametrize("l,d", ROUNDING_EDGES)
 def test_rounding_instances_at_the_resident_boundary(device, l, d, layout, mode):
-    """The 16-bit instances that run v2's attention_half (f16, with its
-    float32 QE slices, f16f16 and bf16bf16) on either side of their
+    """The 16-bit instances that run v2's attention_half (bf16 and f16,
+    with their float32 QE slices, f16f16 and bf16bf16) on either side of their
     resident design's limits (B * H = 15: a ragged last item of v2's two
     pairs at L <= 64): v2 with and without the table, each launched once and
     within SHARE of the plain version's distance from float32
