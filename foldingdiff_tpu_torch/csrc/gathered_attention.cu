@@ -27,13 +27,15 @@
 //           gathered_attention_tf32_kernel, q.k, q.e_lr and p.v on TF32
 //           tensor cores (mma.sync m16n8k8), each operand rounded to TF32 by
 //           cvt.rna.tf32.f32 (to nearest, ties away from zero), float32 sums;
-//   2 bf16  ("BF16_BF16_F32"): gathered_attention_bf16_kernel, the TF32 body
-//           on operands rounded to bf16 values (to nearest even): q, k, v and
-//           e_lr as their fragments are loaded, P before p.v. TF32 holds
-//           bf16's 8 significant bits, so each product is the exact product of
-//           two bf16 values and the sums are float32, as JAX's preset defines.
-//           P is normalised before it is rounded, as the einsum's operand is
-//           the softmax's output.
+//   2 bf16  ("BF16_BF16_F32"): gathered_attention_bf16_kernel, operands
+//           rounded to bf16 values (to nearest even): q, k, v and e_lr, and P
+//           before p.v. Each product is the exact product of two bf16 values
+//           and the sums are float32, as JAX's preset defines. P is
+//           normalised before it is rounded, as the einsum's operand is the
+//           softmax's output. In the resident design the products run on the
+//           bf16 tensor cores (mma.sync m16n8k16, attention_half, below), the
+//           relative term float32; in the chunked design on the TF32 ones,
+//           which hold bf16's 8 significant bits.
 //   3-6     ("TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "_X6", "_X9"):
 //           gathered_attention_{tf32x3,bf16x3,bf16x6,bf16x9}_kernel, the
 //           multi-pass presets (device.cuh's Arith): every operand split
@@ -51,13 +53,15 @@
 //           design (attention_f64, below), and past it float64 FMA on the
 //           CUDA cores (device.cuh's f64 design, which v2 shares);
 //   8-10    ("F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"):
-//           gathered_attention_{f16,f16f16,bf16bf16}_kernel, the bf16
-//           instance's body on operands rounded to f16 values (f16, f16f16)
-//           or bf16 values (bf16bf16); f16f16 and bf16bf16 then round each
-//           dot's output once to f16 or bf16 (device.cuh's output): q.k and
-//           q.e_lr each before their sum, p.v before it is stored. The sums
-//           stay float32, which is how the port reads those presets
-//           (precision.py).
+//           gathered_attention_{f16,f16f16,bf16bf16}_kernel, operands rounded
+//           to f16 values (f16, f16f16) or bf16 values (bf16bf16); f16f16 and
+//           bf16bf16 then round each dot's output once to f16 or bf16
+//           (device.cuh's output): q.k and q.e_lr each before their sum, p.v
+//           before it is stored. The sums stay float32, which is how the port
+//           reads those presets (precision.py). bf16bf16 runs bf16's
+//           attention_half in the resident design; f16 and f16f16 run the
+//           TF32 body there on f16 values in 32-bit words (m16n8k8), and all
+//           three the chunked design's TF32 tensor cores beyond.
 // Softmax is float32 in every instance, in exp2 units with the scale folded
 // in.
 //
@@ -125,7 +129,8 @@
 // at P = R = 16 (100 MB e_lr, 201 MB K and V), and 25 MB of q and out.
 //
 // Resident tensor-core design (TF32, bf16, TF32x3 and the 16-bit instances
-// at L <= 128 and D <= 32, every shipped configuration): one pass over the
+// at L <= 128 and D <= 32, every shipped configuration; bf16 and bf16bf16 on
+// 16-bit operands, attention_half, described after it): one pass over the
 // keys. A warp takes each of its pair's rows' exact maximum and sum over
 // every key and normalises P before it is rounded, as v2's resident design
 // does, so that no instance reads e_lr and K a second time for the row
@@ -189,6 +194,71 @@
 // other, e_lr groups of 8 the same.
 // Integer rounding of TF32 operands (device.cuh's round_part) instead of
 // cvt.rna ran 0.0657 against 0.0662 ms, within the runs' spread: not kept.
+//
+// The bf16 instances on 16-bit operands, resident (attention_half; bf16 and
+// bf16bf16 at L <= 128 and D <= 32): the design above with each operand
+// rounded to bf16 once and every product one m16n8k16 on the bf16 tensor
+// cores (device.cuh's mma16), where the TF32 body held bf16 values in
+// 32-bit words and rounded each B value at two m16n8k8 per 16 values:
+//   - q's rows packed into A fragments once per item from the staged tile
+//     (the row-warp's 16 pairs, then the pair-warp's 16 rows: 8 registers at
+//     D = 32 against the TF32 body's 16); e_lr's, K's and V's B values
+//     packed as they are loaded from L2, two conversions per float4. Each
+//     value enters one mma per item (it serves the tile's 16 pairs or rows)
+//     and no warp reads another's rows, so 16-bit planes of them in shared
+//     memory would add a store, a barrier and an ldmatrix and save no
+//     rounding; nor do they fit: the store and two stages take 223,744 of
+//     the 232,448 bytes a block may have (16 keys of K per warp, 20,480
+//     bytes at D = 32, already do not);
+//   - P per 16 keys from two n-tiles' accumulators, an m16n8k16 A fragment
+//     as they lie (no key order), V's rows 2t, 2t + 1, 8 + 2t, 9 + 2t of the
+//     16 keys its B values, each output n-tile's columns as tc::VCols has
+//     them;
+//   - bf16 seeds each score accumulator with its float32 relative term.
+//     Rounded to bf16 in the store (the variant half-bf16-rel-rounded) it
+//     fails bf16's gate on the card, 0.537-0.574 of the plain version's
+//     distance from float32 against 0.1, as v2's did: the relative term
+//     stays float32. bf16bf16 takes q.e_lr and q.k each from zero, rounds
+//     each to bf16 on its own, then sums them in float32;
+//   - the item stays 16 pairs x 16 rows. 32 rows would halve K's and V's
+//     201 MB per flagship call (327 -> 226 MB), but the exact row statistics
+//     need every key's score before P is rounded, and an item's float32
+//     relative terms, or its parked scores, would then take 16 x 32 x 128 x
+//     4 = 262,144 bytes, past what a block has.
+// 128 registers at KEYS = 128 (118-120 at KEYS = 64, 96-111 at D = 16), no
+// spill. Measured in turns (scripts/gathered_attention_variants.py, NVIDIA
+// H100 80GB HBM3, 700.00 W; ms of bf16 / bf16bf16 with e_lr at 64 x 128,
+// 64 x 64, 15 x 64; the load groups and chunks were this body's own
+// constants then, and lost to the body above's, which it now shares, so
+// chunk-32, load-group-2 and rel-group-8 run on both bodies):
+//   this form               0.0626 / 0.0631, 0.0224 / 0.0228, 0.0112 / 0.0112
+//   the TF32 body           0.0682 / 0.0704, 0.0261 / 0.0277, 0.0131 / 0.0145
+//   32-key score chunks     0.0647 / 0.0641, 0.0233 / 0.0237, 0.0121 / 0.0121
+//   every score in registers 0.0708 / 0.0807 at 64 x 128 (36 and 104 bytes
+//                           spilled; at KEYS = 64 it is this form)
+//   K groups of 2 n-tiles   0.0640 / 0.0653, 0.0221 / 0.0231, 0.0111 / 0.0119
+//   V groups of 2           0.0651 / 0.0657, 0.0234 / 0.0235, 0.0117 / 0.0118
+//   e_lr groups of 8        0.0633 / 0.0641, 0.0226 / 0.0236, 0.0114 / 0.0119
+// and in a later run (this form 0.0635 / 0.0638, 0.0234 / 0.0236, 0.0115 /
+// 0.0119) each phase's first load group issued before the wait ahead of
+// it (e_lr's before the stage's, K's before the store's barrier, V's
+// before the softmax), alone or together: every one spilled at 128
+// registers (20-276 bytes), and the best, K's and V's, read 0.0642 /
+// 0.0625, 0.0216 / 0.0220, 0.0112 / 0.0117; all three 0.0753 / 0.0762.
+// Their code is gone.
+// What bounds it, from two probes in the same run (the variants probe-*, at
+// 64 x 128; TF32 body on TF32 / this form on bf16 / on bf16bf16): as is
+// 0.0676 / 0.0626 / 0.0631 ms; every product dropped, the loads kept
+// 0.0620 / 0.0631 / 0.0629; e_lr's, K's and V's L2 bytes dropped, the
+// products kept (every warp reading the same few rows) 0.0562 / 0.0499 /
+// 0.0516. The products and roundings cost the TF32 body 8%, which this form
+// saved; they cost this form nothing. The L2 bytes cost 20%, and at 64 x 64
+// and 15 x 64 nothing (0.0212 / 0.0208 and 0.0116 / 0.0111 without them).
+// What remains is not bytes or tensor cores: one block of 16 warps per SM
+// takes each item's phases (e_lr's loads, a barrier, K's, the softmax, V's)
+// one after another, every fragment load touching 8 rows of 128 bytes for
+// 512 bytes (4 lanes per key row), and at 15 x 64 the call's 48 items run
+// on 48 of the 132 SMs, one item each: 0.0112 ms is one item's latency.
 //
 // The f64 instance, resident (attention_f64; L <= 128 at D <= 32): the
 // design above with its products on the FP64 tensor cores, mma.sync
@@ -1520,6 +1590,271 @@ __device__ __forceinline__ void attention(const Args& a) {
   }
 }
 
+// ---- The resident design's bf16 instances: 16-bit operands on m16n8k16 ------
+
+// The bf16 and bf16bf16 instances run attention_half in the resident design
+// (the note at the top), with the body above's load groups and score
+// chunks; the others keep the body above.
+template <Arith A>
+constexpr bool kHalfBody = A == Arith::BF16 || A == Arith::BF16BF16;
+
+// The A fragments, as A's 16-bit pairs, of a 16-row operand of the staged q
+// tile whose rows g and g + 8 are (pair p0, row r0) and (p1, r1): chunk c
+// (one m16n8k16) takes columns 16 c + 4t .. 16 c + 4t + 3, the first two as
+// k = 2t, 2t + 1 and the last two as k = 2t + 8, 2t + 9, as b_pair's B
+// fragments take them (the products sum over d: any order that A and B
+// share), so that every lane reads its columns as float4s.
+template <int D, Arith A>
+__device__ __forceinline__ void q_pairs(uint32_t (&f)[D / 16][4], const float* qs, int p0, int r0, int p1, int r1,
+                                        int t) {
+#pragma unroll
+  for (int c = 0; c < D / 16; ++c) {
+    const float4 u = *reinterpret_cast<const float4*>(qs + tc::q_offset<D>(p0, r0, 4 * c + t));
+    const float4 w = *reinterpret_cast<const float4*>(qs + tc::q_offset<D>(p1, r1, 4 * c + t));
+    f[c][0] = pack16<A>(u.x, u.y);
+    f[c][1] = pack16<A>(w.x, w.y);
+    f[c][2] = pack16<A>(u.z, u.w);
+    f[c][3] = pack16<A>(w.z, w.w);
+  }
+}
+
+// c += A . B^T over one chunk of 16 values, this lane's B values y (columns
+// 16 c + 4t .. 16 c + 4t + 3 of its row), each rounded to A's type here.
+template <Arith A>
+__device__ __forceinline__ void mma_chunk(float (&c)[4], const uint32_t (&a)[4], const float4 y) {
+  mma16<A>(c, a, pack16<A>(y.x, y.y), pack16<A>(y.z, y.w));
+}
+
+// The bf16 instances (BF16, BF16BF16) of the resident design on 16-bit
+// operands: every product one m16n8k16 on the bf16 tensor cores, each
+// operand rounded to bf16 once: q's rows into A fragments once per item
+// (the row-warp's 16 pairs, then the pair-warp's 16 rows), e_lr's, K's and
+// V's B values as they are loaded from L2 (each enters one mma per item:
+// the value serves the tile's 16 pairs or rows), P per 16 keys from two
+// n-tiles' accumulators, an m16n8k16 A fragment as they lie. BF16: the
+// relative term float32 in the store, each score accumulator seeded with
+// it; BF16BF16: q.e_lr and q.k each from a zero accumulator, each rounded
+// to bf16 on its own, then summed in float32, and p.v's output rounded at
+// the store. Scale, bias and the exact row statistics in float32, as the
+// body above takes them.
+template <int D, Arith A, int KEYS>
+__device__ __forceinline__ void attention_half(const Args& a) {
+  using S = Smem<D, KEYS>;
+  using V = tc::VCols<D>;
+  constexpr int kKC = D / 16;    // chunks of q.k and q.e_lr: one m16n8k16 each
+  constexpr int kDT = D / 8;     // n-tiles of p.v
+  constexpr int kNT = KEYS / 8;  // key n-tiles of a row's scores
+  constexpr int kCNT = kChunkNT;
+  constexpr int kChunks = kNT / kCNT;  // chunks of keys whose scores a warp holds at once
+  static_assert(kNT % kRelGroup == 0 && kCNT % kLoadGroup == 0 && kLoadGroup % 2 == 0 && kNT % kCNT == 0,
+                "whole groups");
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* stages = smem + S::kStages;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+  const int first = blockIdx.x, stride = gridDim.x;  // the block's first item, and the blocks
+
+  if (first < a.n_items) stage_item<D, KEYS>(stages, a, first);
+  cp_async_commit();
+  int it = 0;
+#pragma unroll 1
+  for (int item = first; item < a.n_items; item += stride, ++it) {
+    const float* qs = stages + (it & 1) * S::kStage;  // the item's q tile, then its bias rows
+    cp_async_wait<0>();
+    // the item's stage has landed; every warp is done with the last item's
+    // store and stage, which the next copies now refill
+    __syncthreads();
+    if (item + stride < a.n_items) {
+      stage_item<D, KEYS>(stages + ((it + 1) & 1) * S::kStage, a, item + stride);
+    }
+    cp_async_commit();
+    const int l0 = (item % a.n_tiles) * kRows;
+
+    // The relative term of row lr = l0 + warp for 16 pairs, every key below
+    // L at once: Q_lr . e_lr[lr]^T, the pairs the m16n8k16 tile's rows, keys
+    // its columns; rounded to bf16 (BF16BF16) or not (BF16) into the store
+    const int lr = l0 + warp;
+    if (lr < a.L) {
+      uint32_t qr[kKC][4];  // rows g and g + 8: pairs g and g + 8 at row lr
+      q_pairs<D, A>(qr, qs, g, warp, g + 8, warp, t);
+      const float* e_row = a.e_lr + static_cast<size_t>(lr) * a.L * D;
+      float* dst = smem + g * S::kRelPair + warp * S::kRelRow + 2 * t;
+      const int n_used = (a.L + 7) / 8;  // key n-tiles that reach a key below L
+#pragma unroll 1
+      for (int nt0 = 0; nt0 < n_used; nt0 += kRelGroup) {
+        float4 y[kRelGroup][kKC];
+#pragma unroll
+        for (int n = 0; n < kRelGroup; ++n) {
+#pragma unroll
+          for (int cc = 0; cc < kKC; ++cc) y[n][cc] = tc::columns<D>(e_row, D, a.L, 8 * (nt0 + n) + g, cc, t);
+        }
+#pragma unroll
+        for (int n = 0; n < kRelGroup; ++n) {
+          float qe[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int cc = 0; cc < kKC; ++cc) mma_chunk<A>(qe, qr[cc], y[n][cc]);
+          float* d = dst + 8 * (nt0 + n);
+          *reinterpret_cast<float2*>(d) = make_float2(output<A>(qe[0]), output<A>(qe[1]));
+          *reinterpret_cast<float2*>(d + 8 * S::kRelPair) = make_float2(output<A>(qe[2]), output<A>(qe[3]));
+        }
+      }
+    }
+    __syncthreads();  // every relative term of the item is in the store
+
+    const int n = first_pair(a, item) + warp;  // the warp's pair
+    if (n >= a.BH) continue;  // warp-uniform: nothing to compute
+    const long long head = head_of(a, n);
+    const float* kp = a.k + head;
+    const float* vp = a.v + head;
+    const float* bias = qs + S::kBias + warp * KEYS;  // the pair's, staged
+
+    // This lane's slots of the store, as in the body above
+    float* rp = smem + warp * S::kRelPair + g * S::kRelRow + 2 * t;
+    const auto load2 = [&](float (&r)[4], int nt) {
+      const float2 r0 = *reinterpret_cast<const float2*>(rp + 8 * nt);
+      const float2 r1 = *reinterpret_cast<const float2*>(rp + 8 * S::kRelRow + 8 * nt);
+      r[0] = r0.x, r[1] = r0.y, r[2] = r1.x, r[3] = r1.y;
+    };
+    uint32_t qf[kKC][4];  // pair `warp`'s rows g and g + 8
+    q_pairs<D, A>(qf, qs, warp, g, warp, g + 8, t);
+
+    // S = rel + Q . K^T (BF16BF16: Q . K^T from zero, rounded, then rel
+    // added); then scale and bias, in log2 units; keys past L -inf. The
+    // scores of one chunk of kCNT n-tiles at a time in registers, the
+    // chunks before the last parked in the store over their relative term
+    float s[kCNT][4];
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll 1
+    for (int c = 0; c < kChunks; ++c) {
+#pragma unroll
+      for (int n0 = 0; n0 < kCNT; n0 += kLoadGroup) {
+        float4 y[kLoadGroup][kKC];
+        const int sl = opaque(a.sl);
+#pragma unroll
+        for (int n = 0; n < kLoadGroup; ++n) {
+          const int row = 8 * (kCNT * c + n0 + n) + g;
+#pragma unroll
+          for (int cc = 0; cc < kKC; ++cc) {
+            // plain loads, which ptxas does not hoist past the fence below
+            y[n][cc] = row < a.L ? *reinterpret_cast<const float4*>(kp + row * sl + 16 * cc + 4 * t)
+                                 : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kLoadGroup; ++n) {
+          const int nt = kCNT * c + n0 + n;
+          float* sn = s[n0 + n];
+          float r[4];
+          load2(r, nt);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sn[i] = kRoundsOutput<A> ? 0.0f : r[i];
+#pragma unroll
+          for (int cc = 0; cc < kKC; ++cc) mma_chunk<A>(s[n0 + n], qf[cc], y[n][cc]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (kRoundsOutput<A>) sn[i] = output<A>(sn[i]) + r[i];
+            const int col = 8 * nt + 2 * t + i % 2;
+            // the store's columns past L hold no relative term: scored -inf outright
+            sn[i] = col < a.L ? fmaf(sn[i], a.scale2, bias[col] * kLog2e) : -INFINITY;
+          }
+          mx[0] = fmaxf(mx[0], fmaxf(sn[0], sn[1]));
+          mx[1] = fmaxf(mx[1], fmaxf(sn[2], sn[3]));
+          if (c + 1 < kChunks) {  // parked
+            *reinterpret_cast<float2*>(rp + 8 * nt) = make_float2(sn[0], sn[1]);
+            *reinterpret_cast<float2*>(rp + 8 * S::kRelRow + 8 * nt) = make_float2(sn[2], sn[3]);
+          }
+        }
+        __syncwarp();  // group by group
+      }
+    }
+
+    // Softmax over the whole row: exact maxima and sums (the parked chunks'
+    // exponentials taken again where P is made, with the same bits); P
+    // normalised, then rounded as p.v's operand
+    constexpr int kParked = kNT - kCNT;  // n-tiles of the parked chunks
+    mx[0] = quad_max(mx[0]);  // finite: key 0 is below L
+    mx[1] = quad_max(mx[1]);
+    float sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < kCNT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[n][i] = exp2f(s[n][i] - mx[i / 2]);
+        sum[i / 2] += s[n][i];
+      }
+    }
+#pragma unroll 4
+    for (int nt = 0; nt < kParked; ++nt) {
+      float r[4];
+      load2(r, nt);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[i / 2] += exp2f(r[i] - mx[i / 2]);
+    }
+    const float inv[2] = {1.0f / quad_sum(sum[0]), 1.0f / quad_sum(sum[1])};
+
+    // p . v by 16 keys: P of n-tiles 2m and 2m + 1 (rows g, g + 8, keys 2t,
+    // 2t + 1 of each: the A fragment's words as they lie), V's rows 2t,
+    // 2t + 1 and 8 + 2t, 9 + 2t of the 16 keys its B values (rows past L
+    // read as zeros, P is 0 there), each output n-tile's columns as
+    // tc::VCols permutes them. The parked chunks' P from the store, the
+    // last chunk's from registers.
+    float o[kDT][4];
+#pragma unroll
+    for (int dn = 0; dn < kDT; ++dn) o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.0f;
+    // p.v over the group of kLoadGroup n-tiles from nt0, P of its n-tile n by p_of(n, p)
+    const auto pv_group = [&](int nt0, auto p_of) {
+      float x[kLoadGroup][2][V::kBlocks][V::kW];
+      const int sl = opaque(a.sl);
+#pragma unroll
+      for (int n = 0; n < kLoadGroup; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = 8 * (nt0 + n) + 2 * t + e;
+#pragma unroll
+          for (int hb = 0; hb < V::kBlocks; ++hb) {
+            tc::load_cols<V::kW, true>(x[n][e][hb], vp + key * sl + V::kW * g + 8 * V::kW * hb, key < a.L);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kLoadGroup / 2; ++m) {
+        float p0[4], p1[4];
+        p_of(2 * m, p0);
+        p_of(2 * m + 1, p1);
+        const uint32_t pa[4] = {pack16<A>(p0[0], p0[1]), pack16<A>(p0[2], p0[3]), pack16<A>(p1[0], p1[1]),
+                                pack16<A>(p1[2], p1[3])};
+#pragma unroll
+        for (int hb = 0; hb < V::kBlocks; ++hb) {
+#pragma unroll
+          for (int dd = 0; dd < V::kW; ++dd) {
+            mma16<A>(o[V::kW * hb + dd], pa, pack16<A>(x[2 * m][0][hb][dd], x[2 * m][1][hb][dd]),
+                     pack16<A>(x[2 * m + 1][0][hb][dd], x[2 * m + 1][1][hb][dd]));
+          }
+        }
+      }
+      __syncwarp();  // group by group
+    };
+#pragma unroll 1
+    for (int nt0 = 0; nt0 < kParked; nt0 += kLoadGroup) {
+      pv_group(nt0, [&](int n, float (&p)[4]) {
+        load2(p, nt0 + n);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = exp2f(p[i] - mx[i / 2]) * inv[i / 2];
+      });
+    }
+#pragma unroll
+    for (int n0 = 0; n0 < kCNT; n0 += kLoadGroup) {
+      pv_group(kParked + n0, [&](int n, float (&p)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) p[i] = s[n0 + n][i] * inv[i / 2];
+      });
+    }
+    const float one[2] = {1.0f, 1.0f};  // P was normalised
+    tc::store_rows<D, A>(a, n, l0, o, one, g, t);
+  }
+}
+
 // ---- The resident design's f64 instance: float64 products on DMMA -----------
 
 constexpr int kF64RelGroup = 4;   // e_lr n-tiles whose loads are in flight at once, per warp
@@ -1789,7 +2124,9 @@ __device__ __forceinline__ void attention_f64(const Args& a) {
 // KEYS 64 or 128: the resident design for L <= KEYS; KEYS 0: the chunked one.
 template <int D, Arith A, int KEYS>
 __device__ __forceinline__ void tc_attention(const Args& a) {
-  if constexpr (KEYS > 0) {
+  if constexpr (KEYS > 0 && rs::kHalfBody<A>) {
+    rs::attention_half<D, A, KEYS>(a);
+  } else if constexpr (KEYS > 0) {
     rs::attention<D, A, KEYS>(a);
   } else {
     tc::attention<D, A>(a);

@@ -27,7 +27,7 @@ products of the JAX model's einsums in that mode:
 | --- | --- | --- |
 | "ieee" | "fma": float32 FMA | "fma": float32 FMA |
 | "tf32" | "tf32": TF32 tensor cores | "tf32": TF32 tensor cores; resident |
-| "bf16" | "bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), no dot's output rounded, the relative term float32 | "bf16": bf16 values on TF32 tensor cores; resident |
+| "bf16" | "bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), no dot's output rounded, the relative term float32 | "bf16": bf16 values on bf16 tensor cores in the resident body (16-bit operands, m16n8k16), TF32 ones in the chunked, no dot's output rounded, the relative term float32; resident |
 | "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same; resident |
 | "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same; chunked |
 | "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; chunked |
@@ -35,7 +35,7 @@ products of the JAX model's einsums in that mode:
 | "f64" | "f64": float64 products on the FP64 tensor cores (DMMA), each dot's output rounded to float32 | "f64": the same; resident |
 | "f16" | "f16": f16 values on f16 tensor cores (TF32 ones in the chunked design), no dot's output rounded, the relative term float32 | "f16": f16 values on TF32 tensor cores; resident |
 | "f16f16" | "f16f16": f16 values on f16 tensor cores (TF32 ones in the chunked design), each dot's output rounded to f16 | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16; resident |
-| "bf16bf16" | "bf16bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), each dot's output rounded to bf16 | "bf16bf16": bf16 values on TF32 tensor cores, each dot's output rounded to bf16; resident |
+| "bf16bf16" | "bf16bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), each dot's output rounded to bf16 | "bf16bf16": bf16 values on bf16 tensor cores in the resident body (16-bit operands, m16n8k16), TF32 ones in the chunked, each dot's output rounded to bf16; resident |
 
 The v1 tensor-core instances run one of two bodies (csrc/gathered_attention.cu's
 note): "resident" (persistent blocks, one pass over the keys, every row's
@@ -45,10 +45,10 @@ where P is rounded or split) beyond, and for the bf16 multi-pass instances
 at every length. The f64 instances of both kernels run their kernel's resident
 design on the FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on
 the CUDA cores beyond. The v2 bf16, f16, f16f16 and bf16bf16 instances
-run their resident design on 16-bit operands (m16n8k16) at L <= 128 and
-D <= 32, and the chunked design on TF32 tensor cores beyond
-(csrc/rel_attention.cu's note). Without e_lr, v1 runs the v2 column's
-instance.
+and the v1 bf16 and bf16bf16 ones run their resident design on 16-bit
+operands (m16n8k16) at L <= 128 and D <= 32, and the chunked design on TF32
+tensor cores beyond (each source's note). Without e_lr, v1 runs the v2
+column's instance.
 
 The plain versions compute every product as precision.einsum does in the
 mode: the preset's products of parts under "bf16", the 16-bit modes and the
@@ -180,30 +180,31 @@ class CudaLibrary:
 # Each kernel's instances in the order of its C `instance` index: 0 FMA, 1 TF32, 2 bf16, 3-6 the multi-pass
 # modes, 7 f64, 8-10 the 16-bit modes f16, f16f16 and bf16bf16 (precision.KERNEL_MODES' order)
 INSTANCES = ("fma", "tf32", "bf16", "tf32x3", "bf16x3", "bf16x6", "bf16x9", "f64", "f16", "f16f16", "bf16bf16")
-# The parts each source is built in, side by side: the single-rounding
-# instances together, each multi-pass instance of v2 apart and its flagship
-# head size apart from the other two, v1's tf32x3 and bf16x3 apart and its
-# bf16x6 and bf16x9 together, and the f64 and 16-bit instances in two parts
-# (three in v2: f64, f16 and the output-rounding pair apart, and v2's bf16
-# apart from FMA and TF32).
+# The parts each source is built in, side by side: FMA and TF32 together,
+# each multi-pass instance of v2 apart and its flagship head size apart from
+# the other two, v1's tf32x3 and bf16x3 apart and its bf16x6 and bf16x9
+# together; v2's bf16, f64 and f16 each apart and its output-rounding pair
+# together; v1's f64 with f16, f16f16 apart, and bf16 with bf16bf16 (the two
+# instances of its 16-bit-plane body).
 # On an 8-core H100 host both sources (seven instances) built in 145 s as
 # one nvcc each, 77 s with --split-compile=0, 166 s with
 # --split-compile-extended=0, and 39 s as 12 parts (scripts/nvcc_build_forms.py).
 # A part's SASS text is padded to its widest instruction: v1's bf16x3 built
 # beside tf32x3's resident kernels read the same instructions one column
 # wider (scripts/sass_two_trees.py compares the text)
-_SINGLE, _MULTI_PASS, _WIDE_AND_16 = INSTANCES[:3], INSTANCES[3:7], INSTANCES[7:]
-_NEW_PARTS = [(_WIDE_AND_16[:2], HEAD_DIMS), (_WIDE_AND_16[2:], HEAD_DIMS)]
+_MULTI_PASS = INSTANCES[3:7]
 # (q, k, v, bias, table, out, batch, head and row strides of q, k and v, B, H, L, D, M, has_rel), then the
 # instance, device and stream
 REL_ATTENTION = CudaLibrary(
     "rel_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 6, INSTANCES,
-    [(_SINGLE[:2], HEAD_DIMS), (("bf16",), HEAD_DIMS), (("f64",), HEAD_DIMS), (("f16",), HEAD_DIMS), _NEW_PARTS[1]]
+    [(("fma", "tf32"), HEAD_DIMS), (("bf16",), HEAD_DIMS), (("f64",), HEAD_DIMS), (("f16",), HEAD_DIMS),
+     (("f16f16", "bf16bf16"), HEAD_DIMS)]
     + [((i,), dims) for i in _MULTI_PASS for dims in ((32,), (16, 64))])
 # (q, k, v, bias, e_lr, out, batch, head and row strides of q, k and v, B, H, L, D), then the instance, device
 # and stream
 GATHERED_ATTENTION = CudaLibrary("gathered_attention", [_ptr] * 6 + [ctypes.c_longlong] * 3 + [_int] * 4, INSTANCES,
-                                 [(_SINGLE, HEAD_DIMS), *_NEW_PARTS, (_MULTI_PASS[:1], HEAD_DIMS),
+                                 [(("fma", "tf32"), HEAD_DIMS), (("f64", "f16"), HEAD_DIMS), (("f16f16",), HEAD_DIMS),
+                                  (("bf16", "bf16bf16"), HEAD_DIMS), (_MULTI_PASS[:1], HEAD_DIMS),
                                   (_MULTI_PASS[1:2], HEAD_DIMS), (_MULTI_PASS[2:], HEAD_DIMS)])
 LIBRARIES = (REL_ATTENTION, GATHERED_ATTENTION)
 # kernel mode (precision.kernel_mode) -> the instance each kernel runs in it

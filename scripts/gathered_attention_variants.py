@@ -9,7 +9,8 @@ the plain PyTorch version in each instance's mode, and timed with the final
 source and the FMA instance in the same run.
 
 Variants of the resident design (the TF32, bf16 and 16-bit instances at
-L <= 128, D <= 32; timed on those five):
+L <= 128, D <= 32; timed on those five, both of its bodies: the TF32 one
+and bf16's and bf16bf16's attention_half):
   final             the source as it is: one block of 16 pairs per SM, K's
                     and V's loads four n-tiles at a time, e_lr's four,
                     scores held 64 keys at a time
@@ -49,6 +50,25 @@ Variants of the TF32x3 instance's resident design (timed on it):
                     the resident one (K staged in shared memory does not
                     fit beside the store and the two stages: the source's
                     note)
+Variants of the bf16 instances' resident body (attention_half: 16-bit
+operands, m16n8k16; checked and timed on bf16 and bf16bf16):
+  bf16-tf32-body    the TF32 instance's resident body (TF32 tensor cores on
+                    bf16 values in 32-bit words) for both, as they ran
+                    before attention_half
+  half-bf16-rel-rounded
+                    bf16's relative term rounded to bf16 in the store, as
+                    bf16bf16 rounds it: a control, run on bf16 alone, that
+                    must fail the bf16 gate where attention_half runs
+                    (L <= 128, D <= 32; its checks there are expected to
+                    fail; it is timed all the same)
+Probes of what bounds the resident bodies (not checked: their outputs are
+not the function; timed on tf32, the TF32 body, and on bf16 and bf16bf16,
+attention_half):
+  probe-no-products the loads of e_lr, K and V kept, every product dropped
+                    (each loaded value added into the accumulator it fed)
+  probe-no-l2       the products kept, e_lr's, K's and V's L2 bytes dropped:
+                    every warp reads the same 8 rows of e_lr, 8 of K and 16
+                    of V (a kilobyte or two, held in L1)
 Variants of the f64 instance's resident design (DMMA; timed on it):
   f64-chunk-64      scores held in registers 64 keys at a time instead of 32
   f64-rel-group-2   e_lr's loads two n-tiles at a time instead of four
@@ -92,6 +112,13 @@ K_PRODUCTS = "  products<A, G, D / 16>(c, a, [&](int kc, int n, uint32_t (&b)[kP
 K_LOAD = "*reinterpret_cast<const float4*>(base + row * st + 16 * kc + 4 * t)"
 V_CHUNK = "for (int kc = 0; kc < kNT / 2; ++kc) {\n"
 V_LOAD = "load_cols(x[r], v0 + dr * sl + 8 * V::kW * hb, key + dr < keys);"
+# the probes' texts, in both resident bodies (rs::attention's TF32 body and attention_half)
+E_COLUMNS = "tc::columns<D>(e_row, D, a.L, 8 * (nt0 + n) + g, cc, t)"
+K_ROW = "*reinterpret_cast<const float4*>(kp + row * sl + 16 * cc + 4 * t)"
+V_ROW = "vp + key * sl + V::kW * g + 8 * V::kW * hb"
+HALF_MMA = "  mma16<A>(c, a, pack16<A>(y.x, y.y), pack16<A>(y.z, y.w));"
+HALF_PV = "mma16<A>(o[V::kW * hb + dd], pa, pack16<A>("
+HALF_CHUNK = "template <Arith A>\n__device__ __forceinline__ void mma_chunk("
 SUBSTITUTIONS = {
     "final": [],
     "load-group-1": [("constexpr int kLoadGroup = 4;", "constexpr int kLoadGroup = 1;")],
@@ -125,6 +152,31 @@ SUBSTITUTIONS = {
     "x3-k-group-4": [("constexpr int kX3KGroup = 2;", "constexpr int kX3KGroup = 4;")],
     "x3-v-group-4": [("constexpr int kX3VGroup = 2;", "constexpr int kX3VGroup = 4;")],
     "x3-chunked": [("(kParts<A> == 1 || A == Arith::TF32x3)", "kParts<A> == 1")],
+    "bf16-tf32-body": [("constexpr bool kHalfBody = A == Arith::BF16 || A == Arith::BF16BF16;",
+                        "constexpr bool kHalfBody = false;")],
+    "half-bf16-rel-rounded": [("make_float2(output<A>(qe[0]), output<A>(qe[1]))",
+                               "make_float2(bf16_value(qe[0]), bf16_value(qe[1]))"),
+                              ("make_float2(output<A>(qe[2]), output<A>(qe[3]))",
+                               "make_float2(bf16_value(qe[2]), bf16_value(qe[3]))")],
+    "probe-no-products": [
+        ("mma_split<A>(acc, qr[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));",
+         "acc[0] += y[n][cc].x, acc[1] += y[n][cc].y;"),
+        ("mma_split<A>(acc, qr[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));",
+         "acc[2] += y[n][cc].z, acc[3] += y[n][cc].w;"),
+        ("mma_split<A>(s[n0 + n], qf[2 * cc], held<A>(y[n][cc].x), held<A>(y[n][cc].y));",
+         "s[n0 + n][0] += y[n][cc].x, s[n0 + n][1] += y[n][cc].y;"),
+        ("mma_split<A>(s[n0 + n], qf[2 * cc + 1], held<A>(y[n][cc].z), held<A>(y[n][cc].w));",
+         "s[n0 + n][2] += y[n][cc].z, s[n0 + n][3] += y[n][cc].w;"),
+        ("mma_split<A>(o[V::kW * hb + dd], pa, held<A>(x[n][0][hb][dd]), held<A>(x[n][1][hb][dd]));",
+         "o[V::kW * hb + dd][0] += x[n][0][hb][dd] * p[0], o[V::kW * hb + dd][2] += x[n][1][hb][dd] * p[2];"),
+        (HALF_MMA, "  c[0] += y.x, c[1] += y.y, c[2] += y.z, c[3] += y.w;"),
+        (HALF_CHUNK, "__device__ __forceinline__ void probe_add(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, "
+                     "uint32_t b1) {\n  c[0] += __uint_as_float(b0 ^ a[0]), c[2] += __uint_as_float(b1 ^ a[1]);\n}\n"
+                     + HALF_CHUNK),
+        (HALF_PV, "probe_add(o[V::kW * hb + dd], pa, pack16<A>(")],
+    "probe-no-l2": [(E_COLUMNS, "tc::columns<D>(a.e_lr, D, a.L, g, cc, t)"),
+                    (K_ROW, "*reinterpret_cast<const float4*>(a.k + g * sl + 16 * cc + 4 * t)"),
+                    (V_ROW, "a.v + (key & 15) * sl + V::kW * g + 8 * V::kW * hb")],
     "f64-chunk-64": [("constexpr int kF64ChunkNT = 4;", "constexpr int kF64ChunkNT = 8;")],
     "f64-rel-group-2": [("constexpr int kF64RelGroup = 4;", "constexpr int kF64RelGroup = 2;")],
     "f64-k-group-4": [("constexpr int kF64KGroup = 2;", "constexpr int kF64KGroup = 4;")],
@@ -132,6 +184,9 @@ SUBSTITUTIONS = {
 }
 RESIDENT = ("tf32", "bf16", "f16", "f16f16", "bf16bf16")
 MULTI_PASS = ("tf32x3", "bf16x3", "bf16x6", "bf16x9")
+HALF = ("bf16", "bf16bf16")  # attention_half's instances
+# variants whose checks must fail (controls of a gate), by instance
+MUST_FAIL = {"half-bf16-rel-rounded": ("bf16",)}
 
 
 def modes_of(variant: str) -> tuple:
@@ -140,6 +195,12 @@ def modes_of(variant: str) -> tuple:
         return (*RESIDENT, *MULTI_PASS, "f64")
     if variant.startswith("f64-"):
         return ("f64",)
+    if variant in MUST_FAIL:
+        return MUST_FAIL[variant]
+    if variant == "bf16-tf32-body":
+        return HALF
+    if variant.startswith("probe-"):
+        return ("tf32", *HALF)
     if variant.startswith("x3-"):
         return ("tf32x3",)
     if variant.startswith(("parts-", "keys-", "hide-", "k-", "v-")):
@@ -185,16 +246,24 @@ def main() -> None:
         with torch.inference_mode():
             for name, lib in libs.items():
                 attention.GATHERED_ATTENTION = lib
+                if name.startswith("probe-"):
+                    continue  # a probe's output is not the function
                 for b, h, l, d, m in CHECKED:
                     q, k, v, bias, table = chip_smoke.attention_inputs(b, h, l, d, m, seed=l + d)
                     views = projection_views(q, k, v)
                     e_lr = chip_smoke.gathered(table, l, m, permuted=True)
                     tf32_drift = None
                     for mode in dict.fromkeys(("tf32", *modes_of(name))):  # TF32 first: the multi-pass gates take its drift
-                        _, drift = chip_smoke.check_instance(
-                            f"{name} B={b} H={h} L={l} D={d} {mode}", mode,
-                            attention.fused_attention(*views, bias, e_lr, mode=mode), plain(q, k, v, bias, e_lr),
-                            tf32_drift)
+                        tag = f"{name} B={b} H={h} L={l} D={d} {mode}"
+                        out = attention.fused_attention(*views, bias, e_lr, mode=mode)
+                        if mode in MUST_FAIL.get(name, ()) and l <= 128 and d <= 32:  # where attention_half runs
+                            ok, reading, _, _ = chip_smoke.instance_reading(mode, out, plain(q, k, v, bias, e_lr),
+                                                                            None, chip_smoke.BF16_SHARE)
+                            print(f"{tag} (a control: must fail): {reading}", flush=True)
+                            if ok:
+                                raise RuntimeError(f"{tag}: the control passes the {mode} gate")
+                            continue
+                        _, drift = chip_smoke.check_instance(tag, mode, out, plain(q, k, v, bias, e_lr), tf32_drift)
                         tf32_drift = drift if mode == "tf32" else tf32_drift
             for b, l in TIMED:
                 q, k, v, bias, table = chip_smoke.attention_inputs(b, 12, l, 32, 128, chip_smoke.SEED)

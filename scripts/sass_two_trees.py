@@ -21,12 +21,16 @@ instructions are the same ones in another order (the instructions without
 their addresses, encodings and operand reuse flags, as a multiset). Last a
 JSON object of the counts and names. Exits non-zero if a function of an
 instance not named by --changing differs or is found in one tree only.
+--changing names an instance of both kernels (bf16) or of one kernel
+(gathered_attention:bf16, rel_attention:bf16: the other kernel's instance
+of that name must then keep its SASS).
 With --opcodes, it also prints, for each function of the --changing
 instances in this tree, how many of its instructions have each opcode
 (an opcode matches the instructions whose own opcode starts with it, as
 HMMA.1688 matches HMMA.1688.F32.TF32).
 
-Usage: python3 scripts/sass_two_trees.py OTHER_TREE [--changing f64 ...] [--opcodes HMMA.1688 ...]
+Usage: python3 scripts/sass_two_trees.py OTHER_TREE [--changing f64 gathered_attention:bf16 ...]
+                                        [--opcodes HMMA.1688 ...]
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ LIST_PARTS = ("import sys; from foldingdiff_tpu_torch.ops import attention as a;
               "print('\\n'.join(str(l.library_path(p)) for l in a.LIBRARIES for p in range(len(l.parts))))")
 FUNCTION = re.compile(r"^\s*Function : (\S+)\s*$")
 ANONYMOUS = re.compile(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}")
-INSTANCE = re.compile(r"\d((?:rel|gathered)_attention(?:_([a-z0-9]+))?_kernel)ILi(\d+)E(?:Lb(\d)E)?(?:Li(\d+)E)?")
+INSTANCE = re.compile(r"\d(((?:rel|gathered)_attention)(?:_([a-z0-9]+))?_kernel)ILi(\d+)E(?:Lb(\d)E)?(?:Li(\d+)E)?")
 
 
 def cuobjdump() -> str:
@@ -105,13 +109,19 @@ def changes(other: str, this: str) -> str:
 
 
 def describe(name: str) -> tuple[str, str]:
-    """(instance, a readable tag) of a mangled kernel name."""
+    """(kernel:instance, a readable tag) of a mangled kernel name."""
     m = INSTANCE.search(name)
     if not m:
         return "?", name
-    kernel, instance, d, rel, keys = m.groups()
-    instance = instance or "fma"
-    return instance, f"{kernel} D={d}" + (f" rel={rel}" if rel else "") + (f" keys={keys}" if keys else "")
+    function, kernel, instance, d, rel, keys = m.groups()
+    return f"{kernel}:{instance or 'fma'}", f"{function} D={d}" + (f" rel={rel}" if rel else "") + (
+        f" keys={keys}" if keys else "")
+
+
+def named(instance: str, changing: list) -> bool:
+    """Whether --changing names a kernel:instance, by itself or by its
+    instance's name alone (every kernel's)."""
+    return instance in changing or instance.split(":")[-1] in changing
 
 
 def main() -> None:
@@ -138,17 +148,17 @@ def main() -> None:
                 print(f"  {tag}: {changes(other[name], this[name])}", flush=True)
             elif key != "same":
                 print(f"  {tag}", flush=True)
-            if key in ("differ", "only_other", "only_this") and instance not in args.changing:
+            if key in ("differ", "only_other", "only_this") and not named(instance, args.changing):
                 bad.append(tag)
     by_instance = {}
     for name in result["same"]:
-        instance = describe(name)[0]
+        instance = describe(name)[0].split(":")[-1]
         by_instance[instance] = by_instance.get(instance, 0) + 1
     print(f"same SASS by instance: {by_instance}")
     opcodes = {}
     for name in sorted(this):
         instance, tag = describe(name)
-        if args.opcodes and instance in args.changing:
+        if args.opcodes and named(instance, args.changing):
             ops = [i.split()[1] if i.startswith("@") else i.split()[0] for i in instructions(this[name])]
             opcodes[tag] = {op: sum(o.startswith(op) for o in ops) for op in args.opcodes}
             print(f"opcodes of {tag}: {opcodes[tag]}", flush=True)

@@ -447,11 +447,16 @@ def test_build_starts_one_nvcc_per_source_together(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("library", attention.LIBRARIES, ids=lambda lib: lib.name)
 def test_the_output_rounding_instances_build_in_a_part_of_their_own(library):
-    """f16f16 and bf16bf16 build in one part that holds no other instance,
-    at every head size: a change to their bodies leaves the machine code of
-    every other instance as it was (scripts/sass_two_trees.py compares it)."""
+    """f16f16 and bf16bf16 build in parts that hold no instance of another
+    body, at every head size: a change to their bodies leaves the machine
+    code of every other instance as it was (scripts/sass_two_trees.py
+    compares it). v2's pair shares attention_half and one part; v1's
+    bf16bf16 shares its attention_half with bf16 and builds beside it, and
+    v1's f16f16, still on the TF32 body, in a part of its own."""
     parts = [(instances, dims) for instances, dims in library.parts if {"f16f16", "bf16bf16"} & set(instances)]
-    assert parts == [(("f16f16", "bf16bf16"), attention.HEAD_DIMS)]
+    assert parts == {"rel_attention": [(("f16f16", "bf16bf16"), attention.HEAD_DIMS)],
+                     "gathered_attention": [(("f16f16",), attention.HEAD_DIMS),
+                                            (("bf16", "bf16bf16"), attention.HEAD_DIMS)]}[library.name]
 
 
 def test_the_f16_instance_builds_in_a_part_of_its_own():
@@ -471,13 +476,15 @@ def test_the_bf16_instance_builds_in_a_part_of_its_own():
     every head size, and FMA and TF32 keep theirs without it: its resident
     body (attention_half with float32 QE slices) changes without touching
     their machine code, whose SASS text a shared part would pad to the
-    widest instruction of all of them. v1's bf16 keeps its part beside FMA
-    and TF32, since its kernel is not changed with v2's."""
+    widest instruction of all of them. v1's bf16 builds beside bf16bf16
+    alone, the other instance of v1's attention_half, and v1's FMA and TF32
+    keep a part without it."""
     parts = attention.REL_ATTENTION.parts
     assert [p for p in parts if "bf16" in p[0]] == [(("bf16",), attention.HEAD_DIMS)]
     assert [p for p in parts if {"fma", "tf32"} & set(p[0])] == [(("fma", "tf32"), attention.HEAD_DIMS)]
-    assert [p for p in attention.GATHERED_ATTENTION.parts if "bf16" in p[0]] == [
-        (("fma", "tf32", "bf16"), attention.HEAD_DIMS)]
+    parts = attention.GATHERED_ATTENTION.parts
+    assert [p for p in parts if "bf16" in p[0]] == [(("bf16", "bf16bf16"), attention.HEAD_DIMS)]
+    assert [p for p in parts if {"fma", "tf32"} & set(p[0])] == [(("fma", "tf32"), attention.HEAD_DIMS)]
 
 
 def _substitutions(script: Path) -> dict:
@@ -588,6 +595,18 @@ def _model_einsum(eq: str, a: torch.Tensor, b: torch.Tensor, mode: str, init=Non
     return acc
 
 
+def _resident_softmax(s: torch.Tensor, bias: torch.Tensor, d: int) -> torch.Tensor:
+    """P as the resident bodies make it from float32 scores s at head size
+    d: scale and bias in log2 units by one fused multiply-add, each row's
+    exact maximum and sum over every key, P = exp2(s - max) times the sum's
+    reciprocal."""
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale2 = log2e / torch.tensor(float(d)).sqrt()  # the kernels' a.scale2, float32
+    s2 = (s.double() * scale2.double() + (bias * log2e)[:, None, None, :].double()).float()  # fmaf
+    p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
+    return p * (1.0 / p.sum(-1, keepdim=True))
+
+
 def _model_attention(q, k, v, bias, e_lr, mode, resident=False):
     """The kernels' order of sums in a multi-pass mode: the score
     accumulator starts at the relative term (its own accumulator) and takes
@@ -599,11 +618,7 @@ def _model_attention(q, k, v, bias, e_lr, mode, resident=False):
     s = _model_einsum("bhld,lrd->bhlr", q, e_lr, mode) if e_lr is not None else None
     s = _model_einsum("bhld,bhmd->bhlm", q, k, mode, init=s)
     if resident:
-        log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
-        scale2 = log2e / torch.tensor(float(q.shape[-1])).sqrt()  # the kernels' a.scale2, float32
-        s2 = (s.double() * scale2.double() + (bias * log2e)[:, None, None, :].double()).float()  # fmaf
-        p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
-        p = p * (1.0 / p.sum(-1, keepdim=True))
+        p = _resident_softmax(s, bias, q.shape[-1])
     else:
         p = torch.softmax(s / q.shape[-1] ** 0.5 + bias[:, None, None, :], dim=-1)
     return _model_einsum("bhlm,bhmd->bhld", p, v, mode)
@@ -710,9 +725,58 @@ def test_the_half_body_order_of_sums_meets_the_bf16_gate(d, l, rel):
     if rel:
         rounded_qe = precision.ROUNDINGS[mode](_model_einsum("bhld,lrd->bhlr", q, e_lr, mode))
         s = _model_einsum("bhld,bhmd->bhlm", q, k, mode, init=rounded_qe)
-        log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
-        scale2 = log2e / torch.tensor(float(d)).sqrt()
-        s2 = (s.double() * scale2.double() + (bias * log2e)[:, None, None, :].double()).float()
-        p = torch.exp2(s2 - s2.amax(-1, keepdim=True))
-        control = _model_einsum("bhlm,bhmd->bhld", p * (1.0 / p.sum(-1, keepdim=True)), v, mode)
+        control = _model_einsum("bhlm,bhmd->bhld", _resident_softmax(s, bias, d), v, mode)
         assert rel_rms(control, plain) > share * gap
+
+
+def _model_v1_half(q, k, v, bias, e_lr, mode: str, rel_as: str) -> torch.Tensor:
+    """v1's attention_half (csrc/gathered_attention.cu) in `mode` ("bf16" or
+    "bf16bf16"), its relative term taken as `rel_as` does: "seeded", q.e_lr
+    in float32 by k-steps of 16 values, each score accumulator seeded with
+    it and q.k's products added on top (bf16's form); "rounded", q.e_lr and
+    q.k each from zero and rounded to bf16 on its own, then summed in
+    float32 (bf16bf16's form). Then the resident softmax, P normalised and
+    rounded, p.v by k-steps of 16 keys, its output rounded to bf16 under
+    "bf16bf16"."""
+    to_bf16 = precision.ROUNDINGS["bf16"]
+    qe = _model_einsum("bhld,lrd->bhlr", q, e_lr, mode)
+    if rel_as == "seeded":
+        s = _model_einsum("bhld,bhmd->bhlm", q, k, mode, init=qe)
+    else:
+        s = to_bf16(_model_einsum("bhld,bhmd->bhlm", q, k, mode)) + to_bf16(qe)
+    out = _model_einsum("bhlm,bhmd->bhld", _resident_softmax(s, bias, q.shape[-1]), v, mode)
+    return to_bf16(out) if mode == "bf16bf16" else out
+
+
+@pytest.mark.parametrize("l", [17, 64, 65, 128])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("mode", ["bf16", "bf16bf16"])
+def test_the_v1_half_body_order_of_sums_meets_the_bf16_gate(mode, d, l):
+    """The order of sums of v1's bf16 and bf16bf16 instances on their
+    16-bit-plane resident body (_model_v1_half: q, k, v and e_lr rounded to
+    bf16 once, every product by k-steps of 16 values; bf16 seeds each score
+    accumulator with its float32 relative term, bf16bf16 rounds q.e_lr and
+    q.k each on its own and sums them) within BF16_SHARE of the plain
+    version's distance from float32 and within BF16_TOL of float32
+    (chip_smoke.py's gate), against v1's plain version with a random (not
+    Toeplitz) e_lr, on either side of the resident design's key counts (64,
+    128) at both of its head sizes, some keys masked. Each instance's
+    control, its relative term taken as the other instance takes it (bf16's
+    rounded to bf16, bf16bf16's seeded), fails that gate."""
+    share, tol = 0.1, 5e-2  # chip_smoke.py's BF16_SHARE and BF16_TOL
+    q, k, v, bias, _ = map(torch.from_numpy, _inputs(2, 3, l, d, 128, seed=90 + l + d))
+    assert (bias < 0).any()
+    rng = np.random.default_rng(91 + l + d)
+    e_lr = torch.from_numpy((rng.normal(size=(l, l, d)) * 0.5).astype(np.float32))
+    plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
+    f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
+
+    def rel_rms(x, y):
+        return float((x - y).square().mean().sqrt() / y.square().mean().sqrt())
+
+    gap = rel_rms(plain, f32)
+    forms = {"bf16": ("seeded", "rounded"), "bf16bf16": ("rounded", "seeded")}[mode]
+    model, control = (_model_v1_half(q, k, v, bias, e_lr, mode, form) for form in forms)
+    assert gap > 0 and rel_rms(model, plain) <= share * gap
+    assert rel_rms(model, f32) <= tol
+    assert rel_rms(control, plain) > share * gap

@@ -611,6 +611,28 @@ def test_rounding_instances_at_the_resident_boundary(device, l, d, layout, mode)
                                                                                        **kw), mode)
 
 
+
+@pytest.mark.parametrize("mode", ["bf16", "bf16bf16"])
+@pytest.mark.parametrize("layout", ["contiguous", "projection views"])
+@pytest.mark.parametrize("l,d", ROUNDING_EDGES)
+def test_v1_bf16_instances_at_the_resident_boundary(device, l, d, layout, mode):
+    """v1's bf16 and bf16bf16 instances, which run the kernel's
+    attention_half (16-bit operands on m16n8k16; bf16 with its float32
+    relative term) in the resident design and the TF32 chunked body past it,
+    on either side of the resident design's limits (B * H = 15: a ragged
+    last item of 16 pairs): e_lr from arange, from permuted positions and
+    random, each call launching the v1 instance once and no other, within
+    SHARE of the plain version's distance from float32 (_check_instance)."""
+    b, h, m = 3, 5, 256
+    q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=31)
+    qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
+    with torch.inference_mode():
+        for kind in ("arange", "permuted", "random"):
+            e_lr = _e_lr_of(kind, table, l, m, d, device)
+            out = _gathered_instance_call(*qkv, bias, e_lr, mode)
+            _check_instance(out, lambda mode_: attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode_),
+                            mode)
+
 F16_OVERFLOW = 7e4  # past f16's largest finite value, 65504 (chip_smoke.py's)
 
 
