@@ -344,7 +344,9 @@ __device__ __forceinline__ void mma_split(float (&c)[4], const uint32_t (&a)[4],
 // 0.2311 -> 0.0751 (NVIDIA H100 80GB HBM3, 700 W, in turns:
 // scripts/kernel_times_two_trees.py). TF32x3 splits once in both kernels'
 // resident designs too, its A parts from held fragments (split_fragments),
-// and keeps mma_split in v1's chunked body, where that won (PERF.md §6).
+// and keeps mma_split in v1's chunked body, where that won (PERF.md §6);
+// so do v1's bf16x6 and bf16x9 in its resident design, their bf16 parts of
+// q from held fragments too (v1's bf16x9 0.1645 -> 0.0888 ms there).
 
 // k-steps per chunk of 16 contracted values: one m16n8k16 for bf16 parts, two m16n8k8 for TF32
 template <Arith A>
@@ -506,21 +508,44 @@ __device__ __forceinline__ void products(float (*c)[4], const AChunk& a_chunk, c
   }
 }
 
-// Held A fragments (held) of 2 KC m16n8k8 k-steps split into their TF32
-// parts once, as KC chunks of products: w[kc][i] holds part i of chunk kc,
-// words 4 s .. 4 s + 3 those of k-step 2 kc + s.
+// Held A fragments (held) of 2 KC m16n8k8 k-steps split into their parts
+// once, as KC chunks of products: w[kc][i] holds part i of chunk kc. TF32
+// parts: words 4 s .. 4 s + 3 those of k-step 2 kc + s. bf16 parts: the
+// m16n8k16 A words of k-steps 2 kc and 2 kc + 1, whose fragments f[.] =
+// {(g, c), (g + 8, c), (g, c + 1), (g + 8, c + 1)} hold columns c = 16 kc +
+// 4t, + 1 and then + 2, + 3 of rows g and g + 8 (as tc::a_fragments makes
+// them): row g's first two as k = 2t, 2t + 1, row g + 8's the same, then
+// the last two of each as k = 2t + 8, 2t + 9, which is how split4 takes a
+// B chunk's four columns.
 template <Arith A, int KC>
 __device__ __forceinline__ void split_fragments(uint32_t (&w)[KC][kParts<A>][4 * kSteps<A>],
                                                 const uint32_t (&f)[2 * KC][4]) {
-  static_assert(!kBF16Parts<A>, "TF32 parts: a chunk is two k-steps of m16n8k8");
+  if constexpr (kBF16Parts<A>) {
 #pragma unroll
-  for (int ks = 0; ks < 2 * KC; ++ks) {
+    for (int kc = 0; kc < KC; ++kc) {
+      uint32_t lo[kParts<A>][2], hi[kParts<A>][2];
+      const uint32_t(&f0)[4] = f[2 * kc];
+      const uint32_t(&f1)[4] = f[2 * kc + 1];
+      split4<A>(lo, __uint_as_float(f0[0]), __uint_as_float(f0[2]), __uint_as_float(f0[1]), __uint_as_float(f0[3]));
+      split4<A>(hi, __uint_as_float(f1[0]), __uint_as_float(f1[2]), __uint_as_float(f1[1]), __uint_as_float(f1[3]));
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      uint32_t p[kParts<A>];
-      split<A>(p, f[ks][e]);
+      for (int i = 0; i < kParts<A>; ++i) {
+        w[kc][i][0] = lo[i][0];
+        w[kc][i][1] = lo[i][1];
+        w[kc][i][2] = hi[i][0];
+        w[kc][i][3] = hi[i][1];
+      }
+    }
+  } else {
 #pragma unroll
-      for (int i = 0; i < kParts<A>; ++i) w[ks / 2][i][4 * (ks % 2) + e] = p[i];
+    for (int ks = 0; ks < 2 * KC; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        uint32_t p[kParts<A>];
+        split<A>(p, f[ks][e]);
+#pragma unroll
+        for (int i = 0; i < kParts<A>; ++i) w[ks / 2][i][4 * (ks % 2) + e] = p[i];
+      }
     }
   }
 }

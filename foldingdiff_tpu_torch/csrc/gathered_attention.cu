@@ -41,12 +41,14 @@
 //           multi-pass presets (device.cuh's Arith): every operand split
 //           into two or three TF32 or bf16 parts, the listed products of
 //           parts (3, 6 or 9 times TF32's) summed in float32; P split after
-//           it is normalised. TF32x3 runs the resident design (below) at
-//           L <= 128 and D <= 32, each operand split once, its row
-//           statistics exact over every key in one pass; the bf16 ones run
-//           the chunked body, split once, on bf16 mma, a first pass over the
-//           keys finding each row's maximum and sum, and so does TF32x3
-//           beyond, split at each TF32 mma (device.cuh's mma_split).
+//           it is normalised. TF32x3, bf16x6 and bf16x9 run the resident
+//           design (below) at L <= 128 and D <= 32, each operand split
+//           once, their row statistics exact over every key in one pass
+//           (bf16 parts on bf16 mma, m16n8k16); bf16x3 runs the chunked
+//           body, split once, on bf16 mma, a first pass over the keys
+//           finding each row's maximum and sum, and so do bf16x6 and bf16x9
+//           beyond, and TF32x3 there split at each TF32 mma (device.cuh's
+//           mma_split).
 //   7 f64   ("F64_F64_F64"): gathered_attention_f64_kernel, every product in
 //           float64, each dot's output rounded to float32: on the FP64
 //           tensor cores (mma.sync m16n8k16 f64, DMMA) in the resident
@@ -128,9 +130,10 @@
 // and V once per (block, pair): 768 x 128 x (16 KB / P + 32 KB / R), 302 MB
 // at P = R = 16 (100 MB e_lr, 201 MB K and V), and 25 MB of q and out.
 //
-// Resident tensor-core design (TF32, bf16, TF32x3 and the 16-bit instances
-// at L <= 128 and D <= 32, every shipped configuration; bf16 and bf16bf16 on
-// 16-bit operands, attention_half, described after it): one pass over the
+// Resident tensor-core design (TF32, bf16, TF32x3, bf16x6, bf16x9 and the
+// 16-bit instances at L <= 128 and D <= 32, every shipped configuration;
+// bf16 and bf16bf16 on 16-bit operands, attention_half, described after
+// it): one pass over the
 // keys. A warp takes each of its pair's rows' exact maximum and sum over
 // every key and normalises P before it is rounded, as v2's resident design
 // does, so that no instance reads e_lr and K a second time for the row
@@ -330,9 +333,43 @@
 // 0.0765 / 0.0263 / 0.0138. At 64 x 128 it runs within 11% of the TF32
 // instance's one product (0.0679).
 //
-// Chunked tensor-core design (the bf16 multi-pass instances, and the others
-// at L > 128 or D = 64): the block above walks the keys in chunks of 32 (16
-// at D = 64):
+// The bf16x6 and bf16x9 instances, resident (L <= 128 at D <= 32): the
+// same body with bf16 parts, each product of parts one m16n8k16 on the
+// bf16 tensor cores (6 or 9 per 16 values of the contracted dimension,
+// against TF32x3's 6 m16n8k8), where the chunked body below took its
+// first pass over the keys (e_lr and K read twice: 527 MB per flagship
+// call against 327):
+//   - q's three parts once per item from the held fragments (device.cuh's
+//     split_fragments: columns 16c + 4t, + 1 as k = 2t, 2t + 1 and + 2,
+//     + 3 as k = 2t + 8, 2t + 9, the order split4 gives B's chunks; 24
+//     registers at D = 32), e_lr's, K's and V's split as loaded, P's after
+//     it is normalised (p_chunk);
+//   - TF32x3's groups and chunks (e_lr by four n-tiles, K and V by two,
+//     the scores 64 keys at a time at KEYS = 128 and 32 at KEYS = 64), but
+//     V by four at KEYS = 128 (kBPVGroup); 128 registers at most, no spill
+//     (bf16x9 at KEYS = 128, D = 32: 128; bf16x6 125).
+// Measured in turns (scripts/gathered_attention_variants.py, NVIDIA H100
+// 80GB HBM3, 700.00 W; ms of bf16x6 / bf16x9 at 64 x 128, 64 x 64, 15 x 64
+// with e_lr, two runs):
+//   this form            0.0781 / 0.0880, 0.0279 / 0.0321, 0.0148 / 0.0169
+//   the chunked body     0.1404 / 0.1629, 0.0510 / 0.0589, 0.0259 / 0.0301
+//   V groups of 2 at KEYS = 128 (TF32x3's) 0.0791 / 0.0897 and 0.0789 /
+//                        0.0891 at 64 x 128
+//   V groups of 4 at KEYS = 64  0.0289 / 0.0324, 0.0149 / 0.0169 and
+//                        0.0285 / 0.0323, 0.0150 / 0.0170
+//   K groups of 4        0.0811 / 0.0884, 0.0279 / 0.0332, 0.0147 / 0.0173
+//                        (first run 0.0799 / 0.0887 against 0.0791 / 0.0897)
+//   32-key chunks at KEYS = 128  0.0803 / 0.0924
+//   64-key chunks at KEYS = 64   0.0301 / 0.0328, 0.0160 / 0.0173 (bf16x9
+//                        8 bytes spilled)
+//   e_lr groups of 2     0.0807 / 0.0908, 0.0283 / 0.0331, 0.0149 / 0.0174
+// (the first run's alternatives against V groups of 2 everywhere). Against
+// the chunked body's 0.1419 / 0.1645 ms at 64 x 128 (scripts/
+// kernel_times_two_trees.py, in turns with the parent), 0.0791 / 0.0888:
+// a factor of 0.54-0.58 at the three shapes, as TF32x3's 0.58.
+//
+// Chunked tensor-core design (bf16x3, and the others at L > 128 or D = 64):
+// the block above walks the keys in chunks of 32 (16 at D = 64):
 //   - The relative term. Warp w computes row l0 + w for the 16 pairs: C =
 //     Q_l . E_l^T, E_l's B fragments read from L2 (each e_lr element once
 //     per block, for 16 pairs: 100 MB per flagship call). It stores C
@@ -390,8 +427,9 @@
 //     chunks and 32 rows per block spilled. The staged q tile removed every
 //     spill at the same speed.
 //
-// Multi-pass design (bf16x3, bf16x6, bf16x9): the chunked body above, its
-// operands split once (device.cuh's split4, products):
+// Multi-pass design of the chunked body (bf16x3 everywhere, bf16x6 and
+// bf16x9 past the resident design): the chunked body above, its operands
+// split once (device.cuh's split4, products):
 //   - q's parts in planes of bf16 values in shared memory, split once per
 //     block from global memory (rows 24 words apart at D = 32, pairs 8 mod
 //     32: the 8-byte fragment loads of either operand fall on distinct
@@ -748,8 +786,8 @@ cudaError_t launch(Args a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// ---- The chunked tensor-core design (the multi-pass instances; the others
-// at L > 128 or D = 64) ------------------------------------------------------
+// ---- The chunked tensor-core design (bf16x3; the others at L > 128 or
+// D = 64) ---------------------------------------------------------------------
 
 namespace tc {
 
@@ -1227,8 +1265,9 @@ __device__ __forceinline__ void attention(const Args& a) {
 
 }  // namespace tc
 
-// ---- The resident tensor-core design (TF32, bf16, TF32x3 and the 16-bit
-// instances at L <= 128 and D <= 32; the note at the top) -------------------
+// ---- The resident tensor-core design (TF32, bf16, the multi-pass instances
+// but bf16x3, and the 16-bit ones at L <= 128 and D <= 32; the note at the
+// top) -------------------------------------------------------------------------
 
 namespace rs {
 
@@ -1240,26 +1279,28 @@ constexpr int kMaxL = 128;                 // the longest sequence: every key's 
 constexpr int kRelGroup = 4;               // e_lr n-tiles whose loads are in flight at once, per warp
 constexpr int kLoadGroup = 4;              // K or V n-tiles whose loads are in flight at once, per warp
 constexpr int kChunkNT = 8;                // n-tiles (of 8 keys) whose scores a warp holds in registers
-// The TF32x3 instance's (the note at the top): its operands split once
-// (kSplitOnce; else at each mma, device.cuh's mma_split), its scores held 64
-// keys at a time at KEYS = 128 and 32 at KEYS = 64, e_lr loaded and
-// multiplied by groups of four n-tiles, K and V of two (q's and P's parts
-// take the registers)
+// The multi-pass instances' (TF32x3, bf16x6, bf16x9; the note at the top):
+// their operands split once (kSplitOnce; else at each mma, device.cuh's
+// mma_split), their scores held 64 keys at a time at KEYS = 128 and 32 at
+// KEYS = 64, e_lr loaded and multiplied by groups of four n-tiles, K and V
+// of two (q's and P's parts take the registers), but V by four in the
+// bf16-part instances at KEYS = 128
 template <Arith A>
 constexpr bool kSplitOnce = kParts<A> > 1;
-constexpr int kX3ChunkNT = 8;              // at KEYS = 128
-constexpr int kX3ChunkNTShort = 4;         // at KEYS = 64
-constexpr int kX3RelGroup = 4;
-constexpr int kX3KGroup = 2;
-constexpr int kX3VGroup = 2;               // even: p.v takes 16 keys a chunk
+constexpr int kMPChunkNT = 8;              // at KEYS = 128
+constexpr int kMPChunkNTShort = 4;         // at KEYS = 64
+constexpr int kMPRelGroup = 4;
+constexpr int kMPKGroup = 2;
+constexpr int kMPVGroup = 2;               // even: p.v takes 16 keys a chunk
+constexpr int kBPVGroup = 4;               // bf16x6's and bf16x9's at KEYS = 128
 template <Arith A, int KEYS>
-constexpr int kChunkNTOf = kParts<A> == 1 ? kChunkNT : KEYS == kMaxL ? kX3ChunkNT : kX3ChunkNTShort;
+constexpr int kChunkNTOf = kParts<A> == 1 ? kChunkNT : KEYS == kMaxL ? kMPChunkNT : kMPChunkNTShort;
 template <Arith A>
-constexpr int kRelGroupOf = kParts<A> > 1 ? kX3RelGroup : kRelGroup;
+constexpr int kRelGroupOf = kParts<A> > 1 ? kMPRelGroup : kRelGroup;
 template <Arith A>
-constexpr int kKGroupOf = kParts<A> > 1 ? kX3KGroup : kLoadGroup;
-template <Arith A>
-constexpr int kVGroupOf = kParts<A> > 1 ? kX3VGroup : kLoadGroup;
+constexpr int kKGroupOf = kParts<A> > 1 ? kMPKGroup : kLoadGroup;
+template <Arith A, int KEYS>
+constexpr int kVGroupOf = kParts<A> == 1 ? kLoadGroup : kBF16Parts<A> && KEYS == kMaxL ? kBPVGroup : kMPVGroup;
 
 // Offsets (floats) into dynamic shared memory: the relative term's store
 // rel[pair][row][key] (rows KEYS + 8 floats apart, pairs 16 (KEYS + 8) + 8,
@@ -1316,9 +1357,9 @@ __device__ __forceinline__ void attention(const Args& a) {
   using S = Smem<D, KEYS>;
   using V = tc::VCols<D>;
   constexpr int kKS = D / 8;    // k-steps of q.k and q.e_lr, n-tiles of p.v
-  constexpr int kKC = D / 16;   // chunks of q.k and q.e_lr (two k-steps) of TF32x3's parts
+  constexpr int kKC = D / 16;   // chunks of q.k and q.e_lr of the multi-pass parts (device.cuh's kSteps)
   constexpr int kNT = KEYS / 8;  // key n-tiles of a row's scores
-  constexpr int kCNT = kChunkNTOf<A, KEYS>, kRG = kRelGroupOf<A>, kKG = kKGroupOf<A>, kVG = kVGroupOf<A>;
+  constexpr int kCNT = kChunkNTOf<A, KEYS>, kRG = kRelGroupOf<A>, kKG = kKGroupOf<A>, kVG = kVGroupOf<A, KEYS>;
   constexpr int kChunks = kNT / kCNT;  // chunks of keys whose scores a warp holds at once
   static_assert(kNT % kRG == 0 && kCNT % kKG == 0 && kCNT % kVG == 0 && kVG % 2 == 0 && kNT % kCNT == 0,
                 "whole groups");
@@ -1355,7 +1396,7 @@ __device__ __forceinline__ void attention(const Args& a) {
       const float* e_row = a.e_lr + static_cast<size_t>(lr) * a.L * D;
       float* dst = smem + g * S::kRelPair + warp * S::kRelRow + 2 * t;
       const int n_used = (a.L + 7) / 8;  // key n-tiles that reach a key below L
-      uint32_t qa[kSplitOnce<A> ? kKC : 1][kParts<A>][4 * kSteps<A>];  // TF32x3: qr's parts
+      uint32_t qa[kSplitOnce<A> ? kKC : 1][kParts<A>][4 * kSteps<A>];  // multi-pass: qr's parts
       if constexpr (kSplitOnce<A>) split_fragments<A, kKC>(qa, qr);
 #pragma unroll 1
       for (int nt0 = 0; nt0 < n_used; nt0 += kRG) {
@@ -1366,12 +1407,13 @@ __device__ __forceinline__ void attention(const Args& a) {
           for (int cc = 0; cc < D / 16; ++cc) y[n][cc] = tc::columns<D>(e_row, D, a.L, 8 * (nt0 + n) + g, cc, t);
         }
         if constexpr (kSplitOnce<A>) {
-          // TF32x3: each chunk of e_lr split as loaded, the group's products
+          // multi-pass: each chunk of e_lr split as loaded, the group's products
           // interleaved (device.cuh's products)
           float acc[kRG][4] = {};
-          products<A, kRG, kKC>(acc, HeldChunks<A, kKC>{qa}, [&](int kc, int n, uint32_t (&b)[kParts<A>][4]) {
-            split4<A>(b, y[n][kc].x, y[n][kc].y, y[n][kc].z, y[n][kc].w);
-          });
+          products<A, kRG, kKC>(acc, HeldChunks<A, kKC>{qa},
+                                [&](int kc, int n, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
+                                  split4<A>(b, y[n][kc].x, y[n][kc].y, y[n][kc].z, y[n][kc].w);
+                                });
 #pragma unroll
           for (int n = 0; n < kRG; ++n) {
             float* d = dst + 8 * (nt0 + n);
@@ -1415,15 +1457,15 @@ __device__ __forceinline__ void attention(const Args& a) {
     };
     uint32_t qf[kKS][4];  // pair `warp`'s rows g and g + 8
     tc::q_fragments<D, A>(qf, qs, warp, g, warp, g + 8, t);
-    uint32_t qa[kSplitOnce<A> ? kKC : 1][kParts<A>][4 * kSteps<A>];  // TF32x3: qf's parts, once per item
+    uint32_t qa[kSplitOnce<A> ? kKC : 1][kParts<A>][4 * kSteps<A>];  // multi-pass: qf's parts, once per item
     if constexpr (kSplitOnce<A>) split_fragments<A, kKC>(qa, qf);
 
     // S = rel + Q . K^T (under kRoundsOutput Q . K^T rounded first, then rel
     // added); then scale and bias, in log2 units; keys past L -inf. The
-    // scores of one chunk of kCNT n-tiles (64 keys; TF32x3's 32 at
-    // KEYS = 64) at a time are held in registers; the chunks before the last
-    // are parked in the store, over their relative term (held for every key,
-    // 64 score registers spilled at 128 a thread)
+    // scores of one chunk of kCNT n-tiles (64 keys; the multi-pass
+    // instances' 32 at KEYS = 64) at a time are held in registers; the
+    // chunks before the last are parked in the store, over their relative
+    // term (held for every key, 64 score registers spilled at 128 a thread)
     float s[kCNT][4];
     float mx[2] = {-INFINITY, -INFINITY};
     // a loop, not unrolled: unrolled over the chunks, ptxas held every
@@ -1446,14 +1488,15 @@ __device__ __forceinline__ void attention(const Args& a) {
           }
         }
         if constexpr (kSplitOnce<A>) {
-          // TF32x3: the group's accumulators start at their relative term and
+          // multi-pass: the group's accumulators start at their relative term and
           // take q.k's products of parts, each chunk of K split as loaded,
           // the group's products interleaved
 #pragma unroll
           for (int n = 0; n < kKG; ++n) load2(s[n0 + n], kCNT * c + n0 + n);
-          products<A, kKG, kKC>(&s[n0], HeldChunks<A, kKC>{qa}, [&](int kc, int n, uint32_t (&b)[kParts<A>][4]) {
-            split4<A>(b, y[n][kc].x, y[n][kc].y, y[n][kc].z, y[n][kc].w);
-          });
+          products<A, kKG, kKC>(&s[n0], HeldChunks<A, kKC>{qa},
+                                [&](int kc, int n, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
+                                  split4<A>(b, y[n][kc].x, y[n][kc].y, y[n][kc].z, y[n][kc].w);
+                                });
         }
 #pragma unroll
         for (int n = 0; n < kKG; ++n) {
@@ -1536,7 +1579,7 @@ __device__ __forceinline__ void attention(const Args& a) {
         }
       }
       if constexpr (kSplitOnce<A>) {
-        // TF32x3: P's parts once per 16 keys (two n-tiles' accumulators,
+        // multi-pass: P's parts once per 16 keys (two n-tiles' accumulators,
         // device.cuh's p_chunk), V's split as loaded, the products of the
         // output n-tiles interleaved
 #pragma unroll
@@ -1548,9 +1591,11 @@ __device__ __forceinline__ void attention(const Args& a) {
           p_chunk<A>(pa, p0, p1);
 #pragma unroll
           for (int hb = 0; hb < V::kBlocks; ++hb) {
-            products<A, V::kW, 1>(&o[V::kW * hb], HeldChunks<A, 1>{pa}, [&](int, int dd, uint32_t (&b)[kParts<A>][4]) {
-              split4<A>(b, x[2 * m][0][hb][dd], x[2 * m][1][hb][dd], x[2 * m + 1][0][hb][dd], x[2 * m + 1][1][hb][dd]);
-            });
+            products<A, V::kW, 1>(&o[V::kW * hb], HeldChunks<A, 1>{pa},
+                                  [&](int, int dd, uint32_t (&b)[kParts<A>][2 * kSteps<A>]) {
+                                    split4<A>(b, x[2 * m][0][hb][dd], x[2 * m][1][hb][dd], x[2 * m + 1][0][hb][dd],
+                                              x[2 * m + 1][1][hb][dd]);
+                                  });
           }
         }
       } else {
@@ -2242,12 +2287,16 @@ cudaError_t launch_resident(Args a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The instances that run the resident design up to L = 128 at D <= 32: the
+// single-rounding ones, TF32x3, bf16x6 and bf16x9
+template <Arith A>
+constexpr bool kResident = kParts<A> == 1 || A == Arith::TF32x3 || A == Arith::BF16x6 || A == Arith::BF16x9;
+
 template <int D, Arith A>
 cudaError_t launch_tc(Args a, int device, cudaStream_t stream) {
-  // the resident design up to L = 128 at D <= 32 for the single-rounding
-  // instances and TF32x3; the chunked one for the bf16 multi-pass
-  // instances, longer sequences and D = 64 (no shipped configuration)
-  if constexpr (D <= 32 && (kParts<A> == 1 || A == Arith::TF32x3)) {
+  // the resident design where it runs; the chunked one for bf16x3, longer
+  // sequences and D = 64 (no shipped configuration)
+  if constexpr (D <= 32 && kResident<A>) {
     if (a.L <= rs::kMaxL) {
       return a.L <= rs::kMaxL / 2 ? launch_resident<D, A, rs::kMaxL / 2>(a, device, stream)
                                   : launch_resident<D, A, rs::kMaxL>(a, device, stream);

@@ -30,8 +30,8 @@ products of the JAX model's einsums in that mode:
 | "bf16" | "bf16": bf16 values on bf16 tensor cores (TF32 ones in the chunked design), no dot's output rounded, the relative term float32 | "bf16": bf16 values on bf16 tensor cores in the resident body (16-bit operands, m16n8k16), TF32 ones in the chunked, no dot's output rounded, the relative term float32; resident |
 | "tf32x3" | "tf32x3": 3 products of TF32 parts on TF32 tensor cores | "tf32x3": the same; resident |
 | "bf16x3" | "bf16x3": 3 products of bf16 parts on bf16 tensor cores | "bf16x3": the same; chunked |
-| "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; chunked |
-| "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same; chunked |
+| "bf16x6" | "bf16x6": 6 products of bf16 parts on bf16 tensor cores | "bf16x6": the same; resident |
+| "bf16x9" | "bf16x9": 9 products of bf16 parts on bf16 tensor cores | "bf16x9": the same; resident |
 | "f64" | "f64": float64 products on the FP64 tensor cores (DMMA), each dot's output rounded to float32 | "f64": the same; resident |
 | "f16" | "f16": f16 values on f16 tensor cores (TF32 ones in the chunked design), no dot's output rounded, the relative term float32 | "f16": f16 values on TF32 tensor cores; resident |
 | "f16f16" | "f16f16": f16 values on f16 tensor cores (TF32 ones in the chunked design), each dot's output rounded to f16 | "f16f16": f16 values on TF32 tensor cores, each dot's output rounded to f16; resident |
@@ -41,10 +41,10 @@ The v1 tensor-core instances run one of two bodies (csrc/gathered_attention.cu's
 note): "resident" (persistent blocks, one pass over the keys, every row's
 maximum and sum over all keys before P is rounded) at L <= 128 and D <= 32,
 "chunked" (32-key chunks, a first pass over the keys for the row statistics
-where P is rounded or split) beyond, and for the bf16 multi-pass instances
-at every length. The f64 instances of both kernels run their kernel's resident
-design on the FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on
-the CUDA cores beyond. The v2 bf16, f16, f16f16 and bf16bf16 instances
+where P is rounded or split) beyond, and for bf16x3 at every length. The
+f64 instances of both kernels run their kernel's resident design on the
+FP64 tensor cores at L <= 128 and D <= 32, and float64 FMA on the CUDA
+cores beyond. The v2 bf16, f16, f16f16 and bf16bf16 instances
 and the v1 bf16 and bf16bf16 ones run their resident design on 16-bit
 operands (m16n8k16) at L <= 128 and D <= 32, and the chunked design on TF32
 tensor cores beyond (each source's note). Without e_lr, v1 runs the v2

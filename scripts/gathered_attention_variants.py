@@ -36,20 +36,25 @@ others at L > 128 or D = 64):
                     products, or through __ldg instead of plain loads
   v-rows            V's four row pointers a lane reads per 16 keys taken
                     once per chunk and advanced by 16 rows
-Variants of the TF32x3 instance's resident design (timed on it):
-  x3-split-at-mma   every operand split at each mma (device.cuh's
+Variants of the multi-pass instances' resident design (TF32x3, bf16x6 and
+bf16x9, which share its groups and chunks; timed on the three):
+  mp-split-at-mma   every operand split at each mma (device.cuh's
                     mma_split) instead of once: q's parts per item, e_lr's,
                     K's and V's as loaded, P's per 16 keys
-  x3-chunk-32,      scores held in registers 32 keys at a time at KEYS = 128
-  x3-short-chunk-64 instead of 64, or all 64 at KEYS = 64 instead of 32
-  x3-rel-group-2    e_lr's loads and products two n-tiles at a time instead
+  mp-chunk-32,      scores held in registers 32 keys at a time at KEYS = 128
+  mp-short-chunk-64 instead of 64, or all 64 at KEYS = 64 instead of 32
+  mp-rel-group-2    e_lr's loads and products two n-tiles at a time instead
                     of four
-  x3-k-group-4,     K's or V's four n-tiles at a time instead of two (K's
-  x3-v-group-4      spilled 4 bytes at KEYS = 64)
-  x3-chunked        the chunked design's two passes over the keys, as before
-                    the resident one (K staged in shared memory does not
-                    fit beside the store and the two stages: the source's
-                    note)
+  mp-k-group-4,     K's or V's four n-tiles at a time instead of two (the
+  mp-v-group-4      bf16-part instances' V at KEYS = 64 only)
+  x3-chunked        TF32x3 alone: the chunked design's two passes over the
+                    keys, as before the resident one (K staged in shared
+                    memory does not fit beside the store and the two
+                    stages: the source's note)
+  bf16xN-chunked-body
+                    bf16x6 and bf16x9 alone: the same for them
+  bf16xN-v-group-2  bf16x6 and bf16x9 alone: V's two n-tiles at a time at
+                    KEYS = 128 instead of four
 Variants of the bf16 instances' resident body (attention_half: 16-bit
 operands, m16n8k16; checked and timed on bf16 and bf16bf16):
   bf16-tf32-body    the TF32 instance's resident body (TF32 tensor cores on
@@ -145,13 +150,15 @@ SUBSTITUTIONS = {
     "d64-keys-32": [(KEYS, KEYS.replace(": 16;", ": 32;"))],
     "parts-group-1": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 1;")],
     "parts-group-2": [("constexpr int kGroupMax = 4;", "constexpr int kGroupMax = 2;")],
-    "x3-split-at-mma": [("constexpr bool kSplitOnce = kParts<A> > 1;", "constexpr bool kSplitOnce = false;")],
-    "x3-chunk-32": [("constexpr int kX3ChunkNT = 8;", "constexpr int kX3ChunkNT = 4;")],
-    "x3-short-chunk-64": [("constexpr int kX3ChunkNTShort = 4;", "constexpr int kX3ChunkNTShort = 8;")],
-    "x3-rel-group-2": [("constexpr int kX3RelGroup = 4;", "constexpr int kX3RelGroup = 2;")],
-    "x3-k-group-4": [("constexpr int kX3KGroup = 2;", "constexpr int kX3KGroup = 4;")],
-    "x3-v-group-4": [("constexpr int kX3VGroup = 2;", "constexpr int kX3VGroup = 4;")],
-    "x3-chunked": [("(kParts<A> == 1 || A == Arith::TF32x3)", "kParts<A> == 1")],
+    "mp-split-at-mma": [("constexpr bool kSplitOnce = kParts<A> > 1;", "constexpr bool kSplitOnce = false;")],
+    "mp-chunk-32": [("constexpr int kMPChunkNT = 8;", "constexpr int kMPChunkNT = 4;")],
+    "mp-short-chunk-64": [("constexpr int kMPChunkNTShort = 4;", "constexpr int kMPChunkNTShort = 8;")],
+    "mp-rel-group-2": [("constexpr int kMPRelGroup = 4;", "constexpr int kMPRelGroup = 2;")],
+    "mp-k-group-4": [("constexpr int kMPKGroup = 2;", "constexpr int kMPKGroup = 4;")],
+    "mp-v-group-4": [("constexpr int kMPVGroup = 2;", "constexpr int kMPVGroup = 4;")],
+    "x3-chunked": [("kParts<A> == 1 || A == Arith::TF32x3 || ", "kParts<A> == 1 || ")],
+    "bf16xN-chunked-body": [(" || A == Arith::BF16x6 || A == Arith::BF16x9;", ";")],
+    "bf16xN-v-group-2": [("constexpr int kBPVGroup = 4;", "constexpr int kBPVGroup = 2;")],
     "bf16-tf32-body": [("constexpr bool kHalfBody = A == Arith::BF16 || A == Arith::BF16BF16;",
                         "constexpr bool kHalfBody = false;")],
     "half-bf16-rel-rounded": [("make_float2(output<A>(qe[0]), output<A>(qe[1]))",
@@ -203,6 +210,10 @@ def modes_of(variant: str) -> tuple:
         return ("tf32", *HALF)
     if variant.startswith("x3-"):
         return ("tf32x3",)
+    if variant.startswith("bf16xN-"):
+        return ("bf16x6", "bf16x9")
+    if variant.startswith("mp-"):
+        return ("tf32x3", "bf16x6", "bf16x9")
     if variant.startswith(("parts-", "keys-", "hide-", "k-", "v-")):
         return MULTI_PASS
     return ("tf32", "bf16") if variant.startswith("d64-") else RESIDENT

@@ -11,8 +11,9 @@ them), writes the flagship (12 x 384, 12 heads of 32, relative_key, M = 128)
 with seeded random weights and, for every attention route and matmul
 precision asked for, loads it under that attention_impl ("auto": the v2
 kernel on every layer; "pallas": v1) and matmul_precision ("default",
-"BF16_BF16_F32": the kernels' bf16 instances, "TF32_TF32_F32_X3" or
-"BF16_BF16_F32_X3": their tf32x3 or bf16x3 instances, "F64_F64_F64":
+"BF16_BF16_F32": the kernels' bf16 instances, "TF32_TF32_F32_X3",
+"BF16_BF16_F32_X3", "_X6" or "_X9": their tf32x3, bf16x3, bf16x6 or bf16x9
+instances, "F64_F64_F64":
 their f64 instances, "F16_F16_F32": their f16 instances, or "F16_F16_F16"
 or "BF16_BF16_BF16": their f16f16 or bf16bf16 instances) and times its DDPM
 step graph
@@ -27,8 +28,8 @@ Prints one line per run and, last, a JSON object of the runs with the card's
 name and power limit.
 
 Usage: python3 scripts/graphed_step_two_trees.py OTHER_TREE [--attention-impl auto pallas]
-           [--precision default BF16_BF16_F32 TF32_TF32_F32_X3 BF16_BF16_F32_X3 F64_F64_F64 F16_F16_F32
-            F16_F16_F16 BF16_BF16_BF16] [--sweep]
+           [--precision default BF16_BF16_F32 TF32_TF32_F32_X3 BF16_BF16_F32_X3 BF16_BF16_F32_X6
+            BF16_BF16_F32_X9 F64_F64_F64 F16_F16_F32 F16_F16_F16 BF16_BF16_BF16] [--sweep]
 (default: --attention-impl pallas --precision default)
 """
 from __future__ import annotations
@@ -103,8 +104,8 @@ def main() -> None:
     parser.add_argument("other_tree")
     parser.add_argument("--attention-impl", nargs="+", choices=("auto", "pallas"), default=["pallas"])
     parser.add_argument("--precision", nargs="+",
-                        choices=("default", "BF16_BF16_F32", "TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "F64_F64_F64",
-                                 "F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"),
+                        choices=("default", "BF16_BF16_F32", "TF32_TF32_F32_X3", "BF16_BF16_F32_X3", "BF16_BF16_F32_X6",
+                                 "BF16_BF16_F32_X9", "F64_F64_F64", "F16_F16_F32", "F16_F16_F16", "BF16_BF16_BF16"),
                         default=["default"])
     parser.add_argument("--sweep", action="store_true", help="also time the -n 1 DDPM sweep")
     args = parser.parse_args()

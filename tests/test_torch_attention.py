@@ -635,7 +635,9 @@ def test_the_kernels_order_of_sums_meets_the_split_gate(kernel, rel, mode):
     TF32's distance from float32: the order of sums can meet chip_smoke.py's
     phase-2 gate. v1 with a random (not Toeplitz) e_lr. TF32x3 as its
     resident bodies take it at this L (v1's one pass, v2's split at the
-    load): exact row statistics before P is split."""
+    load), and v1's bf16x6 and bf16x9 with e_lr as v1's resident body takes
+    them (without it v1 runs v2's rel-off instance, the chunked body's
+    sums): exact row statistics before P is split."""
     q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, 40, 32, 48, seed=31))
     if kernel == "v2":
         e_lr = torch.from_numpy(_gathered(table.numpy(), 40, 48)) if rel else None
@@ -645,7 +647,8 @@ def test_the_kernels_order_of_sums_meets_the_split_gate(kernel, rel, mode):
         rng = np.random.default_rng(32)
         e_lr = torch.from_numpy((rng.normal(size=(40, 40, 32)) * 0.5).astype(np.float32)) if rel else None
         plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
-    model = _model_attention(q, k, v, bias, e_lr, mode, resident=mode == "tf32x3")
+    resident = mode == "tf32x3" or (kernel == "v1" and rel and mode in ("bf16x6", "bf16x9"))
+    model = _model_attention(q, k, v, bias, e_lr, mode, resident=resident)
     f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
     tf32 = attention.fused_attention_reference(*(precision.to_tf32_values(x) for x in (q, k, v)), bias,
                                                precision.to_tf32_values(e_lr) if rel else None)
@@ -657,30 +660,38 @@ def test_the_kernels_order_of_sums_meets_the_split_gate(kernel, rel, mode):
     assert rel_rms(model, f32) <= 0.1 * rel_rms(tf32, f32)
 
 
-@pytest.mark.parametrize("rel", [True, False])
-@pytest.mark.parametrize("l", [17, 64, 65, 128])
-@pytest.mark.parametrize("kernel", ["v2", "v1"])
-def test_the_resident_tf32x3_order_of_sums_meets_the_split_gate(kernel, l, rel):
-    """The resident TF32x3 bodies' order of sums (_model_attention with
+# (kernel, L, rel, mode): every kernel, length and rel flag in tf32x3 (ids without the mode), and v1's bf16x6 and
+# bf16x9 with e_lr (without it v1 runs v2's rel-off instance)
+_RESIDENT_CASES = ([pytest.param(kernel, l, rel, "tf32x3", id=f"{kernel}-{l}-{rel}")
+                    for kernel in ("v2", "v1") for l in (17, 64, 65, 128) for rel in (True, False)]
+                   + [pytest.param("v1", l, True, mode, id=f"v1-{l}-True-{mode}")
+                      for mode in ("bf16x6", "bf16x9") for l in (17, 64, 65, 128)])
+
+
+@pytest.mark.parametrize("kernel,l,rel,mode", _RESIDENT_CASES)
+def test_the_resident_tf32x3_order_of_sums_meets_the_split_gate(kernel, l, rel, mode):
+    """The resident multi-pass bodies' order of sums (_model_attention with
     resident=True: one pass over the keys, each row's exact maximum and sum
     in exp2 units before P is split, q.k's products on top of the relative
-    term, each k-step's products smallest first; interleaving n-tiles does
-    not reorder any accumulator's sums) within SPLIT_TOL relative RMS of the
-    plain version in the mode, and at most a tenth of TF32's distance from
+    term, each k-step's products smallest first, by k-steps of 8 values for
+    TF32 parts and 16 for bf16 parts; interleaving n-tiles does not reorder
+    any accumulator's sums) within SPLIT_TOL relative RMS of the plain
+    version in the mode, and at most a tenth of TF32's distance from
     float32, on either side of the resident designs' key counts (64, 128),
-    some keys masked: v1 with a random (not Toeplitz) e_lr (or without it,
-    the v2 rel-off instance), v2 with its table (or without)."""
+    some keys masked: in tf32x3 v1 with a random (not Toeplitz) e_lr (or
+    without it, the v2 rel-off instance) and v2 with its table (or
+    without); in bf16x6 and bf16x9 v1 with a random e_lr."""
     q, k, v, bias, table = map(torch.from_numpy, _inputs(2, 3, l, 32, 128, seed=50 + l))
     assert (bias < 0).any()
     if kernel == "v2":
         e_lr = torch.from_numpy(_gathered(table.numpy(), l, 128)) if rel else None
         plain = attention.fused_attention_v2_reference(q, k, v, bias, table if rel else None, 128 if rel else None,
-                                                       mode="tf32x3")
+                                                       mode=mode)
     else:
         rng = np.random.default_rng(51 + l)
         e_lr = torch.from_numpy((rng.normal(size=(l, l, 32)) * 0.5).astype(np.float32)) if rel else None
-        plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode="tf32x3")
-    model = _model_attention(q, k, v, bias, e_lr, "tf32x3", resident=True)
+        plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
+    model = _model_attention(q, k, v, bias, e_lr, mode, resident=True)
     f32 = attention.fused_attention_reference(q, k, v, bias, e_lr)
     tf32 = attention.fused_attention_reference(*(precision.to_tf32_values(x) for x in (q, k, v)), bias,
                                                precision.to_tf32_values(e_lr) if rel else None)

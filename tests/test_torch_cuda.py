@@ -559,7 +559,9 @@ def test_tf32x3_instances_at_the_resident_boundary(device, l, d, layout):
     (B * H = 15: a ragged last item of v1's 16 pairs and of v2's two at
     L <= 64): v2 with and without the table, v1 with e_lr from arange, from
     permuted positions and random, each launched once and within SPLIT_TOL
-    relative RMS of the plain version in mode "tf32x3"."""
+    relative RMS of the plain version in mode "tf32x3"; and v1's bf16x6 and
+    bf16x9, which run the same resident body with bf16 parts on m16n8k16
+    (the chunked one past it), the same way in their modes."""
     b, h, m = 3, 5, 256
     q, k, v, bias, table = _inputs(device, b, h, l, d, m, seed=23)
     qkv = _projection_views(q, k, v) if layout == "projection views" else (q, k, v)
@@ -572,11 +574,13 @@ def test_tf32x3_instances_at_the_resident_boundary(device, l, d, layout):
             assert out.stride() == (l * h * d, d, h * d, 1)
             plain = attention.fused_attention_v2_reference(q, k, v, bias, mode="tf32x3", **kw)
             assert _rel_rms(out, plain) <= SPLIT_TOL, bool(kw)
-        for kind in ("arange", "permuted", "random"):
-            e_lr = _e_lr_of(kind, table, l, m, d, device)
-            out = _gathered_instance_call(*qkv, bias, e_lr, "tf32x3")
-            plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode="tf32x3")
-            assert _rel_rms(out, plain) <= SPLIT_TOL, kind
+    for mode in ("tf32x3", "bf16x6", "bf16x9"):
+        with torch.inference_mode(), precision.matmul_precision(mode):
+            for kind in ("arange", "permuted", "random"):
+                e_lr = _e_lr_of(kind, table, l, m, d, device)
+                out = _gathered_instance_call(*qkv, bias, e_lr, mode)
+                plain = attention.fused_attention_reference(q, k, v, bias, e_lr, mode=mode)
+                assert _rel_rms(out, plain) <= SPLIT_TOL, (mode, kind)
 
 
 # (L, D) of the 16-bit instances' resident boundary: L = 63, 64,
@@ -672,14 +676,16 @@ def test_f16_instances_keep_f16_infinities(device, l, rel, entry):
 @pytest.mark.parametrize("l", [17, 65, 128])
 def test_tf32x3_instances_ignore_masked_keys(device, l):
     """Values at masked keys do not reach the tf32x3 instances' output: v2
-    with and without the table, v1 with e_lr from permuted positions."""
+    with and without the table, v1 with e_lr from permuted positions; nor
+    v1's bf16x6 and bf16x9 instances', which share v1's resident body."""
     q, k, v, bias, table = _inputs(device, 4, 6, l, 32, 256, seed=3)
     bias[0, l // 2 + 1:] = -10000.0  # at least one masked key
     e_lr = _e_lr(table, l, 256, "permuted")
     masked = (bias < -1.0)[:, None, :, None]
     runs = (lambda k_, v_: attention.fused_attention_v2(q, k_, v_, bias, table, 256, mode="tf32x3"),
             lambda k_, v_: attention.fused_attention_v2(q, k_, v_, bias, mode="tf32x3"),
-            lambda k_, v_: attention.fused_attention(q, k_, v_, bias, e_lr, mode="tf32x3"))
+            *(lambda k_, v_, mode=mode: attention.fused_attention(q, k_, v_, bias, e_lr, mode=mode)
+              for mode in ("tf32x3", "bf16x6", "bf16x9")))
     with torch.inference_mode():
         for run in runs:
             assert (run(k, v) - run(k + 7.0 * masked, v - 3.0 * masked)).abs().max().item() <= 1e-5
