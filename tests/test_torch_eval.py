@@ -24,6 +24,7 @@ from foldingdiff_tpu_torch.data import featurize_native
 from foldingdiff_tpu_torch.geometry import featurize, sidechains
 from foldingdiff_tpu_torch.geometry.pdb import extract_backbone_coords, read_pdb, write_coords_to_pdb
 from foldingdiff_tpu_torch.metrics import lddt
+from tests.tmalign_bindings import assert_both_loaded, jax_tmalign  # noqa: F401 (jax_tmalign: a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "data")
@@ -149,8 +150,10 @@ def test_lddt_cli_matches_jax(pipeline, tmp_path, monkeypatch):
         np.testing.assert_allclose([ours[stem][k] for k in theirs[stem]], list(theirs[stem].values()), atol=1e-12)
 
 
-def test_sctm_cli_matches_jax(pipeline, tmp_path, monkeypatch):
-    """scores, refs and the CSV's numbers equal bin/sctm.py's."""
+def test_sctm_cli_matches_jax(pipeline, tmp_path, monkeypatch, jax_tmalign):
+    """scores, refs and the CSV's numbers equal bin/sctm.py's, both on
+    native TM-align."""
+    assert_both_loaded(jax_tmalign)
     args = ["-p", str(pipeline / "sampled_pdb"), "-f", str(pipeline / "folded")]
     scores = load_script("sctm_torch").main([*args, "-o", str(tmp_path / "ours")])
     run_jax_cli("sctm", [*args, "-o", str(tmp_path / "jax")], monkeypatch)
@@ -170,7 +173,8 @@ def test_sctm_cli_matches_jax(pipeline, tmp_path, monkeypatch):
     assert (tmp_path / "ours_hist.pdf").stat().st_size > 0
 
 
-def test_tmscore_training_cli_matches_jax(pipeline, tmp_path, monkeypatch):
+def test_tmscore_training_cli_matches_jax(pipeline, tmp_path, monkeypatch, jax_tmalign):
+    assert_both_loaded(jax_tmalign)
     monkeypatch.setattr(os, "cpu_count", lambda: 1)
     for name, out in (("tmscore_training_torch", "ours"), ("tmscore_training", "jax")):
         d = tmp_path / out
@@ -191,7 +195,8 @@ def test_tmscore_training_cli_matches_jax(pipeline, tmp_path, monkeypatch):
             assert ours == theirs
 
 
-def test_hclust_cli_matches_jax(pipeline, tmp_path, monkeypatch):
+def test_hclust_cli_matches_jax(pipeline, tmp_path, monkeypatch, jax_tmalign):
+    assert_both_loaded(jax_tmalign)
     folded = str(pipeline / "folded")
     result = load_script("hclust_structures_torch").main([folded, "-o", str(tmp_path / "ours"), "--nclusters", "3"])
     run_jax_cli("hclust_structures", [folded, "-o", str(tmp_path / "jax"), "--nclusters", "3"], monkeypatch)

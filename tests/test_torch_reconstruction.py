@@ -15,7 +15,6 @@ import dataclasses
 import gzip
 import importlib.util
 import json
-import logging
 import os
 import subprocess
 import sys
@@ -29,7 +28,6 @@ import torch
 from foldingdiff_tpu.diffusion import sampling as jax_sampling
 from foldingdiff_tpu.diffusion.noise import sample_wrapped_noise as jax_wrapped_noise
 from foldingdiff_tpu.diffusion.schedules import DiffusionSchedule as JaxSchedule
-from foldingdiff_tpu.eval import tmalign_native as jax_native
 from foldingdiff_tpu.eval import tmscore as jax_tmscore
 from foldingdiff_tpu.models import io as jax_io
 from foldingdiff_tpu_torch.diffusion import sampling
@@ -39,6 +37,7 @@ from foldingdiff_tpu_torch.geometry.pdb import extract_backbone_coords
 from foldingdiff_tpu_torch.models import io as model_io
 from foldingdiff_tpu_torch.models.config import ModelConfig
 from tests.helpers import make_synthetic_pdb_dir
+from tests.tmalign_bindings import assert_both_loaded, jax_tmalign  # noqa: F401 (jax_tmalign: a fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MINI_FIXTURE = os.path.join(REPO, "tests", "mini_model_for_testing", "results")
@@ -262,26 +261,10 @@ def test_numpy_tm_score_equals_jax(variant):
     assert abs(tmscore.tm_score(crn, crn) - 1.0) <= 1e-12
 
 
-@pytest.fixture(scope="module")
-def jax_tmalign(tmp_path_factory):
-    """The JAX package's TM-align binding, building and loading a copy of its
-    library of its own in this process. Its _load builds in place at
-    _SO_PATH and takes a file that exists as built, so a test process that
-    loads the shared file while another one rebuilds it reads it half written
-    ("file too short") and keeps that failure for the rest of its life."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_native, "_SO_PATH", str(tmp_path_factory.mktemp("jax_tmalign") / "_tmalign.so"))
-        mp.setattr(jax_native, "_lib", None)
-        mp.setattr(jax_native, "_tried", False)
-        yield jax_native
-
-
-def test_native_run_tmalign_equals_jax(tmp_path, jax_tmalign, caplog):
+def test_native_run_tmalign_equals_jax(tmp_path, jax_tmalign):
     from foldingdiff_tpu_torch.geometry.pdb import write_ca_trace_to_pdb
 
-    with caplog.at_level(logging.WARNING):  # g++ is present
-        loaded = tmalign_native.available(), jax_tmalign.available()
-    assert all(loaded), f"native TM-align loaded (port, JAX): {loaded}; {caplog.text}"
+    assert_both_loaded(jax_tmalign)
     assert tmalign_native.library_path().parent.name == "_build"
     crn, variants = _crn_variants()
     files = {name: write_ca_trace_to_pdb(c, str(tmp_path / f"{name}.pdb")) for name, c in variants.items()}

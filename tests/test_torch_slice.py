@@ -168,7 +168,8 @@ def test_sample_torch_cli_writes_ca_traces_for_cart_coords(tmp_path, caplog):
 def test_port_imports_nothing_of_the_jax_package():
     """With foldingdiff_tpu, jax and flax refused by an import hook, every
     module of the port, the module-level imports of chip_smoke.py, of the 17
-    CLIs (bin/*_torch.py) and of the two examples (examples/*_torch.py),
+    CLIs (bin/*_torch.py), of the two examples (examples/*_torch.py) and of
+    the script scripts/microbench_chunks_torch.py,
     from_dir, AnglesEmptyDataset.from_dir, an epoch of Trainer.fit, one
     pre-corrupted step, one ARTrainer step, one ar_sample and one
     data-parallel step in a process group (parallel/) all work, and load
@@ -190,8 +191,9 @@ def test_port_imports_nothing_of_the_jax_package():
         for name in names:
             importlib.import_module(name)
         import glob, os
-        scripts = ["chip_smoke.py", *sorted(glob.glob("bin/*_torch.py")), *sorted(glob.glob("examples/*_torch.py"))]
-        assert len(scripts) == 20, scripts  # chip_smoke.py, 17 CLIs, 2 examples
+        scripts = ["chip_smoke.py", *sorted(glob.glob("bin/*_torch.py")), *sorted(glob.glob("examples/*_torch.py")),
+                   *sorted(glob.glob("scripts/*_torch.py"))]
+        assert len(scripts) == 21, scripts  # chip_smoke.py, 17 CLIs, 2 examples, 1 script
         for path in scripts:
             name = os.path.splitext(os.path.basename(path))[0]
             spec = importlib.util.spec_from_file_location(name, path)
